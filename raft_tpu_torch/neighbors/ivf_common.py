@@ -1,0 +1,163 @@
+"""List-centric IVF scan machinery (counterpart of
+``raft_tpu.neighbors.ivf_common``).
+
+The query batch is grouped by probed list: :func:`segment_probes` buckets
+the (query, probe) pairs into fixed-size segments, each owned by one
+list, with one stable sort; the scan kernel walks each segment's list
+once for all its queries; :func:`gather_segment_results` brings the
+per-(segment, slot) results back to (query, probe) order. The segment
+table's shape depends on (B, n_probes, n_lists, seg) alone.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+SEGMENT_SIZE = 128
+
+# Memory guards, with the JAX package's constants. They were sized for a
+# 16 GB TPU v5e; the H100 has 80 GB, so they are conservative here and
+# are kept as they are until the port measures its own limits.
+GROUPED_BYTES_CAP = 4 << 30
+
+
+def n_segments(pairs: int, n_lists: int, seg: int) -> int:
+    """Static upper bound on the segment count: floor(pairs/seg) + n_lists
+    bounds sum ceil(load/seg) for any load histogram."""
+    return pairs // seg + n_lists
+
+
+def segment_probes(probes: torch.Tensor, n_lists: int, seg: int, n_seg: int):
+    """Bucket (query, probe) pairs into per-list segments.
+
+    probes [B, P] list ids → (seg_list [n_seg] i32 — the list each segment
+    scans (unused segments point at an arbitrary list and hold only pads);
+    seg_q [n_seg, seg] i32 — query per slot, -1 pad; pair_seg, pair_slot
+    [B, P] i32 — each pair's (segment, slot) address). Exact: one stable
+    sort, so a list's pairs fill its segments in (query, probe) order."""
+    B, P = probes.shape
+    BP = B * P
+    dev = probes.device
+    l_flat = probes.reshape(-1).to(torch.int32)
+    sorted_l, order = torch.sort(l_flat, stable=True)
+    starts = torch.searchsorted(
+        sorted_l, torch.arange(n_lists, dtype=torch.int32, device=dev))
+    counts = torch.diff(torch.cat(
+        [starts, torch.tensor([BP], dtype=starts.dtype, device=dev)]))
+    segs_per_list = (counts + seg - 1) // seg
+    seg_base = torch.cumsum(segs_per_list, 0) - segs_per_list  # exclusive
+    seg_ids = torch.arange(n_seg, dtype=seg_base.dtype, device=dev)
+    seg_list = (torch.searchsorted(seg_base, seg_ids, right=True) - 1).clamp(
+        0, n_lists - 1)
+    rank0 = (seg_ids - seg_base[seg_list]) * seg
+    i0 = starts[seg_list] + rank0
+    j = torch.arange(seg, dtype=seg_base.dtype, device=dev)
+    rank = rank0[:, None] + j[None, :]
+    valid = rank < counts[seg_list][:, None]
+    q_of = order // P
+    seg_q = torch.where(valid, q_of[(i0[:, None] + j[None, :]).clamp(0, BP - 1)],
+                        torch.full_like(rank, -1))
+    iota = torch.arange(BP, dtype=seg_base.dtype, device=dev)
+    sl = sorted_l.long()
+    rank_sorted = iota - starts[sl]
+    addr = (seg_base[sl] + rank_sorted // seg) * seg + rank_sorted % seg
+    addr_pair = torch.empty_like(addr)
+    addr_pair[order] = addr  # the sort's inverse permutation
+    return (seg_list.to(torch.int32), seg_q.to(torch.int32),
+            (addr_pair // seg).view(B, P).to(torch.int32),
+            (addr_pair % seg).view(B, P).to(torch.int32))
+
+
+def gather_segment_results(seg_vals: torch.Tensor, seg_ids: torch.Tensor,
+                           pair_seg: torch.Tensor, pair_slot: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[n_seg, seg, kk] → [B, P, kk]``: every pair owns exactly one slot."""
+    ps, pl = pair_seg.long(), pair_slot.long()
+    return seg_vals[ps, pl], seg_ids[ps, pl]
+
+
+def lut_scan_mem_ok(n_seg: int, seg: int, rot: int, pairs: int,
+                    nbins: int = 256) -> bool:
+    """Transient-memory guard of the LUT-scan tier: the per-segment query
+    block, the [n_seg, seg, nbins] key+id tables and the pair-order gather
+    (the JAX package's model, kept with its TPU-sized cap)."""
+    qv = n_seg * seg * rot * 4
+    bins = n_seg * seg * nbins * 8
+    gathered = pairs * nbins * 8
+    return qv + bins + gathered <= GROUPED_BYTES_CAP
+
+
+def gather_refine_mem_ok(n: int, d: int, itemsize: int = 4, m: int = 0,
+                         C: int = 0, row_align: int = 128) -> bool:
+    """Guard of the fused gather-refine tier. The TPU kernel read
+    lane-aligned rows, so a dataset whose width was not a multiple of 128
+    paid a per-call padded ``[n, ceil(d/128)·128]`` copy, which had to fit
+    the cap and be smaller than the ``[m, C, d]`` gather it replaces.
+    ``row_align`` is the row alignment the kernel needs: 128 for the TPU
+    model; the CUDA kernel reads rows at their own width (``row_align=1``)
+    and pays no copy."""
+    if d % row_align == 0:
+        return True
+    dpad = -(-d // row_align) * row_align
+    pad_copy = n * dpad * itemsize
+    if pad_copy > GROUPED_BYTES_CAP:
+        return False
+    if m and C:
+        return pad_copy <= m * C * d * 4
+    return True
+
+
+def _lane_round(size: int) -> int:
+    """List capacity rounded up: to 128 once lists are that big, to 8
+    below (copied from ``raft_tpu.neighbors.ivf_flat``)."""
+    size = max(8, size)
+    if size >= 128:
+        return -(-size // 128) * 128
+    return -(-size // 8) * 8
+
+
+def _fit_list_size(counts: np.ndarray, avg: int, cap_factor: float) -> int:
+    """Padded list capacity: the actual max list size, clamped by the cap
+    factor, rounded by :func:`_lane_round` (from ``ivf_flat``)."""
+    cap = max(8, int(avg * cap_factor))
+    actual = int(counts.max()) if counts.size else 8
+    return _lane_round(min(cap, actual))
+
+
+def pack_lists(row_arrays, labels: torch.Tensor, row_ids: torch.Tensor,
+               n_lists: int, L: int, fill_values):
+    """Pack rows into padded per-list blocks with one stable sort of
+    ``labels``; rows with a label outside [0, n_lists) or a slot ≥ L are
+    dropped.
+
+    Returns (packed_arrays [n_lists, L, ...], ids [n_lists, L] (-1 pad, in
+    ``row_ids``' dtype), sizes [n_lists] i32, n_dropped (int — rows lost to
+    overflow), (row_list [n], row_slot [n]) each row's address)."""
+    n = labels.shape[0]
+    dev = labels.device
+    lab = labels.long()
+    sorted_l, order = torch.sort(lab, stable=True)
+    starts = torch.searchsorted(sorted_l, torch.arange(n_lists, device=dev))
+    rank = torch.arange(n, device=dev) - starts[sorted_l.clamp(0, n_lists - 1)]
+    keep = (sorted_l >= 0) & (sorted_l < n_lists) & (rank < L)
+    kl, kr, ko = sorted_l[keep], rank[keep], order[keep]
+    packed = []
+    for arr, fill in zip(row_arrays, fill_values):
+        out = torch.full((n_lists, L) + tuple(arr.shape[1:]), fill,
+                         dtype=arr.dtype, device=dev)
+        out[kl, kr] = arr[ko]
+        packed.append(out)
+    ids = torch.full((n_lists, L), -1, dtype=row_ids.dtype, device=dev)
+    ids[kl, kr] = row_ids[ko]
+    in_range = (lab >= 0) & (lab < n_lists)
+    counts = torch.bincount(lab[in_range], minlength=n_lists)
+    sizes = counts.clamp(max=L)
+    n_dropped = int((counts - sizes).sum())
+    row_list = torch.empty_like(sorted_l)
+    row_slot = torch.empty_like(rank)
+    row_list[order] = sorted_l
+    row_slot[order] = rank
+    return packed, ids, sizes.to(torch.int32), n_dropped, (row_list, row_slot)

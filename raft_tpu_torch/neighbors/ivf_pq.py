@@ -1,0 +1,637 @@
+"""IVF-PQ — inverted-file index with product-quantized residuals
+(counterpart of ``raft_tpu.neighbors.ivf_pq``).
+
+The asymmetric distance decomposes as
+    ‖q − (c + d)‖² = ‖q‖² − 2⟨q, c⟩ − 2⟨q, d⟩ + ‖c + d‖²
+with ‖c + d‖² precomputed per candidate at build and ⟨q, d⟩ = Σ_s
+LUT[s, code_s] from a query-only look-up table.
+
+Ported here (slice 1 of the port): ``build`` with balanced k-means coarse
+centers, a random rotation, per_subspace codebooks and bit-packed 4–8-bit
+codes; ``search`` through the per_query tier (the plain semantic anchor)
+and the ``scan_select="pallas"`` tier, whose scan is the hand-written
+LUT-scan kernel; and the ``refine="f32_regen"`` re-rank against a
+device-resident dataset. What the slice does not port raises
+``NotImplementedError`` naming its ROADMAP item — it never substitutes
+another tier.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.cluster.kmeans_balanced import KMeansBalancedParams
+from raft_tpu_torch.core import ids as _ids
+from raft_tpu_torch.core.device import resolve_device, to_device
+from raft_tpu_torch.core.errors import expects
+from raft_tpu_torch.distance.types import DistanceType, resolve_metric
+from raft_tpu_torch.matrix.select_k import select_k as _select_k
+from raft_tpu_torch.neighbors import ivf_common as ic
+from raft_tpu_torch.ops import kernels as _k
+from raft_tpu_torch.random.rng import RngState
+from raft_tpu_torch.utils import precision as _precision
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to raft_tpu_torch yet (ROADMAP {item})")
+
+
+@dataclasses.dataclass
+class IndexParams:
+    """reference: ``ivf_pq::index_params`` (same fields as raft_tpu)."""
+
+    n_lists: int = 1024
+    metric: str = "sqeuclidean"
+    pq_dim: int = 0           # 0 → dim/2 rounded to a multiple of 8
+    pq_bits: int = 8          # 4..8
+    kmeans_n_iters: int = 20
+    kmeans_trainset_fraction: float = 0.5
+    codebook_kind: str = "per_subspace"  # "per_cluster" not ported (A9)
+    add_data_on_build: bool = True
+    list_size_cap_factor: float = 4.0
+    spill: bool = False       # True not ported (A9)
+    seed: int = 0
+    cache_reconstruction: str = "auto"  # the recon cache is not ported (A10)
+
+
+@dataclasses.dataclass
+class SearchParams:
+    """reference: ``ivf_pq::search_params`` (same fields as raft_tpu).
+
+    Ported tiers: ``scan_mode="per_query"`` and the grouped scan with
+    ``scan_select="pallas"`` (the LUT-scan kernel); ``refine="f32_regen"``
+    against a device-resident ``dataset``."""
+
+    n_probes: int = 20
+    query_tile: int = 64
+    scan_mode: str = "auto"  # "auto" | "grouped" | "per_query"
+    list_chunk: int = 64
+    lut_dtype: str = "auto"  # | "float32" | "bfloat16" | "float8_e4m3"
+    scan_select: str = "exact"  # | "approx" | "pallas"
+    scan_recall: float = 0.95
+    refine: str = "none"  # | "f32_regen"
+    refine_ratio: float = 2.0
+    refine_transfer: str = "auto"
+
+
+FP8_LUT_MIN_SLACK = 4
+
+
+def resolve_lut_dtype(lut_dtype: str, n_probes: int, k: int,
+                      selectivity: float = 1.0) -> str:
+    """``lut_dtype="auto"`` for one dispatch: fp8 for oversampled scans
+    (n_probes ≥ 64 or k ≥ 400) on the card when the candidate slack
+    n_probes·256·selectivity is ≥ 4k, bf16 when it is thinner, exact f32
+    otherwise and off the card. Explicit dtypes pass through."""
+    if lut_dtype != "auto":
+        return lut_dtype
+    oversampled = n_probes >= 64 or k >= 400
+    if oversampled and _k._on_cuda():
+        surviving = selectivity * n_probes * _k.LUT_SCAN_BINS
+        return ("float8_e4m3" if surviving >= FP8_LUT_MIN_SLACK * k
+                else "bfloat16")
+    return "float32"
+
+
+@dataclasses.dataclass
+class IvfPqIndex:
+    """IVF-PQ index: the JAX package's fields, as tensors on one device."""
+
+    centers: torch.Tensor        # [n_lists, dim] f32
+    centers_rot: torch.Tensor    # [n_lists, rot_dim] f32
+    rotation: torch.Tensor       # [rot_dim, dim] f32
+    codebooks: torch.Tensor      # [pq_dim, 2^bits, pq_len] f32
+    packed_codes: torch.Tensor   # [n_lists, L, nb] u8 (unfolded)
+    packed_ids: torch.Tensor     # [n_lists, L] i32, -1 pad
+    packed_norms: torch.Tensor   # [n_lists, L] f32: ‖c + decoded‖²
+    list_sizes: torch.Tensor     # [n_lists] i32
+    metric: str = "sqeuclidean"
+    codebook_kind: str = "per_subspace"
+    pq_bits: int = 8
+    pq_dim_static: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.centers.device
+
+    @property
+    def n_lists(self) -> int:
+        return self.centers.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.centers.shape[1]
+
+    @property
+    def rot_dim(self) -> int:
+        return self.rotation.shape[0]
+
+    @property
+    def pq_dim(self) -> int:
+        return self.pq_dim_static or self.packed_codes.shape[2]
+
+    @property
+    def pq_len(self) -> int:
+        return self.codebooks.shape[2]
+
+    @property
+    def max_list_size(self) -> int:
+        return self.packed_ids.shape[1]
+
+    @property
+    def size(self) -> int:
+        return int(self.list_sizes.sum())
+
+
+_ARRAY_FIELDS = ("centers", "centers_rot", "rotation", "codebooks",
+                 "packed_codes", "packed_ids", "packed_norms", "list_sizes")
+
+
+def from_numpy(arrays: Dict[str, np.ndarray], meta: Dict, device="cuda"
+               ) -> IvfPqIndex:
+    """Index from the JAX index's fields as numpy arrays (``arrays``) and
+    its static fields (``meta``: metric, pq_bits, pq_dim, codebook_kind)."""
+    dev = resolve_device(device)
+    expects(meta.get("codebook_kind", "per_subspace") == "per_subspace",
+            "per_cluster codebooks are not ported (ROADMAP A9)")
+    t = {name: to_device(np.asarray(arrays[name]), dev) for name in _ARRAY_FIELDS}
+    pq_dim = int(meta.get("pq_dim", 0))
+    pq_bits = int(meta.get("pq_bits", 8))
+    expects(t["packed_codes"].shape[-1] == packed_nbytes(
+        pq_dim or t["packed_codes"].shape[-1], pq_bits),
+        "folded code storage is not ported (ROADMAP A9)")
+    return IvfPqIndex(**t, metric=str(meta["metric"]),
+                      codebook_kind="per_subspace", pq_bits=pq_bits,
+                      pq_dim_static=pq_dim)
+
+
+def to_numpy(index: IvfPqIndex) -> Tuple[Dict[str, np.ndarray], Dict]:
+    """(arrays, meta) — the inverse of :func:`from_numpy`."""
+    arrays = {name: getattr(index, name).cpu().numpy()
+              for name in _ARRAY_FIELDS}
+    meta = {"metric": index.metric, "pq_bits": index.pq_bits,
+            "pq_dim": index.pq_dim, "codebook_kind": index.codebook_kind}
+    return arrays, meta
+
+
+# ---------------------------------------------------------------------------
+# n-bit code packing
+# ---------------------------------------------------------------------------
+
+def packed_nbytes(pq_dim: int, pq_bits: int) -> int:
+    return (pq_dim * pq_bits + 7) // 8
+
+
+def pack_bits(codes: torch.Tensor, pq_bits: int) -> torch.Tensor:
+    """[..., S] code values (< 2^pq_bits) → [..., nbytes] u8; int32
+    arithmetic."""
+    if pq_bits == 8:
+        return codes.to(torch.uint8)
+    S = codes.shape[-1]
+    nbytes = packed_nbytes(S, pq_bits)
+    acc = torch.zeros(codes.shape[:-1] + (nbytes,), dtype=torch.int32,
+                      device=codes.device)
+    c32 = codes.to(torch.int32)
+    for s in range(S):
+        byte_idx, off = divmod(s * pq_bits, 8)
+        v = c32[..., s] << off
+        acc[..., byte_idx] |= v & 0xFF
+        if byte_idx + 1 < nbytes:
+            acc[..., byte_idx + 1] |= v >> 8
+    return acc.to(torch.uint8)
+
+
+def unpack_bits(packed: torch.Tensor, pq_dim: int, pq_bits: int
+                ) -> torch.Tensor:
+    """[..., nbytes] u8 → [..., pq_dim] u8 code values."""
+    return _k.unpack_codes(packed, pq_dim, pq_bits).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
+def _default_pq_dim(dim: int) -> int:
+    return max(8, (dim // 2 + 7) // 8 * 8 if dim >= 16 else dim)
+
+
+def make_rotation_matrix(state: RngState, rot_dim: int, dim: int,
+                         device) -> torch.Tensor:
+    """Random orthonormal embedding R [rot_dim, dim], RᵀR = I (QR of a
+    Gaussian, made on the CPU so every device gets the same matrix)."""
+    g = torch.randn((rot_dim, dim), generator=state.generator(),
+                    dtype=torch.float64)
+    q, _ = torch.linalg.qr(g, mode="reduced")
+    return q.float().to(device)
+
+
+def _vmapped_lloyd(data: torch.Tensor, k: int, n_iters: int,
+                   state: RngState, block_bytes: int = 1 << 30
+                   ) -> torch.Tensor:
+    """Independent k-means per subspace: ``data [S, n, P]`` → codebooks
+    [S, k, P]. The JAX package's ``vmap`` is a batch dimension here,
+    processed in subspace chunks that bound the [chunk, n, k] block."""
+    S, n, P = data.shape
+    dev = data.device
+    expects(n >= k, "%d codebook training rows for 2^pq_bits = %d codes",
+            n, k)
+    chunk = max(1, min(S, block_bytes // max(1, n * k * 4)))
+    out = []
+    for a in range(0, S, chunk):
+        sub = data[a:a + chunk].float()
+        b = sub.shape[0]
+        idx = torch.stack([torch.randperm(n, generator=state.fold(a + s)
+                                          .generator())[:k]
+                           for s in range(b)]).to(dev)
+        c = torch.gather(sub, 1, idx[..., None].expand(-1, -1, P))
+        x_sq = (sub * sub).sum(-1)
+        base = (torch.arange(b, device=dev) * k)[:, None]
+        ones = torch.ones(b * n, device=dev)
+        for _ in range(n_iters):
+            d2 = (x_sq[..., None] + (c * c).sum(-1)[:, None, :]
+                  - 2.0 * torch.bmm(sub, c.transpose(1, 2)))
+            flat = (d2.argmin(-1) + base).reshape(-1)
+            del d2
+            sums = torch.zeros((b * k, P), device=dev).index_add_(
+                0, flat, sub.reshape(-1, P)).view(b, k, P)
+            counts = torch.zeros(b * k, device=dev).index_add_(
+                0, flat, ones).view(b, k)
+            c = torch.where(counts[..., None] > 0,
+                            sums / counts.clamp_min(1e-12)[..., None], c)
+        out.append(c)
+    return torch.cat(out, 0)
+
+
+def _train_quantizers(trainset: torch.Tensor, params: IndexParams, dim: int,
+                      pq_dim: int, pq_len: int, K: int, state: RngState,
+                      km: KMeansBalancedParams,
+                      max_codebook_rows: int = 1 << 16):
+    """Coarse centers + rotation + per_subspace codebooks."""
+    n_train = trainset.shape[0]
+    rot_dim = pq_dim * pq_len
+    centers = kmeans_balanced.fit(trainset, params.n_lists, km)
+    rotation = make_rotation_matrix(state.fold(1), rot_dim, dim,
+                                    trainset.device)
+    centers_rot = centers @ rotation.T
+    stride = max(1, -(-n_train // max_codebook_rows))
+    tr_cb = trainset[::stride]
+    n_cb = tr_cb.shape[0]
+    cb_labels = kmeans_balanced.predict(centers, tr_cb, km)
+    tr_res = tr_cb @ rotation.T - centers_rot[cb_labels.long()]
+    sub = tr_res.view(n_cb, pq_dim, pq_len).transpose(0, 1).contiguous()
+    codebooks = _vmapped_lloyd(sub, K, params.kmeans_n_iters, state.fold(2))
+    return centers, rotation, centers_rot, codebooks
+
+
+def _decode_codes(codes: torch.Tensor, codebooks: torch.Tensor
+                  ) -> torch.Tensor:
+    """codes [b, S] → decoded residuals [b, S·P] f32 (a gather)."""
+    S, K, P = codebooks.shape
+    s_idx = torch.arange(S, device=codes.device)
+    return codebooks[s_idx[None, :], codes.long()].reshape(codes.shape[0],
+                                                          S * P)
+
+
+def _encode_with_norms(x: torch.Tensor, rotation: torch.Tensor,
+                       centers_rot: torch.Tensor, labels: torch.Tensor,
+                       codebooks: torch.Tensor, block: int = 16384):
+    """(codes [n, S] u8, ‖c + decoded‖² [n] f32) per_subspace, in row
+    blocks; rows are rotated per block (``x @ rotationᵀ``)."""
+    S, K, P = codebooks.shape
+    n = x.shape[0]
+    cb_sq = (codebooks * codebooks).sum(-1)                   # [S, K]
+    codes = torch.empty((n, S), dtype=torch.uint8, device=x.device)
+    norms = torch.empty((n,), dtype=torch.float32, device=x.device)
+    for a in range(0, n, block):
+        lbl = labels[a:a + block].long()
+        rows = x[a:a + block] @ rotation.T
+        res = rows - centers_rot[lbl]
+        sub = res.view(res.shape[0], S, P).transpose(0, 1)    # [S, b, P]
+        d2 = ((sub * sub).sum(-1)[..., None] + cb_sq[:, None, :]
+              - 2.0 * torch.bmm(sub, codebooks.transpose(1, 2)))  # [S, b, K]
+        c = d2.argmin(-1).T                                   # [b, S]
+        codes[a:a + block] = c.to(torch.uint8)
+        rec = centers_rot[lbl] + _decode_codes(c, codebooks)
+        norms[a:a + block] = (rec * rec).sum(1)
+    return codes, norms
+
+
+class _Stages:
+    """Per-stage wall seconds of a build (synchronizing the card at each
+    stage boundary) when the caller passes a dict to fill."""
+
+    def __init__(self, out: Optional[Dict[str, float]], device):
+        self.out = out
+        self.cuda = device.type == "cuda"
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        if self.out is None:
+            yield
+            return
+        if self.cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        if self.cuda:
+            torch.cuda.synchronize()
+        self.out[name] = self.out.get(name, 0.0) + time.perf_counter() - t0
+
+
+def _want_recon_cache(params: IndexParams, n_lists: int, L: int,
+                      rot_dim: int, device) -> bool:
+    if params.cache_reconstruction in ("never", "always"):
+        return params.cache_reconstruction == "always"
+    cap = 3 << 30
+    if device.type == "cuda":
+        cap = min(cap, torch.cuda.get_device_properties(device)
+                  .total_memory // 5)
+    return n_lists * L * rot_dim * 2 <= cap
+
+
+def build(dataset, params: Optional[IndexParams] = None, device="cuda",
+          stage_seconds: Optional[Dict[str, float]] = None) -> IvfPqIndex:
+    """Build the index on ``device`` (reference: ivf_pq::build).
+    ``stage_seconds``, when given, receives the seconds of each stage
+    (train, assign, encode, pack)."""
+    if params is None:
+        params = IndexParams()
+    dev = resolve_device(device)
+    _precision.enforce()
+    mt = resolve_metric(params.metric)
+    expects(4 <= params.pq_bits <= 8, "pq_bits must be in [4, 8]")
+    if params.codebook_kind != "per_subspace":
+        raise _not_ported("codebook_kind='per_cluster'", "A9")
+    if params.spill:
+        raise _not_ported("spill=True", "A9")
+    if not params.add_data_on_build:
+        raise _not_ported("add_data_on_build=False (extend)", "A9")
+    stage = _Stages(stage_seconds, dev)
+
+    x = to_device(dataset, dev, torch.float32)
+    n, dim = x.shape
+    spherical = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
+    if mt == DistanceType.CosineExpanded:
+        x = x / torch.sqrt((x * x).sum(-1, keepdim=True).clamp_min(1e-12))
+    pq_dim = params.pq_dim or _default_pq_dim(dim)
+    pq_len = -(-dim // pq_dim)
+    rot_dim = pq_dim * pq_len
+    K = 1 << params.pq_bits
+    state = RngState(params.seed)
+
+    n_train = min(n, max(params.n_lists * 4,
+                         int(n * params.kmeans_trainset_fraction)))
+    km = KMeansBalancedParams(n_iters=params.kmeans_n_iters,
+                              metric="cosine" if spherical else "l2",
+                              seed=params.seed)
+    with stage("train"):
+        if n_train < n:
+            rng = np.random.default_rng(params.seed)
+            tr = torch.as_tensor(np.sort(rng.choice(n, n_train, replace=False)),
+                                 device=dev)
+            trainset = x[tr]
+        else:
+            trainset = x
+        centers, rotation, centers_rot, codebooks = _train_quantizers(
+            trainset, params, dim, pq_dim, pq_len, K, state, km)
+        del trainset
+    avg = max(1, n // params.n_lists)
+    with stage("assign"):
+        labels = kmeans_balanced.predict(centers, x, km)
+        counts = torch.bincount(labels.long(),
+                                minlength=params.n_lists).cpu().numpy()
+        max_list_size = ic._fit_list_size(counts, avg,
+                                          params.list_size_cap_factor)
+    if _want_recon_cache(params, params.n_lists, max_list_size, rot_dim, dev):
+        raise _not_ported("the bf16 reconstruction cache (pass "
+                          "cache_reconstruction='never')", "A10")
+    with stage("encode"):
+        codes, norms = _encode_with_norms(x, rotation, centers_rot, labels,
+                                          codebooks)
+        codes_p = pack_bits(codes, params.pq_bits)
+        del codes
+    with stage("pack"):
+        (packed, pnorm), ids, sizes, n_drop, _ = ic.pack_lists(
+            [codes_p, norms], labels, _ids.make_ids(n, device=dev),
+            n_lists=params.n_lists, L=max_list_size, fill_values=[0, 0.0])
+    if n_drop:
+        import warnings
+
+        warnings.warn(f"ivf_pq: dropped {n_drop} overflow vectors (raise "
+                      "list_size_cap_factor)", RuntimeWarning, stacklevel=2)
+    return IvfPqIndex(centers=centers, centers_rot=centers_rot,
+                      rotation=rotation, codebooks=codebooks,
+                      packed_codes=packed, packed_ids=ids,
+                      packed_norms=pnorm, list_sizes=sizes,
+                      metric=mt.value, codebook_kind="per_subspace",
+                      pq_bits=params.pq_bits, pq_dim_static=pq_dim)
+
+
+# ---------------------------------------------------------------------------
+# search
+# ---------------------------------------------------------------------------
+
+def _finish_candidates(dots, cand_ids, cand_norms, q_sq, mt, k):
+    """⟨q, c+d⟩ per candidate → metric distances, mask, select, id
+    gather, cosine flip (shared by the per_query and LUT tiers)."""
+    ip_like = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
+    if ip_like:
+        dists, invalid, final_min = dots, float("-inf"), False
+    else:
+        dists = (q_sq[:, None] - 2.0 * dots + cand_norms).clamp_min(0.0)
+        if mt == DistanceType.L2SqrtExpanded:
+            dists = torch.sqrt(dists)
+        invalid, final_min = float("inf"), True
+    dists = torch.where(cand_ids >= 0, dists, torch.full_like(dists, invalid))
+    vals, pos = _select_k(dists, k, select_min=final_min)
+    ids = torch.gather(cand_ids, 1, pos.long())
+    if mt == DistanceType.CosineExpanded:
+        vals = 1.0 - vals
+    return vals, ids
+
+
+def _coarse_probes(index: IvfPqIndex, q_all: torch.Tensor, n_probes: int,
+                   ip_like: bool):
+    """(qc [m, n_lists] = ⟨q, c⟩, probes [m, n_probes] i32)."""
+    qc = q_all @ index.centers.T
+    if ip_like:
+        _, probes = _select_k(qc, n_probes, select_min=False)
+    else:
+        c_sq = (index.centers * index.centers).sum(1)
+        _, probes = _select_k(c_sq[None, :] - 2.0 * qc, n_probes,
+                              select_min=True)
+    return qc, probes
+
+
+def _prep_queries(mt, queries: torch.Tensor) -> torch.Tensor:
+    q = queries.float()
+    if mt == DistanceType.CosineExpanded:
+        q = q / torch.sqrt((q * q).sum(-1, keepdim=True).clamp_min(1e-12))
+    return q
+
+
+def _fit_query_tile(want: int, n_probes: int, index: IvfPqIndex) -> int:
+    """Per-query tile whose [t, n_probes, L, pq_dim] int64 codes stay
+    under 1 GB."""
+    L = index.max_list_size
+    return max(1, min(want, (1 << 30) // max(1, n_probes * L * index.pq_dim
+                                             * 8)))
+
+
+def _search_impl(index: IvfPqIndex, queries: torch.Tensor, k: int,
+                 n_probes: int, query_tile: int, lut_dtype: str = "float32"):
+    """The per_query tier: each query gathers its probed lists' codes and
+    sums its quantized LUT over them — the plain semantic anchor."""
+    mt = resolve_metric(index.metric)
+    q_all = _prep_queries(mt, queries)
+    S, P, L = index.pq_dim, index.pq_len, index.max_list_size
+    ip_like = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
+    qc, probes = _coarse_probes(index, q_all, n_probes, ip_like)
+    q_rot_all = q_all @ index.rotation.T
+    q_sq_all = (q_rot_all * q_rot_all).sum(1)
+    pr_all = probes.long()
+    qc_probed_all = torch.gather(qc, 1, pr_all)
+    vals, out = [], []
+    for a in range(0, q_all.shape[0], query_tile):
+        q_rot = q_rot_all[a:a + query_tile]
+        probe = pr_all[a:a + query_tile]
+        t = q_rot.shape[0]
+        cand_ids = index.packed_ids[probe].reshape(t, n_probes * L)
+        cand_norms = index.packed_norms[probe].reshape(t, n_probes * L)
+        codes = _k.unpack_codes(index.packed_codes[probe], S, index.pq_bits)
+        qlut = _k.round_to_lut_dtype(torch.einsum(
+            "tsp,skp->tsk", q_rot.view(t, S, P), index.codebooks), lut_dtype)
+        idx = codes.reshape(t, n_probes * L, S).transpose(1, 2)   # [t, S, C]
+        qd = torch.gather(qlut, 2, idx).sum(1)                    # [t, C]
+        qcand = qc_probed_all[a:a + query_tile][:, :, None].expand(
+            t, n_probes, L).reshape(t, n_probes * L)
+        v, i = _finish_candidates(qcand + qd, cand_ids, cand_norms,
+                                  q_sq_all[a:a + query_tile], mt, k)
+        vals.append(v)
+        out.append(i)
+    return torch.cat(vals), torch.cat(out)
+
+
+def _search_lut_pallas(index: IvfPqIndex, queries: torch.Tensor, k: int,
+                       n_probes: int, seg: int, n_seg: int,
+                       lut_dtype: str = "float32"):
+    """The ``scan_select="pallas"`` tier: coarse probes, segmenting, the
+    LUT-scan kernel over packed codes, then the per-query merge of the
+    [B, n_probes·256] bin survivors through :func:`_finish_candidates`."""
+    mt = resolve_metric(index.metric)
+    q_all = _prep_queries(mt, queries)
+    B = q_all.shape[0]
+    ip_like = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
+    _, probes = _coarse_probes(index, q_all, n_probes, ip_like)
+    seg_list, seg_q, pair_seg, pair_slot = ic.segment_probes(
+        probes, index.n_lists, seg, n_seg)
+    q_rot = (q_all @ index.rotation.T).contiguous()
+    q_sq = (q_rot * q_rot).sum(1)
+    keys, kids = _k.ivfpq_lut_scan_topk(
+        seg_list, seg_q, q_rot, index.packed_codes, index.packed_ids,
+        index.packed_norms, index.centers_rot, index.codebooks,
+        "ip" if ip_like else "l2", pq_bits=index.pq_bits,
+        pq_dim=index.pq_dim, L=index.max_list_size, lut_dtype=lut_dtype)
+    pv, pi = ic.gather_segment_results(keys, kids, pair_seg, pair_slot)
+    C = n_probes * keys.shape[-1]
+    pv = pv.reshape(B, C)
+    pi = pi.reshape(B, C)
+    # minimized keys → the shared epilogue's ⟨q, c+d⟩ with zero norms
+    dots = -pv if ip_like else -0.5 * pv
+    kq = min(k, C)
+    out_vals, out_ids = _finish_candidates(dots, pi, torch.zeros_like(pv),
+                                           q_sq, mt, kq)
+    if k > kq:
+        invalid = (float("-inf") if ip_like and
+                   mt != DistanceType.CosineExpanded else float("inf"))
+        out_vals = torch.nn.functional.pad(out_vals, (0, k - kq),
+                                           value=invalid)
+        out_ids = torch.nn.functional.pad(out_ids, (0, k - kq), value=-1)
+    return out_vals, out_ids
+
+
+def _route_refined(index: IvfPqIndex, queries: torch.Tensor, k: int,
+                   params: SearchParams, dataset, device):
+    """``refine="f32_regen"``: scan k·refine_ratio candidates, then the
+    exact re-rank against the device-resident ``dataset``."""
+    from raft_tpu_torch.neighbors import refine as _refine
+
+    expects(params.refine == "f32_regen",
+            "unknown refine mode %r (supported: 'none', 'f32_regen')",
+            params.refine)
+    expects(dataset is not None,
+            "refine='f32_regen' needs search(..., dataset=...): the exact "
+            "rows to re-rank against")
+    if not (isinstance(dataset, torch.Tensor)
+            and dataset.device == index.device):
+        raise _not_ported("re-ranking against a host-resident dataset "
+                          "(tiered / host gather / provider tiers)", "A12")
+    expects(dataset.dim() == 2 and dataset.shape[1] == index.dim,
+            "refine dataset shape %s does not match the index dim %d",
+            tuple(dataset.shape), index.dim)
+    expects(params.refine_ratio >= 1.0, "refine_ratio must be >= 1 (got %s)",
+            params.refine_ratio)
+    k_cand = max(k, int(round(k * params.refine_ratio)))
+    scan_params = dataclasses.replace(params, refine="none")
+    _, i0 = search(index, queries, k_cand, scan_params, device=device)
+    return _refine.refine(dataset, queries, i0, k, metric=index.metric,
+                          device=device)
+
+
+def search(index: IvfPqIndex, queries, k: int,
+           params: Optional[SearchParams] = None, filter_bitset=None,
+           dataset=None, *, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Search (reference: ivf_pq::search) → (distances [m, k], ids [m, k]
+    int32). ``params.refine="f32_regen"`` re-ranks k·refine_ratio
+    candidates exactly against ``dataset`` (a tensor on the index's
+    device)."""
+    if params is None:
+        params = SearchParams()
+    dev = resolve_device(device)
+    _precision.enforce()
+    expects(index.device.type == dev.type,
+            "index lives on %s, search asked for %s", index.device, dev)
+    if filter_bitset is not None:
+        raise _not_ported("filtered search", "A6")
+    q = to_device(queries, index.device, torch.float32)
+    expects(q.dim() == 2 and q.shape[1] == index.dim,
+            "queries must be [m, %d]", index.dim)
+    if params.lut_dtype == "auto" and params.refine == "none":
+        params = dataclasses.replace(params, lut_dtype=resolve_lut_dtype(
+            "auto", min(params.n_probes, index.n_lists), k))
+    if params.refine != "none":
+        return _route_refined(index, q, k, params, dataset, device)
+    n_probes = min(params.n_probes, index.n_lists)
+    B = q.shape[0]
+    mode = params.scan_mode
+    if mode == "auto":
+        mode = ("grouped" if (B * n_probes >= 2 * index.n_lists
+                              or params.scan_select == "pallas")
+                else "per_query")
+    if mode == "grouped":
+        if params.scan_select != "pallas":
+            raise _not_ported(f"the grouped {params.scan_select!r} scan tier "
+                              "(use scan_select='pallas')", "A10")
+        seg = ic.SEGMENT_SIZE
+        pairs = B * n_probes
+        n_seg = ic.n_segments(pairs, index.n_lists, seg)
+        if n_probes * _k.LUT_SCAN_BINS < k:
+            raise _not_ported("the approx tier the JAX package takes when "
+                              "n_probes·256 < k", "A10")
+        if not ic.lut_scan_mem_ok(n_seg, seg, index.rot_dim, pairs,
+                                  _k.LUT_SCAN_BINS):
+            raise _not_ported("the approx tier the JAX package takes when "
+                              "the LUT-scan memory guard declines", "A10")
+        return _search_lut_pallas(index, q, k, n_probes, seg, n_seg,
+                                  lut_dtype=params.lut_dtype)
+    return _search_impl(index, q, k, n_probes,
+                        _fit_query_tile(params.query_tile, n_probes, index),
+                        lut_dtype=params.lut_dtype)

@@ -1,0 +1,134 @@
+"""Refine — exact re-ranking of ANN candidate lists (counterpart of
+``raft_tpu.neighbors.refine``: ``refine``, ``_refine_impl``,
+``_refine_rows``, ``_fused_refine_wanted``, ``_refine_fused``,
+``_gather_keys_to_dists``).
+
+Two tiers, chosen by shape as in the JAX package:
+
+- **fused** — the hand-written gather-refine kernel (no ``[m, C, d]``
+  gather buffer) for oversampled shapes: k ≤ 64, C ≥ 256, and C ≥ 400 or
+  a gather buffer of ≥ 1 GB, on an f32 dataset;
+- **gather** — gather the candidate rows and re-rank with one batched
+  product, then select.
+
+The JAX package engaged the fused tier only on a TPU; here the rule is
+the shape alone, and on CPU tensors the kernel wrapper runs its plain
+version. Filtered re-ranks are not ported (ROADMAP A6).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from raft_tpu_torch.core.device import resolve_device, to_device
+from raft_tpu_torch.core.errors import expects
+from raft_tpu_torch.distance.types import DistanceType, resolve_metric
+from raft_tpu_torch.matrix.select_k import select_k as _select_k
+from raft_tpu_torch.neighbors import ivf_common as ic
+from raft_tpu_torch.ops import kernels as _k
+from raft_tpu_torch.utils import precision as _precision
+
+
+def _check_candidates(queries, candidates, k: int) -> None:
+    expects(candidates.dim() == 2, "candidates must be [m, n_candidates]")
+    expects(candidates.shape[1] > 0, "candidates must have a non-empty "
+            "candidate axis (got shape %s)", tuple(candidates.shape))
+    expects(queries.shape[0] == candidates.shape[0],
+            "queries/candidates row mismatch: %d queries vs %d candidate rows",
+            queries.shape[0], candidates.shape[0])
+    expects(k <= candidates.shape[1], "k=%d > n_candidates=%d", k,
+            candidates.shape[1])
+
+
+def _refine_rows(cand_rows, queries, candidates, k: int, metric: str):
+    """Exact keys of gathered rows ``[m, C, d]`` → (distances [m, k],
+    ids [m, k]) in the reporting convention of each metric."""
+    mt = resolve_metric(metric)
+    q = queries.float()
+    scores = torch.einsum("md,mcd->mc", q, cand_rows)
+    if mt == DistanceType.InnerProduct:
+        dists, invalid, select_min = scores, float("-inf"), False
+    elif mt == DistanceType.CosineExpanded:
+        qn = torch.sqrt((q * q).sum(1).clamp_min(1e-30))
+        cn = torch.sqrt((cand_rows * cand_rows).sum(-1).clamp_min(1e-30))
+        dists, invalid, select_min = (1.0 - scores / (qn[:, None] * cn),
+                                      float("inf"), True)
+    else:
+        q_sq = (q * q).sum(1)
+        c_sq = (cand_rows * cand_rows).sum(-1)
+        dists = (q_sq[:, None] + c_sq - 2.0 * scores).clamp_min(0.0)
+        if mt == DistanceType.L2SqrtExpanded:
+            dists = torch.sqrt(dists)
+        invalid, select_min = float("inf"), True
+    dists = torch.where(candidates >= 0, dists,
+                        torch.full_like(dists, invalid))
+    vals, pos = _select_k(dists, k, select_min=select_min)
+    return vals, torch.gather(candidates, 1, pos.long())
+
+
+def _refine_impl(dataset, queries, candidates, k: int, metric: str):
+    n = dataset.shape[0]
+    rows = dataset[candidates.long().clamp(0, n - 1)].float()  # [m, C, d]
+    return _refine_rows(rows, queries, candidates, k, metric)
+
+
+def _gather_keys_to_dists(keys, ids, metric: str):
+    """Kernel keys (l2 squared distance, ip −score, cos distance) → the
+    reporting convention of :func:`_refine_rows`."""
+    mt = resolve_metric(metric)
+    if mt == DistanceType.InnerProduct:
+        return -keys, ids
+    if mt == DistanceType.L2SqrtExpanded:
+        return torch.sqrt(keys), ids
+    return keys, ids
+
+
+def _fused_refine_wanted(dataset, queries, candidates, k: int) -> bool:
+    if not isinstance(dataset, torch.Tensor) or dataset.dim() != 2:
+        return False
+    if dataset.dtype != torch.float32:
+        return False
+    m, C = candidates.shape
+    d = dataset.shape[1]
+    if not ic.gather_refine_mem_ok(dataset.shape[0], d, 4, m=m, C=C,
+                                   row_align=1):
+        return False
+    if k > _k.GATHER_REFINE_MAX_K or C < 2 * _k.LUT_SCAN_LANES:
+        return False
+    if (d + C) * 4 > _k._MAX_SMEM:
+        return False
+    return C >= 400 or m * C * d * 4 >= (1 << 30)
+
+
+def _refine_fused(dataset, queries, candidates, k: int, mt: DistanceType):
+    met = ("ip" if mt == DistanceType.InnerProduct
+           else "cos" if mt == DistanceType.CosineExpanded else "l2")
+    keys, ids = _k.gather_refine_topk(
+        dataset.contiguous(), queries.float().contiguous(),
+        candidates.to(torch.int32).contiguous(), k, met)
+    return _gather_keys_to_dists(keys, ids, mt.value)
+
+
+def refine(dataset: torch.Tensor, queries, candidates, k: int,
+           metric="sqeuclidean", filter_bits=None, device="cuda"
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Re-rank ``candidates`` [m, n_cand] (row ids into ``dataset``, -1
+    invalid) down to the exact top-k → (distances [m, k], ids [m, k])."""
+    dev = resolve_device(device)
+    _precision.enforce()
+    if filter_bits is not None:
+        raise NotImplementedError("filtered refine is not ported to "
+                                  "raft_tpu_torch yet (ROADMAP A6)")
+    dataset = to_device(dataset, dev)
+    queries = to_device(queries, dev, torch.float32)
+    candidates = to_device(candidates, dev)
+    _check_candidates(queries, candidates, k)
+    expects(dataset.dim() == 2 and dataset.shape[1] == queries.shape[1],
+            "dataset/queries feature-dim mismatch: dataset shape %s vs "
+            "%d-dim queries", tuple(dataset.shape), queries.shape[1])
+    mt = resolve_metric(metric)
+    if _fused_refine_wanted(dataset, queries, candidates, k):
+        return _refine_fused(dataset, queries, candidates, k, mt)
+    return _refine_impl(dataset, queries, candidates, k, mt.value)

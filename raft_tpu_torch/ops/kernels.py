@@ -1,0 +1,440 @@
+"""The port's four hand-written Hopper kernels, their wrappers and their
+plain PyTorch versions — the counterpart of
+``raft_tpu/ops/pallas_kernels.py``.
+
+| wrapper                 | replaces (raft_tpu/ops/pallas_kernels.py) | source                    |
+|-------------------------|-------------------------------------------|---------------------------|
+| ``fused_l2_argmin``     | ``fused_l2_argmin`` l.112                 | csrc/fused_l2_argmin.cu   |
+| ``select_k_cuda``       | ``select_k_pallas`` l.1317                | csrc/select_k.cu          |
+| ``ivfpq_lut_scan_topk`` | ``ivfpq_lut_scan_topk`` l.807             | csrc/ivfpq_lut_scan.cu    |
+| ``gather_refine_topk``  | ``gather_refine_topk`` l.1176             | csrc/gather_refine.cu     |
+
+Every wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty``, and then:
+
+- on CUDA tensors launches its kernel on ``torch.cuda.current_stream()``
+  and raises if the C function reports a CUDA error — there is no
+  fallback on the card;
+- on CPU tensors runs its plain PyTorch version (``*_plain``), which the
+  CPU tests hold against the JAX package and ``chip_smoke.py`` holds
+  against the kernel on the card.
+
+Each wrapper counts its kernel launches in ``<wrapper>.launches`` (the
+CPU path counts nothing). The source notes in ``csrc/`` give each
+kernel's bound on the H100 and what its design does about it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from raft_tpu_torch.core.errors import expects
+
+# Bin-table width of the LUT scan: two best per strided bin of 128.
+LUT_SCAN_BINS = 256
+LUT_SCAN_LANES = 128
+# Merge budget of the in-kernel top-k (two buffer slots per lane).
+GATHER_REFINE_MAX_K = 64
+SELECT_K_MAX_K = 64
+# Dynamic shared memory a block may use on Hopper (227 KB).
+_MAX_SMEM = 232448
+
+
+def _on_cuda() -> bool:
+    """Whether a CUDA card is present — the counterpart of
+    ``pallas_kernels._on_tpu``."""
+    return torch.cuda.is_available()
+
+
+def _use_kernel(*tensors: torch.Tensor) -> bool:
+    """True for CUDA operands (launch the kernel), False for CPU operands
+    (run the plain version). Mixed or other devices raise."""
+    dev = {t.device for t in tensors}
+    expects(len(dev) == 1, "kernel operands on several devices: %s", dev)
+    kind = next(iter(dev)).type
+    expects(kind in ("cuda", "cpu"), "unsupported device %s", kind)
+    return kind == "cuda"
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    expects(t.dtype == dtype, "%s must be %s (got %s)", name, dtype, t.dtype)
+    expects(t.dim() == ndim, "%s must be %d-D (got shape %s)", name, ndim,
+            tuple(t.shape))
+    expects(t.is_contiguous(), "%s must be contiguous", name)
+
+
+def _ptr(t: torch.Tensor):
+    return t.data_ptr()
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def _lib(name: str):
+    from raft_tpu_torch.ops.build import LIBRARIES
+
+    return LIBRARIES.get(name)
+
+
+# ---------------------------------------------------------------------------
+# fused L2 argmin
+# ---------------------------------------------------------------------------
+
+def fused_l2_argmin_plain(x: torch.Tensor, y: torch.Tensor,
+                          tile: int = 4096, row_chunk: int = 1 << 18
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(min over y of max(‖x‖² + ‖y‖² − 2⟨x, y⟩, 0), its argmin): y tiles
+    with a running (min, argmin), first index on ties, strict ``<``
+    across tiles — the semantics of the TPU kernel. x goes in row chunks
+    so the [chunk, tile] block stays bounded."""
+    y_sq = (y * y).sum(1)
+    best_d = torch.full((x.shape[0],), float("inf"), dtype=torch.float32,
+                        device=x.device)
+    best_i = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
+    for r in range(0, x.shape[0], row_chunk):
+        xc = x[r:r + row_chunk]
+        x_sq = (xc * xc).sum(1)
+        bd_r, bi_r = best_d[r:r + row_chunk], best_i[r:r + row_chunk]
+        for a in range(0, y.shape[0], tile):
+            d2 = (x_sq[:, None] + y_sq[None, a:a + tile]
+                  - 2.0 * (xc @ y[a:a + tile].T)).clamp_min_(0.0)
+            bd, bi = d2.min(1)
+            take = bd < bd_r
+            bd_r.copy_(torch.where(take, bd, bd_r))
+            bi_r.copy_(torch.where(take, (bi + a).to(torch.int32), bi_r))
+    return best_d, best_i
+
+
+def fused_l2_argmin(x: torch.Tensor, y: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Min squared L2 distance of each x row to the y rows, and its
+    argmin (x [m, d] f32, y [n, d] f32 → [m] f32, [m] i32)."""
+    _check(x, "x", torch.float32, 2)
+    _check(y, "y", torch.float32, 2)
+    expects(x.shape[1] == y.shape[1], "x/y feature dims differ: %d vs %d",
+            x.shape[1], y.shape[1])
+    expects(y.shape[0] > 0, "y must have at least one row")
+    if not _use_kernel(x, y):
+        return fused_l2_argmin_plain(x, y)
+    m, d = x.shape
+    n = y.shape[0]
+    out_d = torch.empty((m,), dtype=torch.float32, device=x.device)
+    out_i = torch.empty((m,), dtype=torch.int32, device=x.device)
+    ysq = torch.empty((n,), dtype=torch.float32, device=x.device)
+    rc = _lib("fused_l2_argmin").rtt_fused_l2_argmin(
+        _ptr(x), _ptr(y), m, n, d, _ptr(ysq), _ptr(out_d), _ptr(out_i),
+        _stream())
+    fused_l2_argmin.launches += 1
+    _raise_on(rc, "fused_l2_argmin")
+    return out_d, out_i
+
+
+fused_l2_argmin.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# select_k
+# ---------------------------------------------------------------------------
+
+def select_k_plain(scores: torch.Tensor, k: int, select_min: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sorted top-k per row, ties to the lowest position (a stable sort)."""
+    vals, idx = torch.sort(scores, dim=1, descending=not select_min,
+                           stable=True)
+    return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
+
+
+def select_k_cuda(scores: torch.Tensor, k: int, select_min: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise top-k, k ≤ 64: scores [m, len] f32 → (values [m, k] f32,
+    positions [m, k] i32), sorted, ties to the lowest position."""
+    _check(scores, "scores", torch.float32, 2)
+    m, n = scores.shape
+    expects(0 < k <= SELECT_K_MAX_K, "k=%d outside (0, %d]", k,
+            SELECT_K_MAX_K)
+    expects(k <= n, "k=%d > len=%d", k, n)
+    if not _use_kernel(scores):
+        return select_k_plain(scores, k, select_min)
+    out_v = torch.empty((m, k), dtype=torch.float32, device=scores.device)
+    out_i = torch.empty((m, k), dtype=torch.int32, device=scores.device)
+    rc = _lib("select_k").rtt_select_k(
+        _ptr(scores), m, n, k, int(select_min), _ptr(out_v), _ptr(out_i),
+        _stream())
+    select_k_cuda.launches += 1
+    _raise_on(rc, "select_k")
+    return out_v, out_i
+
+
+select_k_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# IVF-PQ LUT scan
+# ---------------------------------------------------------------------------
+
+def round_to_lut_dtype(x: torch.Tensor, lut_dtype: str) -> torch.Tensor:
+    """``x`` rounded to ``lut_dtype`` and back to f32: bf16, or fp8 e4m3
+    then bf16, as the JAX package rounds. Torch's fp8 cast and
+    ml_dtypes' may differ on overflow (|x| > 448)."""
+    expects(lut_dtype in ("float32", "bfloat16", "float8_e4m3"),
+            "unknown lut_dtype %s", lut_dtype)
+    x = x.float()
+    if lut_dtype == "bfloat16":
+        return x.to(torch.bfloat16).float()
+    if lut_dtype == "float8_e4m3":
+        return x.to(torch.float8_e4m3fn).to(torch.bfloat16).float()
+    return x
+
+
+def lut_codebook(codebooks: torch.Tensor, lut_dtype: str) -> torch.Tensor:
+    """The codebook operand of the LUT scan, rounded as the TPU kernel
+    rounds it (``_lut_scan_operands``, pallas_kernels.py:708-711); the
+    LUT itself is built in f32. Codebook entries are residual
+    sub-vectors, far inside fp8's range."""
+    return round_to_lut_dtype(codebooks, lut_dtype).contiguous()
+
+
+def unpack_codes(packed: torch.Tensor, pq_dim: int, pq_bits: int
+                 ) -> torch.Tensor:
+    """[..., nb] u8 → [..., pq_dim] int64 code values; int32 arithmetic
+    (torch's uint16 ops are patchy)."""
+    if pq_bits == 8:
+        return packed.long()
+    nb = packed.shape[-1]
+    s = torch.arange(pq_dim, device=packed.device)
+    byte_idx = (s * pq_bits) // 8
+    off = ((s * pq_bits) % 8).to(torch.int32)
+    p32 = packed.to(torch.int32)
+    lo = p32.index_select(-1, byte_idx)
+    hi_idx = torch.clamp(byte_idx + 1, max=nb - 1)
+    hi = p32.index_select(-1, hi_idx) * (byte_idx + 1 < nb).to(torch.int32)
+    return (((lo | (hi << 8)) >> off) & ((1 << pq_bits) - 1)).long()
+
+
+def _lut_scan_args(seg_list, seg_q, q_rot, packed, ids, norms, centers_rot,
+                   codebooks, metric, pq_bits, pq_dim, L):
+    _check(seg_list, "seg_list", torch.int32, 1)
+    _check(seg_q, "seg_q", torch.int32, 2)
+    _check(q_rot, "q_rot", torch.float32, 2)
+    _check(packed, "packed", torch.uint8, 3)
+    _check(ids, "ids", torch.int32, 2)
+    _check(norms, "norms", torch.float32, 2)
+    _check(centers_rot, "centers_rot", torch.float32, 2)
+    _check(codebooks, "codebooks", torch.float32, 3)
+    S, K, P = codebooks.shape
+    n_lists, R, nb = packed.shape
+    expects(metric in ("l2", "ip"), "metric must be l2 or ip (got %s)", metric)
+    expects(4 <= pq_bits <= 8 and K == 1 << pq_bits, "K=%d != 2^%d", K,
+            pq_bits)
+    expects(S == pq_dim, "codebooks hold %d subspaces, pq_dim=%d", S, pq_dim)
+    expects(nb == (S * pq_bits + 7) // 8 and R == L,
+            "packed codes [%d, %d, %d] are not the unfolded layout for L=%d "
+            "(folded codes are not ported: ROADMAP A9)", n_lists, R, nb, L)
+    expects(tuple(ids.shape) == (n_lists, L)
+            and tuple(norms.shape) == (n_lists, L),
+            "ids/norms must be [n_lists, L]")
+    rot = q_rot.shape[1]
+    expects(S * P == rot and tuple(centers_rot.shape) == (n_lists, rot),
+            "rotated width %d != pq_dim·pq_len %d", rot, S * P)
+    expects(seg_q.shape[0] == seg_list.shape[0],
+            "seg_q/seg_list segment counts differ")
+    return S, K, P, nb, rot
+
+
+def ivfpq_lut_scan_topk_plain(seg_list, seg_q, q_rot, packed, ids, norms,
+                              centers_rot, cb, metric: str, pq_bits: int,
+                              pair_chunk: int = 256):
+    """Plain version over the already-rounded codebook ``cb``: per live
+    (segment, slot) pair the exact ADC keys of its list, then the two
+    best per bin (position mod 128) by a stable sort — the lexicographic
+    (key, position) pair the kernel's strict-< running update keeps."""
+    n_seg, seg = seg_q.shape
+    S, K, P = cb.shape
+    n_lists, L, _ = packed.shape
+    dev = q_rot.device
+    keys = torch.full((n_seg, seg, LUT_SCAN_BINS), float("inf"),
+                      dtype=torch.float32, device=dev)
+    kids = torch.full((n_seg, seg, LUT_SCAN_BINS), -1, dtype=torch.int32,
+                      device=dev)
+    sidx, slot = torch.nonzero(seg_q >= 0, as_tuple=True)
+    n_t = -(-L // LUT_SCAN_LANES)
+    Lp = n_t * LUT_SCAN_LANES
+    for a in range(0, sidx.numel(), pair_chunk):
+        si, sl = sidx[a:a + pair_chunk], slot[a:a + pair_chunk]
+        c = si.numel()
+        q = q_rot[seg_q[si, sl].long()]                       # [c, rot]
+        lst = seg_list[si].long()                             # [c]
+        lut = torch.einsum("csp,skp->csk", q.view(c, S, P), cb)
+        codes = unpack_codes(packed[lst], S, pq_bits)         # [c, L, S]
+        qd = torch.gather(lut, 2, codes.transpose(1, 2)).sum(1)  # [c, L]
+        dot = (q * centers_rot[lst]).sum(1)[:, None] + qd
+        key = -dot if metric == "ip" else norms[lst] - 2.0 * dot
+        cid = ids[lst]
+        valid = cid >= 0
+        key = torch.where(valid, key, torch.full_like(key, float("inf")))
+        cid = torch.where(valid, cid, torch.full_like(cid, -1))
+        if Lp > L:
+            key = torch.nn.functional.pad(key, (0, Lp - L), value=float("inf"))
+            cid = torch.nn.functional.pad(cid, (0, Lp - L), value=-1)
+        kb = key.view(c, n_t, LUT_SCAN_LANES)
+        sk, order = torch.sort(kb, dim=1, stable=True)
+        ib = torch.gather(cid.view(c, n_t, LUT_SCAN_LANES), 1, order)
+        if n_t == 1:
+            sk = torch.cat([sk, torch.full_like(sk, float("inf"))], 1)
+            ib = torch.cat([ib, torch.full_like(ib, -1)], 1)
+        keys[si, sl] = sk[:, :2].reshape(c, LUT_SCAN_BINS)
+        kids[si, sl] = ib[:, :2].reshape(c, LUT_SCAN_BINS)
+    return keys, kids
+
+
+def ivfpq_lut_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
+                        q_rot: torch.Tensor, packed: torch.Tensor,
+                        ids: torch.Tensor, norms: torch.Tensor,
+                        centers_rot: torch.Tensor, codebooks: torch.Tensor,
+                        metric: str = "l2", *, pq_bits: int, pq_dim: int,
+                        L: int, lut_dtype: str = "float32"
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused segmented IVF-PQ scan over packed codes.
+
+    seg_list [n_seg] i32 — owning list per segment; seg_q [n_seg, seg]
+    i32 — query per slot, -1 pad; q_rot [B, rot] f32 rotated queries;
+    packed [n_lists, L, nb] u8 unfolded codes; ids/norms [n_lists, L];
+    centers_rot [n_lists, rot] f32; codebooks [pq_dim, 2^bits, pq_len]
+    f32 (per_subspace). Returns (keys, ids) [n_seg, seg, 256]: minimized
+    keys (l2: ‖c+d‖² − 2⟨q,c+d⟩, add ‖q‖²; ip: −⟨q,c+d⟩) and global ids,
+    two best per bin; pad slots hold (+inf, −1). Unlike the TPU kernel,
+    which took the gathered ``[n_seg, seg, rot]`` queries, this one takes
+    ``q_rot`` and ``seg_q`` and gathers per live slot on chip."""
+    S, K, P, nb, rot = _lut_scan_args(seg_list, seg_q, q_rot, packed, ids,
+                                      norms, centers_rot, codebooks, metric,
+                                      pq_bits, pq_dim, L)
+    cb = lut_codebook(codebooks, lut_dtype)
+    if not _use_kernel(seg_list, seg_q, q_rot, packed, ids, norms,
+                       centers_rot, cb):
+        return ivfpq_lut_scan_topk_plain(seg_list, seg_q, q_rot, packed, ids,
+                                         norms, centers_rot, cb, metric,
+                                         pq_bits)
+    n_seg, seg = seg_q.shape
+    lib = _lib("ivfpq_lut_scan")
+    # (live queries per pass, row groups) that fit shared memory: the most
+    # LUTs × threads, ties to more threads
+    fits = [(g * r, r, g) for r in (4, 3, 2, 1) for g in (4, 3, 2, 1)
+            if seg <= LUT_SCAN_LANES * r
+            and lib.rtt_lut_scan_smem_bytes(g, r, S, K, rot, seg, nb)
+            <= _MAX_SMEM]
+    expects(bool(fits), "LUT of %d x %d f32 does not fit shared memory", S, K)
+    _, R, qg = max(fits)
+    keys = torch.empty((n_seg, seg, LUT_SCAN_BINS), dtype=torch.float32,
+                       device=q_rot.device)
+    kids = torch.empty((n_seg, seg, LUT_SCAN_BINS), dtype=torch.int32,
+                       device=q_rot.device)
+    rc = lib.rtt_ivfpq_lut_scan_topk(
+        _ptr(seg_list), _ptr(seg_q), _ptr(q_rot), _ptr(packed), _ptr(ids),
+        _ptr(norms), _ptr(centers_rot), _ptr(cb), _ptr(keys), _ptr(kids),
+        n_seg, seg, rot, S, K, P, pq_bits, nb, L,
+        1 if metric == "ip" else 0, qg, R, _stream())
+    ivfpq_lut_scan_topk.launches += 1
+    _raise_on(rc, "ivfpq_lut_scan_topk")
+    return keys, kids
+
+
+ivfpq_lut_scan_topk.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused gather-refine
+# ---------------------------------------------------------------------------
+
+_REFINE_METRICS = {"l2": 0, "ip": 1, "cos": 2}
+
+
+def gather_refine_topk_plain(dataset, queries, candidates, k: int,
+                             metric: str = "l2", row_chunk: int = 256):
+    """Keys of ``refine._refine_rows``' formulas against the gathered
+    candidate rows, then a stable sort: ties to the earliest candidate."""
+    n = dataset.shape[0]
+    m, C = candidates.shape
+    vals, out = [], []
+    for a in range(0, m, row_chunk):
+        cand = candidates[a:a + row_chunk]
+        q = queries[a:a + row_chunk]
+        rows = dataset[cand.clamp(0, n - 1).long()].float()   # [mc, C, d]
+        s = torch.einsum("md,mcd->mc", q, rows)
+        if metric == "ip":
+            key = -s
+        else:
+            rsq = (rows * rows).sum(-1)
+            qsq = (q * q).sum(1)
+            if metric == "cos":
+                qn = torch.sqrt(qsq.clamp_min(1e-30))
+                cn = torch.sqrt(rsq.clamp_min(1e-30))
+                key = 1.0 - s / (qn[:, None] * cn)
+            else:
+                key = (qsq[:, None] + rsq - 2.0 * s).clamp_min(0.0)
+        key = torch.where(cand >= 0, key, torch.full_like(key, float("inf")))
+        sk, order = torch.sort(key, dim=1, stable=True)
+        sk = sk[:, :k]
+        ids = torch.gather(cand, 1, order[:, :k])
+        vals.append(sk)
+        out.append(torch.where(torch.isinf(sk), torch.full_like(ids, -1), ids))
+    return torch.cat(vals), torch.cat(out)
+
+
+def gather_refine_topk(dataset: torch.Tensor, queries: torch.Tensor,
+                       candidates: torch.Tensor, k: int, metric: str = "l2"
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused exact re-rank: dataset [n, d] f32, queries [m, d] f32,
+    candidates [m, C] i32 (−1 invalid, others clipped for the fetch) →
+    (keys [m, k] ascending, ids [m, k], −1 where fewer than k valid).
+    Keys: l2 squared distance, ip −score, cos cosine distance."""
+    _check(dataset, "dataset", torch.float32, 2)
+    _check(queries, "queries", torch.float32, 2)
+    _check(candidates, "candidates", torch.int32, 2)
+    expects(metric in _REFINE_METRICS, "metric must be l2, ip or cos")
+    m, d = queries.shape
+    C = candidates.shape[1]
+    expects(dataset.shape[1] == d and candidates.shape[0] == m,
+            "dataset/queries/candidates shapes disagree")
+    expects(0 < k <= min(GATHER_REFINE_MAX_K, C), "k=%d outside (0, %d]", k,
+            min(GATHER_REFINE_MAX_K, C))
+    if not _use_kernel(dataset, queries, candidates):
+        return gather_refine_topk_plain(dataset, queries, candidates, k,
+                                        metric)
+    expects((d + C) * 4 <= _MAX_SMEM, "C=%d candidates exceed shared memory",
+            C)
+    out_v = torch.empty((m, k), dtype=torch.float32, device=queries.device)
+    out_i = torch.empty((m, k), dtype=torch.int32, device=queries.device)
+    rc = _lib("gather_refine").rtt_gather_refine_topk(
+        _ptr(dataset), dataset.shape[0], d, _ptr(queries), _ptr(candidates),
+        m, C, k, _REFINE_METRICS[metric], _ptr(out_v), _ptr(out_i), _stream())
+    gather_refine_topk.launches += 1
+    _raise_on(rc, "gather_refine_topk")
+    return out_v, out_i
+
+
+gather_refine_topk.launches = 0
+
+
+KERNELS = {
+    "fused_l2_argmin": fused_l2_argmin,
+    "select_k": select_k_cuda,
+    "ivfpq_lut_scan_topk": ivfpq_lut_scan_topk,
+    "gather_refine_topk": gather_refine_topk,
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

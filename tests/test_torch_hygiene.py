@@ -1,0 +1,146 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+entry points refuse to run on the CPU unless asked, and its wrappers
+launch a kernel or raise — they never fall back."""
+
+from __future__ import annotations
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import raft_tpu_torch
+from raft_tpu_torch.ops import build as kbuild
+from raft_tpu_torch.ops import kernels as K
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "raft_tpu_torch")
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        raft_tpu_torch.__path__, "raft_tpu_torch."))
+
+
+def test_port_imports_neither_jax_nor_raft_tpu():
+    mods = _modules()
+    assert "raft_tpu_torch.neighbors.ivf_pq" in mods and len(mods) >= 20
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'flax', 'raft_tpu.')) or m == 'raft_tpu')\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_port_sources_name_no_jax_module():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|raft_tpu)(\.|\s|$)")
+    hits = []
+    for dirpath, _, files in os.walk(PKG):
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(dirpath, fn)
+                with open(path) as f:
+                    hits += [f"{path}:{i}" for i, line in enumerate(f, 1)
+                             if pat.match(line)]
+    assert hits == []
+
+
+def test_entry_points_refuse_cpu_by_default(monkeypatch):
+    from raft_tpu_torch.bench.dataset import DeviceSynthetic
+    from raft_tpu_torch.neighbors import brute_force, ivf_pq, refine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = torch.zeros((64, 8))
+    cand = torch.zeros((4, 8), dtype=torch.int32)
+    calls = [
+        lambda: ivf_pq.build(x, ivf_pq.IndexParams(n_lists=2)),
+        lambda: refine.refine(x, x[:4], cand, 2),
+        lambda: brute_force.knn(x, x[:4], 2),
+        lambda: DeviceSynthetic(10, 4, n_centers=2),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    index = ivf_pq.build(torch.randn(600, 8), ivf_pq.IndexParams(
+        n_lists=4, pq_dim=4, cache_reconstruction="never"), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ivf_pq.search(index, x[:4], 2)
+
+
+def test_wrappers_take_no_other_device():
+    x = torch.zeros((8, 4), device="meta")
+    with pytest.raises(Exception, match="unsupported device"):
+        K.fused_l2_argmin(x, x)
+    with pytest.raises(Exception, match="several devices"):
+        K.gather_refine_topk(torch.zeros((8, 4)), x,
+                             torch.zeros((8, 300), dtype=torch.int32,
+                                         device="meta"), 2)
+
+
+def test_wrappers_check_their_operands():
+    s = torch.zeros((4, 100))
+    with pytest.raises(Exception, match="float32"):
+        K.select_k_cuda(s.double(), 3)
+    with pytest.raises(Exception, match="contiguous"):
+        K.select_k_cuda(s.T, 3)
+    with pytest.raises(Exception, match="outside"):
+        K.select_k_cuda(s, 65)
+    with pytest.raises(Exception, match="outside"):
+        K.gather_refine_topk(torch.zeros((9, 4)), torch.zeros((2, 4)),
+                             torch.zeros((2, 300), dtype=torch.int32), 65)
+
+
+def test_cpu_runs_count_no_launch():
+    K.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.standard_normal((50, 8)).astype(np.float32))
+    K.fused_l2_argmin(x, x[:5])
+    K.select_k_cuda(x, 4)
+    assert K.launch_counts() == {name: 0 for name in K.KERNELS}
+
+
+def test_precision_policy_turns_tf32_off():
+    from raft_tpu_torch.utils import precision
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    precision.enforce()
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_kernel_sources_carry_their_notes():
+    """Every kernel source names the TPU kernel it replaces and its bound
+    on the card, and the build targets sm_90a."""
+    for name in kbuild.SOURCES:
+        with open(os.path.join(kbuild.CSRC, f"{name}.cu")) as f:
+            src = f.read()
+        assert "raft_tpu/ops/pallas_kernels.py" in src, name
+        assert "Bound on the H100" in src, name
+        assert 'extern "C"' in src, name
+    assert "arch=compute_90a,code=sm_90a" in kbuild.ARCH_FLAGS
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    monkeypatch.setattr(kbuild.shutil, "which", lambda _: None)
+    monkeypatch.setattr(kbuild.os.path, "exists", lambda _: False)
+    with pytest.raises(kbuild.KernelBuildError, match="nvcc"):
+        kbuild._find_nvcc()
+
+
+def test_build_dir_is_ignored_by_git():
+    with open(os.path.join(ROOT, ".gitignore")) as f:
+        lines = f.read().split()
+    assert "raft_tpu_torch/_build/" in lines
+    assert os.path.relpath(kbuild.BUILD_DIR, ROOT) == os.path.join(
+        "raft_tpu_torch", "_build")

@@ -1,0 +1,232 @@
+"""IVF-PQ search of the port against the JAX package, on the CPU.
+
+One JAX-built index per metric (n = 3000, d = 32, 16 lists, pq_dim 16)
+crosses to the port through ``from_numpy``; both sides search the same
+seeded numpy queries. The JAX side runs its Pallas kernels interpreted
+(``RAFT_TPU_PALLAS_LUTSCAN`` / ``RAFT_TPU_PALLAS_REFINE`` = always), the
+port its kernels' plain versions (``device="cpu"``).
+
+Tolerances: the refined slice and the per_query tier agree on ids with
+overlap ≥ 0.99 and on distances at rtol 1e-4 (f32, different summation
+orders); the shared pieces (segmenting, the candidate epilogue, bit
+packing) are exact.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raft_tpu.neighbors import ivf_pq as jpq
+from raft_tpu.neighbors import refine as jrefine
+from raft_tpu_torch.distance.types import resolve_metric
+from raft_tpu_torch.neighbors import ivf_pq as tpq
+from raft_tpu_torch.neighbors import refine as trefine
+
+from torch_parity import blobs, jax_index_arrays, overlap
+
+N, D, N_LISTS, PQ_DIM = 3000, 32, 16, 16
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    return blobs(N, D, 30, seed=21), blobs(60, D, 30, seed=22)
+
+
+_INDEXES = {}
+
+
+def _jax_index(x, metric="sqeuclidean", pq_bits=8):
+    key = (metric, pq_bits)
+    if key not in _INDEXES:
+        _INDEXES[key] = jpq.build(jnp.asarray(x), jpq.IndexParams(
+            n_lists=N_LISTS, pq_dim=PQ_DIM, pq_bits=pq_bits, metric=metric,
+            seed=0, cache_reconstruction="never"))
+    return _INDEXES[key]
+
+
+def _port_index(jidx):
+    arrays, meta = jax_index_arrays(jidx)
+    return tpq.from_numpy(arrays, meta, device="cpu")
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+def test_refined_slice_matches_jax(corpus, metric, monkeypatch):
+    """The slice end to end: JAX-built index → from_numpy → the port's
+    refined search (LUT-scan tier + fused re-rank) vs the JAX package's
+    refined search through its interpreted Pallas kernels."""
+    monkeypatch.setenv("RAFT_TPU_PALLAS_LUTSCAN", "always")
+    monkeypatch.setenv("RAFT_TPU_PALLAS_REFINE", "always")
+    x, q = corpus
+    jidx = _jax_index(x, metric)
+    jsp = jpq.SearchParams(n_probes=8, scan_select="pallas",
+                           refine="f32_regen", refine_ratio=40,
+                           lut_dtype="float32")
+    jd, ji = jpq.search(jidx, jnp.asarray(q), 10, jsp,
+                        dataset=jnp.asarray(x))
+    tsp = tpq.SearchParams(n_probes=8, scan_select="pallas",
+                           refine="f32_regen", refine_ratio=40,
+                           lut_dtype="float32")
+    td, ti = tpq.search(_port_index(jidx), _t(q), 10, tsp, dataset=_t(x),
+                        device="cpu")
+    assert ti.dtype == torch.int32 and ti.shape == (60, 10)
+    assert overlap(ti.numpy(), np.asarray(ji)) >= 0.99
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16"])
+def test_lut_tier_matches_jax(corpus, lut_dtype, monkeypatch):
+    """The unrefined LUT-scan tier (k = 20) against the JAX package's."""
+    monkeypatch.setenv("RAFT_TPU_PALLAS_LUTSCAN", "always")
+    x, q = corpus
+    jidx = _jax_index(x)
+    kw = dict(n_probes=8, scan_select="pallas", lut_dtype=lut_dtype)
+    jd, ji = jpq.search(jidx, jnp.asarray(q), 20, jpq.SearchParams(**kw))
+    td, ti = tpq.search(_port_index(jidx), _t(q), 20,
+                        tpq.SearchParams(**kw), device="cpu")
+    assert overlap(ti.numpy(), np.asarray(ji)) >= 0.99
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product",
+                                    "cosine"])
+def test_per_query_tier_matches_jax(corpus, metric):
+    x, q = corpus
+    jidx = _jax_index(x, metric)
+    kw = dict(n_probes=6, scan_mode="per_query", lut_dtype="float32")
+    jd, ji = jpq.search(jidx, jnp.asarray(q), 10, jpq.SearchParams(**kw))
+    td, ti = tpq.search(_port_index(jidx), _t(q), 10,
+                        tpq.SearchParams(**kw), device="cpu")
+    assert overlap(ti.numpy(), np.asarray(ji)) >= 0.99
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_lut_tier_pq6_matches_per_query(corpus):
+    """pq_bits = 6: the port's LUT-scan tier against the JAX package's
+    per_query tier (its 6-bit LUT kernel is a known fault, ROADMAP C1)."""
+    x, q = corpus
+    jidx = _jax_index(x, pq_bits=6)
+    jd, ji = jpq.search(jidx, jnp.asarray(q), 20, jpq.SearchParams(
+        n_probes=8, scan_mode="per_query", lut_dtype="float32"))
+    td, ti = tpq.search(_port_index(jidx), _t(q), 20, tpq.SearchParams(
+        n_probes=8, scan_select="pallas", lut_dtype="float32"),
+        device="cpu")
+    assert overlap(ti.numpy(), np.asarray(ji)) >= 0.99
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "euclidean",
+                                    "inner_product", "cosine"])
+def test_finish_candidates_exact(metric):
+    rng = np.random.default_rng(5)
+    m, C, k = 7, 500, 12
+    dots = (rng.integers(-50, 50, (m, C)) * 0.5).astype(np.float32)
+    norms = (rng.integers(0, 80, (m, C)) * 0.25).astype(np.float32)
+    q_sq = rng.uniform(50, 60, m).astype(np.float32)
+    ids = rng.permutation(m * C).reshape(m, C).astype(np.int32)
+    ids[rng.random((m, C)) < 0.2] = -1
+    mt_j = jpq.resolve_metric(metric)
+    jv, ji = jpq._finish_candidates(jnp.asarray(dots), jnp.asarray(ids),
+                                    jnp.asarray(norms), jnp.asarray(q_sq),
+                                    mt_j, k)
+    tv, ti = tpq._finish_candidates(_t(dots), _t(ids), _t(norms), _t(q_sq),
+                                    resolve_metric(metric), k)
+    # XLA's CPU sqrt is not correctly rounded: euclidean may differ by 1 ulp
+    np.testing.assert_array_max_ulp(tv.numpy(), np.asarray(jv),
+                                    maxulp=1 if metric == "euclidean" else 0)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("pq_bits", [4, 5, 6, 7, 8])
+def test_pack_bits_matches_jax(pq_bits):
+    rng = np.random.default_rng(pq_bits)
+    codes = rng.integers(0, 1 << pq_bits, (3, 50, 24)).astype(np.uint8)
+    jp = np.asarray(jpq.pack_bits(jnp.asarray(codes), pq_bits))
+    tp = tpq.pack_bits(_t(codes), pq_bits)
+    np.testing.assert_array_equal(tp.numpy(), jp)
+    assert tp.shape[-1] == tpq.packed_nbytes(24, pq_bits)
+    np.testing.assert_array_equal(tpq.unpack_bits(tp, 24, pq_bits).numpy(),
+                                  codes)
+
+
+def test_numpy_round_trip(corpus):
+    jidx = _jax_index(corpus[0])
+    arrays, meta = jax_index_arrays(jidx)
+    back, meta2 = tpq.to_numpy(tpq.from_numpy(arrays, meta, device="cpu"))
+    assert meta2 == meta
+    for name, a in arrays.items():
+        np.testing.assert_array_equal(back[name], a)
+        assert back[name].dtype == a.dtype
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product",
+                                    "cosine"])
+def test_refine_gather_tier_matches_jax(metric):
+    """Standalone refine with few candidates (the gather tier)."""
+    rng = np.random.default_rng(9)
+    data = rng.standard_normal((800, 20)).astype(np.float32)
+    q = rng.standard_normal((15, 20)).astype(np.float32)
+    cand = rng.integers(-1, 800, (15, 40)).astype(np.int32)
+    jd, ji = jrefine.refine(jnp.asarray(data), jnp.asarray(q),
+                            jnp.asarray(cand), 8, metric=metric)
+    td, ti = trefine.refine(_t(data), _t(q), _t(cand), 8, metric=metric,
+                            device="cpu")
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "euclidean",
+                                    "inner_product", "cosine"])
+def test_brute_force_matches_jax(metric):
+    from raft_tpu.neighbors import brute_force as jbf
+    from raft_tpu_torch.neighbors import brute_force as tbf
+
+    rng = np.random.default_rng(2)
+    data = rng.standard_normal((1500, 16)).astype(np.float32)
+    q = rng.standard_normal((25, 16)).astype(np.float32)
+    jd, ji = jbf.knn(jbf.build(jnp.asarray(data), metric=metric),
+                     jnp.asarray(q), 10)
+    td, ti = tbf.knn(_t(data), _t(q), 10, metric=metric, device="cpu")
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4,
+                               atol=1e-4)
+    assert overlap(ti.numpy(), np.asarray(ji)) >= 0.99
+
+
+def test_resolve_lut_dtype_off_card():
+    for args in (("auto", 64, 10), ("auto", 8, 400), ("auto", 8, 10),
+                 ("bfloat16", 64, 10), ("float8_e4m3", 8, 10)):
+        assert tpq.resolve_lut_dtype(*args) == jpq.resolve_lut_dtype(*args)
+
+
+def test_unported_paths_raise(corpus):
+    x, q = corpus
+    xt = _t(x)
+    for kw in (dict(spill=True), dict(codebook_kind="per_cluster"),
+               dict(cache_reconstruction="auto")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tpq.build(xt, tpq.IndexParams(n_lists=16, pq_dim=16, **kw),
+                      device="cpu")
+    idx = _port_index(_jax_index(x))
+    qt = _t(q)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpq.search(idx, qt, 10, tpq.SearchParams(n_probes=8), device="cpu",
+                   filter_bitset=torch.ones(94, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpq.search(idx, qt, 10, tpq.SearchParams(n_probes=8,
+                                                 scan_mode="grouped"),
+                   device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpq.search(idx, qt, 10, tpq.SearchParams(
+            n_probes=8, refine="f32_regen", refine_ratio=4), dataset=x,
+            device="cpu")

@@ -1,0 +1,196 @@
+"""The port's four kernels: each plain PyTorch version against its Pallas
+kernel (interpret mode on the CPU), on the same seeded numpy inputs. The
+CUDA kernels themselves are held against these plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+
+Tolerances (f32 throughout; the two sides sum in different orders):
+
+- select_k: exact, values and positions, with duplicated values that pin
+  down the tie rule (lowest position first);
+- fused_l2_argmin: distances rtol 1e-5, atol 1e-4; argmins equal except
+  on rows whose best two distances are within 1e-5 relative;
+- LUT scan: keys rtol 1e-4, atol 1e-3; ids equal wherever the key gap to
+  the bin's neighbouring rank exceeds that tolerance;
+- gather-refine: keys rtol 1e-5; ids equal.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raft_tpu.neighbors import ivf_common as jic
+from raft_tpu.ops import pallas_kernels as pk
+from raft_tpu_torch.neighbors import ivf_common as tic
+from raft_tpu_torch.ops import kernels as K
+
+from torch_parity import (assert_bins_match, refine_case, scan_case,
+                          scan_reference_keys, tied_scores)
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+# ---------------------------------------------------------------------------
+# select_k
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("k", [1, 10, 64])
+def test_select_k_plain_matches_pallas(k, select_min):
+    s = tied_scores(12, 700, seed=k)
+    jv, ji = pk.select_k_pallas(jnp.asarray(s), k, select_min=select_min,
+                                interpret=True)
+    tv, ti = K.select_k_cuda(_t(s), k, select_min)   # CPU → plain version
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("n,k", [(9000, 16), (300, 100), (70000, 80)])
+def test_select_k_dispatch_matches_jax(n, k):
+    """matrix.select_k's tiers (kernel, sort, tiled) against the JAX
+    package's select_k, ties included, with input_indices."""
+    from raft_tpu.matrix.select_k import select_k as jselect
+    from raft_tpu_torch.matrix.select_k import select_k as tselect
+
+    s = tied_scores(3, n, seed=n)
+    ids = np.random.default_rng(1).permutation(3 * n).reshape(3, n).astype(
+        np.int32)
+    for select_min in (True, False):
+        jv, ji = jselect(jnp.asarray(s), k, select_min=select_min,
+                         input_indices=jnp.asarray(ids))
+        tv, ti = tselect(_t(s), k, select_min=select_min,
+                         input_indices=_t(ids))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+# ---------------------------------------------------------------------------
+# fused_l2_argmin
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,n,d", [(600, 300, 32), (100, 1100, 96)])
+def test_fused_l2_argmin_plain_matches_pallas(m, n, d):
+    rng = np.random.default_rng(m + n)
+    x = rng.standard_normal((m, d)).astype(np.float32) * 3.0
+    y = rng.standard_normal((n, d)).astype(np.float32) * 3.0
+    y[7] = y[3]  # duplicated center: the first index must win
+    x[:5] = y[3]
+    jd, ji = pk.fused_l2_argmin(jnp.asarray(x), jnp.asarray(y),
+                                interpret=True)
+    td, ti = K.fused_l2_argmin(_t(x), _t(y))
+    jd, ji = np.asarray(jd), np.asarray(ji)
+    np.testing.assert_allclose(td.numpy(), jd, rtol=1e-5, atol=1e-4)
+    assert (ti.numpy()[:5] == 3).all() and (ji[:5] == 3).all()
+    d2 = ((x[:, None, :].astype(np.float64) - y[None].astype(np.float64)) ** 2
+          ).sum(-1)
+    best2 = np.sort(d2, axis=1)[:, :2]
+    close = best2[:, 1] - best2[:, 0] <= 1e-5 * np.abs(best2[:, 1])
+    assert ((ti.numpy() == ji) | close).all()
+
+
+def test_fused_l2_nn_argmin_matches_jax():
+    from raft_tpu.distance.fused_l2_nn import fused_l2_nn_argmin as jnn
+    from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_argmin as tnn
+
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((500, 24)).astype(np.float32)
+    y = rng.standard_normal((40, 24)).astype(np.float32)
+    for sqrt in (False, True):
+        jd, ji = jnn(jnp.asarray(x), jnp.asarray(y), sqrt=sqrt)
+        td, ti = tnn(_t(x), _t(y), sqrt=sqrt)
+        np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5,
+                                   atol=1e-4)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+# ---------------------------------------------------------------------------
+# IVF-PQ LUT scan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pq_bits", [4, 5, 8])
+def test_lut_scan_plain_matches_pallas(pq_bits, lut_dtype, metric):
+    c = scan_case(pq_bits)
+    n_seg, seg = c["seg_q"].shape
+    qv = c["q_rot"][np.clip(c["seg_q"], 0, c["q_rot"].shape[0] - 1)]
+    jk, ji = pk.ivfpq_lut_scan_topk(
+        jnp.asarray(c["seg_list"]), jnp.asarray(qv), jnp.asarray(c["packed"]),
+        jnp.asarray(c["ids"]), jnp.asarray(c["norms"]),
+        jnp.asarray(c["centers_rot"]), jnp.asarray(c["cb"]), metric,
+        pq_bits=pq_bits, pq_dim=c["S"], L=c["L"], lut_dtype=lut_dtype,
+        interpret=True)
+    tk, ti = K.ivfpq_lut_scan_topk(
+        _t(c["seg_list"]), _t(c["seg_q"]), _t(c["q_rot"]), _t(c["packed"]),
+        _t(c["ids"]), _t(c["norms"]), _t(c["centers_rot"]), _t(c["cb"]),
+        metric, pq_bits=pq_bits, pq_dim=c["S"], L=c["L"],
+        lut_dtype=lut_dtype)
+    assert tk.shape == (n_seg, seg, 256) and ti.dtype == torch.int32
+    live = c["seg_q"] >= 0
+    tk, ti = tk.numpy(), ti.numpy()
+    assert np.isinf(tk[~live]).all() and (ti[~live] == -1).all()
+    cb_used = K.lut_codebook(_t(c["cb"]), lut_dtype).numpy()
+    ref = scan_reference_keys(c, cb_used, metric)
+    assert_bins_match(tk, ti, np.asarray(jk), np.asarray(ji), ref,
+                       rtol=1e-4, atol=1e-3)
+
+
+def test_lut_codebook_rounding_matches_jax():
+    """The codebook operand's bf16 / fp8→bf16 rounding equals the JAX
+    package's (ml_dtypes) on in-range values."""
+    rng = np.random.default_rng(0)
+    cb = (rng.standard_normal((8, 16, 4)) * 3).astype(np.float32)
+    for lut_dtype, chain in (("bfloat16", [jnp.bfloat16]),
+                             ("float8_e4m3", [jnp.float8_e4m3fn,
+                                              jnp.bfloat16])):
+        j = jnp.asarray(cb)
+        for dt in chain:
+            j = j.astype(dt)
+        np.testing.assert_array_equal(
+            K.lut_codebook(_t(cb), lut_dtype).numpy(),
+            np.asarray(j.astype(jnp.float32)))
+
+
+def test_lut_scan_rejects_folded_codes():
+    c = scan_case(8, L=256)
+    folded = c["packed"].reshape(16, 32, -1)  # not [n_lists, L, nb]
+    with pytest.raises(Exception, match="folded"):
+        K.ivfpq_lut_scan_topk(
+            _t(c["seg_list"]), _t(c["seg_q"]), _t(c["q_rot"]), _t(folded),
+            _t(c["ids"]), _t(c["norms"]), _t(c["centers_rot"]), _t(c["cb"]),
+            "l2", pq_bits=8, pq_dim=c["S"], L=c["L"])
+
+
+# ---------------------------------------------------------------------------
+# gather-refine
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+@pytest.mark.parametrize("k", [10, 64])
+def test_gather_refine_plain_matches_pallas(metric, k):
+    data, q, cand = refine_case(seed=k)
+    jk, ji = pk.gather_refine_topk(jnp.asarray(data), jnp.asarray(q),
+                                   jnp.asarray(cand), k, metric,
+                                   interpret=True)
+    tk, ti = K.gather_refine_topk(_t(data), _t(q), _t(cand), k, metric)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    assert (ti.numpy()[0, 4:] == -1).all()
+
+
+def test_segment_probes_matches_jax():
+    rng = np.random.default_rng(4)
+    for B, P, n_lists in ((40, 8, 16), (300, 5, 7), (3, 16, 64)):
+        probes = np.stack([rng.choice(n_lists, P, replace=False)
+                           for _ in range(B)]).astype(np.int32)
+        n_seg = jic.n_segments(B * P, n_lists, 128)
+        assert tic.n_segments(B * P, n_lists, 128) == n_seg
+        j = jic.segment_probes(jnp.asarray(probes), n_lists, 128, n_seg)
+        t = tic.segment_probes(_t(probes), n_lists, 128, n_seg)
+        for a, b in zip(t, j):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))

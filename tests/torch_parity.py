@@ -1,0 +1,164 @@
+"""Shared helpers of the raft_tpu ↔ raft_tpu_torch parity tests: seeded
+numpy inputs feed both packages, indexes cross between them as numpy
+arrays."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+INDEX_FIELDS = ("centers", "centers_rot", "rotation", "codebooks",
+                "packed_codes", "packed_ids", "packed_norms", "list_sizes")
+
+
+def blobs(n: int, d: int, n_clusters: int, seed: int, std: float = 1.0):
+    """Gaussian blobs made with numpy (same inputs for both packages)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-10.0, 10.0, (n_clusters, d)).astype(np.float32)
+    lab = rng.integers(0, n_clusters, n)
+    return (centers[lab] + std * rng.standard_normal((n, d))).astype(
+        np.float32)
+
+
+def jax_index_arrays(index):
+    """A raft_tpu ``IvfPqIndex`` → (arrays, meta) for ``from_numpy``."""
+    arrays = {name: np.asarray(getattr(index, name)) for name in INDEX_FIELDS}
+    meta = {"metric": index.metric, "pq_bits": index.pq_bits,
+            "pq_dim": index.pq_dim, "codebook_kind": index.codebook_kind}
+    return arrays, meta
+
+
+def jax_index_from_arrays(arrays, meta):
+    """(arrays, meta) → a raft_tpu ``IvfPqIndex``."""
+    import jax.numpy as jnp
+    from raft_tpu.neighbors import ivf_pq as jpq
+
+    return jpq.IvfPqIndex(
+        **{name: jnp.asarray(arrays[name]) for name in INDEX_FIELDS},
+        metric=meta["metric"], codebook_kind=meta["codebook_kind"],
+        pq_bits=int(meta["pq_bits"]), pq_dim_static=int(meta["pq_dim"]))
+
+
+def overlap(a, b) -> float:
+    """Mean per-row fraction of shared ids."""
+    a, b = np.asarray(a), np.asarray(b)
+    k = a.shape[1]
+    return float(np.mean([len(set(x) & set(y)) / k for x, y in zip(a, b)]))
+
+
+def exact_knn(x: np.ndarray, q: np.ndarray, k: int) -> np.ndarray:
+    d = ((q[:, None, :].astype(np.float64) - x[None].astype(np.float64)) ** 2
+         ).sum(-1)
+    return np.argsort(d, axis=1, kind="stable")[:, :k]
+
+
+def cuda_device():
+    """The card for a ``cuda``-marked test; skips where there is none
+    (decided when the test runs, never at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only "
+                    "there (python3 chip_smoke.py drives them)")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# kernel inputs (JAX-free, so the card's tests run where JAX is absent)
+# ---------------------------------------------------------------------------
+
+def tied_scores(m: int, n: int, seed: int) -> np.ndarray:
+    """Scores drawn from a few dozen values, so every row holds many
+    exact duplicates (ties decide positions)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 40, (m, n)).astype(np.float32) * 0.25
+
+
+def scan_case(pq_bits: int, seed: int = 0, n_lists: int = 16, L: int = 300,
+              S: int = 16, P: int = 2, B: int = 40, n_probes: int = 8):
+    """Random per_subspace index fields, queries and their segment table,
+    with invalid ids sprinkled in and one short list. Packing and
+    segmenting use the port's functions, which the CPU tests hold against
+    the JAX package's."""
+    from raft_tpu_torch.neighbors import ivf_common as tic
+    from raft_tpu_torch.neighbors import ivf_pq as tpq
+
+    rng = np.random.default_rng(seed * 10 + pq_bits)
+    Kb = 1 << pq_bits
+    rot = S * P
+    codes = rng.integers(0, Kb, (n_lists * L, S)).astype(np.uint8)
+    packed = tpq.pack_bits(torch.tensor(codes), pq_bits).numpy().reshape(
+        n_lists, L, -1)
+    ids = rng.permutation(n_lists * L).astype(np.int32).reshape(n_lists, L)
+    ids[rng.random((n_lists, L)) < 0.1] = -1
+    ids[3, 150:] = -1
+    centers_rot = rng.standard_normal((n_lists, rot)).astype(np.float32) * 4
+    cb = rng.standard_normal((S, Kb, P)).astype(np.float32)
+    norms = rng.uniform(10, 60, (n_lists, L)).astype(np.float32)
+    q_rot = rng.standard_normal((B, rot)).astype(np.float32) * 4
+    probes = np.stack([rng.choice(n_lists, n_probes, replace=False)
+                       for _ in range(B)]).astype(np.int32)
+    seg = tic.SEGMENT_SIZE
+    n_seg = tic.n_segments(B * n_probes, n_lists, seg)
+    seg_list, seg_q, _, _ = tic.segment_probes(torch.tensor(probes), n_lists,
+                                               seg, n_seg)
+    return dict(packed=packed, ids=ids, norms=norms, centers_rot=centers_rot,
+                cb=cb, q_rot=q_rot, seg_list=seg_list.numpy(),
+                seg_q=seg_q.numpy(), S=S, L=L, pq_bits=pq_bits)
+
+
+SCAN_OPERANDS = ("seg_list", "seg_q", "q_rot", "packed", "ids", "norms",
+                 "centers_rot", "cb")
+
+
+def scan_reference_keys(c, cb_used: np.ndarray, metric: str):
+    """f64 keys of every (live slot, position): {(s, j): [L]}."""
+    from raft_tpu_torch.neighbors import ivf_pq as tpq
+
+    S, P = c["S"], cb_used.shape[2]
+    codes = tpq.unpack_bits(torch.tensor(c["packed"]), S,
+                            c["pq_bits"]).numpy().astype(np.int64)
+    out = {}
+    for s, j in zip(*np.nonzero(c["seg_q"] >= 0)):
+        q = c["q_rot"][c["seg_q"][s, j]].astype(np.float64)
+        lst = c["seg_list"][s]
+        lut = np.einsum("sp,skp->sk", q.reshape(S, P),
+                        cb_used.astype(np.float64))
+        qd = lut[np.arange(S)[None, :], codes[lst]].sum(1)
+        dot = q @ c["centers_rot"][lst].astype(np.float64) + qd
+        key = -dot if metric == "ip" else c["norms"][lst] - 2.0 * dot
+        out[(s, j)] = np.where(c["ids"][lst] >= 0, key, np.inf)
+    return out
+
+
+def assert_bins_match(tk, ti, jk, ji, ref, rtol: float, atol: float):
+    """Two [n_seg, seg, 256] bin tables: keys within tolerance on every
+    live slot; ids equal unless the reference keys of the neighbouring
+    rank in the same bin lie within that tolerance."""
+    for (s, j), key in ref.items():
+        np.testing.assert_allclose(tk[s, j], jk[s, j], rtol=rtol, atol=atol)
+        for b in range(128):
+            kb = np.sort(key[b::128])[:3]
+            kb = np.concatenate([kb, np.full(3 - kb.shape[0], np.inf)])
+            for r in range(2):
+                col = b + 128 * r
+                if ti[s, j, col] == ji[s, j, col]:
+                    continue
+                tol = atol + rtol * abs(kb[r])
+                near = [abs(kb[r] - kb[o]) <= tol for o in (r - 1, r + 1)
+                        if 0 <= o < 3 and np.isfinite(kb[o])]
+                assert any(near), (s, j, b, r, kb)
+
+
+def refine_case(seed: int, m: int = 12, C: int = 300, n: int = 2000,
+                d: int = 40):
+    """Dataset, queries and candidate lists with a duplicated candidate,
+    invalid (-1) entries and an out-of-range id (clipped for the fetch)."""
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((m, d)).astype(np.float32)
+    cand = rng.integers(0, n, (m, C)).astype(np.int32)
+    cand[:, 5] = cand[:, 2]
+    cand[rng.random((m, C)) < 0.05] = -1
+    cand[0, :] = -1
+    cand[0, :4] = [9, 10, n + 5, 11]
+    return data, q, cand
