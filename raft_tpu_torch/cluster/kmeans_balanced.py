@@ -1,6 +1,7 @@
 """Balanced (hierarchical) k-means — the trainer behind the IVF index
 (counterpart of ``raft_tpu.cluster.kmeans_balanced``: ``fit``,
-``predict``, ``_balanced_lloyd``, ``_balanced_lloyd_batched``).
+``predict``, ``predict_topk``, ``_balanced_lloyd``,
+``_balanced_lloyd_batched``).
 
 Same two-level design:
 
@@ -30,6 +31,7 @@ import torch
 from raft_tpu_torch.cluster.kmeans import _update_centroids, init_random
 from raft_tpu_torch.core.errors import expects
 from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_argmin
+from raft_tpu_torch.matrix.select_k import select_k
 from raft_tpu_torch.random.rng import RngState
 
 # Bound on the level-2 [chunk, T, k] f32 distance block (bytes).
@@ -224,3 +226,30 @@ def predict(centers: torch.Tensor, x: torch.Tensor,
     xn = _maybe_normalize(x.float(), metric)
     _, labels = fused_l2_nn_argmin(xn, centers)
     return labels
+
+
+def _topk_labels(centers: torch.Tensor, xn: torch.Tensor, row_tile: int,
+                 k: int) -> torch.Tensor:
+    """The ``k`` nearest centers per row, a ``[row_tile, n_lists]`` Gram at
+    a time; ‖c‖² − 2⟨x, c⟩ ranks as the distance does (‖x‖² is constant
+    per row). Ties go to the lowest center index, as ``lax.top_k``'s."""
+    c_sq = (centers * centers).sum(1)
+    out = []
+    for a in range(0, xn.shape[0], row_tile):
+        d2 = c_sq[None, :] - 2.0 * (xn[a:a + row_tile] @ centers.T)
+        out.append(select_k(d2, k)[1])
+    return torch.cat(out)
+
+
+def predict_topk(centers: torch.Tensor, x: torch.Tensor, k: int = 2,
+                 params: Optional[KMeansBalancedParams] = None
+                 ) -> torch.Tensor:
+    """``k`` nearest centers per row → [m, k] int32 (feeds
+    ``ivf_common.spill_assignments``); row-tiled so the [tile, n_lists]
+    block stays near 256 MB, with the JAX package's tile rule."""
+    metric = params.metric if params is not None else "l2"
+    xn = _maybe_normalize(x.float(), metric)
+    k = min(k, centers.shape[0])
+    tile = max(1024, min(x.shape[0], (256 << 20)
+                         // max(4 * centers.shape[0], 1)))
+    return _topk_labels(centers, xn, -(-tile // 8) * 8, k)

@@ -16,6 +16,13 @@ class LogicError(RaftError):
     """Invalid argument / precondition violation (``raft::logic_error``)."""
 
 
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error a path of the JAX package that the port does not carry
+    yet raises, naming its ROADMAP item."""
+    return NotImplementedError(
+        f"{what} is not ported to raft_tpu_torch yet (ROADMAP {item})")
+
+
 def expects(cond: bool, msg: str, *args) -> None:
     """Validate a host-side precondition; raises :class:`LogicError`."""
     if not cond:

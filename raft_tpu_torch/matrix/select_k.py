@@ -1,11 +1,16 @@
 """select_k — batched top-k selection (counterpart of
 ``raft_tpu.matrix.select_k``).
 
-Tiers, by the JAX package's dispatch rule (``select_k.py:87-91``), which
-here depends on the shape alone:
+Tiers, by shape alone:
 
-- **kernel** — len ≥ 8192 and k ≤ 64: the hand-written CUDA kernel
-  (``ops.kernels.select_k_cuda``; its plain version on CPU tensors);
+- **kernel** — k ≤ 64 and len ≥ 8192 (the JAX package's rule,
+  ``select_k.py:87-91``), or k ≤ 16 at any len: the hand-written CUDA
+  kernel (``ops.kernels.select_k_cuda``; its plain version on CPU
+  tensors). On short rows the kernel's serial insertions grow with k:
+  ``chip_smoke.py``'s ``[flat select_k]`` line measures it ahead of the
+  stable sort at k ≤ 16 (the IVF-Flat merge's [pairs, 256] bin rows,
+  predict_topk's [tile, n_lists] Gram) and behind it on [10,000, 1024]
+  rows at k 32 and 64;
 - **tiled** — 64 < k, len ≥ 65536 (four tiles of 16384 or more): per-tile
   select then a merge of the per-tile survivors;
 - **sort** — otherwise: ``select_k_cuda``'s plain version, a STABLE
@@ -28,6 +33,7 @@ from raft_tpu_torch.ops import kernels as _k
 
 _KERNEL_MIN_LEN = 8192
 _KERNEL_MAX_K = 64
+_SHORT_ROW_MAX_K = 16
 _LARGE_K_TILE = 16384
 _LARGE_K_MIN_LEN = 4 * _LARGE_K_TILE   # 65536
 
@@ -47,7 +53,8 @@ def select_k(scores: torch.Tensor, k: int, select_min: bool = True,
     n = scores.shape[1]
     if k > n:
         raise ValueError(f"k={k} > len={n}")
-    if n >= _KERNEL_MIN_LEN and k <= _KERNEL_MAX_K:
+    if k <= _SHORT_ROW_MAX_K or (k <= _KERNEL_MAX_K
+                                 and n >= _KERNEL_MIN_LEN):
         vals, idx = _k.select_k_cuda(scores.float().contiguous(), k,
                                      select_min)
     elif k > _KERNEL_MAX_K and n >= _LARGE_K_MIN_LEN:

@@ -11,10 +11,14 @@ table's shape depends on (B, n_probes, n_lists, seg) alone.
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import time
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from raft_tpu_torch.matrix.select_k import select_k
 
 SEGMENT_SIZE = 128
 
@@ -22,6 +26,28 @@ SEGMENT_SIZE = 128
 # 16 GB TPU v5e; the H100 has 80 GB, so they are conservative here and
 # are kept as they are until the port measures its own limits.
 GROUPED_BYTES_CAP = 4 << 30
+
+
+class Stages:
+    """Per-stage wall seconds of a build (synchronizing the card at each
+    stage boundary) when the caller passes a dict to fill."""
+
+    def __init__(self, out: Optional[Dict[str, float]], device):
+        self.out = out
+        self.cuda = device.type == "cuda"
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        if self.out is None:
+            yield
+            return
+        if self.cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        if self.cuda:
+            torch.cuda.synchronize()
+        self.out[name] = self.out.get(name, 0.0) + time.perf_counter() - t0
 
 
 def n_segments(pairs: int, n_lists: int, seg: int) -> int:
@@ -77,6 +103,94 @@ def gather_segment_results(seg_vals: torch.Tensor, seg_ids: torch.Tensor,
     """``[n_seg, seg, kk] → [B, P, kk]``: every pair owns exactly one slot."""
     ps, pl = pair_seg.long(), pair_slot.long()
     return seg_vals[ps, pl], seg_ids[ps, pl]
+
+
+def merge_bin_results(keys: torch.Tensor, kids: torch.Tensor,
+                      pair_seg: torch.Tensor, pair_slot: torch.Tensor,
+                      k: int, select_min: bool, invalid: float):
+    """Merge a segmented scan's per-bin output ``keys/kids [n_seg, S,
+    nbins]`` (minimized keys, global ids, −1 invalid) into (distances [B,
+    k], ids [B, k]): a per-slot cut to kk = min(k, nbins) over each live
+    pair's bin row, then one cut per query over its P·kk survivors. Both
+    cuts are exact selections with ties to the lowest position. The JAX
+    package's per-slot cut is ``lax.approx_min_k``, which is exact on the
+    CPU; the card runs it exactly here as well. Ip keys flip back to
+    scores; metric epilogues (sqrt, 1 − cos) stay with the callers."""
+    n_seg, seg, nbins = keys.shape
+    B, P = pair_seg.shape
+    kk = min(k, nbins)
+    kq = min(k, P * kk)
+    ps, pl = pair_seg.long(), pair_slot.long()
+    rows = (ps * seg + pl).reshape(-1)            # live pairs only
+    cut = keys.reshape(-1, nbins)[rows]
+    mk, sel = select_k(cut, kk)
+    pv = mk.reshape(B, P * kk)
+    pb = sel.reshape(B, P * kk).long()
+    nv, pos2 = select_k(pv, kq)
+    pos2 = pos2.long()
+    p_of = pos2 // kk
+    bin_of = torch.gather(pb, 1, pos2)
+    seg_of = torch.gather(ps, 1, p_of)
+    slot_of = torch.gather(pl, 1, p_of)
+    out_ids = kids[seg_of, slot_of, bin_of]
+    out_vals = nv if select_min else -nv
+    out_vals = torch.where(out_ids < 0, torch.full_like(out_vals, invalid),
+                           out_vals)
+    if k > kq:
+        out_vals = torch.nn.functional.pad(out_vals, (0, k - kq),
+                                           value=invalid)
+        out_ids = torch.nn.functional.pad(out_ids, (0, k - kq), value=-1)
+    return out_vals, out_ids
+
+
+def grouped_mem_ok(n_seg: int, seg: int, kk: int, pairs: int) -> bool:
+    """The grouped tiers' buffer guard (the JAX package's model): the
+    [n_seg, seg] query table, the [n_seg, seg, kk] key+id accumulators and
+    the [pairs, kk] pair-order gather. The segmented tier's [n_seg, seg,
+    256] bin table is not counted, as in the JAX package."""
+    return (n_seg * seg * (4 + 8 * kk) + pairs * kk * 8) <= GROUPED_BYTES_CAP
+
+
+# Spill-cascade depth shared by every build that spills: a dense blob can
+# fill its whole ~5-list neighbourhood, so a 6th choice still keeps rows.
+SPILL_DEPTH = 6
+
+
+def spill_assignments(l1: torch.Tensor, l2: torch.Tensor, n_lists: int,
+                      cap: int, *more: torch.Tensor) -> torch.Tensor:
+    """Cap list loads at ``cap`` by cascading overflow rows to their next
+    choices (``l2``, then each of ``more``); rows that overflow every
+    choice get the marker ``n_lists`` (``pack_lists`` drops them).
+
+    Exact and integer-valued, with one stable sort per choice generation:
+    rows rank within a list by (list, arrival generation, row index), so
+    settled rows never move and later arrivals are the ones past the cap —
+    the JAX package's labels, bit for bit."""
+    choices = (l2,) + more
+    n = l1.shape[0]
+    dev = l1.device
+    iota = torch.arange(n, device=dev)
+    g = len(choices) + 1
+    kmax = g * n_lists + g
+    group_starts = torch.arange(kmax, device=dev)
+
+    def ranks(keys, base):
+        sk, order = torch.sort(keys, stable=True)
+        starts = torch.searchsorted(sk, group_starts)
+        rk_sorted = iota - starts[base[order].clamp(0, kmax - 1)]
+        rk = torch.empty_like(rk_sorted)
+        rk[order] = rk_sorted
+        return rk
+
+    lab = l1.long()
+    gen = torch.zeros(n, dtype=torch.long, device=dev)
+    for c, lc in enumerate(choices, start=1):
+        over = ranks(lab * g + gen, lab * g) >= cap
+        lab = torch.where(over, lc.long(), lab)
+        gen = torch.where(over, torch.full_like(gen, c), gen)
+    rank = ranks(lab * g + gen, lab * g)
+    return torch.where(rank >= cap, torch.full_like(lab, n_lists),
+                       lab).to(torch.int32)
 
 
 def lut_scan_mem_ok(n_seg: int, seg: int, rot: int, pairs: int,

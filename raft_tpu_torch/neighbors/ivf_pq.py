@@ -18,9 +18,7 @@ another tier.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -30,18 +28,13 @@ from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_balanced import KMeansBalancedParams
 from raft_tpu_torch.core import ids as _ids
 from raft_tpu_torch.core.device import resolve_device, to_device
-from raft_tpu_torch.core.errors import expects
+from raft_tpu_torch.core.errors import expects, not_ported as _not_ported
 from raft_tpu_torch.distance.types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import select_k as _select_k
 from raft_tpu_torch.neighbors import ivf_common as ic
 from raft_tpu_torch.ops import kernels as _k
 from raft_tpu_torch.random.rng import RngState
 from raft_tpu_torch.utils import precision as _precision
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to raft_tpu_torch yet (ROADMAP {item})")
 
 
 @dataclasses.dataclass
@@ -324,28 +317,6 @@ def _encode_with_norms(x: torch.Tensor, rotation: torch.Tensor,
     return codes, norms
 
 
-class _Stages:
-    """Per-stage wall seconds of a build (synchronizing the card at each
-    stage boundary) when the caller passes a dict to fill."""
-
-    def __init__(self, out: Optional[Dict[str, float]], device):
-        self.out = out
-        self.cuda = device.type == "cuda"
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        if self.out is None:
-            yield
-            return
-        if self.cuda:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        yield
-        if self.cuda:
-            torch.cuda.synchronize()
-        self.out[name] = self.out.get(name, 0.0) + time.perf_counter() - t0
-
-
 def _want_recon_cache(params: IndexParams, n_lists: int, L: int,
                       rot_dim: int, device) -> bool:
     if params.cache_reconstruction in ("never", "always"):
@@ -374,7 +345,7 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
         raise _not_ported("spill=True", "A9")
     if not params.add_data_on_build:
         raise _not_ported("add_data_on_build=False (extend)", "A9")
-    stage = _Stages(stage_seconds, dev)
+    stage = ic.Stages(stage_seconds, dev)
 
     x = to_device(dataset, dev, torch.float32)
     n, dim = x.shape
@@ -558,34 +529,6 @@ def _search_lut_pallas(index: IvfPqIndex, queries: torch.Tensor, k: int,
     return out_vals, out_ids
 
 
-def _route_refined(index: IvfPqIndex, queries: torch.Tensor, k: int,
-                   params: SearchParams, dataset, device):
-    """``refine="f32_regen"``: scan k·refine_ratio candidates, then the
-    exact re-rank against the device-resident ``dataset``."""
-    from raft_tpu_torch.neighbors import refine as _refine
-
-    expects(params.refine == "f32_regen",
-            "unknown refine mode %r (supported: 'none', 'f32_regen')",
-            params.refine)
-    expects(dataset is not None,
-            "refine='f32_regen' needs search(..., dataset=...): the exact "
-            "rows to re-rank against")
-    if not (isinstance(dataset, torch.Tensor)
-            and dataset.device == index.device):
-        raise _not_ported("re-ranking against a host-resident dataset "
-                          "(tiered / host gather / provider tiers)", "A12")
-    expects(dataset.dim() == 2 and dataset.shape[1] == index.dim,
-            "refine dataset shape %s does not match the index dim %d",
-            tuple(dataset.shape), index.dim)
-    expects(params.refine_ratio >= 1.0, "refine_ratio must be >= 1 (got %s)",
-            params.refine_ratio)
-    k_cand = max(k, int(round(k * params.refine_ratio)))
-    scan_params = dataclasses.replace(params, refine="none")
-    _, i0 = search(index, queries, k_cand, scan_params, device=device)
-    return _refine.refine(dataset, queries, i0, k, metric=index.metric,
-                          device=device)
-
-
 def search(index: IvfPqIndex, queries, k: int,
            params: Optional[SearchParams] = None, filter_bitset=None,
            dataset=None, *, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -608,7 +551,10 @@ def search(index: IvfPqIndex, queries, k: int,
         params = dataclasses.replace(params, lut_dtype=resolve_lut_dtype(
             "auto", min(params.n_probes, index.n_lists), k))
     if params.refine != "none":
-        return _route_refined(index, q, k, params, dataset, device)
+        from raft_tpu_torch.neighbors import refine as _refine
+
+        return _refine.route_refined(search, index, q, k, params, dataset,
+                                     device)
     n_probes = min(params.n_probes, index.n_lists)
     B = q.shape[0]
     mode = params.scan_mode

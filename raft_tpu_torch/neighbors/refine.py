@@ -1,7 +1,8 @@
 """Refine — exact re-ranking of ANN candidate lists (counterpart of
 ``raft_tpu.neighbors.refine``: ``refine``, ``_refine_impl``,
 ``_refine_rows``, ``_fused_refine_wanted``, ``_refine_fused``,
-``_gather_keys_to_dists``).
+``_gather_keys_to_dists``), and ``route_refined``, the
+``refine="f32_regen"`` route shared by the IVF searches.
 
 Two tiers, chosen by shape as in the JAX package:
 
@@ -18,12 +19,13 @@ version. Filtered re-ranks are not ported (ROADMAP A6).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
 
 from raft_tpu_torch.core.device import resolve_device, to_device
-from raft_tpu_torch.core.errors import expects
+from raft_tpu_torch.core.errors import expects, not_ported
 from raft_tpu_torch.distance.types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import select_k as _select_k
 from raft_tpu_torch.neighbors import ivf_common as ic
@@ -119,8 +121,7 @@ def refine(dataset: torch.Tensor, queries, candidates, k: int,
     dev = resolve_device(device)
     _precision.enforce()
     if filter_bits is not None:
-        raise NotImplementedError("filtered refine is not ported to "
-                                  "raft_tpu_torch yet (ROADMAP A6)")
+        raise not_ported("filtered refine", "A6")
     dataset = to_device(dataset, dev)
     queries = to_device(queries, dev, torch.float32)
     candidates = to_device(candidates, dev)
@@ -132,3 +133,30 @@ def refine(dataset: torch.Tensor, queries, candidates, k: int,
     if _fused_refine_wanted(dataset, queries, candidates, k):
         return _refine_fused(dataset, queries, candidates, k, mt)
     return _refine_impl(dataset, queries, candidates, k, mt.value)
+
+
+def route_refined(search, index, queries: torch.Tensor, k: int, params,
+                  dataset, device):
+    """``refine="f32_regen"`` of an IVF index: ``search`` (the index's own,
+    with ``refine="none"``) scans k·refine_ratio candidates, then the exact
+    re-rank against the device-resident ``dataset``."""
+    expects(params.refine == "f32_regen",
+            "unknown refine mode %r (supported: 'none', 'f32_regen')",
+            params.refine)
+    expects(dataset is not None,
+            "refine='f32_regen' needs search(..., dataset=...): the exact "
+            "rows to re-rank against")
+    if not (isinstance(dataset, torch.Tensor)
+            and dataset.device == index.device):
+        raise not_ported("re-ranking against a host-resident dataset "
+                         "(tiered / host gather / provider tiers)", "A12")
+    expects(dataset.dim() == 2 and dataset.shape[1] == index.dim,
+            "refine dataset shape %s does not match the index dim %d",
+            tuple(dataset.shape), index.dim)
+    expects(params.refine_ratio >= 1.0, "refine_ratio must be >= 1 (got %s)",
+            params.refine_ratio)
+    k_cand = max(k, int(round(k * params.refine_ratio)))
+    scan_params = dataclasses.replace(params, refine="none")
+    _, i0 = search(index, queries, k_cand, scan_params, device=device)
+    return refine(dataset, queries, i0, k, metric=index.metric,
+                  device=device)

@@ -26,7 +26,8 @@ from typing import Dict
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("fused_l2_argmin", "select_k", "ivfpq_lut_scan", "gather_refine")
+SOURCES = ("fused_l2_argmin", "select_k", "ivfpq_lut_scan", "gather_refine",
+           "segmented_scan", "grouped_scan")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 
@@ -105,7 +106,8 @@ def _find_nvcc() -> str:
 
 def _source_hash(name: str) -> str:
     h = hashlib.sha256()
-    for fn in (f"{name}.cu", "topk_common.cuh"):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fn in (f"{name}.cu", *headers):
         with open(os.path.join(CSRC, fn), "rb") as f:
             h.update(f.read())
     h.update(" ".join(ARCH_FLAGS).encode())
@@ -135,6 +137,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "gather_refine": {
             "rtt_gather_refine_topk": [_P, _L, _I, _P, _P, _I, _I, _I, _I,
                                        _P, _P, _P]},
+        "segmented_scan": {
+            "rtt_segmented_scan_topk": [_P] * 7 + [_I] * 6 + [_P]},
+        "grouped_scan": {
+            "rtt_grouped_scan_topk": [_P] * 7 + [_I] * 7 + [_P]},
     }[name]
     for fn, argtypes in sigs.items():
         f = getattr(lib, fn)

@@ -1,5 +1,5 @@
-// Warp-cooperative sorted top-k buffers (k <= 64) shared by the select_k
-// and gather_refine kernels.
+// Warp-cooperative sorted top-k buffers (k <= 64) shared by the select_k,
+// gather_refine and grouped_scan kernels.
 //
 // A buffer is a sorted run of (value, position) pairs in shared memory.
 // Order is lexicographic on (value, position): the smaller value wins, and
@@ -58,6 +58,28 @@ __device__ __forceinline__ int warp_insert(float* sv, int* si, int cnt, int k,
   return nc;
 }
 
+// One 32-wide chunk offered to the sorted buffer (sv, si) of `cnt` entries:
+// lane l offers (v, pos) when `in`; the entries that beat the buffer's
+// last one (or fill it) are inserted. Every lane of the warp calls it.
+// Returns the new count.
+__device__ __forceinline__ int warp_offer(float v, int pos, bool in, int k,
+                                          float* sv, int* si, int cnt, int lane) {
+  __syncwarp();
+  const bool full = cnt == k;
+  const float tv = full ? sv[k - 1] : CUDART_INF_F;
+  const int ti = full ? si[k - 1] : 0x7fffffff;
+  const bool pred = in && (!full || key_less(v, pos, tv, ti));
+  unsigned m = __ballot_sync(kFullMask, pred);
+  while (m) {
+    const int src_lane = __ffs(m) - 1;
+    m &= m - 1;
+    const float vv = __shfl_sync(kFullMask, v, src_lane);
+    const int pp = __shfl_sync(kFullMask, pos, src_lane);
+    cnt = warp_insert(sv, si, cnt, k, vv, pp, lane);
+  }
+  return cnt;
+}
+
 // One warp scans src[pos] for pos = first, first + stride, ... (stride a
 // multiple of 32, lane-strided inside each 32-wide chunk) and keeps the k
 // smallest of sign * src[pos] in (sv, si). Returns the count kept.
@@ -69,18 +91,7 @@ __device__ __forceinline__ int warp_scan_topk(const float* src, int len, int k,
     const int pos = base + lane;
     const bool in = pos < len;
     const float v = in ? sign * src[pos] : 0.f;
-    __syncwarp();
-    const bool full = cnt == k;
-    const float tv = full ? sv[k - 1] : CUDART_INF_F;
-    const int ti = full ? si[k - 1] : 0x7fffffff;
-    const bool pred = in && (!full || key_less(v, pos, tv, ti));
-    unsigned m = __ballot_sync(kFullMask, pred);
-    while (m) {
-      const int src_lane = __ffs(m) - 1;
-      m &= m - 1;
-      const float vv = __shfl_sync(kFullMask, v, src_lane);
-      cnt = warp_insert(sv, si, cnt, k, vv, base + src_lane, lane);
-    }
+    cnt = warp_offer(v, pos, in, k, sv, si, cnt, lane);
   }
   return cnt;
 }

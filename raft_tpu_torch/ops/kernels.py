@@ -1,4 +1,4 @@
-"""The port's four hand-written Hopper kernels, their wrappers and their
+"""The port's six hand-written Hopper kernels, their wrappers and their
 plain PyTorch versions — the counterpart of
 ``raft_tpu/ops/pallas_kernels.py``.
 
@@ -8,6 +8,8 @@ plain PyTorch versions — the counterpart of
 | ``select_k_cuda``       | ``select_k_pallas`` l.1317                | csrc/select_k.cu          |
 | ``ivfpq_lut_scan_topk`` | ``ivfpq_lut_scan_topk`` l.807             | csrc/ivfpq_lut_scan.cu    |
 | ``gather_refine_topk``  | ``gather_refine_topk`` l.1176             | csrc/gather_refine.cu     |
+| ``segmented_scan_topk`` | ``segmented_scan_topk`` l.397             | csrc/segmented_scan.cu    |
+| ``grouped_scan_topk``   | ``grouped_scan_topk`` l.281               | csrc/grouped_scan.cu      |
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, and then:
@@ -423,11 +425,213 @@ def gather_refine_topk(dataset: torch.Tensor, queries: torch.Tensor,
 gather_refine_topk.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# IVF list scans over raw (or reconstructed) vectors: segmented and grouped
+# ---------------------------------------------------------------------------
+
+_SCAN_METRICS = _REFINE_METRICS
+# The largest segment the scan kernels take (their live-slot table).
+SCAN_MAX_SEGMENT = 1024
+
+
+def _scan_args(seg_list, seg_q, q, packed, ids, metric):
+    _check(seg_list, "seg_list", torch.int32, 1)
+    _check(seg_q, "seg_q", torch.int32, 2)
+    _check(q, "q", torch.float32, 2)
+    expects(packed.dtype in (torch.float32, torch.bfloat16),
+            "packed must be float32 or bfloat16 (got %s)", packed.dtype)
+    _check(packed, "packed", packed.dtype, 3)
+    _check(ids, "ids", torch.int32, 2)
+    expects(metric in _SCAN_METRICS, "metric must be l2, ip or cos (got %s)",
+            metric)
+    n_seg, S = seg_q.shape
+    n_lists, L, d = packed.shape
+    expects(seg_list.shape[0] == n_seg, "seg_q/seg_list segment counts differ")
+    expects(tuple(ids.shape) == (n_lists, L), "ids must be [n_lists, L]")
+    expects(q.shape[1] == d, "queries are %d-d, lists %d-d", q.shape[1], d)
+    expects(S <= SCAN_MAX_SEGMENT, "segment of %d slots > %d", S,
+            SCAN_MAX_SEGMENT)
+    return n_seg, S, d, L
+
+
+def _scan_keys(si, seg_list, seg_q, q, packed, ids, metric: str):
+    """Keys of the segments ``si`` against their whole lists: [c, S, L]
+    (minimized: l2 squared distance, ip −score, cos distance; +inf where
+    the id is < 0), with the lists' ids [c, L]. Pad slots compute against
+    query 0 and are masked by the callers."""
+    lst = seg_list[si].long()
+    data = packed[lst].float()                             # [c, L, d]
+    qv = q[seg_q[si].clamp_min(0).long()]                  # [c, S, d]
+    s = torch.bmm(qv, data.transpose(1, 2))                # [c, S, L]
+    if metric == "ip":
+        key = -s
+    else:
+        qsq = (qv * qv).sum(-1)
+        nsq = (data * data).sum(-1)
+        if metric == "cos":
+            key = 1.0 - (s * torch.rsqrt(qsq.clamp_min(1e-30))[..., None]
+                         * torch.rsqrt(nsq.clamp_min(1e-30))[:, None, :])
+        else:
+            key = (qsq[..., None] + nsq[:, None, :] - 2.0 * s).clamp_min(0.0)
+    cid = ids[lst]
+    key = torch.where(cid[:, None, :] >= 0, key,
+                      torch.full_like(key, float("inf")))
+    return key, cid
+
+
+# Live segments the plain scans take at a time: bounds their [chunk, S, L]
+# key block.
+_PLAIN_SEG_CHUNK = 32
+
+
+def _live_segments(seg_q: torch.Tensor) -> torch.Tensor:
+    return torch.nonzero((seg_q >= 0).any(1)).flatten()
+
+
+def segmented_scan_topk_plain(seg_list, seg_q, q, packed, ids,
+                              metric: str = "l2"):
+    """Plain version: per live segment the keys of its queries against its
+    list, padded to a multiple of 128 with +inf, then the two best of each
+    strided bin (position mod 128) by a stable sort — the (key, position)
+    order of the TPU kernel's first-index argmin picks."""
+    n_seg, S = seg_q.shape
+    L = packed.shape[1]
+    dev = q.device
+    keys = torch.full((n_seg, S, LUT_SCAN_BINS), float("inf"),
+                      dtype=torch.float32, device=dev)
+    kids = torch.full((n_seg, S, LUT_SCAN_BINS), -1, dtype=torch.int32,
+                      device=dev)
+    n_t = -(-L // LUT_SCAN_LANES)
+    Lp = n_t * LUT_SCAN_LANES
+    live_seg = _live_segments(seg_q)
+    for a in range(0, live_seg.numel(), _PLAIN_SEG_CHUNK):
+        si = live_seg[a:a + _PLAIN_SEG_CHUNK]
+        c = si.numel()
+        key, cid = _scan_keys(si, seg_list, seg_q, q, packed, ids, metric)
+        if Lp > L:
+            key = torch.nn.functional.pad(key, (0, Lp - L), value=float("inf"))
+            cid = torch.nn.functional.pad(cid, (0, Lp - L), value=-1)
+        sk, order = torch.sort(key.view(c, S, n_t, LUT_SCAN_LANES), dim=2,
+                               stable=True)
+        ib = torch.gather(cid.view(c, 1, n_t, LUT_SCAN_LANES).expand(
+            c, S, n_t, LUT_SCAN_LANES), 2, order)
+        if n_t == 1:
+            sk = torch.cat([sk, torch.full_like(sk, float("inf"))], 2)
+            ib = torch.cat([ib, torch.full_like(ib, -1)], 2)
+        k2 = sk[:, :, :2].reshape(c, S, LUT_SCAN_BINS)
+        i2 = ib[:, :, :2].reshape(c, S, LUT_SCAN_BINS)
+        live = (seg_q[si] >= 0)[..., None]
+        keys[si] = torch.where(live, k2, torch.full_like(k2, float("inf")))
+        kids[si] = torch.where(live & ~torch.isinf(k2), i2,
+                               torch.full_like(i2, -1))
+    return keys, kids
+
+
+def segmented_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
+                        q: torch.Tensor, packed: torch.Tensor,
+                        ids: torch.Tensor, metric: str = "l2"
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Segmented IVF scan with two best per strided bin.
+
+    seg_list [n_seg] i32 — the list each segment scans; seg_q [n_seg, S]
+    i32 — query per slot, −1 pad; q [B, d] f32 queries; packed [n_lists,
+    L, d] f32 or bf16 list data (bf16 is widened to f32); ids [n_lists,
+    L] i32 global ids, −1 pad. Returns (keys, ids) [n_seg, S, 256]: per
+    live slot, minimized keys (l2 ‖q‖² + ‖x‖² − 2⟨q,x⟩ clamped at 0, ip
+    −⟨q,x⟩, cos 1 − ⟨q,x⟩/(‖q‖‖x‖)) and global ids; column b holds bin
+    b's best (bin = position mod 128), column 128 + b its second best, in
+    (key, position) order; the id is −1 where the key is +inf. Pad slots
+    hold (+inf, −1): the TPU kernel computed them against query 0, which
+    no caller can observe (``merge_bin_results`` reads live pairs only).
+    Unlike the TPU kernel, which took the gathered ``[n_seg, S, d]``
+    queries, this one takes ``q`` and ``seg_q`` and gathers on chip."""
+    n_seg, S, d, L = _scan_args(seg_list, seg_q, q, packed, ids, metric)
+    if not _use_kernel(seg_list, seg_q, q, packed, ids):
+        return segmented_scan_topk_plain(seg_list, seg_q, q, packed, ids,
+                                         metric)
+    keys = torch.empty((n_seg, S, LUT_SCAN_BINS), dtype=torch.float32,
+                       device=q.device)
+    kids = torch.empty((n_seg, S, LUT_SCAN_BINS), dtype=torch.int32,
+                       device=q.device)
+    rc = _lib("segmented_scan").rtt_segmented_scan_topk(
+        _ptr(seg_list), _ptr(seg_q), _ptr(q), _ptr(packed), _ptr(ids),
+        _ptr(keys), _ptr(kids), n_seg, S, d, L,
+        int(packed.dtype == torch.bfloat16), _SCAN_METRICS[metric], _stream())
+    segmented_scan_topk.launches += 1
+    _raise_on(rc, "segmented_scan_topk")
+    return keys, kids
+
+
+segmented_scan_topk.launches = 0
+
+GROUPED_SCAN_MAX_KK = 64
+
+
+def grouped_scan_topk_plain(seg_list, seg_q, q, packed, ids, kk: int,
+                            metric: str = "l2"):
+    """Plain version: per live segment the keys of its queries against its
+    list, then a stable sort — ties to the lowest position, as the TPU
+    kernel's first-index argmin extraction gives."""
+    n_seg, S = seg_q.shape
+    L = packed.shape[1]
+    dev = q.device
+    keys = torch.full((n_seg, S, kk), float("inf"), dtype=torch.float32,
+                      device=dev)
+    pos = torch.full((n_seg, S, kk), -1, dtype=torch.int32, device=dev)
+    live_seg = _live_segments(seg_q)
+    for a in range(0, live_seg.numel(), _PLAIN_SEG_CHUNK):
+        si = live_seg[a:a + _PLAIN_SEG_CHUNK]
+        key, _ = _scan_keys(si, seg_list, seg_q, q, packed, ids, metric)
+        if kk > L:
+            key = torch.nn.functional.pad(key, (0, kk - L), value=float("inf"))
+        sk, order = torch.sort(key, dim=2, stable=True)
+        sk, order = sk[..., :kk], order[..., :kk].to(torch.int32)
+        live = (seg_q[si] >= 0)[..., None]
+        keys[si] = torch.where(live, sk, torch.full_like(sk, float("inf")))
+        pos[si] = torch.where(live & ~torch.isinf(sk), order,
+                              torch.full_like(order, -1))
+    return keys, pos
+
+
+def grouped_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
+                      q: torch.Tensor, packed: torch.Tensor,
+                      ids: torch.Tensor, kk: int, metric: str = "l2"
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grouped IVF scan with an exact per-slot top-kk (1 ≤ kk ≤ 64).
+
+    Same operands as :func:`segmented_scan_topk`; slots whose id is < 0
+    are masked (+inf). Returns (keys [n_seg, S, kk], positions [n_seg,
+    S, kk] i32): minimized keys sorted ascending with ties to the lowest
+    position, and in-list positions, −1 where the key is +inf. Pad slots
+    hold (+inf, −1). The list block is read straight out of
+    ``packed[seg_list[s]]``: there is no gathered ``[C, L, d]`` copy."""
+    n_seg, S, d, L = _scan_args(seg_list, seg_q, q, packed, ids, metric)
+    expects(0 < kk <= GROUPED_SCAN_MAX_KK, "kk=%d outside (0, %d]", kk,
+            GROUPED_SCAN_MAX_KK)
+    if not _use_kernel(seg_list, seg_q, q, packed, ids):
+        return grouped_scan_topk_plain(seg_list, seg_q, q, packed, ids, kk,
+                                       metric)
+    keys = torch.empty((n_seg, S, kk), dtype=torch.float32, device=q.device)
+    pos = torch.empty((n_seg, S, kk), dtype=torch.int32, device=q.device)
+    rc = _lib("grouped_scan").rtt_grouped_scan_topk(
+        _ptr(seg_list), _ptr(seg_q), _ptr(q), _ptr(packed), _ptr(ids),
+        _ptr(keys), _ptr(pos), n_seg, S, d, L, kk,
+        int(packed.dtype == torch.bfloat16), _SCAN_METRICS[metric], _stream())
+    grouped_scan_topk.launches += 1
+    _raise_on(rc, "grouped_scan_topk")
+    return keys, pos
+
+
+grouped_scan_topk.launches = 0
+
+
 KERNELS = {
     "fused_l2_argmin": fused_l2_argmin,
     "select_k": select_k_cuda,
     "ivfpq_lut_scan_topk": ivfpq_lut_scan_topk,
     "gather_refine_topk": gather_refine_topk,
+    "segmented_scan_topk": segmented_scan_topk,
+    "grouped_scan_topk": grouped_scan_topk,
 }
 
 

@@ -9,7 +9,10 @@ toolkit::
 
 Tolerances: select_k exact; fused_l2_argmin distances rtol 1e-5, atol
 1e-4; LUT scan keys rtol 1e-4, atol 1e-3 with ids equal away from key
-ties; gather-refine keys rtol 1e-5 with ids equal away from key ties.
+ties; gather-refine keys rtol 1e-5 with ids equal away from key ties;
+segmented and grouped scans keys within 1e-4 + 1e-5·(|key| + ‖q‖²) (the
+expanded l2 form cancels ‖q‖² + ‖x‖²), the same finite/infinite pattern,
+ids or positions equal away from key ties, sentinels on pad slots.
 """
 
 from __future__ import annotations
@@ -20,9 +23,10 @@ import torch
 
 from raft_tpu_torch.ops import kernels as K
 
-from torch_parity import (SCAN_OPERANDS, assert_bins_match, cuda_device,
-                          refine_case, scan_case, scan_reference_keys,
-                          tied_scores)
+from torch_parity import (SCAN_OPERANDS, assert_bins_match,
+                          assert_scan_match, cuda_device, flat_scan_case,
+                          flat_scan_operands, refine_case, scan_case,
+                          scan_reference_keys, tied_scores)
 
 pytestmark = pytest.mark.cuda
 
@@ -35,6 +39,35 @@ def test_cuda_select_k_matches_plain():
             v, i = K.select_k_cuda(s, k, select_min)
             pv, pi = K.select_k_plain(s, k, select_min)
             assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+# (rows, len, k, +inf share): the IVF-Flat path's short rows — bin rows of
+# 256 that are mostly +inf, a merge's [B, P·kk] rows, predict_topk's Gram
+# rows — and short rows at k up to 64 (the kernel wrapper itself)
+SHORT_ROWS = [(5000, 256, 10, 0.7), (700, 256, 64, 0.9), (37, 320, 10, 0.1),
+              (300, 1024, 6, 0.0), (1, 1024, 16, 0.0), (300, 1024, 64, 0.0),
+              (9, 64, 64, 0.5)]
+
+
+@pytest.mark.parametrize("m,n,k,inf_share", SHORT_ROWS)
+def test_cuda_select_k_short_rows_match_plain(m, n, k, inf_share):
+    """The kernel on short rows gives the stable sort's values and
+    positions, +inf ties included; matrix.select_k launches it there for
+    k ≤ 16."""
+    from raft_tpu_torch.matrix.select_k import select_k
+
+    dev = cuda_device()
+    s = tied_scores(m, n, seed=n + k)
+    s[np.random.default_rng(k).random((m, n)) < inf_share] = np.inf
+    s = torch.tensor(s).to(dev)
+    for select_min in (True, False):
+        v, i = K.select_k_cuda(s, k, select_min)
+        pv, pi = K.select_k_plain(s, k, select_min)
+        assert torch.equal(v, pv) and torch.equal(i, pi)
+        K.reset_launch_counts()
+        v, i = select_k(s, k, select_min)
+        assert K.launch_counts()["select_k"] == int(k <= 16)
+        assert torch.equal(v, pv) and torch.equal(i, pi)
 
 
 def test_cuda_fused_l2_argmin_matches_plain():
@@ -94,11 +127,49 @@ def test_cuda_gather_refine_matches_plain(metric, k):
     assert bool((i[0, 4:] == -1).all())
 
 
+# (d, L, bf16 list data): every d of {16, 96, 128, 960} and L of {96, 300,
+# 1536}, both list dtypes; each case holds empty trailing segments
+FLAT_CASES = [(16, 96, False), (96, 300, True), (128, 1536, False),
+              (960, 300, False), (960, 1536, True), (128, 96, True)]
+
+
+@pytest.mark.parametrize("d,L,bf16", FLAT_CASES)
+def test_cuda_segmented_scan_matches_plain(d, L, bf16):
+    dev = cuda_device()
+    c = flat_scan_case(L, d, bf16)
+    args = flat_scan_operands(c, dev)
+    for metric in ("l2", "ip", "cos"):
+        tk, ti = K.segmented_scan_topk(*args, metric)
+        pk, pi = K.segmented_scan_topk_plain(*args, metric)
+        assert tk.shape == (len(c["seg_list"]), c["seg_q"].shape[1], 256)
+        assert_scan_match(tk.cpu(), ti.cpu(), pk.cpu(), pi.cpu(), c, metric,
+                          "ids", rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("d,L,bf16", FLAT_CASES)
+def test_cuda_grouped_scan_matches_plain(d, L, bf16):
+    dev = cuda_device()
+    c = flat_scan_case(L, d, bf16, seed=1)
+    args = flat_scan_operands(c, dev)
+    for metric in ("l2", "ip", "cos"):
+        for kk in (1, 10, 64):
+            tk, tp = K.grouped_scan_topk(*args, kk, metric)
+            pk, pp = K.grouped_scan_topk_plain(*args, kk, metric)
+            assert tk.shape == (len(c["seg_list"]), c["seg_q"].shape[1], kk)
+            assert_scan_match(tk.cpu(), tp.cpu(), pk.cpu(), pp.cpu(), c,
+                              metric, "pos", rtol=1e-5, atol=1e-4)
+
+
 def test_cuda_launch_counts_move():
     dev = cuda_device()
     K.reset_launch_counts()
     s = torch.tensor(tied_scores(4, 9000, seed=1)).to(dev)
     K.select_k_cuda(s, 8)
     K.fused_l2_argmin(s[:, :64].contiguous(), s[:2, :64].contiguous())
+    args = flat_scan_operands(flat_scan_case(96, 16), dev)
+    K.segmented_scan_topk(*args)
+    K.grouped_scan_topk(*args, 10)
     counts = K.launch_counts()
     assert counts["select_k"] == 1 and counts["fused_l2_argmin"] == 1
+    assert counts["segmented_scan_topk"] == 1
+    assert counts["grouped_scan_topk"] == 1

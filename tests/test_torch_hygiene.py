@@ -57,13 +57,14 @@ def test_port_sources_name_no_jax_module():
 
 def test_entry_points_refuse_cpu_by_default(monkeypatch):
     from raft_tpu_torch.bench.dataset import DeviceSynthetic
-    from raft_tpu_torch.neighbors import brute_force, ivf_pq, refine
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, refine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = torch.zeros((64, 8))
     cand = torch.zeros((4, 8), dtype=torch.int32)
     calls = [
         lambda: ivf_pq.build(x, ivf_pq.IndexParams(n_lists=2)),
+        lambda: ivf_flat.build(x, ivf_flat.IndexParams(n_lists=2)),
         lambda: refine.refine(x, x[:4], cand, 2),
         lambda: brute_force.knn(x, x[:4], 2),
         lambda: DeviceSynthetic(10, 4, n_centers=2),
@@ -75,6 +76,13 @@ def test_entry_points_refuse_cpu_by_default(monkeypatch):
         n_lists=4, pq_dim=4, cache_reconstruction="never"), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ivf_pq.search(index, x[:4], 2)
+    flat = ivf_flat.build(torch.randn(600, 8), ivf_flat.IndexParams(
+        n_lists=4, kmeans_n_iters=2), device="cpu")
+    for arrays in (ivf_flat.to_numpy(flat),):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ivf_flat.from_numpy(*arrays)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ivf_flat.search(flat, x[:4], 2)
 
 
 def test_wrappers_take_no_other_device():
@@ -106,6 +114,11 @@ def test_cpu_runs_count_no_launch():
     x = torch.tensor(rng.standard_normal((50, 8)).astype(np.float32))
     K.fused_l2_argmin(x, x[:5])
     K.select_k_cuda(x, 4)
+    seg_list = torch.zeros(1, dtype=torch.int32)
+    seg_q = torch.tensor([[0, 1, -1]], dtype=torch.int32)
+    ids = torch.arange(20, dtype=torch.int32).view(2, 10)
+    K.segmented_scan_topk(seg_list, seg_q, x[:2], x[:20].view(2, 10, 8), ids)
+    K.grouped_scan_topk(seg_list, seg_q, x[:2], x[:20].view(2, 10, 8), ids, 4)
     assert K.launch_counts() == {name: 0 for name in K.KERNELS}
 
 

@@ -1,4 +1,4 @@
-"""The port's four kernels: each plain PyTorch version against its Pallas
+"""The port's six kernels: each plain PyTorch version against its Pallas
 kernel (interpret mode on the CPU), on the same seeded numpy inputs. The
 CUDA kernels themselves are held against these plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
@@ -11,7 +11,10 @@ Tolerances (f32 throughout; the two sides sum in different orders):
   on rows whose best two distances are within 1e-5 relative;
 - LUT scan: keys rtol 1e-4, atol 1e-3; ids equal wherever the key gap to
   the bin's neighbouring rank exceeds that tolerance;
-- gather-refine: keys rtol 1e-5; ids equal.
+- gather-refine: keys rtol 1e-5; ids equal;
+- segmented and grouped scans: live slots' keys rtol = atol = 1e-4 (rtol
+  also scaled by ‖q‖², which the expanded l2 form cancels), ids or
+  positions equal wherever the key is finite and not tied.
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ from raft_tpu.ops import pallas_kernels as pk
 from raft_tpu_torch.neighbors import ivf_common as tic
 from raft_tpu_torch.ops import kernels as K
 
-from torch_parity import (assert_bins_match, refine_case, scan_case,
-                          scan_reference_keys, tied_scores)
+from torch_parity import (assert_bins_match, assert_scan_match,
+                          flat_scan_case, flat_scan_operands, refine_case,
+                          scan_case, scan_reference_keys, tied_scores)
 
 
 def _t(a):
@@ -49,7 +53,8 @@ def test_select_k_plain_matches_pallas(k, select_min):
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
 
 
-@pytest.mark.parametrize("n,k", [(9000, 16), (300, 100), (70000, 80)])
+@pytest.mark.parametrize("n,k", [(9000, 16), (300, 100), (70000, 80),
+                                 (256, 10), (1024, 64)])
 def test_select_k_dispatch_matches_jax(n, k):
     """matrix.select_k's tiers (kernel, sort, tiled) against the JAX
     package's select_k, ties included, with input_indices."""
@@ -194,3 +199,97 @@ def test_segment_probes_matches_jax():
         t = tic.segment_probes(_t(probes), n_lists, 128, n_seg)
         for a, b in zip(t, j):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+# ---------------------------------------------------------------------------
+# segmented and grouped list scans (IVF-Flat)
+# ---------------------------------------------------------------------------
+
+def _jax_scan_inputs(c):
+    """The JAX kernels' operands: gathered per-segment queries (pad slots
+    repeat query 0) and the list data in its own dtype."""
+    qv = c["q"][np.clip(c["seg_q"], 0, None)]
+    packed = jnp.asarray(c["packed"])
+    if c["bf16"]:
+        packed = packed.astype(jnp.bfloat16)
+    return jnp.asarray(qv), packed
+
+
+# every metric, L of {1408, 300 (not a multiple of 128), 96 (< 128)}, d of
+# {16, 64}, both list dtypes — not their full product (interpret-mode cost)
+SEGK_CASES = [("l2", 1408, 64, False), ("l2", 300, 16, True),
+              ("l2", 96, 16, False), ("ip", 1408, 16, True),
+              ("ip", 300, 64, False), ("ip", 96, 64, True),
+              ("cos", 1408, 64, True), ("cos", 300, 16, False),
+              ("cos", 96, 64, False)]
+
+
+@pytest.mark.parametrize("metric,L,d,bf16", SEGK_CASES)
+def test_segmented_scan_plain_matches_pallas(metric, L, d, bf16):
+    c = flat_scan_case(L, d, bf16)
+    qv, packed = _jax_scan_inputs(c)
+    jk, ji = pk.segmented_scan_topk(jnp.asarray(c["seg_list"]), qv, packed,
+                                    jnp.asarray(c["ids"]), metric,
+                                    interpret=True)
+    tk, ti = K.segmented_scan_topk(*flat_scan_operands(c), metric)
+    assert tk.shape == jk.shape and ti.dtype == torch.int32
+    assert_scan_match(tk.numpy(), ti.numpy(), np.asarray(jk), np.asarray(ji),
+                      c, metric, "ids")
+
+
+@pytest.mark.parametrize("kk", [1, 10, 64])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+def test_grouped_scan_plain_matches_pallas(metric, kk):
+    L, d, bf16 = {1: (96, 16, False), 10: (300, 64, True),
+                  64: (1408, 16, False)}[kk]
+    c = flat_scan_case(L, d, bf16, seed=kk)
+    qv, packed = _jax_scan_inputs(c)
+    G = c["seg_list"]
+    mask = np.where(c["ids"] >= 0, 0.0, np.inf).astype(np.float32)[G]
+    jk, jp = pk.grouped_scan_topk(qv, packed[G], jnp.asarray(mask), kk,
+                                  metric, bq=qv.shape[1], interpret=True)
+    tk, tp = K.grouped_scan_topk(*flat_scan_operands(c), kk, metric)
+    assert tk.shape == jk.shape and tp.dtype == torch.int32
+    assert_scan_match(tk.numpy(), tp.numpy(), np.asarray(jk), np.asarray(jp),
+                      c, metric, "pos")
+
+
+def test_scan_wrappers_check_their_operands():
+    args = flat_scan_operands(flat_scan_case(96, 16))
+    with pytest.raises(Exception, match="outside"):
+        K.grouped_scan_topk(*args, 65)
+    with pytest.raises(Exception, match="metric"):
+        K.segmented_scan_topk(*args, "l1")
+    with pytest.raises(Exception, match="float32 or bfloat16"):
+        K.segmented_scan_topk(*args[:3], args[3].double(), args[4])
+
+
+@pytest.mark.parametrize("k,n_probes", [(10, 3), (300, 1)])
+@pytest.mark.parametrize("select_min", [True, False])
+def test_merge_bin_results_matches_jax(k, n_probes, select_min):
+    """The per-pair bin merge, including k > n_probes·kk (padding). Keys
+    come from a scan of random data, so they hold no exact ties: the JAX
+    package's per-slot ``lax.approx_min_k`` orders tied keys as it likes
+    on the CPU, the port by the lowest bin."""
+    c = flat_scan_case(300, 16, seed=3, n_probes=n_probes)
+    B = c["q"].shape[0]
+    probes = np.stack([np.random.default_rng(b).choice(6, n_probes,
+                                                       replace=False)
+                       for b in range(B)]).astype(np.int32)
+    n_seg = tic.n_segments(B * n_probes, 6, 16)
+    sl, sq, ps, pl = tic.segment_probes(torch.tensor(probes), 6, 16, n_seg)
+    c.update(seg_list=sl.numpy(), seg_q=sq.numpy())
+    keys, kids = K.segmented_scan_topk(*flat_scan_operands(c),
+                                       "l2" if select_min else "ip")
+    invalid = float("inf") if select_min else float("-inf")
+    jv, ji = jic.merge_bin_results(jnp.asarray(keys.numpy()),
+                                   jnp.asarray(kids.numpy()),
+                                   jnp.asarray(ps.numpy()),
+                                   jnp.asarray(pl.numpy()), k, select_min,
+                                   invalid, 0.95)
+    tv, ti = tic.merge_bin_results(keys, kids, ps, pl, k, select_min,
+                                   invalid)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    if k > n_probes * 256:
+        assert (ti.numpy()[:, n_probes * 256:] == -1).all()

@@ -40,6 +40,27 @@ def jax_index_from_arrays(arrays, meta):
         pq_bits=int(meta["pq_bits"]), pq_dim_static=int(meta["pq_dim"]))
 
 
+FLAT_FIELDS = ("centers", "packed_data", "packed_ids", "packed_norms",
+               "list_sizes")
+
+
+def jax_flat_arrays(index):
+    """A raft_tpu ``IvfFlatIndex`` → (arrays, meta) for
+    ``ivf_flat.from_numpy``."""
+    return ({name: np.asarray(getattr(index, name)) for name in FLAT_FIELDS},
+            {"metric": index.metric})
+
+
+def jax_flat_from_arrays(arrays, meta):
+    """(arrays, meta) → a raft_tpu ``IvfFlatIndex``."""
+    import jax.numpy as jnp
+    from raft_tpu.neighbors import ivf_flat as jfl
+
+    return jfl.IvfFlatIndex(
+        **{name: jnp.asarray(arrays[name]) for name in FLAT_FIELDS},
+        metric=meta["metric"])
+
+
 def overlap(a, b) -> float:
     """Mean per-row fraction of shared ids."""
     a, b = np.asarray(a), np.asarray(b)
@@ -147,6 +168,98 @@ def assert_bins_match(tk, ti, jk, ji, ref, rtol: float, atol: float):
                 near = [abs(kb[r] - kb[o]) <= tol for o in (r - 1, r + 1)
                         if 0 <= o < 3 and np.isfinite(kb[o])]
                 assert any(near), (s, j, b, r, kb)
+
+
+def flat_scan_case(L: int, d: int, bf16: bool = False, seed: int = 0,
+                   n_lists: int = 6, B: int = 40, n_probes: int = 3,
+                   seg: int = 16):
+    """Raw-vector list blocks, ids (10 % invalid, one list with an invalid
+    tail), queries and their segment table (its trailing segments are
+    empty: ``n_segments`` is an upper bound). bf16 list data is returned
+    already rounded, as float32 numpy."""
+    from raft_tpu_torch.neighbors import ivf_common as tic
+
+    rng = np.random.default_rng(seed * 1000 + L + d)
+    packed = rng.standard_normal((n_lists, L, d)).astype(np.float32)
+    if bf16:
+        packed = torch.tensor(packed).to(torch.bfloat16).float().numpy()
+    ids = rng.permutation(n_lists * L).reshape(n_lists, L).astype(np.int32)
+    ids[rng.random((n_lists, L)) < 0.1] = -1
+    ids[1, L // 2:] = -1
+    q = rng.standard_normal((B, d)).astype(np.float32)
+    probes = np.stack([rng.choice(n_lists, n_probes, replace=False)
+                       for _ in range(B)]).astype(np.int32)
+    n_seg = tic.n_segments(B * n_probes, n_lists, seg)
+    seg_list, seg_q, _, _ = tic.segment_probes(torch.tensor(probes), n_lists,
+                                               seg, n_seg)
+    return dict(seg_list=seg_list.numpy(), seg_q=seg_q.numpy(), q=q,
+                packed=packed, ids=ids, bf16=bf16)
+
+
+def flat_scan_operands(c, device="cpu"):
+    """The scan kernels' operands of a :func:`flat_scan_case` as tensors."""
+    packed = torch.tensor(c["packed"])
+    if c["bf16"]:
+        packed = packed.to(torch.bfloat16)
+    return [torch.tensor(c["seg_list"]).to(device),
+            torch.tensor(c["seg_q"]).to(device),
+            torch.tensor(c["q"]).to(device), packed.to(device),
+            torch.tensor(c["ids"]).to(device)]
+
+
+def flat_keys64(c, metric: str):
+    """f64 keys of every (live slot, list position) of a flat scan case:
+    {(s, j): [L]}, +inf where the id is < 0."""
+    out = {}
+    for s, j in zip(*np.nonzero(c["seg_q"] >= 0)):
+        x = c["packed"][c["seg_list"][s]].astype(np.float64)
+        qv = c["q"][c["seg_q"][s, j]].astype(np.float64)
+        dot = x @ qv
+        if metric == "ip":
+            key = -dot
+        elif metric == "cos":
+            key = 1.0 - dot / (np.sqrt(max(qv @ qv, 1e-30))
+                               * np.sqrt(np.maximum((x * x).sum(1), 1e-30)))
+        else:
+            key = np.maximum(qv @ qv + (x * x).sum(1) - 2.0 * dot, 0.0)
+        out[(s, j)] = np.where(c["ids"][c["seg_list"][s]] >= 0, key, np.inf)
+    return out
+
+
+def assert_scan_match(tk, ti, rk, ri, c, metric: str, picks: str,
+                      rtol: float = 1e-4, atol: float = 1e-4):
+    """Two scan outputs [n_seg, S, w] of a flat scan case ``c`` — keys and
+    ``picks`` ("ids": global ids, two per strided bin; "pos": in-list
+    positions, sorted) — the second the reference. Pad slots hold the
+    (+inf, −1) sentinel; on live slots the finite/infinite pattern is the
+    same, keys agree within ``atol + rtol·(|key| + ‖q‖²)`` (the expanded
+    l2 form cancels ‖q‖² + ‖x‖²), and where the picks differ the f64 key
+    of the tested pick is within that tolerance of the reference key (a
+    key tie), in the same bin for "ids"."""
+    tk, ti, rk, ri = (np.asarray(a) for a in (tk, ti, rk, ri))
+    live = c["seg_q"] >= 0
+    assert np.isinf(tk[~live]).all() and (ti[~live] == -1).all()
+    assert (np.isinf(tk[live]) == np.isinf(rk[live])).all()
+    fin = np.isfinite(rk) & live[..., None]
+    qsq = (c["q"].astype(np.float64) ** 2).sum(1)[
+        np.clip(c["seg_q"], 0, None)]
+    tol = atol + rtol * (np.abs(np.where(fin, rk, 0.0)) + qsq[..., None])
+    diff = np.abs(tk[fin] - rk[fin])
+    assert (diff <= tol[fin]).all(), diff.max()
+    assert (ti[live][~fin[live]] == -1).all()
+    bad = np.nonzero((ti != ri) & fin)
+    if not bad[0].size:
+        return
+    keys64 = flat_keys64(c, metric)
+    for s, j, col in zip(*bad):
+        lids = c["ids"][c["seg_list"][s]]
+        if picks == "ids":
+            p = int(np.nonzero(lids == ti[s, j, col])[0][0])
+            assert p % 128 == col % 128, (s, j, col)
+        else:
+            p = int(ti[s, j, col])
+        assert abs(keys64[(s, j)][p] - rk[s, j, col]) <= tol[s, j, col], (
+            s, j, col)
 
 
 def refine_case(seed: int, m: int = 12, C: int = 300, n: int = 2000,
