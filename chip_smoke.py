@@ -35,7 +35,22 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    select_k on that batch's bin rows, fused_l2_argmin at the build's
    final k-means sweep), select_k against the stable sort at the path's
    other short-row shapes, and a stage breakdown of one approx batch;
-5. the card's line, the kernel JSON line, then ``{"ok": true, "device":
+5. sharded path — BASELINE.md target 5's shape cut to one card: 20M x 128
+   ``DeviceSynthetic`` rows (``SHARD_N``) on a 4-rank mesh whose ranks share
+   cuda:0, ``parallel.build_ivf_pq`` (8192 lists, pq_dim 64, 8-bit codes,
+   distributed Lloyd); counts zeroed before the build and read after leg 3
+   (all six kernels of the path must have launched): leg 1 ``sharded_knn``
+   of 1,000 queries with both merge tiers against single-rank
+   ``brute_force.knn``; leg 2 refined search of 10,000 queries in batches of
+   500 on the ring merge (QPS over three warm passes, recall@10 ≥ 0.95, the
+   allgather tier giving the same ids); leg 3 the fused scan-in-ring tier at
+   batch 32 against the unfused ring search (per-call latency, ids equal
+   away from key ties); the kernel path's recall on 200 queries within 0.01
+   of the plain path's (the same sharded search on CPU ranks); leg 4 the
+   comms byte model of one batch (ring ≤ half the allgather's); then the
+   ring kernels and B1–B4 against their plain versions at the path's
+   shapes. With four cards, legs 1-2 run again with one rank per card;
+6. the card's line, the kernel JSON line, then ``{"ok": true, "device":
    {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -57,6 +72,13 @@ FLAT_KERNELS = ("fused_l2_argmin", "select_k", "segmented_scan_topk",
                 "grouped_scan_topk")
 # Rows of the IVF-Flat phase: the bench's own size (bench.py:585).
 FLAT_N = 1_000_000
+# The sharded phase: BASELINE.md target 5's shape (SIFT-shaped 128-d rows,
+# n_lists 8192, pq_dim 64, 8-bit codes) cut to one card: 20M rows on a
+# 4-rank mesh, 5M a rank.
+SHARD_N = 20_000_000
+SHARD_DIM = 128
+SHARD_RANKS = 4
+SHARD_KERNELS = PQ_KERNELS + ("ring_topk_merge", "ring_lut_scan_merge")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 non-tensor rate.
 HBM_BYTES_PER_S = 3.35e12
@@ -216,6 +238,122 @@ def _select_k_row(rows, path, launches, scores, k, shape):
          0.0, ms, plain_ms, scores.numel() * 4 + scores.shape[0] * k * 8, 0.0,
          _timed(lambda: torch.topk(scores, k, largest=False), 20),
          f"[{scores.shape[0]},{scores.shape[1]}] k={k}{shape}")
+
+
+def _lut_scan_row(rows, path, launches, index, q0, n_probes, lut_dtype,
+                  shape=""):
+    """ivfpq_lut_scan_topk against its plain version on the segment table
+    of ``q0``'s coarse probes over ``index``: the same filled bins and
+    pad sentinels, keys within 1e-3 + 1e-5·(|key| + ‖q‖²), ids agreeing on
+    99.9 % of filled bins; then its row. Returns the scan's operands and
+    outputs for the stage breakdown."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_common, ivf_pq
+    from raft_tpu_torch.ops import kernels as K
+
+    B = q0.shape[0]
+    _, probes = ivf_pq._coarse_probes(index, q0, n_probes, False)
+    seg = ivf_common.SEGMENT_SIZE
+    n_seg = ivf_common.n_segments(B * n_probes, index.n_lists, seg)
+    seg_list, seg_q, _, _ = ivf_common.segment_probes(probes, index.n_lists,
+                                                      seg, n_seg)
+    q_rot = (q0 @ index.rotation.T).contiguous()
+    scan_args = (seg_list, seg_q, q_rot, index.packed_codes,
+                 index.packed_ids, index.packed_norms, index.centers_rot,
+                 index.codebooks)
+    scan_kw = dict(pq_bits=index.pq_bits, pq_dim=index.pq_dim,
+                   L=index.max_list_size, lut_dtype=lut_dtype)
+    kk, ki = K.ivfpq_lut_scan_topk(*scan_args, "l2", **scan_kw)
+    cb = K.lut_codebook(index.codebooks, lut_dtype)
+    pk, pi = K.ivfpq_lut_scan_topk_plain(*scan_args[:7], cb, "l2",
+                                         index.pq_bits)
+    live = seg_q >= 0
+    fin = torch.isfinite(pk) & live[..., None]
+    if not torch.equal(torch.isfinite(kk) & live[..., None], fin):
+        raise SmokeFailure("ivfpq_lut_scan_topk: filled bins differ")
+    if not bool((kk[~live] == float("inf")).all() and (ki[~live] == -1).all()):
+        raise SmokeFailure("ivfpq_lut_scan_topk: pad slots lack the sentinel")
+    diff = (kk[fin] - pk[fin]).abs()
+    err = float(diff.max())
+    # keys = ‖c+d‖² − 2⟨q, c+d⟩: rounding scales with ‖q‖² and the key
+    q_sq = (q_rot * q_rot).sum(1)[seg_q.clamp_min(0).long()]
+    scale = (pk.abs() + q_sq[..., None])[fin]
+    if not bool((diff <= 1e-3 + 1e-5 * scale).all()):
+        raise SmokeFailure(f"ivfpq_lut_scan_topk keys differ by {err}")
+    id_agree = float((ki[fin] == pi[fin]).float().mean())
+    if id_agree < 0.999:
+        raise SmokeFailure(f"ivfpq_lut_scan_topk ids agree on {id_agree}")
+    del pk, pi, fin
+    # the bound counts what this batch's data needs: codes and norms of the
+    # probed lists' real rows (padded rows are not part of the function),
+    # ids of all L slots of each probed list (they mark which rows are
+    # real), the probed centers, the codebook, the queries, the segment
+    # table and the whole output table
+    lists = torch.unique(seg_list[live.any(1)].long())
+    L = index.max_list_size
+    sizes = index.list_sizes.long()
+    n_live = int(live.sum())
+    nb = index.packed_codes.shape[2]
+    rows_real = int(sizes[lists].sum())
+    pair_rows = int((live.sum(1).long() * sizes[seg_list.long()]).sum())
+    scan_bytes = (rows_real * (nb + 4) + lists.numel() * L * 4
+                  + lists.numel() * q_rot.shape[1] * 4 + cb.numel() * 4
+                  + q_rot.numel() * 4 + seg_list.numel() * 4
+                  + seg_q.numel() * 4 + kk.numel() * 8)
+    # per live pair: its LUT (a multiply-add per codebook entry) and, per
+    # real row, one add per subspace
+    scan_flops = n_live * 2 * cb.numel() + pair_rows * index.pq_dim
+    _row(rows, path, "ivfpq_lut_scan_topk", "ivfpq_lut_scan.cu", 807,
+         launches["ivfpq_lut_scan_topk"], err,
+         _timed(lambda: K.ivfpq_lut_scan_topk(*scan_args, "l2", **scan_kw),
+                10),
+         _timed(lambda: K.ivfpq_lut_scan_topk_plain(*scan_args[:7], cb, "l2",
+                                                    index.pq_bits), 2),
+         scan_bytes, scan_flops, None,
+         f"{shape}n_seg {n_seg} x {seg} slots ({n_live} live), L {L}, "
+         f"{lists.numel()} lists of {rows_real} real rows, "
+         f"id agreement {id_agree:.6f}")
+    return dict(kk=kk, ki=ki, probes=probes, seg=seg, n_seg=n_seg,
+                q_rot=q_rot)
+
+
+def _refine_row(rows, path, launches, base, q0, cand, k, shape=""):
+    """gather_refine_topk against its plain version on ``q0``'s candidates
+    into ``base``: keys within 1e-5·(‖q‖² + |key|), ids equal away from key
+    ties; then its row."""
+    import torch
+
+    from raft_tpu_torch.ops import kernels as K
+
+    B, dim = q0.shape
+    gk, gi = K.gather_refine_topk(base, q0, cand, k, "l2")
+    pk2, pi2 = K.gather_refine_topk_plain(base, q0, cand, k, "l2")
+    err = float((gk - pk2).abs().max())
+    # the expanded key cancels ‖q‖² + ‖r‖²; rounding scales with it
+    tol = 1e-5 * ((q0 * q0).sum(1, keepdim=True) + pk2.abs())
+    if not bool(((gk - pk2).abs() <= tol).all()):
+        raise SmokeFailure(f"gather_refine_topk keys differ by {err}")
+    # ids may differ only where the plain keys tie within the tolerance
+    # (a neighbour in the sorted list, or the k-th against the k+1-th)
+    gap = (pk2[:, 1:] - pk2[:, :-1]).abs() <= tol[:, 1:]
+    tie = torch.zeros_like(gap[:, :1]).expand(-1, k).clone()
+    tie[:, 1:] |= gap
+    tie[:, :-1] |= gap
+    tie[:, -1] = True
+    if not bool(((gi == pi2) | tie).all()):
+        raise SmokeFailure("gather_refine_topk ids differ away from key ties")
+    id_agree = float((gi == pi2).float().mean())
+    C = cand.shape[1]
+    _row(rows, path, "gather_refine_topk", "gather_refine.cu", 1176,
+         launches["gather_refine_topk"], err,
+         _timed(lambda: K.gather_refine_topk(base, q0, cand, k, "l2"), 50),
+         _timed(lambda: K.gather_refine_topk_plain(base, q0, cand, k, "l2"),
+                10),
+         B * C * dim * 4 + B * C * 4 + B * dim * 4 + B * k * 8,
+         4.0 * B * C * dim, None,
+         f"{shape}[{B},{C}] candidates into [{base.shape[0]},{dim}], k={k}, "
+         f"id agreement {id_agree:.6f}")
 
 
 def flat_phase(args, rows):
@@ -470,6 +608,463 @@ def flat_phase(args, rows):
             "select_k_ms": sel_ms, "launches": launches}
 
 
+def _ring_topk_row(rows, path, launches, vals, gids, k, shape):
+    """ring_topk_merge against its plain version (the plain ring schedule,
+    on the same card) on per-rank [m, k] tables: values and ids equal;
+    then its row. The library column is torch.topk over the [n·mc, 2k]
+    incoming ++ local blocks of every rank, one call a hop."""
+    import torch
+
+    from raft_tpu_torch.ops import kernels as K
+
+    n = len(vals)
+    m, kin = vals[0].shape
+    mc = K.ring_chunk_rows(m, n)
+    kv, ki = K.ring_topk_merge(vals, gids, k)
+    prep = [K._ring_keys(v, i, mc * n, True) for v, i in zip(vals, gids)]
+    keys = [p[0] for p in prep]
+    tids = [p[1] for p in prep]
+    pv, pi = K.ring_topk_merge_plain(keys, tids, k, mc)
+    for r in range(n):
+        if not (torch.equal(kv[r], pv[r]) and torch.equal(ki[r], pi[r])):
+            raise SmokeFailure(f"ring_topk_merge differs from its plain "
+                               f"version on rank {r} ({shape})")
+    cat = torch.cat([torch.cat([pv[r], keys[r][:mc, :k]], 1)
+                     for r in range(n)]).contiguous()
+    blk = mc * k * 8
+    nbytes = n * (mc * kin * 8 + blk) + (n - 1) * n * (2 * blk
+                                                       + mc * kin * 8)
+    _row(rows, path, "ring_topk_merge", "ring_topk.cu", 1581,
+         launches["ring_topk_merge"], 0.0,
+         _timed(lambda: K.ring_topk_merge(vals, gids, k), 20),
+         _timed(lambda: K.ring_topk_merge_plain(keys, tids, k, mc), 5),
+         nbytes, 0.0,
+         _timed(lambda: [torch.topk(cat, k, largest=False)
+                         for _ in range(n - 1)], 20),
+         f"{n} ranks of [{m},{kin}] tables, mc {mc}, k {k}, {n} hops "
+         f"({shape})")
+
+
+def _adc_key64(index, qv_row, gid):
+    """f64 ADC key (‖c+d‖² − 2⟨q, c+d⟩) of global id ``gid`` for the
+    rotated query ``qv_row``, found in whichever shard holds it."""
+    import torch
+
+    from raft_tpu_torch.ops import kernels as K
+
+    for r in range(index.n_shards):
+        hit = torch.nonzero(index.packed_ids[r] == int(gid))
+        if hit.shape[0]:
+            lst, pos = int(hit[0, 0]), int(hit[0, 1])
+            code = K.unpack_codes(index.packed_codes[r][lst, pos],
+                                  index.pq_dim, index.pq_bits)
+            cb = index.codebooks[r].double()
+            S, _, P = cb.shape
+            q = qv_row.double()
+            lut = torch.einsum("sp,skp->sk", q.view(S, P), cb)
+            dot = q @ index.centers_rot[r][lst].double() + lut[
+                torch.arange(S, device=cb.device), code].sum()
+            return float(index.packed_norms[r][lst, pos]) - 2.0 * float(dot)
+    raise SmokeFailure(f"id {gid} is in no shard")
+
+
+def _ring_lut_scan_row(rows, path, launches, index, q, k, n_probes, mesh,
+                       shape):
+    """ring_lut_scan_merge against its plain version (on the same card) on
+    one batch's chunk tables: the same finite pattern, keys within
+    1e-4·(|key| + ‖q‖²), ids equal away from key ties (the f64 key of the
+    kernel's pick within that tolerance); then its row."""
+    import torch
+
+    from raft_tpu_torch.ops import kernels as K
+    from raft_tpu_torch.parallel import ivf as pivf
+
+    ops = pivf._fused_ring_operands(index, q, n_probes, mesh, False)
+    lists, ind, qv, packed, ids, norms, ctr, cbs = ops
+    kw = dict(pq_bits=index.pq_bits, pq_dim=index.pq_dim,
+              L=index.max_list_size, lut_dtype="float32")
+    tk, ti = K.ring_lut_scan_merge(*ops, k, "l2", **kw)
+    n = len(packed)
+    mc = qv[0].shape[1]
+    cb = [K.lut_codebook(c, "float32") for c in cbs]
+    rows_i = torch.arange(mc, device=q.device, dtype=torch.int32)
+    seg_q = [torch.where(i > 0.5, rows_i, -1).to(torch.int32).contiguous()
+             for i in ind]
+    plain = lambda: K.ring_lut_scan_merge_plain(  # noqa: E731
+        lists, seg_q, qv, packed, ids, norms, ctr, cb, k, "l2",
+        index.pq_bits)
+    pk, pi = plain()
+    err, n_tie = 0.0, 0
+    for r in range(n):
+        a, b = tk[r], pk[r]
+        if not torch.equal(torch.isinf(a), torch.isinf(b)):
+            raise SmokeFailure(f"ring_lut_scan_merge: filled slots differ "
+                               f"on rank {r}")
+        fin = torch.isfinite(b)
+        qsq = (qv[r][r] * qv[r][r]).sum(1)[:, None].expand_as(b)
+        tol = 1e-4 * (b.abs() + qsq)
+        diff = (a - b).abs()
+        if not bool((diff[fin] <= tol[fin]).all()):
+            raise SmokeFailure(f"ring_lut_scan_merge keys differ by "
+                               f"{float(diff[fin].max())} on rank {r}")
+        err = max(err, float(diff[fin].max()) if bool(fin.any()) else 0.0)
+        for row, j in torch.nonzero((ti[r] != pi[r]) & fin).tolist():
+            k64 = _adc_key64(index, qv[r][r, row], ti[r][row, j])
+            if abs(k64 - float(b[row, j])) > float(tol[row, j]):
+                raise SmokeFailure(f"ring_lut_scan_merge picks differ away "
+                                   f"from key ties (rank {r}, row {row})")
+            n_tie += 1
+    # the bound: per (rank, chunk) the codes and norms of the union lists'
+    # real rows, ids of their L slots and their centers, the chunk queries,
+    # and the LUT builds' operations per member pair; the outputs once
+    nb, L = packed[0].shape[2], index.max_list_size
+    S, Kc, P = cbs[0].shape
+    n_bytes, flops, n_pairs = n * mc * k * 8, 0.0, 0
+    for r in range(n):
+        sizes = index.list_sizes[r].long()
+        for c in range(n):
+            lst = lists[r][c]
+            real = lst >= 0
+            lsz = torch.where(real, sizes[lst.clamp_min(0).long()], 0)
+            members = ind[r][c].sum(1)
+            n_pairs += int(members.sum())
+            n_bytes += (int(lsz.sum()) * (nb + 4) + int(real.sum()) * (
+                L * 4 + ctr[r].shape[1] * 4) + qv[r][c].numel() * 4)
+            flops += (float(members.sum()) * 2 * S * Kc * P
+                      + float((members * lsz).sum()) * S)
+    _row(rows, path, "ring_lut_scan_merge", "ring_lut_scan.cu", 2010,
+         launches["ring_lut_scan_merge"], err,
+         _timed(lambda: K.ring_lut_scan_merge(*ops, k, "l2", **kw), 10),
+         _timed(plain, 1), n_bytes, flops, None,
+         f"{n} ranks, {q.shape[0]} queries (mc {mc}), NS "
+         f"{lists[0].shape[1]}, {n_pairs} member pairs, k {k}, {n} hops of a "
+         f"scan and a merge launch, {n_tie} picks differ at f64 key ties "
+         f"({shape})")
+
+
+def _swaps_are_ties(queries, base, ids_a, ids_b, what):
+    """Where two [m, k] id tables differ, the two picks must tie: their f64
+    squared distances to the query agree within the f32 expanded form's
+    rounding, 1e-4 + 1e-5·(‖q‖² + ‖x‖²). The ring breaks a tie by ring
+    order, brute force and the allgather by row id. Returns the count."""
+    import torch
+
+    bad = torch.nonzero(ids_a != ids_b).tolist()
+    for row, j in bad:
+        q64 = queries[row].double()
+        xa = base[ids_a[row, j]].double()
+        xb = base[ids_b[row, j]].double()
+        d_a = float(((q64 - xa) ** 2).sum())
+        d_b = float(((q64 - xb) ** 2).sum())
+        if abs(d_a - d_b) > 1e-4 + 1e-5 * float((q64 * q64).sum()
+                                                + (xb * xb).sum()):
+            raise SmokeFailure(f"{what}: ids differ away from ties (query "
+                               f"{row}: {d_a} vs {d_b})")
+    return len(bad)
+
+
+def sharded_phase(args, rows):
+    """The sharded tier on a 4-rank mesh whose ranks share one card (and,
+    with four cards, once more with one rank per card): distributed build,
+    sharded kNN (leg 1), refined sharded search on the ring merge (leg 2),
+    the fused scan-in-ring tier (leg 3), the comms byte model (leg 4),
+    then the path's kernels against their plain versions at its shapes.
+    Raises SmokeFailure on any failed check. Returns the summary."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.bench.dataset import DeviceSynthetic
+    from raft_tpu_torch.neighbors import brute_force, ivf_pq
+    from raft_tpu_torch.obs import spans
+    from raft_tpu_torch.ops import kernels as K
+    from raft_tpu_torch.parallel import comms, make_mesh
+    from raft_tpu_torch.parallel import ivf as pivf
+    from raft_tpu_torch.parallel import knn as pknn
+
+    N, dim, nq, k, B = SHARD_N, SHARD_DIM, 10_000, 10, 500
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(SHARD_RANKS, device="cuda:0")
+    t0 = time.perf_counter()
+    ds = DeviceSynthetic(N, dim, n_centers=10_000, seed=args.seed, std=0.5,
+                         scale=10.0, device=dev)
+    base = ds.base()
+    queries = ds.queries(nq)
+    torch.cuda.synchronize()
+    _log(f"[shard data] {N} x {dim} f32 base ({base.numel() * 4 / 1e9:.2f} "
+         f"GB) + {nq} queries in {time.perf_counter() - t0:.1f} s; "
+         f"{SHARD_RANKS} ranks on {mesh.distinct_devices}")
+
+    # the path: build and legs 1-3; counts zeroed just before
+    K.reset_launch_counts()
+    spans.reset()
+    t0 = time.perf_counter()
+    index = pivf.build_ivf_pq(ivf_pq.IndexParams(
+        n_lists=8192, pq_dim=64, pq_bits=8, cache_reconstruction="never",
+        seed=args.seed), base, mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    L = index.max_list_size
+    codes_gb = sum(c.numel() for c in index.packed_codes) / 1e9
+    _log(f"[shard build] {build_s:.1f} s; L = {L}; packed codes "
+         f"{codes_gb:.2f} GB; rows indexed {index.size} of {N}")
+
+    # leg 1: sharded kNN, both merge tiers, against single-rank brute force
+    n_gt = 1000
+    qg = queries[:n_gt].contiguous()
+    gv, gt = brute_force.knn(base, qg, k, metric="sqeuclidean")
+    knn = {}
+    for merge in ("allgather", "ring"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        v, i = pknn.sharded_knn(base, qg, k, mesh, merge=merge)
+        torch.cuda.synchronize()
+        n_diff = _swaps_are_ties(qg, base, i, gt,
+                                 f"sharded_knn ({merge}) against brute force")
+        rel = float(((v - gv).abs() / gv.abs().clamp_min(1e-30)).max())
+        if rel > 1e-5:
+            raise SmokeFailure(f"sharded_knn ({merge}) values differ by "
+                               f"{rel} relative")
+        knn[merge] = {"ids_differing": n_diff, "max_rel_err": rel,
+                      "seconds": time.perf_counter() - t1}
+    _log(f"[shard leg 1] sharded_knn of {n_gt} queries, k {k}, against "
+         f"single-rank brute_force.knn: {json.dumps(knn)}")
+    gt = gt.cpu()
+
+    # leg 2: refined sharded search on the ring merge
+    sp = ivf_pq.SearchParams(n_probes=64, scan_select="pallas",
+                             refine="f32_regen", refine_ratio=40,
+                             lut_dtype="bfloat16")
+
+    def search_pass(merge="auto", n=nq):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        out_i, out_v = [], []
+        start.record()
+        for a in range(0, n, B):
+            v, i = pivf.search_ivf_pq(sp, index, queries[a:a + B], k, mesh,
+                                      dataset=base, merge=merge)
+            out_v.append(v)
+            out_i.append(i)
+        end.record()
+        torch.cuda.synchronize()
+        return torch.cat(out_i), torch.cat(out_v), start.elapsed_time(end) / 1e3
+
+    spans.reset()
+    ids_ring, vals_ring, t_cold = search_pass()
+    disp = spans.counts().get("parallel.merge.dispatch", {})
+    if disp.get("ring_kernel", 0) != nq // B:
+        raise SmokeFailure(f"refined leg did not take ring_kernel: {disp}")
+    qps = [nq / search_pass()[2] for _ in range(3)]
+    ids_ag, vals_ag, _ = search_pass("allgather")
+    if not torch.equal(vals_ring, vals_ag):
+        raise SmokeFailure("the ring and allgather tiers give different "
+                           "values")
+    n_tied = _swaps_are_ties(queries, base, ids_ring, ids_ag,
+                             "refined search, ring against allgather")
+    rec = _recall(ids_ring[:n_gt].cpu(), gt)
+    if not rec >= 0.95:
+        raise SmokeFailure(f"refined sharded recall@10 {rec} < 0.95")
+    _log(f"[shard leg 2] refined search, batch {B}, n_probes 64, "
+         f"refine_ratio 40, bf16 LUT, merge auto -> {disp}: cold pass "
+         f"{nq / t_cold:.0f} QPS, three warm passes "
+         + ", ".join(f"{x:.0f}" for x in qps)
+         + f" QPS (CUDA events); recall@10 {rec:.4f} on {n_gt} queries; "
+         f"the allgather tier gives the same values and ids ({n_tied} "
+         f"swapped at ties)")
+
+    # leg 3: the fused scan-in-ring tier at batch 32, against the unfused
+    # ring search of the same batches
+    spf = ivf_pq.SearchParams(n_probes=64, scan_select="pallas",
+                              lut_dtype="float32")
+    bf, n_f = 32, 50
+
+    def timed_call(q):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = pivf.search_ivf_pq(spf, index, q, k, mesh)
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    lat = {}
+    res = {}
+    for mode in ("on", "off"):
+        os.environ["RAFT_TPU_RING_FUSED"] = "auto" if mode == "on" else "off"
+        spans.reset()
+        ms, outs = [], []
+        for c in range(n_f):
+            out, t = timed_call(queries[c * bf:(c + 1) * bf])
+            ms.append(t)
+            outs.append(out)
+        lat[mode] = ms
+        res[mode] = (torch.cat([o[0] for o in outs]),
+                     torch.cat([o[1] for o in outs]))
+        d = spans.counts().get("parallel.merge.dispatch", {})
+        want = "ring_fused_scan" if mode == "on" else "ring_kernel"
+        if d.get(want, 0) != n_f:
+            raise SmokeFailure(f"fused leg ({mode}) took {d}, not {want}")
+    os.environ.pop("RAFT_TPU_RING_FUSED", None)
+    (fv, fi), (uv, ui) = res["on"], res["off"]
+    n_swap = 0
+    for row, j in torch.nonzero(fi != ui).tolist():
+        # the fused and unfused picks must tie in f64 (both are ADC keys
+        # of the same codes: l2 key + ‖q_rot‖²)
+        q_rot = queries[row] @ index.rotation[0].T
+        qsq = float((q_rot.double() ** 2).sum())
+        d_f = _adc_key64(index, q_rot, fi[row, j]) + qsq
+        d_u = _adc_key64(index, q_rot, ui[row, j]) + qsq
+        if abs(d_f - d_u) > 1e-5 * (abs(d_u) + qsq):
+            raise SmokeFailure(f"fused tier ids differ from the unfused "
+                               f"search away from key ties (row {row})")
+        n_swap += 1
+    _log(f"[shard leg 3] batch {bf}, n_probes 64, f32 LUT: fused "
+         f"scan-in-ring per call ms median {np.median(lat['on']):.3f} "
+         f"(min {min(lat['on']):.3f}), unfused (per_query scan + ring) "
+         f"median {np.median(lat['off']):.3f} (min {min(lat['off']):.3f}); "
+         f"ids equal over {n_f * bf} queries but {n_swap} picks at f64 key "
+         f"ties")
+    launches = K.launch_counts()
+    _log(f"[shard] launches {json.dumps(launches)}")
+    missing = [n for n in SHARD_KERNELS if launches[n] == 0]
+    if missing:
+        raise SmokeFailure(f"kernels never launched on the sharded path: "
+                           f"{missing}")
+
+    # the kernel path's recall against the plain path's: the same sharded
+    # search on a CPU mesh (every wrapper runs its plain version)
+    n_pl = 200
+    t0 = time.perf_counter()
+    mesh_cpu = make_mesh(SHARD_RANKS, device="cpu")
+    index_cpu = pivf.from_numpy(*pivf.to_numpy(index), mesh_cpu)
+    base_cpu = base.cpu()
+    _, ids_pl = pivf.search_ivf_pq(sp, index_cpu, queries[:n_pl].cpu(), k,
+                                   mesh_cpu, dataset=base_cpu)
+    rec_plain = _recall(ids_pl, gt[:n_pl])
+    rec_kern = _recall(ids_ring[:n_pl].cpu(), gt[:n_pl])
+    del index_cpu, base_cpu
+    _log(f"[shard recall] {n_pl} queries: kernel path {rec_kern:.4f}, plain "
+         f"path (CPU) {rec_plain:.4f} ({time.perf_counter() - t0:.1f} s)")
+    if abs(rec_kern - rec_plain) > 0.01:
+        raise SmokeFailure(f"sharded kernel-path recall {rec_kern} is not "
+                           f"within 0.01 of the plain path's {rec_plain}")
+
+    # leg 4: the comms byte model of one batch, ring against allgather
+    byte_model = {}
+    for merge in ("ring", "allgather"):
+        comms.reset_counters()
+        pivf.search_ivf_pq(sp, index, queries[:B], k, mesh, dataset=base,
+                           merge=merge)
+        c = comms.counters()
+        byte_model[merge] = {f"{op}": n for (op, _), n in c["bytes"].items()}
+    ring_b = byte_model["ring"]["ring_topk"]
+    ag_b = byte_model["allgather"]["allgather"]
+    _log(f"[shard comms] bytes of one batch of {B} (the JAX package's byte "
+         f"model of a mesh of separate devices, not a measurement: the "
+         f"ranks share one card): {json.dumps(byte_model)}")
+    if not 2 * ring_b <= ag_b:
+        raise SmokeFailure(f"ring bytes {ring_b} > half the allgather's "
+                           f"{ag_b}")
+
+    # kernels against their plain versions at the path's shapes
+    q0 = queries[:B].contiguous()
+    vals, gids = pivf._per_rank_topk(sp, index, q0, k, 64, mesh, base)
+    _ring_topk_row(rows, "sharded", launches, vals, gids, k,
+                   f"refined batch {B}")
+    _ring_lut_scan_row(rows, "sharded", launches, index, queries[:bf], k,
+                       64, mesh, f"fused batch {bf}")
+    local0 = index.local(0)
+    shard0 = base[:index.shard_rows]
+    _argmin_row(rows, "sharded", launches, shard0,
+                local0.centers.contiguous(), "(rank 0's Lloyd sweep) ")
+    # select_k: the ring's plain-schedule cut, incoming ++ local [mc, 2k]
+    mc = K.ring_chunk_rows(B, SHARD_RANKS)
+    cut = torch.cat([vals[0][:mc], vals[1][:mc]], 1).contiguous()
+    _select_k_row(rows, "sharded", launches, cut, k,
+                  ", the ring schedule's incoming ++ local cut")
+    _lut_scan_row(rows, "sharded", launches, local0, q0, 64, "bfloat16",
+                  "rank 0's shard: ")
+    sp_scan = ivf_pq.SearchParams(**{**sp.__dict__, "refine": "none"})
+    _, cand = ivf_pq.search(local0, q0, 400, sp_scan)
+    # rank 0's offset is 0: its global candidate ids are its local rows
+    _refine_row(rows, "sharded", launches, shard0, q0, cand.contiguous(), k,
+                "rank 0's shard: ")
+
+    # where one refined batch's time goes, each part alone (CUDA events)
+    ring_ms = next(r["ms"] for r in rows if r["path"] == "sharded"
+                   and r["name"] == "ring_topk_merge")
+    stages_ms = {
+        "one_rank_refined_search": _timed(lambda: ivf_pq.search(
+            local0, q0, k, sp, dataset=shard0), 5),
+        "all_ranks_local_topk": _timed(lambda: pivf._per_rank_topk(
+            sp, index, q0, k, 64, mesh, base), 5),
+        "ring_merge": ring_ms,
+        "search_total": _timed(lambda: pivf.search_ivf_pq(
+            sp, index, q0, k, mesh, dataset=base), 5),
+    }
+    _log(f"[shard stages] one refined batch of {B} queries, ms: "
+         f"{json.dumps(stages_ms)}")
+
+    transport = "shared cuda:0"
+    per_card = None
+    if torch.cuda.device_count() >= SHARD_RANKS:
+        per_card = _per_card_legs(args, rows, index, base, queries, gt, sp,
+                                  k, B, n_gt)
+        transport = "one rank per card"
+    else:
+        _log(f"[shard transport] the {SHARD_RANKS} ranks shared cuda:0: the "
+             f"ring kernels read their neighbours' blocks through local "
+             f"pointers; the NVLink transport (one rank per card, peer "
+             f"pointers) went unmeasured")
+    return {"n": N, "dim": dim, "ranks": SHARD_RANKS, "n_lists": 8192,
+            "pq_dim": 64, "max_list_size": L, "build_s": build_s,
+            "sharded_knn": knn, "qps_cold": nq / t_cold, "qps_warm": qps,
+            "recall_at_10": rec, "recall_kernel_200": rec_kern,
+            "recall_plain_200": rec_plain,
+            "fused_ms_median": float(np.median(lat["on"])),
+            "unfused_ms_median": float(np.median(lat["off"])),
+            "byte_model": byte_model, "batch_stages_ms": stages_ms,
+            "launches": launches,
+            "transport": transport, "per_card": per_card}
+
+
+def _per_card_legs(args, rows, index, base, queries, gt, sp, k, B, n_gt):
+    """Legs 1-2 again with one rank per card (peer pointers over NVLink),
+    and the ring kernel's row at that placement, tagged per_card."""
+    import torch
+
+    from raft_tpu_torch.parallel import ivf as pivf
+    from raft_tpu_torch.parallel import knn as pknn
+    from raft_tpu_torch.ops import kernels as K
+    from raft_tpu_torch.parallel import make_mesh, shard_rows
+
+    mesh = make_mesh(SHARD_RANKS)
+    index_pc = pivf.from_numpy(*pivf.to_numpy(index), mesh)
+    shards = shard_rows(base, mesh)[0]   # each rank's rows on its card, once
+    qg = queries[:n_gt].contiguous()
+    K.reset_launch_counts()
+    _, i_ring = pknn.sharded_knn(base, qg, k, mesh, merge="ring")
+    ids = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in range(0, queries.shape[0], B):
+        ids.append(pivf.search_ivf_pq(sp, index_pc, queries[a:a + B], k, mesh,
+                                      dataset=shards)[1])
+    torch.cuda.synchronize()
+    qps = queries.shape[0] / (time.perf_counter() - t0)
+    rec = _recall(torch.cat(ids)[:n_gt].cpu(), gt)
+    knn_agree = float((i_ring.cpu() == gt).float().mean())
+    launches = K.launch_counts()
+    vals, gids = pivf._per_rank_topk(sp, index_pc, queries[:B].contiguous(),
+                                     k, 64, mesh, shards)
+    _ring_topk_row(rows, "per_card", launches, vals, gids, k,
+                   f"refined batch {B}, one rank per card")
+    _log(f"[shard per_card] {mesh.distinct_devices}: sharded_knn (ring) ids "
+         f"agree with brute force on {knn_agree:.6f}; refined search "
+         f"{qps:.0f} QPS (host clock, one pass), recall@10 {rec:.4f}")
+    return {"qps": qps, "recall_at_10": rec, "knn_agreement": knn_agree}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=10_000_000)
@@ -604,10 +1199,6 @@ def main(argv=None) -> int:
     rows = []
     q0 = queries[:B].contiguous()
 
-    def row(name, src, line, err, ms, plain_ms, nbytes, flops, lib_ms, shape):
-        _row(rows, "ivf_pq", name, src, line, launches[name], err, ms,
-             plain_ms, nbytes, flops, lib_ms, shape)
-
     try:
         # fused_l2_argmin: the build's assignment, the whole base against
         # the 8192 centers
@@ -620,96 +1211,21 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         return _fail(str(e))
 
-    # ivfpq_lut_scan_topk: the first batch's segments at k_cand = 400
-    n_probes = sp.n_probes
-    _, probes = ivf_pq._coarse_probes(index, q0, n_probes, False)
-    seg = ivf_common.SEGMENT_SIZE
-    n_seg = ivf_common.n_segments(B * n_probes, index.n_lists, seg)
-    seg_list, seg_q, _, _ = ivf_common.segment_probes(probes, index.n_lists,
-                                                      seg, n_seg)
-    q_rot = (q0 @ index.rotation.T).contiguous()
-    scan_args = (seg_list, seg_q, q_rot, index.packed_codes,
-                 index.packed_ids, index.packed_norms, index.centers_rot,
-                 index.codebooks)
-    scan_kw = dict(pq_bits=8, pq_dim=64, L=index.max_list_size,
-                   lut_dtype="bfloat16")
-    kk, ki = K.ivfpq_lut_scan_topk(*scan_args, "l2", **scan_kw)
-    cb = K.lut_codebook(index.codebooks, "bfloat16")
-    pk, pi = K.ivfpq_lut_scan_topk_plain(*scan_args[:7], cb, "l2", 8)
-    live = seg_q >= 0
-    fin = torch.isfinite(pk) & live[..., None]
-    if not torch.equal(torch.isfinite(kk) & live[..., None], fin):
-        return _fail("ivfpq_lut_scan_topk: filled bins differ")
-    if not bool((kk[~live] == float("inf")).all() and (ki[~live] == -1).all()):
-        return _fail("ivfpq_lut_scan_topk: pad slots lack the sentinel")
-    diff = (kk[fin] - pk[fin]).abs()
-    err = float(diff.max())
-    # keys = ‖c+d‖² − 2⟨q, c+d⟩: rounding scales with ‖q‖² and the key
-    q_sq = (q_rot * q_rot).sum(1)[seg_q.clamp_min(0).long()]
-    scale = (pk.abs() + q_sq[..., None])[fin]
-    if not bool((diff <= 1e-3 + 1e-5 * scale).all()):
-        return _fail(f"ivfpq_lut_scan_topk keys differ by {err}")
-    id_agree = float((ki[fin] == pi[fin]).float().mean())
-    if id_agree < 0.999:
-        return _fail(f"ivfpq_lut_scan_topk ids agree on {id_agree}")
-    # the bound counts what this batch's data needs: codes and norms of the
-    # probed lists' real rows (padded rows are not part of the function),
-    # ids of all L slots of each probed list (they mark which rows are
-    # real), the probed centers, the codebook, the queries, the segment
-    # table and the whole output table
-    lists = torch.unique(seg_list[live.any(1)].long())
-    L = index.max_list_size
-    sizes = index.list_sizes.long()
-    n_live = int(live.sum())
-    nb = index.packed_codes.shape[2]
-    rows_real = int(sizes[lists].sum())
-    pair_rows = int((live.sum(1).long() * sizes[seg_list.long()]).sum())
-    scan_bytes = (rows_real * (nb + 4) + lists.numel() * L * 4
-                  + lists.numel() * q_rot.shape[1] * 4 + cb.numel() * 4
-                  + q_rot.numel() * 4 + seg_list.numel() * 4
-                  + seg_q.numel() * 4 + kk.numel() * 8)
-    # per live pair: its LUT (a multiply-add per codebook entry) and, per
-    # real row, one add per subspace
-    scan_flops = n_live * 2 * cb.numel() + pair_rows * index.pq_dim
-    row("ivfpq_lut_scan_topk", "ivfpq_lut_scan.cu", 807, err,
-        _timed(lambda: K.ivfpq_lut_scan_topk(*scan_args, "l2", **scan_kw), 10),
-        _timed(lambda: K.ivfpq_lut_scan_topk_plain(*scan_args[:7], cb, "l2",
-                                                   8), 2),
-        scan_bytes, scan_flops, None,
-        f"n_seg {n_seg} x {seg} slots ({n_live} live), L {L}, "
-        f"{lists.numel()} lists of {rows_real} real rows, "
-        f"id agreement {id_agree:.6f}")
-
+    # ivfpq_lut_scan_topk: the first batch's segments at k_cand = 400;
     # gather_refine_topk: the first batch's 400 scan candidates
+    n_probes = sp.n_probes
     sp_scan = ivf_pq.SearchParams(**{**sp.__dict__, "refine": "none"})
-    _, cand = ivf_pq.search(index, q0, 400, sp_scan)
-    cand = cand.contiguous()
-    gk, gi = K.gather_refine_topk(base, q0, cand, k, "l2")
-    pk2, pi2 = K.gather_refine_topk_plain(base, q0, cand, k, "l2")
-    err = float((gk - pk2).abs().max())
-    # the expanded key cancels ‖q‖² + ‖r‖²; rounding scales with it
-    tol = 1e-5 * ((q0 * q0).sum(1, keepdim=True) + pk2.abs())
-    if not bool(((gk - pk2).abs() <= tol).all()):
-        return _fail(f"gather_refine_topk keys differ by {err}")
-    # ids may differ only where the plain keys tie within the tolerance
-    # (a neighbour in the sorted list, or the k-th against the k+1-th)
-    gap = (pk2[:, 1:] - pk2[:, :-1]).abs() <= tol[:, 1:]
-    tie = torch.zeros_like(gap[:, :1]).expand(-1, k).clone()
-    tie[:, 1:] |= gap
-    tie[:, :-1] |= gap
-    tie[:, -1] = True
-    if not bool(((gi == pi2) | tie).all()):
-        return _fail("gather_refine_topk ids differ away from key ties")
-    id_agree = float((gi == pi2).float().mean())
+    try:
+        scan = _lut_scan_row(rows, "ivf_pq", launches, index, q0, n_probes,
+                             "bfloat16")
+        _, cand = ivf_pq.search(index, q0, 400, sp_scan)
+        cand = cand.contiguous()
+        _refine_row(rows, "ivf_pq", launches, base, q0, cand, k)
+    except SmokeFailure as e:
+        return _fail(str(e))
+    kk, ki, probes = scan["kk"], scan["ki"], scan["probes"]
+    seg, n_seg, q_rot = scan["seg"], scan["n_seg"], scan["q_rot"]
     C = cand.shape[1]
-    row("gather_refine_topk", "gather_refine.cu", 1176, err,
-        _timed(lambda: K.gather_refine_topk(base, q0, cand, k, "l2"), 50),
-        _timed(lambda: K.gather_refine_topk_plain(base, q0, cand, k, "l2"),
-               10),
-        B * C * dim * 4 + B * C * 4 + B * dim * 4 + B * k * 8,
-        4.0 * B * C * dim, None,
-        f"[{B},{C}] candidates into [{N},{dim}], k={k}, id agreement "
-        f"{id_agree:.6f}")
 
     # 6. where one batch's time goes: each stage of the refined search of
     # the first batch, timed alone on the card (CUDA events)
@@ -745,7 +1261,7 @@ def main(argv=None) -> int:
                "recall_kernel_200": rec_kern, "recall_plain_200": rec_plain,
                "batch_stages_ms": stages_ms}
     _log(f"[summary] {json.dumps(summary)}")
-    del index, base, queries, cand, kk, ki, pk, pi, scores
+    del index, base, queries, cand, kk, ki, scores, scan
     torch.cuda.empty_cache()
 
     try:
@@ -753,6 +1269,12 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         return _fail(str(e))
     _log(f"[flat summary] {json.dumps(flat_summary)}")
+    torch.cuda.empty_cache()
+    try:
+        shard_summary = sharded_phase(args, rows)
+    except SmokeFailure as e:
+        return _fail(str(e))
+    _log(f"[shard summary] {json.dumps(shard_summary)}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

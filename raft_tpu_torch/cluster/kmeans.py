@@ -1,15 +1,31 @@
-"""K-means helpers the balanced trainer needs (counterpart of
-``raft_tpu.cluster.kmeans``: ``init_random`` and ``_update_centroids``).
-The rest of ``kmeans`` (fit, ++ init, mini-batch) is not ported yet
-(ROADMAP A17)."""
+"""K-means helpers the balanced and distributed trainers need
+(counterpart of ``raft_tpu.cluster.kmeans``: ``KMeansParams``,
+``init_random`` and ``_update_centroids``). The rest of ``kmeans`` (fit,
+++ init, mini-batch) is not ported yet (ROADMAP A17)."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
 
 from raft_tpu_torch.random.rng import RngState, choice
+
+
+@dataclasses.dataclass
+class KMeansParams:
+    """reference: ``KMeansParams`` (cluster/kmeans_types.hpp); the JAX
+    package's fields and defaults. ``cluster.distributed.fit`` reads
+    n_clusters, max_iter, tol and seed."""
+
+    n_clusters: int = 8
+    max_iter: int = 300
+    tol: float = 1e-4
+    init: str = "k-means++"  # "k-means++" | "random" | "array"
+    seed: int = 0
+    n_init: int = 1
+    oversampling_factor: float = 2.0
 
 
 def init_random(state: RngState, x: torch.Tensor, n_clusters: int

@@ -27,7 +27,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("fused_l2_argmin", "select_k", "ivfpq_lut_scan", "gather_refine",
-           "segmented_scan", "grouped_scan")
+           "segmented_scan", "grouped_scan", "ring_topk", "ring_lut_scan")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 
@@ -141,11 +141,17 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "rtt_segmented_scan_topk": [_P] * 7 + [_I] * 6 + [_P]},
         "grouped_scan": {
             "rtt_grouped_scan_topk": [_P] * 7 + [_I] * 7 + [_P]},
+        "ring_topk": {
+            "rtt_ring_topk_hop": [_P] * 4 + [_I, _P] + [_I] * 6 + [_P],
+            "rtt_enable_peer_access": [_I, _I]},
+        "ring_lut_scan": {
+            "rtt_ring_lut_scan_hop": [_P] * 12 + [_I, _P] + [_I] * 16 + [_P],
+            "rtt_ring_lut_scan_smem_bytes": [_I] * 7},
     }[name]
     for fn, argtypes in sigs.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
-        f.restype = _L if fn == "rtt_lut_scan_smem_bytes" else _I
+        f.restype = _L if fn.endswith("_smem_bytes") else _I
     return lib
 
 

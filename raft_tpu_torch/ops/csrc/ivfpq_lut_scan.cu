@@ -27,91 +27,25 @@
 // The arithmetic is pq_dim shared-memory look-ups and adds per
 // (live query, candidate).
 //
-// Design: one block of 128 * R threads per segment (R row groups, 1..4).
-// Thread t owns bin t mod 128 of row group t / 128: the block walks the
-// list in tiles of 128 * R rows and thread t takes row t of each tile, so
-// every thread scans every R-th row of its bin in position order and keeps
-// a partial two-best; the R partials of a bin are merged lexicographically
-// on (key, position) at the end of a pass. Code tiles are staged in shared
-// memory (rows padded to an odd word count, so per-thread row reads are
-// bank-conflict free); when the packed row width is a multiple of 16 bytes
-// the next tile is loaded into registers with 16-byte loads while the
-// current one is scanned. Each tile is shared by up to QG live queries,
-// whose f32 LUTs (pq_dim * 2^bits * 4 bytes each, 64 KB at 64 x 256) fill
-// the dynamic shared memory. Pad slots are skipped: at the main path a
-// segment holds ~4 live queries of its 128 slots.
+// Design: one block of 128 * R threads per segment (R row groups, 1..4),
+// each thread one strided bin of a row group; the f32 LUTs of up to QG
+// live queries in shared memory; code tiles loaded 16 bytes a thread one
+// tile ahead. The device code (lut_scan_segment) lives in
+// lut_scan_common.cuh, shared with the fused scan of ring_lut_scan.cu. Pad
+// slots are skipped: at the main path a segment holds ~4 live queries of
+// its 128 slots; a separate pass writes their sentinels.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "lut_scan_common.cuh"
+
 namespace {
 
-constexpr int kBins = 128;
-constexpr int kMaxR = 4;
-constexpr int kMaxQG = 4;
-constexpr int kMaxChunks = 8;  // 16-byte chunks per row on the prefetch path
-constexpr int kNoPos = 0x7fffffff;
-constexpr unsigned kFull = 0xffffffffu;
-
-struct Best2 {
-  float k1, k2;
-  int i1, i2, p1, p2;
-};
-
-__device__ __forceinline__ void best2_init(Best2& b) {
-  b.k1 = b.k2 = CUDART_INF_F;
-  b.i1 = b.i2 = -1;
-  b.p1 = b.p2 = kNoPos;
-}
-
-// Insert (k, i, p) in lexicographic (key, position) order.
-__device__ __forceinline__ void best2_insert(Best2& b, float k, int i, int p) {
-  if (k < b.k1 || (k == b.k1 && p < b.p1)) {
-    b.k2 = b.k1; b.i2 = b.i1; b.p2 = b.p1;
-    b.k1 = k; b.i1 = i; b.p1 = p;
-  } else if (k < b.k2 || (k == b.k2 && p < b.p2)) {
-    b.k2 = k; b.i2 = i; b.p2 = p;
-  }
-}
-
-__device__ __forceinline__ int code_at(const uint8_t* crow, int si, int pq_bits,
-                                       int nb) {
-  const int bit = si * pq_bits;
-  const int bi = bit >> 3;
-  int v = crow[bi];
-  if (bi + 1 < nb) v |= ((int)crow[bi + 1]) << 8;
-  return (v >> (bit & 7)) & ((1 << pq_bits) - 1);
-}
-
-// sum_s LUT_g[s, code_s] of one code row for the ng queries of the pass.
-template <bool kBytes8>
-__device__ __forceinline__ void adc_row(const uint8_t* crow, const float* lut,
-                                        int S, int K, int SK, int pq_bits, int nb,
-                                        int ng, float* acc) {
-  if (kBytes8) {
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(crow);
-    for (int s0 = 0; s0 < S; s0 += 4) {
-      const uint32_t word = w[s0 >> 2];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float* lrow = lut + (s0 + j) * K + ((word >> (8 * j)) & 0xff);
-#pragma unroll
-        for (int g = 0; g < kMaxQG; ++g)
-          if (g < ng) acc[g] += lrow[g * SK];
-      }
-    }
-  } else {
-    for (int si = 0; si < S; ++si) {
-      const float* lrow = lut + si * K + code_at(crow, si, pq_bits, nb);
-#pragma unroll
-      for (int g = 0; g < kMaxQG; ++g)
-        if (g < ng) acc[g] += lrow[g * SK];
-    }
-  }
-}
+using rtt::kLutBins;
 
 template <bool kBytes8>
-__global__ void __launch_bounds__(kBins * kMaxR)
+__global__ void __launch_bounds__(kLutBins * rtt::kLutMaxR)
 lut_scan_kernel(const int* __restrict__ seg_list, const int* __restrict__ seg_q,
                 const float* __restrict__ q_rot, const uint8_t* __restrict__ codes,
                 const int* __restrict__ ids, const float* __restrict__ norms,
@@ -120,224 +54,27 @@ lut_scan_kernel(const int* __restrict__ seg_list, const int* __restrict__ seg_q,
                 int rot, int S, int K, int P, int pq_bits, int nb, int L,
                 int metric, int qg, int stride, int n_chunks) {
   extern __shared__ float smem[];
-  const int SK = S * K;
-  const int nthr = blockDim.x;  // 128 * R: also the rows of a tile
-  float* lut = smem;                       // [qg][S*K]
-  float* qv = lut + qg * SK;               // [qg][rot]
-  float* qc = qv + qg * rot;               // [qg]
-  int* live = (int*)(qc + qg);             // [seg]
-  int* wcnt = live + seg;                  // [32]
-  uint8_t* tile = (uint8_t*)(wcnt + 32);   // [nthr][stride]; merge scratch too
-  Best2* part = reinterpret_cast<Best2*>(tile);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, n_warps = nthr >> 5;
   const long s = blockIdx.x;
-  const long lst = seg_list[s];
-  const int* sq = seg_q + s * seg;
-
-  // live slots of the segment, in slot order (warp ballots)
-  int n_live = 0;
-  for (int base = 0; base < seg; base += nthr) {
-    const int j = base + tid;
-    const bool is_live = j < seg && sq[j] >= 0;
-    const unsigned bal = __ballot_sync(kFull, is_live);
-    if (lane == 0) wcnt[warp] = __popc(bal);
-    __syncthreads();
-    int off = n_live, total = 0;
-    for (int w = 0; w < n_warps; ++w) {
-      if (w < warp) off += wcnt[w];
-      total += wcnt[w];
-    }
-    if (is_live) live[off + __popc(bal & ((1u << lane) - 1u))] = j;
-    __syncthreads();
-    n_live += total;
-  }
-
-  const long list_row0 = lst * L;
-  const bool prefetch = n_chunks > 0;  // 16-byte chunks per row, or 0
-  const int n_tiles = (L + nthr - 1) / nthr;
-
-  for (int g0 = 0; g0 < n_live; g0 += qg) {
-    const int ng = min(qg, n_live - g0);
-    for (int e = tid; e < ng * rot; e += nthr) {
-      const int g = e / rot, j = e % rot;
-      qv[e] = q_rot[(long)sq[live[g0 + g]] * rot + j];
-    }
-    __syncthreads();
-    if (tid < ng) {
-      float a = 0.f;
-      for (int j = 0; j < rot; ++j) a = fmaf(qv[tid * rot + j], centers_rot[lst * rot + j], a);
-      qc[tid] = a;
-    }
-    // LUT entries: each codebook row is read once for the pass's queries
-#pragma unroll 4
-    for (int r = tid; r < SK; r += nthr) {
-      const float* qs = qv + (r / K) * P;
-      const float* c = cb + (long)r * P;
-      float a[kMaxQG];
-#pragma unroll
-      for (int g = 0; g < kMaxQG; ++g) a[g] = 0.f;
-      for (int p = 0; p < P; ++p) {
-        const float cp = c[p];
-#pragma unroll
-        for (int g = 0; g < kMaxQG; ++g)
-          if (g < ng) a[g] = fmaf(qs[g * rot + p], cp, a[g]);
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxQG; ++g)
-        if (g < ng) lut[g * SK + r] = a[g];
-    }
-
-    Best2 best[kMaxQG];
-#pragma unroll
-    for (int g = 0; g < kMaxQG; ++g) best2_init(best[g]);
-
-    uint4 pre[kMaxChunks];
-    auto load_tile = [&](int t) {  // next tile's code chunks -> registers
-      const long row0 = list_row0 + (long)t * nthr;
-      const int rows = min(nthr, L - t * nthr);
-#pragma unroll
-      for (int c = 0; c < kMaxChunks; ++c) {
-        if (c < n_chunks) {
-          const int e = tid + c * nthr;
-          const int r = e / n_chunks;
-          pre[c] = make_uint4(0u, 0u, 0u, 0u);
-          if (r < rows)
-            pre[c] = reinterpret_cast<const uint4*>(codes + (row0 + r) * nb)[e % n_chunks];
-        }
-      }
-    };
-    // the id and norm of this thread's row of the next tile
-    int nxt_id = -1;
-    float nxt_nrm = 0.f;
-    auto load_meta = [&](int t) {
-      const int p = t * nthr + tid;
-      nxt_id = p < L ? ids[list_row0 + p] : -1;
-      nxt_nrm = p < L ? norms[list_row0 + p] : 0.f;
-    };
-    load_meta(0);
-    if (prefetch) load_tile(0);
-
-    for (int t = 0; t < n_tiles; ++t) {
-      const int t0 = t * nthr;
-      const long row0 = list_row0 + t0;
-      __syncthreads();  // the previous tile (or the LUT build) is done
-      if (prefetch) {
-#pragma unroll
-        for (int c = 0; c < kMaxChunks; ++c) {
-          if (c < n_chunks) {
-            const int e = tid + c * nthr;
-            uint32_t* dst = reinterpret_cast<uint32_t*>(
-                tile + (e / n_chunks) * stride + 16 * (e % n_chunks));
-            dst[0] = pre[c].x;
-            dst[1] = pre[c].y;
-            dst[2] = pre[c].z;
-            dst[3] = pre[c].w;
-          }
-        }
-      } else if ((nb & 3) == 0) {
-        const int wpr = nb >> 2;
-        for (int e = tid; e < nthr * wpr; e += nthr) {
-          const int r = e / wpr, w = e % wpr;
-          uint32_t v = 0;
-          if (t0 + r < L) v = reinterpret_cast<const uint32_t*>(codes + (row0 + r) * nb)[w];
-          *reinterpret_cast<uint32_t*>(tile + r * stride + 4 * w) = v;
-        }
-      } else {
-        for (int e = tid; e < nthr * nb; e += nthr) {
-          const int r = e / nb, b = e % nb;
-          tile[r * stride + b] = (t0 + r < L) ? codes[(row0 + r) * nb + b] : 0;
-        }
-      }
-      __syncthreads();
-      const int id = nxt_id;  // -1 past the list's end
-      const float nrm = nxt_nrm;
-      if (t + 1 < n_tiles) {
-        load_meta(t + 1);
-        if (prefetch) load_tile(t + 1);
-      }
-
-      if (id >= 0) {
-        const int pos = t0 + tid;
-        float acc[kMaxQG];
-#pragma unroll
-        for (int g = 0; g < kMaxQG; ++g) acc[g] = 0.f;
-        adc_row<kBytes8>(tile + tid * stride, lut, S, K, SK, pq_bits, nb, ng, acc);
-#pragma unroll
-        for (int g = 0; g < kMaxQG; ++g) {
-          if (g < ng) {
-            const float dot = qc[g] + acc[g];
-            const float key = metric == 1 ? -dot : nrm - 2.f * dot;
-            // positions rise within a thread: a strict < keeps the
-            // earlier position on ties
-            Best2& b = best[g];
-            if (key < b.k1) {
-              b.k2 = b.k1; b.i2 = b.i1; b.p2 = b.p1;
-              b.k1 = key; b.i1 = id; b.p1 = pos;
-            } else if (key < b.k2) {
-              b.k2 = key; b.i2 = id; b.p2 = pos;
-            }
-          }
-        }
-      }
-    }
-
-    // merge the row groups' partial two-bests of each bin, query by query
-#pragma unroll
-    for (int g = 0; g < kMaxQG; ++g) {
-      if (g < ng) {
-        __syncthreads();  // the tile / previous query's scratch is free
-        part[tid] = best[g];
-        __syncthreads();
-        if (tid < kBins) {
-          Best2 m = part[tid];
-          for (int r = kBins + tid; r < nthr; r += kBins) {
-            const Best2 o = part[r];
-            best2_insert(m, o.k1, o.i1, o.p1);
-            best2_insert(m, o.k2, o.i2, o.p2);
-          }
-          const long o = (s * seg + live[g0 + g]) * (2 * kBins);
-          out_keys[o + tid] = m.k1;
-          out_keys[o + kBins + tid] = m.k2;
-          out_ids[o + tid] = m.i1;
-          out_ids[o + kBins + tid] = m.i2;
-        }
-      }
-    }
-    __syncthreads();
-  }
+  rtt::lut_scan_segment<kBytes8>(smem, s, seg_list[s], seg_q + s * seg, q_rot,
+                                 codes, ids, norms, centers_rot, cb, out_keys,
+                                 out_ids, seg, rot, S, K, P, pq_bits, nb, L,
+                                 metric, qg, stride, n_chunks);
 }
 
 // (+inf, -1) sentinel rows for pad slots: a separate pass without shared
 // memory, so many blocks per SM stream the writes (the scan kernel's
 // large shared-memory footprint leaves it one block per SM).
-__global__ void __launch_bounds__(2 * kBins)
+__global__ void __launch_bounds__(2 * kLutBins)
 pad_fill_kernel(const int* __restrict__ seg_q, float* __restrict__ out_keys,
                 int* __restrict__ out_ids, int seg) {
   const long s = blockIdx.x;
   for (int j = 0; j < seg; ++j) {
     if (seg_q[s * seg + j] < 0) {
-      const long o = (s * seg + j) * (2 * kBins) + threadIdx.x;
+      const long o = (s * seg + j) * (2 * kLutBins) + threadIdx.x;
       out_keys[o] = CUDART_INF_F;
       out_ids[o] = -1;
     }
   }
-}
-
-int row_stride(int nb) {  // bytes: an odd number of 4-byte words
-  const int words = (nb + 3) / 4;
-  return 4 * ((words & 1) ? words : words + 1);
-}
-
-size_t smem_bytes(int qg, int R, int S, int K, int rot, int seg, int nb) {
-  const size_t nthr = (size_t)kBins * R;
-  size_t b = (size_t)qg * S * K * 4 + (size_t)qg * rot * 4 + (size_t)qg * 4 +
-             (size_t)seg * 4 + 32 * 4;
-  b = (b + 15) & ~(size_t)15;
-  const size_t tile = nthr * row_stride(nb);
-  const size_t merge = nthr * sizeof(Best2);
-  return b + (tile > merge ? tile : merge);
 }
 
 template <bool kBytes8>
@@ -352,10 +89,10 @@ cudaError_t launch(int n_seg, int R, size_t smem, cudaStream_t stream,
       lut_scan_kernel<kBytes8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  lut_scan_kernel<kBytes8><<<n_seg, kBins * R, smem, stream>>>(
+  lut_scan_kernel<kBytes8><<<n_seg, kLutBins * R, smem, stream>>>(
       seg_list, seg_q, q_rot, codes, ids, norms, centers_rot, cb, out_keys,
-      out_ids, seg, rot, S, K, P, pq_bits, nb, L, metric, qg, row_stride(nb),
-      n_chunks);
+      out_ids, seg, rot, S, K, P, pq_bits, nb, L, metric, qg,
+      rtt::lut_row_stride(nb), n_chunks);
   return cudaSuccess;
 }
 
@@ -363,7 +100,7 @@ cudaError_t launch(int n_seg, int R, size_t smem, cudaStream_t stream,
 
 extern "C" long rtt_lut_scan_smem_bytes(int qg, int R, int S, int K, int rot,
                                         int seg, int nb) {
-  return (long)smem_bytes(qg, R, S, K, rot, seg, nb);
+  return (long)rtt::lut_smem_bytes(qg, R, S, K, rot, seg, nb);
 }
 
 // metric: 0 l2, 1 inner product. qg: live queries per pass, 1..4; R: row
@@ -374,17 +111,15 @@ extern "C" int rtt_ivfpq_lut_scan_topk(
     const float* centers_rot, const float* cb, float* out_keys, int* out_ids,
     int n_seg, int seg, int rot, int S, int K, int P, int pq_bits, int nb,
     int L, int metric, int qg, int R, void* stream) {
-  if (qg < 1 || qg > kMaxQG || R < 1 || R > kMaxR || seg > kBins * R)
+  if (qg < 1 || qg > rtt::kLutMaxQG || R < 1 || R > rtt::kLutMaxR ||
+      seg > kLutBins * R)
     return (int)cudaErrorInvalidValue;
   if (n_seg == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = smem_bytes(qg, R, S, K, rot, seg, nb);
-  pad_fill_kernel<<<n_seg, 2 * kBins, 0, st>>>(seg_q, out_keys, out_ids, seg);
+  const size_t smem = rtt::lut_smem_bytes(qg, R, S, K, rot, seg, nb);
+  pad_fill_kernel<<<n_seg, 2 * kLutBins, 0, st>>>(seg_q, out_keys, out_ids, seg);
   const bool bytes8 = pq_bits == 8 && S % 4 == 0;
-  // the register-prefetch path loads 16-byte aligned chunks of whole rows
-  const int n_chunks =
-      ((nb & 15) == 0 && (nb >> 4) <= kMaxChunks && ((uintptr_t)codes & 15) == 0)
-          ? nb >> 4 : 0;
+  const int n_chunks = rtt::lut_prefetch_chunks(nb, codes);
   cudaError_t e = bytes8
       ? launch<true>(n_seg, R, smem, st, seg_list, seg_q, q_rot, codes, ids, norms,
                      centers_rot, cb, out_keys, out_ids, seg, rot, S, K, P,

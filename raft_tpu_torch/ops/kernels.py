@@ -1,4 +1,4 @@
-"""The port's six hand-written Hopper kernels, their wrappers and their
+"""The port's eight hand-written Hopper kernels, their wrappers and their
 plain PyTorch versions — the counterpart of
 ``raft_tpu/ops/pallas_kernels.py``.
 
@@ -10,6 +10,8 @@ plain PyTorch versions — the counterpart of
 | ``gather_refine_topk``  | ``gather_refine_topk`` l.1176             | csrc/gather_refine.cu     |
 | ``segmented_scan_topk`` | ``segmented_scan_topk`` l.397             | csrc/segmented_scan.cu    |
 | ``grouped_scan_topk``   | ``grouped_scan_topk`` l.281               | csrc/grouped_scan.cu      |
+| ``ring_topk_merge``     | ``ring_topk_merge`` l.1581                | csrc/ring_topk.cu         |
+| ``ring_lut_scan_merge`` | ``ring_lut_scan_merge`` l.2010            | csrc/ring_lut_scan.cu     |
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, and then:
@@ -21,6 +23,9 @@ outputs with ``torch.empty``, and then:
   CPU tests hold against the JAX package and ``chip_smoke.py`` holds
   against the kernel on the card.
 
+The two ring kernels take one tensor per rank of a mesh (a list, each
+on its rank's device; see ``parallel.mesh``) and return one per rank.
+
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` (the
 CPU path counts nothing). The source notes in ``csrc/`` give each
 kernel's bound on the H100 and what its design does about it.
@@ -28,7 +33,8 @@ kernel's bound on the H100 and what its design does about it.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import ctypes
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -326,14 +332,10 @@ def ivfpq_lut_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
                                          pq_bits)
     n_seg, seg = seg_q.shape
     lib = _lib("ivfpq_lut_scan")
-    # (live queries per pass, row groups) that fit shared memory: the most
-    # LUTs × threads, ties to more threads
-    fits = [(g * r, r, g) for r in (4, 3, 2, 1) for g in (4, 3, 2, 1)
-            if seg <= LUT_SCAN_LANES * r
-            and lib.rtt_lut_scan_smem_bytes(g, r, S, K, rot, seg, nb)
-            <= _MAX_SMEM]
-    expects(bool(fits), "LUT of %d x %d f32 does not fit shared memory", S, K)
-    _, R, qg = max(fits)
+    fit = lut_scan_fit(S, K, rot, seg, nb)
+    expects(fit is not None, "LUT of %d x %d f32 does not fit shared memory",
+            S, K)
+    qg, R = fit
     keys = torch.empty((n_seg, seg, LUT_SCAN_BINS), dtype=torch.float32,
                        device=q_rot.device)
     kids = torch.empty((n_seg, seg, LUT_SCAN_BINS), dtype=torch.int32,
@@ -625,6 +627,433 @@ def grouped_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
 grouped_scan_topk.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# ring top-k exchange (B7) and the fused scan-in-ring (B8)
+# ---------------------------------------------------------------------------
+
+# The merge is a sorted buffer of two slots per lane (topk_common.cuh).
+RING_TOPK_MAX_K = 64
+# Ranks of one ring: the size of the kernels' pointer tables.
+RING_MAX_RANKS = 16
+# Union-probe segments per ring chunk the fused kernel serves (the JAX
+# package's rule, kept so both packages pick the same tier).
+RING_FUSED_MAX_SEGS = 512
+_SUBLANES = 8
+
+
+def ring_chunk_rows(m: int, n_dev: int) -> int:
+    """Query rows per ring chunk: ceil(m / n_dev) padded to a multiple of
+    8 (the TPU's sublane tile, kept so both packages cut the same
+    chunks). Shared by the kernels, the plain schedule and the comms byte
+    model."""
+    mc = -(-m // n_dev)
+    return max(_SUBLANES, -(-mc // _SUBLANES) * _SUBLANES)
+
+
+# The TPU kernel's VMEM working set bound (pallas_kernels.py:1364).
+_RING_VMEM_BUDGET = 12 * 1024 * 1024
+
+
+def ring_topk_kernel_ok(m: int, k: int, n_dev: int) -> bool:
+    """Whether the ring kernel tier takes the shape: k ≤ 64, 2 ≤ n_dev ≤ 16
+    (the CUDA kernel's pointer table), and the TPU kernel's VMEM rule
+    (pallas_kernels.py:1375-1387, mc ≤ 1228 rows). The CUDA kernel keeps
+    its blocks in device memory and would take any mc; the rule stays so
+    that both packages pick the same merge tier for the same shapes."""
+    if k > RING_TOPK_MAX_K or n_dev < 2 or n_dev > RING_MAX_RANKS:
+        return False
+    mc = ring_chunk_rows(m, n_dev)
+    vmem = (2 * mc * LUT_SCAN_LANES * 8 + 2 * mc * LUT_SCAN_LANES * 8
+            + 2 * mc * 3 * LUT_SCAN_LANES * 8)
+    return vmem <= _RING_VMEM_BUDGET
+
+
+def _ring_use_kernel(*per_rank: Sequence[torch.Tensor]) -> bool:
+    """True when every rank's tensors lie on CUDA devices, False when they
+    all lie on the CPU; a rank whose tensors straddle devices raises."""
+    kinds = set()
+    for r in range(len(per_rank[0])):
+        devs = {lst[r].device for lst in per_rank}
+        expects(len(devs) == 1, "rank %d's operands lie on several devices: "
+                "%s", r, devs)
+        kinds.add(next(iter(devs)).type)
+    expects(kinds <= {"cuda", "cpu"} and len(kinds) == 1,
+            "ring operands must all lie on CUDA devices or all on the CPU "
+            "(got %s)", kinds)
+    return kinds == {"cuda"}
+
+
+def _ring_keys(vals: torch.Tensor, ids: torch.Tensor, m_pad: int,
+               select_min: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Minimized f32 keys (negated for max-select) and int32 ids, rows
+    padded to ``m_pad`` with (+inf, −1), +inf wherever the id is < 0 —
+    the TPU wrapper's preparation (pallas_kernels.py:1621-1631)."""
+    keys = vals.float()
+    if not select_min:
+        keys = -keys
+    ids32 = ids.to(torch.int32)
+    m = keys.shape[0]
+    if m_pad > m:
+        keys = torch.nn.functional.pad(keys, (0, 0, 0, m_pad - m),
+                                       value=float("inf"))
+        ids32 = torch.nn.functional.pad(ids32, (0, 0, 0, m_pad - m), value=-1)
+    keys = torch.where(ids32 < 0, torch.full_like(keys, float("inf")), keys)
+    return keys.contiguous(), ids32.contiguous()
+
+
+def _ring_schedule_plain(local, n: int, k: int):
+    """The ring schedule over lists: ``local(r, c)`` gives rank r's
+    candidates (keys ascending-minimized, ids) for chunk c, [mc, w] on r's
+    device. Rank r starts chunk (r − 1) mod n; at hop s it merges the
+    incoming partial of rank r − 1 with its own candidates for chunk
+    (r − s − 2) mod n by a stable sort of incoming ++ local — ties to the
+    lower position — and an infinite key carries id −1. Returns per-rank
+    (keys, ids) [mc, k]: rank r holds chunk r."""
+    def top(v, i):
+        sv, pos = select_k_plain(v, k, True)
+        si = torch.gather(i, 1, pos.long())
+        return sv, torch.where(torch.isinf(sv), torch.full_like(si, -1), si)
+
+    run = [top(*local(r, (r - 1) % n)) for r in range(n)]
+    for s in range(n - 1):
+        nxt = []
+        for r in range(n):
+            lv, li = local(r, (r - s - 2) % n)
+            iv, ii = run[(r - 1) % n]
+            nxt.append(top(torch.cat([iv.to(lv.device), lv], 1),
+                           torch.cat([ii.to(li.device), li], 1)))
+        run = nxt
+    return [v for v, _ in run], [i for _, i in run]
+
+
+def ring_topk_merge_plain(keys: Sequence[torch.Tensor],
+                          ids: Sequence[torch.Tensor], k: int, mc: int):
+    """Plain version over prepared per-rank tables (``_ring_keys``: [n·mc,
+    kin] minimized keys, int32 ids): the ring schedule with a stable sort
+    per hop. Returns per-rank (keys, ids) [mc, k], ascending."""
+    return _ring_schedule_plain(
+        lambda r, c: (keys[r][c * mc:(c + 1) * mc],
+                      ids[r][c * mc:(c + 1) * mc]), len(keys), k)
+
+
+def _ring_groups(devices: Sequence[torch.device]):
+    """[(device, [ranks on it])] in rank order of first appearance."""
+    groups: Dict[torch.device, List[int]] = {}
+    for r, d in enumerate(devices):
+        groups.setdefault(d, []).append(r)
+    return list(groups.items())
+
+
+_PEERS_ENABLED = set()
+
+
+def enable_peer_access(devices: Sequence[torch.device]) -> None:
+    """Let every card of ``devices`` read the others' memory (the ring's
+    neighbour blocks, through peer pointers over NVLink). Raises where a
+    pair of cards cannot."""
+    cards = sorted({d.index for d in devices if d.type == "cuda"})
+    lib = _lib("ring_topk")
+    for a in cards:
+        for b in cards:
+            if a != b and (a, b) not in _PEERS_ENABLED:
+                rc = lib.rtt_enable_peer_access(a, b)
+                _raise_on(rc, f"enable peer access cuda:{a} -> cuda:{b}")
+                _PEERS_ENABLED.add((a, b))
+
+
+def _ring_run_hops(n: int, devices, launch, count) -> None:
+    """Launch hops −1 … n − 2 (``launch(hop, device, ranks, stream)``, one
+    call per card and hop). With several cards, every card's stream waits
+    on every card's previous hop (CUDA events), and at the end on the last
+    hop, so no card overwrites or frees a block a neighbour still reads."""
+    groups = _ring_groups(devices)
+    if len(groups) > 1:
+        enable_peer_access(devices)
+    events = []
+    for hop in range(-1, n - 1):
+        recorded = []
+        for dev, ranks in groups:
+            stream = torch.cuda.current_stream(dev)
+            for ev in events:
+                stream.wait_event(ev)
+            launch(hop, dev, ranks, stream)
+            count()
+            if len(groups) > 1:
+                ev = torch.cuda.Event()
+                ev.record(stream)
+                recorded.append(ev)
+        events = recorded
+    for dev, _ in groups:
+        for ev in events:
+            torch.cuda.current_stream(dev).wait_event(ev)
+
+
+def _ptr_table(tensors: Sequence[torch.Tensor]):
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _ring_buffers(devices, mc: int, k: int):
+    """Each rank's running blocks, one slot per hop (the start included):
+    no slot is written twice in a call, so no neighbour's read races a
+    write."""
+    n = len(devices)
+    run_k = [torch.empty((n, mc, k), dtype=torch.float32, device=d)
+             for d in devices]
+    run_i = [torch.empty((n, mc, k), dtype=torch.int32, device=d)
+             for d in devices]
+    return run_k, run_i
+
+
+def ring_topk_merge(vals: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
+                    k: int, select_min: bool = True
+                    ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Ring reduce-scatter of top-k over the ranks of a mesh.
+
+    ``vals``/``ids`` hold one [m, kin] table per rank (kin ≥ k; keys of
+    the rank's local top-k, ids −1 invalid; any id dtype, narrowed to
+    int32 — the caller keeps int64 ids on the plain schedule). The query
+    axis is padded to n·mc rows (:func:`ring_chunk_rows`). Returns per
+    rank (vals [mc, k], ids [mc, k] int32): rank r holds rows [r·mc,
+    (r+1)·mc) of the padded query axis, best first (ascending for
+    ``select_min``, descending otherwise, an empty slot −inf there),
+    ties to the rank order of the TPU kernel's ring."""
+    n = len(vals)
+    expects(n >= 1 and len(ids) == n, "ring_topk_merge needs one vals and "
+            "one ids table per rank")
+    m, kin = vals[0].shape
+    expects(all(tuple(v.shape) == (m, kin) and tuple(i.shape) == (m, kin)
+                for v, i in zip(vals, ids)),
+            "every rank's table must be [%d, %d]", m, kin)
+    if k > kin:
+        raise ValueError(f"k={k} > candidate width {kin}")
+    if k > RING_TOPK_MAX_K:
+        raise ValueError(f"k={k} > {RING_TOPK_MAX_K} (the merge buffer holds "
+                         "k ≤ 64 — gate with ring_topk_kernel_ok)")
+    expects(n <= RING_MAX_RANKS, "%d ranks > %d", n, RING_MAX_RANKS)
+    use_kernel = _ring_use_kernel(vals, ids)
+    mc = ring_chunk_rows(m, n)
+    prep = [_ring_keys(v, i, mc * n, select_min) for v, i in zip(vals, ids)]
+    keys = [p[0] for p in prep]
+    tids = [p[1] for p in prep]
+    if use_kernel:
+        lib = _lib("ring_topk")
+        devices = [t.device for t in keys]
+        run_k, run_i = _ring_buffers(devices, mc, k)
+        tables = (_ptr_table(keys), _ptr_table(tids), _ptr_table(run_k),
+                  _ptr_table(run_i))
+
+        def launch(hop, dev, ranks, stream):
+            rc = lib.rtt_ring_topk_hop(
+                *tables, n, (ctypes.c_int * len(ranks))(*ranks), len(ranks),
+                mc, kin, k, hop, dev.index, stream.cuda_stream)
+            _raise_on(rc, "ring_topk_merge")
+
+        def count():
+            ring_topk_merge.launches += 1
+
+        _ring_run_hops(n, devices, launch, count)
+        out_k = [rk[n - 1] for rk in run_k]
+        out_i = [ri[n - 1] for ri in run_i]
+    else:
+        out_k, out_i = ring_topk_merge_plain(keys, tids, k, mc)
+    if not select_min:
+        out_k = [torch.where(torch.isinf(v), torch.full_like(v, float("-inf")),
+                             -v) for v in out_k]
+    return out_k, out_i
+
+
+ring_topk_merge.launches = 0
+
+
+def indl_pad(mc: int) -> int:
+    """Lane padding of the TPU kernel's probe-indicator rows (one lane per
+    chunk query row); kept for the JAX package's callers' shapes."""
+    return -(-mc // LUT_SCAN_LANES) * LUT_SCAN_LANES
+
+
+def _lut_scan_config(S: int, K: int, P: int, nb: int, Wb: int,
+                     lut_dtype: str):
+    """The JAX package's packed-layout rule (pallas_kernels.py:478-506):
+    (G, Sg, Kc) or None where the TPU kernel refused the layout. Kept so
+    both packages admit the same layouts."""
+    if nb <= 0 or Wb % nb:
+        return None
+    G = Wb // nb
+    if G > 8 or (G & (G - 1)):
+        return None
+    op_bytes = 4 if lut_dtype == "float32" else 2
+    cap = min(LUT_SCAN_LANES // max(P, 1),
+              (4 << 20) // max(1, S * K * P * op_bytes))
+    if cap < 1:
+        return None
+    Sg = max(d for d in range(1, min(S, cap) + 1) if S % d == 0)
+    Kc = 1 << (min(K, max(1, 2048 // Sg)).bit_length() - 1)
+    return G, Sg, Kc
+
+
+def lut_scan_smem_bytes(qg: int, R: int, S: int, K: int, rot: int, seg: int,
+                        nb: int) -> int:
+    """Dynamic shared memory of one LUT-scan block (``lut_smem_bytes`` of
+    csrc/lut_scan_common.cuh, which the card tests hold this copy to): qg
+    f32 LUTs and queries, the live-slot table, then the larger of the
+    code tile (rows of an odd word count) and the bins' merge scratch."""
+    nthr = LUT_SCAN_LANES * R
+    b = qg * S * K * 4 + qg * rot * 4 + qg * 4 + seg * 4 + 32 * 4
+    b = (b + 15) & ~15
+    words = (nb + 3) // 4
+    stride = 4 * (words if words & 1 else words + 1)
+    return b + max(nthr * stride, nthr * 24)
+
+
+def lut_scan_fit(S: int, K: int, rot: int, seg: int, nb: int):
+    """(live queries per pass, row groups) of a LUT-scan block with ``seg``
+    slots that fits shared memory — the most LUTs × threads, ties to more
+    threads — or None."""
+    fits = [(g * r, r, g) for r in (4, 3, 2, 1) for g in (4, 3, 2, 1)
+            if seg <= LUT_SCAN_LANES * r
+            and lut_scan_smem_bytes(g, r, S, K, rot, seg, nb) <= _MAX_SMEM]
+    if not fits:
+        return None
+    _, R, qg = max(fits)
+    return qg, R
+
+
+def ring_lut_scan_kernel_ok(S: int, K: int, P: int, nb: int, Wb: int,
+                            mc: int, NS: int, k: int, n_dev: int, rot: int,
+                            lut_dtype: str = "float32",
+                            filtered: bool = False) -> bool:
+    """Admission of :func:`ring_lut_scan_merge`: the JAX package's rules
+    (k ≤ 64, n_dev ≥ 2, NS ≤ 512, its packed-layout rule) with its VMEM
+    budget (pallas_kernels.py:1986-2001) replaced by the CUDA kernels'
+    own need: a scan block of 128·R threads (mc ≤ 512 chunk rows) whose
+    LUT, query and code-tile staging fit the 227 KB of shared memory,
+    at most 16 ranks, and the unfolded code layout (the folded one is not
+    ported: ROADMAP A9). Filters are not ported (A6)."""
+    if (k > RING_TOPK_MAX_K or n_dev < 2 or n_dev > RING_MAX_RANKS
+            or NS > RING_FUSED_MAX_SEGS or filtered):
+        return False
+    if _lut_scan_config(S, K, P, nb, Wb, lut_dtype) is None or Wb != nb:
+        return False
+    return lut_scan_fit(S, K, rot, mc, nb) is not None
+
+
+def ring_lut_scan_merge_plain(chunk_lists, seg_q, qv_chunks, packed, ids,
+                              norms, centers_rot, cb, k: int, metric: str,
+                              pq_bits: int):
+    """Plain version over the already-rounded codebook ``cb`` and the
+    member table ``seg_q`` [n, NS, mc] (row, or −1): per rank and chunk,
+    :func:`ivfpq_lut_scan_topk_plain` over the chunk's union lists with
+    the member rows as live slots, the lists' bins laid out in union
+    order, then the ring schedule of :func:`ring_topk_merge_plain`."""
+    mc = qv_chunks[0].shape[1]
+
+    def local(r, c):
+        keys, kids = ivfpq_lut_scan_topk_plain(
+            chunk_lists[r][c].contiguous(), seg_q[r][c].contiguous(),
+            qv_chunks[r][c].contiguous(), packed[r], ids[r], norms[r],
+            centers_rot[r], cb[r], metric, pq_bits)
+        return (keys.permute(1, 0, 2).reshape(mc, -1),
+                kids.permute(1, 0, 2).reshape(mc, -1))
+
+    return _ring_schedule_plain(local, len(packed), k)
+
+
+def ring_lut_scan_merge(chunk_lists: Sequence[torch.Tensor],
+                        probe_ind: Sequence[torch.Tensor],
+                        qv_chunks: Sequence[torch.Tensor],
+                        packed: Sequence[torch.Tensor],
+                        ids: Sequence[torch.Tensor],
+                        norms: Sequence[torch.Tensor],
+                        centers_rot: Sequence[torch.Tensor],
+                        codebooks: Sequence[torch.Tensor], k: int,
+                        metric: str = "l2", *, pq_bits: int, pq_dim: int,
+                        L: int, lut_dtype: str = "float32"
+                        ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Fused per-shard LUT scan + ring top-k exchange over the ranks of a
+    mesh. Every argument holds one tensor per rank, on its device:
+
+    - ``chunk_lists [n, NS]`` i32 — each chunk's union of probed lists,
+      ascending, −1 pad (replicated);
+    - ``probe_ind [n, NS, mc]`` f32 — 1 where chunk row i probed the list
+      (pad segments all 0; replicated);
+    - ``qv_chunks [n, mc, rot]`` f32 — rotated queries per chunk
+      (replicated);
+    - ``packed`` / ``ids`` / ``norms`` / ``centers_rot`` / ``codebooks`` —
+      the rank's shard as :func:`ivfpq_lut_scan_topk` takes it (ids are
+      global row ids, int32).
+
+    Per hop, each rank scans the chunk it merges next: per (member row,
+    list) the two best per strided bin, as the LUT scan keeps them, then
+    the k best over the chunk's lists and the incoming partial. Returns
+    per rank (keys [mc, k], ids [mc, k]) of chunk r, ascending, ids −1
+    for empty slots; keys as the LUT scan's (l2: ‖c+d‖² − 2⟨q,c+d⟩, add
+    ‖q‖²; ip: −⟨q,c+d⟩). The TPU kernel returned [mc, 128] blocks that
+    callers cut to k; this one returns k columns."""
+    n = len(packed)
+    args = (chunk_lists, probe_ind, qv_chunks, packed, ids, norms,
+            centers_rot, codebooks)
+    expects(n >= 1 and all(len(a) == n for a in args),
+            "ring_lut_scan_merge needs one tensor per rank for every operand")
+    expects(0 < k <= RING_TOPK_MAX_K, "k=%d outside (0, %d] (gate with "
+            "ring_lut_scan_kernel_ok)", k, RING_TOPK_MAX_K)
+    expects(n <= RING_MAX_RANKS, "%d ranks > %d", n, RING_MAX_RANKS)
+    n2, NS = chunk_lists[0].shape
+    _, mc, rot = qv_chunks[0].shape
+    expects(n2 == n, "chunk_lists has %d chunks for %d ranks", n2, n)
+    cb = []
+    for r in range(n):
+        _check(chunk_lists[r], "chunk_lists", torch.int32, 2)
+        _check(probe_ind[r], "probe_ind", torch.float32, 3)
+        expects(tuple(probe_ind[r].shape) == (n, NS, mc)
+                and tuple(qv_chunks[r].shape) == (n, mc, rot)
+                and tuple(chunk_lists[r].shape) == (n, NS),
+                "rank %d's chunk tables disagree in shape", r)
+        S, K, P, nb, _ = _lut_scan_args(
+            chunk_lists[r][0], probe_ind[r][0].to(torch.int32),
+            qv_chunks[r][0], packed[r], ids[r], norms[r], centers_rot[r],
+            codebooks[r], metric, pq_bits, pq_dim, L)
+        cb.append(lut_codebook(codebooks[r], lut_dtype))
+    rows = torch.arange(mc, dtype=torch.int32)
+    seg_q = [torch.where(ind > 0.5, rows.to(ind.device), -1).to(torch.int32)
+             .contiguous() for ind in probe_ind]
+    qv = [q.contiguous() for q in qv_chunks]
+    lists = [c.contiguous() for c in chunk_lists]
+    if not _ring_use_kernel(lists, seg_q, qv, packed, ids, norms, centers_rot,
+                            cb):
+        return ring_lut_scan_merge_plain(lists, seg_q, qv, packed, ids, norms,
+                                         centers_rot, cb, k, metric, pq_bits)
+    fit = lut_scan_fit(S, K, rot, mc, nb)
+    expects(fit is not None, "a chunk of %d rows with a %d x %d LUT does not "
+            "fit shared memory (gate with ring_lut_scan_kernel_ok)", mc, S, K)
+    qg, R = fit
+    lib = _lib("ring_lut_scan")
+    devices = [t.device for t in packed]
+    run_k, run_i = _ring_buffers(devices, mc, k)
+    bins_k = [torch.empty((NS, mc, LUT_SCAN_BINS), dtype=torch.float32,
+                          device=d) for d in devices]
+    bins_i = [torch.empty((NS, mc, LUT_SCAN_BINS), dtype=torch.int32,
+                          device=d) for d in devices]
+    tables = [_ptr_table(t) for t in (lists, seg_q, qv, packed, ids, norms,
+                                      centers_rot, cb, bins_k, bins_i, run_k,
+                                      run_i)]
+
+    def launch(hop, dev, ranks, stream):
+        rc = lib.rtt_ring_lut_scan_hop(
+            *tables, n, (ctypes.c_int * len(ranks))(*ranks), len(ranks), NS,
+            mc, k, hop, rot, S, K, P, pq_bits, nb, L,
+            1 if metric == "ip" else 0, qg, R, dev.index, stream.cuda_stream)
+        _raise_on(rc, "ring_lut_scan_merge")
+
+    def count():
+        ring_lut_scan_merge.launches += 1
+
+    _ring_run_hops(n, devices, launch, count)
+    return [rk[n - 1] for rk in run_k], [ri[n - 1] for ri in run_i]
+
+
+ring_lut_scan_merge.launches = 0
+
+
 KERNELS = {
     "fused_l2_argmin": fused_l2_argmin,
     "select_k": select_k_cuda,
@@ -632,6 +1061,8 @@ KERNELS = {
     "gather_refine_topk": gather_refine_topk,
     "segmented_scan_topk": segmented_scan_topk,
     "grouped_scan_topk": grouped_scan_topk,
+    "ring_topk_merge": ring_topk_merge,
+    "ring_lut_scan_merge": ring_lut_scan_merge,
 }
 
 

@@ -12,7 +12,10 @@ Tolerances: select_k exact; fused_l2_argmin distances rtol 1e-5, atol
 ties; gather-refine keys rtol 1e-5 with ids equal away from key ties;
 segmented and grouped scans keys within 1e-4 + 1e-5·(|key| + ‖q‖²) (the
 expanded l2 form cancels ‖q‖² + ‖x‖²), the same finite/infinite pattern,
-ids or positions equal away from key ties, sentinels on pad slots.
+ids or positions equal away from key ties, sentinels on pad slots; the
+ring merge exact (values and ids, ties included); the fused scan-in-ring
+keys rtol 1e-4, atol 1e-3 with ids equal away from key ties (the f64 key
+of the kernel's pick within that tolerance of the plain key).
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ from raft_tpu_torch.ops import kernels as K
 
 from torch_parity import (SCAN_OPERANDS, assert_bins_match,
                           assert_scan_match, cuda_device, flat_scan_case,
-                          flat_scan_operands, refine_case, scan_case,
-                          scan_reference_keys, tied_scores)
+                          flat_scan_operands, refine_case, ring_scan_case,
+                          ring_scan_key64, ring_scan_ops, ring_tables,
+                          scan_case, scan_reference_keys, tied_scores)
 
 pytestmark = pytest.mark.cuda
 
@@ -173,3 +177,117 @@ def test_cuda_launch_counts_move():
     assert counts["select_k"] == 1 and counts["fused_l2_argmin"] == 1
     assert counts["segmented_scan_topk"] == 1
     assert counts["grouped_scan_topk"] == 1
+
+
+def _ring_devices(n: int, per_card: bool):
+    """n ranks on one card, or alternating over two cards (skips where
+    fewer are visible)."""
+    cuda_device()
+    if not per_card:
+        return [torch.device("cuda", torch.cuda.current_device())] * n
+    if torch.cuda.device_count() < 2:
+        pytest.skip("the peer-pointer case needs two cards")
+    return [torch.device("cuda", r % 2) for r in range(n)]
+
+
+def _check_ring_topk(devices, m, k, select_min, variant, seed):
+    n = len(devices)
+    vals, ids = ring_tables(n, m, k, seed, select_min, variant)
+    K.reset_launch_counts()
+    tv, ti = K.ring_topk_merge([torch.tensor(vals[r]).to(d)
+                                for r, d in enumerate(devices)],
+                               [torch.tensor(ids[r]).to(d)
+                                for r, d in enumerate(devices)],
+                               k, select_min)
+    # one launch per hop (n of them, the start included) and card
+    assert K.launch_counts()["ring_topk_merge"] == n * len(set(devices))
+    pv, pi = K.ring_topk_merge([torch.tensor(v) for v in vals],
+                               [torch.tensor(i) for i in ids], k, select_min)
+    mc = K.ring_chunk_rows(m, n)
+    for r in range(n):
+        assert tv[r].device == devices[r] and tv[r].shape == (mc, k)
+        assert torch.equal(tv[r].cpu(), pv[r]) and torch.equal(ti[r].cpu(),
+                                                               pi[r])
+
+
+# (m, k, select_min, variant): ragged m, k 1/10/64, max-select, ties,
+# duplicate ids, empty ranks
+RING_CASES = [(27, 1, True, "plain"), (500, 10, True, "ties"),
+              (77, 64, False, "sentinels"), (9, 10, False, "ties"),
+              (130, 64, True, "dup"), (8, 10, True, "sentinels")]
+
+
+@pytest.mark.parametrize("m,k,select_min,variant", RING_CASES)
+def test_cuda_ring_topk_merge_matches_plain(m, k, select_min, variant):
+    """Four ranks sharing one card: values and ids equal to the plain ring
+    schedule, ties included."""
+    _check_ring_topk(_ring_devices(4, False), m, k, select_min, variant,
+                     seed=m + k)
+
+
+def _check_ring_scan(devices, pq_bits, k, metric, lut_dtype, seed):
+    n = len(devices)
+    c = ring_scan_case(pq_bits, n_dev=n, seed=seed)
+    kw = dict(pq_bits=pq_bits, pq_dim=c["S"], L=c["L"], lut_dtype=lut_dtype)
+    K.reset_launch_counts()
+    tk, ti = K.ring_lut_scan_merge(*ring_scan_ops(c, devices), k, metric, **kw)
+    assert K.launch_counts()["ring_lut_scan_merge"] == n * len(set(devices))
+    pk, pi = K.ring_lut_scan_merge(*ring_scan_ops(c, ["cpu"] * n), k, metric,
+                                   **kw)
+    cb_used = K.lut_codebook(torch.tensor(c["cb"]), lut_dtype).numpy()
+    for r in range(n):
+        a, b = tk[r].cpu().numpy(), pk[r].numpy()
+        ia, ib = ti[r].cpu().numpy(), pi[r].numpy()
+        assert (np.isinf(a) == np.isinf(b)).all()
+        assert (ia[np.isinf(a)] == -1).all()
+        fin = np.isfinite(b)
+        np.testing.assert_allclose(a[fin], b[fin], rtol=1e-4, atol=1e-3)
+        for row, j in zip(*np.nonzero((ia != ib) & fin)):
+            k64 = ring_scan_key64(c, cb_used, metric, r, row, ia[row, j])
+            assert abs(k64 - b[row, j]) <= 1e-3 + 1e-4 * abs(b[row, j]), (
+                r, row, j)
+    assert sum(int((i >= 0).sum()) for i in pi) > 0
+
+
+# (pq_bits, k, metric, lut_dtype)
+RING_SCAN_CASES = [(8, 10, "l2", "float32"), (4, 1, "ip", "float32"),
+                   (8, 64, "l2", "bfloat16"), (5, 10, "ip", "bfloat16"),
+                   (6, 64, "l2", "float32")]
+
+
+@pytest.mark.parametrize("pq_bits,k,metric,lut_dtype", RING_SCAN_CASES)
+def test_cuda_ring_lut_scan_matches_plain(pq_bits, k, metric, lut_dtype):
+    """The fused scan-in-ring kernel, four ranks on one card, against its
+    plain version (the LUT scan's plain version per chunk, then the plain
+    ring)."""
+    _check_ring_scan(_ring_devices(4, False), pq_bits, k, metric, lut_dtype,
+                     seed=k)
+
+
+def test_cuda_ring_kernels_over_peer_pointers():
+    """Ranks alternating over two cards: the kernels read their
+    neighbour's blocks as peer pointers (skips unless two cards are
+    visible)."""
+    devices = _ring_devices(4, True)
+    _check_ring_topk(devices, 77, 10, True, "ties", seed=3)
+    _check_ring_scan(devices, 8, 10, "l2", "float32", seed=3)
+
+
+def test_cuda_lut_scan_smem_formula_matches_the_kernel():
+    """ops.kernels.lut_scan_smem_bytes (the fused tier's admission rule)
+    is the kernel's own shared-memory formula."""
+    from raft_tpu_torch.ops.build import LIBRARIES
+
+    cuda_device()
+    lib = LIBRARIES.get("ivfpq_lut_scan")
+    lib2 = LIBRARIES.get("ring_lut_scan")
+    for qg in (1, 3, 4):
+        for R in (1, 4):
+            for S, Kb, rot, seg, nb in ((64, 256, 128, 8, 64),
+                                        (16, 16, 32, 130, 8),
+                                        (96, 32, 96, 512, 60)):
+                want = K.lut_scan_smem_bytes(qg, R, S, Kb, rot, seg, nb)
+                assert lib.rtt_lut_scan_smem_bytes(qg, R, S, Kb, rot, seg,
+                                                   nb) == want
+                assert lib2.rtt_ring_lut_scan_smem_bytes(qg, R, S, Kb, rot,
+                                                         seg, nb) == want

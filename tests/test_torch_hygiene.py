@@ -30,6 +30,11 @@ def _modules():
 def test_port_imports_neither_jax_nor_raft_tpu():
     mods = _modules()
     assert "raft_tpu_torch.neighbors.ivf_pq" in mods and len(mods) >= 20
+    assert {"raft_tpu_torch.parallel.mesh", "raft_tpu_torch.parallel.comms",
+            "raft_tpu_torch.parallel.merge", "raft_tpu_torch.parallel.knn",
+            "raft_tpu_torch.parallel.ivf", "raft_tpu_torch.parallel.build",
+            "raft_tpu_torch.cluster.distributed",
+            "raft_tpu_torch.obs.spans"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
@@ -58,6 +63,7 @@ def test_port_sources_name_no_jax_module():
 def test_entry_points_refuse_cpu_by_default(monkeypatch):
     from raft_tpu_torch.bench.dataset import DeviceSynthetic
     from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, refine
+    from raft_tpu_torch.parallel import make_mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = torch.zeros((64, 8))
@@ -68,6 +74,7 @@ def test_entry_points_refuse_cpu_by_default(monkeypatch):
         lambda: refine.refine(x, x[:4], cand, 2),
         lambda: brute_force.knn(x, x[:4], 2),
         lambda: DeviceSynthetic(10, 4, n_centers=2),
+        lambda: make_mesh(4),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -119,6 +126,8 @@ def test_cpu_runs_count_no_launch():
     ids = torch.arange(20, dtype=torch.int32).view(2, 10)
     K.segmented_scan_topk(seg_list, seg_q, x[:2], x[:20].view(2, 10, 8), ids)
     K.grouped_scan_topk(seg_list, seg_q, x[:2], x[:20].view(2, 10, 8), ids, 4)
+    tables = [x[:9, :4].contiguous() for _ in range(2)]
+    K.ring_topk_merge(tables, [ids[0, :4].repeat(9, 1).contiguous()] * 2, 3)
     assert K.launch_counts() == {name: 0 for name in K.KERNELS}
 
 
@@ -157,3 +166,33 @@ def test_build_dir_is_ignored_by_git():
     assert "raft_tpu_torch/_build/" in lines
     assert os.path.relpath(kbuild.BUILD_DIR, ROOT) == os.path.join(
         "raft_tpu_torch", "_build")
+
+
+def test_ring_wrappers_refuse_mixed_devices():
+    """A ring's ranks must all lie on CUDA devices or all on the CPU; a
+    rank whose operands straddle devices raises."""
+    t = torch.zeros((8, 4))
+    i = torch.zeros((8, 4), dtype=torch.int32)
+    with pytest.raises(Exception, match="several devices"):
+        K.ring_topk_merge([t, t], [i, i.to("meta")], 2)
+    with pytest.raises(Exception, match="all on the CPU"):
+        K.ring_topk_merge([t, t.to("meta")], [i, i.to("meta")], 2)
+    with pytest.raises(ValueError, match="k=65"):
+        K.ring_topk_merge([torch.zeros((8, 70))] * 2,
+                          [torch.zeros((8, 70), dtype=torch.int32)] * 2, 65)
+
+
+def test_unported_sharded_paths_name_their_roadmap_item():
+    from raft_tpu_torch.parallel import build as pbuild
+    from raft_tpu_torch.parallel import comms, ivf, make_mesh, merge, mesh
+
+    m = make_mesh(2, device="cpu")
+    for call in (lambda: mesh.hier_mesh(2, 2), lambda: mesh.submesh(m, 1),
+                 lambda: ivf.build_ivf_flat(None, None, m),
+                 lambda: ivf.search_ivf_flat(None, None, None, 1, m),
+                 lambda: pbuild.build_ivf_pq_distributed(),
+                 lambda: merge.merge_tier(2, 8, 4, explicit="hier"),
+                 lambda: merge.resolve_exchange(m, ("dcn", "ici")),
+                 lambda: comms.Comms(m).alltoall([])):
+        with pytest.raises(NotImplementedError, match="A15"):
+            call()

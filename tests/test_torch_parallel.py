@@ -1,0 +1,368 @@
+"""The port's sharded tier against the JAX package's, on the CPU.
+
+Same seeded numpy inputs go through ``raft_tpu.parallel`` on the virtual
+CPU mesh of the test run (``tests/conftest.py``: 8 devices; meshes of
+2, 4 and 8 are cut from it) and through ``raft_tpu_torch.parallel`` on a
+mesh of CPU ranks, where each kernel wrapper runs its plain version.
+The JAX package's Pallas kernels run as its own tests run them: the ring
+merge with ``interpret=True``, the fused tier under
+``RAFT_TPU_RING_FUSED=on``.
+
+Tolerances: the ring merge and sharded kNN ids exact (kNN values rtol
+1e-5); ``dkm.fit`` centroids atol 1e-4 and the same iteration count;
+searches of a crossed index ids equal away from value ties within rtol
+1e-4, values rtol 1e-4; build recall within 0.02.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from raft_tpu.core.compat import shard_map
+from raft_tpu.ops import pallas_kernels as jpk
+from raft_tpu.parallel import merge as jmerge
+
+from raft_tpu_torch.obs import spans as tspans
+from raft_tpu_torch.ops import kernels as K
+from raft_tpu_torch.parallel import comms as tcomms
+from raft_tpu_torch.parallel import ivf as tivf
+from raft_tpu_torch.parallel import merge as tmerge
+from raft_tpu_torch.parallel import make_mesh
+
+from torch_parity import (assert_ids_match_away_from_ties, exact_knn,
+                          jax_mesh, jax_sharded_pq_arrays,
+                          jax_sharded_pq_from_arrays, overlap,
+                          ring_scan_case, ring_scan_ops, ring_tables)
+
+
+def _cpu_mesh(n):
+    return make_mesh(n, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the ring merge (B7)
+# ---------------------------------------------------------------------------
+
+def _jax_ring(vals, ids, k, select_min):
+    n, m, _ = vals.shape
+    mesh = jax_mesh(n)
+
+    def body(v, i):
+        return jpk.ring_topk_merge(v[0], i[0], k, "shard", n, select_min,
+                                   interpret=True)
+
+    fn = shard_map(body, mesh=mesh,
+                   in_specs=(P("shard", None, None), P("shard", None, None)),
+                   out_specs=(P("shard", None), P("shard", None)),
+                   check_vma=False)
+    gv, gi = fn(jnp.asarray(vals), jnp.asarray(ids))
+    return np.asarray(gv)[:m], np.asarray(gi)[:m]
+
+
+# (n_dev, m, k, select_min, variant): n_dev 2/4/8, ragged m, max-select,
+# k 1, a rank with no candidates, duplicate ids, ties
+RING_PARITY = [(2, 27, 10, True, "ties"), (4, 16, 4, False, "sentinels"),
+               (8, 9, 1, True, "plain"), (4, 8, 6, True, "dup")]
+
+
+@pytest.mark.parametrize("n_dev,m,k,select_min,variant", RING_PARITY)
+def test_ring_topk_merge_plain_matches_interpreted_kernel(
+        n_dev, m, k, select_min, variant):
+    vals, ids = ring_tables(n_dev, m, k, seed=n_dev * 100 + m,
+                            select_min=select_min, variant=variant)
+    jv, ji = _jax_ring(vals, ids, k, select_min)
+    tv, ti = K.ring_topk_merge([torch.tensor(v) for v in vals],
+                               [torch.tensor(i) for i in ids], k, select_min)
+    tv = torch.cat(tv).numpy()[:m]
+    ti = torch.cat(ti).numpy()[:m]
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(ti, ji)
+
+
+@pytest.mark.parametrize("select_min", [True, False])
+def test_merge_impls_agree(select_min):
+    """merge_topk's three impls on one set of tables: the ring kernel's
+    wrapper (its plain version here), the hop-by-hop schedule and the
+    allgather give the same [m, k] result on tie-free keys."""
+    n, m, k = 4, 37, 8
+    vals, ids = ring_tables(n, m, k, seed=5, select_min=select_min,
+                            variant="sentinels")
+    mesh = _cpu_mesh(n)
+    out = {}
+    for tier, impl in (("allgather", "allgather"), ("ring", "ring_kernel"),
+                       ("ring", "ring_ppermute")):
+        rv, ri = tmerge.merge_topk([torch.tensor(v) for v in vals],
+                                   [torch.tensor(i) for i in ids], mesh, m,
+                                   k, n, select_min, tier=tier, impl=impl)
+        spec = tmerge.merge_out_spec(tier)
+        out[impl] = (tmerge.assemble(spec, rv, m, torch.device("cpu")),
+                     tmerge.assemble(spec, ri, m, torch.device("cpu")))
+    for impl in ("ring_kernel", "ring_ppermute"):
+        assert torch.equal(out[impl][1], out["allgather"][1])
+        assert torch.equal(out[impl][0], out["allgather"][0])
+
+
+# ---------------------------------------------------------------------------
+# sharded kNN, tier decisions, byte counters
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("merge", ["allgather", "ring"])
+def test_sharded_knn_matches_jax(merge):
+    """Ids exact (and exact kNN, as replicated_knn's), values rtol 1e-5,
+    and the merge's comms counters equal to the JAX package's (the byte
+    model: the allgather counts n_dev × [m, k] per table, the ring one
+    [mc, k] block per hop)."""
+    from raft_tpu import obs
+    from raft_tpu.obs.metrics import MetricsRegistry
+    from raft_tpu.parallel import sharded_knn as jknn
+    from raft_tpu_torch.parallel import sharded_knn as tknn
+
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((803, 16)).astype(np.float32)
+    q = rng.standard_normal((27, 16)).astype(np.float32)
+    reg = MetricsRegistry()
+    obs.enable(registry=reg, hbm=False)
+    try:
+        jv, ji = jknn(jnp.asarray(x), jnp.asarray(q), 10, jax_mesh(4),
+                      merge=merge)
+    finally:
+        obs.disable()
+    jc = reg.snapshot()["counters"]
+    tcomms.reset_counters()
+    tv, ti = tknn(x, q, 10, _cpu_mesh(4), merge=merge)
+    tc = tcomms.counters()
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(ti.numpy(), exact_knn(x, q, 10))
+    if merge == "allgather":
+        from raft_tpu_torch.parallel import replicated_knn
+
+        rv, ri = replicated_knn(x, q, 10, _cpu_mesh(4))
+        np.testing.assert_array_equal(ri.numpy(), ti.numpy())
+    op = "ring_topk" if merge == "ring" else "allgather"
+    assert tc["bytes"][(op, "shard")] == jc[
+        f"comms.bytes{{axis=shard,op={op}}}"] > 0
+    assert tc["ops"][(op, "shard")] == jc[f"comms.ops{{axis=shard,op={op}}}"]
+
+
+def test_merge_tier_decisions_match_jax(monkeypatch):
+    """merge_tier and ring_auto_wanted give the JAX package's decisions
+    over a grid of shapes, with and without a kernel-capable device and
+    under each RAFT_TPU_RING_TOPK setting and merge= argument."""
+    grid = [(m, k, n) for m in (1, 8, 27, 100, 500, 4000, 12000)
+            for k in (1, 10, 64, 65) for n in (1, 2, 4, 8)]
+    for on_dev in (False, True):
+        monkeypatch.setattr(jpk, "_on_tpu", lambda: on_dev)
+        monkeypatch.setattr(K, "_on_cuda", lambda: on_dev)
+        for env in ("auto", "on", "off"):
+            monkeypatch.setenv("RAFT_TPU_RING_TOPK", env)
+            for explicit in (None, "auto", "ring", "allgather"):
+                for m, k, n in grid:
+                    want = jmerge.merge_tier(n, m, k, explicit=explicit)
+                    got = tmerge.merge_tier(n, m, k, explicit=explicit)
+                    assert got == want, (on_dev, env, explicit, m, k, n)
+    for m, k, n in grid:
+        assert tmerge.ring_auto_wanted(m, k, n) == jmerge.ring_auto_wanted(
+            m, k, n)
+        assert tmerge.merged_rows("ring", m, n) == jmerge.merged_rows(
+            "ring", m, n)
+        assert K.ring_topk_kernel_ok(m, k, n) == jpk.ring_topk_kernel_ok(
+            m, k, n)
+
+
+# ---------------------------------------------------------------------------
+# distributed k-means
+# ---------------------------------------------------------------------------
+
+def test_dkm_fit_matches_jax():
+    from raft_tpu.cluster import KMeansParams as JParams
+    from raft_tpu.cluster import distributed as jdkm
+    from raft_tpu_torch.cluster import distributed as tdkm
+    from raft_tpu_torch.cluster.kmeans import KMeansParams
+
+    from torch_parity import blobs
+
+    x = blobs(1001, 12, 6, seed=2)       # ragged: zero-weight padding
+    init = x[[3, 200, 400, 600, 800, 1000]].copy()
+    jc, jin, jit = jdkm.fit(JParams(n_clusters=6, max_iter=30, tol=1e-4),
+                            jnp.asarray(x), jax_mesh(4),
+                            init_centroids=jnp.asarray(init))
+    tc, tin, tit = tdkm.fit(KMeansParams(n_clusters=6, max_iter=30, tol=1e-4),
+                            x, _cpu_mesh(4), init_centroids=init)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-4)
+    assert tit == int(jit)
+    np.testing.assert_allclose(float(tin), float(jin), rtol=1e-4)
+    labels = tdkm.predict(tc, x, _cpu_mesh(4))
+    np.testing.assert_array_equal(labels.numpy(), np.asarray(
+        jdkm.predict(jc, jnp.asarray(x), jax_mesh(4))))
+
+
+# ---------------------------------------------------------------------------
+# sharded IVF-PQ: crossed indexes, build quality, the fused tier (B8)
+# ---------------------------------------------------------------------------
+
+# Shards of the crossed index: two keep the JAX package's interpreted
+# fused kernel and its sharded build within the file's time.
+PQ_SHARDS = 2
+
+
+@pytest.fixture(scope="module")
+def pq_case():
+    """``make_synthetic_hard`` data (bit for bit the same in both
+    packages), its exact top-10, and a JAX-built and a port-built 2-shard
+    index of it with 4-bit codes (module-scoped: the builds are the
+    expensive part). Lists hold at most 256 rows."""
+    from raft_tpu.bench.dataset import make_synthetic_hard as jhard
+    from raft_tpu.neighbors import ivf_pq as jpq
+    from raft_tpu.parallel import build_ivf_pq as jbuild
+    from raft_tpu_torch.bench.dataset import make_synthetic_hard
+    from raft_tpu_torch.neighbors import ivf_pq as tpq
+
+    ds = make_synthetic_hard("hard", 4096, 32, 400, seed=3)
+    np.testing.assert_array_equal(
+        ds.base, np.asarray(jhard("hard", 4096, 32, 400, seed=3).base))
+    kw = dict(n_lists=32, pq_dim=8, pq_bits=4, kmeans_n_iters=5)
+    jidx = jbuild(jpq.IndexParams(**kw), jnp.asarray(ds.base),
+                  jax_mesh(PQ_SHARDS))
+    tidx = tivf.build_ivf_pq(tpq.IndexParams(**kw), ds.base,
+                             _cpu_mesh(PQ_SHARDS))
+    assert tidx.max_list_size <= 256 and tidx.size == ds.base.shape[0]
+    return (ds.base, ds.queries, exact_knn(ds.base, ds.queries, 10), jidx,
+            tidx)
+
+
+def _search_both(jidx, tidx, q, k, sp_kw, merge, dataset=None):
+    from raft_tpu.neighbors import ivf_pq as jpq
+    from raft_tpu.parallel import search_ivf_pq as jsearch
+    from raft_tpu_torch.neighbors import ivf_pq as tpq
+
+    jv, ji = jsearch(jpq.SearchParams(**sp_kw), jidx, jnp.asarray(q), k,
+                     jax_mesh(PQ_SHARDS), dataset=None if dataset is None
+                     else jnp.asarray(dataset), merge=merge)
+    tv, ti = tivf.search_ivf_pq(tpq.SearchParams(**sp_kw), tidx, q, k,
+                                tidx.mesh, dataset=dataset, merge=merge)
+    return (np.asarray(ji), np.asarray(jv)), (ti.numpy(), tv.numpy())
+
+
+UNREFINED = dict(n_probes=6, lut_dtype="float32")
+REFINED = dict(n_probes=6, lut_dtype="float32", refine="f32_regen",
+               refine_ratio=3.0, scan_mode="per_query")
+FUSED = dict(n_probes=6, lut_dtype="float32", scan_select="pallas")
+
+
+@pytest.mark.parametrize("direction", ["jax_built", "port_built"])
+def test_crossed_index_searches_agree(pq_case, direction, monkeypatch):
+    """A JAX-built index crossed into the port, and a port-built one
+    crossed back, each searched by both packages: unrefined (per_query,
+    allgather), refined (ring), and the fused tier forced on (ring) —
+    ids equal away from ties; the fused tier also against the unfused
+    search of the same package."""
+    x, q, _, jidx, tidx = pq_case
+    q = q[:45]
+    if direction == "jax_built":
+        tidx = tivf.from_numpy(*jax_sharded_pq_arrays(jidx),
+                               _cpu_mesh(PQ_SHARDS))
+    else:
+        jidx = jax_sharded_pq_from_arrays(*tivf.to_numpy(tidx),
+                                          jax_mesh(PQ_SHARDS))
+    monkeypatch.setenv("RAFT_TPU_RING_FUSED", "off")
+    (ji, jv), (ti, tv) = _search_both(jidx, tidx, q, 8, UNREFINED,
+                                      "allgather")
+    assert_ids_match_away_from_ties(ti, tv, ji, jv)
+    unfused = (ti, tv)
+    (ji, jv), (ti, tv) = _search_both(jidx, tidx, q, 8, REFINED, "ring",
+                                      dataset=x)
+    assert_ids_match_away_from_ties(ti, tv, ji, jv)
+    monkeypatch.setenv("RAFT_TPU_RING_FUSED", "on")
+    tspans.reset()
+    (ji, jv), (ti, tv) = _search_both(jidx, tidx, q, 8, FUSED, "ring")
+    assert tspans.counts()["parallel.merge.dispatch"] == {
+        "ring_fused_scan": 1}
+    assert_ids_match_away_from_ties(ti, tv, ji, jv)
+    # lists of ≤ 256 rows: the two-best bins hold every row, so the fused
+    # tier equals the exact unfused scan
+    assert_ids_match_away_from_ties(ti, tv, *unfused)
+
+
+def test_port_build_recall_matches_jax(pq_case):
+    """Builds are held by quality, not bit for bit (the packages draw
+    their samples from different generators): the port's sharded build
+    reaches the JAX package's recall@10 within 0.02, each index searched
+    by its own package (refined, so the ranking is the coarse quantizer's
+    and the codebooks' together)."""
+    from raft_tpu.neighbors import ivf_pq as jpq
+    from raft_tpu.parallel import search_ivf_pq as jsearch
+    from raft_tpu_torch.neighbors import ivf_pq as tpq
+
+    x, q, gt, jidx, tidx = pq_case
+    sp = dict(n_probes=4, lut_dtype="float32", scan_mode="per_query")
+    _, ji = jsearch(jpq.SearchParams(**sp), jidx, jnp.asarray(q), 10,
+                    jax_mesh(PQ_SHARDS), merge="allgather")
+    _, ti = tivf.search_ivf_pq(tpq.SearchParams(**sp), tidx, q, 10,
+                               tidx.mesh, merge="allgather")
+    rj, rt = overlap(np.asarray(ji), gt), overlap(ti.numpy(), gt)
+    assert rj > 0.3 and abs(rt - rj) <= 0.02, (rt, rj)
+
+
+@pytest.mark.parametrize("pq_bits,n", [(4, 2), (8, 4)])
+def test_ring_lut_scan_merge_plain_matches_interpreted_kernel(pq_bits, n):
+    """The fused scan-in-ring plain version against the JAX package's
+    interpreted kernel on the same chunk tables and shards (f32 LUT, two
+    code tiles a list), and the chunk tables themselves against the JAX
+    package's."""
+    from raft_tpu.parallel.ivf import _chunk_unions as jchunk
+
+    k = 10
+    c = ring_scan_case(pq_bits, n_dev=n, m=20, seed=1, n_lists=10, L=260,
+                       n_probes=3)
+    rng = np.random.default_rng(pq_bits)
+    probes = np.stack([rng.choice(10, 3, replace=False)
+                       for _ in range(n * c["mc"])]).astype(np.int32)
+    probes = probes.reshape(n, c["mc"], 3)
+    jl, jind = jchunk(jnp.asarray(probes), c["NS"])
+    tl, tind = tivf._chunk_unions(torch.tensor(probes), c["NS"])
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(tind.numpy(), np.asarray(jind))
+    c["lists"], c["ind"] = tl.numpy(), tind.numpy()
+    mesh = jax_mesh(n)
+
+    def body(codes, ids, norms, lists, ind, qv, ctr, cb):
+        return jpk.ring_lut_scan_merge(
+            lists, ind, qv, codes[0], ids[0], norms[0], ctr, cb, k, "l2",
+            pq_bits=pq_bits, pq_dim=c["S"], L=c["L"], axis_name="shard",
+            n_dev=n, lut_dtype="float32", interpret=True)
+
+    fn = shard_map(body, mesh=mesh,
+                   in_specs=(P("shard", None, None, None),
+                             P("shard", None, None), P("shard", None, None),
+                             P(), P(), P(), P(), P()),
+                   out_specs=(P("shard", None), P("shard", None)),
+                   check_vma=False)
+    jk, ji = fn(*(jnp.asarray(c[name]) for name in (
+        "packed", "ids", "norms", "lists", "ind", "qv", "centers_rot", "cb")))
+    jk, ji = np.asarray(jk)[:, :k], np.asarray(ji)[:, :k]
+    tk, ti = K.ring_lut_scan_merge(*ring_scan_ops(c, ["cpu"] * n), k, "l2",
+                                   pq_bits=pq_bits, pq_dim=c["S"], L=c["L"])
+    tk, ti = torch.cat(tk).numpy(), torch.cat(ti).numpy()
+    assert (ti >= 0).sum() > 0
+    assert_ids_match_away_from_ties(ti, tk, ji, jk, rtol=1e-4, atol=1e-3)
+
+
+def test_refined_search_takes_pre_cut_shards(pq_case):
+    """The refined search's ``dataset`` may be the build dataset or its
+    per-rank shards as ``shard_rows`` cuts them: the same results."""
+    from raft_tpu_torch.neighbors import ivf_pq as tpq
+    from raft_tpu_torch.parallel import shard_rows
+
+    x, q, _, _, tidx = pq_case
+    sp = tpq.SearchParams(**REFINED)
+    v0, i0 = tivf.search_ivf_pq(sp, tidx, q, 8, tidx.mesh, dataset=x)
+    shards, _ = shard_rows(torch.as_tensor(x), tidx.mesh)
+    v1, i1 = tivf.search_ivf_pq(sp, tidx, q, 8, tidx.mesh, dataset=shards)
+    assert torch.equal(i0, i1) and torch.equal(v0, v1)

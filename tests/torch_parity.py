@@ -275,3 +275,173 @@ def refine_case(seed: int, m: int = 12, C: int = 300, n: int = 2000,
     cand[0, :] = -1
     cand[0, :4] = [9, 10, n + 5, 11]
     return data, q, cand
+
+
+# ---------------------------------------------------------------------------
+# ring inputs (JAX-free)
+# ---------------------------------------------------------------------------
+
+def ring_tables(n_dev: int, m: int, k: int, seed: int,
+                select_min: bool = True, variant: str = "plain"):
+    """Per-rank local top-k tables (vals, ids) [n_dev, m, k], each row
+    sorted as a local search emits it. ``variant``: "ties" (values from a
+    few levels, so ties decide the order), "dup" (a candidate surviving
+    twice), "sentinels" (short rows padded with ±inf / −1 and one rank
+    with no candidates at all), or "plain"."""
+    rng = np.random.default_rng(seed)
+    if variant == "ties":
+        vals = rng.integers(0, 6, (n_dev, m, k)).astype(np.float32) * 0.5
+    else:
+        vals = rng.random((n_dev, m, k)).astype(np.float32)
+    ids = rng.integers(0, 100_000, (n_dev, m, k)).astype(np.int32)
+    if variant == "dup" and k > 1:
+        ids[:, :, 1] = ids[:, :, 0]
+    order = np.argsort(vals if select_min else -vals, axis=-1, kind="stable")
+    vals = np.take_along_axis(vals, order, -1)
+    ids = np.take_along_axis(ids, order, -1)
+    if variant == "sentinels":
+        pad = np.inf if select_min else -np.inf
+        vals[0, :, -2:] = pad
+        ids[0, :, -2:] = -1
+        vals[n_dev - 1] = pad
+        ids[n_dev - 1] = -1
+    return vals, ids
+
+
+def ring_scan_case(pq_bits: int, n_dev: int = 4, m: int = 30, seed: int = 0,
+                   n_lists: int = 24, L: int = 300, S: int = 16, P: int = 2,
+                   n_probes: int = 6):
+    """Operands of the fused scan-in-ring kernel: per rank a shard of
+    ``n_lists`` packed lists (global ids unique over the ranks, 10 %
+    invalid, one short list), replicated rotated centers and codebooks,
+    and the chunk tables of ``m`` queries with random probes (the
+    port's ``_chunk_unions``, which the CPU tests hold against the JAX
+    package's). Numpy arrays; ``ops(c, device)`` gives the wrapper's
+    per-rank tensors."""
+    from raft_tpu_torch.neighbors import ivf_pq as tpq
+    from raft_tpu_torch.ops import kernels as tk
+    from raft_tpu_torch.parallel.ivf import _chunk_unions
+
+    rng = np.random.default_rng(seed * 100 + pq_bits)
+    Kb = 1 << pq_bits
+    rot = S * P
+    mc = tk.ring_chunk_rows(m, n_dev)
+    NS = min(mc * n_probes, n_lists)
+    codes = rng.integers(0, Kb, (n_dev * n_lists * L, S)).astype(np.uint8)
+    packed = tpq.pack_bits(torch.tensor(codes), pq_bits).numpy().reshape(
+        n_dev, n_lists, L, -1)
+    ids = rng.permutation(n_dev * n_lists * L).astype(np.int32).reshape(
+        n_dev, n_lists, L)
+    ids[rng.random(ids.shape) < 0.1] = -1
+    ids[:, 3, 120:] = -1
+    norms = rng.uniform(10, 60, (n_dev, n_lists, L)).astype(np.float32)
+    centers_rot = rng.standard_normal((n_lists, rot)).astype(np.float32) * 4
+    cb = rng.standard_normal((S, Kb, P)).astype(np.float32)
+    q = np.zeros((n_dev * mc, rot), np.float32)
+    q[:m] = rng.standard_normal((m, rot)).astype(np.float32) * 4
+    probes = np.stack([rng.choice(n_lists, n_probes, replace=False)
+                       for _ in range(n_dev * mc)]).astype(np.int32)
+    lists, ind = _chunk_unions(torch.tensor(probes).view(n_dev, mc, n_probes),
+                               NS)
+    return dict(lists=lists.numpy(), ind=ind.numpy(),
+                qv=q.reshape(n_dev, mc, rot), packed=packed, ids=ids,
+                norms=norms, centers_rot=centers_rot, cb=cb, S=S, L=L,
+                pq_bits=pq_bits, mc=mc, NS=NS, n_dev=n_dev)
+
+
+def ring_scan_ops(c, devices):
+    """The per-rank operand lists of :func:`ring_scan_case` for
+    ``kernels.ring_lut_scan_merge``, rank r on ``devices[r]``."""
+    rep = ("lists", "ind", "qv")
+    out = [[torch.tensor(c[name]).to(d) for d in devices] for name in rep]
+    out += [[torch.tensor(c[name][r]).to(d) for r, d in enumerate(devices)]
+            for name in ("packed", "ids", "norms")]
+    out += [[torch.tensor(c[name]).to(d) for d in devices]
+            for name in ("centers_rot", "cb")]
+    return out
+
+
+def ring_scan_key64(c, cb_used: np.ndarray, metric: str, chunk: int,
+                    row: int, gid: int) -> float:
+    """f64 LUT-scan key of global id ``gid`` for row ``row`` of chunk
+    ``chunk``."""
+    from raft_tpu_torch.neighbors import ivf_pq as tpq
+
+    r, lst, pos = (int(a[0]) for a in np.nonzero(c["ids"] == gid))
+    S, P = c["S"], cb_used.shape[2]
+    code = tpq.unpack_bits(torch.tensor(c["packed"][r, lst, pos]), S,
+                           c["pq_bits"]).numpy().astype(np.int64)
+    qv = c["qv"][chunk, row].astype(np.float64)
+    lut = np.einsum("sp,skp->sk", qv.reshape(S, P),
+                    cb_used.astype(np.float64))
+    dot = qv @ c["centers_rot"][lst].astype(np.float64) + lut[
+        np.arange(S), code].sum()
+    return -dot if metric == "ip" else c["norms"][r, lst, pos] - 2.0 * dot
+
+
+# ---------------------------------------------------------------------------
+# the sharded tier: JAX meshes and a ShardedIvfPq crossing as numpy
+# ---------------------------------------------------------------------------
+
+SHARDED_FIELDS = ("centers", "centers_rot", "rotation", "codebooks",
+                  "packed_codes", "packed_ids", "packed_norms", "list_sizes")
+
+
+def jax_mesh(n: int):
+    """A 1-D JAX mesh over the first n of the test run's CPU devices."""
+    import jax
+    from raft_tpu.parallel import make_mesh
+
+    return make_mesh(shape=(n,), axis_names=("shard",),
+                     devices=jax.devices()[:n])
+
+
+def jax_sharded_pq_arrays(index):
+    """A raft_tpu ``ShardedIvfPq`` → (arrays, meta) for
+    ``parallel.ivf.from_numpy``."""
+    arrays = {name: np.asarray(getattr(index, name))
+              for name in SHARDED_FIELDS}
+    meta = {"metric": index.metric, "pq_bits": index.pq_bits,
+            "pq_dim": index.pq_dim, "shard_rows": index.shard_rows,
+            "global_list_cap": index.global_list_cap}
+    return arrays, meta
+
+
+def jax_sharded_pq_from_arrays(arrays, meta, mesh):
+    """(arrays, meta) → a raft_tpu ``ShardedIvfPq`` placed on ``mesh``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from raft_tpu.parallel import ShardedIvfPq
+
+    def put(name):
+        a = jnp.asarray(arrays[name])
+        if name.startswith("packed") or name == "list_sizes":
+            spec = P("shard", *([None] * (a.ndim - 1)))
+            return jax.device_put(a, NamedSharding(mesh, spec))
+        return a
+
+    return ShardedIvfPq(**{name: put(name) for name in SHARDED_FIELDS},
+                        metric=meta["metric"], pq_bits=int(meta["pq_bits"]),
+                        pq_dim=int(meta["pq_dim"]),
+                        shard_rows=int(meta["shard_rows"]),
+                        global_list_cap=int(meta["global_list_cap"]))
+
+
+def assert_ids_match_away_from_ties(ia, va, ib, vb, rtol: float = 1e-4,
+                                    atol: float = 1e-4):
+    """Two [m, k] (ids, values) results, values sorted: values within
+    tolerance everywhere they are finite; ids equal except where the
+    value ties its neighbour (or is the k-th) within that tolerance."""
+    ia, va, ib, vb = (np.asarray(a) for a in (ia, va, ib, vb))
+    assert ia.shape == ib.shape
+    fin = np.isfinite(vb)
+    assert (np.isfinite(va) == fin).all()
+    np.testing.assert_allclose(va[fin], vb[fin], rtol=rtol, atol=atol)
+    tol = atol + rtol * np.abs(np.where(fin, vb, 0.0))
+    gap = np.abs(np.diff(np.where(fin, vb, 0.0), axis=1)) <= tol[:, 1:]
+    tie = np.zeros_like(fin)
+    tie[:, 1:] |= gap
+    tie[:, :-1] |= gap
+    tie[:, -1] = True
+    assert ((ia == ib) | tie).all(), np.argwhere((ia != ib) & ~tie)[:5]
