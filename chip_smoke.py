@@ -49,7 +49,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    of the plain path's (the same sharded search on CPU ranks); leg 4 the
    comms byte model of one batch (ring ≤ half the allgather's); then the
    ring kernels and B1–B4 against their plain versions at the path's
-   shapes. With four cards, legs 1-2 run again with one rank per card;
+   shapes. The ranks share cuda:0 whatever the card count: the ring
+   kernels over ranks on several cards are not ported yet;
 6. the card's line, the kernel JSON line, then ``{"ok": true, "device":
    {...}}`` last.
 
@@ -672,8 +673,10 @@ def _ring_lut_scan_row(rows, path, launches, index, q, k, n_probes, mesh,
                        shape):
     """ring_lut_scan_merge against its plain version (on the same card) on
     one batch's chunk tables: the same finite pattern, keys within
-    1e-4·(|key| + ‖q‖²), ids equal away from key ties (the f64 key of the
-    kernel's pick within that tolerance); then its row."""
+    1e-5·(|key| + ‖q‖²) (the f32 rounding of an ADC key and its expanded
+    form, as leg 3 and the LUT scan's check allow), ids equal away from key
+    ties (the f64 key of the kernel's pick within that tolerance); then its
+    row, with the largest difference beside its limit."""
     import torch
 
     from raft_tpu_torch.ops import kernels as K
@@ -694,7 +697,7 @@ def _ring_lut_scan_row(rows, path, launches, index, q, k, n_probes, mesh,
         lists, seg_q, qv, packed, ids, norms, ctr, cb, k, "l2",
         index.pq_bits)
     pk, pi = plain()
-    err, n_tie = 0.0, 0
+    err, worst, n_tie = 0.0, 0.0, 0
     for r in range(n):
         a, b = tk[r], pk[r]
         if not torch.equal(torch.isinf(a), torch.isinf(b)):
@@ -702,12 +705,14 @@ def _ring_lut_scan_row(rows, path, launches, index, q, k, n_probes, mesh,
                                f"on rank {r}")
         fin = torch.isfinite(b)
         qsq = (qv[r][r] * qv[r][r]).sum(1)[:, None].expand_as(b)
-        tol = 1e-4 * (b.abs() + qsq)
+        tol = 1e-5 * (b.abs() + qsq)
         diff = (a - b).abs()
         if not bool((diff[fin] <= tol[fin]).all()):
             raise SmokeFailure(f"ring_lut_scan_merge keys differ by "
                                f"{float(diff[fin].max())} on rank {r}")
-        err = max(err, float(diff[fin].max()) if bool(fin.any()) else 0.0)
+        if bool(fin.any()):
+            err = max(err, float(diff[fin].max()))
+            worst = max(worst, float((diff[fin] / tol[fin]).max()))
         for row, j in torch.nonzero((ti[r] != pi[r]) & fin).tolist():
             k64 = _adc_key64(index, qv[r][r, row], ti[r][row, j])
             if abs(k64 - float(b[row, j])) > float(tol[row, j]):
@@ -738,8 +743,9 @@ def _ring_lut_scan_row(rows, path, launches, index, q, k, n_probes, mesh,
          _timed(plain, 1), n_bytes, flops, None,
          f"{n} ranks, {q.shape[0]} queries (mc {mc}), NS "
          f"{lists[0].shape[1]}, {n_pairs} member pairs, k {k}, {n} hops of a "
-         f"scan and a merge launch, {n_tie} picks differ at f64 key ties "
-         f"({shape})")
+         f"scan and a merge launch, {n_tie} picks differ at f64 key ties, "
+         f"largest |dkey| {err:.3g} = {worst:.3f} of its limit "
+         f"1e-5*(|key|+|q|^2) ({shape})")
 
 
 def _swaps_are_ties(queries, base, ids_a, ids_b, what):
@@ -764,11 +770,11 @@ def _swaps_are_ties(queries, base, ids_a, ids_b, what):
 
 
 def sharded_phase(args, rows):
-    """The sharded tier on a 4-rank mesh whose ranks share one card (and,
-    with four cards, once more with one rank per card): distributed build,
-    sharded kNN (leg 1), refined sharded search on the ring merge (leg 2),
-    the fused scan-in-ring tier (leg 3), the comms byte model (leg 4),
-    then the path's kernels against their plain versions at its shapes.
+    """The sharded tier on a 4-rank mesh whose ranks share one card:
+    distributed build, sharded kNN (leg 1), refined sharded search on the
+    ring merge (leg 2), the fused scan-in-ring tier (leg 3), the comms byte
+    model (leg 4), then the path's kernels against their plain versions at
+    its shapes.
     Raises SmokeFailure on any failed check. Returns the summary."""
     import numpy as np
     import torch
@@ -1005,17 +1011,11 @@ def sharded_phase(args, rows):
     _log(f"[shard stages] one refined batch of {B} queries, ms: "
          f"{json.dumps(stages_ms)}")
 
-    transport = "shared cuda:0"
-    per_card = None
-    if torch.cuda.device_count() >= SHARD_RANKS:
-        per_card = _per_card_legs(args, rows, index, base, queries, gt, sp,
-                                  k, B, n_gt)
-        transport = "one rank per card"
-    else:
-        _log(f"[shard transport] the {SHARD_RANKS} ranks shared cuda:0: the "
-             f"ring kernels read their neighbours' blocks through local "
-             f"pointers; the NVLink transport (one rank per card, peer "
-             f"pointers) went unmeasured")
+    _log(f"[shard transport] the {SHARD_RANKS} ranks shared cuda:0 "
+         f"({torch.cuda.device_count()} card(s) visible): the ring kernels "
+         f"read their neighbours' blocks through local pointers; ranks on "
+         f"several cards (peer pointers over NVLink) are not ported yet "
+         f"(ROADMAP A15), so that transport went unmeasured")
     return {"n": N, "dim": dim, "ranks": SHARD_RANKS, "n_lists": 8192,
             "pq_dim": 64, "max_list_size": L, "build_s": build_s,
             "sharded_knn": knn, "qps_cold": nq / t_cold, "qps_warm": qps,
@@ -1024,45 +1024,7 @@ def sharded_phase(args, rows):
             "fused_ms_median": float(np.median(lat["on"])),
             "unfused_ms_median": float(np.median(lat["off"])),
             "byte_model": byte_model, "batch_stages_ms": stages_ms,
-            "launches": launches,
-            "transport": transport, "per_card": per_card}
-
-
-def _per_card_legs(args, rows, index, base, queries, gt, sp, k, B, n_gt):
-    """Legs 1-2 again with one rank per card (peer pointers over NVLink),
-    and the ring kernel's row at that placement, tagged per_card."""
-    import torch
-
-    from raft_tpu_torch.parallel import ivf as pivf
-    from raft_tpu_torch.parallel import knn as pknn
-    from raft_tpu_torch.ops import kernels as K
-    from raft_tpu_torch.parallel import make_mesh, shard_rows
-
-    mesh = make_mesh(SHARD_RANKS)
-    index_pc = pivf.from_numpy(*pivf.to_numpy(index), mesh)
-    shards = shard_rows(base, mesh)[0]   # each rank's rows on its card, once
-    qg = queries[:n_gt].contiguous()
-    K.reset_launch_counts()
-    _, i_ring = pknn.sharded_knn(base, qg, k, mesh, merge="ring")
-    ids = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for a in range(0, queries.shape[0], B):
-        ids.append(pivf.search_ivf_pq(sp, index_pc, queries[a:a + B], k, mesh,
-                                      dataset=shards)[1])
-    torch.cuda.synchronize()
-    qps = queries.shape[0] / (time.perf_counter() - t0)
-    rec = _recall(torch.cat(ids)[:n_gt].cpu(), gt)
-    knn_agree = float((i_ring.cpu() == gt).float().mean())
-    launches = K.launch_counts()
-    vals, gids = pivf._per_rank_topk(sp, index_pc, queries[:B].contiguous(),
-                                     k, 64, mesh, shards)
-    _ring_topk_row(rows, "per_card", launches, vals, gids, k,
-                   f"refined batch {B}, one rank per card")
-    _log(f"[shard per_card] {mesh.distinct_devices}: sharded_knn (ring) ids "
-         f"agree with brute force on {knn_agree:.6f}; refined search "
-         f"{qps:.0f} QPS (host clock, one pass), recall@10 {rec:.4f}")
-    return {"qps": qps, "recall_at_10": rec, "knn_agreement": knn_agree}
+            "launches": launches}
 
 
 def main(argv=None) -> int:

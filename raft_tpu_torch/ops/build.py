@@ -142,11 +142,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "grouped_scan": {
             "rtt_grouped_scan_topk": [_P] * 7 + [_I] * 7 + [_P]},
         "ring_topk": {
-            "rtt_ring_topk_hop": [_P] * 4 + [_I, _P] + [_I] * 6 + [_P],
-            "rtt_enable_peer_access": [_I, _I]},
+            "rtt_ring_topk_hop": [_P] * 4 + [_I] * 6 + [_P]},
         "ring_lut_scan": {
-            "rtt_ring_lut_scan_hop": [_P] * 12 + [_I, _P] + [_I] * 16 + [_P],
-            "rtt_ring_lut_scan_smem_bytes": [_I] * 7},
+            "rtt_ring_lut_scan_hop": [_P] * 12 + [_I] * 16 + [_P]},
     }[name]
     for fn, argtypes in sigs.items():
         f = getattr(lib, fn)

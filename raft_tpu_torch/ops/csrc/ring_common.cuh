@@ -1,20 +1,17 @@
 // The ring top-k exchange's device code, shared by ring_topk.cu (B7) and
 // ring_lut_scan.cu (B8).
 //
-// A mesh of n ranks lives in one process; each rank owns a running block
-// run[r] = [n][mc][k] (keys ascending, ids; one slot per hop) on its own
-// card. Chunk c's partial starts at rank (c + 1) mod n and travels the ring
+// A mesh of n ranks lives in one process, all on one card; each rank owns
+// a running block run[r] = [n][mc][k] (keys ascending, ids; one slot per
+// hop). Chunk c's partial starts at rank (c + 1) mod n and travels the ring
 // for n - 1 hops; at hop s (0 .. n-2) rank r reads the incoming partial from
 // slot s of its left neighbour r - 1, merges it with its own candidates for
 // chunk (r - s - 2) mod n, and writes slot s + 1 of its own block. Before
 // hop 0 (hop = -1) every rank writes slot 0 with its own candidates for
 // chunk (r - 1) mod n. After hop n - 2, slot n - 1 of rank r holds chunk r
-// fully merged. No slot is written twice in a call, so a neighbour's read
-// never races a write. The neighbour's block is read through the pointer
-// table passed with the launch: a local pointer when the ranks share a
-// card, a peer pointer over NVLink when they do not; those reads bypass the
-// caches (ld.global.cv), so a block another card wrote is fetched from its
-// owner, never from a line this card cached earlier.
+// fully merged. A hop is one launch, so a neighbour's slot is complete
+// before it is read; it is read through the pointer table passed with the
+// launch.
 //
 // Merge order (the TPU kernel's _extract_topk_block over incoming ++
 // local): ascending key, ties to the lower position in the concatenation
@@ -47,7 +44,7 @@ __device__ __forceinline__ int ring_load_incoming(const float* ik, int k,
   int cnt = 0;
   for (int base = 0; base < k; base += 32) {
     const int j = base + lane;
-    const float v = j < k ? __ldcv(ik + j) : CUDART_INF_F;
+    const float v = j < k ? ik[j] : CUDART_INF_F;
     if (j < k) {
       sv[j] = v;
       si[j] = j;

@@ -9,14 +9,15 @@
 // Replaces the TPU kernel raft_tpu/ops/pallas_kernels.py:ring_lut_scan_merge
 // (l.2010; body _ring_lut_scan_kernel l.1696). The TPU kernel was one
 // persistent program per chip whose scan of chunk c ran under the remote
-// copy of the previous hop. Here each hop is two launches per card: the
-// scan kernel (one block per union list of the chunk and rank; the device
-// code of lut_scan_common.cuh, LUTs in shared memory, 16-byte code tile
-// loads, strided two-best bins) writes the members' bins to a per-rank
-// scratch [NS, mc, 256]; the merge kernel (one block per chunk row and
-// rank) walks the row's member lists in union order and merges their bins,
-// and the incoming partial from the left neighbour's running block, into
-// the k best -- the ring's hop order and slots of ring_common.cuh. The
+// copy of the previous hop. Here each hop is two launches over every rank
+// of the mesh, all on one card: the scan kernel (one block per union list
+// of the chunk and rank; the device code of lut_scan_common.cuh, LUTs in
+// shared memory, 16-byte code tile loads, strided two-best bins) writes
+// the members' bins to a per-rank scratch [NS, mc, 256]; the merge kernel
+// (one block per chunk row and rank) walks the row's member lists in union
+// order and merges their bins, and the incoming partial from the left
+// neighbour's running block, into the k best -- the ring's hop order and
+// slots of ring_common.cuh. The
 // union lists are sorted ascending (the JAX package's _chunk_unions), so
 // ties go to the incoming partial, then to the earlier list, then to the
 // lower bin column: the TPU kernel's extraction order. Fusing both into
@@ -48,7 +49,6 @@ struct ScanTables {
   const float* cb[rtt::kMaxRanks];
   float* bins_k[rtt::kMaxRanks];      // [NS, mc, 256] scratch per rank
   int* bins_i[rtt::kMaxRanks];
-  int ranks[rtt::kMaxRanks];
 };
 
 struct MergeTables {
@@ -57,7 +57,6 @@ struct MergeTables {
   const int* bins_i[rtt::kMaxRanks];
   float* run_k[rtt::kMaxRanks];       // [n, mc, k] per rank
   int* run_i[rtt::kMaxRanks];
-  int ranks[rtt::kMaxRanks];
 };
 
 template <bool kBytes8>
@@ -66,7 +65,7 @@ ring_scan_kernel(ScanTables t, int n, int NS, int mc, int hop, int rot, int S,
                  int K, int P, int pq_bits, int nb, int L, int metric, int qg,
                  int stride, int n_chunks) {
   extern __shared__ float smem[];
-  const int r = t.ranks[blockIdx.y];
+  const int r = blockIdx.y;
   const int p = blockIdx.x;
   const int c = rtt::ring_chunk(r, hop, n);
   const int lst = t.lists[r][(size_t)c * NS + p];
@@ -83,7 +82,7 @@ ring_lut_merge_kernel(MergeTables t, int n, int NS, int mc, int k, int hop) {
   __shared__ float sv[kMergeWarps][rtt::kMaxK];
   __shared__ int si[kMergeWarps][rtt::kMaxK];
   __shared__ int cnts[kMergeWarps];
-  const int r = t.ranks[blockIdx.y];
+  const int r = blockIdx.y;
   const int row = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = rtt::ring_chunk(r, hop, n);
@@ -124,7 +123,7 @@ ring_lut_merge_kernel(MergeTables t, int n, int NS, int mc, int k, int hop) {
   const size_t out_off = ((size_t)(hop + 1) * mc + row) * k;
   rtt::ring_store(bv, bi, cnt, k, t.run_k[r] + out_off, t.run_i[r] + out_off,
                   [&](int pos) {
-                    if (pos < k) return __ldcv(ii + pos);
+                    if (pos < k) return ii[pos];
                     const int q = pos - k;
                     const int p = q / kBinCols;
                     return bins_i[((size_t)p * mc + row) * kBinCols + q % kBinCols];
@@ -133,7 +132,7 @@ ring_lut_merge_kernel(MergeTables t, int n, int NS, int mc, int k, int hop) {
 }
 
 template <bool kBytes8>
-cudaError_t launch_scan(const ScanTables& t, int n_ranks, size_t smem, int R,
+cudaError_t launch_scan(const ScanTables& t, size_t smem, int R,
                         cudaStream_t st, int n, int NS, int mc, int hop,
                         int rot, int S, int K, int P, int pq_bits, int nb,
                         int L, int metric, int qg, int n_chunks) {
@@ -141,7 +140,7 @@ cudaError_t launch_scan(const ScanTables& t, int n_ranks, size_t smem, int R,
       ring_scan_kernel<kBytes8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  ring_scan_kernel<kBytes8><<<dim3(NS, n_ranks), rtt::kLutBins * R, smem, st>>>(
+  ring_scan_kernel<kBytes8><<<dim3(NS, n), rtt::kLutBins * R, smem, st>>>(
       t, n, NS, mc, hop, rot, S, K, P, pq_bits, nb, L, metric, qg,
       rtt::lut_row_stride(nb), n_chunks);
   return cudaGetLastError();
@@ -149,23 +148,21 @@ cudaError_t launch_scan(const ScanTables& t, int n_ranks, size_t smem, int R,
 
 }  // namespace
 
-// One hop (hop = -1: the start) for the `n_ranks` ranks listed in `ranks`,
-// all on card `device`: the scan launch, then the merge launch, on
-// `stream`. Tables hold n pointers each (every rank's). metric: 0 l2,
-// 1 inner product. qg: live queries per scan pass (1..4); R: row groups
-// (1..4); mc <= 128 * R.
+// One hop (hop = -1: the start) for the n ranks, all on card `device`: the
+// scan launch, then the merge launch, on `stream`. Tables hold n pointers
+// each, one per rank. metric: 0 l2, 1 inner product. qg: live queries per
+// scan pass (1..4); R: row groups (1..4); mc <= 128 * R.
 extern "C" int rtt_ring_lut_scan_hop(
     const void* const* lists, const void* const* seg_q, const void* const* qv,
     const void* const* codes, const void* const* ids, const void* const* norms,
     const void* const* centers_rot, const void* const* cb,
     void* const* bins_k, void* const* bins_i, void* const* run_k,
-    void* const* run_i, int n, const int* ranks, int n_ranks, int NS, int mc,
-    int k, int hop, int rot, int S, int K, int P, int pq_bits, int nb, int L,
-    int metric, int qg, int R, int device, void* stream) {
-  if (n < 1 || n > rtt::kMaxRanks || n_ranks < 1 || n_ranks > n || k < 1 ||
-      k > rtt::kMaxK || NS < 1 || mc < 1 || hop < -1 || hop > n - 2 ||
-      qg < 1 || qg > rtt::kLutMaxQG || R < 1 || R > rtt::kLutMaxR ||
-      mc > rtt::kLutBins * R)
+    void* const* run_i, int n, int NS, int mc, int k, int hop, int rot, int S,
+    int K, int P, int pq_bits, int nb, int L, int metric, int qg, int R,
+    int device, void* stream) {
+  if (n < 1 || n > rtt::kMaxRanks || k < 1 || k > rtt::kMaxK || NS < 1 ||
+      mc < 1 || hop < -1 || hop > n - 2 || qg < 1 || qg > rtt::kLutMaxQG ||
+      R < 1 || R > rtt::kLutMaxR || mc > rtt::kLutBins * R)
     return (int)cudaErrorInvalidValue;
   ScanTables st;
   MergeTables mt;
@@ -185,7 +182,6 @@ extern "C" int rtt_ring_lut_scan_hop(
     mt.run_k[r] = (float*)run_k[r];
     mt.run_i[r] = (int*)run_i[r];
   }
-  for (int j = 0; j < n_ranks; ++j) st.ranks[j] = mt.ranks[j] = ranks[j];
   int prev = 0;
   cudaError_t e = cudaGetDevice(&prev);
   if (e != cudaSuccess) return (int)e;
@@ -194,25 +190,20 @@ extern "C" int rtt_ring_lut_scan_hop(
   const size_t smem = rtt::lut_smem_bytes(qg, R, S, K, rot, mc, nb);
   // every rank's codes must allow the 16-byte path for the launch to take it
   int n_chunks = rtt::kLutMaxChunks + 1;
-  for (int j = 0; j < n_ranks; ++j) {
-    const int c = rtt::lut_prefetch_chunks(nb, codes[ranks[j]]);
+  for (int r = 0; r < n; ++r) {
+    const int c = rtt::lut_prefetch_chunks(nb, codes[r]);
     n_chunks = c < n_chunks ? c : n_chunks;
   }
   const bool bytes8 = pq_bits == 8 && S % 4 == 0;
-  e = bytes8 ? launch_scan<true>(st, n_ranks, smem, R, s, n, NS, mc, hop, rot,
-                                 S, K, P, pq_bits, nb, L, metric, qg, n_chunks)
-             : launch_scan<false>(st, n_ranks, smem, R, s, n, NS, mc, hop, rot,
-                                  S, K, P, pq_bits, nb, L, metric, qg, n_chunks);
+  e = bytes8 ? launch_scan<true>(st, smem, R, s, n, NS, mc, hop, rot, S, K, P,
+                                 pq_bits, nb, L, metric, qg, n_chunks)
+             : launch_scan<false>(st, smem, R, s, n, NS, mc, hop, rot, S, K, P,
+                                  pq_bits, nb, L, metric, qg, n_chunks);
   if (e == cudaSuccess) {
-    ring_lut_merge_kernel<<<dim3(mc, n_ranks), 32 * kMergeWarps, 0, s>>>(
+    ring_lut_merge_kernel<<<dim3(mc, n), 32 * kMergeWarps, 0, s>>>(
         mt, n, NS, mc, k, hop);
     e = cudaGetLastError();
   }
   cudaSetDevice(prev);
   return (int)e;
-}
-
-extern "C" long rtt_ring_lut_scan_smem_bytes(int qg, int R, int S, int K,
-                                             int rot, int mc, int nb) {
-  return (long)rtt::lut_smem_bytes(qg, R, S, K, rot, mc, nb);
 }

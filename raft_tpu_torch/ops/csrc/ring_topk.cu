@@ -9,12 +9,11 @@
 // l.988). The TPU kernel was one persistent program per chip that shipped
 // its running block to the right neighbour by async remote DMA, guarded by
 // semaphores. Here the ring is one launch per hop (the TPU kernel's
-// `serial` schedule): the ranks that share a card go in one launch (grid
+// `serial` schedule) over every rank of the mesh, all on one card (grid
 // axis y over ranks), and each block reads its left neighbour's running
-// block through the pointer table; ranks on different cards get one launch
-// per card per hop, ordered by CUDA events between hops, and read each
-// other's blocks as peer pointers (rtt_enable_peer_access). The hop order
-// and the per-hop slots are set out in ring_common.cuh.
+// block through the pointer table. Ranks on several cards (peer pointers
+// over NVLink) are not ported yet. The hop order and the per-hop slots are
+// set out in ring_common.cuh.
 //
 // Bound on the H100: bytes. Per hop and rank the kernel reads the incoming
 // [mc, k] block and the local [mc, kin] chunk and writes one [mc, k] block
@@ -43,14 +42,13 @@ struct RingTables {
   const int* loc_i[rtt::kMaxRanks];
   float* run_k[rtt::kMaxRanks];        // [n, mc, k] per rank
   int* run_i[rtt::kMaxRanks];
-  int ranks[rtt::kMaxRanks];           // the ranks of this launch (grid y)
 };
 
 __global__ void __launch_bounds__(32 * kWarps)
 ring_topk_hop_kernel(RingTables t, int n, int mc, int kin, int k, int hop) {
   __shared__ float sv[kWarps][rtt::kMaxK];
   __shared__ int si[kWarps][rtt::kMaxK];
-  const int r = t.ranks[blockIdx.y];
+  const int r = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + warp;
   if (row >= mc) return;  // whole warps leave together
@@ -77,22 +75,20 @@ ring_topk_hop_kernel(RingTables t, int n, int mc, int kin, int k, int hop) {
   }
   const size_t out_off = ((size_t)(hop + 1) * mc + row) * k;
   rtt::ring_store(bv, bi, cnt, k, t.run_k[r] + out_off, t.run_i[r] + out_off,
-                  [&](int pos) { return pos < k ? __ldcv(ii + pos) : li[pos - k]; },
+                  [&](int pos) { return pos < k ? ii[pos] : li[pos - k]; },
                   lane);
 }
 
 }  // namespace
 
-// One hop (hop = -1: the start) for the `n_ranks` ranks listed in `ranks`,
-// all on card `device`, on `stream`. loc_*/run_* are tables of n pointers
-// (every rank's, so a block can reach its left neighbour on another card).
+// One hop (hop = -1: the start) for the n ranks, all on card `device`, on
+// `stream`. loc_*/run_* are tables of n pointers, one per rank.
 extern "C" int rtt_ring_topk_hop(const void* const* loc_k,
                                  const void* const* loc_i, void* const* run_k,
-                                 void* const* run_i, int n, const int* ranks,
-                                 int n_ranks, int mc, int kin, int k, int hop,
-                                 int device, void* stream) {
-  if (n < 1 || n > rtt::kMaxRanks || n_ranks < 1 || n_ranks > n || k < 1 ||
-      k > rtt::kMaxK || kin < 1 || mc < 1 || hop < -1 || hop > n - 2)
+                                 void* const* run_i, int n, int mc, int kin,
+                                 int k, int hop, int device, void* stream) {
+  if (n < 1 || n > rtt::kMaxRanks || k < 1 || k > rtt::kMaxK || kin < 1 ||
+      mc < 1 || hop < -1 || hop > n - 2)
     return (int)cudaErrorInvalidValue;
   RingTables t;
   for (int r = 0; r < n; ++r) {
@@ -101,34 +97,14 @@ extern "C" int rtt_ring_topk_hop(const void* const* loc_k,
     t.run_k[r] = (float*)run_k[r];
     t.run_i[r] = (int*)run_i[r];
   }
-  for (int j = 0; j < n_ranks; ++j) t.ranks[j] = ranks[j];
   int prev = 0;
   cudaError_t e = cudaGetDevice(&prev);
   if (e != cudaSuccess) return (int)e;
   if ((e = cudaSetDevice(device)) != cudaSuccess) return (int)e;
-  dim3 grid((mc + kWarps - 1) / kWarps, n_ranks);
+  dim3 grid((mc + kWarps - 1) / kWarps, n);
   ring_topk_hop_kernel<<<grid, 32 * kWarps, 0, (cudaStream_t)stream>>>(
       t, n, mc, kin, k, hop);
   e = cudaGetLastError();
-  cudaSetDevice(prev);
-  return (int)e;
-}
-
-// Let kernels on `device` read memory of `peer` (the ring's neighbour
-// blocks on another card). Already enabled counts as success.
-extern "C" int rtt_enable_peer_access(int device, int peer) {
-  int prev = 0;
-  cudaError_t e = cudaGetDevice(&prev);
-  if (e != cudaSuccess) return (int)e;
-  int can = 0;
-  if ((e = cudaDeviceCanAccessPeer(&can, device, peer)) != cudaSuccess) return (int)e;
-  if (!can) return (int)cudaErrorPeerAccessUnsupported;
-  if ((e = cudaSetDevice(device)) != cudaSuccess) return (int)e;
-  e = cudaDeviceEnablePeerAccess(peer, 0);
-  if (e == cudaErrorPeerAccessAlreadyEnabled) {
-    cudaGetLastError();
-    e = cudaSuccess;
-  }
   cudaSetDevice(prev);
   return (int)e;
 }

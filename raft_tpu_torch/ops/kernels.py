@@ -38,7 +38,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from raft_tpu_torch.core.errors import expects
+from raft_tpu_torch.core.errors import expects, not_ported
 
 # Bin-table width of the LUT scan: two best per strided bin of 128.
 LUT_SCAN_BINS = 256
@@ -669,17 +669,23 @@ def ring_topk_kernel_ok(m: int, k: int, n_dev: int) -> bool:
 
 
 def _ring_use_kernel(*per_rank: Sequence[torch.Tensor]) -> bool:
-    """True when every rank's tensors lie on CUDA devices, False when they
-    all lie on the CPU; a rank whose tensors straddle devices raises."""
-    kinds = set()
+    """True when every rank's tensors lie on one CUDA card, False when they
+    all lie on the CPU; a rank whose tensors straddle devices raises, and
+    so do ranks on several cards: the kernels' reads of a neighbour's
+    block through a peer pointer are not shown right yet (ROADMAP A15)."""
+    devs = set()
     for r in range(len(per_rank[0])):
-        devs = {lst[r].device for lst in per_rank}
-        expects(len(devs) == 1, "rank %d's operands lie on several devices: "
-                "%s", r, devs)
-        kinds.add(next(iter(devs)).type)
+        rank_devs = {lst[r].device for lst in per_rank}
+        expects(len(rank_devs) == 1, "rank %d's operands lie on several "
+                "devices: %s", r, rank_devs)
+        devs |= rank_devs
+    kinds = {d.type for d in devs}
     expects(kinds <= {"cuda", "cpu"} and len(kinds) == 1,
             "ring operands must all lie on CUDA devices or all on the CPU "
             "(got %s)", kinds)
+    if kinds == {"cuda"} and len(devs) > 1:
+        raise not_ported("the ring kernels over ranks on several cards "
+                         "(peer pointers over NVLink)", "A15")
     return kinds == {"cuda"}
 
 
@@ -736,71 +742,17 @@ def ring_topk_merge_plain(keys: Sequence[torch.Tensor],
                       ids[r][c * mc:(c + 1) * mc]), len(keys), k)
 
 
-def _ring_groups(devices: Sequence[torch.device]):
-    """[(device, [ranks on it])] in rank order of first appearance."""
-    groups: Dict[torch.device, List[int]] = {}
-    for r, d in enumerate(devices):
-        groups.setdefault(d, []).append(r)
-    return list(groups.items())
-
-
-_PEERS_ENABLED = set()
-
-
-def enable_peer_access(devices: Sequence[torch.device]) -> None:
-    """Let every card of ``devices`` read the others' memory (the ring's
-    neighbour blocks, through peer pointers over NVLink). Raises where a
-    pair of cards cannot."""
-    cards = sorted({d.index for d in devices if d.type == "cuda"})
-    lib = _lib("ring_topk")
-    for a in cards:
-        for b in cards:
-            if a != b and (a, b) not in _PEERS_ENABLED:
-                rc = lib.rtt_enable_peer_access(a, b)
-                _raise_on(rc, f"enable peer access cuda:{a} -> cuda:{b}")
-                _PEERS_ENABLED.add((a, b))
-
-
-def _ring_run_hops(n: int, devices, launch, count) -> None:
-    """Launch hops −1 … n − 2 (``launch(hop, device, ranks, stream)``, one
-    call per card and hop). With several cards, every card's stream waits
-    on every card's previous hop (CUDA events), and at the end on the last
-    hop, so no card overwrites or frees a block a neighbour still reads."""
-    groups = _ring_groups(devices)
-    if len(groups) > 1:
-        enable_peer_access(devices)
-    events = []
-    for hop in range(-1, n - 1):
-        recorded = []
-        for dev, ranks in groups:
-            stream = torch.cuda.current_stream(dev)
-            for ev in events:
-                stream.wait_event(ev)
-            launch(hop, dev, ranks, stream)
-            count()
-            if len(groups) > 1:
-                ev = torch.cuda.Event()
-                ev.record(stream)
-                recorded.append(ev)
-        events = recorded
-    for dev, _ in groups:
-        for ev in events:
-            torch.cuda.current_stream(dev).wait_event(ev)
-
-
 def _ptr_table(tensors: Sequence[torch.Tensor]):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def _ring_buffers(devices, mc: int, k: int):
+def _ring_buffers(n: int, device: torch.device, mc: int, k: int):
     """Each rank's running blocks, one slot per hop (the start included):
-    no slot is written twice in a call, so no neighbour's read races a
-    write."""
-    n = len(devices)
-    run_k = [torch.empty((n, mc, k), dtype=torch.float32, device=d)
-             for d in devices]
-    run_i = [torch.empty((n, mc, k), dtype=torch.int32, device=d)
-             for d in devices]
+    no slot is written twice in a call."""
+    run_k = [torch.empty((n, mc, k), dtype=torch.float32, device=device)
+             for _ in range(n)]
+    run_i = [torch.empty((n, mc, k), dtype=torch.int32, device=device)
+             for _ in range(n)]
     return run_k, run_i
 
 
@@ -837,21 +789,16 @@ def ring_topk_merge(vals: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
     tids = [p[1] for p in prep]
     if use_kernel:
         lib = _lib("ring_topk")
-        devices = [t.device for t in keys]
-        run_k, run_i = _ring_buffers(devices, mc, k)
+        dev = keys[0].device
+        run_k, run_i = _ring_buffers(n, dev, mc, k)
         tables = (_ptr_table(keys), _ptr_table(tids), _ptr_table(run_k),
                   _ptr_table(run_i))
-
-        def launch(hop, dev, ranks, stream):
-            rc = lib.rtt_ring_topk_hop(
-                *tables, n, (ctypes.c_int * len(ranks))(*ranks), len(ranks),
-                mc, kin, k, hop, dev.index, stream.cuda_stream)
-            _raise_on(rc, "ring_topk_merge")
-
-        def count():
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for hop in range(-1, n - 1):   # one launch per hop, the start first
+            _raise_on(lib.rtt_ring_topk_hop(*tables, n, mc, kin, k, hop,
+                                            dev.index, stream),
+                      "ring_topk_merge")
             ring_topk_merge.launches += 1
-
-        _ring_run_hops(n, devices, launch, count)
         out_k = [rk[n - 1] for rk in run_k]
         out_i = [ri[n - 1] for ri in run_i]
     else:
@@ -1027,27 +974,22 @@ def ring_lut_scan_merge(chunk_lists: Sequence[torch.Tensor],
             "fit shared memory (gate with ring_lut_scan_kernel_ok)", mc, S, K)
     qg, R = fit
     lib = _lib("ring_lut_scan")
-    devices = [t.device for t in packed]
-    run_k, run_i = _ring_buffers(devices, mc, k)
+    dev = packed[0].device
+    run_k, run_i = _ring_buffers(n, dev, mc, k)
     bins_k = [torch.empty((NS, mc, LUT_SCAN_BINS), dtype=torch.float32,
-                          device=d) for d in devices]
+                          device=dev) for _ in range(n)]
     bins_i = [torch.empty((NS, mc, LUT_SCAN_BINS), dtype=torch.int32,
-                          device=d) for d in devices]
+                          device=dev) for _ in range(n)]
     tables = [_ptr_table(t) for t in (lists, seg_q, qv, packed, ids, norms,
                                       centers_rot, cb, bins_k, bins_i, run_k,
                                       run_i)]
-
-    def launch(hop, dev, ranks, stream):
-        rc = lib.rtt_ring_lut_scan_hop(
-            *tables, n, (ctypes.c_int * len(ranks))(*ranks), len(ranks), NS,
-            mc, k, hop, rot, S, K, P, pq_bits, nb, L,
-            1 if metric == "ip" else 0, qg, R, dev.index, stream.cuda_stream)
-        _raise_on(rc, "ring_lut_scan_merge")
-
-    def count():
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for hop in range(-1, n - 1):   # a scan and a merge launch per hop
+        _raise_on(lib.rtt_ring_lut_scan_hop(
+            *tables, n, NS, mc, k, hop, rot, S, K, P, pq_bits, nb, L,
+            1 if metric == "ip" else 0, qg, R, dev.index, stream),
+            "ring_lut_scan_merge")
         ring_lut_scan_merge.launches += 1
-
-    _ring_run_hops(n, devices, launch, count)
     return [rk[n - 1] for rk in run_k], [ri[n - 1] for ri in run_i]
 
 

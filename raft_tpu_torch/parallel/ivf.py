@@ -283,7 +283,8 @@ def build_ivf_pq(params: _pq.IndexParams, dataset, mesh: Mesh,
 def _ring_fused_wanted(index: ShardedIvfPq, m: int, k: int, n_probes: int,
                        n_dev: int, whole_mesh: bool, merge: str,
                        mt: DistanceType, lut_dtype: str, scan_select: str,
-                       filtered: bool = False) -> Tuple[bool, str]:
+                       filtered: bool = False, n_cards: int = 1
+                       ) -> Tuple[bool, str]:
     """Dispatch of the fused scan-in-ring tier: ``(take_it, reason)``, the
     reason non-empty when the tier was wanted but declined (counted under
     ``parallel.merge.fallback``). The JAX package's rules:
@@ -292,7 +293,7 @@ def _ring_fused_wanted(index: ShardedIvfPq, m: int, k: int, n_probes: int,
     other than "pallas" (or "approx" at n_probes ≥ 64 or k ≥ 400), for
     cosine, for int64 ids, for latency-bound shapes (auto only) and where
     :func:`~raft_tpu_torch.ops.kernels.ring_lut_scan_kernel_ok` refuses
-    the shape."""
+    the shape or the ranks span several cards (``n_cards``; ROADMAP A15)."""
     force = _obs_spans.env_tristate("RAFT_TPU_RING_FUSED")
     if force == "off" or merge == "allgather":
         return False, ""
@@ -316,7 +317,7 @@ def _ring_fused_wanted(index: ShardedIvfPq, m: int, k: int, n_probes: int,
         index.pq_dim, 1 << index.pq_bits, index.codebooks[0].shape[2], nb, Wb,
         mc, NS, k, n_dev, index.centers_rot[0].shape[1], lut_dtype=lut_dtype,
         filtered=filtered)
-    if not ok:
+    if not ok or n_cards > 1:
         return False, "kernel_ineligible"
     return True, ""
 
@@ -491,7 +492,8 @@ def search_ivf_pq(params: _pq.SearchParams, index: ShardedIvfPq, queries,
     if not refined:
         fused, reason = _ring_fused_wanted(
             index, m, k, n_probes, n_dev, whole_mesh=whole_mesh, merge=merge,
-            mt=mt, lut_dtype=params.lut_dtype, scan_select=params.scan_select)
+            mt=mt, lut_dtype=params.lut_dtype, scan_select=params.scan_select,
+            n_cards=mesh.n_cards)
         if fused:
             _obs_spans.count_dispatch("parallel.merge", "ring_fused_scan")
             _obs_spans.count_dispatch("ivf_pq.scan", "ring_lut_fused")
@@ -500,7 +502,8 @@ def search_ivf_pq(params: _pq.SearchParams, index: ShardedIvfPq, queries,
         if reason:
             _obs_spans.count_fallback("parallel.merge", reason)
     tier, impl = _merge.merge_tier(n_dev, m, k, explicit=merge,
-                                   whole_mesh=whole_mesh, hier_axes=hier_axes)
+                                   whole_mesh=whole_mesh, hier_axes=hier_axes,
+                                   n_cards=mesh.n_cards)
     vals, gids = _per_rank_topk(params, index, q, k, n_probes, mesh, dataset)
     rv, ri = _merge.merge_topk(vals, gids, mesh, m, k, n_dev, select_min,
                                tier=tier, impl=impl)

@@ -45,7 +45,8 @@ def sharded_knn(dataset, queries, k: int, mesh: Mesh,
     pad_val = float("inf") if select_min else float("-inf")
     comms = Comms(mesh)
     tier, impl = _merge.merge_tier(n_dev, m, k, explicit=merge,
-                                   whole_mesh=whole_mesh, hier_axes=hier_axes)
+                                   whole_mesh=whole_mesh, hier_axes=hier_axes,
+                                   n_cards=mesh.n_cards)
     qs = replicate(q, mesh)
     vals, gids = [], []
     for r in comms.get_rank():

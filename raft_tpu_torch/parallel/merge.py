@@ -61,19 +61,22 @@ def ring_auto_wanted(m: int, k: int, n_dev: int) -> bool:
 
 
 def merge_tier(n_dev: int, m: int, k: int, explicit: Optional[str] = None,
-               whole_mesh: bool = True, hier_axes=None) -> Tuple[str, str]:
+               whole_mesh: bool = True, hier_axes=None, n_cards: int = 1
+               ) -> Tuple[str, str]:
     """(tier, impl) for one sharded search call, impl ∈ {allgather,
     ring_kernel, ring_ppermute}. ``explicit`` ("auto" defers) overrides
     ``RAFT_TPU_RING_TOPK``; auto takes the ring where the kernel serves
     the shape on a card and the shape is bandwidth-bound enough to win
-    (:func:`ring_auto_wanted`)."""
+    (:func:`ring_auto_wanted`). ``n_cards`` is the cards the mesh's ranks
+    span (``Mesh.n_cards``): the kernel serves ranks on one card only, so
+    a ring over several cards takes ``ring_ppermute`` (ROADMAP A15)."""
     hier_force = _obs_spans.env_tristate("RAFT_TPU_HIER_MERGE")
     if explicit == "hier" or hier_axes is not None:
         raise not_ported("the hier merge tier", "A15")
     if hier_force == "on" and explicit in (None, "auto"):
         _obs_spans.count_fallback("parallel.merge", "no_hier_axes")
     force = _obs_spans.env_tristate("RAFT_TPU_RING_TOPK")
-    kernel_ok = (_k._on_cuda() and whole_mesh
+    kernel_ok = (_k._on_cuda() and whole_mesh and n_cards <= 1
                  and _k.ring_topk_kernel_ok(m, k, n_dev))
     if explicit is not None and explicit != "auto":
         expects(explicit in MERGE_TIERS,

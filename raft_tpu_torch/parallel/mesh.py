@@ -12,7 +12,10 @@ same tensor for ranks that share a device). The ``Comms`` verbs take and
 return such lists. When there are fewer cards than ranks, several ranks
 share a card: that is how one H100 runs a 4-rank ring, and the ring
 kernels then read their neighbour's blocks through local device
-pointers; with one rank per card they read peer pointers over NVLink.
+pointers. The ring kernels over ranks on several cards (peer pointers
+over NVLink) are not ported yet (ROADMAP A15): such a mesh merges on the
+plain ring schedule or the allgather, and its other kernels run per rank
+on each rank's card.
 NCCL is not used: it runs one process per card and refuses two ranks on
 one GPU, so a design on ``torch.distributed`` could not run the ring on
 one card at all.
@@ -42,6 +45,11 @@ class Mesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def n_cards(self) -> int:
+        """The CUDA cards the ranks use (0 on the CPU)."""
+        return len({d for d in self.devices if d.type == "cuda"})
 
     @property
     def distinct_devices(self) -> List[torch.device]:

@@ -179,15 +179,10 @@ def test_cuda_launch_counts_move():
     assert counts["grouped_scan_topk"] == 1
 
 
-def _ring_devices(n: int, per_card: bool):
-    """n ranks on one card, or alternating over two cards (skips where
-    fewer are visible)."""
+def _ring_devices(n: int):
+    """n ranks on one card."""
     cuda_device()
-    if not per_card:
-        return [torch.device("cuda", torch.cuda.current_device())] * n
-    if torch.cuda.device_count() < 2:
-        pytest.skip("the peer-pointer case needs two cards")
-    return [torch.device("cuda", r % 2) for r in range(n)]
+    return [torch.device("cuda", torch.cuda.current_device())] * n
 
 
 def _check_ring_topk(devices, m, k, select_min, variant, seed):
@@ -199,8 +194,8 @@ def _check_ring_topk(devices, m, k, select_min, variant, seed):
                                [torch.tensor(ids[r]).to(d)
                                 for r, d in enumerate(devices)],
                                k, select_min)
-    # one launch per hop (n of them, the start included) and card
-    assert K.launch_counts()["ring_topk_merge"] == n * len(set(devices))
+    # one launch per hop, n of them, the start included
+    assert K.launch_counts()["ring_topk_merge"] == n
     pv, pi = K.ring_topk_merge([torch.tensor(v) for v in vals],
                                [torch.tensor(i) for i in ids], k, select_min)
     mc = K.ring_chunk_rows(m, n)
@@ -221,7 +216,7 @@ RING_CASES = [(27, 1, True, "plain"), (500, 10, True, "ties"),
 def test_cuda_ring_topk_merge_matches_plain(m, k, select_min, variant):
     """Four ranks sharing one card: values and ids equal to the plain ring
     schedule, ties included."""
-    _check_ring_topk(_ring_devices(4, False), m, k, select_min, variant,
+    _check_ring_topk(_ring_devices(4), m, k, select_min, variant,
                      seed=m + k)
 
 
@@ -231,7 +226,7 @@ def _check_ring_scan(devices, pq_bits, k, metric, lut_dtype, seed):
     kw = dict(pq_bits=pq_bits, pq_dim=c["S"], L=c["L"], lut_dtype=lut_dtype)
     K.reset_launch_counts()
     tk, ti = K.ring_lut_scan_merge(*ring_scan_ops(c, devices), k, metric, **kw)
-    assert K.launch_counts()["ring_lut_scan_merge"] == n * len(set(devices))
+    assert K.launch_counts()["ring_lut_scan_merge"] == n
     pk, pi = K.ring_lut_scan_merge(*ring_scan_ops(c, ["cpu"] * n), k, metric,
                                    **kw)
     cb_used = K.lut_codebook(torch.tensor(c["cb"]), lut_dtype).numpy()
@@ -260,17 +255,31 @@ def test_cuda_ring_lut_scan_matches_plain(pq_bits, k, metric, lut_dtype):
     """The fused scan-in-ring kernel, four ranks on one card, against its
     plain version (the LUT scan's plain version per chunk, then the plain
     ring)."""
-    _check_ring_scan(_ring_devices(4, False), pq_bits, k, metric, lut_dtype,
+    _check_ring_scan(_ring_devices(4), pq_bits, k, metric, lut_dtype,
                      seed=k)
 
 
 def test_cuda_ring_kernels_over_peer_pointers():
-    """Ranks alternating over two cards: the kernels read their
-    neighbour's blocks as peer pointers (skips unless two cards are
-    visible)."""
-    devices = _ring_devices(4, True)
-    _check_ring_topk(devices, 77, 10, True, "ties", seed=3)
-    _check_ring_scan(devices, 8, 10, "l2", "float32", seed=3)
+    """Ranks alternating over two cards: both ring kernels raise, naming
+    ROADMAP A15 (their peer-pointer reads are not shown right yet), and
+    launch nothing (skips unless two cards are visible)."""
+    cuda_device()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("ranks on several cards need two cards")
+    devices = [torch.device("cuda", r % 2) for r in range(4)]
+    vals, ids = ring_tables(4, 77, 10, 3, True, "ties")
+    c = ring_scan_case(8, n_dev=4, seed=3)
+    K.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="A15"):
+        K.ring_topk_merge([torch.tensor(v).to(d)
+                           for v, d in zip(vals, devices)],
+                          [torch.tensor(i).to(d)
+                           for i, d in zip(ids, devices)], 10)
+    with pytest.raises(NotImplementedError, match="A15"):
+        K.ring_lut_scan_merge(*ring_scan_ops(c, devices), 10, "l2",
+                              pq_bits=8, pq_dim=c["S"], L=c["L"])
+    counts = K.launch_counts()
+    assert counts["ring_topk_merge"] == counts["ring_lut_scan_merge"] == 0
 
 
 def test_cuda_lut_scan_smem_formula_matches_the_kernel():
@@ -280,7 +289,6 @@ def test_cuda_lut_scan_smem_formula_matches_the_kernel():
 
     cuda_device()
     lib = LIBRARIES.get("ivfpq_lut_scan")
-    lib2 = LIBRARIES.get("ring_lut_scan")
     for qg in (1, 3, 4):
         for R in (1, 4):
             for S, Kb, rot, seg, nb in ((64, 256, 128, 8, 64),
@@ -289,5 +297,3 @@ def test_cuda_lut_scan_smem_formula_matches_the_kernel():
                 want = K.lut_scan_smem_bytes(qg, R, S, Kb, rot, seg, nb)
                 assert lib.rtt_lut_scan_smem_bytes(qg, R, S, Kb, rot, seg,
                                                    nb) == want
-                assert lib2.rtt_ring_lut_scan_smem_bytes(qg, R, S, Kb, rot,
-                                                         seg, nb) == want

@@ -196,3 +196,35 @@ def test_unported_sharded_paths_name_their_roadmap_item():
                  lambda: comms.Comms(m).alltoall([])):
         with pytest.raises(NotImplementedError, match="A15"):
             call()
+
+
+def test_ring_kernel_tiers_decline_meshes_on_several_cards(monkeypatch):
+    """The ring kernels serve ranks on one card only (ROADMAP A15). With a
+    card present, a mesh over several cards takes the plain ring schedule
+    (merge="ring") or the allgather (auto) instead of the ring kernel, and
+    never the fused scan-in-ring tier; a one-card mesh keeps both."""
+    from raft_tpu_torch.distance.types import DistanceType
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.parallel import Mesh, make_mesh, merge
+    from raft_tpu_torch.parallel import ivf as pivf
+
+    one = Mesh(devices=(torch.device("cuda", 0),) * 4)
+    several = Mesh(devices=tuple(torch.device("cuda", r % 2)
+                                 for r in range(4)))
+    assert (one.n_cards, several.n_cards) == (1, 2)
+    assert make_mesh(4, device="cpu").n_cards == 0
+    monkeypatch.setattr(K, "_on_cuda", lambda: True)
+    assert merge.merge_tier(4, 500, 10, n_cards=1) == ("ring", "ring_kernel")
+    assert merge.merge_tier(4, 500, 10, explicit="ring", n_cards=2) == (
+        "ring", "ring_ppermute")
+    assert merge.merge_tier(4, 500, 10, n_cards=2) == ("allgather",
+                                                       "allgather")
+    x = np.random.default_rng(0).standard_normal((2000, 16)).astype(
+        np.float32)
+    cpu = make_mesh(2, device="cpu")
+    index = pivf.build_ivf_pq(ivf_pq.IndexParams(n_lists=8, pq_dim=8,
+                                                 kmeans_n_iters=2), x, cpu)
+    wanted = [pivf._ring_fused_wanted(
+        index, 32, 10, 8, 2, True, "auto", DistanceType.L2Expanded,
+        "float32", "pallas", n_cards=c) for c in (1, 2)]
+    assert wanted == [(True, ""), (False, "kernel_ineligible")]
