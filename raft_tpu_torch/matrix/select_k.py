@@ -3,14 +3,16 @@
 
 Tiers, by shape alone:
 
-- **kernel** — k ≤ 64 and len ≥ 8192 (the JAX package's rule,
-  ``select_k.py:87-91``), or k ≤ 16 at any len: the hand-written CUDA
-  kernel (``ops.kernels.select_k_cuda``; its plain version on CPU
-  tensors). On short rows the kernel's serial insertions grow with k:
-  ``chip_smoke.py``'s ``[flat select_k]`` line measures it ahead of the
-  stable sort at k ≤ 16 (the IVF-Flat merge's [pairs, 256] bin rows,
-  predict_topk's [tile, n_lists] Gram) and behind it on [10,000, 1024]
-  rows at k 32 and 64;
+- **kernel** — k ≤ 64 at any len: the hand-written CUDA kernel
+  (``ops.kernels.select_k_cuda``; its plain version on CPU tensors).
+  The JAX package takes its kernel only at len ≥ 8192
+  (``select_k.py:87-91``); here the kernel's short-row variant (a warp
+  per row) is ahead of the stable sort on every short row the paths
+  give it. ``chip_smoke.py``'s ``[flat select_k]`` line, on an NVIDIA
+  H100 80GB HBM3 at 700 W: [10,000, 1024] coarse probes at k 16 / 32 /
+  64 in 0.068 / 0.123 / 0.235 ms against the sort's 0.39; the merge's
+  [10,000, 320] query cut at k 10 in 0.035 against 0.288; a
+  predict_topk Gram tile [65,536, 1024] at k 6 in 0.186 against 2.34;
 - **tiled** — 64 < k, len ≥ 65536 (four tiles of 16384 or more): per-tile
   select then a merge of the per-tile survivors;
 - **sort** — otherwise: ``select_k_cuda``'s plain version, a STABLE
@@ -31,9 +33,7 @@ import torch
 from raft_tpu_torch.core.errors import expects
 from raft_tpu_torch.ops import kernels as _k
 
-_KERNEL_MIN_LEN = 8192
 _KERNEL_MAX_K = 64
-_SHORT_ROW_MAX_K = 16
 _LARGE_K_TILE = 16384
 _LARGE_K_MIN_LEN = 4 * _LARGE_K_TILE   # 65536
 
@@ -53,8 +53,7 @@ def select_k(scores: torch.Tensor, k: int, select_min: bool = True,
     n = scores.shape[1]
     if k > n:
         raise ValueError(f"k={k} > len={n}")
-    if k <= _SHORT_ROW_MAX_K or (k <= _KERNEL_MAX_K
-                                 and n >= _KERNEL_MIN_LEN):
+    if k <= _KERNEL_MAX_K:
         vals, idx = _k.select_k_cuda(scores.float().contiguous(), k,
                                      select_min)
     elif k > _KERNEL_MAX_K and n >= _LARGE_K_MIN_LEN:

@@ -130,7 +130,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "fused_l2_argmin": {
             "rtt_fused_l2_argmin": [_P, _P, _I, _I, _I, _P, _P, _P, _P]},
         "select_k": {
-            "rtt_select_k": [_P, _I, _I, _I, _I, _P, _P, _P]},
+            "rtt_select_k": [_P] + [_I] * 7 + [_P, _P, _P]},
         "ivfpq_lut_scan": {
             "rtt_ivfpq_lut_scan_topk": [_P] * 10 + [_I] * 12 + [_P],
             "rtt_lut_scan_smem_bytes": [_I] * 7},
@@ -142,7 +142,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "grouped_scan": {
             "rtt_grouped_scan_topk": [_P] * 7 + [_I] * 7 + [_P]},
         "ring_topk": {
-            "rtt_ring_topk_hop": [_P] * 4 + [_I] * 6 + [_P]},
+            "rtt_ring_topk_merge": [_P] + [_I] * 6 + [_P, _P, _I, _P]},
         "ring_lut_scan": {
             "rtt_ring_lut_scan_hop": [_P] * 12 + [_I] * 16 + [_P]},
     }[name]

@@ -1,5 +1,6 @@
-// The ring top-k exchange's device code, shared by ring_topk.cu (B7) and
-// ring_lut_scan.cu (B8).
+// The ring top-k exchange's per-hop device code of ring_lut_scan.cu (B8);
+// ring_topk.cu (B7), which walks each chunk's merge chain in one launch,
+// takes only its rank limit.
 //
 // A mesh of n ranks lives in one process, all on one card; each rank owns
 // a running block run[r] = [n][mc][k] (keys ascending, ids; one slot per

@@ -19,6 +19,16 @@ __device__ __forceinline__ bool key_less(float a, int ai, float b, int bi) {
   return a < b || (a == b && ai < bi);
 }
 
+// Unsigned image of a float whose order is a stable ascending sort's:
+// -0.0 and +0.0 map to one key (they tie, so position decides), and every
+// NaN maps to one key above +inf (torch.sort puts NaN last).
+__device__ __forceinline__ unsigned order_key(float v) {
+  unsigned u = __float_as_uint(v);
+  if (u == 0x80000000u) u = 0u;
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return v != v ? 0xffffff00u : u;
+}
+
 // Insert (v, i) into the sorted buffer (sv, si) of `cnt` entries and
 // capacity k. Every lane of the warp calls it with the same (v, i).
 // Returns the new count.

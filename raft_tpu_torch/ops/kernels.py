@@ -34,11 +34,13 @@ kernel's bound on the H100 and what its design does about it.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from raft_tpu_torch.core.errors import expects, not_ported
+from raft_tpu_torch.ops import build as _build
 
 # Bin-table width of the LUT scan: two best per strided bin of 128.
 LUT_SCAN_BINS = 256
@@ -77,8 +79,13 @@ def _ptr(t: torch.Tensor):
     return t.data_ptr()
 
 
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
+def _stream(device=None):
+    """Raw handle of the current stream on ``device`` (a CUDA
+    ``torch.device``; the current card when None or without an index)."""
+    index = None if device is None else device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -87,9 +94,7 @@ def _raise_on(rc: int, name: str) -> None:
 
 
 def _lib(name: str):
-    from raft_tpu_torch.ops.build import LIBRARIES
-
-    return LIBRARIES.get(name)
+    return _build.LIBRARIES.get(name)
 
 
 # ---------------------------------------------------------------------------
@@ -160,6 +165,29 @@ def select_k_plain(scores: torch.Tensor, k: int, select_min: bool = True
     return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
 
 
+# Rows up to this length are selected by one warp from its registers (32
+# keys a lane at most); longer rows by one block with a radix select, which
+# stages the row's keys in shared memory up to SELECT_K_STAGE_MAX (40 KB).
+SELECT_K_SHORT_MAX = 1024
+SELECT_K_STAGE_MAX = 10240
+
+
+@functools.lru_cache(maxsize=None)
+def select_k_plan(length: int, aligned: bool) -> Tuple[int, int, int]:
+    """The select_k kernel's variant for rows of ``length`` scores:
+    (vec, per_lane, smem_bytes). ``per_lane > 0`` is the short variant
+    (one warp per row, ``per_lane`` keys a lane — a power of two — read
+    as 16-byte vectors when ``vec`` is 4, which needs ``aligned`` rows:
+    a 16-byte aligned base and a length that is a multiple of 4);
+    ``per_lane == 0`` the long one (one block per row), whose keys take
+    ``smem_bytes`` of dynamic shared memory (0: re-read from the row)."""
+    if length <= SELECT_K_SHORT_MAX:
+        vec = 4 if aligned and length % 4 == 0 else 1
+        need = -(-length // (32 * vec)) * vec
+        return vec, max(vec, 1 << (need - 1).bit_length()), 0
+    return 1, 0, length * 4 if length <= SELECT_K_STAGE_MAX else 0
+
+
 def select_k_cuda(scores: torch.Tensor, k: int, select_min: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-wise top-k, k ≤ 64: scores [m, len] f32 → (values [m, k] f32,
@@ -169,13 +197,16 @@ def select_k_cuda(scores: torch.Tensor, k: int, select_min: bool = True
     expects(0 < k <= SELECT_K_MAX_K, "k=%d outside (0, %d]", k,
             SELECT_K_MAX_K)
     expects(k <= n, "k=%d > len=%d", k, n)
-    if not _use_kernel(scores):
+    if not scores.is_cuda and not _use_kernel(scores):
         return select_k_plain(scores, k, select_min)
-    out_v = torch.empty((m, k), dtype=torch.float32, device=scores.device)
-    out_i = torch.empty((m, k), dtype=torch.int32, device=scores.device)
+    dev = scores.device
+    ptr = _ptr(scores)
+    vec, per_lane, smem = select_k_plan(n, ptr % 16 == 0)
+    out_v = torch.empty((m, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty_like(out_v, dtype=torch.int32)
     rc = _lib("select_k").rtt_select_k(
-        _ptr(scores), m, n, k, int(select_min), _ptr(out_v), _ptr(out_i),
-        _stream())
+        ptr, m, n, k, int(select_min), vec, per_lane, smem, _ptr(out_v),
+        _ptr(out_i), _stream(dev))
     select_k_cuda.launches += 1
     _raise_on(rc, "select_k")
     return out_v, out_i
@@ -772,8 +803,9 @@ def ring_topk_merge(vals: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
     n = len(vals)
     expects(n >= 1 and len(ids) == n, "ring_topk_merge needs one vals and "
             "one ids table per rank")
-    m, kin = vals[0].shape
-    expects(all(tuple(v.shape) == (m, kin) and tuple(i.shape) == (m, kin)
+    shape = vals[0].shape
+    m, kin = shape
+    expects(all(v.shape == shape and i.shape == shape
                 for v, i in zip(vals, ids)),
             "every rank's table must be [%d, %d]", m, kin)
     if k > kin:
@@ -782,31 +814,30 @@ def ring_topk_merge(vals: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
         raise ValueError(f"k={k} > {RING_TOPK_MAX_K} (the merge buffer holds "
                          "k ≤ 64 — gate with ring_topk_kernel_ok)")
     expects(n <= RING_MAX_RANKS, "%d ranks > %d", n, RING_MAX_RANKS)
-    use_kernel = _ring_use_kernel(vals, ids)
     mc = ring_chunk_rows(m, n)
-    prep = [_ring_keys(v, i, mc * n, select_min) for v, i in zip(vals, ids)]
-    keys = [p[0] for p in prep]
-    tids = [p[1] for p in prep]
-    if use_kernel:
-        lib = _lib("ring_topk")
-        dev = keys[0].device
-        run_k, run_i = _ring_buffers(n, dev, mc, k)
-        tables = (_ptr_table(keys), _ptr_table(tids), _ptr_table(run_k),
-                  _ptr_table(run_i))
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for hop in range(-1, n - 1):   # one launch per hop, the start first
-            _raise_on(lib.rtt_ring_topk_hop(*tables, n, mc, kin, k, hop,
-                                            dev.index, stream),
-                      "ring_topk_merge")
-            ring_topk_merge.launches += 1
-        out_k = [rk[n - 1] for rk in run_k]
-        out_i = [ri[n - 1] for ri in run_i]
-    else:
-        out_k, out_i = ring_topk_merge_plain(keys, tids, k, mc)
-    if not select_min:
-        out_k = [torch.where(torch.isinf(v), torch.full_like(v, float("-inf")),
-                             -v) for v in out_k]
-    return out_k, out_i
+    if not _ring_use_kernel(vals, ids):
+        prep = [_ring_keys(v, i, mc * n, select_min) for v, i in zip(vals, ids)]
+        out_k, out_i = ring_topk_merge_plain([p[0] for p in prep],
+                                             [p[1] for p in prep], k, mc)
+        if not select_min:
+            out_k = [torch.where(torch.isinf(v),
+                                 torch.full_like(v, float("-inf")), -v)
+                     for v in out_k]
+        return out_k, out_i
+    # the kernel reads contiguous f32 keys and int32 ids; others are copied
+    vals = [v if v.dtype == torch.float32 and v.is_contiguous()
+            else v.float().contiguous() for v in vals]
+    ids = [i if i.dtype == torch.int32 and i.is_contiguous()
+           else i.to(torch.int32).contiguous() for i in ids]
+    dev = vals[0].device
+    out_k = torch.empty((n, mc, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n, mc, k), dtype=torch.int32, device=dev)
+    rc = _lib("ring_topk").rtt_ring_topk_merge(
+        _ptr_table(vals + ids), n, m, mc, kin, k, int(select_min),
+        _ptr(out_k), _ptr(out_i), dev.index, _stream(dev))
+    ring_topk_merge.launches += 1
+    _raise_on(rc, "ring_topk_merge")
+    return list(out_k.unbind(0)), list(out_i.unbind(0))
 
 
 ring_topk_merge.launches = 0

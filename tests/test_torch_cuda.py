@@ -7,15 +7,15 @@ toolkit::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: select_k exact; fused_l2_argmin distances rtol 1e-5, atol
-1e-4; LUT scan keys rtol 1e-4, atol 1e-3 with ids equal away from key
-ties; gather-refine keys rtol 1e-5 with ids equal away from key ties;
-segmented and grouped scans keys within 1e-4 + 1e-5·(|key| + ‖q‖²) (the
-expanded l2 form cancels ‖q‖² + ‖x‖²), the same finite/infinite pattern,
-ids or positions equal away from key ties, sentinels on pad slots; the
-ring merge exact (values and ids, ties included); the fused scan-in-ring
-keys rtol 1e-4, atol 1e-3 with ids equal away from key ties (the f64 key
-of the kernel's pick within that tolerance of the plain key).
+Tolerances: select_k exact (values bit for bit); fused_l2_argmin distances
+rtol 1e-5, atol 1e-4; LUT scan keys rtol 1e-4, atol 1e-3 with ids equal
+away from key ties; gather-refine keys rtol 1e-5 with ids equal away from
+key ties; segmented and grouped scans keys within 1e-4 + 1e-5·(|key| +
+‖q‖²) (the expanded l2 form cancels ‖q‖² + ‖x‖²), the same finite/infinite
+pattern, ids or positions equal away from key ties, sentinels on pad slots;
+the ring merge exact (values and ids, ties included); the fused
+scan-in-ring keys rtol 1e-4, atol 1e-3 with ids equal away from key ties
+(the f64 key of the kernel's pick within that tolerance of the plain key).
 """
 
 from __future__ import annotations
@@ -45,6 +45,47 @@ def test_cuda_select_k_matches_plain():
             assert torch.equal(v, pv) and torch.equal(i, pi)
 
 
+def _select_rows(m: int, n: int, seed: int) -> np.ndarray:
+    """Tie-heavy rows, then a row of +inf, one mixing −inf and +inf, one of
+    signed zeros (−0.0 ties +0.0: position decides) and one mixing ±inf
+    into finite ties."""
+    s = tied_scores(m, n, seed)
+    rng = np.random.default_rng(seed)
+    s[0] = np.inf
+    s[1] = np.where(rng.random(n) < 0.5, -np.inf, np.inf)
+    s[2] = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+    s[3, rng.random(n) < 0.3] = np.inf
+    s[3, rng.random(n) < 0.1] = -np.inf
+    return s
+
+
+@pytest.mark.parametrize("n", [20, 256, 320, 1024, 8192, 100_003])
+def test_cuda_select_k_rows_bit_equal_plain(n):
+    """Both variants (a warp per row up to 1024, a block with a radix
+    select beyond), at k 1 to 64 and both select modes: positions equal
+    to the stable sort's and values equal bit for bit, on aligned rows
+    and (short rows) on rows whose base is not 16-byte aligned."""
+    dev = cuda_device()
+    m = 40 if n < 100_000 else 9
+    s = torch.tensor(_select_rows(m, n, seed=n)).to(dev)
+    cases = [s]
+    if n <= K.SELECT_K_SHORT_MAX:
+        buf = torch.empty(m * n + 1, dtype=torch.float32, device=dev)
+        buf[1:] = s.flatten()
+        cases.append(buf[1:].view(m, n))
+        assert K.select_k_plan(n, cases[1].data_ptr() % 16 == 0)[0] == 1
+    for x in cases:
+        for k in (1, 10, 16, 33, 64):
+            if k > n:
+                continue
+            for select_min in (True, False):
+                v, i = K.select_k_cuda(x, k, select_min)
+                pv, pi = K.select_k_plain(x, k, select_min)
+                assert torch.equal(i, pi), (k, select_min)
+                assert torch.equal(v.view(torch.int32),
+                                   pv.view(torch.int32)), (k, select_min)
+
+
 # (rows, len, k, +inf share): the IVF-Flat path's short rows — bin rows of
 # 256 that are mostly +inf, a merge's [B, P·kk] rows, predict_topk's Gram
 # rows — and short rows at k up to 64 (the kernel wrapper itself)
@@ -56,8 +97,8 @@ SHORT_ROWS = [(5000, 256, 10, 0.7), (700, 256, 64, 0.9), (37, 320, 10, 0.1),
 @pytest.mark.parametrize("m,n,k,inf_share", SHORT_ROWS)
 def test_cuda_select_k_short_rows_match_plain(m, n, k, inf_share):
     """The kernel on short rows gives the stable sort's values and
-    positions, +inf ties included; matrix.select_k launches it there for
-    k ≤ 16."""
+    positions, +inf ties included; matrix.select_k launches it there at
+    every k ≤ 64."""
     from raft_tpu_torch.matrix.select_k import select_k
 
     dev = cuda_device()
@@ -70,7 +111,7 @@ def test_cuda_select_k_short_rows_match_plain(m, n, k, inf_share):
         assert torch.equal(v, pv) and torch.equal(i, pi)
         K.reset_launch_counts()
         v, i = select_k(s, k, select_min)
-        assert K.launch_counts()["select_k"] == int(k <= 16)
+        assert K.launch_counts()["select_k"] == 1
         assert torch.equal(v, pv) and torch.equal(i, pi)
 
 
@@ -194,8 +235,8 @@ def _check_ring_topk(devices, m, k, select_min, variant, seed):
                                [torch.tensor(ids[r]).to(d)
                                 for r, d in enumerate(devices)],
                                k, select_min)
-    # one launch per hop, n of them, the start included
-    assert K.launch_counts()["ring_topk_merge"] == n
+    # one launch per call, whatever the rank count
+    assert K.launch_counts()["ring_topk_merge"] == 1
     pv, pi = K.ring_topk_merge([torch.tensor(v) for v in vals],
                                [torch.tensor(i) for i in ids], k, select_min)
     mc = K.ring_chunk_rows(m, n)
@@ -212,12 +253,31 @@ RING_CASES = [(27, 1, True, "plain"), (500, 10, True, "ties"),
               (130, 64, True, "dup"), (8, 10, True, "sentinels")]
 
 
+@pytest.mark.parametrize("n", [2, 3, 4, 8, 16])
 @pytest.mark.parametrize("m,k,select_min,variant", RING_CASES)
-def test_cuda_ring_topk_merge_matches_plain(m, k, select_min, variant):
-    """Four ranks sharing one card: values and ids equal to the plain ring
-    schedule, ties included."""
-    _check_ring_topk(_ring_devices(4), m, k, select_min, variant,
-                     seed=m + k)
+def test_cuda_ring_topk_merge_matches_plain(m, k, select_min, variant, n):
+    """n ranks sharing one card: values and ids equal to the plain ring
+    schedule, ties included, in one launch."""
+    _check_ring_topk(_ring_devices(n), m, k, select_min, variant,
+                     seed=m + k + n)
+
+
+def test_cuda_ring_topk_merge_narrows_other_types():
+    """f64 keys and int64 ids are narrowed to the kernel's f32 / int32, as
+    the plain version narrows them; wider rows (kin 150 > k) merge in
+    batches of 64."""
+    devices = _ring_devices(4)
+    vals, ids = ring_tables(4, 61, 150, 9, True, "ties")
+    tv, ti = K.ring_topk_merge(
+        [torch.tensor(v, dtype=torch.float64).to(d)
+         for v, d in zip(vals, devices)],
+        [torch.tensor(i, dtype=torch.int64).to(d)
+         for i, d in zip(ids, devices)], 10)
+    pv, pi = K.ring_topk_merge([torch.tensor(v) for v in vals],
+                               [torch.tensor(i) for i in ids], 10)
+    for r in range(4):
+        assert torch.equal(tv[r].cpu(), pv[r]) and torch.equal(ti[r].cpu(),
+                                                               pi[r])
 
 
 def _check_ring_scan(devices, pq_bits, k, metric, lut_dtype, seed):

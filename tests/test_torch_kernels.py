@@ -53,6 +53,31 @@ def test_select_k_plain_matches_pallas(k, select_min):
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
 
 
+# (len, aligned) → (vec, per_lane, smem_bytes) of select_k_plan
+SELECT_K_PLANS = [((20, True), (4, 4, 0)), ((256, True), (4, 8, 0)),
+                  ((256, False), (1, 8, 0)), ((320, True), (4, 16, 0)),
+                  ((1024, True), (4, 32, 0)), ((7, True), (1, 1, 0)),
+                  ((1025, True), (1, 0, 4100)), ((8192, True), (1, 0, 32768)),
+                  ((10240, False), (1, 0, 40960)), ((10241, True), (1, 0, 0)),
+                  ((100003, True), (1, 0, 0))]
+
+
+@pytest.mark.parametrize("args,plan", SELECT_K_PLANS)
+def test_select_k_plan(args, plan):
+    """The select_k kernel's variant and shared memory by row length: a
+    warp per row up to 1024 (16-byte loads on aligned rows, a power of
+    two of keys a lane that covers the row), a block per row beyond,
+    its keys staged in at most 40 KB of shared memory."""
+    length, _ = args
+    assert K.select_k_plan(*args) == plan
+    vec, per_lane, smem = plan
+    if per_lane:
+        assert length <= 32 * per_lane
+        assert per_lane == vec or 16 * per_lane < length
+        assert per_lane % vec == 0 and per_lane & (per_lane - 1) == 0
+    assert smem in (0, 4 * length) and smem <= 4 * K.SELECT_K_STAGE_MAX
+
+
 @pytest.mark.parametrize("n,k", [(9000, 16), (300, 100), (70000, 80),
                                  (256, 10), (1024, 64)])
 def test_select_k_dispatch_matches_jax(n, k):

@@ -84,6 +84,63 @@ def test_ring_topk_merge_plain_matches_interpreted_kernel(
     np.testing.assert_array_equal(ti, ji)
 
 
+def _chunk_chains(vals, ids, k, select_min):
+    """The ring unrolled, as the CUDA kernel walks it (csrc/ring_topk.cu):
+    chunk c starts as rank (c + 1) mod n's k best, then merges in ranks
+    (c + 2) mod n, …, c, each by a stable sort of incoming ++ local."""
+    n, m, _ = vals.shape
+    mc = K.ring_chunk_rows(m, n)
+    keys = torch.tensor(vals if select_min else -vals)
+    tids = torch.tensor(ids)
+    keys = torch.where(tids < 0, torch.full_like(keys, float("inf")), keys)
+    pad = (0, 0, 0, n * mc - m)
+    keys = torch.nn.functional.pad(keys, pad, value=float("inf"))
+    tids = torch.nn.functional.pad(tids, pad, value=-1)
+
+    def top(v, i):
+        sv, pos = torch.sort(v, dim=1, stable=True)
+        return sv[:, :k], torch.gather(i, 1, pos[:, :k])
+
+    out_v, out_i = [], []
+    for c in range(n):
+        rows = slice(c * mc, (c + 1) * mc)
+        rv, ri = top(keys[(c + 1) % n, rows], tids[(c + 1) % n, rows])
+        for step in range(2, n + 1):
+            q = (c + step) % n
+            rv, ri = top(torch.cat([rv, keys[q, rows]], 1),
+                         torch.cat([ri, tids[q, rows]], 1))
+        inf = torch.isinf(rv)
+        out_i.append(torch.where(inf, torch.full_like(ri, -1), ri))
+        out_v.append(rv if select_min else torch.where(
+            inf, torch.full_like(rv, float("-inf")), -rv))
+    return torch.cat(out_v).numpy()[:m], torch.cat(out_i).numpy()[:m]
+
+
+# (n_dev, m, k, select_min, variant): every variant at n 2/4/8, k 1/10/64
+# and both select modes, ragged m
+RING_CHAINS = [(2, 27, 10, True, "ties"), (2, 11, 64, False, "dup"),
+               (4, 37, 64, False, "sentinels"), (4, 16, 10, True, "dup"),
+               (4, 50, 1, False, "ties"), (8, 9, 1, True, "sentinels"),
+               (8, 30, 10, False, "ties"), (8, 13, 64, True, "dup")]
+
+
+@pytest.mark.parametrize("n_dev,m,k,select_min,variant", RING_CHAINS)
+def test_ring_chunk_chains_are_the_ring(n_dev, m, k, select_min, variant):
+    """The per-chunk merge chain the CUDA kernel runs in one launch gives
+    the hop-by-hop ring schedule's values and ids exactly, ties included,
+    and the JAX package's interpreted ring kernel's."""
+    vals, ids = ring_tables(n_dev, m, k, seed=n_dev * 1000 + m * 7 + k,
+                            select_min=select_min, variant=variant)
+    cv, ci = _chunk_chains(vals, ids, k, select_min)
+    pv, pi = K.ring_topk_merge([torch.tensor(v) for v in vals],
+                               [torch.tensor(i) for i in ids], k, select_min)
+    np.testing.assert_array_equal(cv, torch.cat(pv).numpy()[:m])
+    np.testing.assert_array_equal(ci, torch.cat(pi).numpy()[:m])
+    jv, ji = _jax_ring(vals, ids, k, select_min)
+    np.testing.assert_array_equal(cv, jv)
+    np.testing.assert_array_equal(ci, ji)
+
+
 @pytest.mark.parametrize("select_min", [True, False])
 def test_merge_impls_agree(select_min):
     """merge_topk's three impls on one set of tables: the ring kernel's
