@@ -19,8 +19,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    with an f32 LUT), and the kernel path's recall on 200 queries against
    the plain path's (the same search on the CPU, where every wrapper runs
    its plain PyTorch version): it may be at most 0.01 lower; then its four
-   kernels against their plain versions on the path's inputs, and a stage
-   breakdown of one batch;
+   kernels against their plain versions on the path's inputs (with
+   fused_l2_argmin's 3xTF32 bound and the time of ``torch.matmul`` alone at
+   full fp32 beside its row, and the LUT scan's shared-memory look-up floor
+   beside its bytes bound), and a stage breakdown of one batch;
 4. IVF-Flat path — the 1M x 128 ``make_synthetic_hard`` set of the repo's
    hard_config bench (``FLAT_N`` rows, not cut), ``ivf_flat.build`` with
    1024 lists, spill, cap factor 1.5; searches of 10,000 queries (k 10)
@@ -81,9 +83,14 @@ SHARD_DIM = 128
 SHARD_RANKS = 4
 SHARD_KERNELS = PQ_KERNELS + ("ring_topk_merge", "ring_lut_scan_merge")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 non-tensor rate.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 non-tensor rate,
+# dense TF32 tensor-core rate; 132 SMs, each reading 32 shared-memory words
+# a clock.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+N_SMS = 132
+SMEM_WORDS_PER_CLOCK = 32
 
 
 def _log(msg: str) -> None:
@@ -120,6 +127,16 @@ def _bound_ms(n_bytes: float, flops: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def _sm_clock_hz() -> float:
+    """The SM clock the card runs at under load, as ``nvidia-smi`` reports
+    it (``clocks.max.sm``, MHz)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
 def _recall(found, truth) -> float:
     import numpy as np
 
@@ -129,20 +146,25 @@ def _recall(found, truth) -> float:
 
 
 def _row(rows, path, name, src, line, n_launches, err, ms, plain_ms, nbytes,
-         flops, lib_ms, shape):
+         flops, lib_ms, shape, **extra):
     """One kernel's entry of the JSON line (at one path's shapes, with
-    that path's launch count), and its log line."""
+    that path's launch count), and its log line. ``extra``: further
+    measured or computed numbers of the row (a second bound, a
+    yardstick), logged beside it."""
     b_ms, b_by = _bound_ms(nbytes, flops)
     rows.append({"name": name, "path": path, "route": "cuda",
                  "source": f"raft_tpu_torch/ops/csrc/{src}",
                  "replaces": f"raft_tpu/ops/pallas_kernels.py:{line}",
                  "launches": n_launches, "max_abs_err": err,
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                 "bound_by": b_by, "library_ms": lib_ms, "shape": shape})
+                 "bound_by": b_by, "library_ms": lib_ms, "shape": shape,
+                 **extra})
+    more = "".join(f", {k} {v:.3f}" if isinstance(v, float) else f", {k} {v}"
+                   for k, v in extra.items())
     _log(f"[kernel] {path} {name} {shape}: max|d| {err:.3g}, {ms:.3f} ms "
          f"(plain {plain_ms:.3f} ms, library "
          f"{'-' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound "
-         f"{b_ms:.3f} ms by {b_by})")
+         f"{b_ms:.3f} ms by {b_by}{more})")
 
 
 class SmokeFailure(Exception):
@@ -213,13 +235,40 @@ def _argmin_row(rows, path, launches, xa, ya, shape):
     n_ = ya.shape[0]
     del d_k, i_k, d_p, i_p
     torch.cuda.empty_cache()
+    flops = 2.0 * m_ * n_ * dim
+    # the design's bound: three TF32 products on the tensor cores
     _row(rows, path, "fused_l2_argmin", "fused_l2_argmin.cu", 112,
          launches["fused_l2_argmin"], err,
          _timed(lambda: K.fused_l2_argmin(xa, ya), 3),
          _timed(lambda: K.fused_l2_argmin_plain(xa, ya), 1),
-         (m_ + n_) * dim * 4 + m_ * 8, 2.0 * m_ * n_ * dim, None,
+         (m_ + n_) * dim * 4 + m_ * 8, flops, None,
          f"[{m_},{dim}]x[{n_},{dim}] {shape}argmin agreement "
-         f"{float(same.float().mean()):.6f}")
+         f"{float(same.float().mean()):.6f}",
+         bound_3xtf32_ms=3.0 * flops / TF32_FLOP_PER_S * 1e3,
+         matmul_fp32_ms=_product_ms(xa, ya))
+
+
+def _product_ms(xa, ya, chunk: int = 1 << 16) -> float:
+    """ms of ``torch.matmul(x, y.T)`` alone at full fp32 (TF32 off) over
+    all of x, in row chunks whose [chunk, n] products go to one reused
+    buffer: the product-alone yardstick of fused_l2_argmin (no single
+    PyTorch call computes the argmin)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yt = ya.T
+    out = torch.empty((min(chunk, xa.shape[0]), ya.shape[0]),
+                      dtype=torch.float32, device=xa.device)
+
+    def run():
+        for a in range(0, xa.shape[0], chunk):
+            xc = xa[a:a + chunk]
+            torch.matmul(xc, yt, out=out[:xc.shape[0]])
+
+    ms = _timed(run, 1)
+    del out
+    torch.cuda.empty_cache()
+    return ms
 
 
 def _select_k_check(scores, k):
@@ -251,10 +300,11 @@ def _select_k_row(rows, path, launches, scores, k, shape):
 def _lut_scan_row(rows, path, launches, index, q0, n_probes, lut_dtype,
                   shape=""):
     """ivfpq_lut_scan_topk against its plain version on the segment table
-    of ``q0``'s coarse probes over ``index``: the same filled bins and
-    pad sentinels, keys within 1e-3 + 1e-5·(|key| + ‖q‖²), ids agreeing on
-    99.9 % of filled bins; then its row. Returns the scan's operands and
-    outputs for the stage breakdown."""
+    of ``q0``'s coarse probes over ``index``: the [B, n_probes, 256] pair
+    rows with the same filled bins, keys within 1e-3 + 1e-5·(|key| +
+    ‖q‖²), ids agreeing on 99.9 % of filled bins; then its row, with the
+    shared-memory look-up floor beside the bytes bound. Returns the scan's
+    operands and outputs for the stage breakdown."""
     import torch
 
     from raft_tpu_torch.neighbors import ivf_common, ivf_pq
@@ -264,40 +314,44 @@ def _lut_scan_row(rows, path, launches, index, q0, n_probes, lut_dtype,
     _, probes = ivf_pq._coarse_probes(index, q0, n_probes, False)
     seg = ivf_common.SEGMENT_SIZE
     n_seg = ivf_common.n_segments(B * n_probes, index.n_lists, seg)
-    seg_list, seg_q, _, _ = ivf_common.segment_probes(probes, index.n_lists,
-                                                      seg, n_seg)
+    seg_list, seg_q, pair_seg, pair_slot = ivf_common.segment_probes(
+        probes, index.n_lists, seg, n_seg)
     q_rot = (q0 @ index.rotation.T).contiguous()
-    scan_args = (seg_list, seg_q, q_rot, index.packed_codes,
-                 index.packed_ids, index.packed_norms, index.centers_rot,
-                 index.codebooks)
+    scan_args = (seg_list, seg_q, pair_seg, pair_slot, q_rot,
+                 index.packed_codes, index.packed_ids, index.packed_norms,
+                 index.list_sizes, index.centers_rot, index.codebooks)
     scan_kw = dict(pq_bits=index.pq_bits, pq_dim=index.pq_dim,
                    L=index.max_list_size, lut_dtype=lut_dtype)
     kk, ki = K.ivfpq_lut_scan_topk(*scan_args, "l2", **scan_kw)
     cb = K.lut_codebook(index.codebooks, lut_dtype)
-    pk, pi = K.ivfpq_lut_scan_topk_plain(*scan_args[:7], cb, "l2",
-                                         index.pq_bits)
-    live = seg_q >= 0
-    fin = torch.isfinite(pk) & live[..., None]
-    if not torch.equal(torch.isfinite(kk) & live[..., None], fin):
+    plain_args = (seg_list, pair_seg, q_rot, index.packed_codes,
+                  index.packed_ids, index.packed_norms, index.list_sizes,
+                  index.centers_rot, cb, "l2", index.pq_bits)
+    pk, pi = K.ivfpq_lut_scan_topk_plain(*plain_args)
+    if kk.shape != (B, n_probes, K.LUT_SCAN_BINS) or kk.shape != pk.shape:
+        raise SmokeFailure(f"ivfpq_lut_scan_topk: output {list(kk.shape)}, "
+                           f"plain {list(pk.shape)}")
+    fin = torch.isfinite(pk)
+    if not torch.equal(torch.isfinite(kk), fin):
         raise SmokeFailure("ivfpq_lut_scan_topk: filled bins differ")
-    if not bool((kk[~live] == float("inf")).all() and (ki[~live] == -1).all()):
-        raise SmokeFailure("ivfpq_lut_scan_topk: pad slots lack the sentinel")
+    if not bool((ki[~fin] == -1).all()):
+        raise SmokeFailure("ivfpq_lut_scan_topk: empty bins lack the -1 id")
     diff = (kk[fin] - pk[fin]).abs()
     err = float(diff.max())
     # keys = ‖c+d‖² − 2⟨q, c+d⟩: rounding scales with ‖q‖² and the key
-    q_sq = (q_rot * q_rot).sum(1)[seg_q.clamp_min(0).long()]
-    scale = (pk.abs() + q_sq[..., None])[fin]
+    q_sq = (q_rot * q_rot).sum(1)[:, None, None].expand_as(pk)
+    scale = (pk.abs() + q_sq)[fin]
     if not bool((diff <= 1e-3 + 1e-5 * scale).all()):
         raise SmokeFailure(f"ivfpq_lut_scan_topk keys differ by {err}")
     id_agree = float((ki[fin] == pi[fin]).float().mean())
     if id_agree < 0.999:
         raise SmokeFailure(f"ivfpq_lut_scan_topk ids agree on {id_agree}")
-    del pk, pi, fin
-    # the bound counts what this batch's data needs: codes and norms of the
-    # probed lists' real rows (padded rows are not part of the function),
-    # ids of all L slots of each probed list (they mark which rows are
-    # real), the probed centers, the codebook, the queries, the segment
-    # table and the whole output table
+    del pk, pi, fin, q_sq
+    # the bound counts what this batch's data needs: codes, ids and norms
+    # of the probed lists' real rows (the kernel reads no row past a
+    # list's size), the lists' sizes and centers, the codebook, the
+    # queries, the segment and pair tables, and the [B, P, 256] output
+    live = seg_q >= 0
     lists = torch.unique(seg_list[live.any(1)].long())
     L = index.max_list_size
     sizes = index.list_sizes.long()
@@ -305,23 +359,30 @@ def _lut_scan_row(rows, path, launches, index, q0, n_probes, lut_dtype,
     nb = index.packed_codes.shape[2]
     rows_real = int(sizes[lists].sum())
     pair_rows = int((live.sum(1).long() * sizes[seg_list.long()]).sum())
-    scan_bytes = (rows_real * (nb + 4) + lists.numel() * L * 4
-                  + lists.numel() * q_rot.shape[1] * 4 + cb.numel() * 4
-                  + q_rot.numel() * 4 + seg_list.numel() * 4
-                  + seg_q.numel() * 4 + kk.numel() * 8)
+    scan_bytes = (rows_real * (nb + 8) + lists.numel() * (
+        q_rot.shape[1] + 1) * 4 + cb.numel() * 4 + q_rot.numel() * 4
+        + seg_list.numel() * 4 + seg_q.numel() * 4 + pair_seg.numel() * 8
+        + kk.numel() * 8)
     # per live pair: its LUT (a multiply-add per codebook entry) and, per
     # real row, one add per subspace
     scan_flops = n_live * 2 * cb.numel() + pair_rows * index.pq_dim
+    # the look-ups: pq_dim shared-memory reads per (live pair, real row),
+    # 32 words a clock on each of the card's 132 SMs
+    clock = _sm_clock_hz()
+    floor_ms = (pair_rows * index.pq_dim
+                / (SMEM_WORDS_PER_CLOCK * N_SMS * clock) * 1e3)
+    b_ms, _ = _bound_ms(scan_bytes, scan_flops)
     _row(rows, path, "ivfpq_lut_scan_topk", "ivfpq_lut_scan.cu", 807,
          launches["ivfpq_lut_scan_topk"], err,
          _timed(lambda: K.ivfpq_lut_scan_topk(*scan_args, "l2", **scan_kw),
                 10),
-         _timed(lambda: K.ivfpq_lut_scan_topk_plain(*scan_args[:7], cb, "l2",
-                                                    index.pq_bits), 2),
+         _timed(lambda: K.ivfpq_lut_scan_topk_plain(*plain_args), 2),
          scan_bytes, scan_flops, None,
-         f"{shape}n_seg {n_seg} x {seg} slots ({n_live} live), L {L}, "
-         f"{lists.numel()} lists of {rows_real} real rows, "
-         f"id agreement {id_agree:.6f}")
+         f"{shape}n_seg {n_seg} x {seg} slots ({n_live} live pairs), L {L}, "
+         f"{lists.numel()} lists of {rows_real} real rows, {pair_rows} "
+         f"(live pair, real row) pairs, id agreement {id_agree:.6f}",
+         lookup_floor_ms=floor_ms, sm_clock_mhz=clock / 1e6,
+         larger_bound="lookups" if floor_ms > b_ms else "bytes")
     return dict(kk=kk, ki=ki, probes=probes, seg=seg, n_seg=n_seg,
                 q_rot=q_rot)
 
@@ -689,7 +750,7 @@ def _ring_lut_scan_row(rows, path, launches, index, q, k, n_probes, mesh,
     from raft_tpu_torch.parallel import ivf as pivf
 
     ops = pivf._fused_ring_operands(index, q, n_probes, mesh, False)
-    lists, ind, qv, packed, ids, norms, ctr, cbs = ops
+    lists, ind, qv, packed, ids, norms, sizes_r, ctr, cbs = ops
     kw = dict(pq_bits=index.pq_bits, pq_dim=index.pq_dim,
               L=index.max_list_size, lut_dtype="float32")
     tk, ti = K.ring_lut_scan_merge(*ops, k, "l2", **kw)
@@ -700,7 +761,7 @@ def _ring_lut_scan_row(rows, path, launches, index, q, k, n_probes, mesh,
     seg_q = [torch.where(i > 0.5, rows_i, -1).to(torch.int32).contiguous()
              for i in ind]
     plain = lambda: K.ring_lut_scan_merge_plain(  # noqa: E731
-        lists, seg_q, qv, packed, ids, norms, ctr, cb, k, "l2",
+        lists, seg_q, qv, packed, ids, norms, sizes_r, ctr, cb, k, "l2",
         index.pq_bits)
     pk, pi = plain()
     err, worst, n_tie = 0.0, 0.0, 0
@@ -1201,14 +1262,12 @@ def main(argv=None) -> int:
     # the first batch, timed alone on the card (CUDA events)
     dist = ivf_pq.resolve_metric(index.metric)
     q_sq0 = (q_rot * q_rot).sum(1)
-    pair = ivf_common.segment_probes(probes, index.n_lists, seg, n_seg)
     zeros = torch.zeros((B, n_probes * K.LUT_SCAN_BINS), device=q0.device)
 
     def finish():
-        pv, pi = ivf_common.gather_segment_results(kk, ki, pair[2], pair[3])
-        return ivf_pq._finish_candidates(-0.5 * pv.reshape(B, -1),
-                                         pi.reshape(B, -1), zeros, q_sq0,
-                                         dist, C)
+        return ivf_pq._finish_candidates(-0.5 * kk.view(B, -1),
+                                         ki.view(B, -1), zeros, q_sq0, dist,
+                                         C)
 
     stages_ms = {
         "coarse_probes": _timed(lambda: ivf_pq._coarse_probes(
@@ -1217,7 +1276,7 @@ def main(argv=None) -> int:
             probes, index.n_lists, seg, n_seg), 20),
         "rotate": _timed(lambda: q0 @ index.rotation.T, 20),
         "lut_scan": rows[2]["ms"],
-        "gather_and_finish": _timed(finish, 10),
+        "finish": _timed(finish, 10),
         "refine": _timed(lambda: trefine.refine(base, q0, cand, k), 20),
         "search_total": _timed(lambda: ivf_pq.search(
             index, q0, k, sp, dataset=base), 5),

@@ -195,13 +195,12 @@ def spill_assignments(l1: torch.Tensor, l2: torch.Tensor, n_lists: int,
 
 def lut_scan_mem_ok(n_seg: int, seg: int, rot: int, pairs: int,
                     nbins: int = 256) -> bool:
-    """Transient-memory guard of the LUT-scan tier: the per-segment query
-    block, the [n_seg, seg, nbins] key+id tables and the pair-order gather
-    (the JAX package's model, kept with its TPU-sized cap)."""
-    qv = n_seg * seg * rot * 4
-    bins = n_seg * seg * nbins * 8
-    gathered = pairs * nbins * 8
-    return qv + bins + gathered <= GROUPED_BYTES_CAP
+    """Transient-memory guard of the LUT-scan tier, with the JAX package's
+    TPU-sized cap. The JAX package counted the per-segment query block,
+    the [n_seg, seg, nbins] key+id tables and their pair-order gather; the
+    port's kernel takes the queries as they are and writes the pairs' key
+    and id rows [pairs, nbins] once, beside the [n_seg, seg] slot tables."""
+    return pairs * nbins * 8 + n_seg * seg * 8 <= GROUPED_BYTES_CAP
 
 
 def gather_refine_mem_ok(n: int, d: int, itemsize: int = 4, m: int = 0,

@@ -495,8 +495,9 @@ def _search_lut_pallas(index: IvfPqIndex, queries: torch.Tensor, k: int,
                        n_probes: int, seg: int, n_seg: int,
                        lut_dtype: str = "float32"):
     """The ``scan_select="pallas"`` tier: coarse probes, segmenting, the
-    LUT-scan kernel over packed codes, then the per-query merge of the
-    [B, n_probes·256] bin survivors through :func:`_finish_candidates`."""
+    LUT-scan kernel over packed codes (its [B, n_probes, 256] bins already
+    in pair order), then the per-query merge of the [B, n_probes·256] bin
+    survivors through :func:`_finish_candidates`."""
     mt = resolve_metric(index.metric)
     q_all = _prep_queries(mt, queries)
     B = q_all.shape[0]
@@ -507,14 +508,14 @@ def _search_lut_pallas(index: IvfPqIndex, queries: torch.Tensor, k: int,
     q_rot = (q_all @ index.rotation.T).contiguous()
     q_sq = (q_rot * q_rot).sum(1)
     keys, kids = _k.ivfpq_lut_scan_topk(
-        seg_list, seg_q, q_rot, index.packed_codes, index.packed_ids,
-        index.packed_norms, index.centers_rot, index.codebooks,
-        "ip" if ip_like else "l2", pq_bits=index.pq_bits,
-        pq_dim=index.pq_dim, L=index.max_list_size, lut_dtype=lut_dtype)
-    pv, pi = ic.gather_segment_results(keys, kids, pair_seg, pair_slot)
+        seg_list, seg_q, pair_seg, pair_slot, q_rot, index.packed_codes,
+        index.packed_ids, index.packed_norms, index.list_sizes,
+        index.centers_rot, index.codebooks, "ip" if ip_like else "l2",
+        pq_bits=index.pq_bits, pq_dim=index.pq_dim, L=index.max_list_size,
+        lut_dtype=lut_dtype)
     C = n_probes * keys.shape[-1]
-    pv = pv.reshape(B, C)
-    pi = pi.reshape(B, C)
+    pv = keys.view(B, C)
+    pi = kids.view(B, C)
     # minimized keys → the shared epilogue's ⟨q, c+d⟩ with zero norms
     dots = -pv if ip_like else -0.5 * pv
     kq = min(k, C)

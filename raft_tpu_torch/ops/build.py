@@ -128,11 +128,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     stream as c_void_p, so ctypes never truncates them to 32 bits)."""
     sigs = {
         "fused_l2_argmin": {
-            "rtt_fused_l2_argmin": [_P, _P, _I, _I, _I, _P, _P, _P, _P]},
+            "rtt_fused_l2_argmin": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+            "rtt_fused_l2_argmin_scratch_floats": [_I, _I],
+            "rtt_fused_l2_argmin_max_d": []},
         "select_k": {
             "rtt_select_k": [_P] + [_I] * 7 + [_P, _P, _P]},
         "ivfpq_lut_scan": {
-            "rtt_ivfpq_lut_scan_topk": [_P] * 10 + [_I] * 12 + [_P],
+            "rtt_ivfpq_lut_scan_topk": [_P] * 14 + [_I] * 14 + [_P],
             "rtt_lut_scan_smem_bytes": [_I] * 7},
         "gather_refine": {
             "rtt_gather_refine_topk": [_P, _L, _I, _P, _P, _I, _I, _I, _I,
@@ -144,12 +146,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "ring_topk": {
             "rtt_ring_topk_merge": [_P] + [_I] * 6 + [_P, _P, _I, _P]},
         "ring_lut_scan": {
-            "rtt_ring_lut_scan_hop": [_P] * 12 + [_I] * 16 + [_P]},
+            "rtt_ring_lut_scan_hop": [_P] * 13 + [_I] * 17 + [_P]},
     }[name]
     for fn, argtypes in sigs.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
-        f.restype = _L if fn.endswith("_smem_bytes") else _I
+        f.restype = (_L if fn.endswith(("_smem_bytes", "_floats"))
+                     else _I)
     return lib
 
 

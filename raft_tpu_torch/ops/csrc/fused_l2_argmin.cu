@@ -6,29 +6,115 @@
 // (l.112, body _fused_l2_argmin_kernel l.62), whose sequential grid axis
 // over y tiles carried the running (min, argmin) in the output block.
 //
-// Bound on the H100: operations. 2 * m * n * d fp32 FLOPs against
-// (m + n) * d * 4 bytes; at the build's final sweeps (5M x 8192 x 96) that
-// is 7.9 TFLOP, ~117 ms at the 67 TFLOP/s fp32 non-tensor rate. Tensor
-// cores are out: TF32 would flip argmins (fp32-exact is the contract).
+// Numerics: the TPU kernel computes <x, y> on its matrix unit at
+// Precision.HIGHEST (pallas_kernels.py:86-91): fp32 emulated from several
+// bf16 passes, because one bf16 pass loses ~1e-3 relative and flips
+// argmins. The same move on Hopper is 3xTF32 on the tensor cores: each
+// operand splits into a = a_hi + a_lo with both parts TF32 (10 explicit
+// mantissa bits, round to nearest), and
+//   a.b ~ a_hi.b_hi + a_hi.b_lo + a_lo.b_hi          (f32 accumulation)
+// drops only a_lo.b_lo and the rounding of the lo parts, ~2^-22 |a||b| a
+// product: about 21 mantissa bits, f32's accuracy within a few ulps. One
+// TF32 product alone (~2^-11) would flip argmins, as one bf16 pass would.
 //
-// Design: one block per 64-row tile of x loops over ALL y tiles, so the
-// running (min, argmin) stays in registers and no reduction crosses
-// blocks. Each 64 x 64 output tile is a classic shared-memory SGEMM tile
-// (16-deep k slices, a 4 x 4 register micro-tile per thread, fp32 FMAs)
-// with the distance/min epilogue fused on the registers. A thread visits
-// its columns in increasing order with a strict <, and the final
-// reduction over the 16 threads sharing a row is lexicographic on
-// (distance, index): the first index wins ties, as on the TPU.
+// Bound on the H100: operations. 2 * m * n * d FLOPs (the row's bound, at
+// the 67 TFLOP/s fp32 rate) run as 3 TF32 products: 3 * 2 * m * n * d at
+// 495 TFLOP/s, e.g. 95 ms at [10M, 96] x [8192, 96].
+//
+// Design: a pre-pass splits y once into y_hi / y_lo (scratch [n, dp], k
+// padded with zeros to dp, a multiple of 32) and computes |y|^2. One block
+// of 8 warps owns BM rows of x: the tile stays resident in shared memory
+// (f32, split into hi / lo as the fragments load), and the block streams
+// every y tile of BN = 128 rows through a 2-stage cp.async ring in k slices
+// of 32. Each warp computes a (16 * MT) x (8 * NT) sub-tile with mma.sync
+// m16n8k8 TF32 (three per product) into a fresh accumulator per k slice,
+// added to the tile's in f32 (the tensor cores' accumulation does not round
+// to nearest: over one long k its error grew past the tolerance at d 1216),
+// and the distance / clamp / min / argmin epilogue runs on the accumulator
+// fragments; the running (min, argmin) of each row stays in registers across
+// all y tiles, so no reduction crosses blocks. Within a group of 8, k is
+// stored in the order 0 4 1 5 2 6 3 7, so a thread's two fragment values (k
+// = t, t + 4) are one 8-byte load, and the row strides (= 8 mod 16 words)
+// keep those loads free of bank conflicts. The block takes the most x rows
+// whose tile fits: 128 (d <= 256) as 4 x 2 warps of 32 x 64, else 64 (d <=
+// 544) or 32 (d <= 1152) as 2 x 4 warps. tests/torch_kernel_sweep.py times
+// the alternatives (a 3-stage ring, slices of 16, 2 x 4 warps of 64 x 32 at
+// 128 rows, one accumulator). A thread visits its columns in increasing
+// order with a strict <; the reductions over the 4 threads of a quad and
+// over the warps sharing a row are lexicographic on (distance, index): the
+// first index wins ties.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int TPB = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int BN = 128;     // y rows per tile: 4 warps x 32 columns
+constexpr int BK = 32;      // k depth of a ring stage
+constexpr int STAGES = 2;
+constexpr int YS = BK + 8;  // ring row stride (words), = 8 mod 16
+constexpr int TPB = 256;    // 8 warps: WN along n, 8 / WN along m
+constexpr size_t kMaxSmem = 232448;
+
+inline int kpad(int d) { return (d + BK - 1) / BK * BK; }
+
+// a block of x rows: MT m16 tiles a warp, 8 / WN warps along m
+size_t smem_bytes(int mt, int wn, int dp) {
+  const size_t bm = 16 * (size_t)mt * (8 / wn);
+  return bm * (dp + 8) * 4                   // resident x tile
+         + (size_t)STAGES * 2 * BN * YS * 4  // y_hi / y_lo ring
+         + bm * 4                            // |x|^2
+         + wn * bm * 8;                      // (min, argmin) of the n-warps
+}
+
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// position p of a k group of 8 holds k = perm(p): 0 4 1 5 2 6 3 7
+__device__ __forceinline__ int k_of(int p) {
+  return (p & ~7) + ((p & 7) >> 1) + 4 * (p & 1);
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
+}
+
+// y -> y_hi, y_lo [n, dp] (k-permuted, zero past d)
+__global__ void split_y_kernel(const float* __restrict__ y, int n, int d, int dp,
+                               float* __restrict__ y_hi,
+                               float* __restrict__ y_lo) {
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (long)n * dp) return;
+  const long r = e / dp;
+  const int k = k_of((int)(e % dp));
+  const float v = k < d ? y[r * d + k] : 0.f;
+  const float hi = __uint_as_float(tf32(v));
+  y_hi[e] = hi;
+  y_lo[e] = __uint_as_float(tf32(v - hi));
+}
 
 __global__ void row_sqnorm_kernel(const float* __restrict__ y, int n, int d,
                                   float* __restrict__ out) {
@@ -42,100 +128,200 @@ __global__ void row_sqnorm_kernel(const float* __restrict__ y, int n, int d,
   out[r] = acc;
 }
 
-__global__ void __launch_bounds__(TPB)
-fused_l2_argmin_kernel(const float* __restrict__ x, const float* __restrict__ y,
+template <int MT, int WN>
+__global__ void __launch_bounds__(TPB, 1)
+fused_l2_argmin_kernel(const float* __restrict__ x,
+                       const float* __restrict__ y_hi,
+                       const float* __restrict__ y_lo,
                        const float* __restrict__ ysq, int m, int n, int d,
-                       float* __restrict__ out_d, int* __restrict__ out_i) {
-  __shared__ float xs[BK][BM];
-  __shared__ float ys[BK][BN];
-  __shared__ float xsq[BM];
-  __shared__ float red_v[16][BM];
-  __shared__ int red_i[16][BM];
+                       int dp, float* __restrict__ out_d,
+                       int* __restrict__ out_i) {
+  constexpr int WM = 8 / WN;
+  constexpr int NT = BN / (8 * WN);  // n8 tiles a warp
+  constexpr int BM = 16 * MT * WM;
+  extern __shared__ __align__(16) float smem[];
+  const int XS = dp + 8;
+  float* xs = smem;                           // [BM][XS]
+  float* ring = xs + BM * XS;                 // [STAGES][2][BN][YS]
+  float* xsq = ring + STAGES * 2 * BN * YS;   // [BM]
+  float* red_v = xsq + BM;                    // [WN][BM]
+  int* red_i = reinterpret_cast<int*>(red_v + WN * BM);
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WN, wn = warp % WN;
+  const int g = lane >> 2, t = lane & 3;
   const long m0 = (long)blockIdx.x * BM;
+  const int nck = dp / BK;
+  const int total = (n + BN - 1) / BN * nck;  // ring stages: (y tile, k slice)
 
+  auto issue = [&](int s) {
+    if (s < total) {
+      const int tile = s / nck, ck = s % nck;
+      float* dst = ring + (s % STAGES) * 2 * BN * YS;
+#pragma unroll
+      for (int e0 = 0; e0 < 2 * BN * (BK / 4); e0 += TPB) {
+        const int e = e0 + tid;
+        const int arr = e / (BN * (BK / 4));
+        const int r = (e / (BK / 4)) % BN, c4 = e % (BK / 4);
+        const long row = (long)tile * BN + r;
+        const bool ok = row < n;
+        const float* src = (arr ? y_lo : y_hi) + (ok ? row : 0) * dp + ck * BK + 4 * c4;
+        cp_async16(dst + arr * BN * YS + r * YS + 4 * c4, src, ok);
+      }
+    }
+    cp_commit();
+  };
+
+  for (int s = 0; s < STAGES - 1; ++s) issue(s);
+
+  // the resident x tile (k-permuted; zero rows past m and k past d)
+  for (int e = tid; e < BM * dp; e += TPB) {
+    const int r = e / dp, p = e % dp;
+    const int k = k_of(p);
+    const long gr = m0 + r;
+    xs[r * XS + p] = (gr < m && k < d) ? x[gr * d + k] : 0.f;
+  }
+  __syncthreads();
   if (tid < BM) {
-    float acc = 0.f;
-    if (m0 + tid < m) {
-      const float* xr = x + (m0 + tid) * d;
-      for (int j = 0; j < d; ++j) acc = fmaf(xr[j], xr[j], acc);
+    const float* xr = xs + tid * XS;
+    float a = 0.f;
+    for (int j = 0; j < d; ++j) {
+      const float v = xr[(j & ~7) + 2 * (j & 3) + ((j & 7) >> 2)];
+      a = fmaf(v, v, a);
     }
-    xsq[tid] = acc;
+    xsq[tid] = a;
   }
 
-  float best_v[4];
-  int best_i[4];
+  float acc[MT][NT][4];
+  float best_v[MT][2];
+  int best_i[MT][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    best_v[i] = CUDART_INF_F;
-    best_i[i] = 0;
-  }
-
-  for (int n0 = 0; n0 < n; n0 += BN) {
-    float acc[4][4];
+  for (int i = 0; i < MT; ++i) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < d; k0 += BK) {
-      for (int e = tid; e < BM * BK; e += TPB) {
-        const int r = e / BK, kk = e % BK;
-        const long gr = m0 + r;
-        const int gk = k0 + kk;
-        xs[kk][r] = (gr < m && gk < d) ? x[gr * d + gk] : 0.f;
-        const long gc = (long)n0 + r;
-        ys[kk][r] = (gc < n && gk < d) ? y[gc * d + gk] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = ys[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+    for (int h = 0; h < 2; ++h) {
+      best_v[i][h] = CUDART_INF_F;
+      best_i[i][h] = 0;
     }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+  }
+  const int row0 = wm * 16 * MT + g;  // + 16 i (+ 8 for the fragment's upper half)
 
+  for (int s = 0; s < total; ++s) {
+    cp_wait_ring();
+    __syncthreads();  // stage s landed for all; stage s - 1 is free
+    issue(s + STAGES - 1);
+    const float* yh = ring + (s % STAGES) * 2 * BN * YS;
+    const float* yl = yh + BN * YS;
+    const int ck = s % nck;
+    // the slice's products go to a fresh accumulator, added to the tile's
+    // with a rounded f32 add: the tensor cores' accumulation does not round
+    // to nearest, and over a long k its error would grow with d
+    float part[MT][NT][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < n) {
-        const float yn = ysq[col];
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float d2 = xsq[ty + 16 * i] + yn - 2.f * acc[i][j];
-          d2 = fmaxf(d2, 0.f);
-          if (d2 < best_v[i]) {
-            best_v[i] = d2;
-            best_i[i] = col;
-          }
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[i][j][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float* xr = xs + (row0 + 16 * i) * XS + ck * BK + kk + 2 * t;
+        const float2 v0 = *reinterpret_cast<const float2*>(xr);
+        const float2 v1 = *reinterpret_cast<const float2*>(xr + 8 * XS);
+        const float v[4] = {v0.x, v1.x, v0.y, v1.y};  // (g,t) (g+8,t) (g,t+4) (g+8,t+4)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          ah[i][c] = tf32(v[c]);
+          al[i][c] = tf32(v[c] - __uint_as_float(ah[i][c]));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = (wn * 8 * NT + j * 8 + g) * YS + kk + 2 * t;
+        const float2 bh = *reinterpret_cast<const float2*>(yh + col);
+        const float2 bl = *reinterpret_cast<const float2*>(yl + col);
+        const uint32_t h0 = __float_as_uint(bh.x), h1 = __float_as_uint(bh.y);
+        const uint32_t l0 = __float_as_uint(bl.x), l1 = __float_as_uint(bl.y);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_tf32(part[i][j], al[i], h0, h1);
+          mma_tf32(part[i][j], ah[i], l0, l1);
+          mma_tf32(part[i][j], ah[i], h0, h1);
         }
       }
     }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][j][c];
+    if (ck == nck - 1) {  // the y tile is complete: fold it into the best
+      const int n0 = (s / nck) * BN + wn * 8 * NT + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + j * 8 + e;
+          if (col < n) {
+            const float yn = __ldg(ysq + col);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float d2 = fmaxf(
+                    xsq[row0 + 16 * i + 8 * h] + yn - 2.f * acc[i][j][2 * h + e], 0.f);
+                if (d2 < best_v[i][h]) {
+                  best_v[i][h] = d2;
+                  best_i[i][h] = col;
+                }
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+      }
+    }
   }
 
+  // (min, argmin) over the quad's 4 threads, then over the 4 n-warps
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    red_v[tx][ty + 16 * i] = best_v[i];
-    red_i[tx][ty + 16 * i] = best_i[i];
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = best_v[i][h];
+      int ix = best_i[i][h];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, ix, off);
+        if (ov < v || (ov == v && oi < ix)) {
+          v = ov;
+          ix = oi;
+        }
+      }
+      if (t == 0) {
+        red_v[wn * BM + row0 + 16 * i + 8 * h] = v;
+        red_i[wn * BM + row0 + 16 * i + 8 * h] = ix;
+      }
+    }
   }
   __syncthreads();
   if (tid < BM && m0 + tid < m) {
-    float bv = red_v[0][tid];
-    int bi = red_i[0][tid];
-    for (int t = 1; t < 16; ++t) {
-      const float v = red_v[t][tid];
-      const int ix = red_i[t][tid];
+    float bv = red_v[tid];
+    int bi = red_i[tid];
+    for (int w = 1; w < WN; ++w) {
+      const float v = red_v[w * BM + tid];
+      const int ix = red_i[w * BM + tid];
       if (v < bv || (v == bv && ix < bi)) {
         bv = v;
         bi = ix;
@@ -146,17 +332,59 @@ fused_l2_argmin_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
+template <int MT, int WN>
+cudaError_t launch(const float* x, const float* y_hi, const float* y_lo,
+                   const float* ysq, int m, int n, int d, int dp, float* out_d,
+                   int* out_i, cudaStream_t s) {
+  const size_t smem = smem_bytes(MT, WN, dp);
+  cudaError_t e = cudaFuncSetAttribute(fused_l2_argmin_kernel<MT, WN>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  const int bm = 16 * MT * (8 / WN);
+  fused_l2_argmin_kernel<MT, WN><<<(int)(((long)m + bm - 1) / bm), TPB, smem, s>>>(
+      x, y_hi, y_lo, ysq, m, n, d, dp, out_d, out_i);
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// ysq_scratch: [n] floats allocated by the caller.
+// Floats of scratch the caller allocates: y_hi, y_lo [n, dp] then |y|^2 [n].
+extern "C" long rtt_fused_l2_argmin_scratch_floats(int n, int d) {
+  return (long)n * (2L * kpad(d) + 1);
+}
+
+// The largest feature width whose resident x tile fits shared memory.
+extern "C" int rtt_fused_l2_argmin_max_d() {
+  int d = BK;
+  while (smem_bytes(1, 4, kpad(d + BK)) <= kMaxSmem) d += BK;
+  return d;
+}
+
 extern "C" int rtt_fused_l2_argmin(const float* x, const float* y, int m, int n,
-                                   int d, float* ysq_scratch, float* out_d,
+                                   int d, float* scratch, float* out_d,
                                    int* out_i, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n > 0) row_sqnorm_kernel<<<(n + 255) / 256, 256, 0, s>>>(y, n, d, ysq_scratch);
+  const int dp = kpad(d);
+  if (smem_bytes(1, 4, dp) > kMaxSmem) return (int)cudaErrorInvalidValue;
+  float* y_hi = scratch;
+  float* y_lo = y_hi + (size_t)n * dp;
+  float* ysq = y_lo + (size_t)n * dp;
+  if (n > 0) {
+    const long e = (long)n * dp;
+    split_y_kernel<<<(int)((e + 255) / 256), 256, 0, s>>>(y, n, d, dp, y_hi, y_lo);
+    row_sqnorm_kernel<<<(n + 255) / 256, 256, 0, s>>>(y, n, d, ysq);
+  }
   if (m > 0) {
-    fused_l2_argmin_kernel<<<(m + BM - 1) / BM, TPB, 0, s>>>(x, y, ysq_scratch, m, n,
-                                                            d, out_d, out_i);
+    // the most x rows whose tile fits: 128 as 4 x 2 warps, else 64 or 32
+    // as 2 x 4 warps
+    const cudaError_t e =
+        smem_bytes(2, 2, dp) <= kMaxSmem
+            ? launch<2, 2>(x, y_hi, y_lo, ysq, m, n, d, dp, out_d, out_i, s)
+        : smem_bytes(2, 4, dp) <= kMaxSmem
+            ? launch<2, 4>(x, y_hi, y_lo, ysq, m, n, d, dp, out_d, out_i, s)
+            : launch<1, 4>(x, y_hi, y_lo, ysq, m, n, d, dp, out_d, out_i, s);
+    if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
 }

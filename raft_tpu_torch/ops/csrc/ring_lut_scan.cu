@@ -45,6 +45,7 @@ struct ScanTables {
   const uint8_t* codes[rtt::kMaxRanks];
   const int* ids[rtt::kMaxRanks];
   const float* norms[rtt::kMaxRanks];
+  const int* sizes[rtt::kMaxRanks];   // [n_lists] real rows per list
   const float* centers_rot[rtt::kMaxRanks];
   const float* cb[rtt::kMaxRanks];
   float* bins_k[rtt::kMaxRanks];      // [NS, mc, 256] scratch per rank
@@ -59,7 +60,7 @@ struct MergeTables {
   int* run_i[rtt::kMaxRanks];
 };
 
-template <bool kBytes8>
+template <bool kBytes8, int kW>
 __global__ void __launch_bounds__(rtt::kLutBins * rtt::kLutMaxR)
 ring_scan_kernel(ScanTables t, int n, int NS, int mc, int hop, int rot, int S,
                  int K, int P, int pq_bits, int nb, int L, int metric, int qg,
@@ -70,9 +71,11 @@ ring_scan_kernel(ScanTables t, int n, int NS, int mc, int hop, int rot, int S,
   const int c = rtt::ring_chunk(r, hop, n);
   const int lst = t.lists[r][(size_t)c * NS + p];
   if (lst < 0) return;  // a pad segment: no member rows
-  rtt::lut_scan_segment<kBytes8>(
-      smem, p, lst, t.seg_q[r] + ((size_t)c * NS + p) * mc,
-      t.qv[r] + (size_t)c * mc * rot, t.codes[r], t.ids[r], t.norms[r],
+  // every member row of the list in one block, walked to its size
+  const int size = max(0, min(t.sizes[r][lst], L));
+  rtt::lut_scan_segment<kBytes8, kW>(
+      smem, p, lst, size, t.seg_q[r] + ((size_t)c * NS + p) * mc, nullptr, 0,
+      mc, t.qv[r] + (size_t)c * mc * rot, t.codes[r], t.ids[r], t.norms[r],
       t.centers_rot[r], t.cb[r], t.bins_k[r], t.bins_i[r], mc, rot, S, K, P,
       pq_bits, nb, L, metric, qg, stride, n_chunks);
 }
@@ -131,16 +134,16 @@ ring_lut_merge_kernel(MergeTables t, int n, int NS, int mc, int k, int hop) {
                   lane);
 }
 
-template <bool kBytes8>
+template <bool kBytes8, int kW>
 cudaError_t launch_scan(const ScanTables& t, size_t smem, int R,
                         cudaStream_t st, int n, int NS, int mc, int hop,
                         int rot, int S, int K, int P, int pq_bits, int nb,
                         int L, int metric, int qg, int n_chunks) {
   cudaError_t e = cudaFuncSetAttribute(
-      ring_scan_kernel<kBytes8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ring_scan_kernel<kBytes8, kW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  ring_scan_kernel<kBytes8><<<dim3(NS, n), rtt::kLutBins * R, smem, st>>>(
+  ring_scan_kernel<kBytes8, kW><<<dim3(NS, n), rtt::kLutBins * R, smem, st>>>(
       t, n, NS, mc, hop, rot, S, K, P, pq_bits, nb, L, metric, qg,
       rtt::lut_row_stride(nb), n_chunks);
   return cudaGetLastError();
@@ -150,20 +153,26 @@ cudaError_t launch_scan(const ScanTables& t, size_t smem, int R,
 
 // One hop (hop = -1: the start) for the n ranks, all on card `device`: the
 // scan launch, then the merge launch, on `stream`. Tables hold n pointers
-// each, one per rank. metric: 0 l2, 1 inner product. qg: live queries per
-// scan pass (1..4); R: row groups (1..4); mc <= 128 * R.
+// each, one per rank; `sizes` holds each rank's real rows per list. metric: 0 l2, 1 inner product. qg: live queries per
+// scan pass (1..4); R: row groups (1..4); mc <= 128 * R. rot_lut: 1 for
+// the rotated look-up (8-bit codes, S a multiple of 32 up to 128, every
+// rank's codes 16-byte aligned and cb [K, S, P]-major), 0 for cb [S, K, P].
 extern "C" int rtt_ring_lut_scan_hop(
     const void* const* lists, const void* const* seg_q, const void* const* qv,
     const void* const* codes, const void* const* ids, const void* const* norms,
-    const void* const* centers_rot, const void* const* cb,
+    const void* const* sizes, const void* const* centers_rot,
+    const void* const* cb,
     void* const* bins_k, void* const* bins_i, void* const* run_k,
     void* const* run_i, int n, int NS, int mc, int k, int hop, int rot, int S,
     int K, int P, int pq_bits, int nb, int L, int metric, int qg, int R,
-    int device, void* stream) {
+    int rot_lut, int device, void* stream) {
   if (n < 1 || n > rtt::kMaxRanks || k < 1 || k > rtt::kMaxK || NS < 1 ||
       mc < 1 || hop < -1 || hop > n - 2 || qg < 1 || qg > rtt::kLutMaxQG ||
-      R < 1 || R > rtt::kLutMaxR || mc > rtt::kLutBins * R)
+      R < 1 || R > rtt::kLutMaxR || mc > rtt::kLutBins * R ||
+      (rot_lut && (pq_bits != 8 || S % 32 != 0 || S > 128)))
     return (int)cudaErrorInvalidValue;
+  for (int r = 0; r < n && rot_lut; ++r)
+    if ((uintptr_t)codes[r] & 15) return (int)cudaErrorInvalidValue;
   ScanTables st;
   MergeTables mt;
   for (int r = 0; r < n; ++r) {
@@ -173,6 +182,7 @@ extern "C" int rtt_ring_lut_scan_hop(
     st.codes[r] = (const uint8_t*)codes[r];
     st.ids[r] = (const int*)ids[r];
     st.norms[r] = (const float*)norms[r];
+    st.sizes[r] = (const int*)sizes[r];
     st.centers_rot[r] = (const float*)centers_rot[r];
     st.cb[r] = (const float*)cb[r];
     st.bins_k[r] = (float*)bins_k[r];
@@ -195,10 +205,18 @@ extern "C" int rtt_ring_lut_scan_hop(
     n_chunks = c < n_chunks ? c : n_chunks;
   }
   const bool bytes8 = pq_bits == 8 && S % 4 == 0;
-  e = bytes8 ? launch_scan<true>(st, smem, R, s, n, NS, mc, hop, rot, S, K, P,
-                                 pq_bits, nb, L, metric, qg, n_chunks)
-             : launch_scan<false>(st, smem, R, s, n, NS, mc, hop, rot, S, K, P,
-                                  pq_bits, nb, L, metric, qg, n_chunks);
+#define RTT_RING_SCAN(B8, KW)                                                  \
+  launch_scan<B8, KW>(st, smem, R, s, n, NS, mc, hop, rot, S, K, P, pq_bits, \
+                      nb, L, metric, qg, n_chunks)
+  if (rot_lut) {
+    e = S == 32   ? RTT_RING_SCAN(true, 8)
+        : S == 64 ? RTT_RING_SCAN(true, 16)
+        : S == 96 ? RTT_RING_SCAN(true, 24)
+                  : RTT_RING_SCAN(true, 32);
+  } else {
+    e = bytes8 ? RTT_RING_SCAN(true, 0) : RTT_RING_SCAN(false, 0);
+  }
+#undef RTT_RING_SCAN
   if (e == cudaSuccess) {
     ring_lut_merge_kernel<<<dim3(mc, n), 32 * kMergeWarps, 0, s>>>(
         mt, n, NS, mc, k, hop);

@@ -50,6 +50,10 @@ GATHER_REFINE_MAX_K = 64
 SELECT_K_MAX_K = 64
 # Dynamic shared memory a block may use on Hopper (227 KB).
 _MAX_SMEM = 232448
+# The widest rows fused_l2_argmin takes: its resident [32, d] x tile, the
+# y ring and the epilogue's scratch fill the 227 KB (the kernel's
+# rtt_fused_l2_argmin_max_d, which the card tests hold this copy to).
+FUSED_L2_ARGMIN_MAX_D = 1152
 
 
 def _on_cuda() -> bool:
@@ -129,7 +133,10 @@ def fused_l2_argmin_plain(x: torch.Tensor, y: torch.Tensor,
 def fused_l2_argmin(x: torch.Tensor, y: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Min squared L2 distance of each x row to the y rows, and its
-    argmin (x [m, d] f32, y [n, d] f32 → [m] f32, [m] i32)."""
+    argmin (x [m, d] f32, y [n, d] f32 → [m] f32, [m] i32). The kernel
+    computes ⟨x, y⟩ as three TF32 products of split operands on the
+    tensor cores (csrc/fused_l2_argmin.cu); d ≤ FUSED_L2_ARGMIN_MAX_D,
+    its resident x tile's limit."""
     _check(x, "x", torch.float32, 2)
     _check(y, "y", torch.float32, 2)
     expects(x.shape[1] == y.shape[1], "x/y feature dims differ: %d vs %d",
@@ -139,11 +146,15 @@ def fused_l2_argmin(x: torch.Tensor, y: torch.Tensor
         return fused_l2_argmin_plain(x, y)
     m, d = x.shape
     n = y.shape[0]
+    expects(d <= FUSED_L2_ARGMIN_MAX_D, "fused_l2_argmin takes d ≤ %d "
+            "(its resident x tile), got %d", FUSED_L2_ARGMIN_MAX_D, d)
+    lib = _lib("fused_l2_argmin")
     out_d = torch.empty((m,), dtype=torch.float32, device=x.device)
     out_i = torch.empty((m,), dtype=torch.int32, device=x.device)
-    ysq = torch.empty((n,), dtype=torch.float32, device=x.device)
-    rc = _lib("fused_l2_argmin").rtt_fused_l2_argmin(
-        _ptr(x), _ptr(y), m, n, d, _ptr(ysq), _ptr(out_d), _ptr(out_i),
+    scratch = torch.empty((lib.rtt_fused_l2_argmin_scratch_floats(n, d),),
+                          dtype=torch.float32, device=x.device)
+    rc = lib.rtt_fused_l2_argmin(
+        _ptr(x), _ptr(y), m, n, d, _ptr(scratch), _ptr(out_d), _ptr(out_i),
         _stream())
     fused_l2_argmin.launches += 1
     _raise_on(rc, "fused_l2_argmin")
@@ -288,36 +299,57 @@ def _lut_scan_args(seg_list, seg_q, q_rot, packed, ids, norms, centers_rot,
     return S, K, P, nb, rot
 
 
-def ivfpq_lut_scan_topk_plain(seg_list, seg_q, q_rot, packed, ids, norms,
-                              centers_rot, cb, metric: str, pq_bits: int,
-                              pair_chunk: int = 256):
-    """Plain version over the already-rounded codebook ``cb``: per live
-    (segment, slot) pair the exact ADC keys of its list, then the two
-    best per bin (position mod 128) by a stable sort — the lexicographic
-    (key, position) pair the kernel's strict-< running update keeps."""
-    n_seg, seg = seg_q.shape
+def lut_rotated(S: int, pq_bits: int, *packed: torch.Tensor) -> bool:
+    """Whether the LUT-scan kernels take the rotated look-up: 8-bit codes,
+    pq_dim a multiple of 32 up to 128, and every ``packed`` code table
+    16-byte aligned (its rows are loaded 16 bytes at a time). Its LUT is
+    [2^bits][pq_dim]-major, and the codebook operand with it
+    (:func:`lut_kernel_codebook`)."""
+    return (pq_bits == 8 and S % 32 == 0 and S <= 128
+            and all(p.data_ptr() % 16 == 0 for p in packed))
+
+
+def lut_kernel_codebook(cb: torch.Tensor, rotated: bool) -> torch.Tensor:
+    """The codebook as the scan kernels read it: [2^bits, pq_dim, pq_len]
+    for the rotated look-up, else [pq_dim, 2^bits, pq_len] as it is."""
+    return cb.transpose(0, 1).contiguous() if rotated else cb
+
+
+def lut_slot_rows(pair_seg: torch.Tensor, pair_slot: torch.Tensor,
+                  n_seg: int, seg: int) -> torch.Tensor:
+    """The inverse of ``segment_probes``' pair addresses: [n_seg, seg] i32,
+    the pair index b·P + p of the pair each slot holds, −1 on pad slots."""
+    B, P = pair_seg.shape
+    rows = torch.full((n_seg * seg,), -1, dtype=torch.int32,
+                      device=pair_seg.device)
+    rows[(pair_seg.long() * seg + pair_slot.long()).reshape(-1)] = torch.arange(
+        B * P, dtype=torch.int32, device=pair_seg.device)
+    return rows.view(n_seg, seg)
+
+
+def _lut_bins_plain(lst, q, packed, ids, norms, sizes, centers_rot, cb,
+                    metric: str, pq_bits: int, pair_chunk: int = 256):
+    """The 256 bin columns of each (list lst[i], rotated query q[i]) pair
+    → (keys, ids) [c, 256]: the exact ADC keys of the list's rows (rows at
+    or past ``sizes[lst]`` count as pads), then the two best
+    per bin (position mod 128) by a stable sort — the lexicographic (key,
+    position) pair the kernel's strict-< running update keeps."""
     S, K, P = cb.shape
     n_lists, L, _ = packed.shape
-    dev = q_rot.device
-    keys = torch.full((n_seg, seg, LUT_SCAN_BINS), float("inf"),
-                      dtype=torch.float32, device=dev)
-    kids = torch.full((n_seg, seg, LUT_SCAN_BINS), -1, dtype=torch.int32,
-                      device=dev)
-    sidx, slot = torch.nonzero(seg_q >= 0, as_tuple=True)
     n_t = -(-L // LUT_SCAN_LANES)
     Lp = n_t * LUT_SCAN_LANES
-    for a in range(0, sidx.numel(), pair_chunk):
-        si, sl = sidx[a:a + pair_chunk], slot[a:a + pair_chunk]
-        c = si.numel()
-        q = q_rot[seg_q[si, sl].long()]                       # [c, rot]
-        lst = seg_list[si].long()                             # [c]
-        lut = torch.einsum("csp,skp->csk", q.view(c, S, P), cb)
-        codes = unpack_codes(packed[lst], S, pq_bits)         # [c, L, S]
+    pos = torch.arange(L, device=q.device)
+    keys, kids = [], []
+    for a in range(0, lst.numel(), pair_chunk):
+        ls, qa = lst[a:a + pair_chunk].long(), q[a:a + pair_chunk]
+        c = ls.numel()
+        lut = torch.einsum("csp,skp->csk", qa.view(c, S, P), cb)
+        codes = unpack_codes(packed[ls], S, pq_bits)          # [c, L, S]
         qd = torch.gather(lut, 2, codes.transpose(1, 2)).sum(1)  # [c, L]
-        dot = (q * centers_rot[lst]).sum(1)[:, None] + qd
-        key = -dot if metric == "ip" else norms[lst] - 2.0 * dot
-        cid = ids[lst]
-        valid = cid >= 0
+        dot = (qa * centers_rot[ls]).sum(1)[:, None] + qd
+        key = -dot if metric == "ip" else norms[ls] - 2.0 * dot
+        cid = ids[ls]
+        valid = (cid >= 0) & (pos[None, :] < sizes[ls].long()[:, None])
         key = torch.where(valid, key, torch.full_like(key, float("inf")))
         cid = torch.where(valid, cid, torch.full_like(cid, -1))
         if Lp > L:
@@ -329,53 +361,105 @@ def ivfpq_lut_scan_topk_plain(seg_list, seg_q, q_rot, packed, ids, norms,
         if n_t == 1:
             sk = torch.cat([sk, torch.full_like(sk, float("inf"))], 1)
             ib = torch.cat([ib, torch.full_like(ib, -1)], 1)
-        keys[si, sl] = sk[:, :2].reshape(c, LUT_SCAN_BINS)
-        kids[si, sl] = ib[:, :2].reshape(c, LUT_SCAN_BINS)
-    return keys, kids
+        keys.append(sk[:, :2].reshape(c, LUT_SCAN_BINS))
+        kids.append(ib[:, :2].reshape(c, LUT_SCAN_BINS))
+    if not keys:
+        return (torch.empty((0, LUT_SCAN_BINS), device=q.device),
+                torch.empty((0, LUT_SCAN_BINS), dtype=torch.int32,
+                            device=q.device))
+    return torch.cat(keys), torch.cat(kids)
+
+
+def ivfpq_lut_scan_topk_plain(seg_list, pair_seg, q_rot, packed, ids, norms,
+                              list_sizes, centers_rot, cb, metric: str,
+                              pq_bits: int):
+    """Plain version over the already-rounded codebook ``cb``: for each
+    (query b, probe p) pair, the bins of query b against the list of its
+    segment ``pair_seg[b, p]``, walked to the list's size → (keys, ids)
+    [B, P, 256]."""
+    B, P = pair_seg.shape
+    lst = seg_list[pair_seg.long()].reshape(-1)
+    qrow = torch.arange(B, device=q_rot.device).repeat_interleave(P)
+    keys, kids = _lut_bins_plain(lst, q_rot[qrow], packed, ids, norms,
+                                 list_sizes, centers_rot, cb, metric, pq_bits)
+    return (keys.view(B, P, LUT_SCAN_BINS),
+            kids.view(B, P, LUT_SCAN_BINS))
 
 
 def ivfpq_lut_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
+                        pair_seg: torch.Tensor, pair_slot: torch.Tensor,
                         q_rot: torch.Tensor, packed: torch.Tensor,
                         ids: torch.Tensor, norms: torch.Tensor,
-                        centers_rot: torch.Tensor, codebooks: torch.Tensor,
-                        metric: str = "l2", *, pq_bits: int, pq_dim: int,
-                        L: int, lut_dtype: str = "float32"
+                        list_sizes: torch.Tensor, centers_rot: torch.Tensor,
+                        codebooks: torch.Tensor, metric: str = "l2", *,
+                        pq_bits: int, pq_dim: int, L: int,
+                        lut_dtype: str = "float32"
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused segmented IVF-PQ scan over packed codes.
 
     seg_list [n_seg] i32 — owning list per segment; seg_q [n_seg, seg]
-    i32 — query per slot, -1 pad; q_rot [B, rot] f32 rotated queries;
-    packed [n_lists, L, nb] u8 unfolded codes; ids/norms [n_lists, L];
-    centers_rot [n_lists, rot] f32; codebooks [pq_dim, 2^bits, pq_len]
-    f32 (per_subspace). Returns (keys, ids) [n_seg, seg, 256]: minimized
-    keys (l2: ‖c+d‖² − 2⟨q,c+d⟩, add ‖q‖²; ip: −⟨q,c+d⟩) and global ids,
-    two best per bin; pad slots hold (+inf, −1). Unlike the TPU kernel,
-    which took the gathered ``[n_seg, seg, rot]`` queries, this one takes
-    ``q_rot`` and ``seg_q`` and gathers per live slot on chip."""
+    i32 — query per slot, -1 pad; pair_seg, pair_slot [B, P] i32 — each
+    (query, probe) pair's segment and slot (``segment_probes``); q_rot
+    [B, rot] f32 rotated queries; packed [n_lists, L, nb] u8 unfolded
+    codes; ids/norms [n_lists, L]; list_sizes [n_lists] i32 — real rows
+    per list, packed from the front (rows past it are not read);
+    centers_rot [n_lists, rot] f32; codebooks [pq_dim, 2^bits, pq_len] f32
+    (per_subspace). Returns (keys, ids) [B, P, 256] in pair order:
+    minimized keys (l2: ‖c+d‖² − 2⟨q,c+d⟩, add ‖q‖²; ip: −⟨q,c+d⟩) and
+    global ids, two best per bin. The TPU kernel took the gathered
+    ``[n_seg, seg, rot]`` queries and wrote an ``[n_seg, seg, 256]`` table,
+    pad slots included, from which its caller gathered the pairs' rows;
+    this one writes each live slot's row straight to its pair."""
     S, K, P, nb, rot = _lut_scan_args(seg_list, seg_q, q_rot, packed, ids,
                                       norms, centers_rot, codebooks, metric,
                                       pq_bits, pq_dim, L)
+    _check(pair_seg, "pair_seg", torch.int32, 2)
+    _check(pair_slot, "pair_slot", torch.int32, 2)
+    _check(list_sizes, "list_sizes", torch.int32, 1)
+    expects(pair_seg.shape == pair_slot.shape
+            and pair_seg.shape[0] == q_rot.shape[0],
+            "pair_seg/pair_slot must be [B, n_probes] for %d queries",
+            q_rot.shape[0])
+    expects(list_sizes.shape[0] == packed.shape[0],
+            "list_sizes must be [n_lists]")
     cb = lut_codebook(codebooks, lut_dtype)
-    if not _use_kernel(seg_list, seg_q, q_rot, packed, ids, norms,
-                       centers_rot, cb):
-        return ivfpq_lut_scan_topk_plain(seg_list, seg_q, q_rot, packed, ids,
-                                         norms, centers_rot, cb, metric,
-                                         pq_bits)
+    if not _use_kernel(seg_list, seg_q, pair_seg, pair_slot, q_rot, packed,
+                       ids, norms, list_sizes, centers_rot, cb):
+        return ivfpq_lut_scan_topk_plain(seg_list, pair_seg, q_rot, packed,
+                                         ids, norms, list_sizes, centers_rot,
+                                         cb, metric, pq_bits)
     n_seg, seg = seg_q.shape
+    B, n_probes = pair_seg.shape
     lib = _lib("ivfpq_lut_scan")
     fit = lut_scan_fit(S, K, rot, seg, nb)
     expects(fit is not None, "LUT of %d x %d f32 does not fit shared memory",
             S, K)
     qg, R = fit
-    keys = torch.empty((n_seg, seg, LUT_SCAN_BINS), dtype=torch.float32,
-                       device=q_rot.device)
-    kids = torch.empty((n_seg, seg, LUT_SCAN_BINS), dtype=torch.int32,
-                       device=q_rot.device)
+    dev = q_rot.device
+    slot_rows = lut_slot_rows(pair_seg, pair_slot, n_seg, seg)
+    # one block per (segment, group of ≤ qg live slots): the inclusive
+    # prefix of the groups, each block's segment, and a grid that covers
+    # any segment table of B·P live slots (blocks past the prefix's end
+    # return at once)
+    n_grp = ((seg_q >= 0).sum(1, dtype=torch.int32) + (qg - 1)) // qg
+    grp_end = torch.cumsum(n_grp, 0, dtype=torch.int32)
+    pairs = B * n_probes
+    n_blocks = min(n_seg, pairs) + -(-pairs // qg)
+    blk_seg = torch.searchsorted(
+        grp_end, torch.arange(n_blocks, dtype=torch.int32, device=dev),
+        right=True, out_int32=True)
+    keys = torch.empty((B, n_probes, LUT_SCAN_BINS), dtype=torch.float32,
+                       device=dev)
+    kids = torch.empty((B, n_probes, LUT_SCAN_BINS), dtype=torch.int32,
+                       device=dev)
+    rot_lut = lut_rotated(S, pq_bits, packed)
+    cbk = lut_kernel_codebook(cb, rot_lut)
     rc = lib.rtt_ivfpq_lut_scan_topk(
-        _ptr(seg_list), _ptr(seg_q), _ptr(q_rot), _ptr(packed), _ptr(ids),
-        _ptr(norms), _ptr(centers_rot), _ptr(cb), _ptr(keys), _ptr(kids),
-        n_seg, seg, rot, S, K, P, pq_bits, nb, L,
-        1 if metric == "ip" else 0, qg, R, _stream())
+        _ptr(seg_list), _ptr(seg_q), _ptr(slot_rows), _ptr(grp_end),
+        _ptr(blk_seg), _ptr(q_rot), _ptr(packed), _ptr(ids), _ptr(norms),
+        _ptr(list_sizes), _ptr(centers_rot), _ptr(cbk), _ptr(keys),
+        _ptr(kids), n_seg, n_blocks, seg, rot, S, K, P, pq_bits, nb, L,
+        1 if metric == "ip" else 0, qg, R, int(rot_lut), _stream())
     ivfpq_lut_scan_topk.launches += 1
     _raise_on(rc, "ivfpq_lut_scan_topk")
     return keys, kids
@@ -916,20 +1000,28 @@ def ring_lut_scan_kernel_ok(S: int, K: int, P: int, nb: int, Wb: int,
 
 
 def ring_lut_scan_merge_plain(chunk_lists, seg_q, qv_chunks, packed, ids,
-                              norms, centers_rot, cb, k: int, metric: str,
-                              pq_bits: int):
+                              norms, list_sizes, centers_rot, cb, k: int,
+                              metric: str, pq_bits: int):
     """Plain version over the already-rounded codebook ``cb`` and the
     member table ``seg_q`` [n, NS, mc] (row, or −1): per rank and chunk,
-    :func:`ivfpq_lut_scan_topk_plain` over the chunk's union lists with
-    the member rows as live slots, the lists' bins laid out in union
-    order, then the ring schedule of :func:`ring_topk_merge_plain`."""
+    the LUT scan's bins (:func:`_lut_bins_plain`) of every (member row,
+    union list) pair, the lists' bins laid out in union order with (+inf,
+    −1) for non-members, then the ring schedule of
+    :func:`ring_topk_merge_plain`."""
     mc = qv_chunks[0].shape[1]
 
     def local(r, c):
-        keys, kids = ivfpq_lut_scan_topk_plain(
-            chunk_lists[r][c].contiguous(), seg_q[r][c].contiguous(),
-            qv_chunks[r][c].contiguous(), packed[r], ids[r], norms[r],
-            centers_rot[r], cb[r], metric, pq_bits)
+        sq = seg_q[r][c]
+        NS = sq.shape[0]
+        keys = torch.full((NS, mc, LUT_SCAN_BINS), float("inf"),
+                          dtype=torch.float32, device=sq.device)
+        kids = torch.full((NS, mc, LUT_SCAN_BINS), -1, dtype=torch.int32,
+                          device=sq.device)
+        si, sl = torch.nonzero(sq >= 0, as_tuple=True)
+        keys[si, sl], kids[si, sl] = _lut_bins_plain(
+            chunk_lists[r][c][si], qv_chunks[r][c][sq[si, sl].long()],
+            packed[r], ids[r], norms[r], list_sizes[r], centers_rot[r], cb[r],
+            metric, pq_bits)
         return (keys.permute(1, 0, 2).reshape(mc, -1),
                 kids.permute(1, 0, 2).reshape(mc, -1))
 
@@ -942,6 +1034,7 @@ def ring_lut_scan_merge(chunk_lists: Sequence[torch.Tensor],
                         packed: Sequence[torch.Tensor],
                         ids: Sequence[torch.Tensor],
                         norms: Sequence[torch.Tensor],
+                        list_sizes: Sequence[torch.Tensor],
                         centers_rot: Sequence[torch.Tensor],
                         codebooks: Sequence[torch.Tensor], k: int,
                         metric: str = "l2", *, pq_bits: int, pq_dim: int,
@@ -956,9 +1049,10 @@ def ring_lut_scan_merge(chunk_lists: Sequence[torch.Tensor],
       (pad segments all 0; replicated);
     - ``qv_chunks [n, mc, rot]`` f32 — rotated queries per chunk
       (replicated);
-    - ``packed`` / ``ids`` / ``norms`` / ``centers_rot`` / ``codebooks`` —
-      the rank's shard as :func:`ivfpq_lut_scan_topk` takes it (ids are
-      global row ids, int32).
+    - ``packed`` / ``ids`` / ``norms`` / ``list_sizes`` / ``centers_rot``
+      / ``codebooks`` — the rank's shard as :func:`ivfpq_lut_scan_topk`
+      takes it (ids are global row ids, int32; rows at or past a list's
+      size are not read).
 
     Per hop, each rank scans the chunk it merges next: per (member row,
     list) the two best per strided bin, as the LUT scan keeps them, then
@@ -969,7 +1063,7 @@ def ring_lut_scan_merge(chunk_lists: Sequence[torch.Tensor],
     callers cut to k; this one returns k columns."""
     n = len(packed)
     args = (chunk_lists, probe_ind, qv_chunks, packed, ids, norms,
-            centers_rot, codebooks)
+            list_sizes, centers_rot, codebooks)
     expects(n >= 1 and all(len(a) == n for a in args),
             "ring_lut_scan_merge needs one tensor per rank for every operand")
     expects(0 < k <= RING_TOPK_MAX_K, "k=%d outside (0, %d] (gate with "
@@ -990,21 +1084,27 @@ def ring_lut_scan_merge(chunk_lists: Sequence[torch.Tensor],
             chunk_lists[r][0], probe_ind[r][0].to(torch.int32),
             qv_chunks[r][0], packed[r], ids[r], norms[r], centers_rot[r],
             codebooks[r], metric, pq_bits, pq_dim, L)
+        _check(list_sizes[r], "list_sizes", torch.int32, 1)
+        expects(list_sizes[r].shape[0] == packed[r].shape[0],
+                "list_sizes must be [n_lists]")
         cb.append(lut_codebook(codebooks[r], lut_dtype))
     rows = torch.arange(mc, dtype=torch.int32)
     seg_q = [torch.where(ind > 0.5, rows.to(ind.device), -1).to(torch.int32)
              .contiguous() for ind in probe_ind]
     qv = [q.contiguous() for q in qv_chunks]
     lists = [c.contiguous() for c in chunk_lists]
-    if not _ring_use_kernel(lists, seg_q, qv, packed, ids, norms, centers_rot,
-                            cb):
+    if not _ring_use_kernel(lists, seg_q, qv, packed, ids, norms, list_sizes,
+                            centers_rot, cb):
         return ring_lut_scan_merge_plain(lists, seg_q, qv, packed, ids, norms,
-                                         centers_rot, cb, k, metric, pq_bits)
+                                         list_sizes, centers_rot, cb, k,
+                                         metric, pq_bits)
     fit = lut_scan_fit(S, K, rot, mc, nb)
     expects(fit is not None, "a chunk of %d rows with a %d x %d LUT does not "
             "fit shared memory (gate with ring_lut_scan_kernel_ok)", mc, S, K)
     qg, R = fit
     lib = _lib("ring_lut_scan")
+    rot_lut = lut_rotated(S, pq_bits, *packed)
+    cbk = [lut_kernel_codebook(c, rot_lut) for c in cb]
     dev = packed[0].device
     run_k, run_i = _ring_buffers(n, dev, mc, k)
     bins_k = [torch.empty((NS, mc, LUT_SCAN_BINS), dtype=torch.float32,
@@ -1012,13 +1112,14 @@ def ring_lut_scan_merge(chunk_lists: Sequence[torch.Tensor],
     bins_i = [torch.empty((NS, mc, LUT_SCAN_BINS), dtype=torch.int32,
                           device=dev) for _ in range(n)]
     tables = [_ptr_table(t) for t in (lists, seg_q, qv, packed, ids, norms,
-                                      centers_rot, cb, bins_k, bins_i, run_k,
-                                      run_i)]
+                                      list_sizes, centers_rot, cbk, bins_k,
+                                      bins_i, run_k, run_i)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     for hop in range(-1, n - 1):   # a scan and a merge launch per hop
         _raise_on(lib.rtt_ring_lut_scan_hop(
             *tables, n, NS, mc, k, hop, rot, S, K, P, pq_bits, nb, L,
-            1 if metric == "ip" else 0, qg, R, dev.index, stream),
+            1 if metric == "ip" else 0, qg, R, int(rot_lut), dev.index,
+            stream),
             "ring_lut_scan_merge")
         ring_lut_scan_merge.launches += 1
     return [rk[n - 1] for rk in run_k], [ri[n - 1] for ri in run_i]

@@ -357,7 +357,8 @@ def _fused_ring_operands(index: ShardedIvfPq, q: torch.Tensor,
     qv = q_rot.view(n_dev, mc, q_rot.shape[1]).contiguous()
     return (replicate(lists, mesh), replicate(ind, mesh),
             replicate(qv, mesh), index.packed_codes, index.packed_ids,
-            index.packed_norms, index.centers_rot, index.codebooks)
+            index.packed_norms, index.list_sizes, index.centers_rot,
+            index.codebooks)
 
 
 def _search_fused_ring(index: ShardedIvfPq, q: torch.Tensor, k: int,

@@ -8,7 +8,8 @@ toolkit::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: select_k exact (values bit for bit); fused_l2_argmin distances
-rtol 1e-5, atol 1e-4; LUT scan keys rtol 1e-4, atol 1e-3 with ids equal
+rtol 1e-5, atol 1e-4 (the first case) or within 1e-4 + 1e-5·(‖x‖² + ‖y‖²)
+with differing argmins tied in f64 (the smoke's check); LUT scan keys rtol 1e-4, atol 1e-3 with ids equal
 away from key ties; gather-refine keys rtol 1e-5 with ids equal away from
 key ties; segmented and grouped scans keys within 1e-4 + 1e-5·(|key| +
 ‖q‖²) (the expanded l2 form cancels ‖q‖² + ‖x‖²), the same finite/infinite
@@ -115,6 +116,26 @@ def test_cuda_select_k_short_rows_match_plain(m, n, k, inf_share):
         assert torch.equal(v, pv) and torch.equal(i, pi)
 
 
+def _check_argmin(x, y):
+    """fused_l2_argmin on the card against its plain version (both on the
+    card): distances within 1e-4 + 1e-5·(‖x‖² + ‖y‖²), and a differing
+    argmin's f64 distance ties the minimum within that tolerance (the
+    smoke's check). Returns the kernel's (distances, argmins)."""
+    d, i = K.fused_l2_argmin(x, y)
+    pd, pi = K.fused_l2_argmin_plain(x, y)
+    xsq, ysq = (x * x).sum(1), (y * y).sum(1)
+    tol = 1e-4 + 1e-5 * (xsq + ysq[pi.long()])
+    assert bool(((d - pd).abs() <= tol).all()), float((d - pd).abs().max())
+    bad = i != pi
+    if bool(bad.any()):
+        xb, yb = x[bad].double(), y[i[bad].long()].double()
+        d64 = ((xb - yb) ** 2).sum(1)
+        assert bool(((d64 - pd[bad].double()).abs()
+                     <= 1e-4 + 1e-5 * (xsq[bad] + (yb * yb).sum(1))
+                     .double()).all())
+    return d, i
+
+
 def test_cuda_fused_l2_argmin_matches_plain():
     dev = cuda_device()
     rng = np.random.default_rng(0)
@@ -132,25 +153,103 @@ def test_cuda_fused_l2_argmin_matches_plain():
     assert bool(((i.cpu() == pi) | close).all())
 
 
+# (m, n, d): d 24 / 96 / 100 / 128 (k padded to 32 with zeros), m ragged to
+# the 128-row tile, n = 1, n not a multiple of 8 or of the 128-row y tile,
+# the widest d of each resident-tile size (256: 128 rows, 544: 64, 1152: 32)
+ARGMIN_SHAPES = [(1000, 1, 24), (5001, 700, 96), (333, 1027, 100),
+                 (4097, 129, 128), (130, 13, 24), (777, 300, 256),
+                 (300, 200, 544), (100, 150, 1152)]
+
+
+@pytest.mark.parametrize("m,n,d", ARGMIN_SHAPES)
+def test_cuda_fused_l2_argmin_shapes(m, n, d):
+    """3xTF32 on the tensor cores against the plain f32 version at ragged
+    shapes, with duplicated y rows (the first index wins) and x rows on
+    them."""
+    dev = cuda_device()
+    rng = np.random.default_rng(m + n + d)
+    y = rng.uniform(0, 10, (n, d)).astype(np.float32)
+    x = (y[rng.integers(0, n, m)] + 0.5 * rng.standard_normal((m, d))
+         ).astype(np.float32)
+    if n > 5:
+        y[n - 1] = y[2]
+        x[:4] = y[2]
+    K.reset_launch_counts()
+    d_, i = _check_argmin(torch.tensor(x).to(dev), torch.tensor(y).to(dev))
+    assert K.launch_counts()["fused_l2_argmin"] == 1
+    assert d_.shape == (m,) and i.dtype == torch.int32
+    if n > 5:
+        assert (i[:4].cpu() == 2).all()
+
+
+@pytest.mark.parametrize("d", [96, 128])
+def test_cuda_fused_l2_argmin_path_shapes(d):
+    """The IVF-PQ build's assignment (96) and a sharded rank's Lloyd sweep
+    (128), cut to 1M rows: DEEP-shaped rows around 8192 centers in
+    [0, 10)^d, as chip_smoke.py's data."""
+    from raft_tpu_torch.bench.dataset import DeviceSynthetic
+
+    dev = cuda_device()
+    ds = DeviceSynthetic(1_000_000, d, n_centers=10_000, seed=d, std=0.5,
+                         scale=10.0, device=dev)
+    x = ds.base()
+    _check_argmin(x, x[::122][:8192].contiguous())
+
+
+def test_cuda_fused_l2_argmin_max_d():
+    """The wrapper's widest d is the kernel's, and a wider one raises."""
+    from raft_tpu_torch.ops.build import LIBRARIES
+
+    dev = cuda_device()
+    lib = LIBRARIES.get("fused_l2_argmin")
+    assert lib.rtt_fused_l2_argmin_max_d() == K.FUSED_L2_ARGMIN_MAX_D
+    x = torch.ones((4, K.FUSED_L2_ARGMIN_MAX_D + 1), device=dev)
+    with pytest.raises(Exception, match="resident"):
+        K.fused_l2_argmin(x, x)
+
+
+def _lut_ops(c, dev):
+    return [torch.tensor(c[n]).to(dev) for n in SCAN_OPERANDS]
+
+
+@pytest.mark.parametrize("S", [16, 64])
 @pytest.mark.parametrize("pq_bits", [4, 5, 6, 8])
 @pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16"])
-def test_cuda_lut_scan_matches_plain(pq_bits, lut_dtype):
+def test_cuda_lut_scan_matches_plain(pq_bits, lut_dtype, S):
+    """The kernel's [B, P, 256] pair rows against the plain version's,
+    lists of size 0, 1 and L and shorter than a tile, empty trailing
+    segments; S 64 with 8-bit codes takes the rotated look-up."""
     dev = cuda_device()
-    c = scan_case(pq_bits)
-    args = [torch.tensor(c[n]).to(dev) for n in SCAN_OPERANDS]
+    c = scan_case(pq_bits, S=S)
+    args = _lut_ops(c, dev)
     cb_used = K.lut_codebook(args[-1], lut_dtype)
-    live = torch.tensor(c["seg_q"] >= 0)
     for metric in ("l2", "ip"):
+        K.reset_launch_counts()
         tk, ti = K.ivfpq_lut_scan_topk(*args, metric, pq_bits=pq_bits,
                                        pq_dim=c["S"], L=c["L"],
                                        lut_dtype=lut_dtype)
-        pk, pi = K.ivfpq_lut_scan_topk_plain(*args[:7], cb_used, metric,
-                                             pq_bits)
-        tk, ti = tk.cpu(), ti.cpu()
-        assert bool(torch.isinf(tk[~live]).all() and (ti[~live] == -1).all())
+        assert K.launch_counts()["ivfpq_lut_scan_topk"] == 1
+        pk, pi = K.ivfpq_lut_scan_topk_plain(
+            *[args[SCAN_OPERANDS.index(n)] for n in
+              ("seg_list", "pair_seg", "q_rot", "packed", "ids", "norms",
+               "list_sizes", "centers_rot")], cb_used, metric, pq_bits)
+        assert tk.shape == pk.shape == (*c["pair_seg"].shape, 256)
         ref = scan_reference_keys(c, cb_used.cpu().numpy(), metric)
-        assert_bins_match(tk.numpy(), ti.numpy(), pk.cpu().numpy(),
-                          pi.cpu().numpy(), ref, rtol=1e-4, atol=1e-3)
+        assert_bins_match(tk.cpu().numpy(), ti.cpu().numpy(),
+                          pk.cpu().numpy(), pi.cpu().numpy(), ref, rtol=1e-4,
+                          atol=1e-3)
+
+
+@pytest.mark.parametrize("S", [16, 64])
+def test_cuda_lut_scan_reads_no_row_past_the_list_size(S):
+    """Valid ids past a list's size change nothing on the card either."""
+    dev = cuda_device()
+    c = scan_case(8, seed=5, S=S)
+    kw = dict(pq_bits=8, pq_dim=c["S"], L=c["L"])
+    tk, ti = K.ivfpq_lut_scan_topk(*_lut_ops(c, dev), "l2", **kw)
+    c["ids"][np.arange(c["L"])[None, :] >= c["list_sizes"][:, None]] = 7
+    sk, si = K.ivfpq_lut_scan_topk(*_lut_ops(c, dev), "l2", **kw)
+    assert torch.equal(tk, sk) and torch.equal(ti, si)
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
@@ -280,9 +379,9 @@ def test_cuda_ring_topk_merge_narrows_other_types():
                                                                pi[r])
 
 
-def _check_ring_scan(devices, pq_bits, k, metric, lut_dtype, seed):
+def _check_ring_scan(devices, pq_bits, k, metric, lut_dtype, seed, S=16):
     n = len(devices)
-    c = ring_scan_case(pq_bits, n_dev=n, seed=seed)
+    c = ring_scan_case(pq_bits, n_dev=n, seed=seed, S=S)
     kw = dict(pq_bits=pq_bits, pq_dim=c["S"], L=c["L"], lut_dtype=lut_dtype)
     K.reset_launch_counts()
     tk, ti = K.ring_lut_scan_merge(*ring_scan_ops(c, devices), k, metric, **kw)
@@ -304,19 +403,21 @@ def _check_ring_scan(devices, pq_bits, k, metric, lut_dtype, seed):
     assert sum(int((i >= 0).sum()) for i in pi) > 0
 
 
-# (pq_bits, k, metric, lut_dtype)
-RING_SCAN_CASES = [(8, 10, "l2", "float32"), (4, 1, "ip", "float32"),
-                   (8, 64, "l2", "bfloat16"), (5, 10, "ip", "bfloat16"),
-                   (6, 64, "l2", "float32")]
+# (pq_bits, k, metric, lut_dtype, S): S 64 and 32 with 8-bit codes take the
+# rotated look-up
+RING_SCAN_CASES = [(8, 10, "l2", "float32", 16), (4, 1, "ip", "float32", 16),
+                   (8, 64, "l2", "bfloat16", 16), (5, 10, "ip", "bfloat16", 16),
+                   (6, 64, "l2", "float32", 16), (8, 10, "l2", "bfloat16", 64),
+                   (8, 10, "ip", "float32", 32)]
 
 
-@pytest.mark.parametrize("pq_bits,k,metric,lut_dtype", RING_SCAN_CASES)
-def test_cuda_ring_lut_scan_matches_plain(pq_bits, k, metric, lut_dtype):
+@pytest.mark.parametrize("pq_bits,k,metric,lut_dtype,S", RING_SCAN_CASES)
+def test_cuda_ring_lut_scan_matches_plain(pq_bits, k, metric, lut_dtype, S):
     """The fused scan-in-ring kernel, four ranks on one card, against its
     plain version (the LUT scan's plain version per chunk, then the plain
-    ring)."""
+    ring), each list walked to its size."""
     _check_ring_scan(_ring_devices(4), pq_bits, k, metric, lut_dtype,
-                     seed=k)
+                     seed=k, S=S)
 
 
 def test_cuda_ring_kernels_over_peer_pointers():

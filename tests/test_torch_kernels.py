@@ -29,8 +29,9 @@ from raft_tpu.ops import pallas_kernels as pk
 from raft_tpu_torch.neighbors import ivf_common as tic
 from raft_tpu_torch.ops import kernels as K
 
-from torch_parity import (assert_bins_match, assert_scan_match,
-                          flat_scan_case, flat_scan_operands, refine_case,
+from torch_parity import (SCAN_OPERANDS, assert_bins_match,
+                          assert_scan_match, flat_scan_case,
+                          flat_scan_operands, pair_rows, refine_case,
                           scan_case, scan_reference_keys, tied_scores)
 
 
@@ -122,6 +123,55 @@ def test_fused_l2_argmin_plain_matches_pallas(m, n, d):
     assert ((ti.numpy() == ji) | close).all()
 
 
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to the nearest
+    value with 10 explicit mantissa bits, ties away from zero."""
+    return ((a.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("d", [96, 128])
+def test_fused_l2_argmin_3xtf32_keeps_the_tolerance(d):
+    """The B4 kernel's numerics, emulated on the CPU: ⟨x, y⟩ as
+    x_hi·y_hi + x_hi·y_lo + x_lo·y_hi with TF32 parts (exact products, f32
+    sums, as the tensor cores give them) keeps every distance within the
+    smoke's 1e-4 + 1e-5·(‖x‖² + ‖y‖²) of the f64 distance on DEEP-shaped
+    data (8192 centers in [0, 10)^d, rows at σ 0.5 around them, with
+    planted near-ties), and its argmins differ from f64's only at ties;
+    one TF32 product does not."""
+    rng = np.random.default_rng(d)
+    y = rng.uniform(0, 10, (8192, d)).astype(np.float32)
+    j = rng.integers(0, 8192, 1024)
+    x = (y[j] + 0.5 * rng.standard_normal((1024, d))).astype(np.float32)
+    # near-ties: a second center 1e-3 off each of 64 rows' own center
+    tie = rng.choice(8192, 64, replace=False)
+    y[tie] = y[j[:64]] + 1e-3 * rng.standard_normal((64, d)).astype(
+        np.float32)
+    xt, yt = torch.tensor(x), torch.tensor(y)
+    x64, y64 = xt.double(), yt.double()
+    d64 = ((x64 * x64).sum(1)[:, None] + (y64 * y64).sum(1)[None, :]
+           - 2.0 * x64 @ y64.T).clamp_min(0.0)
+    xsq, ysq = (xt * xt).sum(1), (yt * yt).sum(1)
+    tol = 1e-4 + 1e-5 * (xsq[:, None] + ysq[None, :]).double()
+    xh, yh = _tf32(xt), _tf32(yt)
+    xl, yl = _tf32(xt - xh), _tf32(yt - yh)
+
+    def dist(prod):
+        return (xsq[:, None] + ysq[None, :] - 2.0 * prod).clamp_min(0.0)
+
+    d3 = dist(xl @ yh.T + xh @ yl.T + xh @ yh.T).double()
+    assert bool(((d3 - d64).abs() <= tol).all())
+    m64, a64 = d64.min(1)
+    a3 = d3.argmin(1)
+    rows = torch.arange(1024)
+    assert bool((d64[rows, a3] - m64 <= tol[rows, a3]).all())
+    assert int((a64[:64] != torch.tensor(j[:64])).sum()) + int(
+        (a64[:64] != torch.tensor(tie)).sum()) == 64   # ties are planted
+    d1 = dist(xh @ yh.T).double()
+    m1, a1 = d1.min(1)
+    assert bool(((d1 - d64).abs() > tol).any())
+    assert bool(((m1 - m64).abs() > tol[rows, a64]).any())
+
+
 def test_fused_l2_nn_argmin_matches_jax():
     from raft_tpu.distance.fused_l2_nn import fused_l2_nn_argmin as jnn
     from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_argmin as tnn
@@ -145,8 +195,10 @@ def test_fused_l2_nn_argmin_matches_jax():
 @pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("pq_bits", [4, 5, 8])
 def test_lut_scan_plain_matches_pallas(pq_bits, lut_dtype, metric):
+    """The port's [B, P, 256] pair-ordered bins against the JAX kernel's
+    [n_seg, seg, 256] table read at each pair's slot; lists of size 0, 1
+    and L are probed."""
     c = scan_case(pq_bits)
-    n_seg, seg = c["seg_q"].shape
     qv = c["q_rot"][np.clip(c["seg_q"], 0, c["q_rot"].shape[0] - 1)]
     jk, ji = pk.ivfpq_lut_scan_topk(
         jnp.asarray(c["seg_list"]), jnp.asarray(qv), jnp.asarray(c["packed"]),
@@ -155,18 +207,92 @@ def test_lut_scan_plain_matches_pallas(pq_bits, lut_dtype, metric):
         pq_bits=pq_bits, pq_dim=c["S"], L=c["L"], lut_dtype=lut_dtype,
         interpret=True)
     tk, ti = K.ivfpq_lut_scan_topk(
-        _t(c["seg_list"]), _t(c["seg_q"]), _t(c["q_rot"]), _t(c["packed"]),
-        _t(c["ids"]), _t(c["norms"]), _t(c["centers_rot"]), _t(c["cb"]),
-        metric, pq_bits=pq_bits, pq_dim=c["S"], L=c["L"],
-        lut_dtype=lut_dtype)
-    assert tk.shape == (n_seg, seg, 256) and ti.dtype == torch.int32
-    live = c["seg_q"] >= 0
-    tk, ti = tk.numpy(), ti.numpy()
-    assert np.isinf(tk[~live]).all() and (ti[~live] == -1).all()
+        *[_t(c[n]) for n in SCAN_OPERANDS], metric, pq_bits=pq_bits,
+        pq_dim=c["S"], L=c["L"], lut_dtype=lut_dtype)
+    B, n_probes = c["pair_seg"].shape
+    assert tk.shape == (B, n_probes, 256) and ti.dtype == torch.int32
+    assert set(c["list_sizes"][:3]) == {0, 1, c["L"]}
     cb_used = K.lut_codebook(_t(c["cb"]), lut_dtype).numpy()
     ref = scan_reference_keys(c, cb_used, metric)
-    assert_bins_match(tk, ti, np.asarray(jk), np.asarray(ji), ref,
-                       rtol=1e-4, atol=1e-3)
+    assert_bins_match(tk.numpy(), ti.numpy(), pair_rows(c, jk),
+                      pair_rows(c, ji), ref, rtol=1e-4, atol=1e-3)
+    empty = c["seg_list"][c["pair_seg"]] == 0   # pairs probing list 0
+    assert empty.any() and np.isinf(tk.numpy()[empty]).all()
+    assert (ti.numpy()[empty] == -1).all()
+
+
+@pytest.mark.parametrize("B,n_probes,n_lists", [(40, 8, 16), (300, 5, 7),
+                                                (3, 16, 64)])
+def test_lut_slot_rows_invert_the_pair_addresses(B, n_probes, n_lists):
+    """The LUT scan's slot → pair map: every pair's slot names that pair,
+    pad slots name none, and a live slot's query is its pair's."""
+    rng = np.random.default_rng(B)
+    probes = np.stack([rng.choice(n_lists, n_probes, replace=False)
+                       for _ in range(B)]).astype(np.int32)
+    n_seg = tic.n_segments(B * n_probes, n_lists, 128)
+    _, seg_q, ps, pl = tic.segment_probes(_t(probes), n_lists, 128, n_seg)
+    rows = K.lut_slot_rows(ps, pl, n_seg, 128)
+    assert rows.shape == (n_seg, 128) and rows.dtype == torch.int32
+    pair = torch.arange(B * n_probes, dtype=torch.int32).view(B, n_probes)
+    assert torch.equal(rows[ps.long(), pl.long()], pair)
+    assert torch.equal(rows >= 0, seg_q >= 0)
+    live = seg_q >= 0
+    assert torch.equal(rows[live] // n_probes, seg_q[live])
+
+
+def test_lut_scan_reads_no_row_past_the_list_size():
+    """Rows at or past a list's size are pads whatever they hold: giving
+    them valid ids changes nothing, and the bins equal those of the
+    same lists with the rows' ids −1."""
+    c = scan_case(5, seed=3)
+    ops = [_t(c[n]) for n in SCAN_OPERANDS]
+    kw = dict(pq_bits=5, pq_dim=c["S"], L=c["L"])
+    tk, ti = K.ivfpq_lut_scan_topk(*ops, "l2", **kw)
+    stale = c["ids"].copy()
+    past = np.arange(c["L"])[None, :] >= c["list_sizes"][:, None]
+    stale[past] = 7
+    ops[SCAN_OPERANDS.index("ids")] = _t(stale)
+    sk, si = K.ivfpq_lut_scan_topk(*ops, "l2", **kw)
+    assert past.sum() > c["L"] and torch.equal(tk, sk) and torch.equal(ti, si)
+    assert not (si.numpy() == 7).any()
+
+
+@pytest.mark.parametrize("S", [32, 64, 96, 128])
+def test_lut_rotated_lookup_order(S):
+    """The rotated look-up of 8-bit codes (lut_scan_common.cuh:
+    adc_words_rot), emulated in numpy: lane l rotates its row's code words
+    by l // 4 words and funnel-shifts by 8·(l mod 4), so byte j of word k
+    is subspace (4k + j + l) mod S; every lane visits each (subspace,
+    code) of its row once, and at every step the 32 lanes' LUT words
+    ([code][S]-major) lie in 32 distinct banks, whatever the codes."""
+    assert K.lut_rotated(S, 8) and not K.lut_rotated(S, 6)
+    buf = torch.zeros(4 * S + 32, dtype=torch.uint8)
+    off = -buf.data_ptr() % 16
+    assert K.lut_rotated(S, 8, buf[off:off + 4 * S].view(4, S))
+    assert not K.lut_rotated(S, 8, buf[off + 1:off + 1 + 4 * S].view(4, S))
+    rng = np.random.default_rng(S)
+    W = S // 4
+    codes = rng.integers(0, 256, (32, S)).astype(np.uint8)   # a row a lane
+    words = codes.view("<u4").reshape(32, W).astype(np.uint64)
+    banks = np.zeros((S, 32), np.int64)
+    for l in range(32):
+        q, sh = l >> 2, 8 * (l & 3)
+        a = [words[l, (k + q) % W] for k in range(W)]
+        seen = []
+        for k in range(W):
+            word = ((a[(k + 1) % W] << np.uint64(32)) | a[k]) >> np.uint64(sh)
+            for j in range(4):
+                s = (4 * k + j + l) % S
+                code = int(word >> np.uint64(8 * j)) & 0xFF
+                assert code == codes[l, s]
+                seen.append(s)
+                banks[4 * k + j, l] = (code * S + s) % 32
+        assert sorted(seen) == list(range(S))
+    assert all(len(set(row)) == 32 for row in banks)
+    cb = torch.arange(S * 256 * 2, dtype=torch.float32).view(S, 256, 2)
+    kcb = K.lut_kernel_codebook(cb, True)
+    assert kcb.shape == (256, S, 2) and torch.equal(kcb[5, 3], cb[3, 5])
+    assert K.lut_kernel_codebook(cb, False) is cb
 
 
 def test_lut_codebook_rounding_matches_jax():
@@ -188,11 +314,10 @@ def test_lut_codebook_rounding_matches_jax():
 def test_lut_scan_rejects_folded_codes():
     c = scan_case(8, L=256)
     folded = c["packed"].reshape(16, 32, -1)  # not [n_lists, L, nb]
+    ops = [_t(c[n]) for n in SCAN_OPERANDS]
+    ops[SCAN_OPERANDS.index("packed")] = _t(folded)
     with pytest.raises(Exception, match="folded"):
-        K.ivfpq_lut_scan_topk(
-            _t(c["seg_list"]), _t(c["seg_q"]), _t(c["q_rot"]), _t(folded),
-            _t(c["ids"]), _t(c["norms"]), _t(c["centers_rot"]), _t(c["cb"]),
-            "l2", pq_bits=8, pq_dim=c["S"], L=c["L"])
+        K.ivfpq_lut_scan_topk(*ops, "l2", pq_bits=8, pq_dim=c["S"], L=c["L"])
 
 
 # ---------------------------------------------------------------------------

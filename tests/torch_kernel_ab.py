@@ -3,35 +3,51 @@
 in turns, on one card.
 
     python3 tests/torch_kernel_ab.py --other DIR
-        [--kernel select_k|ring_topk_merge|ivfpq_lut_scan] [--rounds R]
-        [--n ROWS] [--seed S]
+        [--kernel select_k|ring_topk_merge|fused_l2_argmin|ivfpq_lut_scan|
+                  ring_lut_scan_merge] [--rounds R] [--n ROWS] [--seed S]
 
 DIR is the root of another checkout of the repo, for example a parent
 commit unpacked with ``git archive``. Its source of the kernel
-(``raft_tpu_torch/ops/csrc/<source>.cu``) is built with this tree's
-``nvcc`` flags into ``raft_tpu_torch/_build/ab/``; this tree's is built
-as usual. Each round times this tree's kernel (``this``) and the other's
+(``raft_tpu_torch/ops/csrc/<source>.cu``, with the other checkout's
+headers) is built with this tree's ``nvcc`` flags into
+``raft_tpu_torch/_build/ab/``; this tree's is built as usual. Each side
+runs behind its own checkout's wrapper (``ops/kernels.py``, loaded from
+DIR for ``other``), since the C entry points differ between versions.
+Each round times this tree's kernel (``this``) and the other's
 (``other``) in the order this, other, other, this, each a mean of
-``reps`` calls with CUDA events, and prints one JSON line per timing;
-a summary line says whether the two kernels' outputs are bit-identical.
-Needs a card and ``nvcc``.
+``reps`` calls with CUDA events, and prints one JSON line per timing; a
+summary line says whether the two kernels' outputs agree: bit for bit
+where the arithmetic is the same, else within the tolerance stated with
+the kernel below. Needs a card and ``nvcc``.
 
-- ``select_k`` and ``ring_topk_merge``: each side runs behind its own
-  checkout's wrapper (``ops/kernels.py``, loaded from DIR for ``other``),
-  since the C entry points differ between versions. Shapes are those of
-  ``chip_smoke.py``'s rows: select_k at [500, 8192] k 64 (IVF-PQ coarse
-  probes: 500 queries against 8192 centers of ``DeviceSynthetic`` 96-d
-  rows), [320,000, 256] k 10 (IVF-Flat bin rows: 256 bins of squared
-  distances, 30 % of them +inf) and [128, 20] k 10 (the sharded ring's
-  incoming ++ local cut); ring_topk_merge over 4 ranks on one card of
-  [500, 10] sorted tables with int32 ids, k 10.
-- ``ivfpq_lut_scan`` (the default): both libraries run behind this
-  tree's wrapper (their C interface is the same), at the IVF-PQ phase's
-  shapes: ``DeviceSynthetic`` ``--n`` x 96, ``ivf_pq.build`` with 8192
-  lists, pq_dim 64, 8-bit codes, and the first batch of 500 queries at
-  n_probes 64 with a bf16 LUT: the kernel alone on the batch's segment
-  table, and a whole refined search of the batch (``refine="f32_regen"``,
-  refine_ratio 40).
+- ``select_k`` and ``ring_topk_merge``: shapes of ``chip_smoke.py``'s
+  rows: select_k at [500, 8192] k 64 (IVF-PQ coarse probes: 500 queries
+  against 8192 centers of ``DeviceSynthetic`` 96-d rows), [320,000, 256]
+  k 10 (IVF-Flat bin rows: 256 bins of squared distances, 30 % of them
+  +inf) and [128, 20] k 10 (the sharded ring's incoming ++ local cut);
+  ring_topk_merge over 4 ranks on one card of [500, 10] sorted tables
+  with int32 ids, k 10. Outputs bit for bit.
+- ``fused_l2_argmin``: ``DeviceSynthetic`` rows against 8192 of them as
+  centers at the paths' shapes: [--n, 96] x [8192, 96] (the IVF-PQ
+  build's assignment), [5M, 128] x [8192, 128] (a sharded rank's Lloyd
+  sweep) and [500K, 128] x [1024, 128] (the IVF-Flat trainset). Outputs
+  agree within the smoke's rule: distances within 1e-4 + 1e-5·(‖x‖² +
+  ‖y‖²), a differing argmin's f64 distance tying the other's within it.
+- ``ivfpq_lut_scan`` (the default): the IVF-PQ phase's shapes:
+  ``DeviceSynthetic`` ``--n`` x 96, ``ivf_pq.build`` with 8192 lists,
+  pq_dim 64, 8-bit codes, and the first batch of 500 queries at n_probes
+  64 with a bf16 LUT: the kernel alone on the batch's segment table, and
+  the refined search of the batch (k_cand 400, refine to 10) as each
+  tree's ``_search_lut_pallas`` runs it (this tree's kernel writes pair
+  rows; the other's, before the contract changed, a segment table that
+  is gathered at the pairs). Outputs agree within the smoke's rule:
+  keys within 1e-3 + 1e-5·(|key| + ‖q‖²), ids on ≥ 99.9 % of the bins.
+- ``ring_lut_scan_merge``: the sharded phase's fused-tier shape on random
+  shards: 4 ranks on one card, each 8192 lists of L 2440 with 610 real
+  rows on average (passed as ``list_sizes`` where the checkout's wrapper
+  takes them), pq_dim 64, 8-bit codes, 32 queries (mc 8) at n_probes 64
+  (512 union lists a chunk), k 10, f32 LUT. Outputs agree within
+  1e-5·(|key| + ‖q‖²), ids on every slot away from key ties.
 """
 
 from __future__ import annotations
@@ -39,6 +55,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -47,7 +64,9 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 SOURCES = {"select_k": "select_k", "ring_topk_merge": "ring_topk",
-           "ivfpq_lut_scan": "ivfpq_lut_scan"}
+           "fused_l2_argmin": "fused_l2_argmin",
+           "ivfpq_lut_scan": "ivfpq_lut_scan",
+           "ring_lut_scan_merge": "ring_lut_scan"}
 
 
 def _load_module(path: str, name: str):
@@ -100,8 +119,30 @@ def _same(a, b) -> bool:
     return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
 
 
-def _wrapper_cases(kernel: str, seed: int):
-    """(name, call(kernels_module), reps) at chip_smoke.py's shapes."""
+def _argmin_agree(x, y):
+    """The smoke's rule for two fused_l2_argmin outputs on (x, y)."""
+    import torch
+
+    def check(a, b):
+        (da, ia), (db, ib) = a, b
+        xsq, ysq = (x * x).sum(1), (y * y).sum(1)
+        tol = 1e-4 + 1e-5 * (xsq + ysq[ib.long()])
+        ok = bool(((da - db).abs() <= tol).all())
+        bad = ia != ib
+        if bool(bad.any()):
+            xb, yb = x[bad].double(), y[ia[bad].long()].double()
+            d64 = ((xb - yb) ** 2).sum(1)
+            ok &= bool(((d64 - db[bad].double()).abs()
+                        <= tol[bad].double()).all())
+        return {"within_tolerance": ok,
+                "max_abs_diff": float((da - db).abs().max()),
+                "argmins_differing": int(bad.sum())}
+    return check
+
+
+def _wrapper_cases(kernel: str, seed: int, n: int):
+    """(name, call(kernels_module), reps, check(this_out, other_out)) at
+    chip_smoke.py's shapes."""
     import torch
 
     from raft_tpu_torch.bench.dataset import DeviceSynthetic
@@ -115,7 +156,20 @@ def _wrapper_cases(kernel: str, seed: int):
                              device="cuda", dtype=torch.int32)
                for _ in range(4)]
         return [("4 ranks x [500,10], k 10",
-                 lambda K: K.ring_topk_merge(vals, ids, 10), 100)]
+                 lambda K: K.ring_topk_merge(vals, ids, 10), 100, _same)]
+    if kernel == "fused_l2_argmin":
+        cases = []
+        for rows, d, n_c in ((n, 96, 8192), (5_000_000, 128, 8192),
+                             (500_000, 128, 1024)):
+            x = DeviceSynthetic(rows, d, n_centers=10_000, seed=seed, std=0.5,
+                                scale=10.0).base()
+            y = x[::rows // n_c][:n_c].contiguous()
+            cases.append((f"[{rows},{d}]x[{n_c},{d}]",
+                          lambda K, x=x, y=y: K.fused_l2_argmin(x, y),
+                          1 if rows > 1_000_000 else 5, _argmin_agree(x, y)))
+        return cases
+    if kernel == "ring_lut_scan_merge":
+        return [_ring_scan_case(seed)]
     ds = DeviceSynthetic(100_000, 96, n_centers=10_000, seed=seed, std=0.5,
                          scale=10.0)
     q = ds.queries(500)
@@ -127,9 +181,68 @@ def _wrapper_cases(kernel: str, seed: int):
         float("inf"))
     cut = torch.cat([torch.rand((128, 10), generator=g, device="cuda")
                      .sort(1)[0] for _ in range(2)], 1).contiguous()
-    return [("[500,8192] k 64", lambda K: K.select_k_cuda(coarse, 64), 50),
-            ("[320000,256] k 10", lambda K: K.select_k_cuda(bins, 10), 20),
-            ("[128,20] k 10", lambda K: K.select_k_cuda(cut, 10), 200)]
+    return [("[500,8192] k 64", lambda K: K.select_k_cuda(coarse, 64), 50,
+             _same),
+            ("[320000,256] k 10", lambda K: K.select_k_cuda(bins, 10), 20,
+             _same),
+            ("[128,20] k 10", lambda K: K.select_k_cuda(cut, 10), 200,
+             _same)]
+
+
+def _ring_scan_case(seed: int):
+    """ring_lut_scan_merge operands at the sharded fused tier's shape, on
+    random shards (see the module note)."""
+    import torch
+
+    from raft_tpu_torch.parallel.ivf import _chunk_unions
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    n, n_lists, L, S, P, mc, n_probes, k = 4, 8192, 2440, 64, 2, 8, 64, 10
+    rot = S * P
+    NS = mc * n_probes
+    dev = torch.device("cuda")
+    packed, ids, norms, list_sizes = [], [], [], []
+    for r in range(n):
+        packed.append(torch.randint(0, 256, (n_lists, L, S), generator=g,
+                                    device=dev, dtype=torch.uint8))
+        sizes = torch.randint(0, 1221, (n_lists,), generator=g, device=dev)
+        list_sizes.append(sizes.to(torch.int32))
+        pos = torch.arange(L, device=dev)
+        gid = (r * n_lists * L + torch.arange(n_lists * L, device=dev)
+               ).view(n_lists, L).to(torch.int32)
+        ids.append(torch.where(pos[None, :] < sizes[:, None], gid,
+                               -1).to(torch.int32).contiguous())
+        norms.append(torch.rand((n_lists, L), generator=g, device=dev) * 50)
+    centers = torch.randn((n_lists, rot), generator=g, device=dev) * 4
+    cb = torch.randn((S, 256, P), generator=g, device=dev)
+    qv = torch.randn((n, mc, rot), generator=g, device=dev) * 4
+    probes = torch.rand((n * mc, n_lists), generator=g, device=dev).topk(
+        n_probes, 1).indices.to(torch.int32)
+    lists, ind = _chunk_unions(probes.view(n, mc, n_probes), NS)
+    ops = ([lists] * n, [ind] * n, [qv] * n, packed, ids, norms, list_sizes,
+           [centers] * n, [cb] * n)
+    kw = dict(pq_bits=8, pq_dim=S, L=L, lut_dtype="float32")
+    qsq = (qv * qv).sum(2)                                  # [n, mc]
+
+    def check(a, b):
+        (ka, ia), (kb, ib) = a, b
+        worst, differ = 0.0, 0
+        for r in range(n):
+            fin = torch.isfinite(kb[r])
+            tol = 1e-5 * (kb[r].abs() + qsq[r][:, None])
+            worst = max(worst, float(((ka[r] - kb[r]).abs()[fin]
+                                      / tol[fin]).max()))
+            differ += int(((ia[r] != ib[r]) & fin).sum())
+        return {"max_diff_over_tolerance": worst, "ids_differing": differ}
+
+    def call(K):  # list sizes where the checkout's wrapper takes them
+        sized = "list_sizes" in inspect.signature(
+            K.ring_lut_scan_merge).parameters
+        return K.ring_lut_scan_merge(
+            *(ops if sized else ops[:6] + ops[7:]), k, "l2", **kw)
+
+    return ("4 ranks, 32 queries (mc 8), NS 512, k 10", call, 10, check)
 
 
 def _ab_wrapper(args, card: str) -> None:
@@ -141,76 +254,109 @@ def _ab_wrapper(args, card: str) -> None:
                                         "kernels.py"), "ab_other_kernels")
     other_k._lib = lambda name: other_lib
     mods = {"this": this_k, "other": other_k}
-    cases = _wrapper_cases(args.kernel, args.seed)
-    same = {name: _same(call(this_k), call(other_k))
-            for name, call, _ in cases}
+    cases = _wrapper_cases(args.kernel, args.seed, args.n)
+    agree = {name: check(call(this_k), call(other_k))
+             for name, call, _, check in cases}
     for rnd in range(args.rounds):
         for which in ("this", "other", "other", "this"):
-            for name, call, reps in cases:
+            for name, call, reps, _ in cases:
                 ms = _timed(lambda: call(mods[which]), reps)
                 print(json.dumps({"kernel": args.kernel, "round": rnd,
                                   "library": which, "shape": name,
                                   "ms": ms}), flush=True)
     print(json.dumps({"card": card, "kernel": args.kernel,
-                      "outputs_identical": same}), flush=True)
+                      "outputs_agree": agree}), flush=True)
 
 
 def _ab_lut_scan(args, card: str) -> None:
+    import torch
+
     from raft_tpu_torch.bench.dataset import DeviceSynthetic
     from raft_tpu_torch.neighbors import ivf_common, ivf_pq
-    from raft_tpu_torch.ops import build
+    from raft_tpu_torch.neighbors import refine as trefine
     from raft_tpu_torch.ops import kernels as K
 
-    libs = {"this": build.LIBRARIES.get("ivfpq_lut_scan"),
-            "other": _build_other(args.other, "ivfpq_lut_scan")}
+    other_lib = _build_other(args.other, "ivfpq_lut_scan")
+    other_k = _load_module(os.path.join(args.other, "raft_tpu_torch", "ops",
+                                        "kernels.py"), "ab_other_kernels")
+    other_k._lib = lambda name: other_lib
     ds = DeviceSynthetic(args.n, 96, n_centers=10_000, seed=args.seed,
                          std=0.5, scale=10.0)
     base = ds.base()
     q0 = ds.queries(500)
+    B, n_probes, k, k_cand = 500, 64, 10, 400
     index = ivf_pq.build(base, ivf_pq.IndexParams(
         n_lists=8192, pq_dim=64, pq_bits=8, cache_reconstruction="never",
         seed=args.seed))
-    sp = ivf_pq.SearchParams(n_probes=64, scan_select="pallas",
-                             refine="f32_regen", refine_ratio=40,
-                             lut_dtype="bfloat16")
-    _, probes = ivf_pq._coarse_probes(index, q0, 64, False)
     seg = ivf_common.SEGMENT_SIZE
-    n_seg = ivf_common.n_segments(q0.shape[0] * 64, index.n_lists, seg)
-    seg_list, seg_q, _, _ = ivf_common.segment_probes(probes, index.n_lists,
-                                                      seg, n_seg)
-    q_rot = (q0 @ index.rotation.T).contiguous()
-    scan_args = (seg_list, seg_q, q_rot, index.packed_codes,
-                 index.packed_ids, index.packed_norms, index.centers_rot,
-                 index.codebooks, "l2")
-    scan_kw = dict(pq_bits=index.pq_bits, pq_dim=index.pq_dim,
-                   L=index.max_list_size, lut_dtype="bfloat16")
+    n_seg = ivf_common.n_segments(B * n_probes, index.n_lists, seg)
+    L = index.max_list_size
+    kw = dict(pq_bits=index.pq_bits, pq_dim=index.pq_dim, L=L,
+              lut_dtype="bfloat16")
+    dist = ivf_pq.resolve_metric(index.metric)
+    zeros = torch.zeros((B, n_probes * K.LUT_SCAN_BINS), device=q0.device)
 
-    def use(which):
-        build.LIBRARIES._libs["ivfpq_lut_scan"] = libs[which]
+    def tables():
+        _, probes = ivf_pq._coarse_probes(index, q0, n_probes, False)
+        seg_list, seg_q, ps, pl = ivf_common.segment_probes(
+            probes, index.n_lists, seg, n_seg)
+        return seg_list, seg_q, ps, pl, (q0 @ index.rotation.T).contiguous()
 
-    outs = {}
-    for which in ("this", "other"):
-        use(which)
-        outs[which] = (K.ivfpq_lut_scan_topk(*scan_args, **scan_kw),
-                       ivf_pq.search(index, q0, 10, sp, dataset=base))
+    def scan(which, t):
+        seg_list, seg_q, ps, pl, q_rot = t
+        if which == "this":
+            return K.ivfpq_lut_scan_topk(
+                seg_list, seg_q, ps, pl, q_rot, index.packed_codes,
+                index.packed_ids, index.packed_norms, index.list_sizes,
+                index.centers_rot, index.codebooks, "l2", **kw)
+        keys, kids = other_k.ivfpq_lut_scan_topk(
+            seg_list, seg_q, q_rot, index.packed_codes, index.packed_ids,
+            index.packed_norms, index.centers_rot, index.codebooks, "l2",
+            **kw)
+        return keys, kids, ps, pl
+
+    def batch(which):
+        """One refined batch as that tree's _search_lut_pallas runs it."""
+        t = tables()
+        out = scan(which, t)
+        if which == "this":
+            pv, pi = out
+        else:
+            pv, pi = ivf_common.gather_segment_results(*out)
+        q_sq = (t[4] * t[4]).sum(1)
+        _, cand = ivf_pq._finish_candidates(
+            -0.5 * pv.reshape(B, -1), pi.reshape(B, -1), zeros, q_sq, dist,
+            k_cand)
+        return trefine.refine(base, q0, cand, k)
+
+    t = tables()
+    tk, ti = scan("this", t)
+    gk, gi = ivf_common.gather_segment_results(*scan("other", t))
+    fin = torch.isfinite(gk)
+    q_sq = (t[4] * t[4]).sum(1)[:, None, None].expand_as(gk)
+    tol = 1e-3 + 1e-5 * (gk.abs() + q_sq)
+    agree = {"finite_pattern_equal": bool(torch.equal(torch.isfinite(tk),
+                                                      fin)),
+             "max_diff_over_tolerance": float(((tk - gk).abs()[fin]
+                                               / tol[fin]).max()),
+             "id_agreement": float((ti[fin] == gi[fin]).float().mean())}
+    ids_this, ids_other = batch("this")[1], batch("other")[1]
+    agree["refined_ids_equal"] = float((ids_this == ids_other).float().mean())
+    agree["search_equals_mirror"] = bool(torch.equal(
+        ivf_pq.search(index, q0, k, ivf_pq.SearchParams(
+            n_probes=n_probes, scan_select="pallas", refine="f32_regen",
+            refine_ratio=k_cand // k, lut_dtype="bfloat16"),
+            dataset=base)[1], ids_this))
     for rnd in range(args.rounds):
         for which in ("this", "other", "other", "this"):
-            use(which)
-            scan_ms = _timed(lambda: K.ivfpq_lut_scan_topk(*scan_args,
-                                                           **scan_kw), 20)
-            search_ms = _timed(lambda: ivf_pq.search(index, q0, 10, sp,
-                                                     dataset=base), 20)
+            scan_ms = _timed(lambda: scan(which, t), 20)
+            batch_ms = _timed(lambda: batch(which), 20)
             print(json.dumps({"kernel": "ivfpq_lut_scan", "round": rnd,
                               "library": which, "scan_ms": scan_ms,
-                              "search_batch_ms": search_ms}), flush=True)
-    use("this")
+                              "search_batch_ms": batch_ms}), flush=True)
     print(json.dumps({"card": card, "kernel": "ivfpq_lut_scan", "n": args.n,
-                      "n_seg": n_seg, "max_list_size": index.max_list_size,
-                      "scan_outputs_identical": _same(outs["this"][0],
-                                                      outs["other"][0]),
-                      "search_outputs_identical": _same(outs["this"][1],
-                                                        outs["other"][1])}),
-          flush=True)
+                      "n_seg": n_seg, "max_list_size": L,
+                      "outputs_agree": agree}), flush=True)
 
 
 def main(argv=None) -> int:
@@ -220,7 +366,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kernel", choices=sorted(SOURCES),
                     default="ivfpq_lut_scan")
     ap.add_argument("--n", type=int, default=10_000_000,
-                    help="rows of the ivfpq_lut_scan comparison")
+                    help="rows of the ivfpq_lut_scan comparison and of "
+                    "fused_l2_argmin's IVF-PQ shape")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args(argv)

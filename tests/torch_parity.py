@@ -97,7 +97,9 @@ def tied_scores(m: int, n: int, seed: int) -> np.ndarray:
 def scan_case(pq_bits: int, seed: int = 0, n_lists: int = 16, L: int = 300,
               S: int = 16, P: int = 2, B: int = 40, n_probes: int = 8):
     """Random per_subspace index fields, queries and their segment table,
-    with invalid ids sprinkled in and one short list. Packing and
+    with invalid ids sprinkled in, lists of size 0 (list 0), 1 (list 1),
+    L (list 2) and a short one (list 3); ``list_sizes`` is one past each
+    list's last valid id, as ``pack_lists`` leaves them. Packing and
     segmenting use the port's functions, which the CPU tests hold against
     the JAX package's."""
     from raft_tpu_torch.neighbors import ivf_common as tic
@@ -112,48 +114,69 @@ def scan_case(pq_bits: int, seed: int = 0, n_lists: int = 16, L: int = 300,
     ids = rng.permutation(n_lists * L).astype(np.int32).reshape(n_lists, L)
     ids[rng.random((n_lists, L)) < 0.1] = -1
     ids[3, 150:] = -1
+    ids[0] = -1
+    ids[1, 1:] = -1
+    ids[1, 0] = n_lists * L
+    ids[2, L - 1] = n_lists * L + 1
+    valid = ids >= 0
+    sizes = np.where(valid.any(1), L - np.argmax(valid[:, ::-1], axis=1),
+                     0).astype(np.int32)
     centers_rot = rng.standard_normal((n_lists, rot)).astype(np.float32) * 4
     cb = rng.standard_normal((S, Kb, P)).astype(np.float32)
     norms = rng.uniform(10, 60, (n_lists, L)).astype(np.float32)
     q_rot = rng.standard_normal((B, rot)).astype(np.float32) * 4
     probes = np.stack([rng.choice(n_lists, n_probes, replace=False)
                        for _ in range(B)]).astype(np.int32)
+    for b in range(3):  # lists 0-2 are probed
+        probes[b] = np.concatenate([np.roll([0, 1, 2], b), rng.choice(
+            np.arange(3, n_lists), n_probes - 3, replace=False)])
     seg = tic.SEGMENT_SIZE
     n_seg = tic.n_segments(B * n_probes, n_lists, seg)
-    seg_list, seg_q, _, _ = tic.segment_probes(torch.tensor(probes), n_lists,
-                                               seg, n_seg)
+    seg_list, seg_q, pair_seg, pair_slot = tic.segment_probes(
+        torch.tensor(probes), n_lists, seg, n_seg)
     return dict(packed=packed, ids=ids, norms=norms, centers_rot=centers_rot,
                 cb=cb, q_rot=q_rot, seg_list=seg_list.numpy(),
-                seg_q=seg_q.numpy(), S=S, L=L, pq_bits=pq_bits)
+                seg_q=seg_q.numpy(), pair_seg=pair_seg.numpy(),
+                pair_slot=pair_slot.numpy(), list_sizes=sizes, S=S, L=L,
+                pq_bits=pq_bits)
 
 
-SCAN_OPERANDS = ("seg_list", "seg_q", "q_rot", "packed", "ids", "norms",
-                 "centers_rot", "cb")
+SCAN_OPERANDS = ("seg_list", "seg_q", "pair_seg", "pair_slot", "q_rot",
+                 "packed", "ids", "norms", "list_sizes", "centers_rot", "cb")
 
 
 def scan_reference_keys(c, cb_used: np.ndarray, metric: str):
-    """f64 keys of every (live slot, position): {(s, j): [L]}."""
+    """f64 keys of every (query b, probe p) pair against its list's
+    positions: {(b, p): [L]}, +inf where the id is < 0."""
     from raft_tpu_torch.neighbors import ivf_pq as tpq
 
     S, P = c["S"], cb_used.shape[2]
     codes = tpq.unpack_bits(torch.tensor(c["packed"]), S,
                             c["pq_bits"]).numpy().astype(np.int64)
     out = {}
-    for s, j in zip(*np.nonzero(c["seg_q"] >= 0)):
-        q = c["q_rot"][c["seg_q"][s, j]].astype(np.float64)
-        lst = c["seg_list"][s]
+    B, n_probes = c["pair_seg"].shape
+    for b in range(B):
+        q = c["q_rot"][b].astype(np.float64)
         lut = np.einsum("sp,skp->sk", q.reshape(S, P),
                         cb_used.astype(np.float64))
-        qd = lut[np.arange(S)[None, :], codes[lst]].sum(1)
-        dot = q @ c["centers_rot"][lst].astype(np.float64) + qd
-        key = -dot if metric == "ip" else c["norms"][lst] - 2.0 * dot
-        out[(s, j)] = np.where(c["ids"][lst] >= 0, key, np.inf)
+        for p in range(n_probes):
+            lst = c["seg_list"][c["pair_seg"][b, p]]
+            qd = lut[np.arange(S)[None, :], codes[lst]].sum(1)
+            dot = q @ c["centers_rot"][lst].astype(np.float64) + qd
+            key = -dot if metric == "ip" else c["norms"][lst] - 2.0 * dot
+            out[(b, p)] = np.where(c["ids"][lst] >= 0, key, np.inf)
     return out
 
 
+def pair_rows(c, table):
+    """A segment-ordered [n_seg, seg, w] table (the JAX kernel's) →
+    pair order [B, P, w]: row (b, p) is the slot that pair holds."""
+    return np.asarray(table)[c["pair_seg"], c["pair_slot"]]
+
+
 def assert_bins_match(tk, ti, jk, ji, ref, rtol: float, atol: float):
-    """Two [n_seg, seg, 256] bin tables: keys within tolerance on every
-    live slot; ids equal unless the reference keys of the neighbouring
+    """Two [B, P, 256] bin tables in pair order: keys within tolerance on
+    every pair; ids equal unless the reference keys of the neighbouring
     rank in the same bin lie within that tolerance."""
     for (s, j), key in ref.items():
         np.testing.assert_allclose(tk[s, j], jk[s, j], rtol=rtol, atol=atol)
@@ -313,7 +336,8 @@ def ring_scan_case(pq_bits: int, n_dev: int = 4, m: int = 30, seed: int = 0,
                    n_probes: int = 6):
     """Operands of the fused scan-in-ring kernel: per rank a shard of
     ``n_lists`` packed lists (global ids unique over the ranks, 10 %
-    invalid, one short list), replicated rotated centers and codebooks,
+    invalid, one short list, one empty list; ``list_sizes`` one past each
+    list's last valid id), replicated rotated centers and codebooks,
     and the chunk tables of ``m`` queries with random probes (the
     port's ``_chunk_unions``, which the CPU tests hold against the JAX
     package's). Numpy arrays; ``ops(c, device)`` gives the wrapper's
@@ -334,6 +358,10 @@ def ring_scan_case(pq_bits: int, n_dev: int = 4, m: int = 30, seed: int = 0,
         n_dev, n_lists, L)
     ids[rng.random(ids.shape) < 0.1] = -1
     ids[:, 3, 120:] = -1
+    ids[:, 4] = -1
+    valid = ids >= 0
+    sizes = np.where(valid.any(2), L - np.argmax(valid[..., ::-1], axis=2),
+                     0).astype(np.int32)
     norms = rng.uniform(10, 60, (n_dev, n_lists, L)).astype(np.float32)
     centers_rot = rng.standard_normal((n_lists, rot)).astype(np.float32) * 4
     cb = rng.standard_normal((S, Kb, P)).astype(np.float32)
@@ -345,7 +373,8 @@ def ring_scan_case(pq_bits: int, n_dev: int = 4, m: int = 30, seed: int = 0,
                                NS)
     return dict(lists=lists.numpy(), ind=ind.numpy(),
                 qv=q.reshape(n_dev, mc, rot), packed=packed, ids=ids,
-                norms=norms, centers_rot=centers_rot, cb=cb, S=S, L=L,
+                norms=norms, list_sizes=sizes, centers_rot=centers_rot,
+                cb=cb, S=S, L=L,
                 pq_bits=pq_bits, mc=mc, NS=NS, n_dev=n_dev)
 
 
@@ -355,7 +384,7 @@ def ring_scan_ops(c, devices):
     rep = ("lists", "ind", "qv")
     out = [[torch.tensor(c[name]).to(d) for d in devices] for name in rep]
     out += [[torch.tensor(c[name][r]).to(d) for r, d in enumerate(devices)]
-            for name in ("packed", "ids", "norms")]
+            for name in ("packed", "ids", "norms", "list_sizes")]
     out += [[torch.tensor(c[name]).to(d) for d in devices]
             for name in ("centers_rot", "cb")]
     return out
