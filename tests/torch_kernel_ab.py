@@ -38,9 +38,10 @@ the kernel below. Needs a card and ``nvcc``.
   pq_dim 64, 8-bit codes, and the first batch of 500 queries at n_probes
   64 with a bf16 LUT: the kernel alone on the batch's segment table, and
   the refined search of the batch (k_cand 400, refine to 10) as each
-  tree's ``_search_lut_pallas`` runs it (this tree's kernel writes pair
-  rows; the other's, before the contract changed, a segment table that
-  is gathered at the pairs). Outputs agree within the smoke's rule:
+  tree's ``_search_lut_pallas`` runs it (a wrapper that takes the pair
+  tables writes pair rows; an older one, a segment table that is
+  gathered at the pairs, timed with the gather). Outputs agree within
+  the smoke's rule:
   keys within 1e-3 + 1e-5·(|key| + ‖q‖²), ids on ≥ 99.9 % of the bins.
 - ``ring_lut_scan_merge``: the sharded phase's fused-tier shape on random
   shards: 4 ranks on one card, each 8192 lists of L 2440 with 610 real
@@ -302,27 +303,36 @@ def _ab_lut_scan(args, card: str) -> None:
             probes, index.n_lists, seg, n_seg)
         return seg_list, seg_q, ps, pl, (q0 @ index.rotation.T).contiguous()
 
+    # a checkout whose wrapper takes the pair tables writes pair rows;
+    # an older one writes a segment table that is gathered at the pairs
+    pair_rows = {"this": True, "other": "pair_seg" in inspect.signature(
+        other_k.ivfpq_lut_scan_topk).parameters}
+
     def scan(which, t):
+        """The kernel alone: pair rows, or a segment table."""
         seg_list, seg_q, ps, pl, q_rot = t
-        if which == "this":
-            return K.ivfpq_lut_scan_topk(
+        mod = K if which == "this" else other_k
+        if pair_rows[which]:
+            return mod.ivfpq_lut_scan_topk(
                 seg_list, seg_q, ps, pl, q_rot, index.packed_codes,
                 index.packed_ids, index.packed_norms, index.list_sizes,
                 index.centers_rot, index.codebooks, "l2", **kw)
-        keys, kids = other_k.ivfpq_lut_scan_topk(
+        return mod.ivfpq_lut_scan_topk(
             seg_list, seg_q, q_rot, index.packed_codes, index.packed_ids,
             index.packed_norms, index.centers_rot, index.codebooks, "l2",
             **kw)
-        return keys, kids, ps, pl
+
+    def pairs(which, t):
+        """The kernel's bins in pair order ([B, P, 256])."""
+        out = scan(which, t)
+        if pair_rows[which]:
+            return out
+        return ivf_common.gather_segment_results(*out, t[2], t[3])
 
     def batch(which):
         """One refined batch as that tree's _search_lut_pallas runs it."""
         t = tables()
-        out = scan(which, t)
-        if which == "this":
-            pv, pi = out
-        else:
-            pv, pi = ivf_common.gather_segment_results(*out)
+        pv, pi = pairs(which, t)
         q_sq = (t[4] * t[4]).sum(1)
         _, cand = ivf_pq._finish_candidates(
             -0.5 * pv.reshape(B, -1), pi.reshape(B, -1), zeros, q_sq, dist,
@@ -330,8 +340,8 @@ def _ab_lut_scan(args, card: str) -> None:
         return trefine.refine(base, q0, cand, k)
 
     t = tables()
-    tk, ti = scan("this", t)
-    gk, gi = ivf_common.gather_segment_results(*scan("other", t))
+    tk, ti = pairs("this", t)
+    gk, gi = pairs("other", t)
     fin = torch.isfinite(gk)
     q_sq = (t[4] * t[4]).sum(1)[:, None, None].expand_as(gk)
     tol = 1e-3 + 1e-5 * (gk.abs() + q_sq)
