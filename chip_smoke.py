@@ -19,10 +19,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    with an f32 LUT), and the kernel path's recall on 200 queries against
    the plain path's (the same search on the CPU, where every wrapper runs
    its plain PyTorch version): it may be at most 0.01 lower; then its four
-   kernels against their plain versions on the path's inputs (with
-   fused_l2_argmin's 3xTF32 bound and the time of ``torch.matmul`` alone at
-   full fp32 beside its row, and the LUT scan's shared-memory look-up floor
-   beside its bytes bound), and a stage breakdown of one batch;
+   kernels against their plain versions on the path's inputs
+   (fused_l2_argmin bound by its design's three TF32 products, with the
+   time of ``torch.matmul`` alone at full fp32 on its row and its fp32
+   bound logged; the LUT scan's shared-memory look-up floor logged beside
+   its bytes bound), and a stage breakdown of one batch;
 4. IVF-Flat path — the 1M x 128 ``make_synthetic_hard`` set of the repo's
    hard_config bench (``FLAT_N`` rows, not cut), ``ivf_flat.build`` with
    1024 lists, spill, cap factor 1.5; searches of 10,000 queries (k 10)
@@ -121,9 +122,10 @@ def _timed_best(fn, reps: int, rounds: int = 5) -> float:
     return min(_timed(fn, reps) for _ in range(rounds))
 
 
-def _bound_ms(n_bytes: float, flops: float):
+def _bound_ms(n_bytes: float, flops: float,
+              flop_rate: float = FP32_FLOP_PER_S):
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_o = flops / FP32_FLOP_PER_S * 1e3
+    t_o = flops / flop_rate * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -146,12 +148,14 @@ def _recall(found, truth) -> float:
 
 
 def _row(rows, path, name, src, line, n_launches, err, ms, plain_ms, nbytes,
-         flops, lib_ms, shape, **extra):
+         flops, lib_ms, shape, flop_rate=FP32_FLOP_PER_S, logged=None,
+         **extra):
     """One kernel's entry of the JSON line (at one path's shapes, with
-    that path's launch count), and its log line. ``extra``: further
-    measured or computed numbers of the row (a second bound, a
-    yardstick), logged beside it."""
-    b_ms, b_by = _bound_ms(nbytes, flops)
+    that path's launch count), and its log line. ``flops`` run at
+    ``flop_rate``; ``extra``: further numbers measured in this run (a
+    yardstick), in the entry and the log line; ``logged``: numbers
+    computed beside the bound (a second bound), in the log line only."""
+    b_ms, b_by = _bound_ms(nbytes, flops, flop_rate)
     rows.append({"name": name, "path": path, "route": "cuda",
                  "source": f"raft_tpu_torch/ops/csrc/{src}",
                  "replaces": f"raft_tpu/ops/pallas_kernels.py:{line}",
@@ -160,7 +164,7 @@ def _row(rows, path, name, src, line, n_launches, err, ms, plain_ms, nbytes,
                  "bound_by": b_by, "library_ms": lib_ms, "shape": shape,
                  **extra})
     more = "".join(f", {k} {v:.3f}" if isinstance(v, float) else f", {k} {v}"
-                   for k, v in extra.items())
+                   for k, v in {**extra, **(logged or {})}.items())
     _log(f"[kernel] {path} {name} {shape}: max|d| {err:.3g}, {ms:.3f} ms "
          f"(plain {plain_ms:.3f} ms, library "
          f"{'-' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound "
@@ -236,15 +240,16 @@ def _argmin_row(rows, path, launches, xa, ya, shape):
     del d_k, i_k, d_p, i_p
     torch.cuda.empty_cache()
     flops = 2.0 * m_ * n_ * dim
-    # the design's bound: three TF32 products on the tensor cores
+    # the bound of the design: three TF32 products on the tensor cores;
+    # that of one fp32 product on the CUDA cores (PR 1-4's row) is logged
     _row(rows, path, "fused_l2_argmin", "fused_l2_argmin.cu", 112,
          launches["fused_l2_argmin"], err,
          _timed(lambda: K.fused_l2_argmin(xa, ya), 3),
          _timed(lambda: K.fused_l2_argmin_plain(xa, ya), 1),
-         (m_ + n_) * dim * 4 + m_ * 8, flops, None,
+         (m_ + n_) * dim * 4 + m_ * 8, 3.0 * flops, None,
          f"[{m_},{dim}]x[{n_},{dim}] {shape}argmin agreement "
-         f"{float(same.float().mean()):.6f}",
-         bound_3xtf32_ms=3.0 * flops / TF32_FLOP_PER_S * 1e3,
+         f"{float(same.float().mean()):.6f}", flop_rate=TF32_FLOP_PER_S,
+         logged=dict(bound_fp32_ms=flops / FP32_FLOP_PER_S * 1e3),
          matmul_fp32_ms=_product_ms(xa, ya))
 
 
@@ -381,8 +386,8 @@ def _lut_scan_row(rows, path, launches, index, q0, n_probes, lut_dtype,
          f"{shape}n_seg {n_seg} x {seg} slots ({n_live} live pairs), L {L}, "
          f"{lists.numel()} lists of {rows_real} real rows, {pair_rows} "
          f"(live pair, real row) pairs, id agreement {id_agree:.6f}",
-         lookup_floor_ms=floor_ms, sm_clock_mhz=clock / 1e6,
-         larger_bound="lookups" if floor_ms > b_ms else "bytes")
+         logged=dict(lookup_floor_ms=floor_ms, sm_clock_mhz=clock / 1e6,
+                     larger_bound="lookups" if floor_ms > b_ms else "bytes"))
     return dict(kk=kk, ki=ki, probes=probes, seg=seg, n_seg=n_seg,
                 q_rot=q_rot)
 

@@ -129,8 +129,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     sigs = {
         "fused_l2_argmin": {
             "rtt_fused_l2_argmin": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
-            "rtt_fused_l2_argmin_scratch_floats": [_I, _I],
-            "rtt_fused_l2_argmin_max_d": []},
+            "rtt_fused_l2_argmin_scratch_floats": [_I, _I]},
         "select_k": {
             "rtt_select_k": [_P] + [_I] * 7 + [_P, _P, _P]},
         "ivfpq_lut_scan": {

@@ -23,26 +23,27 @@
 //
 // Design: a pre-pass splits y once into y_hi / y_lo (scratch [n, dp], k
 // padded with zeros to dp, a multiple of 32) and computes |y|^2. One block
-// of 8 warps owns BM rows of x: the tile stays resident in shared memory
-// (f32, split into hi / lo as the fragments load), and the block streams
-// every y tile of BN = 128 rows through a 2-stage cp.async ring in k slices
-// of 32. Each warp computes a (16 * MT) x (8 * NT) sub-tile with mma.sync
-// m16n8k8 TF32 (three per product) into a fresh accumulator per k slice,
-// added to the tile's in f32 (the tensor cores' accumulation does not round
-// to nearest: over one long k its error grew past the tolerance at d 1216),
-// and the distance / clamp / min / argmin epilogue runs on the accumulator
-// fragments; the running (min, argmin) of each row stays in registers across
-// all y tiles, so no reduction crosses blocks. Within a group of 8, k is
-// stored in the order 0 4 1 5 2 6 3 7, so a thread's two fragment values (k
-// = t, t + 4) are one 8-byte load, and the row strides (= 8 mod 16 words)
-// keep those loads free of bank conflicts. The block takes the most x rows
-// whose tile fits: 128 (d <= 256) as 4 x 2 warps of 32 x 64, else 64 (d <=
-// 544) or 32 (d <= 1152) as 2 x 4 warps. tests/torch_kernel_sweep.py times
-// the alternatives (a 3-stage ring, slices of 16, 2 x 4 warps of 64 x 32 at
-// 128 rows, one accumulator). A thread visits its columns in increasing
-// order with a strict <; the reductions over the 4 threads of a quad and
-// over the warps sharing a row are lexicographic on (distance, index): the
-// first index wins ties.
+// of 8 warps owns BM rows of x and streams every y tile of BN = 128 rows
+// through a 2-stage cp.async ring in k slices of 32. Each warp computes a
+// (16 * MT) x (8 * NT) sub-tile with mma.sync m16n8k8 TF32 (three per
+// product) into a fresh accumulator per k slice, added to the tile's in f32
+// (the tensor cores' accumulation does not round to nearest: over one long
+// k its error grew past the tolerance at d 1216), and the distance / clamp /
+// min / argmin epilogue runs on the accumulator fragments; the running
+// (min, argmin) of each row stays in registers across all y tiles, so no
+// reduction crosses blocks. A block holds 128 x rows as 4 x 2 warps of 32 x
+// 64; x is split into hi / lo as the fragments load. Up to d 256 the x tile
+// stays resident in shared memory; past that its k slices ride the ring
+// beside y's, read once per y tile, so every d runs (at d 544 and 1152 this
+// beat resident tiles of 64 and 32 rows by 1.12x and 1.64x on the H100).
+// Within a group of 8, a resident tile and y store k in the order 0 4 1 5 2
+// 6 3 7, so a thread's two fragment values (k = t, t + 4) are one 8-byte
+// load, and the row strides (= 8 mod 16 words) keep those loads free of bank
+// conflicts; a streamed x slice keeps k in order at a row stride of 36
+// words (= 4 mod 32), so its scalar fragment loads are conflict free too. A
+// thread visits its columns in increasing order with a strict <; the
+// reductions over the 4 threads of a quad and over the warps sharing a row
+// are lexicographic on (distance, index): the first index wins ties.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -53,18 +54,23 @@ constexpr int BN = 128;     // y rows per tile: 4 warps x 32 columns
 constexpr int BK = 32;      // k depth of a ring stage
 constexpr int STAGES = 2;
 constexpr int YS = BK + 8;  // ring row stride (words), = 8 mod 16
-constexpr int TPB = 256;    // 8 warps: WN along n, 8 / WN along m
+constexpr int XSS = BK + 4; // streamed x slice row stride (words), = 4 mod 32
+constexpr int TPB = 256;    // 8 warps: WN along n, WM along m
+constexpr int MT = 2;       // m16 tiles a warp
+constexpr int WN = 2;
+constexpr int WM = 8 / WN;
+constexpr int NT = BN / (8 * WN);  // n8 tiles a warp
+constexpr int BM = 16 * MT * WM;   // x rows a block: 128
 constexpr size_t kMaxSmem = 232448;
 
 inline int kpad(int d) { return (d + BK - 1) / BK * BK; }
 
-// a block of x rows: MT m16 tiles a warp, 8 / WN warps along m
-size_t smem_bytes(int mt, int wn, int dp) {
-  const size_t bm = 16 * (size_t)mt * (8 / wn);
-  return bm * (dp + 8) * 4                   // resident x tile
+// the x tile resident (xres) or streamed through the ring
+size_t smem_bytes(int dp, bool xres) {
+  return (xres ? (size_t)BM * (dp + 8) : (size_t)STAGES * BM * XSS) * 4  // x
          + (size_t)STAGES * 2 * BN * YS * 4  // y_hi / y_lo ring
-         + bm * 4                            // |x|^2
-         + wn * bm * 8;                      // (min, argmin) of the n-warps
+         + BM * 4                            // |x|^2
+         + WN * BM * 8;                      // (min, argmin) of the n-warps
 }
 
 __device__ __forceinline__ uint32_t tf32(float v) {
@@ -91,6 +97,15 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
   const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes, zero-filled where !valid (x rows need no alignment)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 
@@ -128,7 +143,7 @@ __global__ void row_sqnorm_kernel(const float* __restrict__ y, int n, int d,
   out[r] = acc;
 }
 
-template <int MT, int WN>
+template <bool XRES>
 __global__ void __launch_bounds__(TPB, 1)
 fused_l2_argmin_kernel(const float* __restrict__ x,
                        const float* __restrict__ y_hi,
@@ -136,13 +151,10 @@ fused_l2_argmin_kernel(const float* __restrict__ x,
                        const float* __restrict__ ysq, int m, int n, int d,
                        int dp, float* __restrict__ out_d,
                        int* __restrict__ out_i) {
-  constexpr int WM = 8 / WN;
-  constexpr int NT = BN / (8 * WN);  // n8 tiles a warp
-  constexpr int BM = 16 * MT * WM;
   extern __shared__ __align__(16) float smem[];
   const int XS = dp + 8;
-  float* xs = smem;                           // [BM][XS]
-  float* ring = xs + BM * XS;                 // [STAGES][2][BN][YS]
+  float* xs = smem;  // resident [BM][XS], or streamed [STAGES][BM][XSS]
+  float* ring = xs + (XRES ? BM * XS : STAGES * BM * XSS);  // [STAGES][2][BN][YS]
   float* xsq = ring + STAGES * 2 * BN * YS;   // [BM]
   float* red_v = xsq + BM;                    // [WN][BM]
   int* red_i = reinterpret_cast<int*>(red_v + WN * BM);
@@ -168,28 +180,57 @@ fused_l2_argmin_kernel(const float* __restrict__ x,
         const float* src = (arr ? y_lo : y_hi) + (ok ? row : 0) * dp + ck * BK + 4 * c4;
         cp_async16(dst + arr * BN * YS + r * YS + 4 * c4, src, ok);
       }
+      if constexpr (!XRES) {  // the x slice, k in order
+        float* xdst = xs + (s % STAGES) * BM * XSS;
+#pragma unroll 4
+        for (int e = tid; e < BM * BK; e += TPB) {
+          const int r = e / BK, c = e % BK;
+          const long gr = m0 + r;
+          const int k = ck * BK + c;
+          const bool ok = gr < m && k < d;
+          cp_async4(xdst + r * XSS + c, x + (ok ? gr * d + k : 0), ok);
+        }
+      }
     }
     cp_commit();
   };
 
   for (int s = 0; s < STAGES - 1; ++s) issue(s);
 
-  // the resident x tile (k-permuted; zero rows past m and k past d)
-  for (int e = tid; e < BM * dp; e += TPB) {
-    const int r = e / dp, p = e % dp;
-    const int k = k_of(p);
-    const long gr = m0 + r;
-    xs[r * XS + p] = (gr < m && k < d) ? x[gr * d + k] : 0.f;
-  }
-  __syncthreads();
-  if (tid < BM) {
-    const float* xr = xs + tid * XS;
-    float a = 0.f;
-    for (int j = 0; j < d; ++j) {
-      const float v = xr[(j & ~7) + 2 * (j & 3) + ((j & 7) >> 2)];
-      a = fmaf(v, v, a);
+  if constexpr (XRES) {
+    // the resident x tile (k-permuted; zero rows past m and k past d)
+    for (int e = tid; e < BM * dp; e += TPB) {
+      const int r = e / dp, p = e % dp;
+      const int k = k_of(p);
+      const long gr = m0 + r;
+      xs[r * XS + p] = (gr < m && k < d) ? x[gr * d + k] : 0.f;
     }
-    xsq[tid] = a;
+    __syncthreads();
+    if (tid < BM) {
+      const float* xr = xs + tid * XS;
+      float a = 0.f;
+      for (int j = 0; j < d; ++j) {
+        const float v = xr[(j & ~7) + 2 * (j & 3) + ((j & 7) >> 2)];
+        a = fmaf(v, v, a);
+      }
+      xsq[tid] = a;
+    }
+  } else {
+    // |x|^2 from global memory, a warp per row (read after the ring's
+    // first barrier)
+    for (int r = warp; r < BM; r += TPB / 32) {
+      const long gr = m0 + r;
+      float a = 0.f;
+      if (gr < m)
+        for (int j = lane; j < d; j += 32) {
+          const float v = __ldg(x + gr * d + j);
+          a = fmaf(v, v, a);
+        }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+      if (lane == 0) xsq[r] = a;
+    }
   }
 
   float acc[MT][NT][4];
@@ -215,6 +256,7 @@ fused_l2_argmin_kernel(const float* __restrict__ x,
     issue(s + STAGES - 1);
     const float* yh = ring + (s % STAGES) * 2 * BN * YS;
     const float* yl = yh + BN * YS;
+    const float* xst = xs + (s % STAGES) * BM * XSS;  // streamed x slice
     const int ck = s % nck;
     // the slice's products go to a fresh accumulator, added to the tile's
     // with a rounded f32 add: the tensor cores' accumulation does not round
@@ -231,10 +273,16 @@ fused_l2_argmin_kernel(const float* __restrict__ x,
       uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
-        const float* xr = xs + (row0 + 16 * i) * XS + ck * BK + kk + 2 * t;
-        const float2 v0 = *reinterpret_cast<const float2*>(xr);
-        const float2 v1 = *reinterpret_cast<const float2*>(xr + 8 * XS);
-        const float v[4] = {v0.x, v1.x, v0.y, v1.y};  // (g,t) (g+8,t) (g,t+4) (g+8,t+4)
+        float v[4];  // (g,t) (g+8,t) (g,t+4) (g+8,t+4)
+        if constexpr (XRES) {
+          const float* xr = xs + (row0 + 16 * i) * XS + ck * BK + kk + 2 * t;
+          const float2 v0 = *reinterpret_cast<const float2*>(xr);
+          const float2 v1 = *reinterpret_cast<const float2*>(xr + 8 * XS);
+          v[0] = v0.x; v[1] = v1.x; v[2] = v0.y; v[3] = v1.y;
+        } else {
+          const float* xr = xst + (row0 + 16 * i) * XSS + kk + t;
+          v[0] = xr[0]; v[1] = xr[8 * XSS]; v[2] = xr[4]; v[3] = xr[8 * XSS + 4];
+        }
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           ah[i][c] = tf32(v[c]);
@@ -332,17 +380,16 @@ fused_l2_argmin_kernel(const float* __restrict__ x,
   }
 }
 
-template <int MT, int WN>
+template <bool XRES>
 cudaError_t launch(const float* x, const float* y_hi, const float* y_lo,
                    const float* ysq, int m, int n, int d, int dp, float* out_d,
                    int* out_i, cudaStream_t s) {
-  const size_t smem = smem_bytes(MT, WN, dp);
-  cudaError_t e = cudaFuncSetAttribute(fused_l2_argmin_kernel<MT, WN>,
+  const size_t smem = smem_bytes(dp, XRES);
+  cudaError_t e = cudaFuncSetAttribute(fused_l2_argmin_kernel<XRES>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  const int bm = 16 * MT * (8 / WN);
-  fused_l2_argmin_kernel<MT, WN><<<(int)(((long)m + bm - 1) / bm), TPB, smem, s>>>(
+  fused_l2_argmin_kernel<XRES><<<(int)(((long)m + BM - 1) / BM), TPB, smem, s>>>(
       x, y_hi, y_lo, ysq, m, n, d, dp, out_d, out_i);
   return cudaSuccess;
 }
@@ -354,19 +401,11 @@ extern "C" long rtt_fused_l2_argmin_scratch_floats(int n, int d) {
   return (long)n * (2L * kpad(d) + 1);
 }
 
-// The largest feature width whose resident x tile fits shared memory.
-extern "C" int rtt_fused_l2_argmin_max_d() {
-  int d = BK;
-  while (smem_bytes(1, 4, kpad(d + BK)) <= kMaxSmem) d += BK;
-  return d;
-}
-
 extern "C" int rtt_fused_l2_argmin(const float* x, const float* y, int m, int n,
                                    int d, float* scratch, float* out_d,
                                    int* out_i, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int dp = kpad(d);
-  if (smem_bytes(1, 4, dp) > kMaxSmem) return (int)cudaErrorInvalidValue;
   float* y_hi = scratch;
   float* y_lo = y_hi + (size_t)n * dp;
   float* ysq = y_lo + (size_t)n * dp;
@@ -376,14 +415,11 @@ extern "C" int rtt_fused_l2_argmin(const float* x, const float* y, int m, int n,
     row_sqnorm_kernel<<<(n + 255) / 256, 256, 0, s>>>(y, n, d, ysq);
   }
   if (m > 0) {
-    // the most x rows whose tile fits: 128 as 4 x 2 warps, else 64 or 32
-    // as 2 x 4 warps
+    // the x tile resident where it fits, else streamed
     const cudaError_t e =
-        smem_bytes(2, 2, dp) <= kMaxSmem
-            ? launch<2, 2>(x, y_hi, y_lo, ysq, m, n, d, dp, out_d, out_i, s)
-        : smem_bytes(2, 4, dp) <= kMaxSmem
-            ? launch<2, 4>(x, y_hi, y_lo, ysq, m, n, d, dp, out_d, out_i, s)
-            : launch<1, 4>(x, y_hi, y_lo, ysq, m, n, d, dp, out_d, out_i, s);
+        smem_bytes(dp, true) <= kMaxSmem
+            ? launch<true>(x, y_hi, y_lo, ysq, m, n, d, dp, out_d, out_i, s)
+            : launch<false>(x, y_hi, y_lo, ysq, m, n, d, dp, out_d, out_i, s);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();

@@ -50,10 +50,6 @@ GATHER_REFINE_MAX_K = 64
 SELECT_K_MAX_K = 64
 # Dynamic shared memory a block may use on Hopper (227 KB).
 _MAX_SMEM = 232448
-# The widest rows fused_l2_argmin takes: its resident [32, d] x tile, the
-# y ring and the epilogue's scratch fill the 227 KB (the kernel's
-# rtt_fused_l2_argmin_max_d, which the card tests hold this copy to).
-FUSED_L2_ARGMIN_MAX_D = 1152
 
 
 def _on_cuda() -> bool:
@@ -135,8 +131,7 @@ def fused_l2_argmin(x: torch.Tensor, y: torch.Tensor
     """Min squared L2 distance of each x row to the y rows, and its
     argmin (x [m, d] f32, y [n, d] f32 → [m] f32, [m] i32). The kernel
     computes ⟨x, y⟩ as three TF32 products of split operands on the
-    tensor cores (csrc/fused_l2_argmin.cu); d ≤ FUSED_L2_ARGMIN_MAX_D,
-    its resident x tile's limit."""
+    tensor cores (csrc/fused_l2_argmin.cu), at any d."""
     _check(x, "x", torch.float32, 2)
     _check(y, "y", torch.float32, 2)
     expects(x.shape[1] == y.shape[1], "x/y feature dims differ: %d vs %d",
@@ -146,8 +141,6 @@ def fused_l2_argmin(x: torch.Tensor, y: torch.Tensor
         return fused_l2_argmin_plain(x, y)
     m, d = x.shape
     n = y.shape[0]
-    expects(d <= FUSED_L2_ARGMIN_MAX_D, "fused_l2_argmin takes d ≤ %d "
-            "(its resident x tile), got %d", FUSED_L2_ARGMIN_MAX_D, d)
     lib = _lib("fused_l2_argmin")
     out_d = torch.empty((m,), dtype=torch.float32, device=x.device)
     out_i = torch.empty((m,), dtype=torch.int32, device=x.device)
@@ -299,20 +292,35 @@ def _lut_scan_args(seg_list, seg_q, q_rot, packed, ids, norms, centers_rot,
     return S, K, P, nb, rot
 
 
-def lut_rotated(S: int, pq_bits: int, *packed: torch.Tensor) -> bool:
-    """Whether the LUT-scan kernels take the rotated look-up: 8-bit codes,
-    pq_dim a multiple of 32 up to 128, and every ``packed`` code table
-    16-byte aligned (its rows are loaded 16 bytes at a time). Its LUT is
+def lut_rotated(S: int, pq_bits: int) -> bool:
+    """Whether the LUT-scan kernels take the rotated look-up: 8-bit codes
+    and pq_dim a multiple of 32 up to 128, so a row's codes are whole
+    16-byte words, loaded 16 bytes at a time (the wrappers require a
+    16-byte aligned code table, as every fresh allocation is). Its LUT is
     [2^bits][pq_dim]-major, and the codebook operand with it
     (:func:`lut_kernel_codebook`)."""
-    return (pq_bits == 8 and S % 32 == 0 and S <= 128
-            and all(p.data_ptr() % 16 == 0 for p in packed))
+    return pq_bits == 8 and S % 32 == 0 and S <= 128
+
+
+def _check_code_alignment(rotated: bool, *packed: torch.Tensor) -> None:
+    expects(not rotated or all(p.data_ptr() % 16 == 0 for p in packed),
+            "the rotated look-up loads codes 16 bytes at a time: packed "
+            "codes must start 16-byte aligned (pass a fresh tensor, not a "
+            "view)")
 
 
 def lut_kernel_codebook(cb: torch.Tensor, rotated: bool) -> torch.Tensor:
     """The codebook as the scan kernels read it: [2^bits, pq_dim, pq_len]
-    for the rotated look-up, else [pq_dim, 2^bits, pq_len] as it is."""
-    return cb.transpose(0, 1).contiguous() if rotated else cb
+    for the rotated look-up, else [pq_dim, 2^bits, pq_len] as it is. The
+    rotated copy is made once per codebook tensor and kept on it (made
+    again if the tensor is written in place)."""
+    if not rotated:
+        return cb
+    kept = getattr(cb, "_rtt_kernel_layout", None)
+    if kept is None or kept[0] != cb._version:
+        kept = (cb._version, cb.transpose(0, 1).contiguous())
+        cb._rtt_kernel_layout = kept
+    return kept[1]
 
 
 def lut_slot_rows(pair_seg: torch.Tensor, pair_slot: torch.Tensor,
@@ -452,8 +460,9 @@ def ivfpq_lut_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
                        device=dev)
     kids = torch.empty((B, n_probes, LUT_SCAN_BINS), dtype=torch.int32,
                        device=dev)
-    rot_lut = lut_rotated(S, pq_bits, packed)
-    cbk = lut_kernel_codebook(cb, rot_lut)
+    rot_lut = lut_rotated(S, pq_bits)
+    _check_code_alignment(rot_lut, packed)
+    cbk = lut_codebook(lut_kernel_codebook(codebooks, rot_lut), lut_dtype)
     rc = lib.rtt_ivfpq_lut_scan_topk(
         _ptr(seg_list), _ptr(seg_q), _ptr(slot_rows), _ptr(grp_end),
         _ptr(blk_seg), _ptr(q_rot), _ptr(packed), _ptr(ids), _ptr(norms),
@@ -1103,8 +1112,10 @@ def ring_lut_scan_merge(chunk_lists: Sequence[torch.Tensor],
             "fit shared memory (gate with ring_lut_scan_kernel_ok)", mc, S, K)
     qg, R = fit
     lib = _lib("ring_lut_scan")
-    rot_lut = lut_rotated(S, pq_bits, *packed)
-    cbk = [lut_kernel_codebook(c, rot_lut) for c in cb]
+    rot_lut = lut_rotated(S, pq_bits)
+    _check_code_alignment(rot_lut, *packed)
+    cbk = [lut_codebook(lut_kernel_codebook(c, rot_lut), lut_dtype)
+           for c in codebooks]
     dev = packed[0].device
     run_k, run_i = _ring_buffers(n, dev, mc, k)
     bins_k = [torch.empty((NS, mc, LUT_SCAN_BINS), dtype=torch.float32,

@@ -155,10 +155,13 @@ def test_cuda_fused_l2_argmin_matches_plain():
 
 # (m, n, d): d 24 / 96 / 100 / 128 (k padded to 32 with zeros), m ragged to
 # the 128-row tile, n = 1, n not a multiple of 8 or of the 128-row y tile,
-# the widest d of each resident-tile size (256: 128 rows, 544: 64, 1152: 32)
+# the widest d of the resident x tile (256), and wider d whose x slices
+# stream through the ring (1237: not a multiple of 4, so rows are not
+# 16-byte aligned)
 ARGMIN_SHAPES = [(1000, 1, 24), (5001, 700, 96), (333, 1027, 100),
                  (4097, 129, 128), (130, 13, 24), (777, 300, 256),
-                 (300, 200, 544), (100, 150, 1152)]
+                 (300, 200, 544), (100, 150, 1152), (1000, 300, 1216),
+                 (130, 1000, 1237), (257, 129, 1536), (300, 200, 2048)]
 
 
 @pytest.mark.parametrize("m,n,d", ARGMIN_SHAPES)
@@ -194,18 +197,6 @@ def test_cuda_fused_l2_argmin_path_shapes(d):
                          scale=10.0, device=dev)
     x = ds.base()
     _check_argmin(x, x[::122][:8192].contiguous())
-
-
-def test_cuda_fused_l2_argmin_max_d():
-    """The wrapper's widest d is the kernel's, and a wider one raises."""
-    from raft_tpu_torch.ops.build import LIBRARIES
-
-    dev = cuda_device()
-    lib = LIBRARIES.get("fused_l2_argmin")
-    assert lib.rtt_fused_l2_argmin_max_d() == K.FUSED_L2_ARGMIN_MAX_D
-    x = torch.ones((4, K.FUSED_L2_ARGMIN_MAX_D + 1), device=dev)
-    with pytest.raises(Exception, match="resident"):
-        K.fused_l2_argmin(x, x)
 
 
 def _lut_ops(c, dev):

@@ -266,10 +266,6 @@ def test_lut_rotated_lookup_order(S):
     code) of its row once, and at every step the 32 lanes' LUT words
     ([code][S]-major) lie in 32 distinct banks, whatever the codes."""
     assert K.lut_rotated(S, 8) and not K.lut_rotated(S, 6)
-    buf = torch.zeros(4 * S + 32, dtype=torch.uint8)
-    off = -buf.data_ptr() % 16
-    assert K.lut_rotated(S, 8, buf[off:off + 4 * S].view(4, S))
-    assert not K.lut_rotated(S, 8, buf[off + 1:off + 1 + 4 * S].view(4, S))
     rng = np.random.default_rng(S)
     W = S // 4
     codes = rng.integers(0, 256, (32, S)).astype(np.uint8)   # a row a lane
@@ -292,6 +288,9 @@ def test_lut_rotated_lookup_order(S):
     cb = torch.arange(S * 256 * 2, dtype=torch.float32).view(S, 256, 2)
     kcb = K.lut_kernel_codebook(cb, True)
     assert kcb.shape == (256, S, 2) and torch.equal(kcb[5, 3], cb[3, 5])
+    assert K.lut_kernel_codebook(cb, True) is kcb       # made once
+    cb[3, 5] += 1.0
+    assert torch.equal(K.lut_kernel_codebook(cb, True)[5, 3], cb[3, 5])
     assert K.lut_kernel_codebook(cb, False) is cb
 
 

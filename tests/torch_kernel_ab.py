@@ -5,6 +5,7 @@ in turns, on one card.
     python3 tests/torch_kernel_ab.py --other DIR
         [--kernel select_k|ring_topk_merge|fused_l2_argmin|ivfpq_lut_scan|
                   ring_lut_scan_merge] [--rounds R] [--n ROWS] [--seed S]
+        [--wide | --flat-build]
 
 DIR is the root of another checkout of the repo, for example a parent
 commit unpacked with ``git archive``. Its source of the kernel
@@ -33,6 +34,13 @@ the kernel below. Needs a card and ``nvcc``.
   sweep) and [500K, 128] x [1024, 128] (the IVF-Flat trainset). Outputs
   agree within the smoke's rule: distances within 1e-4 + 1e-5·(‖x‖² +
   ‖y‖²), a differing argmin's f64 distance tying the other's within it.
+  With ``--wide``: [200K, d] x [1024, d] at d 544, 1152, 1216 and 2048
+  (k-means over wide embeddings; the kernel streams x past d 1152). With
+  ``--flat-build``: the IVF-Flat phase's build (``chip_smoke.py``: 1M x
+  128 ``make_synthetic_hard``, 1024 lists, spill, cap factor 1.5) with
+  each tree's kernel behind ``fused_l2_argmin`` in turns, each build's
+  rows dropped and its recall@10 at n_probes 32 (approx, 1,000 of the
+  phase's queries against exact search).
 - ``ivfpq_lut_scan`` (the default): the IVF-PQ phase's shapes:
   ``DeviceSynthetic`` ``--n`` x 96, ``ivf_pq.build`` with 8192 lists,
   pq_dim 64, 8-bit codes, and the first batch of 500 queries at n_probes
@@ -141,9 +149,9 @@ def _argmin_agree(x, y):
     return check
 
 
-def _wrapper_cases(kernel: str, seed: int, n: int):
+def _wrapper_cases(kernel: str, seed: int, n: int, wide: bool = False):
     """(name, call(kernels_module), reps, check(this_out, other_out)) at
-    chip_smoke.py's shapes."""
+    chip_smoke.py's shapes (``wide``: fused_l2_argmin's wide shapes)."""
     import torch
 
     from raft_tpu_torch.bench.dataset import DeviceSynthetic
@@ -160,8 +168,10 @@ def _wrapper_cases(kernel: str, seed: int, n: int):
                  lambda K: K.ring_topk_merge(vals, ids, 10), 100, _same)]
     if kernel == "fused_l2_argmin":
         cases = []
-        for rows, d, n_c in ((n, 96, 8192), (5_000_000, 128, 8192),
-                             (500_000, 128, 1024)):
+        shapes = (((200_000, d, 1024) for d in (544, 1152, 1216, 2048))
+                  if wide else ((n, 96, 8192), (5_000_000, 128, 8192),
+                                (500_000, 128, 1024)))
+        for rows, d, n_c in shapes:
             x = DeviceSynthetic(rows, d, n_centers=10_000, seed=seed, std=0.5,
                                 scale=10.0).base()
             y = x[::rows // n_c][:n_c].contiguous()
@@ -246,16 +256,22 @@ def _ring_scan_case(seed: int):
     return ("4 ranks, 32 queries (mc 8), NS 512, k 10", call, 10, check)
 
 
-def _ab_wrapper(args, card: str) -> None:
-    from raft_tpu_torch.ops import kernels as this_k
-
-    source = SOURCES[args.kernel]
-    other_lib = _build_other(args.other, source)
+def _other_kernels(args):
+    """The other checkout's ``ops/kernels.py`` over its own build of the
+    kernel's source."""
+    other_lib = _build_other(args.other, SOURCES[args.kernel])
     other_k = _load_module(os.path.join(args.other, "raft_tpu_torch", "ops",
                                         "kernels.py"), "ab_other_kernels")
     other_k._lib = lambda name: other_lib
+    return other_k
+
+
+def _ab_wrapper(args, card: str) -> None:
+    from raft_tpu_torch.ops import kernels as this_k
+
+    other_k = _other_kernels(args)
     mods = {"this": this_k, "other": other_k}
-    cases = _wrapper_cases(args.kernel, args.seed, args.n)
+    cases = _wrapper_cases(args.kernel, args.seed, args.n, args.wide)
     agree = {name: check(call(this_k), call(other_k))
              for name, call, _, check in cases}
     for rnd in range(args.rounds):
@@ -267,6 +283,54 @@ def _ab_wrapper(args, card: str) -> None:
                                   "ms": ms}), flush=True)
     print(json.dumps({"card": card, "kernel": args.kernel,
                       "outputs_agree": agree}), flush=True)
+
+
+def _ab_flat_build(args, card: str) -> None:
+    """IVF-Flat builds with each tree's fused_l2_argmin, in turns (see the
+    module note); builds are not bit-reproducible on the card, so the
+    repeats of one tree show the spread."""
+    import time
+
+    import torch
+
+    from raft_tpu_torch.bench.dataset import make_synthetic_hard
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat
+    from raft_tpu_torch.ops import kernels as this_k
+
+    fns = {"this": this_k.fused_l2_argmin,
+           "other": _other_kernels(args).fused_l2_argmin}
+    n, k = 1_000_000, 10
+    ds = make_synthetic_hard("sift-1000k-hard-synth", n, 128, 10_000,
+                             seed=args.seed)
+    base = torch.from_numpy(ds.base).cuda()
+    queries = torch.from_numpy(ds.queries[:1000]).cuda()
+    _, gt = brute_force.knn(base, queries, k, metric="sqeuclidean")
+    gt = gt.cpu().numpy()
+    try:
+        for rnd in range(args.rounds):
+            for which in ("this", "other", "other", "this"):
+                this_k.fused_l2_argmin = fns[which]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                index = ivf_flat.build(base, ivf_flat.IndexParams(
+                    n_lists=1024, spill=True, list_size_cap_factor=1.5,
+                    seed=args.seed))
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t0
+                _, ids = ivf_flat.search(index, queries, k, ivf_flat.SearchParams(
+                    n_probes=32, scan_mode="grouped", scan_select="approx"))
+                ids = ids.cpu().numpy()
+                recall = sum(len(set(a) & set(b)) for a, b in zip(ids, gt)) / gt.size
+                print(json.dumps({"kernel": "fused_l2_argmin", "round": rnd,
+                                  "library": which, "flat_build_s": build_s,
+                                  "dropped_rows": n - index.size,
+                                  "recall_at_10_probes_32": recall}),
+                      flush=True)
+                del index
+    finally:
+        this_k.fused_l2_argmin = fns["this"]
+    print(json.dumps({"card": card, "kernel": "fused_l2_argmin",
+                      "flat_build": True}), flush=True)
 
 
 def _ab_lut_scan(args, card: str) -> None:
@@ -380,7 +444,13 @@ def main(argv=None) -> int:
                     "fused_l2_argmin's IVF-PQ shape")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--wide", action="store_true",
+                    help="fused_l2_argmin at wide d (see the module note)")
+    ap.add_argument("--flat-build", action="store_true",
+                    help="IVF-Flat builds with each tree's fused_l2_argmin")
     args = ap.parse_args(argv)
+    if (args.wide or args.flat_build) and args.kernel != "fused_l2_argmin":
+        ap.error("--wide and --flat-build take --kernel fused_l2_argmin")
 
     import torch
 
@@ -393,6 +463,8 @@ def main(argv=None) -> int:
         text=True).stdout.strip().splitlines()[0]
     if args.kernel == "ivfpq_lut_scan":
         _ab_lut_scan(args, card)
+    elif args.flat_build:
+        _ab_flat_build(args, card)
     else:
         _ab_wrapper(args, card)
     return 0
