@@ -145,7 +145,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "ring_topk": {
             "rtt_ring_topk_merge": [_P] + [_I] * 6 + [_P, _P, _I, _P]},
         "ring_lut_scan": {
-            "rtt_ring_lut_scan_hop": [_P] * 13 + [_I] * 17 + [_P]},
+            "rtt_ring_lut_scan_merge": [_P] + [_I] * 14 + [_P, _P, _I, _P],
+            "rtt_ring_lut_scan_smem_bytes": [_I] * 8},
     }[name]
     for fn, argtypes in sigs.items():
         f = getattr(lib, fn)

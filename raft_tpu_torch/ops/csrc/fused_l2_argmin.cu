@@ -48,7 +48,15 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"
+
 namespace {
+
+using rtt::cp_async16;
+using rtt::cp_async4;
+using rtt::cp_commit;
+using rtt::mma_tf32;
+using rtt::tf32;
 
 constexpr int BN = 128;     // y rows per tile: 4 warps x 32 columns
 constexpr int BK = 32;      // k depth of a ring stage
@@ -73,48 +81,9 @@ size_t smem_bytes(int dp, bool xres) {
          + WN * BM * 8;                      // (min, argmin) of the n-warps
 }
 
-__device__ __forceinline__ uint32_t tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
-}
-
 // position p of a k group of 8 holds k = perm(p): 0 4 1 5 2 6 3 7
 __device__ __forceinline__ int k_of(int p) {
   return (p & ~7) + ((p & 7) >> 1) + 4 * (p & 1);
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// 4 bytes, zero-filled where !valid (x rows need no alignment)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
 }
 
 // y -> y_hi, y_lo [n, dp] (k-permuted, zero past d)
@@ -251,7 +220,7 @@ fused_l2_argmin_kernel(const float* __restrict__ x,
   const int row0 = wm * 16 * MT + g;  // + 16 i (+ 8 for the fragment's upper half)
 
   for (int s = 0; s < total; ++s) {
-    cp_wait_ring();
+    rtt::cp_wait<STAGES - 2>();
     __syncthreads();  // stage s landed for all; stage s - 1 is free
     issue(s + STAGES - 1);
     const float* yh = ring + (s % STAGES) * 2 * BN * YS;

@@ -1,6 +1,7 @@
-// Device code of the IVF-PQ LUT scan over packed pq_bits (4..8) codes,
-// shared by ivfpq_lut_scan.cu (one block per segment and group of live
-// queries) and ring_lut_scan.cu (one union list of a ring chunk per block).
+// Device code of the IVF-PQ LUT scan over packed pq_bits (4..8) codes:
+// the segment scan of ivfpq_lut_scan.cu (one block per segment and group
+// of live queries), whose look-ups (adc_row, adc_words_rot) and layouts
+// ring_lut_scan.cu shares.
 //
 // For a live slot with query q (rotated) of a segment owning list l:
 //   LUT[s, c] = <q_s, cb[s, c]>                        (f32, shared memory)

@@ -262,10 +262,9 @@ def unpack_codes(packed: torch.Tensor, pq_dim: int, pq_bits: int
     return (((lo | (hi << 8)) >> off) & ((1 << pq_bits) - 1)).long()
 
 
-def _lut_scan_args(seg_list, seg_q, q_rot, packed, ids, norms, centers_rot,
-                   codebooks, metric, pq_bits, pq_dim, L):
-    _check(seg_list, "seg_list", torch.int32, 1)
-    _check(seg_q, "seg_q", torch.int32, 2)
+def _lut_shard_args(q_rot, packed, ids, norms, centers_rot, codebooks,
+                    metric, pq_bits, pq_dim, L):
+    """Checks of a LUT scan's queries and shard; (S, K, P, nb, rot)."""
     _check(q_rot, "q_rot", torch.float32, 2)
     _check(packed, "packed", torch.uint8, 3)
     _check(ids, "ids", torch.int32, 2)
@@ -287,9 +286,17 @@ def _lut_scan_args(seg_list, seg_q, q_rot, packed, ids, norms, centers_rot,
     rot = q_rot.shape[1]
     expects(S * P == rot and tuple(centers_rot.shape) == (n_lists, rot),
             "rotated width %d != pq_dim·pq_len %d", rot, S * P)
+    return S, K, P, nb, rot
+
+
+def _lut_scan_args(seg_list, seg_q, q_rot, packed, ids, norms, centers_rot,
+                   codebooks, metric, pq_bits, pq_dim, L):
+    _check(seg_list, "seg_list", torch.int32, 1)
+    _check(seg_q, "seg_q", torch.int32, 2)
     expects(seg_q.shape[0] == seg_list.shape[0],
             "seg_q/seg_list segment counts differ")
-    return S, K, P, nb, rot
+    return _lut_shard_args(q_rot, packed, ids, norms, centers_rot, codebooks,
+                           metric, pq_bits, pq_dim, L)
 
 
 def lut_rotated(S: int, pq_bits: int) -> bool:
@@ -309,18 +316,25 @@ def _check_code_alignment(rotated: bool, *packed: torch.Tensor) -> None:
             "view)")
 
 
-def lut_kernel_codebook(cb: torch.Tensor, rotated: bool) -> torch.Tensor:
-    """The codebook as the scan kernels read it: [2^bits, pq_dim, pq_len]
-    for the rotated look-up, else [pq_dim, 2^bits, pq_len] as it is. The
-    rotated copy is made once per codebook tensor and kept on it (made
-    again if the tensor is written in place)."""
-    if not rotated:
+def lut_kernel_codebook(cb: torch.Tensor, rotated: bool,
+                        lut_dtype: str = "float32") -> torch.Tensor:
+    """The codebook as the scan kernels read it, rounded to ``lut_dtype``
+    (:func:`lut_codebook`): [2^bits, pq_dim, pq_len] for the rotated
+    look-up, else [pq_dim, 2^bits, pq_len] as it is. Made once per
+    (codebook tensor, layout, lut_dtype) and kept on the tensor (made
+    again if the tensor is written in place), so a search call does no
+    re-layout; the f32 unrotated operand is the tensor itself."""
+    if not rotated and lut_dtype == "float32":
         return cb
-    kept = getattr(cb, "_rtt_kernel_layout", None)
-    if kept is None or kept[0] != cb._version:
-        kept = (cb._version, cb.transpose(0, 1).contiguous())
-        cb._rtt_kernel_layout = kept
-    return kept[1]
+    kept = getattr(cb, "_rtt_kernel_codebooks", None)
+    if kept is None:
+        kept = cb._rtt_kernel_codebooks = {}
+    made = kept.get((rotated, lut_dtype))
+    if made is None or made[0] != cb._version:
+        laid = cb.transpose(0, 1) if rotated else cb
+        made = (cb._version, lut_codebook(laid, lut_dtype))
+        kept[(rotated, lut_dtype)] = made
+    return made[1]
 
 
 def lut_slot_rows(pair_seg: torch.Tensor, pair_slot: torch.Tensor,
@@ -462,7 +476,7 @@ def ivfpq_lut_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
                        device=dev)
     rot_lut = lut_rotated(S, pq_bits)
     _check_code_alignment(rot_lut, packed)
-    cbk = lut_codebook(lut_kernel_codebook(codebooks, rot_lut), lut_dtype)
+    cbk = lut_kernel_codebook(codebooks, rot_lut, lut_dtype)
     rc = lib.rtt_ivfpq_lut_scan_topk(
         _ptr(seg_list), _ptr(seg_q), _ptr(slot_rows), _ptr(grp_end),
         _ptr(blk_seg), _ptr(q_rot), _ptr(packed), _ptr(ids), _ptr(norms),
@@ -558,6 +572,14 @@ gather_refine_topk.launches = 0
 _SCAN_METRICS = _REFINE_METRICS
 # The largest segment the scan kernels take (their live-slot table).
 SCAN_MAX_SEGMENT = 1024
+# The scans' distance tile (csrc/scan_common.cuh): a block takes 32 live
+# queries against 128-row list tiles, as 8 warps of 2 x 2 m16n8 fragments
+# of 3xTF32 products over 32-deep k slices.
+SCAN_QUERIES = 32
+SCAN_WARPS = 8
+SCAN_K_SLICE = 32
+# segmented_scan_topk keeps a pick's 128-row tile index in 16 bits.
+SEGMENTED_SCAN_MAX_L = 0xFFFF * 128
 
 
 def _scan_args(seg_list, seg_q, q, packed, ids, metric):
@@ -670,11 +692,16 @@ def segmented_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
     hold (+inf, −1): the TPU kernel computed them against query 0, which
     no caller can observe (``merge_bin_results`` reads live pairs only).
     Unlike the TPU kernel, which took the gathered ``[n_seg, S, d]``
-    queries, this one takes ``q`` and ``seg_q`` and gathers on chip."""
+    queries, this one takes ``q`` and ``seg_q`` and gathers on chip. The
+    kernel computes ⟨q, x⟩ as three TF32 products of split operands on
+    the tensor cores (two for bf16 lists), as the TPU kernel's
+    Precision.HIGHEST asked, and keeps the bins in registers."""
     n_seg, S, d, L = _scan_args(seg_list, seg_q, q, packed, ids, metric)
     if not _use_kernel(seg_list, seg_q, q, packed, ids):
         return segmented_scan_topk_plain(seg_list, seg_q, q, packed, ids,
                                          metric)
+    expects(L < SEGMENTED_SCAN_MAX_L, "lists of %d rows: the kernel keeps "
+            "16-bit tile indices (L < %d)", L, SEGMENTED_SCAN_MAX_L)
     keys = torch.empty((n_seg, S, LUT_SCAN_BINS), dtype=torch.float32,
                        device=q.device)
     kids = torch.empty((n_seg, S, LUT_SCAN_BINS), dtype=torch.int32,
@@ -870,16 +897,6 @@ def _ptr_table(tensors: Sequence[torch.Tensor]):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def _ring_buffers(n: int, device: torch.device, mc: int, k: int):
-    """Each rank's running blocks, one slot per hop (the start included):
-    no slot is written twice in a call."""
-    run_k = [torch.empty((n, mc, k), dtype=torch.float32, device=device)
-             for _ in range(n)]
-    run_i = [torch.empty((n, mc, k), dtype=torch.int32, device=device)
-             for _ in range(n)]
-    return run_k, run_i
-
-
 def ring_topk_merge(vals: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
                     k: int, select_min: bool = True
                     ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
@@ -962,6 +979,13 @@ def _lut_scan_config(S: int, K: int, P: int, nb: int, Wb: int,
     return G, Sg, Kc
 
 
+def _lut_row_stride(nb: int) -> int:
+    """Bytes of a staged code row: an odd number of 4-byte words
+    (``lut_row_stride`` of csrc/lut_scan_common.cuh)."""
+    words = (nb + 3) // 4
+    return 4 * (words if words & 1 else words + 1)
+
+
 def lut_scan_smem_bytes(qg: int, R: int, S: int, K: int, rot: int, seg: int,
                         nb: int) -> int:
     """Dynamic shared memory of one LUT-scan block (``lut_smem_bytes`` of
@@ -971,9 +995,7 @@ def lut_scan_smem_bytes(qg: int, R: int, S: int, K: int, rot: int, seg: int,
     nthr = LUT_SCAN_LANES * R
     b = qg * S * K * 4 + qg * rot * 4 + qg * 4 + seg * 4 + 32 * 4
     b = (b + 15) & ~15
-    words = (nb + 3) // 4
-    stride = 4 * (words if words & 1 else words + 1)
-    return b + max(nthr * stride, nthr * 24)
+    return b + max(nthr * _lut_row_stride(nb), nthr * 24)
 
 
 def lut_scan_fit(S: int, K: int, rot: int, seg: int, nb: int):
@@ -989,23 +1011,52 @@ def lut_scan_fit(S: int, K: int, rot: int, seg: int, nb: int):
     return qg, R
 
 
+# Warps of a local block of ring_lut_scan_merge (csrc/ring_lut_scan.cu),
+# largest first.
+RING_SCAN_WARPS = (16, 8, 4, 2, 1)
+
+
+def ring_lut_scan_smem_bytes(W: int, S: int, K: int, rot: int, NS: int,
+                             nb: int, k: int, rotated: bool) -> int:
+    """Dynamic shared memory of a local block of ring_lut_scan_merge with W
+    warps (``local_smem_bytes`` of csrc/ring_lut_scan.cu, which the card
+    tests hold this copy to): the member-list table, one f32 LUT and its
+    query, the warps' top-k and the counters, then (unrotated look-up) a
+    32-row code tile a warp."""
+    b = NS * 16 + (S * K + rot + 3 * W * k + 34) * 4
+    b = (b + 15) & ~15
+    return b if rotated else b + W * 32 * _lut_row_stride(nb)
+
+
+def ring_lut_scan_fit(S: int, K: int, rot: int, NS: int, nb: int, k: int,
+                      rotated: bool):
+    """Warps of a local block of ring_lut_scan_merge that fit shared memory
+    (the most of :data:`RING_SCAN_WARPS`), or None."""
+    for W in RING_SCAN_WARPS:
+        if ring_lut_scan_smem_bytes(W, S, K, rot, NS, nb, k,
+                                    rotated) <= _MAX_SMEM:
+            return W
+    return None
+
+
 def ring_lut_scan_kernel_ok(S: int, K: int, P: int, nb: int, Wb: int,
                             mc: int, NS: int, k: int, n_dev: int, rot: int,
                             lut_dtype: str = "float32",
                             filtered: bool = False) -> bool:
     """Admission of :func:`ring_lut_scan_merge`: the JAX package's rules
     (k ≤ 64, n_dev ≥ 2, NS ≤ 512, its packed-layout rule) with its VMEM
-    budget (pallas_kernels.py:1986-2001) replaced by the CUDA kernels'
-    own need: a scan block of 128·R threads (mc ≤ 512 chunk rows) whose
-    LUT, query and code-tile staging fit the 227 KB of shared memory,
-    at most 16 ranks, and the unfolded code layout (the folded one is not
-    ported: ROADMAP A9). Filters are not ported (A6)."""
+    budget (pallas_kernels.py:1986-2001) replaced by the CUDA kernel's
+    own need: a local block (one chunk row's LUT, its member-list table
+    and top-ks) that fits the 227 KB of shared memory, at most 16 ranks,
+    and the unfolded code layout (the folded one is not ported: ROADMAP
+    A9). Any mc. Filters are not ported (A6)."""
     if (k > RING_TOPK_MAX_K or n_dev < 2 or n_dev > RING_MAX_RANKS
             or NS > RING_FUSED_MAX_SEGS or filtered):
         return False
     if _lut_scan_config(S, K, P, nb, Wb, lut_dtype) is None or Wb != nb:
         return False
-    return lut_scan_fit(S, K, rot, mc, nb) is not None
+    rotated = lut_rotated(S, K.bit_length() - 1)
+    return ring_lut_scan_fit(S, K, rot, NS, nb, k, rotated) is not None
 
 
 def ring_lut_scan_merge_plain(chunk_lists, seg_q, qv_chunks, packed, ids,
@@ -1063,13 +1114,15 @@ def ring_lut_scan_merge(chunk_lists: Sequence[torch.Tensor],
       takes it (ids are global row ids, int32; rows at or past a list's
       size are not read).
 
-    Per hop, each rank scans the chunk it merges next: per (member row,
-    list) the two best per strided bin, as the LUT scan keeps them, then
-    the k best over the chunk's lists and the incoming partial. Returns
-    per rank (keys [mc, k], ids [mc, k]) of chunk r, ascending, ids −1
-    for empty slots; keys as the LUT scan's (l2: ‖c+d‖² − 2⟨q,c+d⟩, add
-    ‖q‖²; ip: −⟨q,c+d⟩). The TPU kernel returned [mc, 128] blocks that
-    callers cut to k; this one returns k columns."""
+    Each rank scans, per chunk row and member list, the two best per
+    strided bin, as the LUT scan keeps them; per chunk the k best over the
+    chunk's lists and the ring's incoming partials. Returns per rank
+    (keys [mc, k], ids [mc, k]) of chunk r, ascending, ids −1 for empty
+    slots; keys as the LUT scan's (l2: ‖c+d‖² − 2⟨q,c+d⟩, add ‖q‖²; ip:
+    −⟨q,c+d⟩). The TPU kernel returned [mc, 128] blocks that callers cut
+    to k; this one returns k columns. On the card it is two launches a
+    call (the rows' local top-ks, then the ring's chains:
+    csrc/ring_lut_scan.cu), counted as two."""
     n = len(packed)
     args = (chunk_lists, probe_ind, qv_chunks, packed, ids, norms,
             list_sizes, centers_rot, codebooks)
@@ -1081,59 +1134,50 @@ def ring_lut_scan_merge(chunk_lists: Sequence[torch.Tensor],
     n2, NS = chunk_lists[0].shape
     _, mc, rot = qv_chunks[0].shape
     expects(n2 == n, "chunk_lists has %d chunks for %d ranks", n2, n)
-    cb = []
     for r in range(n):
         _check(chunk_lists[r], "chunk_lists", torch.int32, 2)
         _check(probe_ind[r], "probe_ind", torch.float32, 3)
+        _check(qv_chunks[r], "qv_chunks", torch.float32, 3)
         expects(tuple(probe_ind[r].shape) == (n, NS, mc)
                 and tuple(qv_chunks[r].shape) == (n, mc, rot)
                 and tuple(chunk_lists[r].shape) == (n, NS),
                 "rank %d's chunk tables disagree in shape", r)
-        S, K, P, nb, _ = _lut_scan_args(
-            chunk_lists[r][0], probe_ind[r][0].to(torch.int32),
+        S, K, P, nb, _ = _lut_shard_args(
             qv_chunks[r][0], packed[r], ids[r], norms[r], centers_rot[r],
             codebooks[r], metric, pq_bits, pq_dim, L)
         _check(list_sizes[r], "list_sizes", torch.int32, 1)
         expects(list_sizes[r].shape[0] == packed[r].shape[0],
                 "list_sizes must be [n_lists]")
-        cb.append(lut_codebook(codebooks[r], lut_dtype))
-    rows = torch.arange(mc, dtype=torch.int32)
-    seg_q = [torch.where(ind > 0.5, rows.to(ind.device), -1).to(torch.int32)
-             .contiguous() for ind in probe_ind]
-    qv = [q.contiguous() for q in qv_chunks]
-    lists = [c.contiguous() for c in chunk_lists]
-    if not _ring_use_kernel(lists, seg_q, qv, packed, ids, norms, list_sizes,
-                            centers_rot, cb):
-        return ring_lut_scan_merge_plain(lists, seg_q, qv, packed, ids, norms,
-                                         list_sizes, centers_rot, cb, k,
-                                         metric, pq_bits)
-    fit = lut_scan_fit(S, K, rot, mc, nb)
-    expects(fit is not None, "a chunk of %d rows with a %d x %d LUT does not "
-            "fit shared memory (gate with ring_lut_scan_kernel_ok)", mc, S, K)
-    qg, R = fit
-    lib = _lib("ring_lut_scan")
+    if not _ring_use_kernel(chunk_lists, probe_ind, qv_chunks, packed, ids,
+                            norms, list_sizes, centers_rot, codebooks):
+        rows = torch.arange(mc, dtype=torch.int32)
+        seg_q = [torch.where(ind > 0.5, rows, -1).to(torch.int32)
+                 for ind in probe_ind]
+        cb = [lut_codebook(c, lut_dtype) for c in codebooks]
+        return ring_lut_scan_merge_plain(chunk_lists, seg_q, qv_chunks,
+                                         packed, ids, norms, list_sizes,
+                                         centers_rot, cb, k, metric, pq_bits)
     rot_lut = lut_rotated(S, pq_bits)
+    W = ring_lut_scan_fit(S, K, rot, NS, nb, k, rot_lut)
+    expects(W is not None, "a %d x %d LUT with %d union lists does not fit "
+            "shared memory (gate with ring_lut_scan_kernel_ok)", S, K, NS)
     _check_code_alignment(rot_lut, *packed)
-    cbk = [lut_codebook(lut_kernel_codebook(c, rot_lut), lut_dtype)
-           for c in codebooks]
+    cbk = [lut_kernel_codebook(c, rot_lut, lut_dtype) for c in codebooks]
     dev = packed[0].device
-    run_k, run_i = _ring_buffers(n, dev, mc, k)
-    bins_k = [torch.empty((NS, mc, LUT_SCAN_BINS), dtype=torch.float32,
-                          device=dev) for _ in range(n)]
-    bins_i = [torch.empty((NS, mc, LUT_SCAN_BINS), dtype=torch.int32,
-                          device=dev) for _ in range(n)]
-    tables = [_ptr_table(t) for t in (lists, seg_q, qv, packed, ids, norms,
-                                      list_sizes, centers_rot, cbk, bins_k,
-                                      bins_i, run_k, run_i)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for hop in range(-1, n - 1):   # a scan and a merge launch per hop
-        _raise_on(lib.rtt_ring_lut_scan_hop(
-            *tables, n, NS, mc, k, hop, rot, S, K, P, pq_bits, nb, L,
-            1 if metric == "ip" else 0, qg, R, int(rot_lut), dev.index,
-            stream),
-            "ring_lut_scan_merge")
-        ring_lut_scan_merge.launches += 1
-    return [rk[n - 1] for rk in run_k], [ri[n - 1] for ri in run_i]
+    part_k = torch.empty((n, n * mc, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((n, n * mc, k), dtype=torch.int32, device=dev)
+    out_k = torch.empty((n, mc, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n, mc, k), dtype=torch.int32, device=dev)
+    table = _ptr_table([*chunk_lists, *probe_ind, *qv_chunks, *packed, *ids,
+                        *norms, *list_sizes, *centers_rot, *cbk,
+                        *part_k.unbind(0), *part_i.unbind(0)])
+    rc = _lib("ring_lut_scan").rtt_ring_lut_scan_merge(
+        table, n, NS, mc, k, rot, S, K, P, pq_bits, nb, L,
+        1 if metric == "ip" else 0, W, int(rot_lut), _ptr(out_k),
+        _ptr(out_i), dev.index, _stream(dev))
+    ring_lut_scan_merge.launches += 2   # the local top-ks, then the chains
+    _raise_on(rc, "ring_lut_scan_merge")
+    return list(out_k.unbind(0)), list(out_i.unbind(0))
 
 
 ring_lut_scan_merge.launches = 0

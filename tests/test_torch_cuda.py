@@ -16,7 +16,8 @@ key ties; segmented and grouped scans keys within 1e-4 + 1e-5·(|key| +
 pattern, ids or positions equal away from key ties, sentinels on pad slots;
 the ring merge exact (values and ids, ties included); the fused
 scan-in-ring keys rtol 1e-4, atol 1e-3 with ids equal away from key ties
-(the f64 key of the kernel's pick within that tolerance of the plain key).
+(the f64 key of the kernel's pick within that tolerance of the plain key),
+and on integer-valued cases (exact keys, many ties) keys and ids equal.
 """
 
 from __future__ import annotations
@@ -263,9 +264,12 @@ def test_cuda_gather_refine_matches_plain(metric, k):
 
 
 # (d, L, bf16 list data): every d of {16, 96, 128, 960} and L of {96, 300,
-# 1536}, both list dtypes; each case holds empty trailing segments
+# 1536}, both list dtypes; each case holds empty trailing segments. d 100
+# and 37 are not multiples of 8: their rows take 8- and 4-byte copies, and
+# bf16 rows of 37 (74 bytes) plain loads; L 77 is one partial tile
 FLAT_CASES = [(16, 96, False), (96, 300, True), (128, 1536, False),
-              (960, 300, False), (960, 1536, True), (128, 96, True)]
+              (960, 300, False), (960, 1536, True), (128, 96, True),
+              (100, 77, True), (37, 300, False), (37, 77, True)]
 
 
 @pytest.mark.parametrize("d,L,bf16", FLAT_CASES)
@@ -370,19 +374,25 @@ def test_cuda_ring_topk_merge_narrows_other_types():
                                                                pi[r])
 
 
-def _check_ring_scan(devices, pq_bits, k, metric, lut_dtype, seed, S=16):
+def _check_ring_scan(devices, pq_bits, k, metric, lut_dtype, seed, S=16,
+                     ties=False):
     n = len(devices)
-    c = ring_scan_case(pq_bits, n_dev=n, seed=seed, S=S)
+    c = ring_scan_case(pq_bits, n_dev=n, seed=seed, S=S, ties=ties)
     kw = dict(pq_bits=pq_bits, pq_dim=c["S"], L=c["L"], lut_dtype=lut_dtype)
     K.reset_launch_counts()
     tk, ti = K.ring_lut_scan_merge(*ring_scan_ops(c, devices), k, metric, **kw)
-    assert K.launch_counts()["ring_lut_scan_merge"] == n
+    # the local top-ks, then the chains: two launches whatever the ranks
+    assert K.launch_counts()["ring_lut_scan_merge"] == 2
     pk, pi = K.ring_lut_scan_merge(*ring_scan_ops(c, ["cpu"] * n), k, metric,
                                    **kw)
     cb_used = K.lut_codebook(torch.tensor(c["cb"]), lut_dtype).numpy()
     for r in range(n):
         a, b = tk[r].cpu().numpy(), pk[r].numpy()
         ia, ib = ti[r].cpu().numpy(), pi[r].numpy()
+        if ties:   # keys exact in f32: the tie order is held bit for bit
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(ia, ib)
+            continue
         assert (np.isinf(a) == np.isinf(b)).all()
         assert (ia[np.isinf(a)] == -1).all()
         fin = np.isfinite(b)
@@ -394,21 +404,29 @@ def _check_ring_scan(devices, pq_bits, k, metric, lut_dtype, seed, S=16):
     assert sum(int((i >= 0).sum()) for i in pi) > 0
 
 
-# (pq_bits, k, metric, lut_dtype, S): S 64 and 32 with 8-bit codes take the
-# rotated look-up
-RING_SCAN_CASES = [(8, 10, "l2", "float32", 16), (4, 1, "ip", "float32", 16),
-                   (8, 64, "l2", "bfloat16", 16), (5, 10, "ip", "bfloat16", 16),
-                   (6, 64, "l2", "float32", 16), (8, 10, "l2", "bfloat16", 64),
-                   (8, 10, "ip", "float32", 32)]
+# (pq_bits, k, metric, lut_dtype, S, ties): S 64 and 32 with 8-bit codes
+# take the rotated look-up; ties: integer keys, many tied (exact compare)
+RING_SCAN_CASES = [(8, 10, "l2", "float32", 16, False),
+                   (4, 1, "ip", "float32", 16, False),
+                   (8, 64, "l2", "bfloat16", 16, False),
+                   (5, 10, "ip", "bfloat16", 16, False),
+                   (6, 64, "l2", "float32", 16, False),
+                   (8, 10, "l2", "bfloat16", 64, False),
+                   (8, 10, "ip", "float32", 32, False),
+                   (8, 10, "l2", "float32", 64, True),
+                   (5, 64, "ip", "float32", 16, True)]
 
 
-@pytest.mark.parametrize("pq_bits,k,metric,lut_dtype,S", RING_SCAN_CASES)
-def test_cuda_ring_lut_scan_matches_plain(pq_bits, k, metric, lut_dtype, S):
-    """The fused scan-in-ring kernel, four ranks on one card, against its
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("pq_bits,k,metric,lut_dtype,S,ties", RING_SCAN_CASES)
+def test_cuda_ring_lut_scan_matches_plain(pq_bits, k, metric, lut_dtype, S,
+                                          ties, n):
+    """The fused scan-in-ring kernel, n ranks on one card, against its
     plain version (the LUT scan's plain version per chunk, then the plain
-    ring), each list walked to its size."""
-    _check_ring_scan(_ring_devices(4), pq_bits, k, metric, lut_dtype,
-                     seed=k, S=S)
+    ring), each list walked to its size; on integer keys bit for bit, tie
+    order included."""
+    _check_ring_scan(_ring_devices(n), pq_bits, k, metric, lut_dtype,
+                     seed=k + n, S=S, ties=ties)
 
 
 def test_cuda_ring_kernels_over_peer_pointers():
@@ -432,6 +450,24 @@ def test_cuda_ring_kernels_over_peer_pointers():
                               pq_bits=8, pq_dim=c["S"], L=c["L"])
     counts = K.launch_counts()
     assert counts["ring_topk_merge"] == counts["ring_lut_scan_merge"] == 0
+
+
+def test_cuda_ring_scan_smem_formula_matches_the_kernel():
+    """ops.kernels.ring_lut_scan_smem_bytes (the fused tier's admission
+    rule) is the kernel's own shared-memory formula."""
+    from raft_tpu_torch.ops.build import LIBRARIES
+
+    cuda_device()
+    lib = LIBRARIES.get("ring_lut_scan")
+    for W in K.RING_SCAN_WARPS:
+        for S, Kb, rot, NS, nb, k in ((64, 256, 128, 512, 64, 10),
+                                      (16, 16, 32, 130, 8, 64),
+                                      (96, 32, 96, 7, 60, 1)):
+            for rotated in (False, True):
+                want = K.ring_lut_scan_smem_bytes(W, S, Kb, rot, NS, nb, k,
+                                                  rotated)
+                assert lib.rtt_ring_lut_scan_smem_bytes(
+                    W, S, Kb, rot, NS, nb, k, int(rotated)) == want
 
 
 def test_cuda_lut_scan_smem_formula_matches_the_kernel():

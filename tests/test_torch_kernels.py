@@ -294,6 +294,32 @@ def test_lut_rotated_lookup_order(S):
     assert K.lut_kernel_codebook(cb, False) is cb
 
 
+@pytest.mark.parametrize("pq_bits", [4, 5, 6, 7, 8])
+def test_ring_scan_admission_keeps_every_shape(pq_bits):
+    """The fused scan-in-ring kernel (one LUT a block since its query-major
+    redesign) admits every shape the per-hop kernel before it admitted:
+    wherever a LUT-scan block of ≤ 4 LUTs and 128·R threads held a chunk of
+    mc ≤ 512 rows (``lut_scan_fit``), a local block of some warp count
+    fits (``ring_lut_scan_fit``), at every k ≤ 64 and NS ≤ 512."""
+    K_ = 1 << pq_bits
+    n_old = 0
+    for S in (8, 16, 24, 32, 48, 64, 96, 120, 128, 160, 200, 256):
+        nb = (S * pq_bits + 7) // 8
+        rotated = K.lut_rotated(S, pq_bits)
+        for P in (1, 2, 4):
+            rot = S * P
+            for mc in (8, 64, 130, 512):
+                if K.lut_scan_fit(S, K_, rot, mc, nb) is None:
+                    continue
+                n_old += 1
+                for NS in (1, 256, 512):
+                    for k in (1, 10, 64):
+                        assert K.ring_lut_scan_fit(S, K_, rot, NS, nb, k,
+                                                   rotated) is not None, (
+                            S, P, mc, NS, k)
+    assert n_old > 0
+
+
 def test_lut_codebook_rounding_matches_jax():
     """The codebook operand's bf16 / fp8→bf16 rounding equals the JAX
     package's (ml_dtypes) on in-range values."""
@@ -411,6 +437,109 @@ def test_scan_wrappers_check_their_operands():
         K.segmented_scan_topk(*args, "l1")
     with pytest.raises(Exception, match="float32 or bfloat16"):
         K.segmented_scan_topk(*args[:3], args[3].double(), args[4])
+
+
+def _scan_keys_split(q, x, metric: str, products: int):
+    """The scan kernels' keys as the card computes them (csrc/
+    scan_common.cuh), emulated: ⟨q, x⟩ per 32-deep k slice as the split
+    products q_lo·x_hi + q_hi·x_lo + q_hi·x_hi (``products`` 3; 2 drops
+    q_hi·x_lo, exact for bf16 x; 1 is q_hi·x_hi alone), each slice's sum in
+    f32 then added to the running f32 dot; ‖q‖², ‖x‖² f32 sums; the key of
+    scan_key. q [m, d], x [n, d] f32 → [m, n]."""
+    qh, xh = _tf32(q), _tf32(x)
+    ql, xl = _tf32(q - qh), _tf32(x - xh)
+    dot = torch.zeros((q.shape[0], x.shape[0]))
+    for a in range(0, q.shape[1], K.SCAN_K_SLICE):
+        s = slice(a, a + K.SCAN_K_SLICE)
+        part = qh[:, s] @ xh[:, s].T
+        if products >= 2:
+            part = ql[:, s] @ xh[:, s].T + part
+        if products == 3:
+            part = qh[:, s] @ xl[:, s].T + part
+        dot = dot + part
+    if metric == "ip":
+        return -dot
+    qsq, xsq = (q * q).sum(1)[:, None], (x * x).sum(1)[None, :]
+    if metric == "cos":
+        return 1.0 - dot * torch.rsqrt(qsq.clamp_min(1e-30)) * torch.rsqrt(
+            xsq.clamp_min(1e-30))
+    return (qsq + xsq - 2.0 * dot).clamp_min(0.0)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("d", [16, 96, 100, 128, 960])
+def test_scan_3xtf32_keeps_the_tolerance(d, bf16, metric):
+    """B5/B6's numerics, emulated on the CPU: keys from 3xTF32 split
+    products (2 for bf16 lists, whose rows are exact in TF32) in fresh
+    32-deep slices stay within the card test's 1e-4 + 1e-5·(|key| + ‖q‖²)
+    of the f64 keys, at every d of the card tests' FLAT_CASES (100 is not a
+    multiple of 8; the last slice is zero-filled) — on flat-case rows and on
+    SIFT-scaled rows (uniform in [0, 128)); one TF32 product does not keep
+    it on the l2 keys of wide rows."""
+    rng = np.random.default_rng(d + 7 * bf16)
+    for scale, shift in ((1.0, 0.0), (64.0, 64.0)):
+        q = (rng.standard_normal((32, d)) * scale + shift).astype(np.float32)
+        x = (rng.standard_normal((256, d)) * scale + shift).astype(np.float32)
+        if shift:
+            q, x = np.abs(q), np.abs(x)
+        qt, xt = torch.tensor(q), torch.tensor(x)
+        if bf16:
+            xt = xt.to(torch.bfloat16).float()
+            assert torch.equal(_tf32(xt), xt)       # x_lo = 0
+        q64, x64 = qt.double(), xt.double()
+        dot64 = q64 @ x64.T
+        qsq64, xsq64 = (q64 * q64).sum(1)[:, None], (x64 * x64).sum(1)[None]
+        ref = {"ip": -dot64,
+               "l2": (qsq64 + xsq64 - 2.0 * dot64).clamp_min(0.0),
+               "cos": 1.0 - dot64 / (qsq64.sqrt() * xsq64.sqrt())}[metric]
+        tol = 1e-4 + 1e-5 * (ref.abs() + qsq64)
+        got = _scan_keys_split(qt, xt, metric, 2 if bf16 else 3).double()
+        assert bool(((got - ref).abs() <= tol).all()), float(
+            ((got - ref).abs() / tol).max())
+        if metric == "l2" and d >= 96:
+            one = _scan_keys_split(qt, xt, metric, 1).double()
+            assert bool(((one - ref).abs() > tol).any())
+
+
+def test_scan_fragment_ownership():
+    """B5's bins in registers (csrc/scan_common.cuh), modelled in numpy:
+    thread (warp w, lane 4g + t) holds accumulator c of fragment (i, j) of
+    mma.sync m16n8k8 (rows = queries, columns = list rows), i.e. query 16i
+    + g + 8(c // 2) against tile row 16w + 8j + 2t + c % 2. Every (query,
+    bin) of a block's 32 x 128 has exactly one owner; the owner depends on
+    the tile row alone, and tile row r of every 128-row tile is strided bin
+    r, so it is the same owner in every tile and the positions it sees
+    rise; the quad sum of |x|^2 over B-fragment row 16w + 8j + g reaches
+    the lanes whose columns hold that row by a shuffle from lane 4g; an
+    output pair (c, c + 1) is two adjacent columns (one 8-byte store)."""
+    n_q, n_rows = K.SCAN_QUERIES, K.LUT_SCAN_LANES
+    owner = -np.ones((n_q, n_rows), np.int64)
+    for w in range(K.SCAN_WARPS):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for i in range(n_q // 16):
+                for j in range(n_rows // (8 * K.SCAN_WARPS)):
+                    for c in range(4):
+                        qi = 16 * i + g + 8 * (c >> 1)
+                        row = 16 * w + 8 * j + 2 * t + (c & 1)
+                        assert owner[qi, row] == -1
+                        owner[qi, row] = (w * 32 + lane) * 16 + (i * 2 + j) * 4 + c
+                        # |x|^2 of this column comes from lane (2t + c%2) << 2,
+                        # whose B-fragment row g' = 2t + c%2 is this row
+                        src = (2 * t + (c & 1)) << 2
+                        assert 16 * w + 8 * j + (src >> 2) == row
+                        if c & 1:
+                            left = owner[qi, row - 1]
+                            assert left == owner[qi, row] - 1   # same thread
+    assert (owner >= 0).all()
+    L = 1000
+    pos = np.arange(L)
+    for qi in (0, 7, 31):
+        for b in (0, 77, 127):
+            seen = pos[pos % n_rows == b]
+            holders = {owner[qi, p % n_rows] for p in seen}
+            assert len(holders) == 1 and (np.diff(seen) > 0).all()
 
 
 @pytest.mark.parametrize("k,n_probes", [(10, 3), (300, 1)])

@@ -4,7 +4,8 @@ in turns, on one card.
 
     python3 tests/torch_kernel_ab.py --other DIR
         [--kernel select_k|ring_topk_merge|fused_l2_argmin|ivfpq_lut_scan|
-                  ring_lut_scan_merge] [--rounds R] [--n ROWS] [--seed S]
+                  ring_lut_scan_merge|segmented_scan|grouped_scan]
+        [--rounds R] [--n ROWS] [--seed S]
         [--wide | --flat-build]
 
 DIR is the root of another checkout of the repo, for example a parent
@@ -51,6 +52,14 @@ the kernel below. Needs a card and ``nvcc``.
   gathered at the pairs, timed with the gather). Outputs agree within
   the smoke's rule:
   keys within 1e-3 + 1e-5·(|key| + ‖q‖²), ids on ≥ 99.9 % of the bins.
+- ``segmented_scan`` and ``grouped_scan``: the IVF-Flat phase's shapes
+  (``chip_smoke.py``: 1M x 128 ``make_synthetic_hard``, ``ivf_flat.build``
+  with 1024 lists, spill, cap factor 1.5), built once; both trees' kernels
+  run on one segment table, that of the first 10,000 queries at n_probes
+  32 (grouped at kk 10). IVF-Flat builds are not bit-reproducible, so the
+  index and the table are shared. Outputs agree within the smoke's rule:
+  the same finite pattern, keys within 1e-4 + 1e-5·(|key| + ‖q‖²), and the
+  share of ids (positions for grouped) equal is reported.
 - ``ring_lut_scan_merge``: the sharded phase's fused-tier shape on random
   shards: 4 ranks on one card, each 8192 lists of L 2440 with 610 real
   rows on average (passed as ``list_sizes`` where the checkout's wrapper
@@ -75,7 +84,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SOURCES = {"select_k": "select_k", "ring_topk_merge": "ring_topk",
            "fused_l2_argmin": "fused_l2_argmin",
            "ivfpq_lut_scan": "ivfpq_lut_scan",
-           "ring_lut_scan_merge": "ring_lut_scan"}
+           "ring_lut_scan_merge": "ring_lut_scan",
+           "segmented_scan": "segmented_scan", "grouped_scan": "grouped_scan"}
 
 
 def _load_module(path: str, name: str):
@@ -181,6 +191,8 @@ def _wrapper_cases(kernel: str, seed: int, n: int, wide: bool = False):
         return cases
     if kernel == "ring_lut_scan_merge":
         return [_ring_scan_case(seed)]
+    if kernel in ("segmented_scan", "grouped_scan"):
+        return [_flat_scan_case(kernel, seed)]
     ds = DeviceSynthetic(100_000, 96, n_centers=10_000, seed=seed, std=0.5,
                          scale=10.0)
     q = ds.queries(500)
@@ -254,6 +266,50 @@ def _ring_scan_case(seed: int):
             *(ops if sized else ops[:6] + ops[7:]), k, "l2", **kw)
 
     return ("4 ranks, 32 queries (mc 8), NS 512, k 10", call, 10, check)
+
+
+def _flat_scan_case(kernel: str, seed: int):
+    """segmented_scan_topk or grouped_scan_topk (kk 10) on the IVF-Flat
+    phase's first batch (see the module note)."""
+    import torch
+
+    from raft_tpu_torch.bench.dataset import make_synthetic_hard
+    from raft_tpu_torch.neighbors import ivf_common, ivf_flat
+
+    nq, n_probes, kk = 10_000, 32, 10
+    ds = make_synthetic_hard("sift-1000k-hard-synth", 1_000_000, 128, nq,
+                             seed=seed)
+    base = torch.from_numpy(ds.base).cuda()
+    queries = torch.from_numpy(ds.queries).cuda()
+    index = ivf_flat.build(base, ivf_flat.IndexParams(
+        n_lists=1024, spill=True, list_size_cap_factor=1.5, seed=seed))
+    seg = ivf_common.SEGMENT_SIZE
+    probes = ivf_flat._probes(index, queries, n_probes,
+                              ivf_flat.resolve_metric(index.metric))
+    n_seg = ivf_common.n_segments(nq * n_probes, index.n_lists, seg)
+    seg_list, seg_q, _, _ = ivf_common.segment_probes(
+        probes, index.n_lists, seg, n_seg)
+    args = (seg_list, seg_q, queries, index.packed_data, index.packed_ids)
+    live = (seg_q >= 0)[..., None]
+    qsq = (queries * queries).sum(1)[seg_q.clamp_min(0).long()][..., None]
+
+    def check(a, b):
+        (ka, ia), (kb, ib) = a, b
+        fin = torch.isfinite(kb) & live
+        tol = 1e-4 + 1e-5 * (kb.abs() + qsq)
+        return {"finite_pattern_equal": bool(torch.equal(
+                    torch.isfinite(ka) & live, fin)),
+                "max_diff_over_tolerance": float(
+                    ((ka - kb).abs()[fin] / tol.expand_as(kb)[fin]).max()),
+                "picks_equal": float((ia == ib)[fin].float().mean())}
+
+    if kernel == "segmented_scan":
+        return (f"{n_seg} x {seg} slots, n_probes {n_probes}, batch {nq}, "
+                f"L {index.max_list_size}",
+                lambda K: K.segmented_scan_topk(*args, "l2"), 5, check)
+    return (f"{n_seg} x {seg} slots, n_probes {n_probes}, batch {nq}, "
+            f"L {index.max_list_size}, kk {kk}",
+            lambda K: K.grouped_scan_topk(*args, kk, "l2"), 5, check)
 
 
 def _other_kernels(args):

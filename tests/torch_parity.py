@@ -333,15 +333,19 @@ def ring_tables(n_dev: int, m: int, k: int, seed: int,
 
 def ring_scan_case(pq_bits: int, n_dev: int = 4, m: int = 30, seed: int = 0,
                    n_lists: int = 24, L: int = 300, S: int = 16, P: int = 2,
-                   n_probes: int = 6):
+                   n_probes: int = 6, ties: bool = False):
     """Operands of the fused scan-in-ring kernel: per rank a shard of
     ``n_lists`` packed lists (global ids unique over the ranks, 10 %
     invalid, one short list, one empty list; ``list_sizes`` one past each
     list's last valid id), replicated rotated centers and codebooks,
     and the chunk tables of ``m`` queries with random probes (the
     port's ``_chunk_unions``, which the CPU tests hold against the JAX
-    package's). Numpy arrays; ``ops(c, device)`` gives the wrapper's
-    per-rank tensors."""
+    package's). ``ties``: small integers for the queries, centers,
+    codebook and norms, so every key is exact in f32 whatever the order of
+    its sums, and many keys tie: each list's code rows are drawn from a
+    pool of 12, list 1 repeats list 0 (codes, norms and center), and every
+    rank holds rank 0's codes and norms (its own ids). Numpy arrays;
+    ``ops(c, device)`` gives the wrapper's per-rank tensors."""
     from raft_tpu_torch.neighbors import ivf_pq as tpq
     from raft_tpu_torch.ops import kernels as tk
     from raft_tpu_torch.parallel.ivf import _chunk_unions
@@ -351,9 +355,15 @@ def ring_scan_case(pq_bits: int, n_dev: int = 4, m: int = 30, seed: int = 0,
     rot = S * P
     mc = tk.ring_chunk_rows(m, n_dev)
     NS = min(mc * n_probes, n_lists)
-    codes = rng.integers(0, Kb, (n_dev * n_lists * L, S)).astype(np.uint8)
-    packed = tpq.pack_bits(torch.tensor(codes), pq_bits).numpy().reshape(
-        n_dev, n_lists, L, -1)
+    if ties:
+        pool = rng.integers(0, Kb, (12, S)).astype(np.uint8)
+        codes = pool[rng.integers(0, 12, (n_lists, L))]
+        codes[1] = codes[0]
+        codes = np.broadcast_to(codes, (n_dev, n_lists, L, S)).reshape(-1, S)
+    else:
+        codes = rng.integers(0, Kb, (n_dev * n_lists * L, S)).astype(np.uint8)
+    packed = tpq.pack_bits(torch.tensor(np.ascontiguousarray(codes)),
+                           pq_bits).numpy().reshape(n_dev, n_lists, L, -1)
     ids = rng.permutation(n_dev * n_lists * L).astype(np.int32).reshape(
         n_dev, n_lists, L)
     ids[rng.random(ids.shape) < 0.1] = -1
@@ -362,11 +372,21 @@ def ring_scan_case(pq_bits: int, n_dev: int = 4, m: int = 30, seed: int = 0,
     valid = ids >= 0
     sizes = np.where(valid.any(2), L - np.argmax(valid[..., ::-1], axis=2),
                      0).astype(np.int32)
-    norms = rng.uniform(10, 60, (n_dev, n_lists, L)).astype(np.float32)
-    centers_rot = rng.standard_normal((n_lists, rot)).astype(np.float32) * 4
-    cb = rng.standard_normal((S, Kb, P)).astype(np.float32)
+    if ties:
+        norms = rng.integers(10, 60, (n_lists, L)).astype(np.float32)
+        norms[1] = norms[0]
+        norms = np.ascontiguousarray(np.broadcast_to(norms, (n_dev, n_lists, L)))
+        centers_rot = rng.integers(-3, 4, (n_lists, rot)).astype(np.float32)
+        centers_rot[1] = centers_rot[0]
+        cb = rng.integers(-2, 3, (S, Kb, P)).astype(np.float32)
+    else:
+        norms = rng.uniform(10, 60, (n_dev, n_lists, L)).astype(np.float32)
+        centers_rot = rng.standard_normal((n_lists, rot)).astype(
+            np.float32) * 4
+        cb = rng.standard_normal((S, Kb, P)).astype(np.float32)
     q = np.zeros((n_dev * mc, rot), np.float32)
-    q[:m] = rng.standard_normal((m, rot)).astype(np.float32) * 4
+    q[:m] = (rng.integers(-3, 4, (m, rot)).astype(np.float32) if ties else
+             rng.standard_normal((m, rot)).astype(np.float32) * 4)
     probes = np.stack([rng.choice(n_lists, n_probes, replace=False)
                        for _ in range(n_dev * mc)]).astype(np.int32)
     lists, ind = _chunk_unions(torch.tensor(probes).view(n_dev, mc, n_probes),
