@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 1. probe — a CUDA card must be present; prints the card's name and power
    limit as ``nvidia-smi`` reports them;
 2. build — compiles every kernel from ``raft_tpu_torch/ops/csrc`` with
-   ``nvcc`` (one process per source, all started together);
+   ``nvcc`` (one process per source, all started together) and prints
+   ptxas' registers and spill bytes of each kernel entry;
 3. IVF-PQ path — DEEP-10M-shaped synthetic data (10M x 96 f32, 10,000
    centers), ``ivf_pq.build`` with 8192 lists, pq_dim 64, 8-bit codes,
    then refined search of 10,000 queries in batches of 500 (n_probes 64,
@@ -23,7 +24,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    (fused_l2_argmin bound by its design's three TF32 products, with the
    time of ``torch.matmul`` alone at full fp32 on its row and its fp32
    bound logged; the LUT scan's shared-memory look-up floor logged beside
-   its bytes bound), and a stage breakdown of one batch;
+   its bytes bound; gather_refine_topk timed with the L2 cold, beside
+   its warm time, the kernel alone in a CUDA graph and the wrapper's host
+   time), and a stage breakdown of one batch;
 4. IVF-Flat path — the 1M x 128 ``make_synthetic_hard`` set of the repo's
    hard_config bench (``FLAT_N`` rows, not cut), ``ivf_flat.build`` with
    1024 lists, spill, cap factor 1.5; searches of 10,000 queries (k 10)
@@ -114,6 +117,66 @@ def _timed(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _timed_cold(fn, reps: int, flush_mb: int = 256) -> float:
+    """Mean ms of ``fn()`` with the L2 cold: a ``flush_mb`` MB buffer (over
+    five times the 50 MB L2) is read before each call, and CUDA events
+    bracket the call alone, so the buffer's own time is not in it (the
+    host enqueues the call while the card reads the buffer). Read, not
+    written: written lines would be dirty, and their write-backs would
+    fall on the call."""
+    import torch
+
+    flush = torch.ones(flush_mb << 18, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(reps):
+        flush.sum()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in marks) / reps
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Mean ms of the kernels of ``fn()`` alone: ``reps`` calls captured
+    in one CUDA graph, so the replay runs the launches without the
+    wrapper's Python (warm: back to back on the same inputs)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = _timed(graph.replay, 3) / reps
+    del graph
+    return ms
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Mean ms of the host's part of ``fn()``: the calls are enqueued
+    back to back without a synchronisation (checks, allocations, the
+    ctypes call), the card draining them behind."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def _timed_best(fn, reps: int, rounds: int = 5) -> float:
@@ -400,7 +463,8 @@ def _lut_scan_row(rows, path, launches, index, q0, n_probes, lut_dtype,
 def _refine_row(rows, path, launches, base, q0, cand, k, shape=""):
     """gather_refine_topk against its plain version on ``q0``'s candidates
     into ``base``: keys within 1e-5·(‖q‖² + |key|), ids equal away from key
-    ties; then its row."""
+    ties; then its row: ms with the L2 cold, beside the warm, kernel-alone
+    and host times."""
     import torch
 
     from raft_tpu_torch.ops import kernels as K
@@ -424,15 +488,20 @@ def _refine_row(rows, path, launches, base, q0, cand, k, shape=""):
         raise SmokeFailure("gather_refine_topk ids differ away from key ties")
     id_agree = float((gi == pi2).float().mean())
     C = cand.shape[1]
+    call = lambda: K.gather_refine_topk(base, q0, cand, k, "l2")  # noqa: E731
+    # what the caller sees: the rows cold (it runs after the LUT scan has
+    # streamed the codes); beside it warm back-to-back calls, the kernel
+    # alone (a CUDA graph of the launches) and the wrapper's host time
     _row(rows, path, "gather_refine_topk", "gather_refine.cu", 1176,
-         launches["gather_refine_topk"], err,
-         _timed(lambda: K.gather_refine_topk(base, q0, cand, k, "l2"), 50),
+         launches["gather_refine_topk"], err, _timed_cold(call, 30),
          _timed(lambda: K.gather_refine_topk_plain(base, q0, cand, k, "l2"),
                 10),
          B * C * dim * 4 + B * C * 4 + B * dim * 4 + B * k * 8,
          4.0 * B * C * dim, None,
          f"{shape}[{B},{C}] candidates into [{base.shape[0]},{dim}], k={k}, "
-         f"id agreement {id_agree:.6f}")
+         f"id agreement {id_agree:.6f}, ms with the L2 cold",
+         warm_ms=_timed(call, 50), kernel_ms=_graph_ms(call, 50),
+         host_ms=_host_ms(call, 20))
 
 
 def flat_phase(args, rows):
@@ -1147,8 +1216,6 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--batch", type=int, default=500)
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--verbose-build", action="store_true",
-                    help="print nvcc's -Xptxas -v register/smem report")
     args = ap.parse_args(argv)
 
     import torch
@@ -1181,10 +1248,14 @@ def main(argv=None) -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    per_src = kbuild.build_all(verbose=args.verbose_build)
+    per_src = kbuild.build_all()
     _log(f"[build] {len(per_src)} kernels in "
          f"{time.perf_counter() - t0:.1f} s: "
          + ", ".join(f"{k} {v:.1f}s" for k, v in per_src.items()))
+    for src, entries in kbuild.register_report().items():
+        _log(f"[build] {src} (ptxas): " + "; ".join(
+            f"{e} {r} registers, spills {st}/{ld} bytes stored/loaded"
+            for e, r, st, ld in entries))
 
     # 3. the IVF-PQ path
     N, dim, B = args.n, 96, args.batch

@@ -8,7 +8,10 @@ Two tiers, chosen by shape as in the JAX package:
 
 - **fused** — the hand-written gather-refine kernel (no ``[m, C, d]``
   gather buffer) for oversampled shapes: k ≤ 64, C ≥ 256, and C ≥ 400 or
-  a gather buffer of ≥ 1 GB, on an f32 dataset;
+  a gather buffer of ≥ 1 GB, on an f32 dataset — the JAX package's rule
+  (``pallas_gather_refine_wanted``). Its VMEM model of the TPU kernel's
+  row block has no counterpart: the CUDA kernel holds no row or key block,
+  so it takes any C and any d;
 - **gather** — gather the candidate rows and re-rank with one batched
   product, then select.
 
@@ -98,8 +101,6 @@ def _fused_refine_wanted(dataset, queries, candidates, k: int) -> bool:
                                    row_align=1):
         return False
     if k > _k.GATHER_REFINE_MAX_K or C < 2 * _k.LUT_SCAN_LANES:
-        return False
-    if (d + C) * 4 > _k._MAX_SMEM:
         return False
     return C >= 400 or m * C * d * 4 >= (1 << 30)
 

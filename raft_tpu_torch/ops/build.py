@@ -9,7 +9,9 @@ a plain C interface::
 at first use, into ``raft_tpu_torch/_build/`` (listed in ``.gitignore``),
 and is loaded with ``ctypes``. All sources build in parallel, one
 ``nvcc`` each. The library file name carries a hash of its sources, so a
-changed kernel rebuilds and an unchanged one is reused.
+changed kernel rebuilds and an unchanged one is reused. ``ptxas -v``'s
+report (registers and spills of each kernel entry) is kept for the sources
+a process builds: :func:`register_report`.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,6 +45,8 @@ class _Libraries:
         self._lock = threading.Lock()
         self._libs: Dict[str, ctypes.CDLL] = {}
         self.build_seconds: Dict[str, float] = {}
+        # ptxas' report of each source built here (registers, spills)
+        self.build_logs: Dict[str, str] = {}
 
     def get(self, name: str) -> ctypes.CDLL:
         lib = self._libs.get(name)
@@ -50,7 +55,7 @@ class _Libraries:
             lib = self._libs[name]
         return lib
 
-    def build_all(self, verbose: bool = False) -> Dict[str, float]:
+    def build_all(self) -> Dict[str, float]:
         """Compile every source not yet built (all ``nvcc`` processes
         started together) and load them. Returns seconds per source."""
         with self._lock:
@@ -67,11 +72,9 @@ class _Libraries:
                     self.build_seconds[name] = 0.0
                     continue
                 tmp = f"{out}.{os.getpid()}.tmp"
-                cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-                       "-Xcompiler", "-fPIC", "-lineinfo", "-o", tmp,
+                cmd = [nvcc, "-Xptxas=-v", *ARCH_FLAGS, "-std=c++17", "-O3",
+                       "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-o", tmp,
                        os.path.join(CSRC, f"{name}.cu")]
-                if verbose:
-                    cmd.insert(1, "-Xptxas=-v")
                 procs[name] = (subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                     text=True), tmp, out)
@@ -79,8 +82,7 @@ class _Libraries:
             for name, (proc, tmp, out) in procs.items():
                 log, _ = proc.communicate()
                 self.build_seconds[name] = time.perf_counter() - t0
-                if verbose and log:
-                    print(f"[nvcc {name}]\n{log}", flush=True)
+                self.build_logs[name] = log or ""
                 if proc.returncode != 0:
                     errors.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
                 else:
@@ -159,6 +161,44 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
 LIBRARIES = _Libraries()
 
 
-def build_all(verbose: bool = False) -> Dict[str, float]:
+def build_all() -> Dict[str, float]:
     """Build and load every kernel library; seconds per source."""
-    return LIBRARIES.build_all(verbose=verbose)
+    return LIBRARIES.build_all()
+
+
+def _kernel_name(mangled: str) -> str:
+    """The ``*_kernel`` name in a mangled entry (each name is prefixed by
+    its length) and its template arguments, still mangled (``ILi4EE``).
+    The digits of a hash can run into a length, and a wrong length can
+    land on "_kernel" too, so the shortest such name is the kernel's."""
+    found = []
+    for m in re.finditer(r"\d+(?=[A-Za-z_])", mangled):
+        for a in range(m.start(), m.end()):
+            name = mangled[m.end():m.end() + int(mangled[a:m.end()])]
+            if name.endswith("_kernel"):
+                targs = re.match(r"I.*?EE", mangled[m.end() + len(name):])
+                found.append(name + (targs.group(0) if targs else ""))
+    return min(found, key=len) if found else mangled
+
+
+def register_report() -> Dict[str, list]:
+    """Per source built in this process, each kernel entry's registers and
+    spill bytes as ptxas reported them: [(entry, registers, spill stores,
+    spill loads)]."""
+    out = {}
+    for name, log in LIBRARIES.build_logs.items():
+        rows, entry, spill = [], None, (0, 0)
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                entry = _kernel_name(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                spill = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry is not None:
+                rows.append((entry, int(m.group(1)), *spill))
+                entry, spill = None, (0, 0)
+        out[name] = rows
+    return out

@@ -21,31 +21,80 @@
 //
 // Design: the distance tile is the segmented kernel's (scan_common.cuh:
 // one block of 256 threads per segment and group of 32 live queries, 3xTF32
-// mma.sync fragments, a cp.async ring, rows walked to the list's last valid
-// id; two blocks an SM, so one block's merges run beside the other's
-// products). Each 128-row tile's [32, 128] keys go from the fragments to shared
-// memory; then each warp merges its four queries' rows into their sorted
-// kk-buffers with the warp-cooperative buffer of topk_common.cuh (ballot of
-// the lanes that beat the buffer's last entry, then one ordered insert
-// each), ordered on (key, position): the TPU kernel's tie rule. Masked rows
-// are never offered. The merges run while the next tile's slices load.
+// mma.sync fragments, a cp.async ring per warp, rows walked to the list's
+// last valid id; two blocks an SM). The selection (select_common.cuh):
+// - Each warp owns four of the block's queries, their sorted kk-buffers in
+//   shared memory and their thresholds (the buffers' kk-th keys) in
+//   registers.
+// - At the end of each 128-row tile every thread writes its 16 keys to the
+//   tile's [32, 128] key block; one barrier; each warp reads its queries'
+//   rows (4 keys a lane), tests them against the exact thresholds in
+//   registers, and inserts the few that pass into the buffer held one
+//   entry a lane, by a shuffle shift a key; a second barrier frees the
+//   block for the next tile. In random order about kk / (t + 1) keys of a
+//   query pass in tile t (~21 of 1536 at kk 10); in tile 0 the kk-th
+//   smallest of the 32 lane minima (a warp bitonic sort, kk <= 32) bounds
+//   the keys.
+// A barrier-free design (every warp testing its 16 keys against all 32
+// queries' shared, stale thresholds and queueing the survivors, merged
+// under per-query locks) took 7.37 ms on the main path's table against
+// this one's 5.34, in turns on an H100 (700 W): its stale thresholds
+// pass about kk (1 + ln(L / kk)) keys a query (~60 at kk 10), and the
+// kernel is issue-bound, so every queued key cost time.
+// Order is (key, position) throughout: the TPU kernel's tie rule. Masked
+// rows are never offered.
 #include <climits>
 
 #include "scan_common.cuh"
-#include "topk_common.cuh"
+#include "select_common.cuh"
 
 namespace {
 
 using namespace rtt_scan;
 
-constexpr int kDistStride = kRows + 1;
-constexpr int kS = 3;  // stages of each warp's ring
-constexpr int kPerWarp = kQG / kWarps;  // queries merged by each warp
+constexpr int kS = 3;                     // stages of each warp's ring
+constexpr int kPerWarp = kQG / kWarps;    // queries a warp owns
+constexpr int kKeyStride = kRows + 1;     // the tile's keys: [kQG][kRows + 1]
 
 template <typename T, bool kQRes>
 size_t dyn_smem_bytes(int d, int kk) {
+  // + the tile's keys, the buffers [kQG][kk] of keys and of positions
   return ring_bytes<T, kQRes, kS>() + (kQRes ? qres_bytes(d) : 0) +
-         ((size_t)kQG * kDistStride + 2 * (size_t)kQG * kk) * sizeof(float);
+         ((size_t)kQG * kKeyStride + 2 * (size_t)kQG * kk) * sizeof(float);
+}
+
+// One tile of one query, by its warp: the tile's keys (row r at key[r],
+// +inf where masked) against the threshold tq, the keys that pass inserted
+// into the sorted buffer (bv, bp) of kk slots. Returns the new threshold.
+__device__ __forceinline__ float merge_tile(const float* key, int t0, int kk, float* bv,
+                                            int* bp, float tq, int lane) {
+  float v[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) v[c] = key[lane + 32 * c];
+  float b = tq;
+  if (t0 == 0 && kk <= 32) {  // the kk-th of 32 of the keys bounds the kk-th
+    const float mn = rtt_sel::warp_sort(fminf(fminf(v[0], v[1]), fminf(v[2], v[3])),
+                                        lane);
+    b = fminf(b, __shfl_sync(rtt_sel::kFull, mn, kk - 1));
+  }
+  unsigned m[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    m[c] = __ballot_sync(rtt_sel::kFull, v[c] != CUDART_INF_F && v[c] <= b);
+  if ((m[0] | m[1] | m[2] | m[3]) == 0) return tq;
+  rtt_sel::LaneRun run;
+  run.load(bv, bp, kk, lane);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    unsigned mm = m[c];
+    while (mm) {
+      const int src = __ffs(mm) - 1;
+      mm &= mm - 1;
+      run.insert(__shfl_sync(rtt_sel::kFull, v[c], src), t0 + src + 32 * c, kk, lane);
+    }
+  }
+  run.store(bv, bp, kk, lane);
+  return run.last(kk);
 }
 
 template <typename T, bool kQRes>
@@ -59,10 +108,10 @@ grouped_scan_kernel(const int* __restrict__ seg_list, const int* __restrict__ se
   extern __shared__ __align__(16) char dyn[];
   char* ring = dyn;
   float2* qres = reinterpret_cast<float2*>(dyn + ring_bytes<T, kQRes, kS>());
-  float* dist = reinterpret_cast<float*>(dyn + ring_bytes<T, kQRes, kS>() +
-                                         (kQRes ? qres_bytes(d) : 0));  // [kQG][kDistStride]
-  float* sv = dist + kQG * kDistStride;      // [kQG][kk] sorted keys
-  int* si = reinterpret_cast<int*>(sv + kQG * kk);  // [kQG][kk] positions
+  float* tkey = reinterpret_cast<float*>(dyn + ring_bytes<T, kQRes, kS>() +
+                                         (kQRes ? qres_bytes(d) : 0));  // [kQG][kKeyStride]
+  float* bv = tkey + kQG * kKeyStride;               // [kQG][kk] sorted keys
+  int* bp = reinterpret_cast<int*>(bv + kQG * kk);   // [kQG][kk] positions
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -79,21 +128,13 @@ grouped_scan_kernel(const int* __restrict__ seg_list, const int* __restrict__ se
   const int* lid = ids + lst * (long)L;
   const int n_rows = list_rows(lid, L, st);
   if constexpr (kQRes) split_queries(qres, q, d, st, nq);
-  float qsq[kMT][2];
+  rtt_sel::buffer_init(bv, bp, kQG * kk);
+  float tq[kPerWarp];  // the owned queries' thresholds
 #pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int qi = 16 * i + g + 8 * h;
-      qsq[i][h] = qi < nq ? st.qsq[qi] : 0.f;
-    }
-  int cnt[kPerWarp];
-#pragma unroll
-  for (int u = 0; u < kPerWarp; ++u) cnt[u] = 0;
+  for (int u = 0; u < kPerWarp; ++u) tq[u] = CUDART_INF_F;
 
   scan_tiles<T, kQRes, kS>(ring, qres, list, lid, n_rows, d, q, st, nq, xvec, qvec,
                            [&](int t0, auto& acc, auto& xn, auto& id) {
-    __syncthreads();  // every warp's merges of the previous tile are done
 #pragma unroll
     for (int i = 0; i < kMT; ++i)
 #pragma unroll
@@ -101,27 +142,21 @@ grouped_scan_kernel(const int* __restrict__ seg_list, const int* __restrict__ se
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int qi = 16 * i + g + 8 * (c >> 1);
-          if (qi < nq) {
-            const int e = c & 1;
-            dist[qi * kDistStride + 16 * warp + 8 * j + 2 * t + e] =
-                id[j][e] >= 0
-                    ? scan_key(metric, acc[i][j][c], qsq[i][c >> 1], xn[j][e])
-                    : CUDART_INF_F;
-          }
+          const int e = c & 1;
+          if (qi < nq)
+            tkey[qi * kKeyStride + 16 * warp + 8 * j + 2 * t + e] =
+                id[j][e] >= 0 ? scan_key(metric, acc[i][j][c], st.qsq[qi], xn[j][e])
+                              : CUDART_INF_F;
         }
-    __syncthreads();
+    __syncthreads();  // the tile's keys are in
 #pragma unroll
     for (int u = 0; u < kPerWarp; ++u) {
       const int qi = warp + u * kWarps;
-      if (qi < nq) {
-        const float* row = dist + qi * kDistStride;
-        for (int c = 0; c < kRows; c += 32) {
-          const float v = row[c + lane];
-          cnt[u] = rtt::warp_offer(v, t0 + c + lane, v != CUDART_INF_F, kk,
-                                   sv + qi * kk, si + qi * kk, cnt[u], lane);
-        }
-      }
+      if (qi < nq)
+        tq[u] = merge_tile(tkey + qi * kKeyStride, t0, kk, bv + qi * kk, bp + qi * kk,
+                           tq[u], lane);
     }
+    __syncthreads();  // every warp has read them
   });
 #pragma unroll
   for (int u = 0; u < kPerWarp; ++u) {
@@ -129,9 +164,9 @@ grouped_scan_kernel(const int* __restrict__ seg_list, const int* __restrict__ se
     if (qi < nq) {
       const long o = (s * S + st.slot[qi]) * kk;
       for (int j = lane; j < kk; j += 32) {
-        const bool f = j < cnt[u];
-        out_keys[o + j] = f ? sv[qi * kk + j] : CUDART_INF_F;
-        out_pos[o + j] = f ? si[qi * kk + j] : -1;
+        const float v = bv[qi * kk + j];
+        out_keys[o + j] = v;
+        out_pos[o + j] = v == CUDART_INF_F ? -1 : bp[qi * kk + j];
       }
     }
   }

@@ -536,7 +536,9 @@ def gather_refine_topk(dataset: torch.Tensor, queries: torch.Tensor,
     """Fused exact re-rank: dataset [n, d] f32, queries [m, d] f32,
     candidates [m, C] i32 (−1 invalid, others clipped for the fetch) →
     (keys [m, k] ascending, ids [m, k], −1 where fewer than k valid).
-    Keys: l2 squared distance, ip −score, cos cosine distance."""
+    Keys: l2 squared distance, ip −score, cos cosine distance; ties to the
+    earliest candidate. Any C: the kernel streams the keys through a
+    running top-k and keeps no [C] array."""
     _check(dataset, "dataset", torch.float32, 2)
     _check(queries, "queries", torch.float32, 2)
     _check(candidates, "candidates", torch.int32, 2)
@@ -550,8 +552,6 @@ def gather_refine_topk(dataset: torch.Tensor, queries: torch.Tensor,
     if not _use_kernel(dataset, queries, candidates):
         return gather_refine_topk_plain(dataset, queries, candidates, k,
                                         metric)
-    expects((d + C) * 4 <= _MAX_SMEM, "C=%d candidates exceed shared memory",
-            C)
     out_v = torch.empty((m, k), dtype=torch.float32, device=queries.device)
     out_i = torch.empty((m, k), dtype=torch.int32, device=queries.device)
     rc = _lib("gather_refine").rtt_gather_refine_topk(

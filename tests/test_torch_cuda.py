@@ -14,6 +14,8 @@ away from key ties; gather-refine keys rtol 1e-5 with ids equal away from
 key ties; segmented and grouped scans keys within 1e-4 + 1e-5·(|key| +
 ‖q‖²) (the expanded l2 form cancels ‖q‖² + ‖x‖²), the same finite/infinite
 pattern, ids or positions equal away from key ties, sentinels on pad slots;
+gather-refine and the grouped scan on small integer rows (exact keys, many
+ties) keys and ids or positions bit for bit;
 the ring merge exact (values and ids, ties included); the fused
 scan-in-ring keys rtol 1e-4, atol 1e-3 with ids equal away from key ties
 (the f64 key of the kernel's pick within that tolerance of the plain key),
@@ -263,6 +265,49 @@ def test_cuda_gather_refine_matches_plain(metric, k):
     assert bool((i[0, 4:] == -1).all())
 
 
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+# (m, C, d, k): every m of {1, 7, 500}, C of {256, 400, 2000, 60,000}, d of
+# {16, 37, 96, 128, 960} and k of {1, 10, 64}, not their product (the plain
+# version gathers [m, C, d]); d 37 takes 4-byte loads, the others 16-byte
+REFINE_SHAPES = [(1, 256, 16, 1), (7, 400, 37, 10), (500, 400, 96, 10),
+                 (500, 400, 128, 64), (7, 2000, 960, 64), (1, 60_000, 37, 10),
+                 (7, 60_000, 96, 64), (500, 256, 16, 1), (500, 2000, 128, 10),
+                 (7, 256, 960, 1), (1, 2000, 96, 64), (500, 400, 37, 1),
+                 (1, 60_000, 128, 1), (7, 400, 16, 64)]
+
+
+@pytest.mark.parametrize("m,C,d,k", REFINE_SHAPES)
+def test_cuda_gather_refine_shapes(m, C, d, k):
+    """Any C (the kernel keeps no [C] array), invalid and out-of-range ids
+    (refine_case), every metric: on random rows keys rtol 1e-5 and ids
+    equal away from key ties; on small integer rows (exact keys, many
+    ties) keys and ids bit for bit."""
+    dev = cuda_device()
+    for ties in (False, True):
+        data, q, cand = (torch.tensor(a).to(dev) for a in refine_case(
+            seed=m + C + d + k, m=m, C=C, n=20_000, d=d, ties=ties))
+        for metric in ("l2", "ip", "cos"):
+            v, i = K.gather_refine_topk(data, q, cand, k, metric)
+            pv, pi = K.gather_refine_topk_plain(data, q, cand, k, metric)
+            assert v.shape == (m, k) and i.dtype == torch.int32
+            if ties:
+                assert torch.equal(_bits(v), _bits(pv)), (metric, ties)
+                assert torch.equal(i, pi), (metric, ties)
+                continue
+            torch.testing.assert_close(v, pv, rtol=1e-5, atol=1e-5)
+            tol = 1e-5 * (1.0 + pv.abs())
+            gap = (pv[:, 1:] - pv[:, :-1]).abs() <= tol[:, 1:]
+            tie = torch.zeros_like(pv, dtype=torch.bool)
+            tie[:, 1:] |= gap
+            tie[:, :-1] |= gap
+            tie[:, -1] = True
+            assert bool(((i == pi) | tie).all()), metric
+            assert bool((i[0, 4:] == -1).all())
+
+
 # (d, L, bf16 list data): every d of {16, 96, 128, 960} and L of {96, 300,
 # 1536}, both list dtypes; each case holds empty trailing segments. d 100
 # and 37 are not multiples of 8: their rows take 8- and 4-byte copies, and
@@ -297,6 +342,26 @@ def test_cuda_grouped_scan_matches_plain(d, L, bf16):
             assert tk.shape == (len(c["seg_list"]), c["seg_q"].shape[1], kk)
             assert_scan_match(tk.cpu(), tp.cpu(), pk.cpu(), pp.cpu(), c,
                               metric, "pos", rtol=1e-5, atol=1e-4)
+
+
+# (d, L, bf16): integer rows whose keys are exact on both sides (the
+# 3xTF32 split of a small integer is exact): L 1536 and 4992 walk 12 and 39
+# tiles, so at kk 64 the queues fill and merge many times
+FLAT_INT_CASES = [(16, 1536, False), (128, 1536, True), (37, 300, False),
+                  (96, 4992, False), (128, 77, False)]
+
+
+@pytest.mark.parametrize("d,L,bf16", FLAT_INT_CASES)
+def test_cuda_grouped_scan_integer_keys_bit_for_bit(d, L, bf16):
+    dev = cuda_device()
+    c = flat_scan_case(L, d, bf16, seed=3, ties=True)
+    args = flat_scan_operands(c, dev)
+    for metric in ("l2", "ip"):
+        for kk in (1, 10, 64):
+            tk, tp = K.grouped_scan_topk(*args, kk, metric)
+            pk, pp = K.grouped_scan_topk_plain(*args, kk, metric)
+            assert torch.equal(_bits(tk), _bits(pk)), (metric, kk)
+            assert torch.equal(tp, pp), (metric, kk)
 
 
 def test_cuda_launch_counts_move():

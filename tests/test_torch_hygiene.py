@@ -160,6 +160,30 @@ def test_build_without_nvcc_raises(monkeypatch):
         kbuild._find_nvcc()
 
 
+def test_register_report_reads_ptxas(monkeypatch):
+    """The smoke's register lines: each kernel entry's name (template
+    arguments still mangled), registers and spill bytes from ptxas -v."""
+    log = (
+        "ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__a1f5fcff_15"
+        "_grouped_scan_cu_4eb6c0c519grouped_scan_kernelIfLb1EEEvPKiS2_PKfPKT_"
+        "S2_PfPiiiiiiiii' for 'sm_90a'\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 44 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers, 4528 bytes smem\n"
+        "ptxas info    : Compiling entry function '_Z15select_k_kernelPf' for "
+        "'sm_90a'\n"
+        "ptxas info    : Used 40 registers, used 1 barriers\n")
+    monkeypatch.setattr(kbuild.LIBRARIES, "build_logs", {"x": log})
+    assert kbuild.register_report() == {"x": [
+        ("grouped_scan_kernelIfLb1EE", 128, 4, 44),
+        ("select_k_kernel", 40, 0, 0)]}
+    # a hash whose digits make another length that also ends on "_kernel"
+    name = ("_ZN49_GLOBAL__N__8cdbf2dd_16_gather_refine_cu_39c925a020gather_"
+            "refine_kernelILi1EEEvPKfliS2_PKiiiiPfPi")
+    for h in ("8cdbf2dd", "cdbf2d51"):
+        assert kbuild._kernel_name(name.replace("8cdbf2dd", h)) == \
+            "gather_refine_kernelILi1EE"
+
+
 def test_build_dir_is_ignored_by_git():
     with open(os.path.join(ROOT, ".gitignore")) as f:
         lines = f.read().split()

@@ -349,18 +349,225 @@ def test_lut_scan_rejects_folded_codes():
 # gather-refine
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
-@pytest.mark.parametrize("k", [10, 64])
-def test_gather_refine_plain_matches_pallas(metric, k):
-    data, q, cand = refine_case(seed=k)
+# (k, metric, ties): every metric at k 10 and 64 on random rows (keys rtol
+# 1e-5), and the same on small integer rows, whose keys are exact and tie
+# often: there keys and ids are held equal bit for bit (the first-index tie
+# rule of the TPU kernel's extraction merge against the stable sort)
+_REFINE_CASES = [pytest.param(k, metric, ties,
+                              id=f"{k}-{metric}" + ("-ties" if ties else ""))
+                 for ties in (False, True) for k in (10, 64)
+                 for metric in ("l2", "ip", "cos")]
+
+
+@pytest.mark.parametrize("k,metric,ties", _REFINE_CASES)
+def test_gather_refine_plain_matches_pallas(k, metric, ties):
+    data, q, cand = refine_case(seed=k, ties=ties, d=16 if ties else 40)
     jk, ji = pk.gather_refine_topk(jnp.asarray(data), jnp.asarray(q),
                                    jnp.asarray(cand), k, metric,
                                    interpret=True)
     tk, ti = K.gather_refine_topk(_t(data), _t(q), _t(cand), k, metric)
-    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), rtol=1e-5,
-                               atol=1e-6)
+    if ties:
+        np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+        # the case ties: many keys at each of the k best levels
+        assert (np.diff(tk.numpy()[1:], axis=1) == 0).mean() > 0.1
+    else:
+        np.testing.assert_allclose(tk.numpy(), np.asarray(jk), rtol=1e-5,
+                                   atol=1e-6)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     assert (ti.numpy()[0, 4:] == -1).all()
+
+
+def test_fused_refine_rule_is_the_jax_rule(monkeypatch):
+    """refine's fused-tier rule against pallas_gather_refine_wanted (as on
+    a TPU) up to C 60,000: k within 64, C at least 256, and C at least 400
+    or a gather of 1 GB. No C cap: the kernel keeps no [C] array."""
+    from raft_tpu_torch.neighbors import refine as trefine
+
+    monkeypatch.setattr(pk, "_on_tpu", lambda: True)
+    monkeypatch.delenv("RAFT_TPU_PALLAS_REFINE", raising=False)
+    cases = 0
+    for d in (96, 128, 960):
+        data = torch.zeros((16, d), dtype=torch.float32)
+        for m in (1, 500, 12_000):
+            q = torch.zeros((1, d)).expand(m, d)
+            for C in (200, 256, 300, 400, 2000, 60_000):
+                cand = torch.zeros((1, 1), dtype=torch.int32).expand(m, C)
+                for k in (1, 10, 64, 65):
+                    want = pk.pallas_gather_refine_wanted(m, C, d, k)
+                    assert trefine._fused_refine_wanted(data, q, cand, k) == \
+                        want, (m, C, d, k)
+                    cases += want
+    assert cases > 0
+
+
+# ---------------------------------------------------------------------------
+# the top-k selection of gather_refine.cu and grouped_scan.cu
+# (csrc/select_common.cuh), replayed in numpy
+# ---------------------------------------------------------------------------
+
+_SENTINEL = (float("inf"), 2**31 - 1)
+
+
+def _less(a, b) -> bool:
+    return a[0] < b[0] or (a[0] == b[0] and a[1] < b[1])
+
+
+class _LaneRun:
+    """LaneRun: a warp's sorted run, slot j in lane j (and 32 + j when kk >
+    32); a key goes in by shifting the slots after it down one, slots past
+    kk keep what falls off the end."""
+
+    def __init__(self, buf, kk):
+        self.kk = kk
+        self.slots = list(buf) + [_SENTINEL] * ((32 if kk <= 32 else 64) - kk)
+
+    def insert(self, x):
+        old = self.slots
+        self.slots = [(old[s - 1] if s > 0 and _less(x, old[s - 1]) else x)
+                      if _less(x, old[s]) else old[s] for s in range(len(old))]
+
+    def last(self) -> float:
+        return self.slots[self.kk - 1][0]
+
+    def buffer(self):
+        assert self.slots[:self.kk] == sorted(self.slots[:self.kk])
+        return self.slots[:self.kk]
+
+
+class _SharedTopK:
+    """gather_refine.cu's shared buffer and threshold; ``read`` returns a
+    stale threshold (any earlier value), as a warp may see it."""
+
+    def __init__(self, kk, rng):
+        self.kk, self.rng = kk, rng
+        self.buf = [_SENTINEL] * kk
+        self.history = [float("inf")]
+
+    def read(self) -> float:
+        return self.history[-1 - int(self.rng.integers(0, min(
+            3, len(self.history))))]
+
+    def flush(self, items):
+        """warp_flush: the queue's entries not above the kk-th key go into
+        the run one by one, in queue order."""
+        assert len(items) <= 32
+        run = _LaneRun(self.buf, self.kk)
+        for x in [x for x in items if x[0] <= run.last()]:
+            run.insert(x)
+        self.buf = run.buffer()
+        assert self.buf[-1][0] <= self.history[-1]   # it only falls
+        self.history.append(self.buf[-1][0])
+
+
+def _interleave(n_warps, n_steps, rng):
+    """A schedule of (warp, step) in which each warp runs its steps in
+    order and the warps drift apart at random."""
+    left = [list(range(n_steps)) for _ in range(n_warps)]
+    order = []
+    while any(left):
+        w = int(rng.choice([w for w in range(n_warps) if left[w]]))
+        order.append((w, left[w].pop(0)))
+    return order
+
+
+def _model_gather_refine(keys, k, cap, rng):
+    """gather_refine.cu: 4 warps take 16 candidates a step (warp w's steps
+    at 16 w + 64 s); a candidate is offered when its key is finite and <=
+    the (stale) threshold; a warp merges its queue of ``cap`` entries
+    under the lock before a step's offers would overflow it, then filters
+    them again; each warp merges what is left."""
+    n_warps, step = 4, 16
+    top = _SharedTopK(k, rng)
+    queue = [[] for _ in range(n_warps)]
+    n_steps = -(-len(keys) // (n_warps * step))
+    for w, s in _interleave(n_warps, n_steps, rng):
+        c0 = (s * n_warps + w) * step
+        offer = [(float(keys[c]), c) for c in range(c0, min(c0 + step,
+                                                            len(keys)))
+                 if np.isfinite(keys[c])]
+        t = top.read()
+        passing = [e for e in offer if e[0] <= t]
+        if passing and len(queue[w]) + len(passing) > cap:
+            top.flush(queue[w])
+            queue[w] = []
+            t = top.history[-1]
+            passing = [e for e in passing if e[0] <= t]
+        queue[w] += passing
+    for w in rng.permutation(n_warps):
+        if queue[w]:
+            top.flush(queue[w])
+    return top.buf
+
+
+def _model_grouped_scan(keys, kk):
+    """grouped_scan.cu, one query, by the warp that owns it: each 128-row
+    tile's keys (lane l holds rows l, l + 32, l + 64, l + 96) against the
+    threshold, the buffer's kk-th key; in tile 0 the kk-th smallest of the
+    32 lane minima bounds them (kk <= 32); the keys that pass go into the
+    run in (row // 32, lane) order."""
+    run = _LaneRun([_SENTINEL] * kk, kk)
+    thr = float("inf")
+    n_tiles = -(-len(keys) // 128)
+    padded = np.full(n_tiles * 128, np.inf, dtype=np.float32)
+    padded[:len(keys)] = keys
+    for tile in range(n_tiles):
+        v = padded[tile * 128:(tile + 1) * 128]
+        b = thr
+        if tile == 0 and kk <= 32:
+            b = min(b, float(np.sort(v.reshape(4, 32).min(0))[kk - 1]))
+        passing = [(float(v[r]), tile * 128 + r) for r in range(128)
+                   if np.isfinite(v[r]) and v[r] <= b]
+        if tile == 0:   # the bound keeps the tile's kk best
+            best = sorted((float(v[r]), r) for r in range(128)
+                          if np.isfinite(v[r]))
+            assert set(best[:kk]) <= set(passing)
+        for x in passing:
+            run.insert(x)
+        thr = run.last()
+    return run.buffer()
+
+
+def _tie_heavy_keys(kk, L, descending=False):
+    rng = np.random.default_rng(kk * 10_000 + L)
+    keys = rng.integers(-3, 9, L).astype(np.float32)
+    keys[rng.random(L) < 0.1] = np.inf
+    if descending:   # keys that fall along the list: each tile's pass
+        keys = np.sort(keys)[::-1].copy()
+    elif L > 300:    # a descending run: the threshold keeps falling
+        keys[128:300] = np.arange(172, 0, -1) % 9 - 4
+    return rng, keys
+
+
+def _stable_topk(keys, kk):
+    order = np.argsort(keys, kind="stable")[:kk]
+    want = [(float(keys[p]), int(p)) if np.isfinite(keys[p]) else _SENTINEL
+            for p in order]
+    return want + [_SENTINEL] * (kk - len(want))
+
+
+@pytest.mark.parametrize("cap", ["kernel", "smallest"])
+@pytest.mark.parametrize("L", [77, 400, 1536, 4992])
+@pytest.mark.parametrize("kk", [1, 10, 64])
+def test_streamed_selection_model_is_a_stable_sort(kk, L, cap):
+    """gather_refine.cu's order of offers, stale thresholds and queue
+    flushes (at the kernel's queue of 32 and at the smallest it admits,
+    16: one step of a warp) on integer keys with many ties and masked rows
+    give the stable sort's top-k in (key, position) order."""
+    rng, keys = _tie_heavy_keys(kk, L)
+    got = _model_gather_refine(keys, kk, 32 if cap == "kernel" else 16, rng)
+    assert got == _stable_topk(keys, kk)
+
+
+@pytest.mark.parametrize("order", ["random", "descending"])
+@pytest.mark.parametrize("L", [77, 400, 1536, 4992])
+@pytest.mark.parametrize("kk", [1, 10, 64])
+def test_tile_selection_model_is_a_stable_sort(kk, L, order):
+    """grouped_scan.cu's tiles (the tile-0 bound, the owner's threshold,
+    the shifting insert) on integer keys with many ties and masked rows,
+    in random order and falling along the list (every tile's keys pass),
+    give the stable sort's top-kk in (key, position) order."""
+    _, keys = _tie_heavy_keys(kk, L, descending=order == "descending")
+    assert _model_grouped_scan(keys, kk) == _stable_topk(keys, kk)
 
 
 def test_segment_probes_matches_jax():
@@ -412,12 +619,20 @@ def test_segmented_scan_plain_matches_pallas(metric, L, d, bf16):
                       c, metric, "ids")
 
 
-@pytest.mark.parametrize("kk", [1, 10, 64])
-@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
-def test_grouped_scan_plain_matches_pallas(metric, kk):
+# (metric, kk, ties): every metric at kk 1, 10 and 64 on random rows, and
+# l2 and ip on small integer rows (exact keys, tie-heavy), held to the JAX
+# kernel bit for bit, ties to the lowest position
+_GROUPED_CASES = [pytest.param(metric, kk, ties,
+                               id=f"{metric}-{kk}" + ("-ties" if ties else ""))
+                  for ties in (False, True) for metric in ("l2", "ip", "cos")
+                  for kk in (1, 10, 64) if not (ties and metric == "cos")]
+
+
+@pytest.mark.parametrize("metric,kk,ties", _GROUPED_CASES)
+def test_grouped_scan_plain_matches_pallas(metric, kk, ties):
     L, d, bf16 = {1: (96, 16, False), 10: (300, 64, True),
                   64: (1408, 16, False)}[kk]
-    c = flat_scan_case(L, d, bf16, seed=kk)
+    c = flat_scan_case(L, 16 if ties else d, bf16, seed=kk, ties=ties)
     qv, packed = _jax_scan_inputs(c)
     G = c["seg_list"]
     mask = np.where(c["ids"] >= 0, 0.0, np.inf).astype(np.float32)[G]
@@ -425,6 +640,14 @@ def test_grouped_scan_plain_matches_pallas(metric, kk):
                                   metric, bq=qv.shape[1], interpret=True)
     tk, tp = K.grouped_scan_topk(*flat_scan_operands(c), kk, metric)
     assert tk.shape == jk.shape and tp.dtype == torch.int32
+    if ties:
+        live = c["seg_q"] >= 0
+        np.testing.assert_array_equal(tk.numpy()[live], np.asarray(jk)[live])
+        np.testing.assert_array_equal(tp.numpy()[live], np.asarray(jp)[live])
+        if kk > 1:
+            fin = np.isfinite(tk.numpy()[live])
+            assert (np.diff(tk.numpy()[live], axis=1)[fin[:, 1:]]
+                    == 0).mean() > 0.1
     assert_scan_match(tk.numpy(), tp.numpy(), np.asarray(jk), np.asarray(jp),
                       c, metric, "pos")
 

@@ -2,11 +2,12 @@
 """Time one of this tree's kernels against the one of another checkout,
 in turns, on one card.
 
-    python3 tests/torch_kernel_ab.py --other DIR
+    python3 tests/torch_kernel_ab.py --other DIR [--other DIR2 ...]
         [--kernel select_k|ring_topk_merge|fused_l2_argmin|ivfpq_lut_scan|
-                  ring_lut_scan_merge|segmented_scan|grouped_scan]
+                  ring_lut_scan_merge|segmented_scan|grouped_scan|
+                  gather_refine]
         [--rounds R] [--n ROWS] [--seed S]
-        [--wide | --flat-build]
+        [--wide | --flat-build | --flat-phase]
 
 DIR is the root of another checkout of the repo, for example a parent
 commit unpacked with ``git archive``. Its source of the kernel
@@ -20,7 +21,12 @@ Each round times this tree's kernel (``this``) and the other's
 ``reps`` calls with CUDA events, and prints one JSON line per timing; a
 summary line says whether the two kernels' outputs agree: bit for bit
 where the arithmetic is the same, else within the tolerance stated with
-the kernel below. Needs a card and ``nvcc``.
+the kernel below. Needs a card and ``nvcc``. The kernels timed through
+their wrappers (all but ``ivfpq_lut_scan``, ``gather_refine`` and the two
+build and phase modes) take several ``--other`` checkouts, for design
+variants (a copy of ``raft_tpu_torch/`` whose kernel source is edited):
+each round then runs this tree, the others in order, the others in
+reverse, this tree, each other named by its directory.
 
 - ``select_k`` and ``ring_topk_merge``: shapes of ``chip_smoke.py``'s
   rows: select_k at [500, 8192] k 64 (IVF-PQ coarse probes: 500 queries
@@ -60,6 +66,22 @@ the kernel below. Needs a card and ``nvcc``.
   index and the table are shared. Outputs agree within the smoke's rule:
   the same finite pattern, keys within 1e-4 + 1e-5·(|key| + ‖q‖²), and the
   share of ids (positions for grouped) equal is reported.
+- ``--flat-phase``: ``chip_smoke.py``'s whole IVF-Flat phase
+  (``flat_phase``) of this checkout and of DIR (a checkout with its own
+  ``chip_smoke.py``), each in a process of its own, in the order this,
+  other, other, this; one JSON line each with the legs' QPS, the rows
+  dropped and the batch's stage times. For paths that two trees share:
+  the phase's single-pass legs swing between runs of one tree.
+- ``gather_refine``: the refine of the IVF-PQ phase and of the sharded
+  phase's rank: [500, 400] candidates into ``DeviceSynthetic`` ``--n`` x 96
+  and ``--n`` / 2 x 128 rows, drawn as the scans draw them (``ivf_pq.build``
+  with 8192 lists, pq_dim 64, 8-bit codes over those rows, then the
+  unrefined search of the first 500 queries for 400 candidates at n_probes
+  64 with a bf16 LUT), k 10. Each timing is the mean of calls with the L2
+  cold (a 256 MB buffer read before each call, CUDA events around the call
+  alone), beside the mean of back-to-back (warm) calls. Outputs agree
+  within the smoke's rule: keys within 1e-5·(‖q‖² + |key|), ids equal away
+  from key ties (the share of equal ids is reported).
 - ``ring_lut_scan_merge``: the sharded phase's fused-tier shape on random
   shards: 4 ranks on one card, each 8192 lists of L 2440 with 610 real
   rows on average (passed as ``list_sizes`` where the checkout's wrapper
@@ -72,6 +94,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import importlib.util
 import inspect
 import json
@@ -81,11 +104,14 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from chip_smoke import _timed_cold  # noqa: E402
+
 SOURCES = {"select_k": "select_k", "ring_topk_merge": "ring_topk",
            "fused_l2_argmin": "fused_l2_argmin",
            "ivfpq_lut_scan": "ivfpq_lut_scan",
            "ring_lut_scan_merge": "ring_lut_scan",
-           "segmented_scan": "segmented_scan", "grouped_scan": "grouped_scan"}
+           "segmented_scan": "segmented_scan", "grouped_scan": "grouped_scan",
+           "gather_refine": "gather_refine"}
 
 
 def _load_module(path: str, name: str):
@@ -103,7 +129,8 @@ def _build_other(other_root: str, source: str) -> ctypes.CDLL:
     ops = os.path.join(other_root, "raft_tpu_torch", "ops")
     out_dir = os.path.join(build.BUILD_DIR, "ab")
     os.makedirs(out_dir, exist_ok=True)
-    out = os.path.join(out_dir, f"{source}-other.so")
+    tag = hashlib.sha1(os.path.abspath(other_root).encode()).hexdigest()[:8]
+    out = os.path.join(out_dir, f"{source}-other-{tag}.so")
     cmd = [build._find_nvcc(), *build.ARCH_FLAGS, "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-o", out,
            os.path.join(ops, "csrc", f"{source}.cu")]
@@ -312,12 +339,14 @@ def _flat_scan_case(kernel: str, seed: int):
             lambda K: K.grouped_scan_topk(*args, kk, "l2"), 5, check)
 
 
-def _other_kernels(args):
-    """The other checkout's ``ops/kernels.py`` over its own build of the
-    kernel's source."""
-    other_lib = _build_other(args.other, SOURCES[args.kernel])
-    other_k = _load_module(os.path.join(args.other, "raft_tpu_torch", "ops",
-                                        "kernels.py"), "ab_other_kernels")
+def _other_kernels(root: str, kernel: str):
+    """A checkout's ``ops/kernels.py`` over its own build of the kernel's
+    source."""
+    other_lib = _build_other(root, SOURCES[kernel])
+    other_k = _load_module(os.path.join(root, "raft_tpu_torch", "ops",
+                                        "kernels.py"),
+                           "ab_kernels_" + hashlib.sha1(
+                               os.path.abspath(root).encode()).hexdigest()[:8])
     other_k._lib = lambda name: other_lib
     return other_k
 
@@ -325,13 +354,17 @@ def _other_kernels(args):
 def _ab_wrapper(args, card: str) -> None:
     from raft_tpu_torch.ops import kernels as this_k
 
-    other_k = _other_kernels(args)
-    mods = {"this": this_k, "other": other_k}
+    names = (["other"] if len(args.other) == 1 else
+             [os.path.basename(os.path.normpath(d)) for d in args.other])
+    mods = {"this": this_k, **{n: _other_kernels(d, args.kernel)
+                               for n, d in zip(names, args.other)}}
     cases = _wrapper_cases(args.kernel, args.seed, args.n, args.wide)
-    agree = {name: check(call(this_k), call(other_k))
-             for name, call, _, check in cases}
+    agree = {n: {name: check(call(this_k), call(mods[n]))
+                 for name, call, _, check in cases} for n in names}
+    if len(names) == 1:
+        agree = agree["other"]
     for rnd in range(args.rounds):
-        for which in ("this", "other", "other", "this"):
+        for which in ("this", *names, *names[::-1], "this"):
             for name, call, reps, _ in cases:
                 ms = _timed(lambda: call(mods[which]), reps)
                 print(json.dumps({"kernel": args.kernel, "round": rnd,
@@ -354,7 +387,7 @@ def _ab_flat_build(args, card: str) -> None:
     from raft_tpu_torch.ops import kernels as this_k
 
     fns = {"this": this_k.fused_l2_argmin,
-           "other": _other_kernels(args).fused_l2_argmin}
+           "other": _other_kernels(args.other, args.kernel).fused_l2_argmin}
     n, k = 1_000_000, 10
     ds = make_synthetic_hard("sift-1000k-hard-synth", n, 128, 10_000,
                              seed=args.seed)
@@ -489,24 +522,117 @@ def _ab_lut_scan(args, card: str) -> None:
                       "outputs_agree": agree}), flush=True)
 
 
+def _ab_gather_refine(args, card: str) -> None:
+    """gather_refine_topk of both trees on the scans' candidates (see the
+    module note)."""
+    import torch
+
+    from raft_tpu_torch.bench.dataset import DeviceSynthetic
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops import kernels as this_k
+
+    mods = {"this": this_k, "other": _other_kernels(args.other, args.kernel)}
+    k, cases = 10, []
+    for n, d in ((args.n, 96), (args.n // 2, 128)):
+        ds = DeviceSynthetic(n, d, n_centers=10_000, seed=args.seed, std=0.5,
+                             scale=10.0)
+        base, q = ds.base(), ds.queries(500)
+        index = ivf_pq.build(base, ivf_pq.IndexParams(
+            n_lists=8192, pq_dim=64, pq_bits=8, cache_reconstruction="never",
+            seed=args.seed))
+        _, cand = ivf_pq.search(index, q, 400, ivf_pq.SearchParams(
+            n_probes=64, scan_select="pallas", refine="none",
+            lut_dtype="bfloat16"))
+        del index
+        torch.cuda.empty_cache()
+        cases.append((f"[500,400] into [{n},{d}]", base, q,
+                      cand.contiguous()))
+    agree = {}
+    for name, base, q, cand in cases:
+        (va, ia), (vb, ib) = (mods[w].gather_refine_topk(base, q, cand, k, "l2")
+                              for w in ("this", "other"))
+        tol = 1e-5 * ((q * q).sum(1, keepdim=True) + vb.abs())
+        gap = (vb[:, 1:] - vb[:, :-1]).abs() <= tol[:, 1:]
+        tie = torch.zeros_like(gap[:, :1]).expand(-1, k).clone()
+        tie[:, 1:] |= gap
+        tie[:, :-1] |= gap
+        tie[:, -1] = True
+        agree[name] = {"max_diff_over_tolerance": float(
+                           ((va - vb).abs() / tol).max()),
+                       "ids_equal_away_from_ties": bool(
+                           ((ia == ib) | tie).all()),
+                       "ids_equal": float((ia == ib).float().mean())}
+    for rnd in range(args.rounds):
+        for which in ("this", "other", "other", "this"):
+            for name, base, q, cand in cases:
+                fn = (lambda m=mods[which], b=base, q=q, c=cand:
+                      m.gather_refine_topk(b, q, c, k, "l2"))
+                print(json.dumps({"kernel": "gather_refine", "round": rnd,
+                                  "library": which, "shape": name,
+                                  "cold_ms": _timed_cold(fn, 30),
+                                  "warm_ms": _timed(fn, 50)}), flush=True)
+    print(json.dumps({"card": card, "kernel": "gather_refine",
+                      "outputs_agree": agree}), flush=True)
+
+
+_FLAT_PHASE = """
+import json, os, sys, types
+root = os.path.abspath(sys.argv[1])
+os.chdir(root)
+sys.path.insert(0, root)
+import chip_smoke
+s = chip_smoke.flat_phase(types.SimpleNamespace(seed=int(sys.argv[2])), [])
+print("FLAT_PHASE " + json.dumps({k: s[k] for k in (
+    "qps", "dropped_rows", "recall_at_10", "batch_stages_ms")}), flush=True)
+"""
+
+
+def _ab_flat_phase(args, card: str) -> None:
+    """chip_smoke.flat_phase of both checkouts in turns, a process each
+    (see the module note)."""
+    roots = {"this": os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "other": args.other}
+    for rnd in range(args.rounds):
+        for which in ("this", "other", "other", "this"):
+            out = subprocess.run(
+                [sys.executable, "-c", _FLAT_PHASE, roots[which],
+                 str(args.seed)], capture_output=True, text=True, check=True)
+            line = [x for x in out.stdout.splitlines()
+                    if x.startswith("FLAT_PHASE ")][-1]
+            print(json.dumps({"phase": "flat", "round": rnd,
+                              "library": which,
+                              **json.loads(line[len("FLAT_PHASE "):])}),
+                  flush=True)
+    print(json.dumps({"card": card, "phase": "flat"}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--other", required=True,
-                    help="root of the other checkout")
+    ap.add_argument("--other", required=True, action="append",
+                    help="root of the other checkout (several for the "
+                    "kernels timed through their wrappers)")
     ap.add_argument("--kernel", choices=sorted(SOURCES),
                     default="ivfpq_lut_scan")
     ap.add_argument("--n", type=int, default=10_000_000,
-                    help="rows of the ivfpq_lut_scan comparison and of "
-                    "fused_l2_argmin's IVF-PQ shape")
+                    help="rows of the ivfpq_lut_scan comparison, of "
+                    "fused_l2_argmin's IVF-PQ shape and of gather_refine's "
+                    "d 96 shape (its d 128 shape takes half)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--wide", action="store_true",
                     help="fused_l2_argmin at wide d (see the module note)")
     ap.add_argument("--flat-build", action="store_true",
                     help="IVF-Flat builds with each tree's fused_l2_argmin")
+    ap.add_argument("--flat-phase", action="store_true",
+                    help="chip_smoke.py's IVF-Flat phase of each checkout")
     args = ap.parse_args(argv)
     if (args.wide or args.flat_build) and args.kernel != "fused_l2_argmin":
         ap.error("--wide and --flat-build take --kernel fused_l2_argmin")
+    if args.flat_build or args.flat_phase or args.kernel in (
+            "ivfpq_lut_scan", "gather_refine"):
+        if len(args.other) > 1:
+            ap.error("this mode takes one --other")
+        args.other = args.other[0]
 
     import torch
 
@@ -517,8 +643,12 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    if args.kernel == "ivfpq_lut_scan":
+    if args.flat_phase:
+        _ab_flat_phase(args, card)
+    elif args.kernel == "ivfpq_lut_scan":
         _ab_lut_scan(args, card)
+    elif args.kernel == "gather_refine":
+        _ab_gather_refine(args, card)
     elif args.flat_build:
         _ab_flat_build(args, card)
     else:

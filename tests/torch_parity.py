@@ -195,21 +195,25 @@ def assert_bins_match(tk, ti, jk, ji, ref, rtol: float, atol: float):
 
 def flat_scan_case(L: int, d: int, bf16: bool = False, seed: int = 0,
                    n_lists: int = 6, B: int = 40, n_probes: int = 3,
-                   seg: int = 16):
+                   seg: int = 16, ties: bool = False):
     """Raw-vector list blocks, ids (10 % invalid, one list with an invalid
     tail), queries and their segment table (its trailing segments are
     empty: ``n_segments`` is an upper bound). bf16 list data is returned
-    already rounded, as float32 numpy."""
+    already rounded, as float32 numpy. ``ties``: small integer vectors, so
+    every key is exact in f32 whatever the order of its sums, and many
+    keys tie."""
     from raft_tpu_torch.neighbors import ivf_common as tic
 
     rng = np.random.default_rng(seed * 1000 + L + d)
-    packed = rng.standard_normal((n_lists, L, d)).astype(np.float32)
+    packed = _int_rows(rng, (n_lists, L, d)) if ties else (
+        rng.standard_normal((n_lists, L, d)).astype(np.float32))
     if bf16:
         packed = torch.tensor(packed).to(torch.bfloat16).float().numpy()
     ids = rng.permutation(n_lists * L).reshape(n_lists, L).astype(np.int32)
     ids[rng.random((n_lists, L)) < 0.1] = -1
     ids[1, L // 2:] = -1
-    q = rng.standard_normal((B, d)).astype(np.float32)
+    q = (_int_rows(rng, (B, d)) if ties
+         else rng.standard_normal((B, d)).astype(np.float32))
     probes = np.stack([rng.choice(n_lists, n_probes, replace=False)
                        for _ in range(B)]).astype(np.int32)
     n_seg = tic.n_segments(B * n_probes, n_lists, seg)
@@ -285,13 +289,23 @@ def assert_scan_match(tk, ti, rk, ri, c, metric: str, picks: str,
             s, j, col)
 
 
+def _int_rows(rng, shape) -> np.ndarray:
+    """Vectors of small integers (-2..2) as float32: their dot products and
+    norms are exact in f32 in any summation order."""
+    return rng.integers(-2, 3, shape).astype(np.float32)
+
+
 def refine_case(seed: int, m: int = 12, C: int = 300, n: int = 2000,
-                d: int = 40):
+                d: int = 40, ties: bool = False):
     """Dataset, queries and candidate lists with a duplicated candidate,
-    invalid (-1) entries and an out-of-range id (clipped for the fetch)."""
+    invalid (-1) entries and an out-of-range id (clipped for the fetch).
+    ``ties``: small integer vectors (exact keys, many of them tied)."""
     rng = np.random.default_rng(seed)
-    data = rng.standard_normal((n, d)).astype(np.float32)
-    q = rng.standard_normal((m, d)).astype(np.float32)
+    if ties:
+        data, q = _int_rows(rng, (n, d)), _int_rows(rng, (m, d))
+    else:
+        data = rng.standard_normal((n, d)).astype(np.float32)
+        q = rng.standard_normal((m, d)).astype(np.float32)
     cand = rng.integers(0, n, (m, C)).astype(np.int32)
     cand[:, 5] = cand[:, 2]
     cand[rng.random((m, C)) < 0.05] = -1
