@@ -42,6 +42,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    select_k on that batch's bin rows, fused_l2_argmin at the build's
    final k-means sweep), select_k against the stable sort at the path's
    other short-row shapes, and a stage breakdown of one approx batch;
+   then the IVF-PQ recon leg on the same data, queries and ground truth:
+   the repo's bench config ``ivf_pq.n1024.d64`` (bench.py:211-243; 1024
+   lists, pq_dim 64, spill, cap factor 1.5, the default
+   ``cache_reconstruction``, whose rule builds the bf16 cache), refined
+   (refine_ratio 4) approx search over the cache at n_probes 64 and 128,
+   batch-10 and batch-1 legs at 64, a refined exact leg at 64, and a twin
+   built with ``"never"`` whose exact leg at 32 runs the plain grouped
+   tier; counts zeroed before the build and read after the twin's leg
+   (the same four kernels must have launched); checks: recall@10 of every
+   leg, approx recall not falling from 64 to 128, the exact leg within
+   0.01 of approx at 64, the kernel path no more than 0.01 below the plain
+   path on 200 queries; then both scans against their plain versions on
+   the n_probes 64 segment table over the bf16 cache (bounds: two TF32
+   products, 2-byte rows), and a stage breakdown of one approx batch;
 5. sharded path — BASELINE.md target 5's shape cut to one card: 20M x 128
    ``DeviceSynthetic`` rows (``SHARD_N``) on a 4-rank mesh whose ranks share
    cuda:0, ``parallel.build_ivf_pq`` (8192 lists, pq_dim 64, 8-bit codes,
@@ -58,8 +72,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ring kernels and B1–B4 against their plain versions at the path's
    shapes. The ranks share cuda:0 whatever the card count: the ring
    kernels over ranks on several cards are not ported yet;
-6. the card's line, the kernel JSON line, then ``{"ok": true, "device":
-   {...}}`` last.
+6. the run's wall time, the card's line, the kernel JSON line, then
+   ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -509,7 +523,9 @@ def flat_phase(args, rows):
     255-260): build, the approx legs at n_probes 16/32/64/128 and the exact
     leg at 32 (batch 10,000), small-batch legs, recall and tier checks, and
     the path's four kernels against their plain versions at its shapes.
-    Raises SmokeFailure on any failed check. Returns the phase's summary."""
+    Raises SmokeFailure on any failed check. Returns (the base, queries and
+    ground truth of the first 1,000 queries, for the IVF-PQ leg; the
+    phase's summary)."""
     import numpy as np
     import torch
 
@@ -760,7 +776,8 @@ def flat_phase(args, rows):
          f"ms: {json.dumps(stages_ms)}")
     bin_bytes = {p: ivf_common.n_segments(nq * p, index.n_lists, seg) * seg
                  * K.LUT_SCAN_BINS * 8 for p in (16, 32, 64, 128)}
-    return {"n": N, "dim": dim, "n_lists": 1024, "max_list_size": L,
+    data = {"base": base, "queries": queries, "gt": gt}
+    return data, {"n": N, "dim": dim, "n_lists": 1024, "max_list_size": L,
             "dropped_rows": dropped, "build_s": build_s,
             "build_stages_s": stages,
             "qps": {name: leg["qps"] for name, leg in legs.items()},
@@ -768,6 +785,242 @@ def flat_phase(args, rows):
             "recall_at_10": recall, "recall_plain_200": plain_rec,
             "bin_table_bytes": bin_bytes, "batch_stages_ms": stages_ms,
             "select_k_ms": sel_ms, "launches": launches}
+
+
+def pq_recon_phase(args, rows, base, queries, gt):
+    """IVF-PQ over its bf16 reconstruction cache: the repo's bench config
+    ``ivf_pq.n1024.d64`` (bench.py:211-243) on the IVF-Flat phase's 1M x
+    128 hard data. Build (1024 lists, pq_dim 64, spill, cap factor 1.5,
+    the default cache rule), refined approx search (segmented scan over
+    the cache) at n_probes 64 and 128 with refine_ratio 4, batch-10 and
+    batch-1 legs at 64, a refined exact leg at 64 (the grouped scan over
+    the cache, kk 40), and a twin built with cache_reconstruction="never"
+    whose exact leg at 32 runs the plain grouped tier on codes decoded a
+    chunk at a time. Counts are zeroed before the build and read after
+    the twin's leg. Checks: recall@10 of every leg, approx recall not
+    falling from 64 to 128, the exact leg within 0.01 of the approx leg
+    at 64, and the kernel path no more than 0.01 below the plain path on
+    200 queries; then B5 and B6 against their plain versions on the
+    n_probes 64 segment table. Raises SmokeFailure; returns the summary."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_common, ivf_pq
+    from raft_tpu_torch.neighbors import refine as trefine
+    from raft_tpu_torch.ops import kernels as K
+
+    N, dim = base.shape
+    nq, k, n_gt = queries.shape[0], 10, gt.shape[0]
+    params = dict(n_lists=1024, pq_dim=64, spill=True,
+                  list_size_cap_factor=1.5, seed=args.seed)
+
+    def sp(n_probes, select, mode="auto"):
+        return ivf_pq.SearchParams(n_probes=n_probes, scan_mode=mode,
+                                   scan_select=select, refine="f32_regen",
+                                   refine_ratio=4)
+
+    def timed_search(idx, params_, q):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ivf_pq.search(idx, q, k, params_, dataset=base)
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end) / 1e3
+
+    # the path: the build, every leg and the twin; counts zeroed just before
+    K.reset_launch_counts()
+    stages = {}
+    t0 = time.perf_counter()
+    index = ivf_pq.build(base, ivf_pq.IndexParams(**params),
+                         stage_seconds=stages)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if index.packed_recon is None:
+        raise SmokeFailure("the default build made no recon cache")
+    L = index.max_list_size
+    recon_gb = index.packed_recon.numel() * 2 / 1e9
+    _log(f"[pq build] ivf_pq.n1024.d64 on {N} x {dim}: {build_s:.2f} s ("
+         + ", ".join(f"{s_} {v:.2f}s" for s_, v in stages.items())
+         + f"); L = {L}; dropped rows {N - index.size}; bf16 recon cache "
+         f"{list(index.packed_recon.shape)} = {recon_gb:.3f} GB")
+    legs = {}
+    for name, n_probes, select, passes in (("approx_64", 64, "approx", 2),
+                                           ("approx_128", 128, "approx", 1),
+                                           ("exact_64", 64, "exact", 2)):
+        secs = []
+        for _ in range(passes):
+            (_, ids), t = timed_search(index, sp(n_probes, select), queries)
+            secs.append(t)
+        legs[name] = {"ids": ids.cpu(), "qps": [nq / t for t in secs]}
+    small = {}
+    for bsz, n_small in ((10, 200), (1, 50)):
+        lat, out = [], []
+        for a in range(0, n_small, bsz):
+            (_, ids), t = timed_search(index, sp(64, "approx"),
+                                       queries[a:a + bsz])
+            lat.append(t * 1e3)
+            out.append(ids)
+        small[bsz] = (torch.cat(out).cpu(), lat)
+    t0 = time.perf_counter()
+    twin = ivf_pq.build(base, ivf_pq.IndexParams(
+        **params, cache_reconstruction="never"))
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    secs = []
+    for _ in range(2):
+        (_, ids), t = timed_search(twin, sp(32, "exact", "grouped"), queries)
+        secs.append(t)
+    legs["never_exact_32"] = {"ids": ids.cpu(), "qps": [nq / t for t in secs]}
+    del twin
+    launches = K.launch_counts()
+    _log(f"[pq] launches {json.dumps(launches)}")
+    missing = [n for n in FLAT_KERNELS if launches[n] == 0]   # the same four
+    if missing:
+        raise SmokeFailure(f"kernels never launched on the IVF-PQ recon "
+                           f"path: {missing}")
+    for name, leg in legs.items():
+        if leg["ids"].shape != (nq, k) or bool((leg["ids"] < 0).any()):
+            raise SmokeFailure(f"IVF-PQ leg {name}: malformed id table")
+
+    recall = {name: _recall(leg["ids"][:n_gt], gt)
+              for name, leg in legs.items()}
+    for bsz, (ids, lat) in small.items():
+        recall[f"batch{bsz}_approx_64"] = _recall(ids, gt[:ids.shape[0]])
+    for name, leg in legs.items():
+        _log(f"[pq leg] {name}: QPS "
+             + ", ".join(f"{x:.0f}" for x in leg["qps"])
+             + f" (batch {nq}, refine_ratio 4, CUDA events; batch ms "
+             + ", ".join(f"{nq / x * 1e3:.3f}" for x in leg["qps"])
+             + f"); recall@10 {recall[name]:.4f}")
+    for bsz, (ids, lat) in small.items():
+        _log(f"[pq leg] batch {bsz}, approx n_probes 64 (per_query tier): "
+             f"{len(lat)} calls, per call ms median {np.median(lat):.3f}, "
+             f"min {min(lat):.3f}, max {max(lat):.3f}; recall@10 "
+             f"{recall[f'batch{bsz}_approx_64']:.4f}")
+    _log(f"[pq build] the cache_reconstruction='never' twin: {twin_s:.2f} s")
+    if recall["approx_128"] < recall["approx_64"]:
+        raise SmokeFailure(f"approx recall falls from n_probes 64 to 128: "
+                           f"{recall['approx_64']} -> {recall['approx_128']}")
+    if abs(recall["exact_64"] - recall["approx_64"]) > 0.01:
+        raise SmokeFailure(f"exact recall {recall['exact_64']} is not within "
+                           f"0.01 of approx {recall['approx_64']} at 64")
+
+    # kernel path against the plain path: the same index on the CPU (the
+    # cache rebuilt there from the codes), the same refined approx search
+    n_pl = 200
+    t0 = time.perf_counter()
+    index_cpu = ivf_pq.from_numpy(*ivf_pq.to_numpy(index), device="cpu")
+    t_cache = time.perf_counter() - t0
+    _, ids_pl = ivf_pq.search(index_cpu, queries[:n_pl].cpu(), k,
+                              sp(64, "approx", "grouped"),
+                              dataset=base.cpu(), device="cpu")
+    del index_cpu
+    rec_plain = _recall(ids_pl, gt[:n_pl])
+    rec_kern = _recall(legs["approx_64"]["ids"][:n_pl], gt[:n_pl])
+    _log(f"[pq recall] approx n_probes 64, {n_pl} queries: kernel path "
+         f"{rec_kern:.4f}, plain path (CPU) {rec_plain:.4f} ("
+         f"{time.perf_counter() - t0:.1f} s, {t_cache:.1f} s of it the "
+         f"index and its cache on the CPU)")
+    if not rec_kern >= rec_plain - 0.01:
+        raise SmokeFailure(f"IVF-PQ recon kernel-path recall {rec_kern} more "
+                           f"than 0.01 below the plain path's {rec_plain}")
+
+    # B5 and B6 on the n_probes 64 segment table over the bf16 cache
+    n_probes, seg = 64, ivf_common.SEGMENT_SIZE
+    _, probes = ivf_pq._coarse_probes(index, queries, n_probes, False)
+    n_seg = ivf_common.n_segments(nq * n_probes, index.n_lists, seg)
+    seg_list, seg_q, pair_seg, pair_slot = ivf_common.segment_probes(
+        probes, index.n_lists, seg, n_seg)
+    q_rot = (queries @ index.rotation.T).contiguous()
+    rot = q_rot.shape[1]
+    args_k = (seg_list, seg_q, q_rot, index.packed_recon, index.packed_ids)
+    live = seg_q >= 0
+    sizes = index.list_sizes.long()
+    lists = torch.unique(seg_list[live.any(1)].long())
+    rows_real = int(sizes[lists].sum())
+    n_live = int(live.sum())
+    pair_rows = int((live.sum(1).long() * sizes[seg_list.long()]).sum())
+    # the bf16 design: two TF32 products per (live pair, real row), and
+    # the cache's real rows at 2 bytes a feature
+    flops = 2.0 * 2.0 * rot * pair_rows
+    in_bytes = (rows_real * (rot * 2 + 4) + q_rot.numel() * 4
+                + seg_list.numel() * 4 + seg_q.numel() * 4)
+    shape = (f"bf16 recon cache: n_seg {n_seg} x {seg} slots ({n_live} "
+             f"live), L {L}, {lists.numel()} lists of {rows_real} real rows, "
+             f"d {rot}")
+    qrow = seg_q.clamp_min(0).long()
+    flat_recon = index.packed_recon.view(-1, rot)
+    valid = index.packed_ids.view(-1) >= 0
+    slot_of = torch.full((N,), -1, dtype=torch.long, device=base.device)
+    slot_of[index.packed_ids.view(-1)[valid].long()] = torch.nonzero(
+        valid).flatten()
+
+    def l2_key64(si, sj, xrow):
+        qv = q_rot[qrow[si, sj]].double()
+        return ((qv - xrow.double()) ** 2).sum(1)
+
+    sk, si_ = K.segmented_scan_topk(*args_k, "l2")
+    spk, spi = K.segmented_scan_topk_plain(*args_k, "l2")
+    err, agree = _check_scan(
+        "segmented_scan_topk (recon)", sk, si_, spk, spi, seg_q, q_rot,
+        lambda a, b, picks: l2_key64(a, b, flat_recon[slot_of[picks.long()]]))
+    beside = dict(bound_bytes_ms=in_bytes / HBM_BYTES_PER_S * 1e3)
+    _row(rows, "ivf_pq_recon", "segmented_scan_topk", "segmented_scan.cu",
+         397, launches["segmented_scan_topk"], err,
+         _timed(lambda: K.segmented_scan_topk(*args_k, "l2"), 5),
+         _timed(lambda: K.segmented_scan_topk_plain(*args_k, "l2"), 1),
+         in_bytes + sk.numel() * 8, flops, None,
+         shape + f", id agreement {agree:.6f}", flop_rate=TF32_FLOP_PER_S,
+         logged=beside)
+    scan_ms = rows[-1]["ms"]
+    del spk, spi
+    kk = 4 * k
+    gk, gp = K.grouped_scan_topk(*args_k, kk, "l2")
+    pgk, pgp = K.grouped_scan_topk_plain(*args_k, kk, "l2")
+    lst_of = seg_list.long()
+    err, agree = _check_scan(
+        "grouped_scan_topk (recon)", gk, gp, pgk, pgp, seg_q, q_rot,
+        lambda a, b, picks: l2_key64(
+            a, b, index.packed_recon[lst_of[a], picks.long()]))
+    _row(rows, "ivf_pq_recon", "grouped_scan_topk", "grouped_scan.cu", 281,
+         launches["grouped_scan_topk"], err,
+         _timed(lambda: K.grouped_scan_topk(*args_k, kk, "l2"), 5),
+         _timed(lambda: K.grouped_scan_topk_plain(*args_k, kk, "l2"), 1),
+         in_bytes + gk.numel() * 8, flops, None,
+         shape + f", kk {kk}, position agreement {agree:.6f}",
+         flop_rate=TF32_FLOP_PER_S, logged=beside)
+    del pgk, pgp, gk, gp, slot_of
+
+    # where one approx batch's time goes (n_probes 64, k_cand 40), each
+    # stage alone (CUDA events)
+    sp_scan = ivf_pq.SearchParams(n_probes=64, scan_mode="grouped",
+                                  scan_select="approx")
+    _, cand = ivf_pq.search(index, queries, 4 * k, sp_scan)
+    stages_ms = {
+        "coarse_probes": _timed(lambda: ivf_pq._coarse_probes(
+            index, queries, n_probes, False), 10),
+        "segment_probes": _timed(lambda: ivf_common.segment_probes(
+            probes, index.n_lists, seg, n_seg), 10),
+        "rotate": _timed(lambda: queries @ index.rotation.T, 10),
+        "segmented_scan": scan_ms,
+        "merge_bin_results": _timed(lambda: ivf_common.merge_bin_results(
+            sk, si_, pair_seg, pair_slot, 4 * k, True, float("inf")), 5),
+        "refine": _timed(lambda: trefine.refine(base, queries, cand, k), 5),
+        "search_total": _timed(lambda: ivf_pq.search(
+            index, queries, k, sp(64, "approx", "grouped"), dataset=base), 3),
+    }
+    _log(f"[pq stages] one refined approx batch of {nq} queries at n_probes "
+         f"64, ms: {json.dumps(stages_ms)}")
+    return {"n": N, "dim": dim, "n_lists": 1024, "pq_dim": 64,
+            "max_list_size": L, "dropped_rows": N - index.size,
+            "recon_cache_gb": recon_gb, "build_s": build_s,
+            "build_stages_s": stages, "twin_build_s": twin_s,
+            "qps": {name: leg["qps"] for name, leg in legs.items()},
+            "small_batch_ms": {bsz: lat for bsz, (_, lat) in small.items()},
+            "recall_at_10": recall, "recall_kernel_200": rec_kern,
+            "recall_plain_200": rec_plain, "batch_stages_ms": stages_ms,
+            "launches": launches}
 
 
 def _ring_topk_row(rows, path, launches, vals, gids, k, shape):
@@ -1217,6 +1470,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=500)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1410,16 +1664,21 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     try:
-        flat_summary = flat_phase(args, rows)
+        data, flat_summary = flat_phase(args, rows)
+        _log(f"[flat summary] {json.dumps(flat_summary)}")
+        torch.cuda.empty_cache()
+        pq_summary = pq_recon_phase(args, rows, **data)
     except SmokeFailure as e:
         return _fail(str(e))
-    _log(f"[flat summary] {json.dumps(flat_summary)}")
+    _log(f"[pq summary] {json.dumps(pq_summary)}")
+    del data
     torch.cuda.empty_cache()
     try:
         shard_summary = sharded_phase(args, rows)
     except SmokeFailure as e:
         return _fail(str(e))
     _log(f"[shard summary] {json.dumps(shard_summary)}")
+    _log(f"[wall] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

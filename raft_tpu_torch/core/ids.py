@@ -21,9 +21,11 @@ def id_dtype(n_rows: int) -> torch.dtype:
     return torch.int32 if int(n_rows) <= INT32_MAX_ROWS else torch.int64
 
 
-def make_ids(n: int, device=None) -> torch.Tensor:
-    """``arange(n)`` in the policy dtype."""
-    return torch.arange(n, dtype=id_dtype(n), device=device)
+def make_ids(n: int, device=None, start: int = 0) -> torch.Tensor:
+    """``arange(start, start + n)`` in the policy dtype of its largest
+    id."""
+    return torch.arange(start, start + n, dtype=id_dtype(start + n),
+                        device=device)
 
 
 def id_dtype_like(ids: torch.Tensor) -> torch.dtype:

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.matrix.select_k import select_k
+from raft_tpu_torch.ops import kernels as _k
 
 SEGMENT_SIZE = 128
 
@@ -26,6 +27,10 @@ SEGMENT_SIZE = 128
 # 16 GB TPU v5e; the H100 has 80 GB, so they are conservative here and
 # are kept as they are until the port measures its own limits.
 GROUPED_BYTES_CAP = 4 << 30
+# Per-chunk budget of the plain grouped tier's transients (the [chunk·seg,
+# L] distance block and the [chunk, L, d] list rows); ``fit_seg_chunk``
+# shrinks the segment chunk (down to 1) to honour it.
+CHUNK_BYTES_TARGET = 256 << 20
 
 
 class Stages:
@@ -143,6 +148,128 @@ def merge_bin_results(keys: torch.Tensor, kids: torch.Tensor,
     return out_vals, out_ids
 
 
+def fit_seg_chunk(seg: int, L: int, d: int, want: int) -> int:
+    """Largest segment chunk ≤ ``want`` whose per-step transients — the
+    [chunk·seg, L] f32 distance block and the [chunk, L, d] f32 list rows
+    — stay under CHUNK_BYTES_TARGET."""
+    per_seg = L * 4 * (seg + d)
+    return max(1, min(want, CHUNK_BYTES_TARGET // max(1, per_seg)))
+
+
+def choose_list_chunk(n_lists: int, target: int) -> int:
+    """Largest divisor of ``n_lists`` that is ≤ target (a chunked pass over
+    [n_lists, …] reshapes it to [n_chunks, chunk, …])."""
+    c = max(1, min(target, n_lists))
+    while n_lists % c:
+        c -= 1
+    return c
+
+
+def grouped_scan_plain_tier(seg_list, seg_q, pair_seg, pair_slot,
+                            q: torch.Tensor, rows_of, ids: torch.Tensor,
+                            k: int, metric: str, seg_chunk: int,
+                            norms: Optional[torch.Tensor] = None):
+    """The grouped tier that runs outside the scan kernels (the JAX
+    package's XLA tier): for each chunk of ``seg_chunk`` live segments,
+    one batched product of the slots' queries against the list rows
+    ``rows_of(lists) → [c, L, d] f32``, the metric's keys, an exact
+    per-slot top-kk (kk = min(k, L)), then one cut per query over its
+    n_probes·kk survivors. ``norms`` [n_lists, L] are the rows' stored
+    squared norms (IVF-PQ's ‖c + d‖²); without them they are computed from
+    the rows (IVF-Flat). ``metric``: "l2" (squared distances), "ip"
+    (scores, largest first) or "cos" (distances). Returns (values [B, k],
+    ids [B, k]), padded with (invalid, −1) past the candidates.
+
+    The JAX package's ``approx`` select is ``lax.approx_min_k``, which off
+    the TPU is the exact top-k; the exact select serves both here. Its
+    ``slice_scan`` branch (``dynamic_slice`` at chunk 1 for code arrays
+    above 2 GB) exists to stop XLA from rematerializing copies of the
+    code array inside its loop; eager torch makes no such copies, so
+    there is none here. Segments without a live slot are skipped: no
+    pair reads them."""
+    n_seg, seg = seg_q.shape
+    L = ids.shape[1]
+    kk = min(k, L)
+    ip = metric == "ip"
+    invalid = float("-inf") if ip else float("inf")
+    dev = q.device
+    vals = torch.full((n_seg, seg, kk), invalid, dtype=torch.float32,
+                      device=dev)
+    cids = torch.full((n_seg, seg, kk), -1, dtype=ids.dtype, device=dev)
+    q_sq = (q * q).sum(1)
+    live = torch.nonzero((seg_q >= 0).any(1)).flatten()
+    for a in range(0, live.numel(), seg_chunk):
+        si = live[a:a + seg_chunk]
+        sl = seg_list[si].long()
+        rows = rows_of(sl)                                 # [c, L, d]
+        lids = ids[sl]                                     # [c, L]
+        qi = seg_q[si].clamp_min(0).long()                 # [c, seg]
+        scores = torch.bmm(q[qi], rows.transpose(1, 2))    # [c, seg, L]
+        if ip:
+            dists = scores
+        else:
+            nsq = (rows * rows).sum(-1) if norms is None else norms[sl]
+            if metric == "cos":
+                cn = torch.sqrt(nsq.clamp_min(1e-30))
+                qn = torch.sqrt(q_sq.clamp_min(1e-30))[qi]
+                dists = 1.0 - scores / (qn[:, :, None] * cn[:, None, :])
+            else:
+                dists = (q_sq[qi][:, :, None] + nsq[:, None, :]
+                         - 2.0 * scores).clamp_min(0.0)
+        dists = torch.where(lids[:, None, :] >= 0, dists,
+                            torch.full_like(dists, invalid))
+        c = si.numel()
+        v, pos = select_k(dists.reshape(c * seg, L), kk, select_min=not ip)
+        v, pos = v.view(c, seg, kk), pos.view(c, seg, kk).long()
+        cid = torch.gather(lids[:, None, :].expand(c, seg, L), 2, pos)
+        vals[si] = v
+        cids[si] = torch.where(v == invalid, torch.full_like(cid, -1), cid)
+    return merge_slot_results(vals, cids, pair_seg, pair_slot, k, not ip,
+                              invalid)
+
+
+def grouped_tier(approx: bool, kk: int) -> str:
+    """The grouped tier a kernel can serve: "segk" (the segmented scan,
+    two best of 128 strided bins: kk ≤ 128) for approx, "kernel" (the
+    grouped scan, kk ≤ 64) for exact, else "plain". The JAX package also
+    asks that a list block fit the TPU kernels' VMEM
+    (``pallas_segmented_wanted`` / ``pallas_grouped_wanted``); the CUDA
+    scans tile L and d, so only kk decides here."""
+    if approx:
+        return "segk" if kk <= _k.LUT_SCAN_LANES else "plain"
+    return "kernel" if kk <= _k.GROUPED_SCAN_MAX_KK else "plain"
+
+
+def grouped_kernel_results(keys, pos, seg_list, ids, ip: bool):
+    """The grouped-scan kernel's per-slot (minimized keys, in-list
+    positions) [n_seg, S, kk] → (values, global ids): ip keys flip back
+    to scores, and −1 positions become (invalid, −1)."""
+    invalid = float("-inf") if ip else float("inf")
+    vals = torch.where(pos < 0, torch.full_like(keys, invalid),
+                       -keys if ip else keys)
+    cids = ids[seg_list.long()[:, None, None], pos.long().clamp_min(0)]
+    return vals, torch.where(pos < 0, torch.full_like(cids, -1), cids)
+
+
+def merge_slot_results(vals, cids, pair_seg, pair_slot, k: int,
+                       select_min: bool, invalid: float):
+    """Per-slot top-kk (values, ids) [n_seg, S, kk] → (values [B, k], ids
+    [B, k]): one cut per query over its n_probes·kk survivors, padded with
+    (invalid, −1) past them."""
+    B, P = pair_seg.shape
+    kk = vals.shape[-1]
+    pv, pi = gather_segment_results(vals, cids, pair_seg, pair_slot)
+    kq = min(k, P * kk)
+    out_vals, out_ids = select_k(pv.reshape(B, P * kk), kq,
+                                 select_min=select_min,
+                                 input_indices=pi.reshape(B, P * kk))
+    if k > kq:
+        out_vals = torch.nn.functional.pad(out_vals, (0, k - kq),
+                                           value=invalid)
+        out_ids = torch.nn.functional.pad(out_ids, (0, k - kq), value=-1)
+    return out_vals, out_ids
+
+
 def grouped_mem_ok(n_seg: int, seg: int, kk: int, pairs: int) -> bool:
     """The grouped tiers' buffer guard (the JAX package's model): the
     [n_seg, seg] query table, the [n_seg, seg, kk] key+id accumulators and
@@ -238,6 +365,22 @@ def _fit_list_size(counts: np.ndarray, avg: int, cap_factor: float) -> int:
     cap = max(8, int(avg * cap_factor))
     actual = int(counts.max()) if counts.size else 8
     return _lane_round(min(cap, actual))
+
+
+def stable_slots(labels: torch.Tensor, n_lists: int,
+                 base: Optional[torch.Tensor] = None):
+    """Each row's (list, slot) address from one stable sort of ``labels``
+    (``raft_tpu.neighbors.ivf_pq._stable_slots``): row ``order[i]`` goes
+    to ``(sorted_l[i], slot[i])``; ``base`` offsets the slots by the
+    lists' current fill (extend)."""
+    lab = labels.long()
+    sorted_l, order = torch.sort(lab, stable=True)
+    starts = torch.searchsorted(sorted_l, torch.arange(n_lists + 1,
+                                                       device=lab.device))
+    slot = torch.arange(lab.shape[0], device=lab.device) - starts[sorted_l]
+    if base is not None:
+        slot = base.long()[sorted_l.clamp(0, n_lists - 1)] + slot
+    return order, sorted_l, slot
 
 
 def pack_lists(row_arrays, labels: torch.Tensor, row_ids: torch.Tensor,

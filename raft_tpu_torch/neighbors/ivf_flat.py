@@ -13,8 +13,10 @@ The index is one dense ``[n_lists, L, dim]`` block of list rows (+ ids,
   the grouped tiers, whose scans are hand-written kernels:
   ``scan_select="approx"`` the segmented scan (two best per strided bin,
   merged by ``ivf_common.merge_bin_results``), ``scan_select="exact"``
-  the grouped scan (exact per-slot top-kk); ``refine="f32_regen"``
-  against a device-resident dataset;
+  the grouped scan (exact per-slot top-kk); past the kernels' kk the
+  plain grouped tier (``ivf_common.grouped_scan_plain_tier``);
+  ``refine="f32_regen"`` against a device-resident dataset;
+- ``extend``, ``save`` and ``load`` (the JAX package's file format);
 - ``from_numpy``/``to_numpy``, which carry an index between the packages.
 
 The JAX package takes the kernel tiers only on a TPU and only when a list
@@ -22,8 +24,8 @@ block fits its VMEM budget. The CUDA kernels tile the list and feature
 axes, so no list size is too large for them: on the card the segmented
 scan runs whenever ``scan_select="approx"`` and kk ≤ 128, the grouped scan
 whenever ``scan_select="exact"`` and kk ≤ 64. The same tiers run on the
-CPU, each wrapper with its plain version. What the slice does not port
-raises ``NotImplementedError`` naming its ROADMAP item.
+CPU, each wrapper with its plain version. What is not ported raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_balanced import KMeansBalancedParams
 from raft_tpu_torch.core import ids as _ids
+from raft_tpu_torch.core import serialize as _ser
 from raft_tpu_torch.core.device import resolve_device, to_device
 from raft_tpu_torch.core.errors import expects, not_ported as _not_ported
 from raft_tpu_torch.distance.types import DistanceType, resolve_metric
@@ -250,16 +253,63 @@ def build_distributed(*args, **kwargs):
     raise _not_ported("ivf_flat.build_distributed", "A15")
 
 
-def extend(*args, **kwargs):
-    raise _not_ported("ivf_flat.extend", "A10")
+def extend(index: IvfFlatIndex, new_vectors, new_ids=None) -> IvfFlatIndex:
+    """Append vectors (reference: ivf_flat::extend): assign them to the
+    existing centers and re-pack, the lists grown to the new largest fill
+    (rounded up to 8); centers unchanged."""
+    mt = resolve_metric(index.metric)
+    spherical = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
+    km = KMeansBalancedParams(metric="cosine" if spherical else "l2")
+    dev = index.device
+    _precision.enforce()
+    x = to_device(new_vectors, dev)
+    nid = (_ids.make_ids(x.shape[0], device=dev, start=index.size)
+           if new_ids is None else to_device(new_ids, dev))
+    labels = kmeans_balanced.predict(index.centers, x.float(), km)
+    n_lists, L, d = index.packed_data.shape
+    old_sizes = index.list_sizes.long()
+    need = old_sizes + torch.bincount(labels.long(), minlength=n_lists)
+    new_L = max(8, -(-max(L, int(need.max())) // 8) * 8)
+    id_dt = (torch.int64 if torch.int64 in (index.packed_ids.dtype, nid.dtype)
+             else torch.int32)
+    packed = torch.zeros((n_lists, new_L, d), dtype=index.packed_data.dtype,
+                         device=dev)
+    ids = torch.full((n_lists, new_L), -1, dtype=id_dt, device=dev)
+    packed[:, :L] = index.packed_data
+    ids[:, :L] = index.packed_ids
+    order, sorted_l, slot = ic.stable_slots(labels, n_lists, old_sizes)
+    keep = slot < new_L
+    rows, ls, sl = order[keep], sorted_l[keep], slot[keep]
+    packed[ls, sl] = x[rows].to(packed.dtype)
+    ids[ls, sl] = nid[rows].to(id_dt)
+    return IvfFlatIndex(centers=index.centers, packed_data=packed,
+                        packed_ids=ids,
+                        packed_norms=(packed.float() ** 2).sum(-1),
+                        list_sizes=need.clamp(max=new_L).to(torch.int32),
+                        metric=index.metric)
 
 
-def save(*args, **kwargs):
-    raise _not_ported("ivf_flat.save", "A10")
+# reference: neighbors/ivf_flat_serialize.cuh, the JAX package's format
+_SERIAL_VERSION = 1
 
 
-def load(*args, **kwargs):
-    raise _not_ported("ivf_flat.load", "A10")
+def save(index: IvfFlatIndex, path: str) -> None:
+    """Write ``index`` to ``path`` (bf16 list data as ``'<V2'`` records)."""
+    _ser.save_arrays(path, "ivf_flat", _SERIAL_VERSION,
+                     {"metric": index.metric},
+                     {name: getattr(index, name) for name in _ARRAY_FIELDS})
+
+
+def load(path: str, device="cuda") -> IvfFlatIndex:
+    """Read an index written by :func:`save` or by the JAX package's
+    ``ivf_flat.save`` onto ``device``."""
+    dev = resolve_device(device)
+    version, meta, arrays = _ser.load_arrays(path, "ivf_flat")
+    expects(version == _SERIAL_VERSION, "unsupported ivf_flat version %d",
+            version)
+    _check_data_dtype(arrays["packed_data"].dtype)
+    t = {name: _ser.to_tensor(arrays[name], dev) for name in _ARRAY_FIELDS}
+    return IvfFlatIndex(**t, metric=str(meta["metric"]))
 
 
 def search_resilient(*args, **kwargs):
@@ -345,14 +395,16 @@ def _scan_metric(mt: DistanceType) -> str:
 
 
 def _search_grouped(index: IvfFlatIndex, queries: torch.Tensor, k: int,
-                    n_probes: int, seg: int, n_seg: int, use_segk: bool):
-    """The list-centric batch scan: probe selection, segmenting, one
-    kernel over the segment table (the segmented scan when ``use_segk``,
-    else the grouped scan), and the per-query merge."""
+                    n_probes: int, seg: int, n_seg: int, tier: str,
+                    seg_chunk: int = 1):
+    """The list-centric batch scan: probe selection, segmenting, one pass
+    over the segment table and the per-query merge. ``tier``: "segk" the
+    segmented-scan kernel (merged by ``merge_bin_results``), "kernel" the
+    grouped-scan kernel, "plain" the plain grouped tier (the JAX package's
+    XLA tier, taken past the kernels' kk; norms from the list rows, as
+    there)."""
     mt = resolve_metric(index.metric)
     q_all = queries.float().contiguous()
-    B = q_all.shape[0]
-    L = index.max_list_size
     ip = mt == DistanceType.InnerProduct
     select_min = not ip
     invalid = float("-inf") if ip else float("inf")
@@ -360,32 +412,27 @@ def _search_grouped(index: IvfFlatIndex, queries: torch.Tensor, k: int,
     seg_list, seg_q, pair_seg, pair_slot = ic.segment_probes(
         probes, index.n_lists, seg, n_seg)
     met = _scan_metric(mt)
-    if use_segk:
+    if tier == "segk":
         keys, kids = _k.segmented_scan_topk(seg_list, seg_q, q_all,
                                             index.packed_data,
                                             index.packed_ids, met)
         out_vals, out_ids = ic.merge_bin_results(keys, kids, pair_seg,
                                                  pair_slot, k, select_min,
                                                  invalid)
-    else:
-        kk = min(k, L)
+    elif tier == "kernel":
         keys, pos = _k.grouped_scan_topk(seg_list, seg_q, q_all,
                                          index.packed_data, index.packed_ids,
-                                         kk, met)
-        pv, pp = ic.gather_segment_results(keys, pos, pair_seg, pair_slot)
-        vals = -pv if ip else pv                                # [B, P, kk]
-        vals = torch.where(pp < 0, torch.full_like(vals, invalid), vals)
-        cids = index.packed_ids[probes.long()[:, :, None], pp.long().clamp_min(0)]
-        cids = torch.where(pp < 0, torch.full_like(cids, -1), cids)
-        C = n_probes * kk
-        kq = min(k, C)
-        out_vals, out_ids = _select_k(vals.reshape(B, C), kq,
-                                      select_min=select_min,
-                                      input_indices=cids.reshape(B, C))
-        if k > kq:
-            out_vals = torch.nn.functional.pad(out_vals, (0, k - kq),
-                                               value=invalid)
-            out_ids = torch.nn.functional.pad(out_ids, (0, k - kq), value=-1)
+                                         min(k, index.max_list_size), met)
+        vals, cids = ic.grouped_kernel_results(keys, pos, seg_list,
+                                               index.packed_ids, ip)
+        out_vals, out_ids = ic.merge_slot_results(vals, cids, pair_seg,
+                                                  pair_slot, k, select_min,
+                                                  invalid)
+    else:
+        out_vals, out_ids = ic.grouped_scan_plain_tier(
+            seg_list, seg_q, pair_seg, pair_slot, q_all,
+            lambda sl: index.packed_data[sl].float(), index.packed_ids, k,
+            met, seg_chunk)
     if mt == DistanceType.L2SqrtExpanded:
         out_vals = torch.sqrt(out_vals)
     return out_vals, out_ids
@@ -425,21 +472,15 @@ def search(index: IvfFlatIndex, queries, k: int,
         seg = ic.SEGMENT_SIZE
         pairs = B * n_probes
         n_seg = ic.n_segments(pairs, index.n_lists, seg)
-        kk = min(k, index.max_list_size)
+        L = index.max_list_size
+        kk = min(k, L)
         if params.scan_mode == "grouped" or ic.grouped_mem_ok(
                 n_seg, seg, kk, pairs):
             # the CUDA scans tile L and d, so unlike the TPU kernels no list
             # block is too large for them: only kk decides the tier
-            if params.scan_select == "approx":
-                if kk > _k.LUT_SCAN_LANES:
-                    raise _not_ported("the XLA approx tier the JAX package "
-                                      "takes when kk > 128", "A10")
-                return _search_grouped(index, q, k, n_probes, seg, n_seg,
-                                       use_segk=True)
-            if kk > _k.GROUPED_SCAN_MAX_KK:
-                raise _not_ported("the XLA exact grouped tier the JAX "
-                                  "package takes when kk > 64", "A10")
-            return _search_grouped(index, q, k, n_probes, seg, n_seg,
-                                   use_segk=False)
+            return _search_grouped(
+                index, q, k, n_probes, seg, n_seg,
+                ic.grouped_tier(params.scan_select == "approx", kk),
+                ic.fit_seg_chunk(seg, L, index.dim, params.list_chunk))
     return _search_impl(index, q, k, n_probes,
                         _fit_query_tile(params.query_tile, n_probes, index))

@@ -6,19 +6,25 @@ The asymmetric distance decomposes as
 with ‖c + d‖² precomputed per candidate at build and ⟨q, d⟩ = Σ_s
 LUT[s, code_s] from a query-only look-up table.
 
-Ported here (slice 1 of the port): ``build`` with balanced k-means coarse
-centers, a random rotation, per_subspace codebooks and bit-packed 4–8-bit
-codes; ``search`` through the per_query tier (the plain semantic anchor)
-and the ``scan_select="pallas"`` tier, whose scan is the hand-written
-LUT-scan kernel; and the ``refine="f32_regen"`` re-rank against a
-device-resident dataset. What the slice does not port raises
-``NotImplementedError`` naming its ROADMAP item — it never substitutes
-another tier.
+Ported: ``build`` with balanced k-means coarse centers, a random
+rotation, per_subspace codebooks, bit-packed 4–8-bit codes, ``spill``,
+``add_data_on_build=False`` and the bf16 reconstruction cache
+(``packed_recon``: c + decoded residual of every slot); ``extend``,
+``save`` and ``load``; ``search`` through the per_query tier (the plain
+semantic anchor, with its recon-dot branch), the LUT-scan tier
+(``scan_select="pallas"``, or ``"approx"`` at oversampled shapes without
+a cache) and the grouped tiers — over the cache the segmented scan
+(``"approx"``) and the grouped scan (``"exact"``), elsewhere the plain
+grouped tier; and the ``refine="f32_regen"`` re-rank against a
+device-resident dataset. What is not ported (per_cluster codebooks,
+folded codes, filters) raises ``NotImplementedError`` naming its ROADMAP
+item — it never substitutes another tier.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -27,6 +33,7 @@ import torch
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_balanced import KMeansBalancedParams
 from raft_tpu_torch.core import ids as _ids
+from raft_tpu_torch.core import serialize as _ser
 from raft_tpu_torch.core.device import resolve_device, to_device
 from raft_tpu_torch.core.errors import expects, not_ported as _not_ported
 from raft_tpu_torch.distance.types import DistanceType, resolve_metric
@@ -50,18 +57,19 @@ class IndexParams:
     codebook_kind: str = "per_subspace"  # "per_cluster" not ported (A9)
     add_data_on_build: bool = True
     list_size_cap_factor: float = 4.0
-    spill: bool = False       # True not ported (A9)
+    spill: bool = False
     seed: int = 0
-    cache_reconstruction: str = "auto"  # the recon cache is not ported (A10)
+    cache_reconstruction: str = "auto"  # "auto" | "always" | "never"
 
 
 @dataclasses.dataclass
 class SearchParams:
     """reference: ``ivf_pq::search_params`` (same fields as raft_tpu).
 
-    Ported tiers: ``scan_mode="per_query"`` and the grouped scan with
-    ``scan_select="pallas"`` (the LUT-scan kernel); ``refine="f32_regen"``
-    against a device-resident ``dataset``."""
+    ``scan_select`` picks the grouped tier (see :func:`search`);
+    ``refine="f32_regen"`` re-ranks against a device-resident ``dataset``.
+    ``scan_recall`` is kept for the JAX package's signature: the port's
+    selections are exact."""
 
     n_probes: int = 20
     query_tile: int = 64
@@ -106,6 +114,7 @@ class IvfPqIndex:
     packed_ids: torch.Tensor     # [n_lists, L] i32, -1 pad
     packed_norms: torch.Tensor   # [n_lists, L] f32: ‖c + decoded‖²
     list_sizes: torch.Tensor     # [n_lists] i32
+    packed_recon: Optional[torch.Tensor] = None  # [n_lists, L, rot_dim] bf16
     metric: str = "sqeuclidean"
     codebook_kind: str = "per_subspace"
     pq_bits: int = 8
@@ -148,31 +157,45 @@ _ARRAY_FIELDS = ("centers", "centers_rot", "rotation", "codebooks",
                  "packed_codes", "packed_ids", "packed_norms", "list_sizes")
 
 
+def _check_unfolded(packed_codes, pq_dim: int, pq_bits: int) -> None:
+    if packed_codes.shape[-1] != packed_nbytes(
+            pq_dim or packed_codes.shape[-1], pq_bits):
+        raise _not_ported("folded code storage", "A9")
+
+
 def from_numpy(arrays: Dict[str, np.ndarray], meta: Dict, device="cuda"
                ) -> IvfPqIndex:
     """Index from the JAX index's fields as numpy arrays (``arrays``) and
-    its static fields (``meta``: metric, pq_bits, pq_dim, codebook_kind)."""
+    its static fields (``meta``: metric, pq_bits, pq_dim, codebook_kind,
+    has_recon). The bf16 cache never crosses as an array (numpy has no
+    bf16): ``has_recon`` rebuilds it here, as the JAX package's ``load``
+    does."""
     dev = resolve_device(device)
-    expects(meta.get("codebook_kind", "per_subspace") == "per_subspace",
-            "per_cluster codebooks are not ported (ROADMAP A9)")
-    t = {name: to_device(np.asarray(arrays[name]), dev) for name in _ARRAY_FIELDS}
+    if meta.get("codebook_kind", "per_subspace") != "per_subspace":
+        raise _not_ported("per_cluster codebooks", "A9")
     pq_dim = int(meta.get("pq_dim", 0))
     pq_bits = int(meta.get("pq_bits", 8))
-    expects(t["packed_codes"].shape[-1] == packed_nbytes(
-        pq_dim or t["packed_codes"].shape[-1], pq_bits),
-        "folded code storage is not ported (ROADMAP A9)")
-    return IvfPqIndex(**t, metric=str(meta["metric"]),
-                      codebook_kind="per_subspace", pq_bits=pq_bits,
-                      pq_dim_static=pq_dim)
+    _check_unfolded(np.asarray(arrays["packed_codes"]), pq_dim, pq_bits)
+    t = {name: to_device(np.asarray(arrays[name]), dev) for name in _ARRAY_FIELDS}
+    index = IvfPqIndex(**t, metric=str(meta["metric"]),
+                       codebook_kind="per_subspace", pq_bits=pq_bits,
+                       pq_dim_static=pq_dim)
+    if meta.get("has_recon"):
+        index.packed_recon = _build_recon_cache(index)
+    return index
+
+
+def _meta(index: IvfPqIndex) -> Dict:
+    return {"metric": index.metric, "pq_bits": index.pq_bits,
+            "pq_dim": index.pq_dim, "codebook_kind": index.codebook_kind,
+            "has_recon": index.packed_recon is not None}
 
 
 def to_numpy(index: IvfPqIndex) -> Tuple[Dict[str, np.ndarray], Dict]:
     """(arrays, meta) — the inverse of :func:`from_numpy`."""
     arrays = {name: getattr(index, name).cpu().numpy()
               for name in _ARRAY_FIELDS}
-    meta = {"metric": index.metric, "pq_bits": index.pq_bits,
-            "pq_dim": index.pq_dim, "codebook_kind": index.codebook_kind}
-    return arrays, meta
+    return arrays, _meta(index)
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +342,8 @@ def _encode_with_norms(x: torch.Tensor, rotation: torch.Tensor,
 
 def _want_recon_cache(params: IndexParams, n_lists: int, L: int,
                       rot_dim: int, device) -> bool:
+    """The JAX package's rule: "auto" caches while the bf16 cache stays
+    under 3 GB and a fifth of the device's memory."""
     if params.cache_reconstruction in ("never", "always"):
         return params.cache_reconstruction == "always"
     cap = 3 << 30
@@ -328,11 +353,31 @@ def _want_recon_cache(params: IndexParams, n_lists: int, L: int,
     return n_lists * L * rot_dim * 2 <= cap
 
 
+def _build_recon_cache(index: IvfPqIndex) -> torch.Tensor:
+    """bf16 reconstruction (c + decoded residual) of every packed slot,
+    [n_lists, L, rot_dim]. Decoded in list chunks of about 4096 rows
+    (``choose_list_chunk``); the add and the cast are in f32, so the cache
+    equals the JAX package's bit for bit."""
+    n_lists, L = index.packed_ids.shape
+    S = index.pq_dim
+    chunk = ic.choose_list_chunk(n_lists, max(1, -(-4096 // max(L, 1))))
+    out = torch.empty((n_lists, L, index.rot_dim), dtype=torch.bfloat16,
+                      device=index.device)
+    for a in range(0, n_lists, chunk):
+        codes = _k.unpack_codes(index.packed_codes[a:a + chunk], S,
+                                index.pq_bits)
+        dec = _decode_codes(codes.reshape(chunk * L, S),
+                            index.codebooks).view(chunk, L, -1)
+        out[a:a + chunk] = (dec + index.centers_rot[a:a + chunk, None, :]
+                            ).to(torch.bfloat16)
+    return out
+
+
 def build(dataset, params: Optional[IndexParams] = None, device="cuda",
           stage_seconds: Optional[Dict[str, float]] = None) -> IvfPqIndex:
     """Build the index on ``device`` (reference: ivf_pq::build).
     ``stage_seconds``, when given, receives the seconds of each stage
-    (train, assign, encode, pack)."""
+    (train, assign, encode, pack, recon_cache)."""
     if params is None:
         params = IndexParams()
     dev = resolve_device(device)
@@ -341,10 +386,6 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
     expects(4 <= params.pq_bits <= 8, "pq_bits must be in [4, 8]")
     if params.codebook_kind != "per_subspace":
         raise _not_ported("codebook_kind='per_cluster'", "A9")
-    if params.spill:
-        raise _not_ported("spill=True", "A9")
-    if not params.add_data_on_build:
-        raise _not_ported("add_data_on_build=False (extend)", "A9")
     stage = ic.Stages(stage_seconds, dev)
 
     x = to_device(dataset, dev, torch.float32)
@@ -375,18 +416,48 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
             trainset, params, dim, pq_dim, pq_len, K, state, km)
         del trainset
     avg = max(1, n // params.n_lists)
+    quantizer = dict(centers=centers, centers_rot=centers_rot,
+                     rotation=rotation, codebooks=codebooks, metric=mt.value,
+                     codebook_kind="per_subspace", pq_bits=params.pq_bits,
+                     pq_dim_static=pq_dim)
+    if not params.add_data_on_build:
+        L = max(8, int(avg * params.list_size_cap_factor))
+        return IvfPqIndex(
+            packed_codes=torch.zeros(
+                (params.n_lists, L, packed_nbytes(pq_dim, params.pq_bits)),
+                dtype=torch.uint8, device=dev),
+            packed_ids=torch.full((params.n_lists, L), -1, dtype=torch.int32,
+                                  device=dev),
+            packed_norms=torch.zeros((params.n_lists, L), device=dev),
+            list_sizes=torch.zeros((params.n_lists,), dtype=torch.int32,
+                                   device=dev), **quantizer)
     with stage("assign"):
-        labels = kmeans_balanced.predict(centers, x, km)
-        counts = torch.bincount(labels.long(),
-                                minlength=params.n_lists).cpu().numpy()
-        max_list_size = ic._fit_list_size(counts, avg,
-                                          params.list_size_cap_factor)
-    if _want_recon_cache(params, params.n_lists, max_list_size, rot_dim, dev):
-        raise _not_ported("the bf16 reconstruction cache (pass "
-                          "cache_reconstruction='never')", "A10")
+        if params.spill:
+            # cap the lists and cascade overflow to the next-nearest ones;
+            # encode after spilling, against the assigned list's center
+            lk = kmeans_balanced.predict_topk(centers, x, ic.SPILL_DEPTH, km)
+            max_list_size = ic._lane_round(
+                int(avg * params.list_size_cap_factor))
+            labels = ic.spill_assignments(
+                lk[:, 0], lk[:, 1], params.n_lists, max_list_size,
+                *[lk[:, c] for c in range(2, lk.shape[1])])
+            del lk
+            n_marker = int((labels >= params.n_lists).sum())
+            if n_marker:
+                warnings.warn(f"ivf_pq: {n_marker} rows overflowed every "
+                              f"spill choice at cap {max_list_size} (raise "
+                              "list_size_cap_factor)", RuntimeWarning,
+                              stacklevel=2)
+        else:
+            labels = kmeans_balanced.predict(centers, x, km)
+            counts = torch.bincount(labels.long(),
+                                    minlength=params.n_lists).cpu().numpy()
+            max_list_size = ic._fit_list_size(counts, avg,
+                                              params.list_size_cap_factor)
     with stage("encode"):
-        codes, norms = _encode_with_norms(x, rotation, centers_rot, labels,
-                                          codebooks)
+        codes, norms = _encode_with_norms(
+            x, rotation, centers_rot, labels.clamp(0, params.n_lists - 1),
+            codebooks)
         codes_p = pack_bits(codes, params.pq_bits)
         del codes
     with stage("pack"):
@@ -394,16 +465,89 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
             [codes_p, norms], labels, _ids.make_ids(n, device=dev),
             n_lists=params.n_lists, L=max_list_size, fill_values=[0, 0.0])
     if n_drop:
-        import warnings
-
         warnings.warn(f"ivf_pq: dropped {n_drop} overflow vectors (raise "
                       "list_size_cap_factor)", RuntimeWarning, stacklevel=2)
-    return IvfPqIndex(centers=centers, centers_rot=centers_rot,
-                      rotation=rotation, codebooks=codebooks,
-                      packed_codes=packed, packed_ids=ids,
-                      packed_norms=pnorm, list_sizes=sizes,
-                      metric=mt.value, codebook_kind="per_subspace",
-                      pq_bits=params.pq_bits, pq_dim_static=pq_dim)
+    index = IvfPqIndex(packed_codes=packed, packed_ids=ids,
+                       packed_norms=pnorm, list_sizes=sizes, **quantizer)
+    if _want_recon_cache(params, params.n_lists, max_list_size, rot_dim, dev):
+        with stage("recon_cache"):
+            index.packed_recon = _build_recon_cache(index)
+    return index
+
+
+def extend(index: IvfPqIndex, new_vectors, new_ids=None) -> IvfPqIndex:
+    """Append vectors (reference: ivf_pq::extend): encode against the
+    existing centers and codebooks, then re-pack with the lists grown to
+    the new largest fill (rounded up to 8). The recon cache is rebuilt
+    when the index has one."""
+    mt = resolve_metric(index.metric)
+    spherical = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
+    km = KMeansBalancedParams(metric="cosine" if spherical else "l2")
+    dev = index.device
+    _precision.enforce()
+    _check_unfolded(index.packed_codes, index.pq_dim, index.pq_bits)
+    x = to_device(new_vectors, dev, torch.float32)
+    if mt == DistanceType.CosineExpanded:
+        x = x / torch.sqrt((x * x).sum(-1, keepdim=True).clamp_min(1e-12))
+    nid = (_ids.make_ids(x.shape[0], device=dev, start=index.size)
+           if new_ids is None else to_device(new_ids, dev))
+    labels = kmeans_balanced.predict(index.centers, x, km)
+    codes, norms = _encode_with_norms(x, index.rotation, index.centers_rot,
+                                      labels, index.codebooks)
+    n_lists, L = index.packed_ids.shape
+    old_sizes = index.list_sizes.long()
+    need = old_sizes + torch.bincount(labels.long(), minlength=n_lists)
+    new_L = max(L, max(8, -(-int(need.max()) // 8) * 8))
+    id_dt = (torch.int64 if torch.int64 in (index.packed_ids.dtype, nid.dtype)
+             else torch.int32)
+    packed = torch.zeros((n_lists, new_L, index.packed_codes.shape[2]),
+                         dtype=torch.uint8, device=dev)
+    ids = torch.full((n_lists, new_L), -1, dtype=id_dt, device=dev)
+    pnorm = torch.zeros((n_lists, new_L), device=dev)
+    packed[:, :L] = index.packed_codes
+    ids[:, :L] = index.packed_ids
+    pnorm[:, :L] = index.packed_norms
+    order, sorted_l, slot = ic.stable_slots(labels, n_lists, old_sizes)
+    keep = slot < new_L
+    rows, ls, sl = order[keep], sorted_l[keep], slot[keep]
+    packed[ls, sl] = pack_bits(codes, index.pq_bits)[rows]
+    ids[ls, sl] = nid[rows].to(id_dt)
+    pnorm[ls, sl] = norms[rows]
+    out = dataclasses.replace(
+        index, packed_codes=packed, packed_ids=ids, packed_norms=pnorm,
+        list_sizes=need.clamp(max=new_L).to(torch.int32), packed_recon=None)
+    if index.packed_recon is not None:
+        out.packed_recon = _build_recon_cache(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# serialization (reference: neighbors/ivf_pq_serialize.cuh), the JAX
+# package's file format
+# ---------------------------------------------------------------------------
+
+_SERIAL_VERSION = 2
+
+
+def save(index: IvfPqIndex, path: str) -> None:
+    """Write ``index`` to ``path``; the bf16 cache is derived data: it is
+    not written, ``has_recon`` in the metadata rebuilds it on load."""
+    _ser.save_arrays(path, "ivf_pq", _SERIAL_VERSION, _meta(index),
+                     {name: getattr(index, name) for name in _ARRAY_FIELDS})
+
+
+def load(path: str, device="cuda") -> IvfPqIndex:
+    """Read an index written by :func:`save` or by the JAX package's
+    ``ivf_pq.save`` (versions 1 and 2) onto ``device``. Folded code
+    storage (a TPU layout) is not ported; the JAX package's lane fold of
+    big code arrays on load is a TPU layout and is not done here."""
+    dev = resolve_device(device)
+    version, meta, a = _ser.load_arrays(path, "ivf_pq")
+    expects(version in (1, _SERIAL_VERSION), "unsupported ivf_pq version %d",
+            version)
+    meta = {"codebook_kind": "per_subspace", "pq_bits": 8, **meta}
+    meta["pq_dim"] = int(meta.get("pq_dim", 0)) or a["packed_codes"].shape[-1]
+    return from_numpy(a, meta, device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -450,17 +594,24 @@ def _prep_queries(mt, queries: torch.Tensor) -> torch.Tensor:
 
 
 def _fit_query_tile(want: int, n_probes: int, index: IvfPqIndex) -> int:
-    """Per-query tile whose [t, n_probes, L, pq_dim] int64 codes stay
-    under 1 GB."""
+    """Largest per_query tile ≤ ``want`` whose per-tile candidate tensors
+    stay under 1 GB: the f32 [t, n_probes, L, rot_dim] recon gather on the
+    recon-dot branch, or the unpacked codes on the LUT branch, sized on the
+    wider of the two (the JAX package's rule; the port's unpacked codes are
+    int64, 8 bytes a code)."""
     L = index.max_list_size
-    return max(1, min(want, (1 << 30) // max(1, n_probes * L * index.pq_dim
-                                             * 8)))
+    row_bytes = max(index.pq_dim * 8, index.rot_dim * 4
+                    if index.packed_recon is not None else 0)
+    return max(1, min(want, (1 << 30) // max(1, n_probes * L * row_bytes)))
 
 
 def _search_impl(index: IvfPqIndex, queries: torch.Tensor, k: int,
                  n_probes: int, query_tile: int, lut_dtype: str = "float32"):
     """The per_query tier: each query gathers its probed lists' codes and
-    sums its quantized LUT over them — the plain semantic anchor."""
+    sums its quantized LUT over them — the plain semantic anchor. With the
+    recon cache, an f32 LUT and n_probes·L·pq_dim·2^bits ≥ 2²⁸ it takes
+    the JAX package's recon-dot branch instead: one product of the query
+    against the gathered bf16 reconstructions, ⟨q, c + d⟩ directly."""
     mt = resolve_metric(index.metric)
     q_all = _prep_queries(mt, queries)
     S, P, L = index.pq_dim, index.pq_len, index.max_list_size
@@ -470,6 +621,10 @@ def _search_impl(index: IvfPqIndex, queries: torch.Tensor, k: int,
     q_sq_all = (q_rot_all * q_rot_all).sum(1)
     pr_all = probes.long()
     qc_probed_all = torch.gather(qc, 1, pr_all)
+    use_recon_dot = (index.packed_recon is not None
+                     and lut_dtype == "float32"
+                     and n_probes * L * S * index.codebooks.shape[1]
+                     >= (1 << 28))
     vals, out = [], []
     for a in range(0, q_all.shape[0], query_tile):
         q_rot = q_rot_all[a:a + query_tile]
@@ -477,18 +632,84 @@ def _search_impl(index: IvfPqIndex, queries: torch.Tensor, k: int,
         t = q_rot.shape[0]
         cand_ids = index.packed_ids[probe].reshape(t, n_probes * L)
         cand_norms = index.packed_norms[probe].reshape(t, n_probes * L)
-        codes = _k.unpack_codes(index.packed_codes[probe], S, index.pq_bits)
-        qlut = _k.round_to_lut_dtype(torch.einsum(
-            "tsp,skp->tsk", q_rot.view(t, S, P), index.codebooks), lut_dtype)
-        idx = codes.reshape(t, n_probes * L, S).transpose(1, 2)   # [t, S, C]
-        qd = torch.gather(qlut, 2, idx).sum(1)                    # [t, C]
-        qcand = qc_probed_all[a:a + query_tile][:, :, None].expand(
-            t, n_probes, L).reshape(t, n_probes * L)
-        v, i = _finish_candidates(qcand + qd, cand_ids, cand_norms,
+        if use_recon_dot:
+            rows = index.packed_recon[probe].reshape(t, n_probes * L, -1)
+            dots = torch.bmm(rows.float(), q_rot[:, :, None])[..., 0]
+        else:
+            codes = _k.unpack_codes(index.packed_codes[probe], S,
+                                    index.pq_bits)
+            qlut = _k.round_to_lut_dtype(torch.einsum(
+                "tsp,skp->tsk", q_rot.view(t, S, P), index.codebooks),
+                lut_dtype)
+            idx = codes.reshape(t, n_probes * L, S).transpose(1, 2)  # [t, S, C]
+            qd = torch.gather(qlut, 2, idx).sum(1)                   # [t, C]
+            dots = qc_probed_all[a:a + query_tile][:, :, None].expand(
+                t, n_probes, L).reshape(t, n_probes * L) + qd
+        v, i = _finish_candidates(dots, cand_ids, cand_norms,
                                   q_sq_all[a:a + query_tile], mt, k)
         vals.append(v)
         out.append(i)
     return torch.cat(vals), torch.cat(out)
+
+
+def _search_grouped(index: IvfPqIndex, queries: torch.Tensor, k: int,
+                    n_probes: int, seg: int, n_seg: int, tier: str,
+                    seg_chunk: int = 1):
+    """The list-centric batch scan over the segment table. ``tier``:
+    "segk" the segmented-scan kernel over the bf16 cache (two best per
+    strided bin, merged by ``merge_bin_results``); "kernel" the
+    grouped-scan kernel over the cache (an exact top-kk a slot; its l2
+    keys recompute ‖c + d‖² from the bf16 rows, within ~1e-3 of the
+    stored f32 norms, as the JAX package's kernel does); "plain" the plain
+    grouped tier (``ivf_common.grouped_scan_plain_tier``) against the
+    cache rows or the codes decoded a chunk at a time, with the stored
+    norms."""
+    mt = resolve_metric(index.metric)
+    q_all = _prep_queries(mt, queries)
+    L = index.max_list_size
+    ip_like = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
+    select_min = not ip_like
+    invalid = float("-inf") if ip_like else float("inf")
+    _, probes = _coarse_probes(index, q_all, n_probes, ip_like)
+    seg_list, seg_q, pair_seg, pair_slot = ic.segment_probes(
+        probes, index.n_lists, seg, n_seg)
+    q_rot = (q_all @ index.rotation.T).contiguous()
+    met = "ip" if ip_like else "l2"
+    if tier == "segk":
+        keys, kids = _k.segmented_scan_topk(seg_list, seg_q, q_rot,
+                                            index.packed_recon,
+                                            index.packed_ids, met)
+        out_vals, out_ids = ic.merge_bin_results(keys, kids, pair_seg,
+                                                 pair_slot, k, select_min,
+                                                 invalid)
+    elif tier == "kernel":
+        keys, pos = _k.grouped_scan_topk(seg_list, seg_q, q_rot,
+                                         index.packed_recon,
+                                         index.packed_ids, min(k, L), met)
+        vals, cids = ic.grouped_kernel_results(keys, pos, seg_list,
+                                               index.packed_ids, ip_like)
+        out_vals, out_ids = ic.merge_slot_results(vals, cids, pair_seg,
+                                                  pair_slot, k, select_min,
+                                                  invalid)
+    else:
+        if index.packed_recon is not None:
+            def rows_of(sl):
+                return index.packed_recon[sl].float()
+        else:
+            def rows_of(sl):
+                codes = _k.unpack_codes(index.packed_codes[sl],
+                                        index.pq_dim, index.pq_bits)
+                dec = _decode_codes(codes.reshape(-1, index.pq_dim),
+                                    index.codebooks).view(sl.shape[0], L, -1)
+                return dec + index.centers_rot[sl][:, None, :]
+        out_vals, out_ids = ic.grouped_scan_plain_tier(
+            seg_list, seg_q, pair_seg, pair_slot, q_rot, rows_of,
+            index.packed_ids, k, met, seg_chunk, norms=index.packed_norms)
+    if mt == DistanceType.L2SqrtExpanded:
+        out_vals = torch.sqrt(out_vals)
+    if mt == DistanceType.CosineExpanded:
+        out_vals = 1.0 - out_vals
+    return out_vals, out_ids
 
 
 def _search_lut_pallas(index: IvfPqIndex, queries: torch.Tensor, k: int,
@@ -530,6 +751,26 @@ def _search_lut_pallas(index: IvfPqIndex, queries: torch.Tensor, k: int,
     return out_vals, out_ids
 
 
+_LUT_FALLBACK_DETAIL = {
+    "bin_capacity": "too few probes for the requested k (needs "
+                    "n_probes·256 ≥ k)",
+    "mem_guard": "the lut_scan_mem_ok memory guard declined the shape",
+}
+_lut_fallback_warned = False
+
+
+def _warn_lut_fallback(reason: str) -> None:
+    """Once a process: an explicit scan_select="pallas" fell to "approx"."""
+    global _lut_fallback_warned
+    if _lut_fallback_warned:
+        return
+    _lut_fallback_warned = True
+    warnings.warn(f"ivf_pq: scan_select='pallas' requested but the LUT-scan "
+                  f"kernel cannot serve this search — reason={reason}: "
+                  f"{_LUT_FALLBACK_DETAIL[reason]} — falling back to "
+                  "scan_select='approx'", RuntimeWarning, stacklevel=3)
+
+
 def search(index: IvfPqIndex, queries, k: int,
            params: Optional[SearchParams] = None, filter_bitset=None,
            dataset=None, *, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -564,21 +805,40 @@ def search(index: IvfPqIndex, queries, k: int,
                               or params.scan_select == "pallas")
                 else "per_query")
     if mode == "grouped":
-        if params.scan_select != "pallas":
-            raise _not_ported(f"the grouped {params.scan_select!r} scan tier "
-                              "(use scan_select='pallas')", "A10")
         seg = ic.SEGMENT_SIZE
         pairs = B * n_probes
         n_seg = ic.n_segments(pairs, index.n_lists, seg)
-        if n_probes * _k.LUT_SCAN_BINS < k:
-            raise _not_ported("the approx tier the JAX package takes when "
-                              "n_probes·256 < k", "A10")
-        if not ic.lut_scan_mem_ok(n_seg, seg, index.rot_dim, pairs,
-                                  _k.LUT_SCAN_BINS):
-            raise _not_ported("the approx tier the JAX package takes when "
-                              "the LUT-scan memory guard declines", "A10")
-        return _search_lut_pallas(index, q, k, n_probes, seg, n_seg,
-                                  lut_dtype=params.lut_dtype)
+        L = index.max_list_size
+        kk = min(k, L)
+        has_recon = index.packed_recon is not None
+        # the LUT-scan tier: asked for, or the approx tier at oversampled
+        # shapes with no cache to scan instead; it needs n_probes·256 ≥ k
+        # bins and its memory guard, else an explicit request falls to
+        # approx, as in the JAX package
+        lut_desired = (params.scan_select == "pallas"
+                       or (params.scan_select == "approx" and not has_recon
+                           and (n_probes >= 64 or k >= 400)))
+        select = params.scan_select
+        if lut_desired:
+            reason = ("bin_capacity" if n_probes * _k.LUT_SCAN_BINS < k
+                      else None if ic.lut_scan_mem_ok(
+                          n_seg, seg, index.rot_dim, pairs, _k.LUT_SCAN_BINS)
+                      else "mem_guard")
+            if reason is None:
+                return _search_lut_pallas(index, q, k, n_probes, seg, n_seg,
+                                          lut_dtype=params.lut_dtype)
+            if params.scan_select == "pallas":
+                _warn_lut_fallback(reason)
+                select = "approx"
+        if params.scan_mode == "grouped" or ic.grouped_mem_ok(
+                n_seg, seg, kk, pairs):
+            # the kernels scan the bf16 cache only; without it every
+            # grouped search is the plain tier, as in the JAX package
+            tier = (ic.grouped_tier(select == "approx", kk) if has_recon
+                    else "plain")
+            return _search_grouped(
+                index, q, k, n_probes, seg, n_seg, tier,
+                ic.fit_seg_chunk(seg, L, index.rot_dim, params.list_chunk))
     return _search_impl(index, q, k, n_probes,
                         _fit_query_tile(params.query_tile, n_probes, index),
                         lut_dtype=params.lut_dtype)

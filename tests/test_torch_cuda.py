@@ -31,7 +31,8 @@ import torch
 from raft_tpu_torch.ops import kernels as K
 
 from torch_parity import (SCAN_OPERANDS, assert_bins_match,
-                          assert_scan_match, cuda_device, flat_scan_case,
+                          assert_scan_match, blobs, cuda_device,
+                          flat_scan_case,
                           flat_scan_operands, refine_case, ring_scan_case,
                           ring_scan_key64, ring_scan_ops, ring_tables,
                           scan_case, scan_reference_keys, tied_scores)
@@ -550,3 +551,99 @@ def test_cuda_lut_scan_smem_formula_matches_the_kernel():
                 want = K.lut_scan_smem_bytes(qg, R, S, Kb, rot, seg, nb)
                 assert lib.rtt_lut_scan_smem_bytes(qg, R, S, Kb, rot, seg,
                                                    nb) == want
+
+
+# ---------------------------------------------------------------------------
+# the scans over IVF-PQ's bf16 reconstruction cache, and save/load of card
+# indexes
+# ---------------------------------------------------------------------------
+
+_CARD_INDEXES = {}
+
+
+def _recon_index(dev):
+    """An IVF-PQ index built on the card at the cache shape of the
+    ``ivf_pq.n1024.d64`` configuration, cut in lists: 16 lists of L 1536
+    (spill, cap factor 1.5 over 1024 rows a list), d 128, pq_dim 64, the
+    bf16 cache built by the default rule."""
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    if "pq" not in _CARD_INDEXES:
+        x = torch.tensor(blobs(16 * 1024, 128, 64, seed=8, std=2.0)).to(dev)
+        _CARD_INDEXES["pq"] = (ivf_pq.build(x, ivf_pq.IndexParams(
+            n_lists=16, pq_dim=64, spill=True, list_size_cap_factor=1.5,
+            kmeans_n_iters=10), device=dev), x)
+    return _CARD_INDEXES["pq"]
+
+
+def _recon_scan_case(dev, metric):
+    from raft_tpu_torch.neighbors import ivf_common, ivf_pq
+
+    index, _ = _recon_index(dev)
+    q = torch.tensor(blobs(300, 128, 64, seed=9, std=2.0)).to(dev)
+    _, probes = ivf_pq._coarse_probes(index, q, 8, metric == "ip")
+    seg = ivf_common.SEGMENT_SIZE
+    n_seg = ivf_common.n_segments(300 * 8, index.n_lists, seg)
+    seg_list, seg_q, _, _ = ivf_common.segment_probes(probes, index.n_lists,
+                                                      seg, n_seg)
+    q_rot = (q @ index.rotation.T).contiguous()
+    args = [seg_list, seg_q, q_rot, index.packed_recon, index.packed_ids]
+    c = dict(seg_list=seg_list.cpu().numpy(), seg_q=seg_q.cpu().numpy(),
+             q=q_rot.cpu().numpy(),
+             packed=index.packed_recon.float().cpu().numpy(),
+             ids=index.packed_ids.cpu().numpy(), bf16=True)
+    return args, c
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_scans_over_the_recon_cache_match_plain(metric):
+    """B5 and B6 over a card-built bf16 cache (L 1536, d 128; kk 40 =
+    k 10 · refine_ratio 4) against their plain versions."""
+    dev = cuda_device()
+    index, _ = _recon_index(dev)
+    assert index.packed_recon.dtype == torch.bfloat16
+    assert tuple(index.packed_recon.shape) == (16, 1536, 128)
+    args, c = _recon_scan_case(dev, metric)
+    tk, ti = K.segmented_scan_topk(*args, metric)
+    pk, pi = K.segmented_scan_topk_plain(*args, metric)
+    assert_scan_match(tk.cpu(), ti.cpu(), pk.cpu(), pi.cpu(), c, metric,
+                      "ids", rtol=1e-5, atol=1e-4)
+    for kk in (40, 64):
+        tk, tp = K.grouped_scan_topk(*args, kk, metric)
+        pk, pp = K.grouped_scan_topk_plain(*args, kk, metric)
+        assert_scan_match(tk.cpu(), tp.cpu(), pk.cpu(), pp.cpu(), c, metric,
+                          "pos", rtol=1e-5, atol=1e-4)
+
+
+def test_cuda_index_save_load_round_trip(tmp_path):
+    """A card index saved and loaded back onto the card: every array equal,
+    the cache rebuilt bit for bit, the same search results; IVF-Flat
+    likewise."""
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+
+    dev = cuda_device()
+    index, x = _recon_index(dev)
+    path = str(tmp_path / "card.ivfpq")
+    ivf_pq.save(index, path)
+    back = ivf_pq.load(path)
+    for name in ("centers", "centers_rot", "rotation", "codebooks",
+                 "packed_codes", "packed_ids", "packed_norms", "list_sizes"):
+        a, b = getattr(back, name), getattr(index, name)
+        assert a.device.type == "cuda" and torch.equal(a, b), name
+    assert torch.equal(back.packed_recon.view(torch.int16),
+                       index.packed_recon.view(torch.int16))
+    q = x[:500] + 0.1
+    for sel in ("approx", "exact"):
+        sp = ivf_pq.SearchParams(n_probes=8, scan_mode="grouped",
+                                 scan_select=sel)
+        da, ia = ivf_pq.search(index, q, 10, sp)
+        db, ib = ivf_pq.search(back, q, 10, sp)
+        assert torch.equal(ia, ib) and torch.equal(da, db)
+    flat = ivf_flat.build(x, ivf_flat.IndexParams(n_lists=16,
+                                                  kmeans_n_iters=5))
+    fpath = str(tmp_path / "card.ivfflat")
+    ivf_flat.save(flat, fpath)
+    fback = ivf_flat.load(fpath)
+    for name in ("centers", "packed_data", "packed_ids", "packed_norms",
+                 "list_sizes"):
+        assert torch.equal(getattr(fback, name), getattr(flat, name)), name

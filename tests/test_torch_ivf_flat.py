@@ -117,6 +117,25 @@ def test_grouped_tiers_match_jax(corpus, scan_select, metric, monkeypatch):
     _same(td, ti, jd, ji)
 
 
+@pytest.mark.parametrize("scan_select,k", [("exact", 100), ("approx", 200)])
+@pytest.mark.parametrize("metric", METRICS)
+def test_plain_grouped_tier_matches_jax(corpus, scan_select, k, metric,
+                                        monkeypatch):
+    """Past the kernels' kk (exact > 64, approx > 128) both packages take
+    their plain grouped tier (the JAX package's XLA tier)."""
+    monkeypatch.setenv("RAFT_TPU_PALLAS_GROUPED", "always")
+    x, q = corpus
+    jidx = _jax_index(x, metric, n_lists=8)
+    tidx = _port_index(jidx)
+    assert min(k, tidx.max_list_size) > (64 if scan_select == "exact"
+                                         else 128)
+    sp = dict(n_probes=3, scan_mode="grouped", scan_select=scan_select,
+              list_chunk=2)
+    jd, ji = jfl.search(jidx, jnp.asarray(q), k, jfl.SearchParams(**sp))
+    td, ti = tfl.search(tidx, _t(q), k, tfl.SearchParams(**sp), device="cpu")
+    _same(td, ti, jd, ji)
+
+
 def test_tiny_lists_and_k_past_candidates_match_jax(corpus, monkeypatch):
     """L < 128 (the segmented scan pads to one 128-row tile, so every
     second best is +inf) and k > what one probed list holds (both tiers
@@ -303,13 +322,7 @@ def test_unported_paths_raise(corpus):
                            mesh=object(), device="cpu"),
         lambda: tfl.search(idx, qt, 10, tfl.SearchParams(
             n_probes=4, refine="f32_regen"), dataset=x, device="cpu"),
-        lambda: tfl.search(idx, qt, 200, tfl.SearchParams(
-            n_probes=4, scan_mode="grouped", scan_select="approx"),
-            device="cpu"),
-        lambda: tfl.search(idx, qt, 100, tfl.SearchParams(
-            n_probes=4, scan_mode="grouped"), device="cpu"),
-        lambda: tfl.extend(idx, qt), lambda: tfl.save(idx, "p"),
-        lambda: tfl.load("p"), lambda: tfl.search_resilient(idx, qt, 10),
+        lambda: tfl.search_resilient(idx, qt, 10),
         lambda: tfl.build_distributed(x),
     ]
     for call in calls:

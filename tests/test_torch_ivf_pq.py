@@ -210,23 +210,29 @@ def test_resolve_lut_dtype_off_card():
 
 
 def test_unported_paths_raise(corpus):
+    """What the port still refuses: per_cluster codebooks, folded code
+    storage, filters, and a re-rank against a host-resident dataset."""
     x, q = corpus
     xt = _t(x)
-    for kw in (dict(spill=True), dict(codebook_kind="per_cluster"),
-               dict(cache_reconstruction="auto")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpq.build(xt, tpq.IndexParams(n_lists=16, pq_dim=16, **kw),
-                      device="cpu")
-    idx = _port_index(_jax_index(x))
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        tpq.build(xt, tpq.IndexParams(n_lists=16, pq_dim=16,
+                                      codebook_kind="per_cluster"),
+                  device="cpu")
+    jidx = _jax_index(x)
+    arrays, meta = jax_index_arrays(jidx)
+    folded = dict(arrays, packed_codes=arrays["packed_codes"].reshape(
+        N_LISTS, -1, 128))
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        tpq.from_numpy(folded, meta, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        tpq.from_numpy(arrays, dict(meta, codebook_kind="per_cluster"),
+                       device="cpu")
+    idx = _port_index(jidx)
     qt = _t(q)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         tpq.search(idx, qt, 10, tpq.SearchParams(n_probes=8), device="cpu",
                    filter_bitset=torch.ones(94, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpq.search(idx, qt, 10, tpq.SearchParams(n_probes=8,
-                                                 scan_mode="grouped"),
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         tpq.search(idx, qt, 10, tpq.SearchParams(
             n_probes=8, refine="f32_regen", refine_ratio=4), dataset=x,
             device="cpu")

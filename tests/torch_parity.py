@@ -22,22 +22,29 @@ def blobs(n: int, d: int, n_clusters: int, seed: int, std: float = 1.0):
 
 
 def jax_index_arrays(index):
-    """A raft_tpu ``IvfPqIndex`` → (arrays, meta) for ``from_numpy``."""
+    """A raft_tpu ``IvfPqIndex`` → (arrays, meta) for ``from_numpy``. The
+    bf16 recon cache does not cross as an array: ``has_recon`` tells the
+    other side to rebuild it."""
     arrays = {name: np.asarray(getattr(index, name)) for name in INDEX_FIELDS}
     meta = {"metric": index.metric, "pq_bits": index.pq_bits,
-            "pq_dim": index.pq_dim, "codebook_kind": index.codebook_kind}
+            "pq_dim": index.pq_dim, "codebook_kind": index.codebook_kind,
+            "has_recon": index.packed_recon is not None}
     return arrays, meta
 
 
 def jax_index_from_arrays(arrays, meta):
-    """(arrays, meta) → a raft_tpu ``IvfPqIndex``."""
+    """(arrays, meta) → a raft_tpu ``IvfPqIndex``, its recon cache rebuilt
+    by the JAX package's ``_build_recon_cache`` when ``has_recon``."""
     import jax.numpy as jnp
     from raft_tpu.neighbors import ivf_pq as jpq
 
-    return jpq.IvfPqIndex(
+    index = jpq.IvfPqIndex(
         **{name: jnp.asarray(arrays[name]) for name in INDEX_FIELDS},
         metric=meta["metric"], codebook_kind=meta["codebook_kind"],
         pq_bits=int(meta["pq_bits"]), pq_dim_static=int(meta["pq_dim"]))
+    if meta.get("has_recon"):
+        index = index.replace(packed_recon=jpq._build_recon_cache(index))
+    return index
 
 
 FLAT_FIELDS = ("centers", "packed_data", "packed_ids", "packed_norms",
