@@ -26,7 +26,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    bound logged; the LUT scan's shared-memory look-up floor logged beside
    its bytes bound; gather_refine_topk timed with the L2 cold, beside
    its warm time, the kernel alone in a CUDA graph and the wrapper's host
-   time), and a stage breakdown of one batch;
+   time), and a stage breakdown of one batch; then ``[filter main]``, the
+   path filtered (ROADMAP A6): keep masks drawn as the JAX bench draws
+   them (``bench_keep``) at selectivity 0.1 and 0.01, each leg with the
+   counts zeroed just before and read just after (B1 and B2 must launch
+   with their filter operands every batch), three passes of QPS, recall@10
+   against ``brute_force.knn(filter_bitset=)``, no returned id with its
+   bit clear, the kernel path within 0.01 of the plain path on 200
+   queries; an all-pass bitset must give the unfiltered kernel path's ids
+   and distances exactly; and B1 and B2 with their filter operands against
+   their plain versions at selectivity 0.1 (rows ``ivf_pq_filter``);
 4. IVF-Flat path — the 1M x 128 ``make_synthetic_hard`` set of the repo's
    hard_config bench (``FLAT_N`` rows, not cut), ``ivf_flat.build`` with
    1024 lists, spill, cap factor 1.5; searches of 10,000 queries (k 10)
@@ -42,6 +51,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    select_k on that batch's bin rows, fused_l2_argmin at the build's
    final k-means sweep), select_k against the stable sort at the path's
    other short-row shapes, and a stage breakdown of one approx batch;
+   ``[flat filter]`` at selectivity 0.1: the exact leg at 32 (the grouped
+   scan over the id table with the cleared ids at −1; it must launch) and
+   the approx leg at 32 (the plain grouped tier: the segmented scan
+   declines filtered searches, as in the JAX package, and must not
+   launch), checked against the filtered ground truth, the filtered
+   per_query tier (within 0.002) and the plain path (exact, within 0.01);
    then the IVF-PQ recon leg on the same data, queries and ground truth:
    the repo's bench config ``ivf_pq.n1024.d64`` (bench.py:211-243; 1024
    lists, pq_dim 64, spill, cap factor 1.5, the default
@@ -53,7 +68,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    (the same four kernels must have launched); checks: recall@10 of every
    leg, approx recall not falling from 64 to 128, the exact leg within
    0.01 of approx at 64, the kernel path no more than 0.01 below the plain
-   path on 200 queries; then both scans against their plain versions on
+   path on 200 queries; ``[pq filter]``: the config's filter legs, approx
+   at 64 with refine_ratio 4 at selectivity 0.01, 0.1 and 0.5 (the
+   segmented scan over the masked id table must launch, then the gather
+   re-rank with the filter), each against its filtered ground truth, no
+   id with its bit clear, and at 0.1 the plain path; then both scans
+   against their plain versions on
    the n_probes 64 segment table over the bf16 cache (bounds: two TF32
    products, 2-byte rows), and a stage breakdown of one approx batch;
 5. sharded path — BASELINE.md target 5's shape cut to one card: 20M x 128
@@ -70,8 +90,15 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    of the plain path's (the same sharded search on CPU ranks); leg 4 the
    comms byte model of one batch (ring ≤ half the allgather's); then the
    ring kernels and B1–B4 against their plain versions at the path's
-   shapes. The ranks share cuda:0 whatever the card count: the ring
-   kernels over ranks on several cards are not ported yet;
+   shapes; ``[shard filter]`` at selectivity 0.1 over the global row ids:
+   a refined batch of 500 (each rank's LUT scan with its keep bytes; the
+   ring and allgather tiers equal but at ties) and the fused scan-in-ring
+   tier at batch 32 with each rank's keep bytes against the filtered
+   allgather tier (equal except at f32 ties, checked in f64), counts
+   zeroed before and read after, and B8 with its filter operand against
+   its plain version (row ``sharded_filter``). The ranks share cuda:0
+   whatever the card count: the ring kernels over ranks on several cards
+   are not ported yet;
 6. the run's wall time, the card's line, the kernel JSON line, then
    ``{"ok": true, "device": {...}}`` last.
 
@@ -215,6 +242,31 @@ def _sm_clock_hz() -> float:
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout
     return float(out.strip().splitlines()[0]) * 1e6
+
+
+def bench_keep(n: int, sel: float, k: int):
+    """The JAX bench's filter-leg keep mask (raft_tpu/bench/runner.py:
+    _filter_leg): a draw seeded by the selectivity keeping a ``sel`` share
+    of the n rows, and at least k of them."""
+    import numpy as np
+
+    rng = np.random.default_rng(981_000 + int(round(sel, 6) * 1_000_000))
+    keep = rng.random(n) < sel
+    if keep.sum() < k:
+        keep[rng.permutation(n)[:k]] = True
+    return keep
+
+
+def _check_kept(ids, keep, what):
+    """No returned id may have its bit clear."""
+    import numpy as np
+
+    got = np.asarray(ids)
+    got = got[got >= 0]
+    if not keep[got].all():
+        raise SmokeFailure(f"{what}: {int((~keep[got]).sum())} returned ids "
+                           f"have their filter bit clear")
+    return int((np.asarray(ids) < 0).sum())
 
 
 def _recall(found, truth) -> float:
@@ -385,16 +437,19 @@ def _select_k_row(rows, path, launches, scores, k, shape):
 
 
 def _lut_scan_row(rows, path, launches, index, q0, n_probes, lut_dtype,
-                  shape=""):
+                  shape="", filter_bits=None):
     """ivfpq_lut_scan_topk against its plain version on the segment table
     of ``q0``'s coarse probes over ``index``: the [B, n_probes, 256] pair
     rows with the same filled bins, keys within 1e-3 + 1e-5·(|key| +
     ‖q‖²), ids agreeing on 99.9 % of filled bins; then its row, with the
-    shared-memory look-up floor beside the bytes bound. Returns the scan's
-    operands and outputs for the stage breakdown."""
+    shared-memory look-up floor beside the bytes bound. ``filter_bits``:
+    both take the keep bytes over the index's id table, and the bound
+    counts the kept rows (the kernel loads nothing of a row it drops) and
+    the keep bytes. Returns the scan's operands and outputs for the stage
+    breakdown."""
     import torch
 
-    from raft_tpu_torch.neighbors import ivf_common, ivf_pq
+    from raft_tpu_torch.neighbors import ivf_common, ivf_pq, sample_filter
     from raft_tpu_torch.ops import kernels as K
 
     B = q0.shape[0]
@@ -407,13 +462,16 @@ def _lut_scan_row(rows, path, launches, index, q0, n_probes, lut_dtype,
     scan_args = (seg_list, seg_q, pair_seg, pair_slot, q_rot,
                  index.packed_codes, index.packed_ids, index.packed_norms,
                  index.list_sizes, index.centers_rot, index.codebooks)
+    fbytes = (None if filter_bits is None else
+              sample_filter.list_filter_bytes(filter_bits, index.packed_ids))
     scan_kw = dict(pq_bits=index.pq_bits, pq_dim=index.pq_dim,
-                   L=index.max_list_size, lut_dtype=lut_dtype)
+                   L=index.max_list_size, lut_dtype=lut_dtype,
+                   filter_bytes=fbytes)
     kk, ki = K.ivfpq_lut_scan_topk(*scan_args, "l2", **scan_kw)
     cb = K.lut_codebook(index.codebooks, lut_dtype)
     plain_args = (seg_list, pair_seg, q_rot, index.packed_codes,
                   index.packed_ids, index.packed_norms, index.list_sizes,
-                  index.centers_rot, cb, "l2", index.pq_bits)
+                  index.centers_rot, cb, "l2", index.pq_bits, fbytes)
     pk, pi = K.ivfpq_lut_scan_topk_plain(*plain_args)
     if kk.shape != (B, n_probes, K.LUT_SCAN_BINS) or kk.shape != pk.shape:
         raise SmokeFailure(f"ivfpq_lut_scan_topk: output {list(kk.shape)}, "
@@ -445,8 +503,18 @@ def _lut_scan_row(rows, path, launches, index, q0, n_probes, lut_dtype,
     n_live = int(live.sum())
     nb = index.packed_codes.shape[2]
     rows_real = int(sizes[lists].sum())
+    keep_bytes = 0
+    if fbytes is not None:
+        # the rows a search needs are the kept real rows, and each probed
+        # list's keep bytes up to its size
+        kept = K.unpack_filter_bytes(fbytes, L) & (
+            torch.arange(L, device=sizes.device)[None, :] < sizes[:, None])
+        keep_bytes = int(((sizes[lists] + 7) // 8).sum())
+        sizes = kept.sum(1)
+        del kept
+    rows_kept = int(sizes[lists].sum())
     pair_rows = int((live.sum(1).long() * sizes[seg_list.long()]).sum())
-    scan_bytes = (rows_real * (nb + 8) + lists.numel() * (
+    scan_bytes = (rows_kept * (nb + 8) + keep_bytes + lists.numel() * (
         q_rot.shape[1] + 1) * 4 + cb.numel() * 4 + q_rot.numel() * 4
         + seg_list.numel() * 4 + seg_q.numel() * 4 + pair_seg.numel() * 8
         + kk.numel() * 8)
@@ -466,26 +534,33 @@ def _lut_scan_row(rows, path, launches, index, q0, n_probes, lut_dtype,
          _timed(lambda: K.ivfpq_lut_scan_topk_plain(*plain_args), 2),
          scan_bytes, scan_flops, None,
          f"{shape}n_seg {n_seg} x {seg} slots ({n_live} live pairs), L {L}, "
-         f"{lists.numel()} lists of {rows_real} real rows, {pair_rows} "
-         f"(live pair, real row) pairs, id agreement {id_agree:.6f}",
+         f"{lists.numel()} lists of {rows_real} real rows"
+         + ("" if fbytes is None else f" ({rows_kept} kept)")
+         + f", {pair_rows} ({'kept ' if fbytes is not None else ''}live "
+         f"pair, real row) pairs, id agreement {id_agree:.6f}",
          logged=dict(lookup_floor_ms=floor_ms, sm_clock_mhz=clock / 1e6,
                      larger_bound="lookups" if floor_ms > b_ms else "bytes"))
     return dict(kk=kk, ki=ki, probes=probes, seg=seg, n_seg=n_seg,
                 q_rot=q_rot)
 
 
-def _refine_row(rows, path, launches, base, q0, cand, k, shape=""):
+def _refine_row(rows, path, launches, base, q0, cand, k, shape="",
+                filter_bits=None):
     """gather_refine_topk against its plain version on ``q0``'s candidates
     into ``base``: keys within 1e-5·(‖q‖² + |key|), ids equal away from key
     ties; then its row: ms with the L2 cold, beside the warm, kernel-alone
-    and host times."""
+    and host times. ``filter_bits``: both take the bitset's words, and the
+    bound counts the kept candidates' rows and a word a candidate."""
     import torch
 
+    from raft_tpu_torch.neighbors import sample_filter
     from raft_tpu_torch.ops import kernels as K
 
     B, dim = q0.shape
-    gk, gi = K.gather_refine_topk(base, q0, cand, k, "l2")
-    pk2, pi2 = K.gather_refine_topk_plain(base, q0, cand, k, "l2")
+    gk, gi = K.gather_refine_topk(base, q0, cand, k, "l2",
+                                  filter_bits=filter_bits)
+    pk2, pi2 = K.gather_refine_topk_plain(base, q0, cand, k, "l2",
+                                          filter_bits)
     err = float((gk - pk2).abs().max())
     # the expanded key cancels ‖q‖² + ‖r‖²; rounding scales with it
     tol = 1e-5 * ((q0 * q0).sum(1, keepdim=True) + pk2.abs())
@@ -502,20 +577,139 @@ def _refine_row(rows, path, launches, base, q0, cand, k, shape=""):
         raise SmokeFailure("gather_refine_topk ids differ away from key ties")
     id_agree = float((gi == pi2).float().mean())
     C = cand.shape[1]
-    call = lambda: K.gather_refine_topk(base, q0, cand, k, "l2")  # noqa: E731
+    call = lambda: K.gather_refine_topk(  # noqa: E731
+        base, q0, cand, k, "l2", filter_bits=filter_bits)
+    # the rows a re-rank needs: its valid candidates', or with a filter its
+    # kept candidates' and a 4-byte word a candidate
+    n_rows = int(sample_filter.masked_ids(filter_bits, cand).ge(0).sum())
+    words = 0 if filter_bits is None else B * C * 4
     # what the caller sees: the rows cold (it runs after the LUT scan has
     # streamed the codes); beside it warm back-to-back calls, the kernel
     # alone (a CUDA graph of the launches) and the wrapper's host time
     _row(rows, path, "gather_refine_topk", "gather_refine.cu", 1176,
          launches["gather_refine_topk"], err, _timed_cold(call, 30),
-         _timed(lambda: K.gather_refine_topk_plain(base, q0, cand, k, "l2"),
-                10),
-         B * C * dim * 4 + B * C * 4 + B * dim * 4 + B * k * 8,
-         4.0 * B * C * dim, None,
-         f"{shape}[{B},{C}] candidates into [{base.shape[0]},{dim}], k={k}, "
-         f"id agreement {id_agree:.6f}, ms with the L2 cold",
+         _timed(lambda: K.gather_refine_topk_plain(base, q0, cand, k, "l2",
+                                                   filter_bits), 10),
+         n_rows * dim * 4 + B * C * 4 + words + B * dim * 4 + B * k * 8,
+         4.0 * n_rows * dim, None,
+         f"{shape}[{B},{C}] candidates ({n_rows} rows to load) into "
+         f"[{base.shape[0]},{dim}], k={k}, id agreement {id_agree:.6f}, ms "
+         f"with the L2 cold",
          warm_ms=_timed(call, 50), kernel_ms=_graph_ms(call, 50),
          host_ms=_host_ms(call, 20))
+
+
+def filter_main_leg(args, rows, index, base, queries, index_cpu, base_cpu,
+                    sp, B, k, n_gt, n_pl):
+    """The main path filtered (ROADMAP A6), on the IVF-PQ phase's index:
+    keep masks drawn as the JAX bench draws them at selectivity 0.1 and
+    0.01, packed with ``bitset.from_mask``, their exact ground truth from
+    ``brute_force.knn(filter_bitset=)``. For each, with the counts zeroed
+    just before: the refined search of every query in batches of B (three
+    passes); B1 and B2 must have launched with their filter operands.
+    Checks: no returned id has its bit clear, and the kernel path's recall
+    on n_pl queries no more than 0.01 below the plain path's (the same
+    filtered search on the CPU copy of the index). Then an all-pass
+    bitset must give the unfiltered kernel path's ids and distances
+    exactly, and B1 and B2 at selectivity 0.1 against their plain versions
+    (their filtered rows). Raises SmokeFailure; returns the summary."""
+    import torch
+
+    from raft_tpu_torch.core import bitset
+    from raft_tpu_torch.neighbors import brute_force, ivf_pq, sample_filter
+    from raft_tpu_torch.ops import kernels as K
+
+    N, nq = base.shape[0], queries.shape[0]
+
+    def search_pass(bits):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        out = []
+        start.record()
+        for a in range(0, nq, B):
+            out.append(ivf_pq.search(index, queries[a:a + B], k, sp,
+                                     filter_bitset=bits, dataset=base)[1])
+        end.record()
+        torch.cuda.synchronize()
+        return torch.cat(out), start.elapsed_time(end) / 1e3
+
+    summary, kept_bits = {}, {}
+    for sel in (0.1, 0.01):
+        keep = bench_keep(N, sel, k)
+        bits = bitset.from_mask(keep, device=base.device)
+        kept_bits[sel] = bits
+        _, fgt = brute_force.knn(base, queries[:n_gt], k,
+                                 metric="sqeuclidean", filter_bitset=bits)
+        fgt = fgt.cpu()
+        K.reset_launch_counts()
+        ids_f, t_f = search_pass(bits)
+        launches = K.launch_counts()
+        filtered = K.filtered_launch_counts()
+        n_batches = -(-nq // B)
+        for name in ("ivfpq_lut_scan_topk", "gather_refine_topk"):
+            if filtered[name] != n_batches or launches[name] != n_batches:
+                raise SmokeFailure(f"filtered main path: {name} launched "
+                                   f"{launches[name]} times, {filtered[name]}"
+                                   f" with its filter, for {n_batches} "
+                                   f"batches")
+        qps = [nq / t_f] + [nq / search_pass(bits)[1] for _ in range(2)]
+        ids_f = ids_f.cpu()
+        n_empty = _check_kept(ids_f, keep, f"filtered main path at {sel}")
+        rec = _recall(ids_f[:n_gt], fgt)
+        t0 = time.perf_counter()
+        _, ids_pl = ivf_pq.search(index_cpu, queries[:n_pl].cpu(), k, sp,
+                                  filter_bitset=bits.cpu(), dataset=base_cpu,
+                                  device="cpu")
+        _check_kept(ids_pl, keep, f"filtered plain path at {sel}")
+        rec_plain = _recall(ids_pl, fgt[:n_pl])
+        rec_kern = _recall(ids_f[:n_pl], fgt[:n_pl])
+        _log(f"[filter main] selectivity {sel} ({int(keep.sum())} of {N} "
+             f"rows kept, bitset {bits.numel() * 4 / 1e6:.2f} MB, keep bytes "
+             f"{index.n_lists * ((index.max_list_size + 7) // 8) / 1e6:.2f} "
+             f"MB): {nq} queries in batches of {B}, three passes (CUDA "
+             f"events): " + ", ".join(f"{x:.0f}" for x in qps) + " QPS; "
+             f"recall@10 {rec:.4f} on {n_gt} queries against the filtered "
+             f"ground truth; {n_empty} empty slots; launches "
+             f"{json.dumps(launches)}, with the filter "
+             f"{json.dumps(filtered)}; {n_pl} queries: kernel path "
+             f"{rec_kern:.4f}, plain path (CPU) {rec_plain:.4f} "
+             f"({time.perf_counter() - t0:.1f} s)")
+        if not rec_kern >= rec_plain - 0.01:
+            raise SmokeFailure(f"filtered kernel-path recall {rec_kern} at "
+                               f"{sel} is more than 0.01 below the plain "
+                               f"path's {rec_plain}")
+        summary[str(sel)] = {"kept": int(keep.sum()), "qps_runs": qps,
+                             "recall_at_10": rec, "empty_slots": n_empty,
+                             "recall_kernel_200": rec_kern,
+                             "recall_plain_200": rec_plain,
+                             "launches": launches,
+                             "filtered_launches": filtered}
+
+    # an all-pass bitset changes nothing on the kernel path
+    allp = sample_filter.make_filter(N, device=base.device)
+    for a in range(0, n_gt, B):
+        q = queries[a:a + B]
+        d0, i0 = ivf_pq.search(index, q, k, sp, dataset=base)
+        d1, i1 = ivf_pq.search(index, q, k, sp, filter_bitset=allp,
+                               dataset=base)
+        if not (torch.equal(i0, i1) and torch.equal(d0, d1)):
+            raise SmokeFailure("an all-pass filter changed the kernel path's "
+                               "ids or distances")
+    _log(f"[filter main] an all-pass bitset: ids and distances equal to the "
+         f"unfiltered kernel path's on {n_gt} queries")
+
+    # B1 and B2 with their filter operands at selectivity 0.1, on the
+    # first batch's inputs (the filtered scan's 400 candidates)
+    bits = kept_bits[0.1]
+    q0 = queries[:B].contiguous()
+    flaunch = summary["0.1"]["filtered_launches"]
+    _lut_scan_row(rows, "ivf_pq_filter", flaunch, index, q0, sp.n_probes,
+                  "bfloat16", "selectivity 0.1: ", filter_bits=bits)
+    sp_scan = ivf_pq.SearchParams(**{**sp.__dict__, "refine": "none"})
+    _, cand = ivf_pq.search(index, q0, 400, sp_scan, filter_bitset=bits)
+    _refine_row(rows, "ivf_pq_filter", flaunch, base, q0, cand.contiguous(),
+                k, "selectivity 0.1: ", filter_bits=bits)
+    return summary
 
 
 def flat_phase(args, rows):
@@ -653,8 +847,10 @@ def flat_phase(args, rows):
             raise SmokeFailure(f"{select}: kernel-path recall {kern} more "
                                f"than 0.01 below the plain path's "
                                f"{plain_rec[select]}")
-    del index_cpu
     _log(f"[flat recall] plain path took {time.perf_counter() - t0:.1f} s")
+    filt_summary = flat_filter_leg(index, index_cpu, base, queries, k, nq,
+                                   n_gt, n_pl)
+    del index_cpu
 
     # the two scan kernels on the first batch's segment table (n_probes 32)
     n_probes, seg = 32, ivf_common.SEGMENT_SIZE
@@ -784,7 +980,103 @@ def flat_phase(args, rows):
             "small_batch_ms": {bsz: lat for bsz, (_, lat) in small.items()},
             "recall_at_10": recall, "recall_plain_200": plain_rec,
             "bin_table_bytes": bin_bytes, "batch_stages_ms": stages_ms,
-            "select_k_ms": sel_ms, "launches": launches}
+            "select_k_ms": sel_ms, "launches": launches,
+            "filter": filt_summary}
+
+
+def flat_filter_leg(index, index_cpu, base, queries, k, nq, n_gt, n_pl):
+    """IVF-Flat filtered (ROADMAP A6), on the IVF-Flat phase's index, the
+    bench's keep mask at selectivity 0.1: the exact leg at n_probes 32
+    (the grouped scan over the id table with the cleared ids set to −1:
+    B6 must launch) and the approx leg at n_probes 32 (the plain grouped
+    tier: the segmented scan declines filtered searches, as in the JAX
+    package, so B5 must not launch), two passes each with the counts
+    zeroed before the legs and read after. Checks: no returned id has
+    its bit clear; recall@10 against the filtered ground truth; the exact
+    leg within 0.002 of the filtered per_query tier; the exact leg's
+    kernel path no more than 0.01 below the plain path on n_pl queries.
+    Raises SmokeFailure; returns the summary."""
+    import torch
+
+    from raft_tpu_torch.core import bitset
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat
+    from raft_tpu_torch.ops import kernels as K
+
+    N, sel = base.shape[0], 0.1
+    keep = bench_keep(N, sel, k)
+    bits = bitset.from_mask(keep, device=base.device)
+    _, fgt = brute_force.knn(base, queries[:n_gt], k, metric="sqeuclidean",
+                             filter_bitset=bits)
+    fgt = fgt.cpu()
+
+    def timed_search(params, q):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ivf_flat.search(index, q, k, params, filter_bitset=bits)
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end) / 1e3
+
+    legs, launches = {}, {}
+    for select in ("exact", "approx"):
+        params = ivf_flat.SearchParams(n_probes=32, scan_mode="grouped",
+                                       scan_select=select)
+        K.reset_launch_counts()
+        secs = []
+        for _ in range(2):
+            (_, ids), t = timed_search(params, queries)
+            secs.append(t)
+        launches[select] = K.launch_counts()
+        ids = ids.cpu()
+        n_empty = _check_kept(ids, keep, f"filtered IVF-Flat {select}")
+        legs[select] = {"qps": [nq / t for t in secs],
+                        "recall_at_10": _recall(ids[:n_gt], fgt),
+                        "empty_slots": n_empty}
+        legs[select]["ids"] = ids
+    if launches["exact"]["grouped_scan_topk"] != 2:
+        raise SmokeFailure(f"filtered exact leg: the grouped scan launched "
+                           f"{launches['exact']['grouped_scan_topk']} times "
+                           f"for 2 searches")
+    if launches["approx"]["segmented_scan_topk"] != 0:
+        raise SmokeFailure("filtered approx leg launched the segmented scan, "
+                           "which declines filtered searches")
+    (_, ids_pq), _ = timed_search(ivf_flat.SearchParams(
+        n_probes=32, scan_mode="per_query"), queries[:n_gt])
+    rec_pq = _recall(ids_pq.cpu(), fgt)
+    _check_kept(ids_pq.cpu(), keep, "filtered IVF-Flat per_query")
+    _, ids_pl = ivf_flat.search(index_cpu, queries[:n_pl].cpu(), k,
+                                ivf_flat.SearchParams(n_probes=32,
+                                                      scan_mode="grouped",
+                                                      scan_select="exact"),
+                                filter_bitset=bits.cpu(), device="cpu")
+    rec_plain = _recall(ids_pl, fgt[:n_pl])
+    rec_kern = _recall(legs["exact"]["ids"][:n_pl], fgt[:n_pl])
+    for select, leg in legs.items():
+        tier = ("the grouped scan over the masked id table" if select ==
+                "exact" else "the plain grouped tier")
+        _log(f"[flat filter] {select} n_probes 32, selectivity {sel} "
+             f"({int(keep.sum())} of {N} rows kept; {tier}): QPS "
+             + ", ".join(f"{x:.0f}" for x in leg["qps"])
+             + f" (batch {nq}, CUDA events); recall@10 "
+             f"{leg['recall_at_10']:.4f} against the filtered ground truth; "
+             f"{leg['empty_slots']} empty slots; launches "
+             f"{json.dumps(launches[select])}")
+        del leg["ids"]
+    _log(f"[flat filter] per_query tier n_probes 32 filtered: recall@10 "
+         f"{rec_pq:.4f}; exact leg on {n_pl} queries: kernel path "
+         f"{rec_kern:.4f}, plain path (CPU) {rec_plain:.4f}")
+    if abs(legs["exact"]["recall_at_10"] - rec_pq) > 0.002:
+        raise SmokeFailure(f"filtered exact grouped recall "
+                           f"{legs['exact']['recall_at_10']} vs per_query "
+                           f"{rec_pq}")
+    if not rec_kern >= rec_plain - 0.01:
+        raise SmokeFailure(f"filtered exact kernel-path recall {rec_kern} "
+                           f"more than 0.01 below the plain path's "
+                           f"{rec_plain}")
+    return {"selectivity": sel, "legs": legs, "recall_per_query": rec_pq,
+            "recall_kernel_200": rec_kern, "recall_plain_200": rec_plain,
+            "launches": launches}
 
 
 def pq_recon_phase(args, rows, base, queries, gt):
@@ -805,7 +1097,7 @@ def pq_recon_phase(args, rows, base, queries, gt):
     import numpy as np
     import torch
 
-    from raft_tpu_torch.neighbors import ivf_common, ivf_pq
+    from raft_tpu_torch.neighbors import brute_force, ivf_common, ivf_pq
     from raft_tpu_torch.neighbors import refine as trefine
     from raft_tpu_torch.ops import kernels as K
 
@@ -912,10 +1204,10 @@ def pq_recon_phase(args, rows, base, queries, gt):
     t0 = time.perf_counter()
     index_cpu = ivf_pq.from_numpy(*ivf_pq.to_numpy(index), device="cpu")
     t_cache = time.perf_counter() - t0
+    base_cpu = base.cpu()
     _, ids_pl = ivf_pq.search(index_cpu, queries[:n_pl].cpu(), k,
                               sp(64, "approx", "grouped"),
-                              dataset=base.cpu(), device="cpu")
-    del index_cpu
+                              dataset=base_cpu, device="cpu")
     rec_plain = _recall(ids_pl, gt[:n_pl])
     rec_kern = _recall(legs["approx_64"]["ids"][:n_pl], gt[:n_pl])
     _log(f"[pq recall] approx n_probes 64, {n_pl} queries: kernel path "
@@ -925,6 +1217,62 @@ def pq_recon_phase(args, rows, base, queries, gt):
     if not rec_kern >= rec_plain - 0.01:
         raise SmokeFailure(f"IVF-PQ recon kernel-path recall {rec_kern} more "
                            f"than 0.01 below the plain path's {rec_plain}")
+
+    # [pq filter]: the bench config's filter legs (bench.py:228-238),
+    # approx at n_probes 64, refine_ratio 4, at selectivity 0.01, 0.1, 0.5
+    from raft_tpu_torch.core import bitset
+
+    filt = {}
+    for sel in (0.01, 0.1, 0.5):
+        keep = bench_keep(N, sel, k)
+        bits = bitset.from_mask(keep, device=base.device)
+        _, fgt = brute_force.knn(base, queries[:n_gt], k,
+                                 metric="sqeuclidean", filter_bitset=bits)
+        fgt = fgt.cpu()
+        K.reset_launch_counts()
+        secs = []
+        for _ in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, ids = ivf_pq.search(index, queries, k, sp(64, "approx"),
+                                   filter_bitset=bits, dataset=base)
+            end.record()
+            torch.cuda.synchronize()
+            secs.append(start.elapsed_time(end) / 1e3)
+        fl = K.launch_counts()
+        if fl["segmented_scan_topk"] != 2 or fl["grouped_scan_topk"]:
+            raise SmokeFailure(f"filtered recon leg at {sel} did not take "
+                               f"the segmented scan over the masked id "
+                               f"table: {fl}")
+        ids = ids.cpu()
+        n_empty = _check_kept(ids, keep, f"filtered recon leg at {sel}")
+        rec = _recall(ids[:n_gt], fgt)
+        line = (f"[pq filter] approx n_probes 64, refine_ratio 4, "
+                f"selectivity {sel} ({int(keep.sum())} of {N} rows kept): "
+                f"QPS " + ", ".join(f"{nq / t:.0f}" for t in secs)
+                + f" (batch {nq}, CUDA events); recall@10 {rec:.4f} against "
+                f"the filtered ground truth; {n_empty} empty slots; "
+                f"launches {json.dumps(fl)}")
+        filt[str(sel)] = {"qps": [nq / t for t in secs], "recall_at_10": rec,
+                          "empty_slots": n_empty, "launches": fl}
+        if sel == 0.1:
+            _, ids_pl = ivf_pq.search(index_cpu, queries[:n_pl].cpu(), k,
+                                      sp(64, "approx", "grouped"),
+                                      filter_bitset=bits.cpu(),
+                                      dataset=base_cpu, device="cpu")
+            f_plain = _recall(ids_pl, fgt[:n_pl])
+            f_kern = _recall(ids[:n_pl], fgt[:n_pl])
+            line += (f"; {n_pl} queries: kernel path {f_kern:.4f}, plain "
+                     f"path (CPU) {f_plain:.4f}")
+            filt[str(sel)].update(recall_kernel_200=f_kern,
+                                  recall_plain_200=f_plain)
+            if not f_kern >= f_plain - 0.01:
+                raise SmokeFailure(f"filtered recon kernel-path recall "
+                                   f"{f_kern} more than 0.01 below the "
+                                   f"plain path's {f_plain}")
+        _log(line)
+    del index_cpu, base_cpu
 
     # B5 and B6 on the n_probes 64 segment table over the bf16 cache
     n_probes, seg = 64, ivf_common.SEGMENT_SIZE
@@ -1020,7 +1368,7 @@ def pq_recon_phase(args, rows, base, queries, gt):
             "small_batch_ms": {bsz: lat for bsz, (_, lat) in small.items()},
             "recall_at_10": recall, "recall_kernel_200": rec_kern,
             "recall_plain_200": rec_plain, "batch_stages_ms": stages_ms,
-            "launches": launches}
+            "launches": launches, "filter": filt}
 
 
 def _ring_topk_row(rows, path, launches, vals, gids, k, shape):
@@ -1083,22 +1431,28 @@ def _adc_key64(index, qv_row, gid):
 
 
 def _ring_lut_scan_row(rows, path, launches, index, q, k, n_probes, mesh,
-                       shape):
+                       shape, filter_bits=None):
     """ring_lut_scan_merge against its plain version (on the same card) on
     one batch's chunk tables: the same finite pattern, keys within
     1e-5·(|key| + ‖q‖²) (the f32 rounding of an ADC key and its expanded
     form, as leg 3 and the LUT scan's check allow), ids equal away from key
     ties (the f64 key of the kernel's pick within that tolerance); then its
-    row, with the largest difference beside its limit."""
+    row, with the largest difference beside its limit. ``filter_bits``
+    (global row ids): each rank's keep bytes over its own id table, and
+    the bound counts the kept rows and the keep bytes."""
     import torch
 
+    from raft_tpu_torch.neighbors import sample_filter
     from raft_tpu_torch.ops import kernels as K
     from raft_tpu_torch.parallel import ivf as pivf
 
     ops = pivf._fused_ring_operands(index, q, n_probes, mesh, False)
     lists, ind, qv, packed, ids, norms, sizes_r, ctr, cbs = ops
+    fbytes = (None if filter_bits is None else
+              [sample_filter.list_filter_bytes(filter_bits, t) for t in ids])
     kw = dict(pq_bits=index.pq_bits, pq_dim=index.pq_dim,
-              L=index.max_list_size, lut_dtype="float32")
+              L=index.max_list_size, lut_dtype="float32",
+              filter_bytes=fbytes)
     tk, ti = K.ring_lut_scan_merge(*ops, k, "l2", **kw)
     n = len(packed)
     mc = qv[0].shape[1]
@@ -1108,7 +1462,7 @@ def _ring_lut_scan_row(rows, path, launches, index, q, k, n_probes, mesh,
              for i in ind]
     plain = lambda: K.ring_lut_scan_merge_plain(  # noqa: E731
         lists, seg_q, qv, packed, ids, norms, sizes_r, ctr, cb, k, "l2",
-        index.pq_bits)
+        index.pq_bits, fbytes)
     pk, pi = plain()
     err, worst, n_tie = 0.0, 0.0, 0
     for r in range(n):
@@ -1140,14 +1494,19 @@ def _ring_lut_scan_row(rows, path, launches, index, q, k, n_probes, mesh,
     # (rank, chunk row) and an add per subspace per (member pair, real row)
     nb = packed[0].shape[2]
     S, Kc, P = cbs[0].shape
+    L = index.max_list_size
     n_bytes, flops, n_pairs, pair_rows = n * mc * k * 8, 0.0, 0, 0
     for r in range(n):
         sizes = index.list_sizes[r].long()
+        kept = sizes
+        if fbytes is not None:
+            kept = (K.unpack_filter_bytes(fbytes[r], L) & (torch.arange(
+                L, device=sizes.device)[None, :] < sizes[:, None])).sum(1)
         n_bytes += cbs[r].numel() * 4
         for c in range(n):
             lst = lists[r][c]
             real = lst >= 0
-            lsz = torch.where(real, sizes[lst.clamp_min(0).long()], 0)
+            lsz = torch.where(real, kept[lst.clamp_min(0).long()], 0)
             members = ind[r][c].sum(1)
             pr = int((members * lsz).sum())
             n_pairs += int(members.sum())
@@ -1155,6 +1514,9 @@ def _ring_lut_scan_row(rows, path, launches, index, q, k, n_probes, mesh,
             n_bytes += (int(lsz.sum()) * (nb + 8) + int(real.sum())
                         * ctr[r].shape[1] * 4 + qv[r][c].numel() * 4
                         + ind[r][c].numel() * 4 + lst.numel() * 4)
+            if fbytes is not None:   # the union lists' keep bytes
+                n_bytes += int(((torch.where(real, sizes[lst.clamp_min(
+                    0).long()], 0) + 7) // 8).sum())
             flops += (float((ind[r][c].sum(0) > 0).sum()) * 2 * S * Kc * P
                       + pr * S)
     clock = _sm_clock_hz()
@@ -1174,7 +1536,8 @@ def _ring_lut_scan_row(rows, path, launches, index, q, k, n_probes, mesh,
          _timed(plain, 1), n_bytes, flops, None,
          f"{n} ranks, {q.shape[0]} queries (mc {mc}), NS "
          f"{lists[0].shape[1]}, {n_pairs} member pairs, {pair_rows} (member "
-         f"pair, real row) pairs, k {k}, two launches a call, {n_tie} picks "
+         f"pair, {'kept ' if fbytes is not None else ''}real row) pairs, "
+         f"k {k}, two launches a call, {n_tie} picks "
          f"differ at f64 key ties, largest |dkey| {err:.3g} = {worst:.3f} of "
          f"its limit 1e-5*(|key|+|q|^2) ({shape})",
          floor_ms=floor_ms, host_ms=host_ms,
@@ -1444,6 +1807,8 @@ def sharded_phase(args, rows):
     }
     _log(f"[shard stages] one refined batch of {B} queries, ms: "
          f"{json.dumps(stages_ms)}")
+    filt_summary = shard_filter_leg(rows, index, base, queries, mesh, sp,
+                                    spf, B, bf, k)
 
     _log(f"[shard transport] the {SHARD_RANKS} ranks shared cuda:0 "
          f"({torch.cuda.device_count()} card(s) visible): ring_topk_merge "
@@ -1460,7 +1825,139 @@ def sharded_phase(args, rows):
             "fused_ms_median": float(np.median(lat["on"])),
             "unfused_ms_median": float(np.median(lat["off"])),
             "byte_model": byte_model, "batch_stages_ms": stages_ms,
-            "launches": launches}
+            "launches": launches, "filter": filt_summary}
+
+
+def shard_filter_leg(rows, index, base, queries, mesh, sp, spf, B, bf, k):
+    """The sharded tier filtered (ROADMAP A6): the bench's keep mask at
+    selectivity 0.1 over the 20M global row ids, replicated. With the
+    counts zeroed before and read after: the refined search of a batch of
+    B (three passes; each rank's LUT scan with its keep bytes, so B1 must
+    launch with its filter once a rank a pass) and the fused
+    scan-in-ring tier at batch ``bf`` (B8 with each rank's keep bytes)
+    over ten batches, held against the allgather tier's filtered search
+    (ids equal except at f32 ties, checked in f64). Checks: no returned
+    id has its bit clear; the refined batch on the ring merge gives the
+    allgather tier's values and ids but at ties; its recall@10 against
+    the filtered ground truth is logged. Then B8 filtered against its
+    plain version (its row). Raises SmokeFailure; returns the summary."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.core import bitset
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.obs import spans
+    from raft_tpu_torch.ops import kernels as K
+    from raft_tpu_torch.parallel import ivf as pivf
+
+    N, sel, n_f = base.shape[0], 0.1, 10
+    keep = bench_keep(N, sel, k)
+    bits = bitset.from_mask(keep, device=base.device)
+    q0 = queries[:B].contiguous()
+    _, fgt = brute_force.knn(base, q0, k, metric="sqeuclidean",
+                             filter_bitset=bits)
+    K.reset_launch_counts()
+    spans.reset()
+    secs = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, ids = pivf.search_ivf_pq(sp, index, q0, k, mesh, dataset=base,
+                                    filter_bitset=bits)
+        end.record()
+        torch.cuda.synchronize()
+        secs.append(start.elapsed_time(end))
+    # the ring merge (auto) against the allgather tier, both filtered: the
+    # same values, the same ids but at ties
+    vals = pivf.search_ivf_pq(sp, index, q0, k, mesh, dataset=base,
+                              filter_bitset=bits)[0]
+    v_ag, i_ag = pivf.search_ivf_pq(sp, index, q0, k, mesh, dataset=base,
+                                    merge="allgather", filter_bitset=bits)
+    if not (torch.equal(vals, v_ag) and torch.equal(ids < 0, i_ag < 0)):
+        raise SmokeFailure("filtered refined batch: the ring and allgather "
+                           "tiers give different values")
+    n_tied = _swaps_are_ties(q0, base, ids.clamp_min(0), i_ag.clamp_min(0),
+                             "filtered refined batch, ring against "
+                             "allgather")
+    ids = ids.cpu()
+    n_empty = _check_kept(ids, keep, "filtered sharded refined batch")
+    rec = _recall(ids, fgt.cpu())
+    # the fused tier against the allgather tier, both filtered
+    os.environ["RAFT_TPU_RING_FUSED"] = "auto"
+    fused, ag, f_ms = [], [], []
+    try:
+        for c in range(n_f):
+            q = queries[c * bf:(c + 1) * bf]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fused.append(pivf.search_ivf_pq(spf, index, q, k, mesh,
+                                            filter_bitset=bits))
+            end.record()
+            torch.cuda.synchronize()
+            f_ms.append(start.elapsed_time(end))
+            ag.append(pivf.search_ivf_pq(spf, index, q, k, mesh,
+                                         merge="allgather",
+                                         filter_bitset=bits))
+    finally:
+        os.environ.pop("RAFT_TPU_RING_FUSED", None)
+    launches = K.launch_counts()
+    filtered = K.filtered_launch_counts()
+    disp = spans.counts()
+    n_ranks = len(mesh.devices)
+    # five refined searches of the batch (three passes, the ring and the
+    # allgather tiers), each a LUT scan a rank
+    if filtered["ivfpq_lut_scan_topk"] != 5 * n_ranks:
+        raise SmokeFailure(f"filtered sharded refined batches: B1 launched "
+                           f"{filtered['ivfpq_lut_scan_topk']} times with its "
+                           f"filter for {5 * n_ranks} rank searches")
+    if filtered["ring_lut_scan_merge"] != 2 * n_f:
+        raise SmokeFailure(f"filtered fused tier: B8 launched "
+                           f"{filtered['ring_lut_scan_merge']} times with its "
+                           f"filter for {n_f} calls (two a call): {disp}")
+    fi = torch.cat([o[1] for o in fused])
+    ui = torch.cat([o[1] for o in ag])
+    _check_kept(fi.cpu(), keep, "filtered fused tier")
+    _check_kept(ui.cpu(), keep, "filtered allgather tier")
+    n_swap = 0
+    for row, j in torch.nonzero(fi != ui).tolist():
+        q_rot = queries[row] @ index.rotation[0].T
+        qsq = float((q_rot.double() ** 2).sum())
+        if int(fi[row, j]) < 0 or int(ui[row, j]) < 0:
+            raise SmokeFailure(f"filtered fused tier: an empty slot where "
+                               f"the allgather tier has none (row {row})")
+        d_f = _adc_key64(index, q_rot, fi[row, j]) + qsq
+        d_u = _adc_key64(index, q_rot, ui[row, j]) + qsq
+        if abs(d_f - d_u) > 1e-5 * (abs(d_u) + qsq):
+            raise SmokeFailure(f"filtered fused tier ids differ from the "
+                               f"allgather tier away from key ties (row "
+                               f"{row})")
+        n_swap += 1
+    _log(f"[shard filter] selectivity {sel} ({int(keep.sum())} of {N} rows "
+         f"kept): refined batch of {B}, three passes "
+         + ", ".join(f"{t:.3f}" for t in secs)
+         + f" ms (CUDA events; " + ", ".join(f"{B / t * 1e3:.0f}"
+                                              for t in secs)
+         + f" QPS); recall@10 {rec:.4f} against the filtered ground truth; "
+         f"{n_empty} empty slots; the allgather tier gives the same values "
+         f"and ids ({n_tied} swapped at ties). Fused scan-in-ring at batch "
+         f"{bf}, f32 LUT: "
+         f"per call ms median {np.median(f_ms):.3f} (min {min(f_ms):.3f}); "
+         f"ids equal to the filtered allgather tier's over {n_f * bf} "
+         f"queries but {n_swap} picks at f64 key ties; launches "
+         f"{json.dumps(launches)}, with the filter {json.dumps(filtered)}; "
+         f"dispatch {json.dumps(disp.get('parallel.merge.dispatch', {}))}")
+    _ring_lut_scan_row(rows, "sharded_filter", filtered, index,
+                       queries[:bf], k, 64, mesh,
+                       f"fused batch {bf}, selectivity {sel}",
+                       filter_bits=bits)
+    return {"selectivity": sel, "kept": int(keep.sum()),
+            "refined_batch_ms": secs, "recall_at_10": rec,
+            "empty_slots": n_empty,
+            "fused_ms_median": float(np.median(f_ms)),
+            "fused_ids_at_ties": n_swap, "launches": launches,
+            "filtered_launches": filtered}
 
 
 def main(argv=None) -> int:
@@ -1530,7 +2027,7 @@ def main(argv=None) -> int:
                              lut_dtype="bfloat16")
     stages = {}
 
-    def search_pass():
+    def search_pass(filter_bitset=None):
         """All queries in batches of B; seconds from CUDA events recorded
         before the first batch and after the last."""
         start = torch.cuda.Event(enable_timing=True)
@@ -1539,6 +2036,7 @@ def main(argv=None) -> int:
         start.record()
         for a in range(0, args.queries, B):
             out.append(ivf_pq.search(index, queries[a:a + B], k, sp,
+                                     filter_bitset=filter_bitset,
                                      dataset=base)[1])
         end.record()
         torch.cuda.synchronize()
@@ -1589,7 +2087,7 @@ def main(argv=None) -> int:
                               dataset=base_cpu, device="cpu")
     rec_plain = _recall(ids_pl, gt[:n_pl])
     rec_kern = _recall(ids_k[:n_pl], gt[:n_pl])
-    del index_cpu, base_cpu, arrays
+    del arrays
     _log(f"[recall] {n_pl} queries: kernel path {rec_kern:.4f}, plain path "
          f"(CPU) {rec_plain:.4f} ({time.perf_counter() - t0:.1f} s)")
     if not (rec_kern >= rec_plain - 0.01):
@@ -1653,12 +2151,21 @@ def main(argv=None) -> int:
     }
     _log(f"[stages] one batch of {B} queries, ms: {json.dumps(stages_ms)}")
 
+    # 7. [filter main]: the filtered main path at selectivity 0.1 and 0.01
+    try:
+        filt_summary = filter_main_leg(args, rows, index, base, queries,
+                                       index_cpu, base_cpu, sp, B, k, n_gt,
+                                       n_pl)
+    except SmokeFailure as e:
+        return _fail(str(e))
+    del index_cpu, base_cpu
+
     summary = {"n": N, "dim": dim, "n_lists": 8192, "pq_dim": 64,
                "max_list_size": index.max_list_size, "build_s": build_s,
                "build_stages_s": stages, "qps_runs": qps_runs,
                "recall_at_10_bf16": rec_bf16, "recall_at_10_f32": rec_f32,
                "recall_kernel_200": rec_kern, "recall_plain_200": rec_plain,
-               "batch_stages_ms": stages_ms}
+               "batch_stages_ms": stages_ms, "filter": filt_summary}
     _log(f"[summary] {json.dumps(summary)}")
     del index, base, queries, cand, kk, ki, scores, scan
     torch.cuda.empty_cache()

@@ -330,6 +330,16 @@ def lut_scan_mem_ok(n_seg: int, seg: int, rot: int, pairs: int,
     return pairs * nbins * 8 + n_seg * seg * 8 <= GROUPED_BYTES_CAP
 
 
+def filtered_scan_mem_ok(n_lists: int, L: int, slot_bytes: int = 1) -> bool:
+    """Transient-memory guard of a filtered scan, with the JAX package's
+    cap: ``slot_bytes`` per id-table slot for the filter operand the tier
+    builds — 1 for the LUT and ring tiers (the [n_lists, L] keep mask
+    before it packs to bytes), 5 for segk's masked id table (mask + i32)
+    — plus the packed keep bytes, n_lists·L/8."""
+    slots = n_lists * L
+    return slots * slot_bytes + slots // 8 <= GROUPED_BYTES_CAP
+
+
 def gather_refine_mem_ok(n: int, d: int, itemsize: int = 4, m: int = 0,
                          C: int = 0, row_align: int = 128) -> bool:
     """Guard of the fused gather-refine tier. The TPU kernel read

@@ -26,6 +26,12 @@ scan runs whenever ``scan_select="approx"`` and kk ≤ 128, the grouped scan
 whenever ``scan_select="exact"`` and kk ≤ 64. The same tiers run on the
 CPU, each wrapper with its plain version. What is not ported raises
 ``NotImplementedError`` naming its ROADMAP item.
+
+Filtered search (``filter_bitset``, ``neighbors.sample_filter``): the
+per_query tier tests the bitset, the grouped scan and the plain grouped
+tier scan a sentinel-masked id table, and the segmented scan declines
+filtered searches, as in the JAX package: a filtered approx search takes
+the plain grouped tier.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_balanced import KMeansBalancedParams
+from raft_tpu_torch.core import bitset as _bitset
 from raft_tpu_torch.core import ids as _ids
 from raft_tpu_torch.core import serialize as _ser
 from raft_tpu_torch.core.device import resolve_device, to_device
@@ -46,6 +53,7 @@ from raft_tpu_torch.core.errors import expects, not_ported as _not_ported
 from raft_tpu_torch.distance.types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import select_k as _select_k
 from raft_tpu_torch.neighbors import ivf_common as ic
+from raft_tpu_torch.neighbors import sample_filter as _sf
 from raft_tpu_torch.neighbors.ivf_common import _fit_list_size, _lane_round
 from raft_tpu_torch.ops import kernels as _k
 from raft_tpu_torch.utils import precision as _precision
@@ -350,9 +358,12 @@ def _fit_query_tile(want: int, n_probes: int, index: IvfFlatIndex) -> int:
 
 
 def _search_impl(index: IvfFlatIndex, queries: torch.Tensor, k: int,
-                 n_probes: int, query_tile: int):
+                 n_probes: int, query_tile: int, filter_bits=None):
     """The per_query tier: each query gathers its probed lists and scores
-    every candidate — the plain semantic anchor."""
+    every candidate — the plain semantic anchor. Filtered candidates are
+    invalid ones (``sample_filter.masked_ids``): a slot picked past the
+    kept candidates returns −1, where the JAX package returns the slot's
+    own id at an infinite distance."""
     mt = resolve_metric(index.metric)
     q_all = queries.float()
     L = index.max_list_size
@@ -365,7 +376,8 @@ def _search_impl(index: IvfFlatIndex, queries: torch.Tensor, k: int,
         t = q.shape[0]
         cand = index.packed_data[probe].float().reshape(t, n_probes * L,
                                                         index.dim)
-        cand_ids = index.packed_ids[probe].reshape(t, n_probes * L)
+        cand_ids = _sf.masked_ids(
+            filter_bits, index.packed_ids[probe].reshape(t, n_probes * L))
         scores = torch.bmm(cand, q[:, :, None])[..., 0]
         if mt == DistanceType.InnerProduct:
             dists, invalid = scores, float("-inf")
@@ -396,13 +408,13 @@ def _scan_metric(mt: DistanceType) -> str:
 
 def _search_grouped(index: IvfFlatIndex, queries: torch.Tensor, k: int,
                     n_probes: int, seg: int, n_seg: int, tier: str,
-                    seg_chunk: int = 1):
+                    seg_chunk: int = 1, filter_bits=None):
     """The list-centric batch scan: probe selection, segmenting, one pass
     over the segment table and the per-query merge. ``tier``: "segk" the
     segmented-scan kernel (merged by ``merge_bin_results``), "kernel" the
     grouped-scan kernel, "plain" the plain grouped tier (the JAX package's
     XLA tier, taken past the kernels' kk; norms from the list rows, as
-    there)."""
+    there). Every tier scans the id table masked by ``filter_bits``."""
     mt = resolve_metric(index.metric)
     q_all = queries.float().contiguous()
     ip = mt == DistanceType.InnerProduct
@@ -412,27 +424,25 @@ def _search_grouped(index: IvfFlatIndex, queries: torch.Tensor, k: int,
     seg_list, seg_q, pair_seg, pair_slot = ic.segment_probes(
         probes, index.n_lists, seg, n_seg)
     met = _scan_metric(mt)
+    ids = _sf.masked_ids(filter_bits, index.packed_ids)
     if tier == "segk":
         keys, kids = _k.segmented_scan_topk(seg_list, seg_q, q_all,
-                                            index.packed_data,
-                                            index.packed_ids, met)
+                                            index.packed_data, ids, met)
         out_vals, out_ids = ic.merge_bin_results(keys, kids, pair_seg,
                                                  pair_slot, k, select_min,
                                                  invalid)
     elif tier == "kernel":
         keys, pos = _k.grouped_scan_topk(seg_list, seg_q, q_all,
-                                         index.packed_data, index.packed_ids,
+                                         index.packed_data, ids,
                                          min(k, index.max_list_size), met)
-        vals, cids = ic.grouped_kernel_results(keys, pos, seg_list,
-                                               index.packed_ids, ip)
+        vals, cids = ic.grouped_kernel_results(keys, pos, seg_list, ids, ip)
         out_vals, out_ids = ic.merge_slot_results(vals, cids, pair_seg,
                                                   pair_slot, k, select_min,
                                                   invalid)
     else:
         out_vals, out_ids = ic.grouped_scan_plain_tier(
             seg_list, seg_q, pair_seg, pair_slot, q_all,
-            lambda sl: index.packed_data[sl].float(), index.packed_ids, k,
-            met, seg_chunk)
+            lambda sl: index.packed_data[sl].float(), ids, k, met, seg_chunk)
     if mt == DistanceType.L2SqrtExpanded:
         out_vals = torch.sqrt(out_vals)
     return out_vals, out_ids
@@ -443,7 +453,9 @@ def search(index: IvfFlatIndex, queries, k: int,
            dataset=None, *, mesh=None, device="cuda"
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search (reference: ivf_flat::search) → (distances [m, k], ids [m, k]
-    int32; −1 marks slots beyond the valid candidates)."""
+    int32; −1 marks slots beyond the valid candidates). ``filter_bitset``:
+    a packed bitset over dataset rows; rows whose bit is clear are never
+    returned."""
     if params is None:
         params = SearchParams()
     dev = resolve_device(device)
@@ -452,8 +464,9 @@ def search(index: IvfFlatIndex, queries, k: int,
         raise _not_ported("sharded IVF-Flat search (mesh=)", "A15")
     expects(index.device.type == dev.type,
             "index lives on %s, search asked for %s", index.device, dev)
-    if filter_bitset is not None:
-        raise _not_ported("filtered search", "A6")
+    filtered = filter_bitset is not None
+    if filtered:
+        filter_bitset = _bitset.as_words(filter_bitset, index.device)
     q = to_device(queries, index.device, torch.float32)
     expects(q.dim() == 2 and q.shape[1] == index.dim,
             "queries must be [m, %d]", index.dim)
@@ -461,7 +474,7 @@ def search(index: IvfFlatIndex, queries, k: int,
         from raft_tpu_torch.neighbors import refine as _refine
 
         return _refine.route_refined(search, index, q, k, params, dataset,
-                                     device)
+                                     device, filter_bitset=filter_bitset)
     n_probes = min(params.n_probes, index.n_lists)
     B = q.shape[0]
     mode = params.scan_mode
@@ -477,10 +490,16 @@ def search(index: IvfFlatIndex, queries, k: int,
         if params.scan_mode == "grouped" or ic.grouped_mem_ok(
                 n_seg, seg, kk, pairs):
             # the CUDA scans tile L and d, so unlike the TPU kernels no list
-            # block is too large for them: only kk decides the tier
+            # block is too large for them: only kk decides the tier. The
+            # segmented scan declines filtered searches, as in the JAX
+            # package (ivf_flat.py:725), which has no filtered segk here
+            tier = ic.grouped_tier(params.scan_select == "approx", kk)
+            if filtered and tier == "segk":
+                tier = "plain"
             return _search_grouped(
-                index, q, k, n_probes, seg, n_seg,
-                ic.grouped_tier(params.scan_select == "approx", kk),
-                ic.fit_seg_chunk(seg, L, index.dim, params.list_chunk))
+                index, q, k, n_probes, seg, n_seg, tier,
+                ic.fit_seg_chunk(seg, L, index.dim, params.list_chunk),
+                filter_bits=filter_bitset)
     return _search_impl(index, q, k, n_probes,
-                        _fit_query_tile(params.query_tile, n_probes, index))
+                        _fit_query_tile(params.query_tile, n_probes, index),
+                        filter_bits=filter_bitset)

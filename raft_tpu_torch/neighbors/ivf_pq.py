@@ -16,9 +16,12 @@ semantic anchor, with its recon-dot branch), the LUT-scan tier
 a cache) and the grouped tiers — over the cache the segmented scan
 (``"approx"``) and the grouped scan (``"exact"``), elsewhere the plain
 grouped tier; and the ``refine="f32_regen"`` re-rank against a
-device-resident dataset. What is not ported (per_cluster codebooks,
-folded codes, filters) raises ``NotImplementedError`` naming its ROADMAP
-item — it never substitutes another tier.
+device-resident dataset. Every tier takes a ``filter_bitset``
+(``neighbors.sample_filter``): the LUT scan reads per-list keep bytes
+beside the codes, the grouped tiers scan a sentinel-masked id table, the
+per_query tier and the re-rank test the bitset itself. What is not ported
+(per_cluster codebooks, folded codes) raises ``NotImplementedError``
+naming its ROADMAP item — it never substitutes another tier.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_balanced import KMeansBalancedParams
+from raft_tpu_torch.core import bitset as _bitset
 from raft_tpu_torch.core import ids as _ids
 from raft_tpu_torch.core import serialize as _ser
 from raft_tpu_torch.core.device import resolve_device, to_device
@@ -39,6 +43,8 @@ from raft_tpu_torch.core.errors import expects, not_ported as _not_ported
 from raft_tpu_torch.distance.types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import select_k as _select_k
 from raft_tpu_torch.neighbors import ivf_common as ic
+from raft_tpu_torch.neighbors import sample_filter as _sf
+from raft_tpu_torch.obs import spans as _obs_spans
 from raft_tpu_torch.ops import kernels as _k
 from raft_tpu_torch.random.rng import RngState
 from raft_tpu_torch.utils import precision as _precision
@@ -100,6 +106,22 @@ def resolve_lut_dtype(lut_dtype: str, n_probes: int, k: int,
         return ("float8_e4m3" if surviving >= FP8_LUT_MIN_SLACK * k
                 else "bfloat16")
     return "float32"
+
+
+def _filter_selectivity(filter_bits) -> float:
+    """The set-bit fraction of a filter (1.0 without one): only kept
+    candidates fill the LUT tier's bins, so it discounts the fp8 slack of
+    :func:`resolve_lut_dtype`. One popcount and a host sync a filtered
+    dispatch with ``lut_dtype="auto"``, as in the JAX package."""
+    return 1.0 if filter_bits is None else _bitset.density(filter_bits)
+
+
+def _count_scan_dispatch(impl: str, filtered: bool = False) -> None:
+    """Count which scan tier ``search`` took under ``ivf_pq.scan.dispatch``
+    (the JAX package's labels: pallas_lut, segk, grouped_pallas,
+    grouped_xla, per_query), with ``filtered=1`` for filtered searches."""
+    _obs_spans.count_dispatch("ivf_pq.scan", impl,
+                              **({"filtered": "1"} if filtered else {}))
 
 
 @dataclasses.dataclass
@@ -554,9 +576,13 @@ def load(path: str, device="cuda") -> IvfPqIndex:
 # search
 # ---------------------------------------------------------------------------
 
-def _finish_candidates(dots, cand_ids, cand_norms, q_sq, mt, k):
+def _finish_candidates(dots, cand_ids, cand_norms, q_sq, mt, k,
+                       filter_bits=None):
     """⟨q, c+d⟩ per candidate → metric distances, mask, select, id
-    gather, cosine flip (shared by the per_query and LUT tiers)."""
+    gather, cosine flip (shared by the per_query and LUT tiers). Filtered
+    candidates are invalid ones (``sample_filter.masked_ids``): a slot
+    picked past the kept candidates returns −1, where the JAX package
+    returns the slot's own id at an infinite distance."""
     ip_like = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
     if ip_like:
         dists, invalid, final_min = dots, float("-inf"), False
@@ -565,6 +591,7 @@ def _finish_candidates(dots, cand_ids, cand_norms, q_sq, mt, k):
         if mt == DistanceType.L2SqrtExpanded:
             dists = torch.sqrt(dists)
         invalid, final_min = float("inf"), True
+    cand_ids = _sf.masked_ids(filter_bits, cand_ids)
     dists = torch.where(cand_ids >= 0, dists, torch.full_like(dists, invalid))
     vals, pos = _select_k(dists, k, select_min=final_min)
     ids = torch.gather(cand_ids, 1, pos.long())
@@ -606,7 +633,8 @@ def _fit_query_tile(want: int, n_probes: int, index: IvfPqIndex) -> int:
 
 
 def _search_impl(index: IvfPqIndex, queries: torch.Tensor, k: int,
-                 n_probes: int, query_tile: int, lut_dtype: str = "float32"):
+                 n_probes: int, query_tile: int, lut_dtype: str = "float32",
+                 filter_bits=None):
     """The per_query tier: each query gathers its probed lists' codes and
     sums its quantized LUT over them — the plain semantic anchor. With the
     recon cache, an f32 LUT and n_probes·L·pq_dim·2^bits ≥ 2²⁸ it takes
@@ -646,7 +674,8 @@ def _search_impl(index: IvfPqIndex, queries: torch.Tensor, k: int,
             dots = qc_probed_all[a:a + query_tile][:, :, None].expand(
                 t, n_probes, L).reshape(t, n_probes * L) + qd
         v, i = _finish_candidates(dots, cand_ids, cand_norms,
-                                  q_sq_all[a:a + query_tile], mt, k)
+                                  q_sq_all[a:a + query_tile], mt, k,
+                                  filter_bits)
         vals.append(v)
         out.append(i)
     return torch.cat(vals), torch.cat(out)
@@ -654,7 +683,7 @@ def _search_impl(index: IvfPqIndex, queries: torch.Tensor, k: int,
 
 def _search_grouped(index: IvfPqIndex, queries: torch.Tensor, k: int,
                     n_probes: int, seg: int, n_seg: int, tier: str,
-                    seg_chunk: int = 1):
+                    seg_chunk: int = 1, filter_bits=None):
     """The list-centric batch scan over the segment table. ``tier``:
     "segk" the segmented-scan kernel over the bf16 cache (two best per
     strided bin, merged by ``merge_bin_results``); "kernel" the
@@ -663,7 +692,12 @@ def _search_grouped(index: IvfPqIndex, queries: torch.Tensor, k: int,
     stored f32 norms, as the JAX package's kernel does); "plain" the plain
     grouped tier (``ivf_common.grouped_scan_plain_tier``) against the
     cache rows or the codes decoded a chunk at a time, with the stored
-    norms."""
+    norms. Every tier scans the id table masked by ``filter_bits``
+    (``sample_filter.masked_ids``): the scans score a slot with id < 0 as
+    +inf, so this one operand is the JAX package's masked id table for its
+    segmented scan and its ``mask_add = where(valid, 0, inf)`` for its
+    grouped scan; the [n_lists, L] mask and table are the transient that
+    ``filtered_scan_mem_ok(slot_bytes=5)`` admits."""
     mt = resolve_metric(index.metric)
     q_all = _prep_queries(mt, queries)
     L = index.max_list_size
@@ -675,19 +709,19 @@ def _search_grouped(index: IvfPqIndex, queries: torch.Tensor, k: int,
         probes, index.n_lists, seg, n_seg)
     q_rot = (q_all @ index.rotation.T).contiguous()
     met = "ip" if ip_like else "l2"
+    ids = _sf.masked_ids(filter_bits, index.packed_ids)
     if tier == "segk":
         keys, kids = _k.segmented_scan_topk(seg_list, seg_q, q_rot,
-                                            index.packed_recon,
-                                            index.packed_ids, met)
+                                            index.packed_recon, ids, met)
         out_vals, out_ids = ic.merge_bin_results(keys, kids, pair_seg,
                                                  pair_slot, k, select_min,
                                                  invalid)
     elif tier == "kernel":
         keys, pos = _k.grouped_scan_topk(seg_list, seg_q, q_rot,
-                                         index.packed_recon,
-                                         index.packed_ids, min(k, L), met)
-        vals, cids = ic.grouped_kernel_results(keys, pos, seg_list,
-                                               index.packed_ids, ip_like)
+                                         index.packed_recon, ids, min(k, L),
+                                         met)
+        vals, cids = ic.grouped_kernel_results(keys, pos, seg_list, ids,
+                                               ip_like)
         out_vals, out_ids = ic.merge_slot_results(vals, cids, pair_seg,
                                                   pair_slot, k, select_min,
                                                   invalid)
@@ -704,7 +738,7 @@ def _search_grouped(index: IvfPqIndex, queries: torch.Tensor, k: int,
                 return dec + index.centers_rot[sl][:, None, :]
         out_vals, out_ids = ic.grouped_scan_plain_tier(
             seg_list, seg_q, pair_seg, pair_slot, q_rot, rows_of,
-            index.packed_ids, k, met, seg_chunk, norms=index.packed_norms)
+            ids, k, met, seg_chunk, norms=index.packed_norms)
     if mt == DistanceType.L2SqrtExpanded:
         out_vals = torch.sqrt(out_vals)
     if mt == DistanceType.CosineExpanded:
@@ -714,11 +748,18 @@ def _search_grouped(index: IvfPqIndex, queries: torch.Tensor, k: int,
 
 def _search_lut_pallas(index: IvfPqIndex, queries: torch.Tensor, k: int,
                        n_probes: int, seg: int, n_seg: int,
-                       lut_dtype: str = "float32"):
+                       lut_dtype: str = "float32", filter_bits=None):
     """The ``scan_select="pallas"`` tier: coarse probes, segmenting, the
     LUT-scan kernel over packed codes (its [B, n_probes, 256] bins already
     in pair order), then the per-query merge of the [B, n_probes·256] bin
-    survivors through :func:`_finish_candidates`."""
+    survivors through :func:`_finish_candidates`. ``filter_bits`` goes to
+    the kernel as per-list keep bytes over the id table it scans
+    (``sample_filter.list_filter_bytes``, n/8 bytes, made once per filter
+    and index), so the bins hold only kept rows. The JAX package tests
+    the filter again in the epilogue, a no-op on the kernel's output that
+    reads the bitset once per bin candidate; the port does not, so a
+    filtered id that came out of the kernel would reach the caller, where
+    ``chip_smoke.py`` looks for one."""
     mt = resolve_metric(index.metric)
     q_all = _prep_queries(mt, queries)
     B = q_all.shape[0]
@@ -728,12 +769,14 @@ def _search_lut_pallas(index: IvfPqIndex, queries: torch.Tensor, k: int,
         probes, index.n_lists, seg, n_seg)
     q_rot = (q_all @ index.rotation.T).contiguous()
     q_sq = (q_rot * q_rot).sum(1)
+    fbytes = (None if filter_bits is None
+              else _sf.list_filter_bytes(filter_bits, index.packed_ids))
     keys, kids = _k.ivfpq_lut_scan_topk(
         seg_list, seg_q, pair_seg, pair_slot, q_rot, index.packed_codes,
         index.packed_ids, index.packed_norms, index.list_sizes,
         index.centers_rot, index.codebooks, "ip" if ip_like else "l2",
         pq_bits=index.pq_bits, pq_dim=index.pq_dim, L=index.max_list_size,
-        lut_dtype=lut_dtype)
+        lut_dtype=lut_dtype, filter_bytes=fbytes)
     C = n_probes * keys.shape[-1]
     pv = keys.view(B, C)
     pi = kids.view(B, C)
@@ -750,6 +793,10 @@ def _search_lut_pallas(index: IvfPqIndex, queries: torch.Tensor, k: int,
         out_ids = torch.nn.functional.pad(out_ids, (0, k - kq), value=-1)
     return out_vals, out_ids
 
+
+# the grouped tiers under the JAX package's dispatch labels
+_TIER_LABELS = {"segk": "segk", "kernel": "grouped_pallas",
+                "plain": "grouped_xla"}
 
 _LUT_FALLBACK_DETAIL = {
     "bin_capacity": "too few probes for the requested k (needs "
@@ -777,26 +824,32 @@ def search(index: IvfPqIndex, queries, k: int,
     """Search (reference: ivf_pq::search) → (distances [m, k], ids [m, k]
     int32). ``params.refine="f32_regen"`` re-ranks k·refine_ratio
     candidates exactly against ``dataset`` (a tensor on the index's
-    device)."""
+    device). ``filter_bitset``: a packed bitset over dataset rows
+    (``core.bitset`` words, numpy uint32 or a tensor); rows whose bit is
+    clear are never returned."""
     if params is None:
         params = SearchParams()
     dev = resolve_device(device)
     _precision.enforce()
     expects(index.device.type == dev.type,
             "index lives on %s, search asked for %s", index.device, dev)
-    if filter_bitset is not None:
-        raise _not_ported("filtered search", "A6")
+    filtered = filter_bitset is not None
+    if filtered:
+        filter_bitset = _bitset.as_words(filter_bitset, index.device)
     q = to_device(queries, index.device, torch.float32)
     expects(q.dim() == 2 and q.shape[1] == index.dim,
             "queries must be [m, %d]", index.dim)
     if params.lut_dtype == "auto" and params.refine == "none":
+        # only kept candidates fill the bins: the filter's selectivity
+        # discounts the fp8 slack
         params = dataclasses.replace(params, lut_dtype=resolve_lut_dtype(
-            "auto", min(params.n_probes, index.n_lists), k))
+            "auto", min(params.n_probes, index.n_lists), k,
+            selectivity=_filter_selectivity(filter_bitset)))
     if params.refine != "none":
         from raft_tpu_torch.neighbors import refine as _refine
 
         return _refine.route_refined(search, index, q, k, params, dataset,
-                                     device)
+                                     device, filter_bitset=filter_bitset)
     n_probes = min(params.n_probes, index.n_lists)
     B = q.shape[0]
     mode = params.scan_mode
@@ -820,25 +873,37 @@ def search(index: IvfPqIndex, queries, k: int,
                            and (n_probes >= 64 or k >= 400)))
         select = params.scan_select
         if lut_desired:
+            mem_ok = (ic.lut_scan_mem_ok(n_seg, seg, index.rot_dim, pairs,
+                                         _k.LUT_SCAN_BINS)
+                      and (not filtered
+                           or ic.filtered_scan_mem_ok(index.n_lists, L)))
             reason = ("bin_capacity" if n_probes * _k.LUT_SCAN_BINS < k
-                      else None if ic.lut_scan_mem_ok(
-                          n_seg, seg, index.rot_dim, pairs, _k.LUT_SCAN_BINS)
-                      else "mem_guard")
+                      else None if mem_ok else "mem_guard")
             if reason is None:
+                _count_scan_dispatch("pallas_lut", filtered)
                 return _search_lut_pallas(index, q, k, n_probes, seg, n_seg,
-                                          lut_dtype=params.lut_dtype)
+                                          lut_dtype=params.lut_dtype,
+                                          filter_bits=filter_bitset)
             if params.scan_select == "pallas":
                 _warn_lut_fallback(reason)
                 select = "approx"
         if params.scan_mode == "grouped" or ic.grouped_mem_ok(
                 n_seg, seg, kk, pairs):
             # the kernels scan the bf16 cache only; without it every
-            # grouped search is the plain tier, as in the JAX package
+            # grouped search is the plain tier, as in the JAX package. A
+            # filtered segk scans a masked id table, admitted by its
+            # 5-byte-a-slot guard
             tier = (ic.grouped_tier(select == "approx", kk) if has_recon
                     else "plain")
+            if (tier == "segk" and filtered
+                    and not ic.filtered_scan_mem_ok(index.n_lists, L, 5)):
+                tier = "plain"
+            _count_scan_dispatch(_TIER_LABELS[tier], filtered)
             return _search_grouped(
                 index, q, k, n_probes, seg, n_seg, tier,
-                ic.fit_seg_chunk(seg, L, index.rot_dim, params.list_chunk))
+                ic.fit_seg_chunk(seg, L, index.rot_dim, params.list_chunk),
+                filter_bits=filter_bitset)
+    _count_scan_dispatch("per_query", filtered)
     return _search_impl(index, q, k, n_probes,
                         _fit_query_tile(params.query_tile, n_probes, index),
-                        lut_dtype=params.lut_dtype)
+                        lut_dtype=params.lut_dtype, filter_bits=filter_bitset)

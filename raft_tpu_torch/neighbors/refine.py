@@ -17,7 +17,17 @@ Two tiers, chosen by shape as in the JAX package:
 
 The JAX package engaged the fused tier only on a TPU; here the rule is
 the shape alone, and on CPU tensors the kernel wrapper runs its plain
-version. Filtered re-ranks are not ported (ROADMAP A6).
+version.
+
+``filter_bits`` (a packed bitset over dataset rows, ``core.bitset``):
+the fused tier hands the words to the kernel, which clears a candidate
+whose bit is clear before its row load; the gather tier sets such
+candidates to −1 first. The JAX package's rule also charged a filtered
+re-rank the VMEM of its word block (``pallas_gather_refine_wanted(...,
+filtered=)``); the CUDA kernel reads one word a candidate and holds no
+block, so a filter does not change the rule here. Each dispatch counts
+under ``refine.dispatch`` (``pallas_gather`` / ``xla_gather``, the JAX
+package's labels), with ``filtered=1`` when filtered.
 """
 
 from __future__ import annotations
@@ -27,11 +37,14 @@ from typing import Tuple
 
 import torch
 
+from raft_tpu_torch.core import bitset as _bitset
 from raft_tpu_torch.core.device import resolve_device, to_device
 from raft_tpu_torch.core.errors import expects, not_ported
 from raft_tpu_torch.distance.types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import select_k as _select_k
 from raft_tpu_torch.neighbors import ivf_common as ic
+from raft_tpu_torch.neighbors import sample_filter as _sf
+from raft_tpu_torch.obs import spans as _obs_spans
 from raft_tpu_torch.ops import kernels as _k
 from raft_tpu_torch.utils import precision as _precision
 
@@ -105,12 +118,14 @@ def _fused_refine_wanted(dataset, queries, candidates, k: int) -> bool:
     return C >= 400 or m * C * d * 4 >= (1 << 30)
 
 
-def _refine_fused(dataset, queries, candidates, k: int, mt: DistanceType):
+def _refine_fused(dataset, queries, candidates, k: int, mt: DistanceType,
+                  filter_bits=None):
     met = ("ip" if mt == DistanceType.InnerProduct
            else "cos" if mt == DistanceType.CosineExpanded else "l2")
     keys, ids = _k.gather_refine_topk(
         dataset.contiguous(), queries.float().contiguous(),
-        candidates.to(torch.int32).contiguous(), k, met)
+        candidates.to(torch.int32).contiguous(), k, met,
+        filter_bits=filter_bits)
     return _gather_keys_to_dists(keys, ids, mt.value)
 
 
@@ -118,11 +133,11 @@ def refine(dataset: torch.Tensor, queries, candidates, k: int,
            metric="sqeuclidean", filter_bits=None, device="cuda"
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Re-rank ``candidates`` [m, n_cand] (row ids into ``dataset``, -1
-    invalid) down to the exact top-k → (distances [m, k], ids [m, k])."""
+    invalid) down to the exact top-k → (distances [m, k], ids [m, k]).
+    ``filter_bits``: candidates whose bit is clear are excluded as invalid
+    ids are."""
     dev = resolve_device(device)
     _precision.enforce()
-    if filter_bits is not None:
-        raise not_ported("filtered refine", "A6")
     dataset = to_device(dataset, dev)
     queries = to_device(queries, dev, torch.float32)
     candidates = to_device(candidates, dev)
@@ -131,16 +146,26 @@ def refine(dataset: torch.Tensor, queries, candidates, k: int,
             "dataset/queries feature-dim mismatch: dataset shape %s vs "
             "%d-dim queries", tuple(dataset.shape), queries.shape[1])
     mt = resolve_metric(metric)
+    labels = {}
+    if filter_bits is not None:
+        filter_bits = _bitset.as_words(filter_bits, dev)
+        labels["filtered"] = "1"
     if _fused_refine_wanted(dataset, queries, candidates, k):
-        return _refine_fused(dataset, queries, candidates, k, mt)
+        _obs_spans.count_dispatch("refine", "pallas_gather", **labels)
+        return _refine_fused(dataset, queries, candidates, k, mt,
+                             filter_bits=filter_bits)
+    _obs_spans.count_dispatch("refine", "xla_gather", **labels)
+    candidates = _sf.masked_ids(filter_bits, candidates)
     return _refine_impl(dataset, queries, candidates, k, mt.value)
 
 
 def route_refined(search, index, queries: torch.Tensor, k: int, params,
-                  dataset, device):
+                  dataset, device, filter_bitset=None):
     """``refine="f32_regen"`` of an IVF index: ``search`` (the index's own,
     with ``refine="none"``) scans k·refine_ratio candidates, then the exact
-    re-rank against the device-resident ``dataset``."""
+    re-rank against the device-resident ``dataset``. A filter goes to both:
+    the scan already leaves only kept candidates, and the re-rank's test
+    of them costs one word a candidate, as in the JAX package."""
     expects(params.refine == "f32_regen",
             "unknown refine mode %r (supported: 'none', 'f32_regen')",
             params.refine)
@@ -158,6 +183,7 @@ def route_refined(search, index, queries: torch.Tensor, k: int, params,
             params.refine_ratio)
     k_cand = max(k, int(round(k * params.refine_ratio)))
     scan_params = dataclasses.replace(params, refine="none")
-    _, i0 = search(index, queries, k_cand, scan_params, device=device)
+    _, i0 = search(index, queries, k_cand, scan_params,
+                   filter_bitset=filter_bitset, device=device)
     return refine(dataset, queries, i0, k, metric=index.metric,
-                  device=device)
+                  filter_bits=filter_bitset, device=device)

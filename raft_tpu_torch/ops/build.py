@@ -135,11 +135,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         "select_k": {
             "rtt_select_k": [_P] + [_I] * 7 + [_P, _P, _P]},
         "ivfpq_lut_scan": {
-            "rtt_ivfpq_lut_scan_topk": [_P] * 14 + [_I] * 14 + [_P],
+            "rtt_ivfpq_lut_scan_topk": [_P] * 15 + [_I] * 14 + [_P],
             "rtt_lut_scan_smem_bytes": [_I] * 7},
         "gather_refine": {
-            "rtt_gather_refine_topk": [_P, _L, _I, _P, _P, _I, _I, _I, _I,
-                                       _P, _P, _P]},
+            "rtt_gather_refine_topk": [_P, _L, _I, _P, _P, _P, _L, _I, _I,
+                                       _I, _I, _P, _P, _P]},
         "segmented_scan": {
             "rtt_segmented_scan_topk": [_P] * 7 + [_I] * 6 + [_P]},
         "grouped_scan": {

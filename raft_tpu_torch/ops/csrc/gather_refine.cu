@@ -11,13 +11,16 @@
 //   cos : 1 - <q, r> / (sqrt(max(|q|^2, 1e-30)) * sqrt(max(|r|^2, 1e-30)))
 // Ids < 0 are invalid (key +inf, id -1); other ids are clipped to
 // [0, n - 1] for the fetch, as the TPU kernel clips its DMA addresses.
+// With a filter (the TPU kernel's filter_bits, l.1178: packed 32-bit words
+// over dataset rows) a candidate whose bit is clear is invalid too.
 // Output: ascending (key, candidate position), ties to the earliest
 // candidate, as the TPU kernel's first-index extraction gives.
 //
 // Bound on the H100: bytes. The m * C candidate rows are a random gather
 // (m * C * d * 4 bytes); at the main path's [500, 400] x 96 f32 that is
 // 76.8 MB, ~23 us at 3.35 TB/s. The arithmetic is 4 FLOPs per element, on
-// the CUDA cores in fp32.
+// the CUDA cores in fp32. Filtered: the kept candidates' rows and a 4-byte
+// word a candidate.
 //
 // Design: enough rows in flight to reach the bytes bound. One block of four
 // warps per query; a warp splits into four lane groups of 8 lanes, and a
@@ -86,12 +89,26 @@ __device__ __forceinline__ void load_query(float (&x)[V], const float* p) {
   }
 }
 
+// Candidate id `id` after the filter `bits` (null: none): -1 where its bit
+// is clear -- bit id mod 32 of the word of the row the fetch reads (the id
+// clipped to [0, n - 1], the word index to the last word), the TPU kernel's
+// test.
+__device__ __forceinline__ int kept_id(int id, const int* __restrict__ bits,
+                                       long n_words, long n) {
+  if (bits == nullptr || id < 0) return id;
+  long w = (id > n - 1 ? n - 1 : (long)id) >> 5;
+  if (w > n_words - 1) w = n_words - 1;
+  return (bits[w] >> (id & 31)) & 1 ? id : -1;
+}
+
 template <int V>
 __global__ void __launch_bounds__(kThreads, 4)
 gather_refine_kernel(const float* __restrict__ data, long n, int d,
                      const float* __restrict__ queries,
-                     const int* __restrict__ cand, int C, int k, int metric,
-                     float* __restrict__ out_v, int* __restrict__ out_i) {
+                     const int* __restrict__ cand,
+                     const int* __restrict__ bits, long n_words, int C, int k,
+                     int metric, float* __restrict__ out_v,
+                     int* __restrict__ out_i) {
   __shared__ float bv[rtt::kMaxK];
   __shared__ int bp[rtt::kMaxK];
   __shared__ float qk[kWarps][kQW];
@@ -122,7 +139,7 @@ gather_refine_kernel(const float* __restrict__ data, long n, int d,
 #pragma unroll
   for (int u = 0; u < kU; ++u) {
     const int c = c0 + grp * kU + u;
-    id[u] = c < C ? crow[c] : -1;
+    id[u] = c < C ? kept_id(crow[c], bits, n_words, n) : -1;
   }
   for (; c0 < C; c0 += kWarps * kStep) {
     const float* xr[kU];
@@ -141,7 +158,7 @@ gather_refine_kernel(const float* __restrict__ data, long n, int d,
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       const int c = c0 + kWarps * kStep + grp * kU + u;
-      nid[u] = c < C ? crow[c] : -1;
+      nid[u] = c < C ? kept_id(crow[c], bits, n_words, n) : -1;
     }
     for (int vb = 0; vb < nv; vb += kG * kP) {
       float x[kU][kP][V];
@@ -235,22 +252,24 @@ gather_refine_kernel(const float* __restrict__ data, long n, int d,
 
 template <int V>
 cudaError_t launch(const float* data, long n, int d, const float* queries,
-                   const int* cand, int m, int C, int k, int metric, float* out_v,
-                   int* out_i, cudaStream_t st) {
-  gather_refine_kernel<V><<<m, kThreads, 0, st>>>(data, n, d, queries, cand, C, k,
-                                                  metric, out_v, out_i);
+                   const int* cand, const int* bits, long n_words, int m, int C,
+                   int k, int metric, float* out_v, int* out_i, cudaStream_t st) {
+  gather_refine_kernel<V><<<m, kThreads, 0, st>>>(
+      data, n, d, queries, cand, bits, n_words, C, k, metric, out_v, out_i);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // metric: 0 l2 (squared), 1 inner product, 2 cosine. Any C; k <= 64.
+// bits: the filter's n_words 32-bit words, or null for no filter.
 extern "C" int rtt_gather_refine_topk(const float* data, long n, int d,
                                       const float* queries, const int* cand,
-                                      int m, int C, int k, int metric,
-                                      float* out_v, int* out_i, void* stream) {
+                                      const int* bits, long n_words, int m,
+                                      int C, int k, int metric, float* out_v,
+                                      int* out_i, void* stream) {
   if (n < 1 || d < 1 || C < 1 || k < 1 || k > rtt::kMaxK || k > C || metric < 0 ||
-      metric > 2)
+      metric > 2 || (bits != nullptr && n_words < 1))
     return (int)cudaErrorInvalidValue;
   if (m == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
@@ -258,9 +277,12 @@ extern "C" int rtt_gather_refine_topk(const float* data, long n, int d,
   const uintptr_t a = (uintptr_t)data | (uintptr_t)queries;
   const cudaError_t e =
       d % 4 == 0 && a % 16 == 0
-          ? launch<4>(data, n, d, queries, cand, m, C, k, metric, out_v, out_i, st)
+          ? launch<4>(data, n, d, queries, cand, bits, n_words, m, C, k, metric,
+                      out_v, out_i, st)
       : d % 2 == 0 && a % 8 == 0
-          ? launch<2>(data, n, d, queries, cand, m, C, k, metric, out_v, out_i, st)
-          : launch<1>(data, n, d, queries, cand, m, C, k, metric, out_v, out_i, st);
+          ? launch<2>(data, n, d, queries, cand, bits, n_words, m, C, k, metric,
+                      out_v, out_i, st)
+          : launch<1>(data, n, d, queries, cand, bits, n_words, m, C, k, metric,
+                      out_v, out_i, st);
   return (int)e;
 }

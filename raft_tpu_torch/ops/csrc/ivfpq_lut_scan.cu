@@ -13,7 +13,10 @@
 //   LUT[s, c] = <q_s, cb[s, c]>                        (f32, shared memory)
 //   dot      = <q, centers_rot[l]> + sum_s LUT[s, code_s(p)]
 //   key      = norms[l, p] - 2 * dot   (l2)  |  -dot   (ip)
-// invalid ids (< 0) and positions >= size[l] give (+inf, -1). Bin
+// invalid ids (< 0), positions >= size[l] and, with a filter, rows whose
+// keep bit fbytes[l, p / 8] >> (p mod 8) is clear give (+inf, -1) -- the
+// TPU kernel's filter_bytes (l.813, unpacked by _lut_unpack_filter l.577).
+// Bin
 // b = p mod 128 keeps the two smallest (key, position) pairs in
 // lexicographic order -- what a walk of the bin in position order with a
 // strict < keeps, i.e. the TPU kernel's bin contents wherever the rows past
@@ -25,7 +28,9 @@
 // Bound on the H100: bytes, at the main path -- the probed lists' real
 // rows (codes, ids, norms) once and the [B, P, 256] key/id table (65.5 MB
 // at 500 queries x 64 probes) -- against the look-ups: pq_dim shared-memory
-// reads per (live pair, real row), 32 a clock per SM.
+// reads per (live pair, real row), 32 a clock per SM. With a filter the
+// look-ups fall to the kept (live pair, real row) pairs, and the bytes grow
+// by the probed lists' keep bytes (L / 8 a list).
 //
 // Design: one block of 128 * R threads per (segment, group of up to QG live
 // queries), found from the inclusive prefix `grp_end` of the groups per
@@ -37,7 +42,9 @@
 // (lut_scan_segment: f32 LUTs in shared memory, strided two-best bins, code
 // tiles loaded 16 bytes a thread one tile ahead, the bank-conflict-free
 // rotated look-up of 8-bit codes) lives in lut_scan_common.cuh, shared with
-// ring_lut_scan.cu.
+// ring_lut_scan.cu. A filter is one null-or-not pointer: a row's keep byte
+// is read beside its id, and a row that is not kept takes the pad's path
+// (no look-ups), so no second pass and no other template.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -57,6 +64,7 @@ lut_scan_kernel(const int* __restrict__ seg_list, const int* __restrict__ seg_q,
                 const int* __restrict__ ids, const float* __restrict__ norms,
                 const int* __restrict__ sizes,
                 const float* __restrict__ centers_rot, const float* __restrict__ cb,
+                const uint8_t* __restrict__ fbytes,
                 float* __restrict__ out_keys, int* __restrict__ out_ids, int n_seg,
                 int seg, int rot, int S, int K, int P, int pq_bits, int nb, int L,
                 int metric, int qg, int stride, int n_chunks) {
@@ -69,9 +77,10 @@ lut_scan_kernel(const int* __restrict__ seg_list, const int* __restrict__ seg_q,
   const int grp = b - (lo ? grp_end[lo - 1] : 0);
   const long lst = seg_list[lo];
   const int size = max(0, min(sizes[lst], L));
+  const uint8_t* frow = fbytes ? fbytes + lst * ((L + 7) >> 3) : nullptr;
   rtt::lut_scan_segment<kBytes8, kW>(
       smem, lo, lst, size, seg_q + (long)lo * seg, slot_row + (long)lo * seg,
-      grp * qg, qg, q_rot, codes, ids, norms, centers_rot, cb, out_keys,
+      grp * qg, qg, frow, q_rot, codes, ids, norms, centers_rot, cb, out_keys,
       out_ids, seg, rot, S, K, P, pq_bits, nb, L, metric, qg, stride, n_chunks);
 }
 
@@ -81,7 +90,8 @@ cudaError_t launch(int n_blocks, int R, size_t smem, cudaStream_t stream,
                    const int* grp_end, const int* blk_seg, const float* q_rot,
                    const uint8_t* codes,
                    const int* ids, const float* norms, const int* sizes,
-                   const float* centers_rot, const float* cb, float* out_keys,
+                   const float* centers_rot, const float* cb,
+                   const uint8_t* fbytes, float* out_keys,
                    int* out_ids, int n_seg, int seg, int rot, int S, int K,
                    int P, int pq_bits, int nb, int L, int metric, int qg,
                    int n_chunks) {
@@ -91,8 +101,8 @@ cudaError_t launch(int n_blocks, int R, size_t smem, cudaStream_t stream,
   if (e != cudaSuccess) return e;
   lut_scan_kernel<kBytes8, kW><<<n_blocks, kLutBins * R, smem, stream>>>(
       seg_list, seg_q, slot_row, grp_end, blk_seg, q_rot, codes, ids, norms,
-      sizes, centers_rot, cb, out_keys, out_ids, n_seg, seg, rot, S, K, P, pq_bits,
-      nb, L, metric, qg, rtt::lut_row_stride(nb), n_chunks);
+      sizes, centers_rot, cb, fbytes, out_keys, out_ids, n_seg, seg, rot, S, K,
+      P, pq_bits, nb, L, metric, qg, rtt::lut_row_stride(nb), n_chunks);
   return cudaSuccess;
 }
 
@@ -111,12 +121,14 @@ extern "C" long rtt_lut_scan_smem_bytes(int qg, int R, int S, int K, int rot,
 // once); n_blocks: at least grp_end's last entry. slot_row
 // [n_seg, seg]: the output row of each live slot. rot_lut: 1 for the
 // rotated look-up (8-bit codes, S a multiple of 32 up to 128, codes
-// 16-byte aligned, cb [K, S, P]-major), 0 for cb [S, K, P].
+// 16-byte aligned, cb [K, S, P]-major), 0 for cb [S, K, P]. fbytes: the
+// keep bytes [n_lists, ceil(L / 8)], or null for no filter.
 extern "C" int rtt_ivfpq_lut_scan_topk(
     const int* seg_list, const int* seg_q, const int* slot_row,
     const int* grp_end, const int* blk_seg, const float* q_rot,
     const uint8_t* codes, const int* ids, const float* norms, const int* sizes,
-    const float* centers_rot, const float* cb, float* out_keys, int* out_ids,
+    const float* centers_rot, const float* cb, const uint8_t* fbytes,
+    float* out_keys, int* out_ids,
     int n_seg, int n_blocks, int seg, int rot, int S, int K, int P,
     int pq_bits, int nb, int L, int metric, int qg, int R, int rot_lut,
     void* stream) {
@@ -133,8 +145,8 @@ extern "C" int rtt_ivfpq_lut_scan_topk(
 #define RTT_LUT_LAUNCH(B8, KW)                                                 \
   launch<B8, KW>(n_blocks, R, smem, st, seg_list, seg_q, slot_row, grp_end,   \
                  blk_seg, q_rot, codes, ids, norms, sizes, centers_rot, cb,   \
-                 out_keys, out_ids, n_seg, seg, rot, S, K, P, pq_bits, nb, L, \
-                 metric, qg, n_chunks)
+                 fbytes, out_keys, out_ids, n_seg, seg, rot, S, K, P, pq_bits,\
+                 nb, L, metric, qg, n_chunks)
   cudaError_t e;
   if (rot_lut) {
     e = S == 32   ? RTT_LUT_LAUNCH(true, 8)

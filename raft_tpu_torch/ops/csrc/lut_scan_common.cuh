@@ -7,7 +7,8 @@
 //   LUT[s, c] = <q_s, cb[s, c]>                        (f32, shared memory)
 //   dot      = <q, centers_rot[l]> + sum_s LUT[s, code_s(p)]
 //   key      = norms[l, p] - 2 * dot   (l2)  |  -dot   (ip)
-// invalid ids (< 0) and positions >= the list's size give (+inf, -1). Bin
+// invalid ids (< 0), positions >= the list's size and, with a filter, rows
+// whose keep bit is clear give (+inf, -1). Bin
 // b = p mod 128 keeps the two smallest (key, position) pairs in
 // lexicographic order -- what a walk of the bin in position order with a
 // strict < keeps, i.e. the TPU kernel's bin contents. Output per live
@@ -62,6 +63,16 @@ __device__ __forceinline__ void best2_init(Best2& b) {
   b.k1 = b.k2 = CUDART_INF_F;
   b.i1 = b.i2 = -1;
   b.p1 = b.p2 = kLutNoPos;
+}
+
+// The keep bit of row p of a list whose keep bytes start at `frow` (null:
+// no filter): bit p mod 8 of byte p / 8, as sample_filter.list_filter_bytes
+// packs it. A row that is not kept is skipped as a pad is (id -1), which
+// gives the bins the (+inf, -1) sentinel the TPU kernel's _lut_tile_update
+// put on a filtered row.
+__device__ __forceinline__ bool row_kept(const uint8_t* __restrict__ frow,
+                                         int p) {
+  return frow == nullptr || ((frow[p >> 3] >> (p & 7)) & 1);
 }
 
 // Insert (k, i, p) in lexicographic (key, position) order.
@@ -151,7 +162,8 @@ __device__ __forceinline__ void adc_words_rot(uint32_t (&a)[kW],
 }
 
 // One segment: list `lst` of `size` real rows, slot table `sq` [seg]
-// (query row per slot, -1 pad), queries `q_rot` [*, rot]. Scans live slots
+// (query row per slot, -1 pad), queries `q_rot` [*, rot], the list's keep
+// bytes `frow` (null: no filter). Scans live slots
 // [g_first, g_first + g_count) of the segment (in slot order), qg at a
 // time, and writes the 256 bin columns of live slot j to row
 // out_row[j] of out_* (or row s_out * seg + j where out_row is null).
@@ -163,6 +175,7 @@ template <bool kBytes8, int kW>
 __device__ __forceinline__ void lut_scan_segment(
     float* smem, long s_out, long lst, int size, const int* __restrict__ sq,
     const int* __restrict__ out_row, int g_first, int g_count,
+    const uint8_t* __restrict__ frow,
     const float* __restrict__ q_rot, const uint8_t* __restrict__ codes,
     const int* __restrict__ ids, const float* __restrict__ norms,
     const float* __restrict__ centers_rot, const float* __restrict__ cb,
@@ -215,7 +228,7 @@ __device__ __forceinline__ void lut_scan_segment(
   auto fetch = [&](int t) {
     const int p = t * nthr + tid;
     nx_id = -1;
-    if (p < size) {
+    if (p < size && row_kept(frow, p)) {  // a row not kept loads nothing
       nx_id = ids[list_row0 + p];
       nx_nrm = norms[list_row0 + p];
 #pragma unroll
@@ -352,7 +365,7 @@ __device__ __forceinline__ void lut_scan_segment(
       float nxt_nrm = 0.f;
       auto load_meta = [&](int t) {
         const int p = t * nthr + tid;
-        nxt_id = p < size ? ids[list_row0 + p] : -1;
+        nxt_id = p < size && row_kept(frow, p) ? ids[list_row0 + p] : -1;
         nxt_nrm = p < size ? norms[list_row0 + p] : 0.f;
       };
       load_meta(0);

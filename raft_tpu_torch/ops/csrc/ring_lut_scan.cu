@@ -44,6 +44,10 @@
 //    card.
 // The LUT is built once per (query, rank): PRs 3-5 built it once per
 // (probed list, rank), 256 times a query at 64 probes and 4 ranks.
+// A filter (the TPU kernel's filter_bytes, l.2017) is one pointer a rank to
+// its keep bytes [n_lists, ceil(L / 8)], or null: a row's keep bit is read
+// beside its id, and a row that is not kept takes the pad's path (id -1,
+// no look-ups), so its bins hold only kept rows.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -71,6 +75,7 @@ struct ScanTables {
   const float* cb[kMaxRanks];
   float* part_k[kMaxRanks];      // [n * mc, k] local top-k per rank
   int* part_i[kMaxRanks];
+  const uint8_t* fbytes[kMaxRanks];  // [n_lists, ceil(L / 8)] keep bytes, or null
 };
 
 __host__ __device__ inline size_t align16(size_t b) { return (b + 15) & ~(size_t)15; }
@@ -206,6 +211,8 @@ ring_local_kernel(ScanTables t, int n, int NS, int mc, int k, int rot, int S,
   const uint4* rows = reinterpret_cast<const uint4*>(t.codes[r]);
   const int* gids = t.ids[r];
   const float* gnorms = t.norms[r];
+  const uint8_t* fb = t.fbytes[r];
+  const long fb_row = (L + 7) >> 3;  // keep bytes a list
 
   Cand top[2] = {rtt::gone(), rtt::gone()};  // the warp's running top-k
   float k1 = CUDART_INF_F, k2 = CUDART_INF_F;
@@ -220,7 +227,8 @@ ring_local_kernel(ScanTables t, int n, int NS, int mc, int k, int rot, int S,
     if (f_it < 0) return;
     const int4 e = items[f_it >> 2];
     const int pos = 128 * f_m + 32 * (f_it & 3) + lane;
-    if (pos < e.z) {
+    const uint8_t* frow = fb ? fb + e.y * fb_row : nullptr;
+    if (pos < e.z && rtt::row_kept(frow, pos)) {  // a row not kept loads nothing
       const long g = e.y * lrow0_of + pos;
       nx_id = gids[g];
       nx_nrm = gnorms[g];
@@ -342,11 +350,12 @@ extern "C" long rtt_ring_lut_scan_smem_bytes(int W, int S, int K, int rot, int N
 }
 
 // One call over the n ranks, all on card `device`, on `stream`: the local
-// launch, then the chain launch. `tables` holds 11 groups of n pointers
+// launch, then the chain launch. `tables` holds 12 groups of n pointers
 // (rank r's at group * n + r): lists [n, NS], ind [n, NS, mc], qv
 // [n, mc, rot], codes, ids, norms, sizes, centers_rot, cb (the kernel
 // layout: [K, S, P] for rot_lut, else [S, K, P]), part_k / part_i
-// [n * mc, k] scratch. out_k / out_i [n, mc, k]: chunk c at index c. W:
+// [n * mc, k] scratch, and fbytes [n_lists, ceil(L / 8)] (null pointers:
+// no filter). out_k / out_i [n, mc, k]: chunk c at index c. W:
 // warps of a local block (1, 2, 4, 8 or 16). metric: 0 l2, 1 inner
 // product. rot_lut: 1 for the rotated look-up (8-bit codes, S a multiple
 // of 32 up to 128, every rank's codes 16-byte aligned).
@@ -372,6 +381,7 @@ extern "C" int rtt_ring_lut_scan_merge(const void* const* tables, int n, int NS,
     t.cb[r] = (const float*)tables[8 * n + r];
     t.part_k[r] = (float*)tables[9 * n + r];
     t.part_i[r] = (int*)tables[10 * n + r];
+    t.fbytes[r] = (const uint8_t*)tables[11 * n + r];
     if (rot_lut && ((uintptr_t)t.codes[r] & 15)) return (int)cudaErrorInvalidValue;
   }
   const size_t smem = local_smem_bytes(W, S, K, rot, NS, nb, k, rot_lut);

@@ -27,15 +27,17 @@ The two ring kernels take one tensor per rank of a mesh (a list, each
 on its rank's device; see ``parallel.mesh``) and return one per rank.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` (the
-CPU path counts nothing). The source notes in ``csrc/`` give each
-kernel's bound on the H100 and what its design does about it.
+CPU path counts nothing); the three that take a filter operand count the
+launches that took one in ``<wrapper>.filtered_launches`` too. The source
+notes in ``csrc/`` give each kernel's bound on the H100 and what its
+design does about it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -349,11 +351,28 @@ def lut_slot_rows(pair_seg: torch.Tensor, pair_slot: torch.Tensor,
     return rows.view(n_seg, seg)
 
 
+def unpack_filter_bytes(fbytes: torch.Tensor, L: int) -> torch.Tensor:
+    """[..., ceil(L/8)] u8 keep bytes → [..., L] bool (bit j of byte b is
+    position 8·b + j): the inverse of ``sample_filter.pack_mask_bytes``."""
+    shifts = torch.arange(8, dtype=torch.int32, device=fbytes.device)
+    bits = (fbytes.to(torch.int32)[..., None] >> shifts) & 1
+    return bits.reshape(*fbytes.shape[:-1], -1)[..., :L] > 0
+
+
+def _check_filter_bytes(fbytes: torch.Tensor, n_lists: int, L: int) -> None:
+    _check(fbytes, "filter_bytes", torch.uint8, 2)
+    expects(tuple(fbytes.shape) == (n_lists, (L + 7) // 8),
+            "filter_bytes must be [n_lists, ceil(L/8)] = [%d, %d] (got %s)",
+            n_lists, (L + 7) // 8, tuple(fbytes.shape))
+
+
 def _lut_bins_plain(lst, q, packed, ids, norms, sizes, centers_rot, cb,
-                    metric: str, pq_bits: int, pair_chunk: int = 256):
+                    metric: str, pq_bits: int, fbytes=None,
+                    pair_chunk: int = 256):
     """The 256 bin columns of each (list lst[i], rotated query q[i]) pair
     → (keys, ids) [c, 256]: the exact ADC keys of the list's rows (rows at
-    or past ``sizes[lst]`` count as pads), then the two best
+    or past ``sizes[lst]`` count as pads, and so do rows whose keep bit in
+    ``fbytes`` [n_lists, ceil(L/8)] is clear), then the two best
     per bin (position mod 128) by a stable sort — the lexicographic (key,
     position) pair the kernel's strict-< running update keeps."""
     S, K, P = cb.shape
@@ -372,6 +391,8 @@ def _lut_bins_plain(lst, q, packed, ids, norms, sizes, centers_rot, cb,
         key = -dot if metric == "ip" else norms[ls] - 2.0 * dot
         cid = ids[ls]
         valid = (cid >= 0) & (pos[None, :] < sizes[ls].long()[:, None])
+        if fbytes is not None:
+            valid &= unpack_filter_bytes(fbytes[ls], L)
         key = torch.where(valid, key, torch.full_like(key, float("inf")))
         cid = torch.where(valid, cid, torch.full_like(cid, -1))
         if Lp > L:
@@ -394,16 +415,17 @@ def _lut_bins_plain(lst, q, packed, ids, norms, sizes, centers_rot, cb,
 
 def ivfpq_lut_scan_topk_plain(seg_list, pair_seg, q_rot, packed, ids, norms,
                               list_sizes, centers_rot, cb, metric: str,
-                              pq_bits: int):
+                              pq_bits: int, filter_bytes=None):
     """Plain version over the already-rounded codebook ``cb``: for each
     (query b, probe p) pair, the bins of query b against the list of its
-    segment ``pair_seg[b, p]``, walked to the list's size → (keys, ids)
-    [B, P, 256]."""
+    segment ``pair_seg[b, p]``, walked to the list's size, filtered rows
+    masked to (+inf, −1) before the bin cut → (keys, ids) [B, P, 256]."""
     B, P = pair_seg.shape
     lst = seg_list[pair_seg.long()].reshape(-1)
     qrow = torch.arange(B, device=q_rot.device).repeat_interleave(P)
     keys, kids = _lut_bins_plain(lst, q_rot[qrow], packed, ids, norms,
-                                 list_sizes, centers_rot, cb, metric, pq_bits)
+                                 list_sizes, centers_rot, cb, metric, pq_bits,
+                                 filter_bytes)
     return (keys.view(B, P, LUT_SCAN_BINS),
             kids.view(B, P, LUT_SCAN_BINS))
 
@@ -415,7 +437,8 @@ def ivfpq_lut_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
                         list_sizes: torch.Tensor, centers_rot: torch.Tensor,
                         codebooks: torch.Tensor, metric: str = "l2", *,
                         pq_bits: int, pq_dim: int, L: int,
-                        lut_dtype: str = "float32"
+                        lut_dtype: str = "float32",
+                        filter_bytes: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused segmented IVF-PQ scan over packed codes.
 
@@ -431,7 +454,12 @@ def ivfpq_lut_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
     global ids, two best per bin. The TPU kernel took the gathered
     ``[n_seg, seg, rot]`` queries and wrote an ``[n_seg, seg, 256]`` table,
     pad slots included, from which its caller gathered the pairs' rows;
-    this one writes each live slot's row straight to its pair."""
+    this one writes each live slot's row straight to its pair.
+
+    ``filter_bytes`` [n_lists, ceil(L/8)] u8 (``sample_filter.
+    list_filter_bytes`` over ``ids``): a row whose keep bit is clear is
+    scored as a pad (+inf, −1) before the bins, so the bins hold only
+    kept rows; the kernel reads the keep byte beside the row's id."""
     S, K, P, nb, rot = _lut_scan_args(seg_list, seg_q, q_rot, packed, ids,
                                       norms, centers_rot, codebooks, metric,
                                       pq_bits, pq_dim, L)
@@ -444,12 +472,15 @@ def ivfpq_lut_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
             q_rot.shape[0])
     expects(list_sizes.shape[0] == packed.shape[0],
             "list_sizes must be [n_lists]")
+    filt = () if filter_bytes is None else (filter_bytes,)
+    if filt:
+        _check_filter_bytes(filter_bytes, packed.shape[0], L)
     cb = lut_codebook(codebooks, lut_dtype)
     if not _use_kernel(seg_list, seg_q, pair_seg, pair_slot, q_rot, packed,
-                       ids, norms, list_sizes, centers_rot, cb):
+                       ids, norms, list_sizes, centers_rot, cb, *filt):
         return ivfpq_lut_scan_topk_plain(seg_list, pair_seg, q_rot, packed,
                                          ids, norms, list_sizes, centers_rot,
-                                         cb, metric, pq_bits)
+                                         cb, metric, pq_bits, filter_bytes)
     n_seg, seg = seg_q.shape
     B, n_probes = pair_seg.shape
     lib = _lib("ivfpq_lut_scan")
@@ -480,15 +511,18 @@ def ivfpq_lut_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
     rc = lib.rtt_ivfpq_lut_scan_topk(
         _ptr(seg_list), _ptr(seg_q), _ptr(slot_rows), _ptr(grp_end),
         _ptr(blk_seg), _ptr(q_rot), _ptr(packed), _ptr(ids), _ptr(norms),
-        _ptr(list_sizes), _ptr(centers_rot), _ptr(cbk), _ptr(keys),
+        _ptr(list_sizes), _ptr(centers_rot), _ptr(cbk),
+        _ptr(filter_bytes) if filt else None, _ptr(keys),
         _ptr(kids), n_seg, n_blocks, seg, rot, S, K, P, pq_bits, nb, L,
         1 if metric == "ip" else 0, qg, R, int(rot_lut), _stream())
     ivfpq_lut_scan_topk.launches += 1
+    ivfpq_lut_scan_topk.filtered_launches += bool(filt)
     _raise_on(rc, "ivfpq_lut_scan_topk")
     return keys, kids
 
 
 ivfpq_lut_scan_topk.launches = 0
+ivfpq_lut_scan_topk.filtered_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -498,12 +532,27 @@ ivfpq_lut_scan_topk.launches = 0
 _REFINE_METRICS = {"l2": 0, "ip": 1, "cos": 2}
 
 
+def _refine_keep(filter_bits: torch.Tensor, cand: torch.Tensor, n: int
+                 ) -> torch.Tensor:
+    """The re-rank's filter test: the word of the fetched row (the id
+    clipped to [0, n − 1], the word index to the last word), bit id mod
+    32 — what the TPU kernel's word fetch tested."""
+    row = cand.long().clamp(0, n - 1)
+    word = filter_bits[(row >> 5).clamp(max=filter_bits.shape[0] - 1)]
+    return ((word >> (cand & 31).to(torch.int32)) & 1) > 0
+
+
 def gather_refine_topk_plain(dataset, queries, candidates, k: int,
-                             metric: str = "l2", row_chunk: int = 256):
+                             metric: str = "l2", filter_bits=None,
+                             row_chunk: int = 256):
     """Keys of ``refine._refine_rows``' formulas against the gathered
-    candidate rows, then a stable sort: ties to the earliest candidate."""
+    candidate rows, then a stable sort: ties to the earliest candidate.
+    A candidate whose filter bit is clear becomes −1 before the sort."""
     n = dataset.shape[0]
     m, C = candidates.shape
+    if filter_bits is not None:
+        candidates = torch.where(_refine_keep(filter_bits, candidates, n),
+                                 candidates, torch.full_like(candidates, -1))
     vals, out = [], []
     for a in range(0, m, row_chunk):
         cand = candidates[a:a + row_chunk]
@@ -531,14 +580,17 @@ def gather_refine_topk_plain(dataset, queries, candidates, k: int,
 
 
 def gather_refine_topk(dataset: torch.Tensor, queries: torch.Tensor,
-                       candidates: torch.Tensor, k: int, metric: str = "l2"
+                       candidates: torch.Tensor, k: int, metric: str = "l2",
+                       filter_bits: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused exact re-rank: dataset [n, d] f32, queries [m, d] f32,
     candidates [m, C] i32 (−1 invalid, others clipped for the fetch) →
     (keys [m, k] ascending, ids [m, k], −1 where fewer than k valid).
     Keys: l2 squared distance, ip −score, cos cosine distance; ties to the
     earliest candidate. Any C: the kernel streams the keys through a
-    running top-k and keeps no [C] array."""
+    running top-k and keeps no [C] array. ``filter_bits`` [n_words] i32
+    (``core.bitset`` words): a candidate whose bit is clear is invalid;
+    the kernel tests it before the row's load, so it costs no row."""
     _check(dataset, "dataset", torch.float32, 2)
     _check(queries, "queries", torch.float32, 2)
     _check(candidates, "candidates", torch.int32, 2)
@@ -549,20 +601,28 @@ def gather_refine_topk(dataset: torch.Tensor, queries: torch.Tensor,
             "dataset/queries/candidates shapes disagree")
     expects(0 < k <= min(GATHER_REFINE_MAX_K, C), "k=%d outside (0, %d]", k,
             min(GATHER_REFINE_MAX_K, C))
-    if not _use_kernel(dataset, queries, candidates):
+    filt = () if filter_bits is None else (filter_bits,)
+    if filt:
+        _check(filter_bits, "filter_bits", torch.int32, 1)
+        expects(filter_bits.shape[0] > 0, "filter_bits has no word")
+    if not _use_kernel(dataset, queries, candidates, *filt):
         return gather_refine_topk_plain(dataset, queries, candidates, k,
-                                        metric)
+                                        metric, filter_bits)
     out_v = torch.empty((m, k), dtype=torch.float32, device=queries.device)
     out_i = torch.empty((m, k), dtype=torch.int32, device=queries.device)
     rc = _lib("gather_refine").rtt_gather_refine_topk(
         _ptr(dataset), dataset.shape[0], d, _ptr(queries), _ptr(candidates),
-        m, C, k, _REFINE_METRICS[metric], _ptr(out_v), _ptr(out_i), _stream())
+        _ptr(filter_bits) if filt else None,
+        filter_bits.shape[0] if filt else 0, m, C, k,
+        _REFINE_METRICS[metric], _ptr(out_v), _ptr(out_i), _stream())
     gather_refine_topk.launches += 1
+    gather_refine_topk.filtered_launches += bool(filt)
     _raise_on(rc, "gather_refine_topk")
     return out_v, out_i
 
 
 gather_refine_topk.launches = 0
+gather_refine_topk.filtered_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -893,8 +953,10 @@ def ring_topk_merge_plain(keys: Sequence[torch.Tensor],
                       ids[r][c * mc:(c + 1) * mc]), len(keys), k)
 
 
-def _ptr_table(tensors: Sequence[torch.Tensor]):
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+def _ptr_table(tensors: Sequence[Optional[torch.Tensor]]):
+    """A C array of the tensors' pointers (None: a null pointer)."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
 
 
 def ring_topk_merge(vals: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
@@ -1049,9 +1111,11 @@ def ring_lut_scan_kernel_ok(S: int, K: int, P: int, nb: int, Wb: int,
     own need: a local block (one chunk row's LUT, its member-list table
     and top-ks) that fits the 227 KB of shared memory, at most 16 ranks,
     and the unfolded code layout (the folded one is not ported: ROADMAP
-    A9). Any mc. Filters are not ported (A6)."""
+    A9). Any mc. ``filtered`` changes nothing: the kernel reads a rank's
+    keep bytes beside its ids, in no shared memory (the TPU kernel's VMEM
+    grew by its filter slots)."""
     if (k > RING_TOPK_MAX_K or n_dev < 2 or n_dev > RING_MAX_RANKS
-            or NS > RING_FUSED_MAX_SEGS or filtered):
+            or NS > RING_FUSED_MAX_SEGS):
         return False
     if _lut_scan_config(S, K, P, nb, Wb, lut_dtype) is None or Wb != nb:
         return False
@@ -1061,13 +1125,13 @@ def ring_lut_scan_kernel_ok(S: int, K: int, P: int, nb: int, Wb: int,
 
 def ring_lut_scan_merge_plain(chunk_lists, seg_q, qv_chunks, packed, ids,
                               norms, list_sizes, centers_rot, cb, k: int,
-                              metric: str, pq_bits: int):
+                              metric: str, pq_bits: int, filter_bytes=None):
     """Plain version over the already-rounded codebook ``cb`` and the
     member table ``seg_q`` [n, NS, mc] (row, or −1): per rank and chunk,
-    the LUT scan's bins (:func:`_lut_bins_plain`) of every (member row,
-    union list) pair, the lists' bins laid out in union order with (+inf,
-    −1) for non-members, then the ring schedule of
-    :func:`ring_topk_merge_plain`."""
+    the LUT scan's bins (:func:`_lut_bins_plain`, with the rank's
+    ``filter_bytes`` when given) of every (member row, union list) pair,
+    the lists' bins laid out in union order with (+inf, −1) for
+    non-members, then the ring schedule of :func:`ring_topk_merge_plain`."""
     mc = qv_chunks[0].shape[1]
 
     def local(r, c):
@@ -1081,7 +1145,7 @@ def ring_lut_scan_merge_plain(chunk_lists, seg_q, qv_chunks, packed, ids,
         keys[si, sl], kids[si, sl] = _lut_bins_plain(
             chunk_lists[r][c][si], qv_chunks[r][c][sq[si, sl].long()],
             packed[r], ids[r], norms[r], list_sizes[r], centers_rot[r], cb[r],
-            metric, pq_bits)
+            metric, pq_bits, None if filter_bytes is None else filter_bytes[r])
         return (keys.permute(1, 0, 2).reshape(mc, -1),
                 kids.permute(1, 0, 2).reshape(mc, -1))
 
@@ -1098,7 +1162,8 @@ def ring_lut_scan_merge(chunk_lists: Sequence[torch.Tensor],
                         centers_rot: Sequence[torch.Tensor],
                         codebooks: Sequence[torch.Tensor], k: int,
                         metric: str = "l2", *, pq_bits: int, pq_dim: int,
-                        L: int, lut_dtype: str = "float32"
+                        L: int, lut_dtype: str = "float32",
+                        filter_bytes: Optional[Sequence[torch.Tensor]] = None
                         ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Fused per-shard LUT scan + ring top-k exchange over the ranks of a
     mesh. Every argument holds one tensor per rank, on its device:
@@ -1112,7 +1177,10 @@ def ring_lut_scan_merge(chunk_lists: Sequence[torch.Tensor],
     - ``packed`` / ``ids`` / ``norms`` / ``list_sizes`` / ``centers_rot``
       / ``codebooks`` — the rank's shard as :func:`ivfpq_lut_scan_topk`
       takes it (ids are global row ids, int32; rows at or past a list's
-      size are not read).
+      size are not read);
+    - ``filter_bytes`` (optional) — the rank's keep bytes [n_lists,
+      ceil(L/8)] u8 over its own id table (``sample_filter.
+      list_filter_bytes``): a row whose bit is clear is a pad.
 
     Each rank scans, per chunk row and member list, the two best per
     strided bin, as the LUT scan keeps them; per chunk the k best over the
@@ -1126,6 +1194,8 @@ def ring_lut_scan_merge(chunk_lists: Sequence[torch.Tensor],
     n = len(packed)
     args = (chunk_lists, probe_ind, qv_chunks, packed, ids, norms,
             list_sizes, centers_rot, codebooks)
+    filt = () if filter_bytes is None else (filter_bytes,)
+    args = args + filt
     expects(n >= 1 and all(len(a) == n for a in args),
             "ring_lut_scan_merge needs one tensor per rank for every operand")
     expects(0 < k <= RING_TOPK_MAX_K, "k=%d outside (0, %d] (gate with "
@@ -1148,15 +1218,17 @@ def ring_lut_scan_merge(chunk_lists: Sequence[torch.Tensor],
         _check(list_sizes[r], "list_sizes", torch.int32, 1)
         expects(list_sizes[r].shape[0] == packed[r].shape[0],
                 "list_sizes must be [n_lists]")
-    if not _ring_use_kernel(chunk_lists, probe_ind, qv_chunks, packed, ids,
-                            norms, list_sizes, centers_rot, codebooks):
+        if filt:
+            _check_filter_bytes(filter_bytes[r], packed[r].shape[0], L)
+    if not _ring_use_kernel(*args):
         rows = torch.arange(mc, dtype=torch.int32)
         seg_q = [torch.where(ind > 0.5, rows, -1).to(torch.int32)
                  for ind in probe_ind]
         cb = [lut_codebook(c, lut_dtype) for c in codebooks]
         return ring_lut_scan_merge_plain(chunk_lists, seg_q, qv_chunks,
                                          packed, ids, norms, list_sizes,
-                                         centers_rot, cb, k, metric, pq_bits)
+                                         centers_rot, cb, k, metric, pq_bits,
+                                         filter_bytes)
     rot_lut = lut_rotated(S, pq_bits)
     W = ring_lut_scan_fit(S, K, rot, NS, nb, k, rot_lut)
     expects(W is not None, "a %d x %d LUT with %d union lists does not fit "
@@ -1170,17 +1242,20 @@ def ring_lut_scan_merge(chunk_lists: Sequence[torch.Tensor],
     out_i = torch.empty((n, mc, k), dtype=torch.int32, device=dev)
     table = _ptr_table([*chunk_lists, *probe_ind, *qv_chunks, *packed, *ids,
                         *norms, *list_sizes, *centers_rot, *cbk,
-                        *part_k.unbind(0), *part_i.unbind(0)])
+                        *part_k.unbind(0), *part_i.unbind(0),
+                        *(filter_bytes if filt else [None] * n)])
     rc = _lib("ring_lut_scan").rtt_ring_lut_scan_merge(
         table, n, NS, mc, k, rot, S, K, P, pq_bits, nb, L,
         1 if metric == "ip" else 0, W, int(rot_lut), _ptr(out_k),
         _ptr(out_i), dev.index, _stream(dev))
     ring_lut_scan_merge.launches += 2   # the local top-ks, then the chains
+    ring_lut_scan_merge.filtered_launches += 2 * bool(filt)
     _raise_on(rc, "ring_lut_scan_merge")
     return list(out_k.unbind(0)), list(out_i.unbind(0))
 
 
 ring_lut_scan_merge.launches = 0
+ring_lut_scan_merge.filtered_launches = 0
 
 
 KERNELS = {
@@ -1195,10 +1270,23 @@ KERNELS = {
 }
 
 
+# the wrappers that take a filter operand
+FILTERED_KERNELS = ("ivfpq_lut_scan_topk", "gather_refine_topk",
+                    "ring_lut_scan_merge")
+
+
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def filtered_launch_counts() -> Dict[str, int]:
+    """Launches that took a filter operand, per wrapper that takes one."""
+    return {name: KERNELS[name].filtered_launches
+            for name in FILTERED_KERNELS}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for name in FILTERED_KERNELS:
+        KERNELS[name].filtered_launches = 0

@@ -19,7 +19,12 @@
   (``ops.kernels.ring_lut_scan_merge``): the per-shard [m, k] table never
   exists.
 
-Sharded IVF-Flat is not ported yet (ROADMAP A15), nor are filters (A6).
+A filter (``filter_bitset``, packed words over GLOBAL row ids,
+replicated) composes with each shard's id table, whose ids are global:
+the fused ring reads each rank's keep bytes over its own table, the
+per_query tier and the refined scan take the bitset itself, and the
+per-rank re-rank of the refined path takes none (its candidates are
+already kept ones). Sharded IVF-Flat is not ported yet (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 
 from raft_tpu_torch.cluster import distributed as dkm
 from raft_tpu_torch.cluster.kmeans import KMeansParams
+from raft_tpu_torch.core import bitset as _bitset
 from raft_tpu_torch.core import ids as _ids
 from raft_tpu_torch.core.device import to_device
 from raft_tpu_torch.core.errors import expects, not_ported
@@ -41,6 +47,7 @@ from raft_tpu_torch.distance.types import (SELECT_MIN, DistanceType,
                                            resolve_metric)
 from raft_tpu_torch.neighbors import ivf_common as ic
 from raft_tpu_torch.neighbors import ivf_pq as _pq
+from raft_tpu_torch.neighbors import sample_filter as _sf
 from raft_tpu_torch.obs import spans as _obs_spans
 from raft_tpu_torch.ops import kernels as _k
 from raft_tpu_torch.parallel import merge as _merge
@@ -293,7 +300,9 @@ def _ring_fused_wanted(index: ShardedIvfPq, m: int, k: int, n_probes: int,
     other than "pallas" (or "approx" at n_probes ≥ 64 or k ≥ 400), for
     cosine, for int64 ids, for latency-bound shapes (auto only) and where
     :func:`~raft_tpu_torch.ops.kernels.ring_lut_scan_kernel_ok` refuses
-    the shape or the ranks span several cards (``n_cards``; ROADMAP A15)."""
+    the shape or the ranks span several cards (``n_cards``; ROADMAP A15),
+    and, ``filtered``, where ``filtered_scan_mem_ok`` refuses the ranks'
+    keep bytes ("mem_guard")."""
     force = _obs_spans.env_tristate("RAFT_TPU_RING_FUSED")
     if force == "off" or merge == "allgather":
         return False, ""
@@ -319,6 +328,9 @@ def _ring_fused_wanted(index: ShardedIvfPq, m: int, k: int, n_probes: int,
         filtered=filtered)
     if not ok or n_cards > 1:
         return False, "kernel_ineligible"
+    if filtered and not ic.filtered_scan_mem_ok(
+            index.n_lists, index.packed_ids[0].shape[1]):
+        return False, "mem_guard"
     return True, ""
 
 
@@ -363,9 +375,13 @@ def _fused_ring_operands(index: ShardedIvfPq, q: torch.Tensor,
 
 def _search_fused_ring(index: ShardedIvfPq, q: torch.Tensor, k: int,
                        n_probes: int, mesh: Mesh, lut_dtype: str,
-                       mt: DistanceType) -> Tuple[torch.Tensor, torch.Tensor]:
+                       mt: DistanceType, filter_bits=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused scan-in-ring search: probes and chunk unions, the fused
-    kernel over every rank, then the LUT-key → metric epilogue."""
+    kernel over every rank, then the LUT-key → metric epilogue. With
+    ``filter_bits`` (global row ids) each rank's keep bytes come from its
+    own id table, whose ids are global, so one test composes the
+    replicated bitset with the shard's rows."""
     m = q.shape[0]
     n_dev = index.n_shards
     mc = _k.ring_chunk_rows(m, n_dev)
@@ -376,9 +392,13 @@ def _search_fused_ring(index: ShardedIvfPq, q: torch.Tensor, k: int,
     # hops as the ring merge does (the fusion moves compute, not bytes)
     Comms(mesh).count_ring_topk(n_dev - 1, ((mc, k), torch.float32),
                                 ((mc, k), torch.int32))
+    fbytes = (None if filter_bits is None else
+              [_sf.list_filter_bytes(filter_bits, ids)
+               for ids in index.packed_ids])
     kv, ki = _k.ring_lut_scan_merge(
         *ops, k, "ip" if ip_like else "l2", pq_bits=index.pq_bits,
-        pq_dim=index.pq_dim, L=index.max_list_size, lut_dtype=lut_dtype)
+        pq_dim=index.pq_dim, L=index.max_list_size, lut_dtype=lut_dtype,
+        filter_bytes=fbytes)
     rv = _merge.assemble(_merge.QUERY_SHARDED, kv, m, dev0)
     ri = _merge.assemble(_merge.QUERY_SHARDED, ki, m, dev0)
     if ip_like:
@@ -395,12 +415,14 @@ def _search_fused_ring(index: ShardedIvfPq, q: torch.Tensor, k: int,
 
 def _per_rank_topk(params: _pq.SearchParams, index: ShardedIvfPq,
                    q: torch.Tensor, k: int, n_probes: int, mesh: Mesh,
-                   dataset=None) -> Tuple[List[torch.Tensor],
-                                          List[torch.Tensor]]:
+                   dataset=None, filter_bits=None
+                   ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Each rank's local top-k of the replicated queries, (values, global
     ids) per rank: the per_query tier, or with ``refine="f32_regen"`` the
     oversampled scan through ``ivf_pq.search`` and the exact re-rank
-    against the rank's own rows of ``dataset``."""
+    against the rank's own rows of ``dataset``. ``filter_bits`` (global
+    row ids) goes to each rank's scan on the rank's device; the re-rank
+    takes none: the scan's candidates are already kept rows."""
     mt = resolve_metric(index.metric)
     n_dev = index.n_shards
     dev0 = mesh.devices[0]
@@ -433,11 +455,14 @@ def _per_rank_topk(params: _pq.SearchParams, index: ShardedIvfPq,
         k_cand = max(k, int(round(k * params.refine_ratio)))
         scan_params = dataclasses.replace(params, refine="none")
     qs = replicate(q, mesh)
+    fbs = (replicate(filter_bits, mesh) if filter_bits is not None
+           else [None] * n_dev)
     vals, gids = [], []
     for r, dev in enumerate(mesh.devices):
         local = index.local(r)
         if refined:
-            _, i0 = _pq.search(local, qs[r], k_cand, scan_params, device=dev)
+            _, i0 = _pq.search(local, qs[r], k_cand, scan_params,
+                               filter_bitset=fbs[r], device=dev)
             li = _ids.local_ids(i0, r, shard_n)
             v, lids = _refine.refine(ds_shards[r], qs[r], li, k,
                                      metric=index.metric, device=dev)
@@ -446,7 +471,7 @@ def _per_rank_topk(params: _pq.SearchParams, index: ShardedIvfPq,
             v, g = _pq._search_impl(
                 local, qs[r], k, n_probes,
                 _pq._fit_query_tile(params.query_tile, n_probes, local),
-                lut_dtype=params.lut_dtype)
+                lut_dtype=params.lut_dtype, filter_bits=fbs[r])
         vals.append(v)
         gids.append(g)
     return vals, gids
@@ -468,14 +493,16 @@ def search_ivf_pq(params: _pq.SearchParams, index: ShardedIvfPq, queries,
     against its own rows, and only its k refined survivors enter the
     merge. Unrefined searches take the fused scan-in-ring tier where
     ``_ring_fused_wanted`` admits them, else the per_query tier per rank
-    and the merge."""
+    and the merge. ``filter_bitset`` (packed words over global row ids,
+    replicated to every rank) reaches every one of those tiers."""
     _precision.enforce()
     mt = resolve_metric(index.metric)
     select_min = SELECT_MIN[mt]
     n_probes = min(params.n_probes, index.n_lists)
-    if filter_bitset is not None:
-        raise not_ported("filtered sharded search", "A6")
     dev0 = mesh.devices[0]
+    filtered = filter_bitset is not None
+    if filtered:
+        filter_bitset = _bitset.as_words(filter_bitset, dev0)
     q = to_device(queries, dev0, torch.float32)
     expects(q.dim() == 2 and q.shape[1] == index.dim,
             "queries must be [m, %d]", index.dim)
@@ -489,23 +516,26 @@ def search_ivf_pq(params: _pq.SearchParams, index: ShardedIvfPq, queries,
     refined = params.refine != "none"
     if params.lut_dtype == "auto" and not refined:
         params = dataclasses.replace(params, lut_dtype=_pq.resolve_lut_dtype(
-            "auto", n_probes, k))
+            "auto", n_probes, k,
+            selectivity=_pq._filter_selectivity(filter_bitset)))
     if not refined:
         fused, reason = _ring_fused_wanted(
             index, m, k, n_probes, n_dev, whole_mesh=whole_mesh, merge=merge,
             mt=mt, lut_dtype=params.lut_dtype, scan_select=params.scan_select,
-            n_cards=mesh.n_cards)
+            filtered=filtered, n_cards=mesh.n_cards)
         if fused:
             _obs_spans.count_dispatch("parallel.merge", "ring_fused_scan")
-            _obs_spans.count_dispatch("ivf_pq.scan", "ring_lut_fused")
+            _pq._count_scan_dispatch("ring_lut_fused", filtered)
             return _search_fused_ring(index, q, k, n_probes, mesh,
-                                      params.lut_dtype, mt)
+                                      params.lut_dtype, mt,
+                                      filter_bits=filter_bitset)
         if reason:
             _obs_spans.count_fallback("parallel.merge", reason)
     tier, impl = _merge.merge_tier(n_dev, m, k, explicit=merge,
                                    whole_mesh=whole_mesh, hier_axes=hier_axes,
                                    n_cards=mesh.n_cards)
-    vals, gids = _per_rank_topk(params, index, q, k, n_probes, mesh, dataset)
+    vals, gids = _per_rank_topk(params, index, q, k, n_probes, mesh, dataset,
+                                filter_bitset)
     rv, ri = _merge.merge_topk(vals, gids, mesh, m, k, n_dev, select_min,
                                tier=tier, impl=impl)
     spec = _merge.merge_out_spec(tier)

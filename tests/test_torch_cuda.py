@@ -20,6 +20,8 @@ the ring merge exact (values and ids, ties included); the fused
 scan-in-ring keys rtol 1e-4, atol 1e-3 with ids equal away from key ties
 (the f64 key of the kernel's pick within that tolerance of the plain key),
 and on integer-valued cases (exact keys, many ties) keys and ids equal.
+The filtered kernels keep their unfiltered tolerances, and an all-ones
+filter gives the unfiltered kernel's output bit for bit.
 """
 
 from __future__ import annotations
@@ -30,9 +32,9 @@ import torch
 
 from raft_tpu_torch.ops import kernels as K
 
-from torch_parity import (SCAN_OPERANDS, assert_bins_match,
+from torch_parity import (FILTER_KINDS, SCAN_OPERANDS, assert_bins_match,
                           assert_scan_match, blobs, cuda_device,
-                          flat_scan_case,
+                          filter_keep, flat_scan_case,
                           flat_scan_operands, refine_case, ring_scan_case,
                           ring_scan_key64, ring_scan_ops, ring_tables,
                           scan_case, scan_reference_keys, tied_scores)
@@ -647,3 +649,175 @@ def test_cuda_index_save_load_round_trip(tmp_path):
     for name in ("centers", "packed_data", "packed_ids", "packed_norms",
                  "list_sizes"):
         assert torch.equal(getattr(fback, name), getattr(flat, name)), name
+
+
+# ---------------------------------------------------------------------------
+# filtered kernels: B1 and B8 with keep bytes, B2 with the bitset's words,
+# B5 and B6 over a masked id table
+# ---------------------------------------------------------------------------
+
+def _keep_bits(keep: np.ndarray, dev):
+    """The bitset of a keep mask; all kept: ``make_filter``'s all-pass
+    bitset, whose pad bits are set too (ids past the mask pass, as they do
+    unfiltered)."""
+    from raft_tpu_torch.core import bitset
+    from raft_tpu_torch.neighbors import sample_filter
+
+    if keep.all():
+        return sample_filter.make_filter(keep.shape[0], device=dev)
+    return bitset.from_mask(torch.tensor(keep), device=dev)
+
+
+@pytest.mark.parametrize("kind", FILTER_KINDS)
+@pytest.mark.parametrize("pq_bits,S", [(5, 16), (8, 64)])
+def test_cuda_lut_scan_filtered_matches_plain(pq_bits, S, kind):
+    """B1 with keep bytes (L 300: a ragged last byte; the two ids past the
+    permutation sit in the bitset's last word) against its plain version;
+    no returned id has its bit clear; all-ones equals no filter bit for
+    bit; none kept gives only sentinels. S 64 takes the rotated look-up."""
+    from raft_tpu_torch.neighbors import sample_filter
+
+    dev = cuda_device()
+    c = scan_case(pq_bits, seed=7, S=S)
+    n_ids = int(c["ids"].max()) + 1
+    keep = filter_keep(n_ids, kind, seed=pq_bits)
+    args = _lut_ops(c, dev)
+    ids = args[SCAN_OPERANDS.index("ids")]
+    fbytes = sample_filter.list_filter_bytes(_keep_bits(keep, dev), ids)
+    assert fbytes.shape == (c["ids"].shape[0], (c["L"] + 7) // 8)
+    kw = dict(pq_bits=pq_bits, pq_dim=c["S"], L=c["L"])
+    for metric in ("l2", "ip"):
+        K.reset_launch_counts()
+        tk, ti = K.ivfpq_lut_scan_topk(*args, metric, filter_bytes=fbytes,
+                                       **kw)
+        assert K.launch_counts()["ivfpq_lut_scan_topk"] == 1
+        assert K.filtered_launch_counts()["ivfpq_lut_scan_topk"] == 1
+        pk, pi = K.ivfpq_lut_scan_topk(*[a.cpu() for a in args], metric,
+                                       filter_bytes=fbytes.cpu(), **kw)
+        ref = scan_reference_keys(c, c["cb"], metric)
+        ref = {key: np.where(keep[np.clip(c["ids"][c["seg_list"][
+            c["pair_seg"][key]]], 0, None)], v, np.inf)
+            for key, v in ref.items()}
+        tk, ti = tk.cpu().numpy(), ti.cpu().numpy()
+        assert_bins_match(tk, ti, pk.numpy(), pi.numpy(), ref, rtol=1e-4,
+                          atol=1e-3)
+        got = ti[ti >= 0]
+        assert keep[got].all(), metric
+        if kind == "none":
+            assert not got.size and np.isinf(tk).all()
+        if kind == "all":
+            uk, ui = K.ivfpq_lut_scan_topk(*args, metric, **kw)
+            assert np.array_equal(ui.cpu().numpy(), ti)
+            assert np.array_equal(uk.cpu().numpy(), tk)
+
+
+@pytest.mark.parametrize("kind", FILTER_KINDS)
+def test_cuda_gather_refine_filtered_matches_plain(kind):
+    """B2 with the bitset's words (out-of-range and invalid candidates in
+    the table, ids in the last word) against its plain version, every
+    metric, random rows (ids equal away from key ties) and integer rows
+    (bit for bit); no returned id has its bit clear; all-ones equals no
+    filter bit for bit."""
+    dev = cuda_device()
+    for ties in (False, True):
+        data, q, cand = refine_case(seed=4, C=400, n=2000, ties=ties)
+        keep = filter_keep(2000, kind, seed=3)
+        bits = _keep_bits(keep, dev)
+        data, q, cand = (torch.tensor(a).to(dev) for a in (data, q, cand))
+        for metric in ("l2", "ip", "cos"):
+            K.reset_launch_counts()
+            v, i = K.gather_refine_topk(data, q, cand, 10, metric,
+                                        filter_bits=bits)
+            assert K.filtered_launch_counts()["gather_refine_topk"] == 1
+            pv, pi = K.gather_refine_topk_plain(data, q, cand, 10, metric,
+                                                bits)
+            got = i[i >= 0].cpu().numpy()
+            # an id past the rows (clipped for its fetch) tests a pad bit,
+            # set only in the all-pass bitset
+            assert np.append(keep, [keep.all()] * 32)[got].all(), metric
+            if kind == "all":
+                uv, ui = K.gather_refine_topk(data, q, cand, 10, metric)
+                assert torch.equal(_bits(uv), _bits(v)) and torch.equal(ui, i)
+            if ties:
+                assert torch.equal(_bits(v), _bits(pv)), metric
+                assert torch.equal(i, pi), metric
+                continue
+            torch.testing.assert_close(v, pv, rtol=1e-5, atol=1e-5)
+            fin = torch.isfinite(pv)
+            tol = 1e-5 * (1.0 + torch.where(fin, pv, 0.0).abs())
+            gap = (pv[:, 1:] - pv[:, :-1]).abs() <= tol[:, 1:]
+            tie = torch.zeros_like(pv, dtype=torch.bool)
+            tie[:, 1:] |= gap
+            tie[:, :-1] |= gap
+            tie[:, -1] = True
+            assert bool(((i == pi) | tie | ~fin).all()), metric
+            assert bool((i[~fin] == -1).all())
+
+
+@pytest.mark.parametrize("kind", ["every_other", "sel0.1", "last_word"])
+def test_cuda_scans_over_a_masked_id_table_match_plain(kind):
+    """B5 and B6 take a filter as their id table with the cleared ids set
+    to −1 (the JAX package's masked table and mask_add): against their
+    plain versions over the same masked table, no pick a filtered id."""
+    dev = cuda_device()
+    c = flat_scan_case(300, 96, seed=2)
+    keep = filter_keep(int(c["ids"].max()) + 1, kind, seed=5)
+    c["ids"] = np.where(keep[np.clip(c["ids"], 0, None)], c["ids"], -1)
+    args = flat_scan_operands(c, dev)
+    for metric in ("l2", "ip"):
+        tk, ti = K.segmented_scan_topk(*args, metric)
+        pk, pi = K.segmented_scan_topk_plain(*args, metric)
+        assert_scan_match(tk.cpu(), ti.cpu(), pk.cpu(), pi.cpu(), c, metric,
+                          "ids", rtol=1e-5, atol=1e-4)
+        got = ti[ti >= 0].cpu().numpy()
+        assert keep[got].all()
+        tk, tp = K.grouped_scan_topk(*args, 10, metric)
+        pk, pp = K.grouped_scan_topk_plain(*args, 10, metric)
+        assert_scan_match(tk.cpu(), tp.cpu(), pk.cpu(), pp.cpu(), c, metric,
+                          "pos", rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", FILTER_KINDS)
+@pytest.mark.parametrize("pq_bits,S,ties", [(8, 64, False), (5, 16, False),
+                                            (8, 64, True)])
+def test_cuda_ring_lut_scan_filtered_matches_plain(pq_bits, S, ties, kind):
+    """B8, 4 ranks on one card, each with its keep bytes over its own id
+    table, against the plain version; no returned id has its bit clear;
+    all-ones equals no filter bit for bit; integer keys bit for bit."""
+    from raft_tpu_torch.neighbors import sample_filter
+
+    devices = _ring_devices(4)
+    c = ring_scan_case(pq_bits, n_dev=4, seed=11, S=S, ties=ties)
+    keep = filter_keep(int(c["ids"].max()) + 1, kind, seed=pq_bits)
+    bits = _keep_bits(keep, devices[0])
+    kw = dict(pq_bits=pq_bits, pq_dim=c["S"], L=c["L"])
+    ops = ring_scan_ops(c, devices)
+    fb = [sample_filter.list_filter_bytes(bits, ids) for ids in ops[4]]
+    K.reset_launch_counts()
+    tk, ti = K.ring_lut_scan_merge(*ops, 10, "l2", filter_bytes=fb, **kw)
+    assert K.launch_counts()["ring_lut_scan_merge"] == 2
+    assert K.filtered_launch_counts()["ring_lut_scan_merge"] == 2
+    pk, pi = K.ring_lut_scan_merge(*ring_scan_ops(c, ["cpu"] * 4), 10, "l2",
+                                   filter_bytes=[f.cpu() for f in fb], **kw)
+    cb_used = K.lut_codebook(torch.tensor(c["cb"]), "float32").numpy()
+    if kind == "all":
+        uk, ui = K.ring_lut_scan_merge(*ops, 10, "l2", **kw)
+    for r in range(4):
+        a, b = tk[r].cpu().numpy(), pk[r].numpy()
+        ia, ib = ti[r].cpu().numpy(), pi[r].numpy()
+        assert keep[ia[ia >= 0]].all(), r
+        if kind == "all":
+            assert np.array_equal(uk[r].cpu().numpy(), a)
+            assert np.array_equal(ui[r].cpu().numpy(), ia)
+        if ties:
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(ia, ib)
+            continue
+        assert (np.isinf(a) == np.isinf(b)).all()
+        assert (ia[np.isinf(a)] == -1).all()
+        fin = np.isfinite(b)
+        np.testing.assert_allclose(a[fin], b[fin], rtol=1e-4, atol=1e-3)
+        for row, j in zip(*np.nonzero((ia != ib) & fin)):
+            k64 = ring_scan_key64(c, cb_used, "l2", r, row, ia[row, j])
+            assert abs(k64 - b[row, j]) <= 1e-3 + 1e-4 * abs(b[row, j]), (
+                r, row, j)

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from raft_tpu.bench import dataset as jds
+from raft_tpu.core import bitset as jbs
 from raft_tpu.cluster import kmeans_balanced as jkb
 from raft_tpu.neighbors import ivf_common as jic
 from raft_tpu.neighbors import ivf_flat as jfl
@@ -30,8 +31,8 @@ from raft_tpu_torch.cluster import kmeans_balanced as tkb
 from raft_tpu_torch.neighbors import ivf_common as tic
 from raft_tpu_torch.neighbors import ivf_flat as tfl
 
-from torch_parity import (blobs, jax_flat_arrays, jax_flat_from_arrays,
-                          overlap)
+from torch_parity import (assert_filtered_match, blobs, jax_flat_arrays,
+                          jax_flat_from_arrays, overlap)
 
 N, D, N_LISTS = 2000, 16, 16
 METRICS = ["sqeuclidean", "euclidean", "inner_product", "cosine"]
@@ -316,9 +317,6 @@ def test_unported_paths_raise(corpus):
                   tfl.IndexParams(n_lists=4), device="cpu")
     calls = [
         lambda: tfl.search(idx, qt, 10, tfl.SearchParams(n_probes=4),
-                           filter_bitset=torch.ones(63, dtype=torch.int32),
-                           device="cpu"),
-        lambda: tfl.search(idx, qt, 10, tfl.SearchParams(n_probes=4),
                            mesh=object(), device="cpu"),
         lambda: tfl.search(idx, qt, 10, tfl.SearchParams(
             n_probes=4, refine="f32_regen"), dataset=x, device="cpu"),
@@ -341,3 +339,54 @@ def test_refined_search_matches_unrefined_exact_rows(corpus):
     true = ((q[:, None, :].astype(np.float64)
              - x[i.numpy()].astype(np.float64)) ** 2).sum(-1)
     np.testing.assert_allclose(d.numpy(), true, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# filtered search (ROADMAP A6)
+# ---------------------------------------------------------------------------
+
+# (tier, selectivity, metric): every tier at the bench's three
+# selectivities, and the other metrics at 0.1
+_FLAT_FILTERED = [(t, s, "sqeuclidean") for t in ("per_query", "exact",
+                                                  "approx")
+                  for s in (0.01, 0.1, 0.5)] + [
+    ("per_query", 0.1, "cosine"), ("exact", 0.1, "inner_product"),
+    ("approx", 0.1, "cosine")]
+
+
+@pytest.mark.parametrize("tier,sel,metric", _FLAT_FILTERED)
+def test_filtered_tiers_match_jax(corpus, tier, sel, metric, monkeypatch):
+    """Filtered search in each tier: per_query (the bitset tested per
+    candidate), exact (the grouped scan over the masked id table; the JAX
+    package's interpreted kernel with mask_add) and approx (the plain
+    grouped tier over the masked table: the segmented scan declines
+    filtered searches in both packages)."""
+    monkeypatch.setenv("RAFT_TPU_PALLAS_GROUPED", "always")
+    x, q = corpus
+    jidx = _jax_index(x, metric)
+    keep = np.random.default_rng(int(sel * 100)).random(N) < sel
+    bits = jbs.from_mask(jnp.asarray(keep))
+    sp = (dict(n_probes=4, scan_mode="per_query") if tier == "per_query"
+          else dict(n_probes=4, scan_mode="grouped", scan_select=tier))
+    jd, ji = jfl.search(jidx, jnp.asarray(q), 10, jfl.SearchParams(**sp),
+                        filter_bitset=bits)
+    td, ti = tfl.search(_port_index(jidx), _t(q), 10, tfl.SearchParams(**sp),
+                        filter_bitset=np.asarray(bits), device="cpu")
+    assert_filtered_match(ti, td, ji, jd, keep)
+
+
+def test_filtered_refined_search_matches_jax(corpus):
+    """refine="f32_regen" with a filter: the scan and the re-rank both take
+    it."""
+    x, q = corpus
+    jidx = _jax_index(x)
+    keep = np.random.default_rng(9).random(N) < 0.2
+    bits = jbs.from_mask(jnp.asarray(keep))
+    sp = dict(n_probes=4, scan_mode="per_query", refine="f32_regen",
+              refine_ratio=4)
+    jd, ji = jfl.search(jidx, jnp.asarray(q), 10, jfl.SearchParams(**sp),
+                        filter_bitset=bits, dataset=jnp.asarray(x))
+    td, ti = tfl.search(_port_index(jidx), _t(q), 10, tfl.SearchParams(**sp),
+                        filter_bitset=np.asarray(bits), dataset=_t(x),
+                        device="cpu")
+    assert_filtered_match(ti, td, ji, jd, keep)

@@ -19,13 +19,16 @@ import numpy as np
 import pytest
 import torch
 
+from raft_tpu.core import bitset as jbs
 from raft_tpu.neighbors import ivf_pq as jpq
 from raft_tpu.neighbors import refine as jrefine
 from raft_tpu_torch.distance.types import resolve_metric
 from raft_tpu_torch.neighbors import ivf_pq as tpq
 from raft_tpu_torch.neighbors import refine as trefine
+from raft_tpu_torch.obs import spans as tspans
 
-from torch_parity import blobs, jax_index_arrays, overlap
+from torch_parity import (assert_filtered_match, blobs, jax_index_arrays,
+                          overlap)
 
 N, D, N_LISTS, PQ_DIM = 3000, 32, 16, 16
 
@@ -211,7 +214,7 @@ def test_resolve_lut_dtype_off_card():
 
 def test_unported_paths_raise(corpus):
     """What the port still refuses: per_cluster codebooks, folded code
-    storage, filters, and a re-rank against a host-resident dataset."""
+    storage, and a re-rank against a host-resident dataset."""
     x, q = corpus
     xt = _t(x)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
@@ -229,10 +232,147 @@ def test_unported_paths_raise(corpus):
                        device="cpu")
     idx = _port_index(jidx)
     qt = _t(q)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tpq.search(idx, qt, 10, tpq.SearchParams(n_probes=8), device="cpu",
-                   filter_bitset=torch.ones(94, dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         tpq.search(idx, qt, 10, tpq.SearchParams(
             n_probes=8, refine="f32_regen", refine_ratio=4), dataset=x,
             device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# filtered search (ROADMAP A6)
+# ---------------------------------------------------------------------------
+
+def _keep(sel: float, n: int = N, seed: int = 0):
+    """A seeded keep mask and its JAX bitset."""
+    keep = np.random.default_rng(seed + int(sel * 1000)).random(n) < sel
+    return keep, jbs.from_mask(jnp.asarray(keep))
+
+
+@pytest.mark.parametrize("sel", [0.01, 0.1, 0.5])
+def test_filtered_lut_tier_matches_jax(corpus, sel, monkeypatch):
+    """The LUT-scan tier with its keep bytes (k 20) against the JAX
+    package's interpreted kernel with filter_bytes; the dispatch counts
+    pallas_lut with filtered=1."""
+    monkeypatch.setenv("RAFT_TPU_PALLAS_LUTSCAN", "always")
+    x, q = corpus
+    jidx = _jax_index(x)
+    keep, bits = _keep(sel)
+    kw = dict(n_probes=8, scan_select="pallas", lut_dtype="float32")
+    jd, ji = jpq.search(jidx, jnp.asarray(q), 20, jpq.SearchParams(**kw),
+                        filter_bitset=bits)
+    tspans.reset()
+    td, ti = tpq.search(_port_index(jidx), _t(q), 20, tpq.SearchParams(**kw),
+                        filter_bitset=np.asarray(bits), device="cpu")
+    assert tspans.counts()["ivf_pq.scan.dispatch"] == {
+        "pallas_lut,filtered=1": 1}
+    assert_filtered_match(ti, td, ji, jd, keep, atol=1e-3)
+
+
+# (metric, selectivity): the bench's selectivities on l2, the other
+# metrics at 0.1
+_PQ_FILTERED = [("sqeuclidean", s) for s in (0.01, 0.1, 0.5)] + [
+    ("inner_product", 0.1), ("cosine", 0.1)]
+
+
+@pytest.mark.parametrize("metric,sel", _PQ_FILTERED)
+def test_filtered_per_query_tier_matches_jax(corpus, metric, sel):
+    x, q = corpus
+    jidx = _jax_index(x, metric)
+    keep, bits = _keep(sel, seed=1)
+    kw = dict(n_probes=6, scan_mode="per_query", lut_dtype="float32")
+    jd, ji = jpq.search(jidx, jnp.asarray(q), 10, jpq.SearchParams(**kw),
+                        filter_bitset=bits)
+    td, ti = tpq.search(_port_index(jidx), _t(q), 10, tpq.SearchParams(**kw),
+                        filter_bitset=np.asarray(bits), device="cpu")
+    assert_filtered_match(ti, td, ji, jd, keep)
+
+
+@pytest.mark.parametrize("sel", [0.01, 0.1, 0.5])
+def test_filtered_refined_slice_matches_jax(corpus, sel, monkeypatch):
+    """The main path filtered: the LUT-scan tier with keep bytes, then the
+    fused re-rank with the bitset's words, against the JAX package's
+    interpreted kernels; the re-rank's dispatch counts filtered=1."""
+    monkeypatch.setenv("RAFT_TPU_PALLAS_LUTSCAN", "always")
+    monkeypatch.setenv("RAFT_TPU_PALLAS_REFINE", "always")
+    x, q = corpus
+    jidx = _jax_index(x)
+    keep, bits = _keep(sel, seed=2)
+    kw = dict(n_probes=8, scan_select="pallas", refine="f32_regen",
+              refine_ratio=40, lut_dtype="float32")
+    jd, ji = jpq.search(jidx, jnp.asarray(q), 10, jpq.SearchParams(**kw),
+                        filter_bitset=bits, dataset=jnp.asarray(x))
+    tspans.reset()
+    td, ti = tpq.search(_port_index(jidx), _t(q), 10, tpq.SearchParams(**kw),
+                        filter_bitset=np.asarray(bits), dataset=_t(x),
+                        device="cpu")
+    counts = tspans.counts()
+    assert counts["refine.dispatch"] == {"pallas_gather,filtered=1": 1}
+    assert counts["ivf_pq.scan.dispatch"] == {"pallas_lut,filtered=1": 1}
+    assert_filtered_match(ti, td, ji, jd, keep)
+
+
+@pytest.mark.parametrize("tier,metric", [
+    ("fused", "sqeuclidean"), ("fused", "inner_product"), ("fused", "cosine"),
+    ("gather", "sqeuclidean"), ("gather", "cosine")])
+def test_filtered_refine_matches_jax(tier, metric, monkeypatch):
+    """Standalone refine with a filter: the fused tier (C 400, the kernel's
+    word test) and the gather tier (C 40, the candidates masked first)
+    against the JAX package's."""
+    monkeypatch.setenv("RAFT_TPU_PALLAS_REFINE",
+                       "always" if tier == "fused" else "never")
+    rng = np.random.default_rng(11)
+    data = rng.standard_normal((900, 24)).astype(np.float32)
+    q = rng.standard_normal((13, 24)).astype(np.float32)
+    C = 400 if tier == "fused" else 40
+    cand = rng.integers(-1, 900, (13, C)).astype(np.int32)
+    keep = rng.random(900) < 0.3
+    bits = jbs.from_mask(jnp.asarray(keep))
+    jd, ji = jrefine.refine(jnp.asarray(data), jnp.asarray(q),
+                            jnp.asarray(cand), 8, metric=metric,
+                            filter_bits=bits)
+    tspans.reset()
+    td, ti = trefine.refine(_t(data), _t(q), _t(cand), 8, metric=metric,
+                            filter_bits=np.asarray(bits), device="cpu")
+    label = "pallas_gather" if tier == "fused" else "xla_gather"
+    assert tspans.counts()["refine.dispatch"] == {label + ",filtered=1": 1}
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    assert keep[ti.numpy()[ti.numpy() >= 0]].all()
+
+
+@pytest.mark.parametrize("metric,sel", [
+    ("sqeuclidean", 0.1), ("euclidean", 0.01), ("inner_product", 0.1),
+    ("cosine", 0.5), ("sqeuclidean", 0.003)])
+def test_filtered_brute_force_matches_jax(metric, sel):
+    """The filtered ground truth: cleared rows never returned, and where
+    fewer than k rows survive (selectivity 0.003 of 1500 rows) the empty
+    slots hold id −1, as in the JAX package."""
+    from raft_tpu.neighbors import brute_force as jbf
+    from raft_tpu_torch.neighbors import brute_force as tbf
+
+    rng = np.random.default_rng(2)
+    data = rng.standard_normal((1500, 16)).astype(np.float32)
+    q = rng.standard_normal((25, 16)).astype(np.float32)
+    keep, bits = _keep(sel, n=1500, seed=3)
+    jd, ji = jbf.knn(jbf.build(jnp.asarray(data), metric=metric),
+                     jnp.asarray(q), 10, filter_bitset=bits)
+    td, ti = tbf.knn(_t(data), _t(q), 10, metric=metric,
+                     filter_bitset=np.asarray(bits), device="cpu")
+    assert_filtered_match(ti, td, ji, jd, keep)
+    if keep.sum() < 10:
+        assert (ti.numpy()[:, keep.sum():] == -1).all()
+
+
+def test_filter_selectivity_feeds_the_lut_dtype(monkeypatch):
+    """A filter's density discounts the fp8 slack of resolve_lut_dtype, as
+    in the JAX package (the card-only branch, forced here)."""
+    from raft_tpu_torch.ops import kernels as tk
+
+    keep, bits = _keep(0.1, n=4096, seed=4)
+    sel = tpq._filter_selectivity(np.asarray(bits))
+    assert abs(sel - float(jbs.density(bits))) < 1e-6
+    assert tpq._filter_selectivity(None) == 1.0
+    monkeypatch.setattr(tk, "_on_cuda", lambda: True)
+    assert tpq.resolve_lut_dtype("auto", 64, 500, 1.0) == "float8_e4m3"
+    assert tpq.resolve_lut_dtype("auto", 64, 500, sel) == "bfloat16"

@@ -24,13 +24,15 @@ import numpy as np
 import pytest
 import torch
 
+from raft_tpu.core import bitset as jbs
 from raft_tpu.neighbors import ivf_common as jic
 from raft_tpu.neighbors import ivf_pq as jpq
 from raft_tpu_torch.neighbors import ivf_common as tic
 from raft_tpu_torch.neighbors import ivf_pq as tpq
+from raft_tpu_torch.obs import spans as tspans
 
-from torch_parity import (blobs, jax_index_arrays, jax_index_from_arrays,
-                          overlap)
+from torch_parity import (assert_filtered_match, blobs, jax_index_arrays,
+                          jax_index_from_arrays, overlap)
 
 N, D, N_LISTS, PQ_DIM = 3000, 32, 16, 16
 METRICS = ["sqeuclidean", "euclidean", "inner_product", "cosine"]
@@ -282,3 +284,76 @@ def test_fit_seg_chunk_and_list_chunk_match_jax():
     for args in ((1024, 3), (1000, 7), (17, 5), (8, 100)):
         assert tic.choose_list_chunk(*args) == jic.choose_list_chunk(*args)
     assert tic.CHUNK_BYTES_TARGET == jic.CHUNK_BYTES_TARGET
+
+
+# ---------------------------------------------------------------------------
+# filtered search over the cache (ROADMAP A6): every grouped tier scans the
+# id table with the cleared ids set to −1
+# ---------------------------------------------------------------------------
+
+def _filtered_jax(jidx, q, k, sel, monkeypatch, grouped_env, dataset=None,
+                  **sp):
+    """A seeded keep mask at ``sel``, its JAX bitset, and the JAX
+    package's filtered search."""
+    keep = np.random.default_rng(int(sel * 1000) + 7).random(N) < sel
+    bits = jbs.from_mask(jnp.asarray(keep))
+    monkeypatch.setenv("RAFT_TPU_PALLAS_GROUPED", grouped_env)
+    jd, ji = jpq.search(jidx, jnp.asarray(q), k, jpq.SearchParams(**sp),
+                        filter_bitset=bits,
+                        dataset=None if dataset is None
+                        else jnp.asarray(dataset))
+    return keep, bits, jd, ji
+
+
+# (tier, selectivity): segk (approx, B5) and the grouped kernel (exact kk
+# 40, B6) over the cache, interpreted on the JAX side; the plain grouped
+# tier (the JAX XLA tier) over the cache at exact kk 100 and over codes
+# decoded per chunk without one
+_RECON_FILTERED = ([("segk", s) for s in (0.01, 0.1, 0.5)]
+                   + [("kernel", s) for s in (0.01, 0.1, 0.5)]
+                   + [("plain", 0.1), ("plain_codes", 0.1)])
+_TIER_SEARCH = {
+    "segk": ("always", "always", 10, dict(scan_select="approx")),
+    "kernel": ("always", "always", 40, dict(scan_select="exact")),
+    "plain": ("always", "never", 100, dict(scan_select="exact")),
+    "plain_codes": ("never", "never", 10, dict(scan_select="approx")),
+}
+_LABELS = {"segk": "segk", "kernel": "grouped_pallas",
+           "plain": "grouped_xla", "plain_codes": "grouped_xla"}
+
+
+@pytest.mark.parametrize("tier,sel", _RECON_FILTERED)
+def test_filtered_grouped_tiers_match_jax(corpus, tier, sel, monkeypatch):
+    x, q = corpus
+    cache, env, k, sp = _TIER_SEARCH[tier]
+    jidx = _jax_index(x, cache=cache)
+    sp = dict(n_probes=8, scan_mode="grouped", list_chunk=3, **sp)
+    keep, bits, jd, ji = _filtered_jax(jidx, q, k, sel, monkeypatch, env,
+                                       **sp)
+    tspans.reset()
+    td, ti = tpq.search(_port_index(jidx), _t(q), k, tpq.SearchParams(**sp),
+                        filter_bitset=np.asarray(bits), device="cpu")
+    assert tspans.counts()["ivf_pq.scan.dispatch"] == {
+        _LABELS[tier] + ",filtered=1": 1}
+    assert_filtered_match(ti, td, ji, jd, keep, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("sel", [0.01, 0.1, 0.5])
+def test_filtered_bench_legs_match_jax(corpus, sel, monkeypatch):
+    """The ``ivf_pq.n1024.d64`` filter legs' search: approx over the cache
+    (segk on the masked table) with refine_ratio 4 (the gather re-rank,
+    the candidates masked first)."""
+    x, q = corpus
+    jidx = _jax_index(x)
+    sp = dict(n_probes=8, scan_mode="grouped", scan_select="approx",
+              refine="f32_regen", refine_ratio=4)
+    keep, bits, jd, ji = _filtered_jax(jidx, q, 10, sel, monkeypatch,
+                                       "always", dataset=x, **sp)
+    tspans.reset()
+    td, ti = tpq.search(_port_index(jidx), _t(q), 10, tpq.SearchParams(**sp),
+                        filter_bitset=np.asarray(bits), dataset=_t(x),
+                        device="cpu")
+    counts = tspans.counts()
+    assert counts["ivf_pq.scan.dispatch"] == {"segk,filtered=1": 1}
+    assert counts["refine.dispatch"] == {"xla_gather,filtered=1": 1}
+    assert_filtered_match(ti, td, ji, jd, keep, rtol=1e-3, atol=1e-3)

@@ -34,7 +34,8 @@ from raft_tpu_torch.parallel import ivf as tivf
 from raft_tpu_torch.parallel import merge as tmerge
 from raft_tpu_torch.parallel import make_mesh
 
-from torch_parity import (assert_ids_match_away_from_ties, exact_knn,
+from torch_parity import (assert_filtered_match,
+                          assert_ids_match_away_from_ties, exact_knn,
                           jax_mesh, jax_sharded_pq_arrays,
                           jax_sharded_pq_from_arrays, overlap,
                           ring_scan_case, ring_scan_ops, ring_tables)
@@ -294,16 +295,21 @@ def pq_case():
             tidx)
 
 
-def _search_both(jidx, tidx, q, k, sp_kw, merge, dataset=None):
+def _search_both(jidx, tidx, q, k, sp_kw, merge, dataset=None, bits=None):
+    """Both packages' sharded search; ``bits`` a JAX filter bitset (the
+    port takes its words as numpy uint32)."""
     from raft_tpu.neighbors import ivf_pq as jpq
     from raft_tpu.parallel import search_ivf_pq as jsearch
     from raft_tpu_torch.neighbors import ivf_pq as tpq
 
     jv, ji = jsearch(jpq.SearchParams(**sp_kw), jidx, jnp.asarray(q), k,
                      jax_mesh(PQ_SHARDS), dataset=None if dataset is None
-                     else jnp.asarray(dataset), merge=merge)
+                     else jnp.asarray(dataset), merge=merge,
+                     filter_bitset=bits)
     tv, ti = tivf.search_ivf_pq(tpq.SearchParams(**sp_kw), tidx, q, k,
-                                tidx.mesh, dataset=dataset, merge=merge)
+                                tidx.mesh, dataset=dataset, merge=merge,
+                                filter_bitset=None if bits is None
+                                else np.asarray(bits))
     return (np.asarray(ji), np.asarray(jv)), (ti.numpy(), tv.numpy())
 
 
@@ -345,6 +351,43 @@ def test_crossed_index_searches_agree(pq_case, direction, monkeypatch):
     # lists of ≤ 256 rows: the two-best bins hold every row, so the fused
     # tier equals the exact unfused scan
     assert_ids_match_away_from_ties(ti, tv, *unfused)
+
+
+# (leg, selectivity): the fused scan-in-ring (B8 with each rank's keep
+# bytes) at the bench's three selectivities; the unfused per_query tier
+# (allgather) and the refined path (the filtered scan, an unfiltered
+# re-rank, the ring) at 0.1
+_SHARDED_FILTERED = [("fused", 0.01), ("fused", 0.1), ("fused", 0.5),
+                     ("unrefined", 0.1), ("refined", 0.1)]
+_SHARDED_LEGS = {"fused": (FUSED, "ring", "on"),
+                 "unrefined": (UNREFINED, "allgather", "off"),
+                 "refined": (REFINED, "ring", "off")}
+
+
+@pytest.mark.parametrize("leg,sel", _SHARDED_FILTERED)
+def test_crossed_index_filtered_searches_agree(pq_case, leg, sel,
+                                               monkeypatch):
+    """A filter over global row ids, replicated: each tier of the sharded
+    search against the JAX package's on a JAX-built index crossed into
+    the port — ids equal away from ties, no id with its bit clear; the
+    dispatch counts the filtered fused tier."""
+    from raft_tpu.core import bitset as jbs
+
+    x, q, _, jidx, _ = pq_case
+    q = q[:45]
+    tidx = tivf.from_numpy(*jax_sharded_pq_arrays(jidx), _cpu_mesh(PQ_SHARDS))
+    keep = np.random.default_rng(int(sel * 100) + 5).random(x.shape[0]) < sel
+    bits = jbs.from_mask(jnp.asarray(keep))
+    sp_kw, merge, fused = _SHARDED_LEGS[leg]
+    monkeypatch.setenv("RAFT_TPU_RING_FUSED", fused)
+    tspans.reset()
+    (ji, jv), (ti, tv) = _search_both(jidx, tidx, q, 8, sp_kw, merge,
+                                      dataset=x if leg == "refined" else None,
+                                      bits=bits)
+    if leg == "fused":
+        assert tspans.counts()["ivf_pq.scan.dispatch"] == {
+            "ring_lut_fused,filtered=1": 1}
+    assert_filtered_match(ti, tv, ji, jv, keep)
 
 
 def test_port_build_recall_matches_jax(pq_case):

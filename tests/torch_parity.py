@@ -321,6 +321,26 @@ def refine_case(seed: int, m: int = 12, C: int = 300, n: int = 2000,
     return data, q, cand
 
 
+FILTER_KINDS = ("all", "none", "every_other", "sel0.1", "last_word")
+
+
+def filter_keep(n: int, kind: str, seed: int = 0) -> np.ndarray:
+    """A keep mask over ids 0..n−1: "all", "none", "every_other" (even ids),
+    "sel0.1" (seeded, 10 % kept) or "last_word" (only the ids of the
+    bitset's last 32-bit word)."""
+    if kind == "all":
+        return np.ones(n, bool)
+    if kind == "none":
+        return np.zeros(n, bool)
+    if kind == "every_other":
+        return np.arange(n) % 2 == 0
+    if kind == "sel0.1":
+        return np.random.default_rng(seed).random(n) < 0.1
+    if kind == "last_word":
+        return np.arange(n) >= (n - 1) // 32 * 32
+    raise ValueError(kind)
+
+
 # ---------------------------------------------------------------------------
 # ring inputs (JAX-free)
 # ---------------------------------------------------------------------------
@@ -515,3 +535,17 @@ def assert_ids_match_away_from_ties(ia, va, ib, vb, rtol: float = 1e-4,
     tie[:, :-1] |= gap
     tie[:, -1] = True
     assert ((ia == ib) | tie).all(), np.argwhere((ia != ib) & ~tie)[:5]
+
+
+def assert_filtered_match(ti, td, ji, jd, keep, rtol: float = 1e-4,
+                          atol: float = 1e-4):
+    """A filtered search's (ids, distances) against the JAX package's:
+    distances within tolerance (+inf where fewer than k rows survive), ids
+    equal away from distance ties, no id with its bit clear in ``keep``,
+    and −1 wherever the distance is infinite (there the JAX per_query tier
+    returns the picked slot's own id)."""
+    ti, td = np.asarray(ti), np.asarray(td)
+    assert_ids_match_away_from_ties(ti, td, np.asarray(ji), np.asarray(jd),
+                                    rtol=rtol, atol=atol)
+    assert keep[ti[ti >= 0]].all()
+    assert (ti[~np.isfinite(td)] == -1).all()
