@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; nothing is caught and continued):
 
 1. probe — a CUDA card must be present; prints the card's name and power
-   limit as ``nvidia-smi`` reports them;
+   limit as ``nvidia-smi`` reports them, and the host's RAM and CPU count;
 2. build — compiles every kernel from ``raft_tpu_torch/ops/csrc`` with
    ``nvcc`` (one process per source, all started together) and prints
    ptxas' registers and spill bytes of each kernel entry;
@@ -36,6 +36,22 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    queries; an all-pass bitset must give the unfiltered kernel path's ids
    and distances exactly; and B1 and B2 with their filter operands against
    their plain versions at selectivity 0.1 (rows ``ivf_pq_filter``);
+   then ``[tiered]`` (ROADMAP A12): the base demoted to host memory
+   (``serve.placement.to_host``), the same queries through the tiered
+   prefetch path, the serialized host gather and the pipeline with
+   ``prefetch=False`` — equal bit for bit — against the resident path
+   (recall@10 at most 0.01 below, ids equal but at f32 ties), a filtered
+   tiered pass at selectivity 0.1 with no cleared id, wall-clock QPS of
+   each, prefetch hits and stalls, and one batch's sub-batch stages (host
+   gather by torch and by numpy, H2D copy, scan, landed re-rank), counts
+   zeroed before the tiered pass and read after; then ``[resilient]``
+   (ROADMAP A11): ``search_resilient`` under the injected plan
+   ``RESILIENT_PLAN`` must walk ``RESILIENT_PATH`` (the JAX package's path,
+   held by tests/test_torch_robust.py) and equal direct calls with its
+   final knobs bit for bit, and under a memory fraction capping the
+   allocator below one native search's peak a real
+   ``torch.cuda.OutOfMemoryError`` must be classified (no fault fired),
+   walked and recovered, equal to uncapped calls with the final knobs;
 4. IVF-Flat path — the 1M x 128 ``make_synthetic_hard`` set of the repo's
    hard_config bench (``FLAT_N`` rows, not cut), ``ivf_flat.build`` with
    1024 lists, spill, cap factor 1.5; searches of 10,000 queries (k 10)
@@ -57,6 +73,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    declines filtered searches, as in the JAX package, and must not
    launch), checked against the filtered ground truth, the filtered
    per_query tier (within 0.002) and the plain path (exact, within 0.01);
+   ``[flat resilient]``: IVF-Flat ``search_resilient`` of 500 queries under
+   two injected RESOURCE_EXHAUSTED, equal to direct calls with its final
+   knobs;
    then the IVF-PQ recon leg on the same data, queries and ground truth:
    the repo's bench config ``ivf_pq.n1024.d64`` (bench.py:211-243; 1024
    lists, pq_dim 64, spill, cap factor 1.5, the default
@@ -128,6 +147,14 @@ SHARD_N = 20_000_000
 SHARD_DIM = 128
 SHARD_RANKS = 4
 SHARD_KERNELS = PQ_KERNELS + ("ring_topk_merge", "ring_lut_scan_merge")
+
+# The [resilient] leg's injected plan, and the rungs its walk must take
+# from the main path's knobs (bf16 LUT, refined against the resident
+# base): the path the JAX package's ladder takes for the same plan and
+# knobs (tests/test_torch_robust.py holds both packages to it on the CPU).
+RESILIENT_PLAN = {"faults": [{"site": "ivf_pq.search", "kind": "oom",
+                              "times": 3}]}
+RESILIENT_PATH = ["halve_batch", "fp8_lut", "demote_raw"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 non-tensor rate,
 # dense TF32 tensor-core rate; 132 SMs, each reading 32 shared-memory words
@@ -712,6 +739,321 @@ def filter_main_leg(args, rows, index, base, queries, index_cpu, base_cpu,
     return summary
 
 
+def tiered_leg(index, base, queries, sp, B, k, gt):
+    """``[tiered]``: the main path with the base demoted to host memory
+    (``placement.to_host``, one numpy array), on the IVF-PQ phase's index
+    and queries. Passes over every query in batches of B: resident (B2 on
+    the device base), tiered (``refine_transfer="tiered"``, the prefetch
+    pipeline), serial (``"serial"``: one host gather a batch) and the
+    pipeline with ``prefetch=False``; launch counts zeroed just before the
+    tiered pass and read after it (B1 and B3 must launch). Checks: tiered,
+    serial and prefetch=False equal bit for bit (ids and distances);
+    tiered recall@10 on the ground-truth queries no more than 0.01 below
+    the resident path's, and its ids equal the resident ones except at f32
+    ties; a tiered pass filtered at selectivity 0.1 returns no cleared id.
+    Prints wall-clock QPS of each pass, prefetch hits and stalls, and per
+    sub-batch of one batch the ms of the host gather (``time.perf_counter``;
+    torch's gather and numpy's), the H2D copy (CUDA events on the reader's
+    stream), the scan and the landed re-rank (CUDA events). Raises
+    SmokeFailure; returns the summary."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.core import bitset
+    from raft_tpu_torch.neighbors import ivf_pq, tiered
+    from raft_tpu_torch.neighbors import refine as trefine
+    from raft_tpu_torch.obs import spans
+    from raft_tpu_torch.ops import kernels as K
+    from raft_tpu_torch.serve import placement
+
+    nq, n_gt = queries.shape[0], gt.shape[0]
+    t0 = time.perf_counter()
+    host = placement.to_host(base)
+    to_host_s = time.perf_counter() - t0
+    if placement.dataset_tier(host) != "host":
+        raise SmokeFailure("[tiered] to_host left the base on the card")
+    k_cand = max(k, int(round(k * sp.refine_ratio)))
+    scan_sp = dataclasses.replace(sp, refine="none")
+
+    def run(params, dataset, prefetch=True, bits=None):
+        spans.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = []
+        for a in range(0, nq, B):
+            q = queries[a:a + B]
+            if prefetch:
+                out.append(ivf_pq.search(index, q, k, params,
+                                         filter_bitset=bits, dataset=dataset))
+            else:
+                out.append(tiered.search_refined_tiered(
+                    ivf_pq.search, index, q, k, k_cand, scan_sp, bits,
+                    dataset, index.metric, prefetch=False))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        d = torch.cat([o[0] for o in out]).cpu()
+        i = torch.cat([o[1] for o in out]).cpu()
+        return d, i, nq / secs, spans.counts()
+
+    d_res, i_res, qps_res, _ = run(sp, base)
+    K.reset_launch_counts()
+    d_t, i_t, qps_t, c_t = run(dataclasses.replace(
+        sp, refine_transfer="tiered"), host)
+    launches = K.launch_counts()
+    d_s, i_s, qps_s, c_s = run(dataclasses.replace(
+        sp, refine_transfer="serial"), host)
+    d_n, i_n, qps_n, c_n = run(sp, host, prefetch=False)
+    hits = sum(c_t.get("serve.prefetch.hit", {}).values())
+    stalls = sum(c_t.get("serve.prefetch.stall", {}).values())
+    _log(f"[tiered] base to host in {to_host_s:.2f} s "
+         f"({host.nbytes / 1e9:.2f} GB numpy); wall-clock QPS over "
+         f"{nq} queries in batches of {B}: resident {qps_res:.0f}, tiered "
+         f"{qps_t:.0f}, serial {qps_s:.0f}, prefetch=False {qps_n:.0f}; "
+         f"prefetch hits {hits}, stalls {stalls}; refine.dispatch "
+         f"{json.dumps(c_t.get('refine.dispatch'))}")
+    _log(f"[tiered] launches {json.dumps(launches)}")
+    missing = [n for n in ("ivfpq_lut_scan_topk", "select_k")
+               if launches[n] == 0]
+    if missing:
+        raise SmokeFailure(f"[tiered] kernels never launched: {missing}")
+    if c_t.get("refine.dispatch", {}).get("tiered_prefetch", 0) == 0:
+        raise SmokeFailure("[tiered] the prefetch tier did not serve")
+    for name, (d, i) in (("serial", (d_s, i_s)),
+                         ("prefetch=False", (d_n, i_n))):
+        if not (torch.equal(i, i_t) and torch.equal(d, d_t)):
+            raise SmokeFailure(
+                f"[tiered] tiered and {name} differ: "
+                f"{int((i != i_t).sum())} ids, "
+                f"{int((d != d_t).sum())} distances")
+    rec_t, rec_r = _recall(i_t[:n_gt], gt), _recall(i_res[:n_gt], gt)
+    swaps = _swaps_are_ties(queries, base, i_t.to(base.device),
+                            i_res.to(base.device), "[tiered]")
+    _log(f"[tiered] recall@10 on {n_gt} queries: tiered {rec_t:.4f}, "
+         f"resident {rec_r:.4f}; ids equal to the resident path's but at "
+         f"{swaps} f32 ties; tiered = serial = prefetch=False bit for bit")
+    if rec_t < rec_r - 0.01:
+        raise SmokeFailure(f"[tiered] recall {rec_t} more than 0.01 below "
+                           f"the resident path's {rec_r}")
+
+    keep = bench_keep(base.shape[0], 0.1, k)
+    bits = bitset.from_mask(keep, device=base.device)
+    _, i_f, qps_f, c_f = run(dataclasses.replace(
+        sp, refine_transfer="tiered"), host, bits=bits)
+    n_empty = _check_kept(i_f, keep, "[tiered] filtered")
+    _log(f"[tiered] filtered at selectivity 0.1: no cleared id returned "
+         f"({n_empty} empty slots), {qps_f:.0f} QPS, hits "
+         f"{sum(c_f.get('serve.prefetch.hit', {}).values())}, stalls "
+         f"{sum(c_f.get('serve.prefetch.stall', {}).values())}")
+
+    # one batch, stage by stage
+    q0 = queries[:B]
+    timings = []
+    tiered.search_refined_tiered(ivf_pq.search, index, q0, k, k_cand,
+                                 scan_sp, None, host, index.metric,
+                                 timings=timings)
+    torch.cuda.synchronize()
+    mb = tiered.pipeline_batch(B)
+    qs = q0[:mb]
+    _, ids_s = ivf_pq.search(index, qs, k_cand, scan_sp)
+    np_t, th_t = [], []
+    for gather, out in (("numpy", np_t), ("torch", th_t)):
+        fetch = tiered.host_row_reader(host, gather=gather, timings=out)
+        for _ in range(3):
+            landed = fetch(ids_s)
+    torch.cuda.synchronize()
+    rows = landed.ready()
+    per_sub = {
+        "sub_batch": mb, "rows": mb * k_cand,
+        "host_gather_ms": [t["gather_ms"] for t in timings],
+        "h2d_ms": [t["h2d_events"][0].elapsed_time(t["h2d_events"][1])
+                   for t in timings],
+        "gather_numpy_ms": [t["gather_ms"] for t in np_t],
+        "gather_torch_ms": [t["gather_ms"] for t in th_t],
+        "scan_ms": _timed(lambda: ivf_pq.search(index, qs, k_cand,
+                                                scan_sp), 10),
+        "rerank_ms": _timed(lambda: trefine.refine_landed(rows, qs, ids_s,
+                                                          k), 10),
+    }
+    _log(f"[tiered] one batch of {B} in sub-batches of {mb}: "
+         f"{json.dumps(per_sub)}")
+    return {"qps": {"resident": qps_res, "tiered": qps_t, "serial": qps_s,
+                    "prefetch_false": qps_n, "tiered_filtered_0.1": qps_f},
+            "prefetch_hits": hits, "prefetch_stalls": stalls,
+            "recall_at_10": {"tiered": rec_t, "resident": rec_r},
+            "tie_swaps": swaps, "to_host_s": to_host_s,
+            "sub_batch": per_sub, "launches": launches}
+
+
+def _final_knobs(path, knobs, batch, has_lut):
+    """Replay a walk's rungs on a fresh ladder: the knobs it ended on."""
+    from raft_tpu_torch.robust import degrade
+
+    ladder = degrade.standard_search_ladder(batch, has_lut=has_lut)
+    for name in path:
+        step, knobs = ladder.advance(knobs)
+        if step.name != name:
+            raise SmokeFailure(f"[resilient] replay took {step.name} where "
+                               f"the walk took {name}")
+    return knobs
+
+
+def _direct(search, index, queries, k, knobs):
+    """One call with the knobs, split as the ladder's batched call splits."""
+    import torch
+
+    mb = knobs.get("max_batch") or queries.shape[0]
+    out = [search(index, queries[a:a + mb], k, knobs["params"],
+                  dataset=knobs.get("dataset"))
+           for a in range(0, queries.shape[0], mb)]
+    return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
+
+
+def resilient_leg(index, base, queries, sp, B, k):
+    """``[resilient]`` on the IVF-PQ phase's index: (a) the injected plan
+    ``RESILIENT_PLAN`` (RESOURCE_EXHAUSTED at ``ivf_pq.search`` for its
+    first three hits) under ``search_resilient`` of one batch of B: the
+    walk's path must be ``RESILIENT_PATH`` (the JAX package's path for the
+    same plan and knobs) and its results equal, bit for bit, direct calls
+    with the knobs the walk ended on. (b) A real
+    ``torch.cuda.OutOfMemoryError``: the peak memory of one native search
+    of every query at once is measured uncapped, then, after
+    ``torch.cuda.empty_cache()``, ``set_per_process_memory_fraction`` caps
+    the allocator at what is reserved plus 0.7 of that peak, and
+    ``search_resilient`` of the same queries must degrade with
+    ``degrade.steps{reason=resource_exhausted}`` and no fault fired, and
+    give what uncapped direct calls with its final knobs give; the
+    fraction is set back to 1.0 in a ``finally``. Counts zeroed before
+    each and read after. Raises SmokeFailure; returns the summary."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.obs import spans
+    from raft_tpu_torch.ops import kernels as K
+    from raft_tpu_torch.robust import degrade, faults
+
+    q0 = queries[:B]
+    spans.reset()
+    degrade.clear_recent()
+    K.reset_launch_counts()
+    faults.install_plan(RESILIENT_PLAN)
+    t0 = time.perf_counter()
+    try:
+        d_r, i_r = ivf_pq.search_resilient(index, q0, k, sp, dataset=base)
+    finally:
+        faults.clear_plan()
+    walk_s = time.perf_counter() - t0
+    launches_a = K.launch_counts()
+    path = [st["to"] for st in degrade.recent_steps()]
+    fired = spans.total("faults.fired", site="ivf_pq.search")
+    _log(f"[resilient] injected {json.dumps(RESILIENT_PLAN)}: path "
+         f"{path}, {fired:.0f} faults fired, {walk_s:.2f} s; launches "
+         f"{json.dumps(launches_a)}")
+    if path != RESILIENT_PATH:
+        raise SmokeFailure(f"[resilient] path {path}, expected "
+                           f"{RESILIENT_PATH} (the JAX package's)")
+    knobs = _final_knobs(path, {"params": sp, "dataset": base}, B, True)
+    d_d, i_d = _direct(ivf_pq.search, index, q0, k, knobs)
+    if not (torch.equal(i_r, i_d) and torch.equal(d_r, d_d)):
+        raise SmokeFailure("[resilient] injected walk differs from a direct "
+                           "call with its final knobs")
+    del knobs
+
+    # (b) a real OOM
+    nq = queries.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    a0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = ivf_pq.search(index, queries, k, sp, dataset=base)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - a0
+    del out
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    reserved = torch.cuda.memory_reserved()
+    cap = reserved + int(0.7 * peak)
+    spans.reset()
+    degrade.clear_recent()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        d_r, i_r = ivf_pq.search_resilient(index, queries, k, sp,
+                                           dataset=base)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    walk_s = time.perf_counter() - t0
+    launches_b = K.launch_counts()
+    path_b = [st["to"] for st in degrade.recent_steps()]
+    moves = spans.total("degrade.steps", site="ivf_pq.search",
+                        reason="resource_exhausted")
+    _log(f"[resilient] real OOM: native search of {nq} queries peaks at "
+         f"{peak / 2**30:.2f} GiB over {a0 / 2**30:.2f} GiB allocated; "
+         f"capped at {cap / 2**30:.2f} GiB ({cap / total:.4f} of the card): "
+         f"path {path_b}, {moves:.0f} moves, {walk_s:.2f} s, faults fired "
+         f"{spans.total('faults.fired'):.0f}, recovered "
+         f"{spans.total('degrade.recovered', site='ivf_pq.search'):.0f}; "
+         f"launches {json.dumps(launches_b)}")
+    if not path_b or moves < 1 or spans.total("faults.fired") != 0:
+        raise SmokeFailure("[resilient] the capped search did not degrade "
+                           "on a classified real OOM")
+    if spans.total("degrade.recovered", site="ivf_pq.search") != 1:
+        raise SmokeFailure("[resilient] the ladder did not recover")
+    knobs = _final_knobs(path_b, {"params": sp, "dataset": base}, nq, True)
+    d_d, i_d = _direct(ivf_pq.search, index, queries, k, knobs)
+    if not (torch.equal(i_r, i_d) and torch.equal(d_r, d_d)):
+        raise SmokeFailure("[resilient] the recovered search differs from "
+                           "an uncapped call with its final knobs")
+    _log("[resilient] both walks equal direct calls with their final knobs "
+         "bit for bit")
+    return {"injected_path": path, "injected_launches": launches_a,
+            "oom_path": path_b, "oom_peak_gib": peak / 2**30,
+            "oom_cap_gib": cap / 2**30, "oom_walk_s": walk_s,
+            "oom_launches": launches_b}
+
+
+def flat_resilient_leg(index, queries, k):
+    """``[flat resilient]``: IVF-Flat ``search_resilient`` of 500 queries
+    (approx at n_probes 32) under an injected plan of two
+    RESOURCE_EXHAUSTED at ``ivf_flat.search``: the walk must recover and
+    equal direct calls with its final knobs bit for bit."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.obs import spans
+    from raft_tpu_torch.ops import kernels as K
+    from raft_tpu_torch.robust import degrade, faults
+
+    q0 = queries[:500]
+    sp = ivf_flat.SearchParams(n_probes=32, scan_mode="grouped",
+                               scan_select="approx")
+    plan = {"faults": [{"site": "ivf_flat.search", "kind": "oom",
+                        "times": 2}]}
+    spans.reset()
+    degrade.clear_recent()
+    K.reset_launch_counts()
+    faults.install_plan(plan)
+    try:
+        d_r, i_r = ivf_flat.search_resilient(index, q0, k, sp)
+    finally:
+        faults.clear_plan()
+    launches = K.launch_counts()
+    path = [st["to"] for st in degrade.recent_steps()]
+    knobs = _final_knobs(path, {"params": sp, "dataset": None}, 500, False)
+    d_d, i_d = _direct(ivf_flat.search, index, q0, k, knobs)
+    same = torch.equal(i_r, i_d) and torch.equal(d_r, d_d)
+    _log(f"[flat resilient] {json.dumps(plan)}: path {path}, recovered "
+         f"{spans.total('degrade.recovered', site='ivf_flat.search'):.0f}, "
+         f"equal to direct calls with its final knobs: {same}; launches "
+         f"{json.dumps(launches)}")
+    if not path or not same:
+        raise SmokeFailure("[flat resilient] the walk did not recover to "
+                           "its final knobs' results")
+    return {"path": path, "launches": launches}
+
+
 def flat_phase(args, rows):
     """IVF-Flat at the repo's 1M hard_config shape (bench.py:194-210,
     255-260): build, the approx legs at n_probes 16/32/64/128 and the exact
@@ -972,6 +1314,7 @@ def flat_phase(args, rows):
          f"ms: {json.dumps(stages_ms)}")
     bin_bytes = {p: ivf_common.n_segments(nq * p, index.n_lists, seg) * seg
                  * K.LUT_SCAN_BINS * 8 for p in (16, 32, 64, 128)}
+    resil = flat_resilient_leg(index, queries, k)
     data = {"base": base, "queries": queries, "gt": gt}
     return data, {"n": N, "dim": dim, "n_lists": 1024, "max_list_size": L,
             "dropped_rows": dropped, "build_s": build_s,
@@ -981,7 +1324,7 @@ def flat_phase(args, rows):
             "recall_at_10": recall, "recall_plain_200": plain_rec,
             "bin_table_bytes": bin_bytes, "batch_stages_ms": stages_ms,
             "select_k_ms": sel_ms, "launches": launches,
-            "filter": filt_summary}
+            "filter": filt_summary, "resilient": resil}
 
 
 def flat_filter_leg(index, index_cpu, base, queries, k, nq, n_gt, n_pl):
@@ -1994,8 +2337,10 @@ def main(argv=None) -> int:
                          text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
+    ram = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
     _log(f"[probe] torch {torch.__version__} cuda {torch.version.cuda}; "
-         f"card: {kind}")
+         f"card: {kind}; host: {ram / 2**30:.1f} GiB RAM, "
+         f"{os.cpu_count()} CPUs")
 
     # 2. build
     t0 = time.perf_counter()
@@ -2160,12 +2505,21 @@ def main(argv=None) -> int:
         return _fail(str(e))
     del index_cpu, base_cpu
 
+    # 8. [tiered] and [resilient]: the host-memory tier and the
+    # degradation ladder on the same index (ROADMAP A11, A12)
+    try:
+        tiered_summary = tiered_leg(index, base, queries, sp, B, k, gt)
+        resilient_summary = resilient_leg(index, base, queries, sp, B, k)
+    except SmokeFailure as e:
+        return _fail(str(e))
+
     summary = {"n": N, "dim": dim, "n_lists": 8192, "pq_dim": 64,
                "max_list_size": index.max_list_size, "build_s": build_s,
                "build_stages_s": stages, "qps_runs": qps_runs,
                "recall_at_10_bf16": rec_bf16, "recall_at_10_f32": rec_f32,
                "recall_kernel_200": rec_kern, "recall_plain_200": rec_plain,
-               "batch_stages_ms": stages_ms, "filter": filt_summary}
+               "batch_stages_ms": stages_ms, "filter": filt_summary,
+               "tiered": tiered_summary, "resilient": resilient_summary}
     _log(f"[summary] {json.dumps(summary)}")
     del index, base, queries, cand, kk, ki, scores, scan
     torch.cuda.empty_cache()

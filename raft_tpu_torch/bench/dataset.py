@@ -4,7 +4,14 @@
   of ``raft_tpu.bench.dataset.DeviceSyntheticChunks``): ``n_centers``
   centers uniform in [0, scale)^dim, each row a random center plus
   N(0, std²) noise. Same distribution as the JAX package's generator, not
-  the same numbers (torch and JAX generators differ).
+  the same numbers (it draws from torch's generators).
+- :class:`DeviceSyntheticChunks`, the JAX package's class of that name:
+  the same centers and row assignments bit for bit from the same seed
+  (``random.threefry`` is ``jax.random``'s generator), the rows within
+  1e-6 (XLA's fused program and its own unfused ``jax.random.normal``
+  already differ in the last bits of about 7% of the noise); a
+  device-chunk provider (``provider[a:b]``, ``_block``) that
+  ``refine.refine_provider`` regenerates candidate rows from.
 - :func:`make_synthetic_hard`, a numpy copy of the JAX package's
   generator of the same name: for a seed it gives the same arrays, bit for
   bit, so the two packages bench the same data.
@@ -105,3 +112,66 @@ class DeviceSynthetic:
 
     def queries(self, m: int) -> torch.Tensor:
         return self._sample(m, self._gen(2))
+
+
+class DeviceSyntheticChunks:
+    """Deterministic clustered rows regenerated on ``device`` in fixed
+    blocks of ``chunk_rows`` (counterpart of
+    ``raft_tpu.bench.dataset.DeviceSyntheticChunks``): block ``bi`` is a
+    pure function of (seed, bi), so every consumer slicing with any chunk
+    size sees identical rows, and a billion-row base never has to exist
+    anywhere. Duck-types the slices consumers take: ``shape``, ``dtype``,
+    ``provider[a:b]`` (a tensor on ``device``), ``_block(bi)``,
+    ``chunk_rows`` and :meth:`queries`."""
+
+    def __init__(self, n: int, dim: int, n_centers: int = 10_000,
+                 seed: int = 7, std: float = 0.5, scale: float = 10.0,
+                 chunk_rows: int = 1 << 20, device="cuda"):
+        from raft_tpu_torch.random import threefry as _tf
+
+        self._tf = _tf
+        self.device = resolve_device(device)
+        self.shape = (n, dim)
+        self.dtype = np.float32
+        self.nbytes = n * dim * 4  # logical size (never materialized)
+        self.chunk_rows = chunk_rows
+        self._n_centers = n_centers
+        self._std = std
+        ckey, self._akey, self._qkey = _tf.split(_tf.prng_key(seed), 3)
+        self.centers = (_tf.uniform(ckey, (n_centers, dim),
+                                    device=self.device)
+                        * float(np.float32(scale)))
+
+    def _gen(self, key, start: int, m: int) -> torch.Tensor:
+        tf = self._tf
+        k1, k2 = tf.split(tf.fold_in(key, start))
+        assign = tf.randint(k1, (m,), 0, self._n_centers, self.device)
+        noise = tf.normal(k2, (m, self.shape[1]), self.device)
+        return self.centers[assign.long()] + float(np.float32(self._std)) \
+            * noise
+
+    def _block(self, bi: int) -> torch.Tensor:
+        """Generation block ``bi``: rows ``bi·chunk_rows`` onward, keyed by
+        the block's first row."""
+        a = bi * self.chunk_rows
+        return self._gen(self._akey, a, min(self.chunk_rows,
+                                            self.shape[0] - a))
+
+    def __getitem__(self, sl) -> torch.Tensor:
+        if not isinstance(sl, slice):
+            raise TypeError("DeviceSyntheticChunks supports slice access "
+                            "only")
+        a = sl.start or 0
+        b = min(sl.stop if sl.stop is not None else self.shape[0],
+                self.shape[0])
+        c = self.chunk_rows
+        parts = []
+        for bi in range(a // c, -(-b // c)):
+            blk = self._block(bi)
+            parts.append(blk[max(a - bi * c, 0):min(b - bi * c,
+                                                    blk.shape[0])])
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def queries(self, m: int) -> torch.Tensor:
+        """Queries from their own key branch of the root split."""
+        return self._gen(self._qkey, 0, m)

@@ -23,6 +23,11 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to raft_tpu_torch yet (ROADMAP {item})")
 
 
+def fail(msg: str, *args) -> None:
+    """Raise :class:`LogicError` unconditionally (``RAFT_FAIL``)."""
+    raise LogicError(msg % args if args else msg)
+
+
 def expects(cond: bool, msg: str, *args) -> None:
     """Validate a host-side precondition; raises :class:`LogicError`."""
     if not cond:

@@ -15,7 +15,11 @@ The index is one dense ``[n_lists, L, dim]`` block of list rows (+ ids,
   merged by ``ivf_common.merge_bin_results``), ``scan_select="exact"``
   the grouped scan (exact per-slot top-kk); past the kernels' kk the
   plain grouped tier (``ivf_common.grouped_scan_plain_tier``);
-  ``refine="f32_regen"`` against a device-resident dataset;
+  ``refine="f32_regen"`` against a device-resident dataset, a host one
+  (numpy or memmap: the tiered prefetch or the serialized host gather,
+  ``neighbors.tiered``) or a device-chunk provider;
+- ``search_resilient``, the search behind the degradation ladder
+  (``robust.degrade``);
 - ``extend``, ``save`` and ``load`` (the JAX package's file format);
 - ``from_numpy``/``to_numpy``, which carry an index between the packages.
 
@@ -56,6 +60,8 @@ from raft_tpu_torch.neighbors import ivf_common as ic
 from raft_tpu_torch.neighbors import sample_filter as _sf
 from raft_tpu_torch.neighbors.ivf_common import _fit_list_size, _lane_round
 from raft_tpu_torch.ops import kernels as _k
+from raft_tpu_torch.robust import degrade as _degrade
+from raft_tpu_torch.robust import faults as _faults
 from raft_tpu_torch.utils import precision as _precision
 
 
@@ -320,10 +326,6 @@ def load(path: str, device="cuda") -> IvfFlatIndex:
     return IvfFlatIndex(**t, metric=str(meta["metric"]))
 
 
-def search_resilient(*args, **kwargs):
-    raise _not_ported("ivf_flat.search_resilient", "A11")
-
-
 # ---------------------------------------------------------------------------
 # search
 # ---------------------------------------------------------------------------
@@ -332,7 +334,7 @@ def _coarse_distances(q: torch.Tensor, centers: torch.Tensor,
                       mt: DistanceType):
     """Query→center scores for probe selection, and whether to select the
     smallest."""
-    g = q @ centers.T
+    g = ic.query_matmul(q, centers.T)
     if mt == DistanceType.InnerProduct:
         return g, False
     if mt == DistanceType.CosineExpanded:
@@ -470,6 +472,7 @@ def search(index: IvfFlatIndex, queries, k: int,
     q = to_device(queries, index.device, torch.float32)
     expects(q.dim() == 2 and q.shape[1] == index.dim,
             "queries must be [m, %d]", index.dim)
+    _faults.faultpoint("ivf_flat.search")
     if params.refine != "none":
         from raft_tpu_torch.neighbors import refine as _refine
 
@@ -503,3 +506,32 @@ def search(index: IvfFlatIndex, queries, k: int,
     return _search_impl(index, q, k, n_probes,
                         _fit_query_tile(params.query_tile, n_probes, index),
                         filter_bits=filter_bitset)
+
+
+def search_resilient(index: IvfFlatIndex, queries, k: int,
+                     params: Optional[SearchParams] = None,
+                     filter_bitset=None, dataset=None, deadline=None, *,
+                     device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`search` behind the standard degradation ladder
+    (:mod:`raft_tpu_torch.robust.degrade`, the wiring of
+    ``ivf_pq.search_resilient`` without the LUT rungs — IVF-Flat has no
+    LUT to quantize): a RESOURCE_EXHAUSTED walks halve batch → demote raw
+    → decline fused tier → host gather (then keeps halving), counted in
+    ``degrade.steps{site=ivf_flat.search,...}``. ``deadline`` is the
+    request's shared wall-clock budget."""
+    if params is None:
+        params = SearchParams()
+    resolve_device(device)
+    q = to_device(queries, index.device, torch.float32)
+
+    def search_fn(index, queries, k, params, filter_bitset, dataset):
+        return search(index, queries, k, params, filter_bitset, dataset,
+                      device=device)
+
+    return _degrade.run_with_degradation(
+        _degrade.batched_search_call(search_fn, index, q, k, filter_bitset,
+                                     deadline=deadline,
+                                     site="ivf_flat.search"),
+        {"params": params, "dataset": dataset},
+        _degrade.standard_search_ladder(q.shape[0], has_lut=False),
+        site="ivf_flat.search", deadline=deadline)

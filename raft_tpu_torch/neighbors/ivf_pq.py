@@ -15,8 +15,12 @@ semantic anchor, with its recon-dot branch), the LUT-scan tier
 (``scan_select="pallas"``, or ``"approx"`` at oversampled shapes without
 a cache) and the grouped tiers — over the cache the segmented scan
 (``"approx"``) and the grouped scan (``"exact"``), elsewhere the plain
-grouped tier; and the ``refine="f32_regen"`` re-rank against a
-device-resident dataset. Every tier takes a ``filter_bitset``
+grouped tier; the ``refine="f32_regen"`` re-rank against a
+device-resident dataset, a host one (numpy or memmap: the tiered prefetch
+path or the serialized host gather, ``neighbors.tiered``) or a
+device-chunk provider; and ``search_resilient``, the search behind the
+degradation ladder (``robust.degrade``). Every tier takes a
+``filter_bitset``
 (``neighbors.sample_filter``): the LUT scan reads per-list keep bytes
 beside the codes, the grouped tiers scan a sentinel-masked id table, the
 per_query tier and the re-rank test the bitset itself. What is not ported
@@ -47,6 +51,8 @@ from raft_tpu_torch.neighbors import sample_filter as _sf
 from raft_tpu_torch.obs import spans as _obs_spans
 from raft_tpu_torch.ops import kernels as _k
 from raft_tpu_torch.random.rng import RngState
+from raft_tpu_torch.robust import degrade as _degrade
+from raft_tpu_torch.robust import faults as _faults
 from raft_tpu_torch.utils import precision as _precision
 
 
@@ -73,7 +79,9 @@ class SearchParams:
     """reference: ``ivf_pq::search_params`` (same fields as raft_tpu).
 
     ``scan_select`` picks the grouped tier (see :func:`search`);
-    ``refine="f32_regen"`` re-ranks against a device-resident ``dataset``.
+    ``refine="f32_regen"`` re-ranks against ``dataset`` exactly, and
+    ``refine_transfer`` ("auto" | "tiered" | "serial") picks how a host
+    dataset's candidate rows reach the card (``neighbors.tiered``).
     ``scan_recall`` is kept for the JAX package's signature: the port's
     selections are exact."""
 
@@ -603,7 +611,7 @@ def _finish_candidates(dots, cand_ids, cand_norms, q_sq, mt, k,
 def _coarse_probes(index: IvfPqIndex, q_all: torch.Tensor, n_probes: int,
                    ip_like: bool):
     """(qc [m, n_lists] = ⟨q, c⟩, probes [m, n_probes] i32)."""
-    qc = q_all @ index.centers.T
+    qc = ic.query_matmul(q_all, index.centers.T)
     if ip_like:
         _, probes = _select_k(qc, n_probes, select_min=False)
     else:
@@ -645,7 +653,7 @@ def _search_impl(index: IvfPqIndex, queries: torch.Tensor, k: int,
     S, P, L = index.pq_dim, index.pq_len, index.max_list_size
     ip_like = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
     qc, probes = _coarse_probes(index, q_all, n_probes, ip_like)
-    q_rot_all = q_all @ index.rotation.T
+    q_rot_all = ic.query_matmul(q_all, index.rotation.T)
     q_sq_all = (q_rot_all * q_rot_all).sum(1)
     pr_all = probes.long()
     qc_probed_all = torch.gather(qc, 1, pr_all)
@@ -707,7 +715,7 @@ def _search_grouped(index: IvfPqIndex, queries: torch.Tensor, k: int,
     _, probes = _coarse_probes(index, q_all, n_probes, ip_like)
     seg_list, seg_q, pair_seg, pair_slot = ic.segment_probes(
         probes, index.n_lists, seg, n_seg)
-    q_rot = (q_all @ index.rotation.T).contiguous()
+    q_rot = ic.query_matmul(q_all, index.rotation.T).contiguous()
     met = "ip" if ip_like else "l2"
     ids = _sf.masked_ids(filter_bits, index.packed_ids)
     if tier == "segk":
@@ -767,7 +775,7 @@ def _search_lut_pallas(index: IvfPqIndex, queries: torch.Tensor, k: int,
     _, probes = _coarse_probes(index, q_all, n_probes, ip_like)
     seg_list, seg_q, pair_seg, pair_slot = ic.segment_probes(
         probes, index.n_lists, seg, n_seg)
-    q_rot = (q_all @ index.rotation.T).contiguous()
+    q_rot = ic.query_matmul(q_all, index.rotation.T).contiguous()
     q_sq = (q_rot * q_rot).sum(1)
     fbytes = (None if filter_bits is None
               else _sf.list_filter_bytes(filter_bits, index.packed_ids))
@@ -824,7 +832,8 @@ def search(index: IvfPqIndex, queries, k: int,
     """Search (reference: ivf_pq::search) → (distances [m, k], ids [m, k]
     int32). ``params.refine="f32_regen"`` re-ranks k·refine_ratio
     candidates exactly against ``dataset`` (a tensor on the index's
-    device). ``filter_bitset``: a packed bitset over dataset rows
+    device, a host numpy array or memmap, or a device-chunk provider;
+    ``refine.route_refined``). ``filter_bitset``: a packed bitset over dataset rows
     (``core.bitset`` words, numpy uint32 or a tensor); rows whose bit is
     clear are never returned."""
     if params is None:
@@ -839,6 +848,7 @@ def search(index: IvfPqIndex, queries, k: int,
     q = to_device(queries, index.device, torch.float32)
     expects(q.dim() == 2 and q.shape[1] == index.dim,
             "queries must be [m, %d]", index.dim)
+    _faults.faultpoint("ivf_pq.search")
     if params.lut_dtype == "auto" and params.refine == "none":
         # only kept candidates fill the bins: the filter's selectivity
         # discounts the fp8 slack
@@ -877,8 +887,19 @@ def search(index: IvfPqIndex, queries, k: int,
                                          _k.LUT_SCAN_BINS)
                       and (not filtered
                            or ic.filtered_scan_mem_ok(index.n_lists, L)))
-            reason = ("bin_capacity" if n_probes * _k.LUT_SCAN_BINS < k
-                      else None if mem_ok else "mem_guard")
+            reason = "bin_capacity" if n_probes * _k.LUT_SCAN_BINS < k \
+                else None
+            if reason is None and not (
+                    mem_ok and not _faults.forced("ivf_pq.scan.mem_guard")):
+                reason = "mem_guard"
+                # the guard's pre-emptive decline counts the degrade.steps
+                # move a reactive walk would
+                _degrade.note_step(
+                    "ivf_pq.search", "pallas_lut", "grouped_" + (
+                        "approx" if params.scan_select == "pallas"
+                        else select), "mem_guard")
+            if reason is not None:
+                _obs_spans.count_fallback("ivf_pq.scan", reason)
             if reason is None:
                 _count_scan_dispatch("pallas_lut", filtered)
                 return _search_lut_pallas(index, q, k, n_probes, seg, n_seg,
@@ -907,3 +928,50 @@ def search(index: IvfPqIndex, queries, k: int,
     return _search_impl(index, q, k, n_probes,
                         _fit_query_tile(params.query_tile, n_probes, index),
                         lut_dtype=params.lut_dtype, filter_bits=filter_bitset)
+
+
+def search_resilient(index: IvfPqIndex, queries, k: int,
+                     params: Optional[SearchParams] = None,
+                     filter_bitset=None, dataset=None, deadline=None, *,
+                     device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`search` behind the standard degradation ladder
+    (:mod:`raft_tpu_torch.robust.degrade`): a RESOURCE_EXHAUSTED (a
+    ``torch.OutOfMemoryError``, or an injected one) walks halve batch →
+    bf16 LUT → fp8 LUT → demote raw → decline fused tier → host gather
+    (then keeps halving) instead of failing the request, counting every
+    move in ``degrade.steps{site=ivf_pq.search,from=,to=,reason=}``.
+    Results are the degraded configuration's: batch splitting is exact,
+    ``demote_raw`` keeps the re-rank exact through the host tiers, and
+    the LUT and declined-tier rungs trade their precision and speed
+    margins. ``deadline`` (a ``robust.retry.Deadline``) is the request's
+    one wall-clock budget: the walk aborts with ``DeadlineExceeded``
+    instead of retrying past it.
+
+    ``lut_dtype="auto"`` is resolved before the ladder exactly as the
+    wrapped search would (refined searches select over k·refine_ratio),
+    so the LUT rungs see the dtype dispatch runs with: on the card an
+    oversampled shape is already fp8, and both LUT rungs skip."""
+    if params is None:
+        params = SearchParams()
+    resolve_device(device)
+    q = to_device(queries, index.device, torch.float32)
+    if params.lut_dtype == "auto":
+        kr = k if params.refine == "none" else max(
+            k, int(round(k * params.refine_ratio)))
+        fb = (None if filter_bitset is None
+              else _bitset.as_words(filter_bitset, index.device))
+        params = dataclasses.replace(params, lut_dtype=resolve_lut_dtype(
+            "auto", min(params.n_probes, index.n_lists), kr,
+            selectivity=_filter_selectivity(fb)))
+
+    def search_fn(index, queries, k, params, filter_bitset, dataset):
+        return search(index, queries, k, params, filter_bitset, dataset,
+                      device=device)
+
+    return _degrade.run_with_degradation(
+        _degrade.batched_search_call(search_fn, index, q, k, filter_bitset,
+                                     deadline=deadline,
+                                     site="ivf_pq.search"),
+        {"params": params, "dataset": dataset},
+        _degrade.standard_search_ladder(q.shape[0], has_lut=True),
+        site="ivf_pq.search", deadline=deadline)

@@ -821,3 +821,104 @@ def test_cuda_ring_lut_scan_filtered_matches_plain(pq_bits, S, ties, kind):
             k64 = ring_scan_key64(c, cb_used, "l2", r, row, ia[row, j])
             assert abs(k64 - b[row, j]) <= 1e-3 + 1e-4 * abs(b[row, j]), (
                 r, row, j)
+
+
+# ---------------------------------------------------------------------------
+# the host-memory tier and the degradation ladder on the card
+# ---------------------------------------------------------------------------
+
+def test_cuda_tiered_prefetch_matches_inline_fetch_on_a_side_stream():
+    """The prefetcher's reader copies on a CUDA stream of its own (not the
+    default stream); its landed blocks equal the inline numpy gather over
+    more sub-batches than it has staging buffers, so every buffer is
+    reused; and a tiered search equals the serialized host gather and its
+    prefetch=False leg bit for bit."""
+    from raft_tpu_torch.neighbors import ivf_pq, tiered
+
+    dev = cuda_device()
+    rng = np.random.default_rng(0)
+    n, d = 50_000, 96
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    blocks = [rng.integers(-1, n + 5, (64, 400)).astype(np.int32)
+              for _ in range(3 * (tiered.PREFETCH_DEPTH + 2))]
+    fetch = tiered.host_row_reader(x, device=dev)
+    assert fetch.stream is not None
+    assert fetch.stream != torch.cuda.default_stream(dev)
+    inline = tiered.host_row_reader(x, device=dev, gather="numpy")
+    pf = tiered.RowPrefetcher(fetch)
+    pf_inline = tiered.RowPrefetcher(inline, prefetch=False)
+    try:
+        for c in blocks:
+            ids = torch.from_numpy(c).to(dev)
+            pf.submit(tiered.stage_ids(ids))
+            pf_inline.submit(tiered.stage_ids(ids))
+        for c in blocks:
+            got = pf.get()
+            assert got.stream is fetch.stream and got.event is not None
+            want = pf_inline.get().ready()
+            rows = got.ready()
+            assert rows.device.type == "cuda"
+            assert torch.equal(rows, want)
+            assert torch.equal(rows.cpu(), torch.from_numpy(
+                x[np.clip(c, 0, n - 1)]))
+    finally:
+        pf.close()
+        pf_inline.close()
+
+    base = torch.from_numpy(x).to(dev)
+    index = ivf_pq.build(base, ivf_pq.IndexParams(
+        n_lists=256, pq_dim=32, cache_reconstruction="never"))
+    q = base[:500] + 0.01
+    sp = ivf_pq.SearchParams(n_probes=32, scan_select="pallas",
+                             lut_dtype="bfloat16", refine="f32_regen",
+                             refine_ratio=20)
+    out = {tr: ivf_pq.search(index, q, 10, ivf_pq.SearchParams(
+        **{**sp.__dict__, "refine_transfer": tr}), dataset=x)
+        for tr in ("tiered", "serial")}
+    out["no_prefetch"] = tiered.search_refined_tiered(
+        ivf_pq.search, index, q, 10, 200,
+        ivf_pq.SearchParams(**{**sp.__dict__, "refine": "none"}), None, x,
+        index.metric, prefetch=False)
+    for other in ("serial", "no_prefetch"):
+        assert torch.equal(out["tiered"][1], out[other][1]), other
+        assert torch.equal(out["tiered"][0], out[other][0]), other
+
+
+def test_cuda_real_oom_is_classified_and_the_ladder_recovers():
+    """A real ``torch.cuda.OutOfMemoryError`` under a memory fraction is a
+    RESOURCE_EXHAUSTED to the ladder (no fault fired), the walk halves
+    until the allocation fits, and the fraction is restored after."""
+    from raft_tpu_torch.obs import spans
+    from raft_tpu_torch.robust import degrade
+
+    cuda_device()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    cap = torch.cuda.memory_reserved(dev) + (512 << 20)
+    spans.reset()
+
+    def call(knobs):
+        buf = torch.empty(knobs["n"], dtype=torch.uint8, device=dev)
+        return int(buf.numel())
+
+    ladder = degrade.Ladder([degrade.Step(
+        "halve", lambda kn: {**kn, "n": kn["n"] // 2}, repeatable=True)])
+    try:
+        torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+        with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
+            call({"n": 2 << 30})
+        assert degrade.is_resource_exhausted(ei.value)
+        del ei
+        got = degrade.run_with_degradation(call, {"n": 2 << 30}, ladder,
+                                           site="card")
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+    assert got <= 512 << 20
+    assert spans.total("degrade.steps", site="card",
+                       reason="resource_exhausted") >= 2
+    assert spans.total("degrade.recovered", site="card") == 1
+    assert spans.total("faults.fired") == 0
+    big = torch.empty(2 << 30, dtype=torch.uint8, device=dev)
+    assert big.numel() == 2 << 30

@@ -318,9 +318,6 @@ def test_unported_paths_raise(corpus):
     calls = [
         lambda: tfl.search(idx, qt, 10, tfl.SearchParams(n_probes=4),
                            mesh=object(), device="cpu"),
-        lambda: tfl.search(idx, qt, 10, tfl.SearchParams(
-            n_probes=4, refine="f32_regen"), dataset=x, device="cpu"),
-        lambda: tfl.search_resilient(idx, qt, 10),
         lambda: tfl.build_distributed(x),
     ]
     for call in calls:

@@ -213,8 +213,8 @@ def test_resolve_lut_dtype_off_card():
 
 
 def test_unported_paths_raise(corpus):
-    """What the port still refuses: per_cluster codebooks, folded code
-    storage, and a re-rank against a host-resident dataset."""
+    """What the port still refuses: per_cluster codebooks and folded code
+    storage."""
     x, q = corpus
     xt = _t(x)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
@@ -230,12 +230,6 @@ def test_unported_paths_raise(corpus):
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tpq.from_numpy(arrays, dict(meta, codebook_kind="per_cluster"),
                        device="cpu")
-    idx = _port_index(jidx)
-    qt = _t(q)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        tpq.search(idx, qt, 10, tpq.SearchParams(
-            n_probes=8, refine="f32_regen", refine_ratio=4), dataset=x,
-            device="cpu")
 
 
 # ---------------------------------------------------------------------------
