@@ -42,9 +42,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``prefetch=False`` — equal bit for bit — against the resident path
    (recall@10 at most 0.01 below, ids equal but at f32 ties), a filtered
    tiered pass at selectivity 0.1 with no cleared id, wall-clock QPS of
-   each, prefetch hits and stalls, and one batch's sub-batch stages (host
-   gather by torch and by numpy, H2D copy, scan, landed re-rank), counts
-   zeroed before the tiered pass and read after; then ``[resilient]``
+   each, prefetch hits and stalls, and one batch's stages (the batch's
+   scan; a sub-batch's host gather by torch and by numpy, H2D copy, whole
+   fetch and landed re-rank), counts zeroed before the tiered pass and
+   read after; then ``[resilient]``
    (ROADMAP A11): ``search_resilient`` under the injected plan
    ``RESILIENT_PLAN`` must walk ``RESILIENT_PATH`` (the JAX package's path,
    held by tests/test_torch_robust.py) and equal direct calls with its
@@ -751,11 +752,12 @@ def tiered_leg(index, base, queries, sp, B, k, gt):
     tiered recall@10 on the ground-truth queries no more than 0.01 below
     the resident path's, and its ids equal the resident ones except at f32
     ties; a tiered pass filtered at selectivity 0.1 returns no cleared id.
-    Prints wall-clock QPS of each pass, prefetch hits and stalls, and per
-    sub-batch of one batch the ms of the host gather (``time.perf_counter``;
-    torch's gather and numpy's), the H2D copy (CUDA events on the reader's
-    stream), the scan and the landed re-rank (CUDA events). Raises
-    SmokeFailure; returns the summary."""
+    Prints wall-clock QPS of each pass, prefetch hits and stalls, and for
+    one batch the ms of its scan and, per sub-batch, of the host gather
+    (``time.perf_counter``; torch's gather and numpy's), the H2D copy of
+    the pinned rows, the reader's whole fetch (gather and copy, waited on)
+    and the landed re-rank (CUDA events). Raises SmokeFailure; returns the
+    summary."""
     import dataclasses
 
     import numpy as np
@@ -798,6 +800,9 @@ def tiered_leg(index, base, queries, sp, B, k, gt):
         return d, i, nq / secs, spans.counts()
 
     d_res, i_res, qps_res, _ = run(sp, base)
+    # one untimed tiered batch: the first call allocates the pinned buffers
+    ivf_pq.search(index, queries[:B], k, dataclasses.replace(
+        sp, refine_transfer="tiered"), dataset=host)
     K.reset_launch_counts()
     d_t, i_t, qps_t, c_t = run(dataclasses.replace(
         sp, refine_transfer="tiered"), host)
@@ -849,34 +854,39 @@ def tiered_leg(index, base, queries, sp, B, k, gt):
 
     # one batch, stage by stage
     q0 = queries[:B]
-    timings = []
-    tiered.search_refined_tiered(ivf_pq.search, index, q0, k, k_cand,
-                                 scan_sp, None, host, index.metric,
-                                 timings=timings)
-    torch.cuda.synchronize()
     mb = tiered.pipeline_batch(B)
-    qs = q0[:mb]
-    _, ids_s = ivf_pq.search(index, qs, k_cand, scan_sp)
-    np_t, th_t = [], []
-    for gather, out in (("numpy", np_t), ("torch", th_t)):
-        fetch = tiered.host_row_reader(host, gather=gather, timings=out)
+    _, ids0 = ivf_pq.search(index, q0, k_cand, scan_sp)
+    ids_s, qs = ids0[:mb], q0[:mb]
+    ids_np = ids_s.cpu().numpy()
+    safe = np.clip(ids_np, 0, host.shape[0] - 1).reshape(-1)
+    view = trefine._f32_view(host)
+    stage = torch.empty((safe.size, host.shape[1]), dtype=torch.float32,
+                        pin_memory=True)
+    dst = torch.empty(stage.shape, dtype=torch.float32, device=base.device)
+    fetch = tiered.host_row_reader(host)
+
+    def host_ms(fn):
+        out = []
         for _ in range(3):
-            landed = fetch(ids_s)
-    torch.cuda.synchronize()
-    rows = landed.ready()
+            t = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t) * 1e3)
+        return out
+
     per_sub = {
         "sub_batch": mb, "rows": mb * k_cand,
-        "host_gather_ms": [t["gather_ms"] for t in timings],
-        "h2d_ms": [t["h2d_events"][0].elapsed_time(t["h2d_events"][1])
-                   for t in timings],
-        "gather_numpy_ms": [t["gather_ms"] for t in np_t],
-        "gather_torch_ms": [t["gather_ms"] for t in th_t],
-        "scan_ms": _timed(lambda: ivf_pq.search(index, qs, k_cand,
-                                                scan_sp), 10),
-        "rerank_ms": _timed(lambda: trefine.refine_landed(rows, qs, ids_s,
-                                                          k), 10),
+        "scan_ms_batch": _timed(lambda: ivf_pq.search(index, q0, k_cand,
+                                                      scan_sp), 10),
+        "gather_torch_ms": host_ms(lambda: trefine.host_gather_rows(
+            host, safe, out=stage, base_view=view)),
+        "gather_numpy_ms": host_ms(lambda: host[safe]),
+        "h2d_ms": _timed(lambda: dst.copy_(stage, non_blocking=True), 10),
+        "fetch_ms": host_ms(lambda: fetch(ids_np).event.synchronize()),
     }
-    _log(f"[tiered] one batch of {B} in sub-batches of {mb}: "
+    rows = fetch(ids_np).ready()
+    per_sub["rerank_ms"] = _timed(lambda: trefine.refine_landed(
+        rows, qs, ids_s, k), 10)
+    _log(f"[tiered] one batch of {B}, sub-batches of {mb}: "
          f"{json.dumps(per_sub)}")
     return {"qps": {"resident": qps_res, "tiered": qps_t, "serial": qps_s,
                     "prefetch_false": qps_n, "tiered_filtered_0.1": qps_f},

@@ -55,34 +55,6 @@ class Stages:
         self.out[name] = self.out.get(name, 0.0) + time.perf_counter() - t0
 
 
-# Every product of the query batch against an index matrix (coarse
-# centers, the rotation) runs in blocks of exactly this many rows. At 256
-# a batch of 10,000 took 40 products: IVF-Flat's coarse probes went from
-# 0.36 to 0.93 ms a batch on the H100 (PERF.md); a 1024-row block costs a
-# small batch one padded product of a few microseconds' work.
-QUERY_ROW_BLOCK = 1024
-
-
-def query_matmul(q: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
-    """``q @ bt`` with each row computed in a product of exactly
-    ``QUERY_ROW_BLOCK`` rows (the last block zero-padded), so a query's
-    result does not depend on the batch it rides in. The library picks
-    its kernel by the row count: on the H100 a [m, 96] × [96, 96] product
-    gave other last bits at m ≤ 125 than at m ≥ 250, which would move a
-    query's probes and candidates between a batch and its pipeline
-    sub-batches (``neighbors.tiered``). The JAX package's sub-batch
-    contract (each query's math is independent, so a split is exact)
-    holds here by construction."""
-    m, R = q.shape[0], QUERY_ROW_BLOCK
-    full = m - m % R
-    outs = [q[a:a + R] @ bt for a in range(0, full, R)]
-    if full < m:
-        tail = q.new_zeros((R, q.shape[1]))
-        tail[:m - full] = q[full:]
-        outs.append((tail @ bt)[:m - full])
-    return outs[0] if len(outs) == 1 else torch.cat(outs)
-
-
 def n_segments(pairs: int, n_lists: int, seg: int) -> int:
     """Static upper bound on the segment count: floor(pairs/seg) + n_lists
     bounds sum ceil(load/seg) for any load histogram."""

@@ -334,7 +334,7 @@ def _coarse_distances(q: torch.Tensor, centers: torch.Tensor,
                       mt: DistanceType):
     """Query→center scores for probe selection, and whether to select the
     smallest."""
-    g = ic.query_matmul(q, centers.T)
+    g = q @ centers.T
     if mt == DistanceType.InnerProduct:
         return g, False
     if mt == DistanceType.CosineExpanded:

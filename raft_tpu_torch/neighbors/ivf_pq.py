@@ -611,7 +611,7 @@ def _finish_candidates(dots, cand_ids, cand_norms, q_sq, mt, k,
 def _coarse_probes(index: IvfPqIndex, q_all: torch.Tensor, n_probes: int,
                    ip_like: bool):
     """(qc [m, n_lists] = ⟨q, c⟩, probes [m, n_probes] i32)."""
-    qc = ic.query_matmul(q_all, index.centers.T)
+    qc = q_all @ index.centers.T
     if ip_like:
         _, probes = _select_k(qc, n_probes, select_min=False)
     else:
@@ -653,7 +653,7 @@ def _search_impl(index: IvfPqIndex, queries: torch.Tensor, k: int,
     S, P, L = index.pq_dim, index.pq_len, index.max_list_size
     ip_like = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
     qc, probes = _coarse_probes(index, q_all, n_probes, ip_like)
-    q_rot_all = ic.query_matmul(q_all, index.rotation.T)
+    q_rot_all = q_all @ index.rotation.T
     q_sq_all = (q_rot_all * q_rot_all).sum(1)
     pr_all = probes.long()
     qc_probed_all = torch.gather(qc, 1, pr_all)
@@ -715,7 +715,7 @@ def _search_grouped(index: IvfPqIndex, queries: torch.Tensor, k: int,
     _, probes = _coarse_probes(index, q_all, n_probes, ip_like)
     seg_list, seg_q, pair_seg, pair_slot = ic.segment_probes(
         probes, index.n_lists, seg, n_seg)
-    q_rot = ic.query_matmul(q_all, index.rotation.T).contiguous()
+    q_rot = (q_all @ index.rotation.T).contiguous()
     met = "ip" if ip_like else "l2"
     ids = _sf.masked_ids(filter_bits, index.packed_ids)
     if tier == "segk":
@@ -775,7 +775,7 @@ def _search_lut_pallas(index: IvfPqIndex, queries: torch.Tensor, k: int,
     _, probes = _coarse_probes(index, q_all, n_probes, ip_like)
     seg_list, seg_q, pair_seg, pair_slot = ic.segment_probes(
         probes, index.n_lists, seg, n_seg)
-    q_rot = ic.query_matmul(q_all, index.rotation.T).contiguous()
+    q_rot = (q_all @ index.rotation.T).contiguous()
     q_sq = (q_rot * q_rot).sum(1)
     fbytes = (None if filter_bits is None
               else _sf.list_filter_bytes(filter_bits, index.packed_ids))

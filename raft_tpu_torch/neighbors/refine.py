@@ -33,10 +33,11 @@ package's labels), with ``filtered=1`` when filtered.
 Against a base that is not on the index's device, the host tiers (ROADMAP
 A12):
 
-- ``tiered_prefetch`` — :mod:`~raft_tpu_torch.neighbors.tiered`: the scan
-  runs in pipeline sub-batches and a reader thread gathers each one's
-  candidate rows on the host and lands them on the card under the next
-  sub-batch's scan; :func:`refine_landed` re-ranks rows already landed;
+- ``tiered_prefetch`` — :mod:`~raft_tpu_torch.neighbors.tiered`: after
+  one scan of the batch, a reader thread gathers each pipeline
+  sub-batch's candidate rows on the host and lands them on the card while
+  the sub-batch before is re-ranked; :func:`refine_landed` re-ranks rows
+  already landed;
 - ``host_gather`` — :func:`refine_gathered`: one serialized host gather of
   every candidate row (``refine_transfer="serial"``, the tiered tier's
   decline, and the ladder's ``host_gather`` rung), with ``dequant=`` for
@@ -250,17 +251,15 @@ def _f32_view(host_base):
     return None
 
 
-def host_gather_rows(host_base, safe: np.ndarray, gather: str = "torch",
-                     out=None, base_view=None) -> torch.Tensor:
+def host_gather_rows(host_base, safe: np.ndarray, out=None,
+                     base_view=None) -> torch.Tensor:
     """Rows ``safe`` (ids already clipped to [0, n − 1]) of a host base as
     an f32 CPU tensor (into ``out`` when given): ``torch.index_select``
-    over the base's f32 view, threaded (``gather="torch"``, f32
-    C-contiguous bases), else numpy's fancy indexing and an exact f32
-    conversion — the JAX package's gather, bit for bit either way.
-    ``base_view``: the base's :func:`_f32_view`, made once by a caller that
-    gathers many times."""
-    view = base_view if base_view is not None else (
-        _f32_view(host_base) if gather == "torch" else None)
+    over the f32 view of a C-contiguous f32 base (threaded), else numpy's
+    fancy indexing and an exact f32 conversion — the JAX package's gather,
+    bit for bit either way. ``base_view``: the base's :func:`_f32_view`,
+    made once by a caller that gathers many times."""
+    view = base_view if base_view is not None else _f32_view(host_base)
     if view is not None:
         idx = torch.from_numpy(safe.astype(np.int64, copy=False))
         if out is None:
@@ -381,9 +380,8 @@ def route_refined(search, index, queries: torch.Tensor, k: int, params,
       filter too (one word a candidate, as in the JAX package);
     - anything else (a numpy array or memmap, or a tensor elsewhere, as
       its host copy) → the tiered prefetch path when
-      ``tiered.tiered_refine_wanted`` takes it (decided before the scan:
-      the pipeline runs its own sub-batch scans), else
-      :func:`refine_gathered` after one scan.
+      ``tiered.tiered_refine_wanted`` takes it, else
+      :func:`refine_gathered`.
 
     ``params.refine_transfer`` ("auto" | "tiered" | "serial") steers the
     host tiers."""

@@ -1,33 +1,40 @@
-"""Tiered IVF search — host-resident raw vectors, prefetched under the scan
-(counterpart of ``raft_tpu.neighbors.tiered``).
+"""Tiered IVF search — host-resident raw vectors, prefetched under the
+re-rank (counterpart of ``raft_tpu.neighbors.tiered``).
 
 An IVF tenant's scan structures (packed codes, centroids, norms) are small
 and touched by every query — they stay on the card. Its raw vectors are
 ~10-30× bigger and touched only at the exact re-rank, for ``k_cand`` rows a
 query — they can live in HOST memory (a numpy array or memmap), with only
-the candidate rows crossing to the card a batch. This module runs that hop
-UNDER the scan:
+the candidate rows crossing to the card a batch. This module overlaps that hop
+with the re-rank:
 
-- the query batch is split into pipeline sub-batches
-  (:func:`pipeline_batch`);
-- sub-batch *i*'s oversampled scan is launched; the main thread enqueues a
-  non-blocking copy of its ``[m_b, C]`` candidate ids into pinned host
-  memory and records an event (:func:`stage_ids`) — it never waits on the
-  card inside the loop;
-- a :class:`RowPrefetcher` reader thread waits on that event (the
-  pipeline's one sync, on the worker), gathers the rows from the host
-  base into a pinned staging buffer under the ``IO_POLICY`` retry (fault
-  point ``serve.row_read``), and copies them to the card with
-  ``non_blocking=True`` on a CUDA stream of its own, recording an event;
-- meanwhile the main thread launches sub-batch *i+1*'s scan and re-ranks
-  sub-batch *i−1*'s landed rows (:func:`refine.refine_landed`), its
-  stream first waiting on their copy's event (:meth:`Landed.ready`).
+- the batch is scanned once (oversampled, ``k_cand`` candidates a
+  query); the main thread enqueues a non-blocking copy of the ``[m, C]``
+  candidate ids into pinned host memory and records an event
+  (:func:`stage_ids`) — it never waits on the card inside the loop;
+- the ids are cut into pipeline sub-batches (:func:`pipeline_batch`); a
+  :class:`RowPrefetcher` reader thread waits on the event (the
+  pipeline's one sync, on the worker), gathers each sub-batch's rows from
+  the host base into a pinned staging buffer under the ``IO_POLICY``
+  retry (fault point ``serve.row_read``), and copies them to the card
+  with ``non_blocking=True`` on a CUDA stream of its own, recording an
+  event;
+- meanwhile the main thread re-ranks the sub-batch whose rows landed
+  (:func:`refine.refine_landed`), its stream first waiting on their
+  copy's event (:meth:`Landed.ready`).
+
+The JAX package scans each sub-batch on its own, under the fetch of the
+one before. Here one scan of the batch is faster than four of its
+quarters (a sub-batch's scan walks nearly every probed list that the
+batch's does; PERF.md), and the candidates are the serialized path's by
+construction, whatever last bits the library's products give at another
+row count.
 
 CUDA details that the JAX package's ``device_put`` hid:
 
 - **Streams are per thread.** The reader copies inside
   ``torch.cuda.stream(side)``; left on the default stream, its copies
-  would serialize against the main thread's scans, silently.
+  would serialize against the main thread's kernels, silently.
 - **Lifetimes.** A landed block is allocated on the side stream and read
   on the consumer's, so :meth:`Landed.ready` calls ``record_stream``; a
   pinned staging buffer is reused only after its copy's event completed
@@ -44,14 +51,10 @@ waited; the wait runs under ``span("h2d")``), and
 comparison leg.
 
 Results are BIT-EQUAL to the serialized host gather
-(``refine.refine_gathered``): the row gather is the same (clip to
-[0, n − 1], f32 rows; ``torch.index_select`` over the f32 base's CPU view,
-or numpy's fancy indexing for other dtypes), the re-rank is the same
-fixed-block epilogue, and every product of the scan runs in fixed row
-blocks (``ivf_common.query_matmul``), so a query's candidates do not
-depend on its sub-batch. A sub-batch dispatches its scan tier on its own
-size, so pin ``scan_mode`` where ``"auto"`` could pick another tier for a
-sub-batch than for the whole batch.
+(``refine.refine_gathered``): the candidates come from the same scan,
+the row gather is the same (clip to [0, n − 1], f32 rows;
+``torch.index_select`` over the f32 view of a C-contiguous f32 base, else
+numpy's fancy indexing) and the re-rank is the same fixed-block epilogue.
 
 Dispatch: ``SearchParams.refine_transfer`` ("auto" | "tiered" | "serial")
 and the ``RAFT_TPU_TIERED_REFINE`` tri-state env override;
@@ -66,7 +69,6 @@ from __future__ import annotations
 import os
 import queue
 import threading
-import time
 from collections import deque
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
@@ -125,8 +127,7 @@ def current_tenant() -> str:
 def pipeline_batch(m: int) -> int:
     """Pipeline sub-batch size for an ``m``-query search: the explicit
     ``RAFT_TPU_TIERED_BATCH`` when set, else ``max(32, ceil(m/4))`` — at
-    least 4 sub-batches on real serving batches without shrinking below a
-    scan-efficient width."""
+    least 4 sub-batches on real serving batches, none below 32 queries."""
     raw = os.environ.get("RAFT_TPU_TIERED_BATCH", "")  # int value
     if raw.strip():
         try:
@@ -184,9 +185,7 @@ class Landed(NamedTuple):
         return self.rows
 
 
-def host_row_reader(host_base, tenant: str = "-", device="cuda",
-                    gather: str = "torch",
-                    timings: Optional[List[dict]] = None
+def host_row_reader(host_base, tenant: str = "-", device="cuda"
                     ) -> Callable[[Any], Landed]:
     """Build the prefetcher's ``fetch_fn`` over a host-resident base:
     ``fetch(candidates [m_b, C] ids) -> Landed`` with the ``[m_b, C, d]``
@@ -195,23 +194,16 @@ def host_row_reader(host_base, tenant: str = "-", device="cuda",
     Runs on the reader thread. The ids come as :class:`StagedIds` (it
     waits on their event), a tensor or an array. The gather is
     :func:`refine.refine_gathered`'s, bit for bit (clip to [0, n−1], f32
-    rows): ``gather="torch"`` uses ``torch.index_select`` over the base's
-    f32 view (threaded), ``"numpy"`` numpy's fancy indexing (the JAX
-    package's); bases that are not C-contiguous f32 take numpy's. The host
-    read and the copy retry under ``retry.IO_POLICY`` (fault point
-    ``serve.row_read``). ``timings``: a list that each fetch appends
-    ``{"rows", "gather_ms", "h2d_events"}`` to (host gather on
-    ``time.perf_counter``, the copy between two CUDA events)."""
+    rows; ``refine.host_gather_rows``). The host read and the copy retry
+    under ``retry.IO_POLICY`` (fault point ``serve.row_read``). On the
+    card, ``fetch.stream`` is the side stream the copies run on."""
     n, d = host_base.shape
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
-    view = _refine._f32_view(host_base) if gather == "torch" else None
+    view = _refine._f32_view(host_base)
     side = torch.cuda.Stream(dev) if cuda else None
     ring: List[list] = [[None, None] for _ in range(PREFETCH_DEPTH + 2)]
     turn = [0]
-
-    def gather_into(safe: np.ndarray, out: Optional[torch.Tensor]):
-        return _refine.host_gather_rows(host_base, safe, gather, out, view)
 
     def fetch(candidates) -> Landed:
         cand = _resolve_ids(candidates)
@@ -220,11 +212,10 @@ def host_row_reader(host_base, tenant: str = "-", device="cuda",
         def attempt() -> Landed:
             _faults.faultpoint("serve.row_read")
             safe = np.clip(cand, 0, n - 1).reshape(-1)
-            t0 = time.perf_counter()
             if not cuda:
-                rows = gather_into(safe, None).view(m_b, C, d)
-                landed = Landed(rows)
-                events = None
+                rows = _refine.host_gather_rows(host_base, safe,
+                                                base_view=view)
+                landed = Landed(rows.view(m_b, C, d))
             else:
                 slot = ring[turn[0] % len(ring)]
                 turn[0] += 1
@@ -234,26 +225,20 @@ def host_row_reader(host_base, tenant: str = "-", device="cuda",
                     slot[0] = torch.empty(m_b * C * d, dtype=torch.float32,
                                           pin_memory=True)
                 stage = slot[0][:m_b * C * d].view(m_b * C, d)
-                gather_into(safe, stage)
+                _refine.host_gather_rows(host_base, safe, out=stage,
+                                         base_view=view)
                 with torch.cuda.device(dev), torch.cuda.stream(side):
                     dst = torch.empty((m_b, C, d), dtype=torch.float32,
                                       device=dev)
-                    e0 = torch.cuda.Event(enable_timing=True)
-                    ev = torch.cuda.Event(enable_timing=True)
-                    e0.record(side)
                     dst.view(m_b * C, d).copy_(stage, non_blocking=True)
+                    ev = torch.cuda.Event()
                     ev.record(side)
                 slot[1] = ev
                 landed = Landed(dst, ev, side)
-                events = (e0, ev)
-            gather_ms = (time.perf_counter() - t0) * 1e3
             # host-tier IO bytes, charged per attempt: a retried read
             # moves the bytes again
             _obs_spans.inc("cost.io_bytes", float(m_b * C * d * 4),
                            tenant=tenant)
-            if timings is not None:
-                timings.append({"rows": m_b * C, "gather_ms": gather_ms,
-                                "h2d_events": events})
             return landed
 
         return _retry.retry_call(attempt, site="serve.row_read",
@@ -261,6 +246,31 @@ def host_row_reader(host_base, tenant: str = "-", device="cuda",
 
     fetch.stream = side
     return fetch
+
+
+# Reader threads outlive their prefetcher and serve the next one: every
+# tiered search makes a prefetcher, and a new thread a search cost about a
+# tenth of a tiered batch on the card's 8-core host (PERF.md; each new
+# thread that gathers builds a CPU thread team of its own).
+_idle_readers: "queue.SimpleQueue" = queue.SimpleQueue()
+
+
+def _reader_loop(jobs: "queue.SimpleQueue") -> None:
+    while True:
+        jobs.get()()
+        _idle_readers.put(jobs)
+
+
+def _start_reader(job: Callable[[], None]) -> None:
+    """Run ``job`` on an idle reader thread, or on a new one."""
+    try:
+        jobs = _idle_readers.get_nowait()
+    except queue.Empty:
+        jobs = queue.SimpleQueue()
+        threading.Thread(target=_reader_loop, args=(jobs,),
+                         name="raft_tpu_torch-row-prefetch",
+                         daemon=True).start()
+    jobs.put(job)
 
 
 class RowPrefetcher:
@@ -277,9 +287,10 @@ class RowPrefetcher:
 
     Error contract: an exception on the reader thread (IO failure past
     the retry budget, an injected fault) is re-raised at the consumer's
-    next :meth:`get`; the reader exits after queueing it. :meth:`close` is
-    idempotent, drains both queues and joins the thread — safe to call
-    mid-stream (the ``finally`` of an interrupted search)."""
+    next :meth:`get`; the reader stops after queueing it. :meth:`close` is
+    idempotent, drains both queues and waits for the reader to stop — safe
+    to call mid-stream (the ``finally`` of an interrupted search). The
+    reader's thread is kept for the next prefetcher."""
 
     def __init__(self, fetch_fn: Callable[[Any], Any],
                  depth: int = PREFETCH_DEPTH, tenant: str = "-",
@@ -293,12 +304,17 @@ class RowPrefetcher:
         self._work: "queue.Queue" = queue.Queue()
         self._done: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
-        self._thread: Optional[threading.Thread] = None
+        # set when the reader's loop for this prefetcher has returned
+        self._finished: Optional[threading.Event] = None
         if self._prefetch:
-            self._thread = threading.Thread(
-                target=self._run, name="raft_tpu_torch-row-prefetch",
-                daemon=True)
-            self._thread.start()
+            self._finished = threading.Event()
+            _start_reader(self._reader_job)
+
+    def _reader_job(self) -> None:
+        try:
+            self._run()
+        finally:
+            self._finished.set()
 
     def _count(self, name: str) -> None:
         _obs_spans.inc(name, tenant=self._tenant)
@@ -364,9 +380,9 @@ class RowPrefetcher:
 
     def close(self) -> None:
         """Stop the reader and release queue slots (idempotent). A reader
-        stuck inside a slow retried fetch can outlive the join timeout —
-        the handle is kept (and a warning logged) so the still-running
-        thread stays visible."""
+        stuck inside a slow retried fetch can outlive the 5 s wait — a
+        warning is logged, and its thread goes back to the idle readers
+        when the fetch returns."""
         self._stop.set()
         for q in (self._work, self._done):
             while True:
@@ -378,15 +394,13 @@ class RowPrefetcher:
         # next 50 ms poll: every search closes its prefetcher, and that
         # poll cost a 500-query batch ~50 ms on the card (PERF.md)
         self._work.put(None)
-        if self._thread is not None:
+        if self._finished is not None:
             with _sanitize.blocking_region("join"):
-                self._thread.join(timeout=5.0)
-            if self._thread.is_alive():
+                done = self._finished.wait(timeout=5.0)
+            if not done:
                 _log.warn("RowPrefetcher.close: reader thread still inside "
                           "a fetch after 5s (slow IO/retry backoff) — it "
                           "will exit at its next stop-flag check")
-            else:
-                self._thread = None
 
 
 def tiered_refine_wanted(dataset, m: int, k_cand: int, d: int,
@@ -429,50 +443,36 @@ def tiered_refine_wanted(dataset, m: int, k_cand: int, d: int,
 def search_refined_tiered(search_fn, index, queries: torch.Tensor, k: int,
                           k_cand: int, scan_params, filter_bitset,
                           host_base, metric: str, prefetch: bool = True,
-                          device="cuda", gather: str = "torch",
-                          timings: Optional[List[dict]] = None
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The tiered refined search: pipeline sub-batches through oversampled
-    scan → candidate-row prefetch → exact re-rank, the host fetch of
-    sub-batch *i* overlapped under sub-batch *i+1*'s scan and *i−1*'s
+                          device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tiered refined search: one oversampled scan of the batch, then
+    pipeline sub-batches through candidate-row prefetch → exact re-rank,
+    the host fetch of sub-batch *i+1* overlapped under *i*'s copy and
     re-rank. Returns ``(distances [m, k], ids [m, k])``, bit-equal to the
     serialized host gather (module doc).
 
     ``search_fn`` is the owning module's ``search`` (ivf_pq / ivf_flat),
-    called per sub-batch with ``scan_params`` (refine already stripped);
-    ``prefetch=False`` serializes every fetch — same results. ``gather``
-    and ``timings`` go to :func:`host_row_reader`."""
+    called with ``scan_params`` (refine already stripped);
+    ``prefetch=False`` fetches each sub-batch inline — same results."""
     dev = resolve_device(device)
     m = queries.shape[0]
     mb = pipeline_batch(m)
     tenant = current_tenant()
-    pf = RowPrefetcher(host_row_reader(host_base, tenant=tenant, device=dev,
-                                       gather=gather, timings=timings),
+    _, ids = search_fn(index, queries, k_cand, scan_params, filter_bitset,
+                       device=dev)
+    staged = stage_ids(ids)
+    starts = range(0, m, mb)
+    pf = RowPrefetcher(host_row_reader(host_base, tenant=tenant, device=dev),
                        depth=PREFETCH_DEPTH, tenant=tenant,
                        prefetch=prefetch)
-    in_flight: deque = deque()  # (queries slice, candidate ids)
     outs = []
-
-    def consume():
-        q_i, ids_i = in_flight.popleft()
-        rows = pf.get().ready()
-        outs.append(_refine.refine_landed(rows, q_i, ids_i, k, metric=metric,
-                                          device=dev))
-
     try:
-        for a in range(0, m, mb):
-            q_i = queries[a:a + mb]
-            _, ids_i = search_fn(index, q_i, k_cand, scan_params,
-                                 filter_bitset, device=dev)
-            pf.submit(stage_ids(ids_i))
-            in_flight.append((q_i, ids_i))
-            # keep one sub-batch's fetch in the air behind the scan just
-            # launched; consume the one before it, whose rows landed
-            # while that scan ran
-            if len(in_flight) > 1:
-                consume()
-        while in_flight:
-            consume()
+        for a in starts:
+            pf.submit(StagedIds(staged.ids[a:a + mb], staged.event))
+        for a in starts:
+            rows = pf.get().ready()
+            outs.append(_refine.refine_landed(
+                rows, queries[a:a + mb], ids[a:a + mb], k, metric=metric,
+                device=dev))
     finally:
         pf.close()
     if len(outs) == 1:

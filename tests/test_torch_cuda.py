@@ -828,11 +828,14 @@ def test_cuda_ring_lut_scan_filtered_matches_plain(pq_bits, S, ties, kind):
 # ---------------------------------------------------------------------------
 
 def test_cuda_tiered_prefetch_matches_inline_fetch_on_a_side_stream():
-    """The prefetcher's reader copies on a CUDA stream of its own (not the
-    default stream); its landed blocks equal the inline numpy gather over
-    more sub-batches than it has staging buffers, so every buffer is
-    reused; and a tiered search equals the serialized host gather and its
-    prefetch=False leg bit for bit."""
+    """The prefetcher's reader copies on a CUDA stream of its own: with the
+    default stream held busy by a spinning kernel, a block fetched on the
+    reader thread lands, and reads back right on its stream, while the
+    default stream is still busy (a copy queued on the default stream
+    would wait for the spin). Its landed blocks equal the inline fetch and
+    numpy's gather over more sub-batches than it has staging buffers, so
+    every buffer is reused; and a tiered search equals the serialized host
+    gather and its prefetch=False leg bit for bit."""
     from raft_tpu_torch.neighbors import ivf_pq, tiered
 
     dev = cuda_device()
@@ -842,11 +845,33 @@ def test_cuda_tiered_prefetch_matches_inline_fetch_on_a_side_stream():
     blocks = [rng.integers(-1, n + 5, (64, 400)).astype(np.int32)
               for _ in range(3 * (tiered.PREFETCH_DEPTH + 2))]
     fetch = tiered.host_row_reader(x, device=dev)
-    assert fetch.stream is not None
-    assert fetch.stream != torch.cuda.default_stream(dev)
-    inline = tiered.host_row_reader(x, device=dev, gather="numpy")
+    default = torch.cuda.default_stream(dev)
+    assert fetch.stream is not None and fetch.stream != default
+    # fill every staging buffer and the side stream's cached blocks first,
+    # so that the checked fetch allocates nothing
+    for c in blocks[:tiered.PREFETCH_DEPTH + 2]:
+        fetch(c)
+    torch.cuda.synchronize(dev)
+    c = blocks[-1]
     pf = tiered.RowPrefetcher(fetch)
-    pf_inline = tiered.RowPrefetcher(inline, prefetch=False)
+    try:
+        with torch.cuda.stream(default):
+            torch.cuda._sleep(2_000_000_000)  # about a second at 1.98 GHz
+        pf.submit(c)
+        got = pf.get()
+        assert got.stream is fetch.stream and got.event is not None
+        got.event.synchronize()
+        with torch.cuda.stream(fetch.stream):
+            landed = got.rows.cpu()
+        assert not default.query(), "the default stream finished first"
+    finally:
+        pf.close()
+        torch.cuda.synchronize(dev)
+    assert torch.equal(landed, torch.from_numpy(x[np.clip(c, 0, n - 1)]))
+
+    pf = tiered.RowPrefetcher(fetch)
+    pf_inline = tiered.RowPrefetcher(tiered.host_row_reader(x, device=dev),
+                                     prefetch=False)
     try:
         for c in blocks:
             ids = torch.from_numpy(c).to(dev)

@@ -98,7 +98,7 @@ def test_serialized_prefetcher_stalls_every_get():
     pf.submit(2)
     assert (pf.get(), pf.get()) == (2, 3)
     pf.close()
-    assert pf._thread is None
+    assert pf._finished is None  # no reader
     assert tspans.total("serve.prefetch.hit", tenant="s") == 0
     assert tspans.total("serve.prefetch.stall", tenant="s") == 2
 
@@ -141,7 +141,7 @@ def test_get_past_last_submit_and_close_mid_stream():
     t0 = time.monotonic()
     pf.close()  # unconsumed blocks in flight: must not hang
     assert time.monotonic() - t0 < 5.0
-    assert pf._thread is None or not pf._thread.is_alive()
+    assert pf._finished.is_set()
     pf.close()
 
 
@@ -149,10 +149,15 @@ def test_get_past_last_submit_and_close_mid_stream():
 # host_row_reader
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("gather", ["torch", "numpy"])
-def test_host_row_reader_gathers_as_refine_gathered(corpus, gather):
+@pytest.mark.parametrize("layout", ["c_contiguous", "fortran"])
+def test_host_row_reader_gathers_as_refine_gathered(corpus, layout):
+    """A C-contiguous f32 base takes torch's threaded gather, any other
+    layout numpy's: the same rows either way."""
     x, _ = corpus
-    fetch = tiered.host_row_reader(x, device="cpu", gather=gather)
+    if layout == "fortran":
+        x = np.asfortranarray(x)
+    assert (trefine._f32_view(x) is None) == (layout == "fortran")
+    fetch = tiered.host_row_reader(x, device="cpu")
     cand = np.array([[0, 5, -3], [N - 1, N + 7, 2]], np.int32)
     landed = fetch(tiered.stage_ids(torch.from_numpy(cand)))
     assert landed.event is None and landed.stream is None

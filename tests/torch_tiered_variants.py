@@ -12,13 +12,17 @@ Then ``chip_smoke.py``'s main IVF-PQ index (10M × 96 ``DeviceSynthetic``
 rows, 8192 lists, pq_dim 64, 8-bit codes; n_probes 64, refine_ratio 40,
 bf16 LUT, k 10), its base demoted to a host numpy array, and passes of
 every query in batches of 500, wall clock with a synchronise at the end,
-``--reps`` rounds in turns: resident, serial, the shipped tiered path,
-``prefetch=False``, and pipeline variants — a lookahead of 2 and 3
-sub-batches (the shipped one consumes sub-batch i−1 after launching i's
-scan), 4 and 6 gather threads (``torch.set_num_threads``), sub-batches of
-63 and 250 (``RAFT_TPU_TIERED_BATCH``) and a GIL switch interval of 1e-4 s.
-Every variant's ids must equal the shipped path's (the bit-equality
-contract). One JSON line a measurement.
+``--reps`` rounds in turns: resident, serial, the shipped tiered path (one
+scan of the batch, then the reader thread's sub-batches), the same with
+``prefetch=False``, and variants — a new reader thread a search (the
+shipped path keeps its reader threads across searches), the JAX package's
+pipeline (a scan a sub-batch, under the fetch of the sub-batch before), 4
+gather threads
+(``torch.set_num_threads``) and sub-batches of 250
+(``RAFT_TPU_TIERED_BATCH``). Every variant's ids must equal the shipped
+path's (the bit-equality contract), but for the JAX package's pipeline,
+whose products run at the sub-batch's row count: its differing ids are
+counted. One JSON line a measurement.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import dataclasses
 import json
 import os
 import sys
+import threading
 import time
 from collections import deque
 
@@ -96,9 +101,9 @@ def main(argv=None) -> int:
     scan = dataclasses.replace(sp, refine="none")
     B, k, k_cand = 500, 10, 400
 
-    def pipeline(q, lookahead):
-        """The tiered pipeline with a lookahead of ``lookahead``
-        sub-batches (the shipped ``search_refined_tiered`` has 1)."""
+    def sub_batch_scans(q):
+        """The JAX package's pipeline: a scan a sub-batch, each sub-batch
+        re-ranked after the next one's scan was launched."""
         m = q.shape[0]
         mb = tiered.pipeline_batch(m)
         pf = tiered.RowPrefetcher(tiered.host_row_reader(host))
@@ -114,7 +119,7 @@ def main(argv=None) -> int:
                 _, ids_i = ivf_pq.search(index, q_i, k_cand, scan)
                 pf.submit(tiered.stage_ids(ids_i))
                 in_flight.append((q_i, ids_i))
-                if len(in_flight) > lookahead:
+                if len(in_flight) > 1:
                     consume()
             while in_flight:
                 consume()
@@ -127,20 +132,29 @@ def main(argv=None) -> int:
             ivf_pq.search, index, q, k, k_cand, scan, None, host,
             index.metric, prefetch=prefetch)[1]
 
+    def new_thread_call(q):
+        """The shipped path with a reader thread started for each search
+        and ended with it."""
+        keep = tiered._start_reader
+        tiered._start_reader = lambda job: threading.Thread(
+            target=job, daemon=True).start()
+        try:
+            return tiered_call(q)
+        finally:
+            tiered._start_reader = keep
+
     def search_call(params, dataset):
         return lambda q: ivf_pq.search(index, q, k, params,
                                        dataset=dataset)[1]
 
     threads = torch.get_num_threads()
-    switch = sys.getswitchinterval()
 
-    def setup(threads_=threads, batch=None, switch_=switch):
+    def setup(threads_=threads, batch=None):
         torch.set_num_threads(threads_)
         if batch is None:
             os.environ.pop("RAFT_TPU_TIERED_BATCH", None)
         else:
             os.environ["RAFT_TPU_TIERED_BATCH"] = str(batch)
-        sys.setswitchinterval(switch_)
 
     variants = {
         "resident": (search_call(sp, base), {}),
@@ -148,13 +162,10 @@ def main(argv=None) -> int:
             sp, refine_transfer="serial"), host), {}),
         "tiered": (tiered_call, {}),
         "prefetch_false": (lambda q: tiered_call(q, prefetch=False), {}),
-        "lookahead_2": (lambda q: pipeline(q, 2), {}),
-        "lookahead_3": (lambda q: pipeline(q, 3), {}),
+        "new_thread_a_search": (new_thread_call, {}),
+        "sub_batch_scans": (sub_batch_scans, {}),
         "threads_4": (tiered_call, {"threads_": 4}),
-        "threads_6": (tiered_call, {"threads_": 6}),
-        "sub_batch_63": (tiered_call, {"batch": 63}),
         "sub_batch_250": (tiered_call, {"batch": 250}),
-        "switch_1e-4": (tiered_call, {"switch_": 1e-4}),
     }
     ref = None
     for rep in range(args.reps):
@@ -174,9 +185,12 @@ def main(argv=None) -> int:
                 ref = ids
             same = None if ref is None or name == "resident" else bool(
                 torch.equal(ids, ref))
-            print(json.dumps({"rep": rep, "variant": name,
-                              "qps": args.queries / secs,
-                              "ids_equal_tiered": same}), flush=True)
+            line = {"rep": rep, "variant": name, "qps": args.queries / secs,
+                    "ids_equal_tiered": same}
+            if name == "sub_batch_scans":
+                line["ids_differing"] = int((ids != ref).sum())
+                same = None
+            print(json.dumps(line), flush=True)
             if same is False:
                 print(f"torch_tiered_variants: {name} differs from the "
                       "tiered path", file=sys.stderr)
