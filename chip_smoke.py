@@ -859,7 +859,6 @@ def tiered_leg(index, base, queries, sp, B, k, gt):
     ids_s, qs = ids0[:mb], q0[:mb]
     ids_np = ids_s.cpu().numpy()
     safe = np.clip(ids_np, 0, host.shape[0] - 1).reshape(-1)
-    view = trefine._f32_view(host)
     stage = torch.empty((safe.size, host.shape[1]), dtype=torch.float32,
                         pin_memory=True)
     dst = torch.empty(stage.shape, dtype=torch.float32, device=base.device)
@@ -878,7 +877,7 @@ def tiered_leg(index, base, queries, sp, B, k, gt):
         "scan_ms_batch": _timed(lambda: ivf_pq.search(index, q0, k_cand,
                                                       scan_sp), 10),
         "gather_torch_ms": host_ms(lambda: trefine.host_gather_rows(
-            host, safe, out=stage, base_view=view)),
+            host, safe, out=stage)),
         "gather_numpy_ms": host_ms(lambda: host[safe]),
         "h2d_ms": _timed(lambda: dst.copy_(stage, non_blocking=True), 10),
         "fetch_ms": host_ms(lambda: fetch(ids_np).event.synchronize()),
@@ -2071,8 +2070,12 @@ def sharded_phase(args, rows):
         d_f = _adc_key64(index, q_rot, fi[row, j]) + qsq
         d_u = _adc_key64(index, q_rot, ui[row, j]) + qsq
         if abs(d_f - d_u) > 1e-5 * (abs(d_u) + qsq):
-            raise SmokeFailure(f"fused tier ids differ from the unfused "
-                               f"search away from key ties (row {row})")
+            raise SmokeFailure(
+                f"fused tier ids differ from the unfused search away from "
+                f"key ties (row {row}, slot {j}: fused id {int(fi[row, j])} "
+                f"f64 key {d_f:.9g}, unfused id {int(ui[row, j])} f64 key "
+                f"{d_u:.9g}; fused row {fi[row].tolist()}, unfused row "
+                f"{ui[row].tolist()})")
         n_swap += 1
     _log(f"[shard leg 3] batch {bf}, n_probes 64, f32 LUT: fused "
          f"scan-in-ring per call ms median {np.median(lat['on']):.3f} "

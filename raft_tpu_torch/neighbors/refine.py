@@ -251,15 +251,13 @@ def _f32_view(host_base):
     return None
 
 
-def host_gather_rows(host_base, safe: np.ndarray, out=None,
-                     base_view=None) -> torch.Tensor:
+def host_gather_rows(host_base, safe: np.ndarray, out=None) -> torch.Tensor:
     """Rows ``safe`` (ids already clipped to [0, n − 1]) of a host base as
     an f32 CPU tensor (into ``out`` when given): ``torch.index_select``
     over the f32 view of a C-contiguous f32 base (threaded), else numpy's
     fancy indexing and an exact f32 conversion — the JAX package's gather,
-    bit for bit either way. ``base_view``: the base's :func:`_f32_view`,
-    made once by a caller that gathers many times."""
-    view = base_view if base_view is not None else _f32_view(host_base)
+    bit for bit either way."""
+    view = _f32_view(host_base)
     if view is not None:
         idx = torch.from_numpy(safe.astype(np.int64, copy=False))
         if out is None:

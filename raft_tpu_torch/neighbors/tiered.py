@@ -200,7 +200,6 @@ def host_row_reader(host_base, tenant: str = "-", device="cuda"
     n, d = host_base.shape
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
-    view = _refine._f32_view(host_base)
     side = torch.cuda.Stream(dev) if cuda else None
     ring: List[list] = [[None, None] for _ in range(PREFETCH_DEPTH + 2)]
     turn = [0]
@@ -213,8 +212,7 @@ def host_row_reader(host_base, tenant: str = "-", device="cuda"
             _faults.faultpoint("serve.row_read")
             safe = np.clip(cand, 0, n - 1).reshape(-1)
             if not cuda:
-                rows = _refine.host_gather_rows(host_base, safe,
-                                                base_view=view)
+                rows = _refine.host_gather_rows(host_base, safe)
                 landed = Landed(rows.view(m_b, C, d))
             else:
                 slot = ring[turn[0] % len(ring)]
@@ -225,8 +223,7 @@ def host_row_reader(host_base, tenant: str = "-", device="cuda"
                     slot[0] = torch.empty(m_b * C * d, dtype=torch.float32,
                                           pin_memory=True)
                 stage = slot[0][:m_b * C * d].view(m_b * C, d)
-                _refine.host_gather_rows(host_base, safe, out=stage,
-                                         base_view=view)
+                _refine.host_gather_rows(host_base, safe, out=stage)
                 with torch.cuda.device(dev), torch.cuda.stream(side):
                     dst = torch.empty((m_b, C, d), dtype=torch.float32,
                                       device=dev)
@@ -248,31 +245,6 @@ def host_row_reader(host_base, tenant: str = "-", device="cuda"
     return fetch
 
 
-# Reader threads outlive their prefetcher and serve the next one: every
-# tiered search makes a prefetcher, and a new thread a search cost about a
-# tenth of a tiered batch on the card's 8-core host (PERF.md; each new
-# thread that gathers builds a CPU thread team of its own).
-_idle_readers: "queue.SimpleQueue" = queue.SimpleQueue()
-
-
-def _reader_loop(jobs: "queue.SimpleQueue") -> None:
-    while True:
-        jobs.get()()
-        _idle_readers.put(jobs)
-
-
-def _start_reader(job: Callable[[], None]) -> None:
-    """Run ``job`` on an idle reader thread, or on a new one."""
-    try:
-        jobs = _idle_readers.get_nowait()
-    except queue.Empty:
-        jobs = queue.SimpleQueue()
-        threading.Thread(target=_reader_loop, args=(jobs,),
-                         name="raft_tpu_torch-row-prefetch",
-                         daemon=True).start()
-    jobs.put(job)
-
-
 class RowPrefetcher:
     """Submission-driven host→device candidate-row pipeline.
 
@@ -287,10 +259,9 @@ class RowPrefetcher:
 
     Error contract: an exception on the reader thread (IO failure past
     the retry budget, an injected fault) is re-raised at the consumer's
-    next :meth:`get`; the reader stops after queueing it. :meth:`close` is
-    idempotent, drains both queues and waits for the reader to stop — safe
-    to call mid-stream (the ``finally`` of an interrupted search). The
-    reader's thread is kept for the next prefetcher."""
+    next :meth:`get`; the reader exits after queueing it. :meth:`close` is
+    idempotent, drains both queues and joins the thread — safe to call
+    mid-stream (the ``finally`` of an interrupted search)."""
 
     def __init__(self, fetch_fn: Callable[[Any], Any],
                  depth: int = PREFETCH_DEPTH, tenant: str = "-",
@@ -304,17 +275,12 @@ class RowPrefetcher:
         self._work: "queue.Queue" = queue.Queue()
         self._done: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
-        # set when the reader's loop for this prefetcher has returned
-        self._finished: Optional[threading.Event] = None
+        self._thread: Optional[threading.Thread] = None
         if self._prefetch:
-            self._finished = threading.Event()
-            _start_reader(self._reader_job)
-
-    def _reader_job(self) -> None:
-        try:
-            self._run()
-        finally:
-            self._finished.set()
+            self._thread = threading.Thread(
+                target=self._run, name="raft_tpu_torch-row-prefetch",
+                daemon=True)
+            self._thread.start()
 
     def _count(self, name: str) -> None:
         _obs_spans.inc(name, tenant=self._tenant)
@@ -380,9 +346,9 @@ class RowPrefetcher:
 
     def close(self) -> None:
         """Stop the reader and release queue slots (idempotent). A reader
-        stuck inside a slow retried fetch can outlive the 5 s wait — a
-        warning is logged, and its thread goes back to the idle readers
-        when the fetch returns."""
+        stuck inside a slow retried fetch can outlive the join timeout —
+        the handle is kept (and a warning logged) so the still-running
+        thread stays visible."""
         self._stop.set()
         for q in (self._work, self._done):
             while True:
@@ -394,13 +360,15 @@ class RowPrefetcher:
         # next 50 ms poll: every search closes its prefetcher, and that
         # poll cost a 500-query batch ~50 ms on the card (PERF.md)
         self._work.put(None)
-        if self._finished is not None:
+        if self._thread is not None:
             with _sanitize.blocking_region("join"):
-                done = self._finished.wait(timeout=5.0)
-            if not done:
+                self._thread.join(timeout=5.0)
+            if self._thread.is_alive():
                 _log.warn("RowPrefetcher.close: reader thread still inside "
                           "a fetch after 5s (slow IO/retry backoff) — it "
                           "will exit at its next stop-flag check")
+            else:
+                self._thread = None
 
 
 def tiered_refine_wanted(dataset, m: int, k_cand: int, d: int,

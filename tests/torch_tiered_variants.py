@@ -14,10 +14,8 @@ bf16 LUT, k 10), its base demoted to a host numpy array, and passes of
 every query in batches of 500, wall clock with a synchronise at the end,
 ``--reps`` rounds in turns: resident, serial, the shipped tiered path (one
 scan of the batch, then the reader thread's sub-batches), the same with
-``prefetch=False``, and variants — a new reader thread a search (the
-shipped path keeps its reader threads across searches), the JAX package's
-pipeline (a scan a sub-batch, under the fetch of the sub-batch before), 4
-gather threads
+``prefetch=False``, and variants — the JAX package's pipeline (a scan a
+sub-batch, under the fetch of the sub-batch before), 4 gather threads
 (``torch.set_num_threads``) and sub-batches of 250
 (``RAFT_TPU_TIERED_BATCH``). Every variant's ids must equal the shipped
 path's (the bit-equality contract), but for the JAX package's pipeline,
@@ -32,7 +30,6 @@ import dataclasses
 import json
 import os
 import sys
-import threading
 import time
 from collections import deque
 
@@ -132,17 +129,6 @@ def main(argv=None) -> int:
             ivf_pq.search, index, q, k, k_cand, scan, None, host,
             index.metric, prefetch=prefetch)[1]
 
-    def new_thread_call(q):
-        """The shipped path with a reader thread started for each search
-        and ended with it."""
-        keep = tiered._start_reader
-        tiered._start_reader = lambda job: threading.Thread(
-            target=job, daemon=True).start()
-        try:
-            return tiered_call(q)
-        finally:
-            tiered._start_reader = keep
-
     def search_call(params, dataset):
         return lambda q: ivf_pq.search(index, q, k, params,
                                        dataset=dataset)[1]
@@ -162,7 +148,6 @@ def main(argv=None) -> int:
             sp, refine_transfer="serial"), host), {}),
         "tiered": (tiered_call, {}),
         "prefetch_false": (lambda q: tiered_call(q, prefetch=False), {}),
-        "new_thread_a_search": (new_thread_call, {}),
         "sub_batch_scans": (sub_batch_scans, {}),
         "threads_4": (tiered_call, {"threads_": 4}),
         "sub_batch_250": (tiered_call, {"batch": 250}),
