@@ -53,6 +53,22 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    allocator below one native search's peak a real
    ``torch.cuda.OutOfMemoryError`` must be classified (no fault fired),
    walked and recovered, equal to uncapped calls with the final knobs;
+3b. the same path at its target scale, ``[chunked]`` — DEEP-100M-shaped
+   ``DeviceSyntheticChunks`` (100M x 96, ``--chunked-n``, 10,000 centers,
+   1M-row blocks, never materialized): ``ivf_pq.build_chunked`` with
+   ``tools/build_deep100m.py``'s parameters (8192 lists, pq_dim 64, 8-bit,
+   spill, 10 k-means iterations) but the list cap (``--chunked-cap``,
+   default 4 x the mean load), its seconds by stage and the generator's
+   rate; an unrefined scan of the queries at k_cand 400 (n_probes 64,
+   bf16 LUT, batch 500) in three passes, then the exact re-rank of 1,000
+   of them by ``refine_provider``; counts zeroed before the build and read
+   after the re-rank (fused_l2_argmin, select_k and the LUT scan must have
+   launched); checks: every row indexed once or counted as dropped,
+   recall@10 >= 0.95 against ``compute_groundtruth``'s streamed ground
+   truth; then those three kernels against their plain versions at the
+   path's shapes, and a 4M-row checkpointed build stopped by an injected
+   ``build.chunk_encode`` error, resumed, and held bit for bit to a
+   completion from the same trained quantizers;
 4. IVF-Flat path — the 1M x 128 ``make_synthetic_hard`` set of the repo's
    hard_config bench (``FLAT_N`` rows, not cut), ``ivf_flat.build`` with
    1024 lists, spill, cap factor 1.5; searches of 10,000 queries (k 10)
@@ -148,6 +164,10 @@ SHARD_N = 20_000_000
 SHARD_DIM = 128
 SHARD_RANKS = 4
 SHARD_KERNELS = PQ_KERNELS + ("ring_topk_merge", "ring_lut_scan_merge")
+# The [chunked] phase: the DEEP-100M shape (BASELINE.md target 3), built
+# by ivf_pq.build_chunked; its resume check at a smaller row count.
+CHUNKED_DIM = 96
+CHUNKED_RESUME_N = 4_000_000
 
 # The [resilient] leg's injected plan, and the rungs its walk must take
 # from the main path's knobs (bf16 LUT, refined against the resident
@@ -465,7 +485,7 @@ def _select_k_row(rows, path, launches, scores, k, shape):
 
 
 def _lut_scan_row(rows, path, launches, index, q0, n_probes, lut_dtype,
-                  shape="", filter_bits=None):
+                  shape="", filter_bits=None, plain_reps=2):
     """ivfpq_lut_scan_topk against its plain version on the segment table
     of ``q0``'s coarse probes over ``index``: the [B, n_probes, 256] pair
     rows with the same filled bins, keys within 1e-3 + 1e-5·(|key| +
@@ -559,7 +579,8 @@ def _lut_scan_row(rows, path, launches, index, q0, n_probes, lut_dtype,
          launches["ivfpq_lut_scan_topk"], err,
          _timed(lambda: K.ivfpq_lut_scan_topk(*scan_args, "l2", **scan_kw),
                 10),
-         _timed(lambda: K.ivfpq_lut_scan_topk_plain(*plain_args), 2),
+         _timed(lambda: K.ivfpq_lut_scan_topk_plain(*plain_args),
+                plain_reps),
          scan_bytes, scan_flops, None,
          f"{shape}n_seg {n_seg} x {seg} slots ({n_live} live pairs), L {L}, "
          f"{lists.numel()} lists of {rows_real} real rows"
@@ -1431,6 +1452,272 @@ def flat_filter_leg(index, index_cpu, base, queries, k, nq, n_gt, n_pl):
             "launches": launches}
 
 
+def _capture_drops():
+    """A log callback that collects the rows the chunked build reports it
+    dropped from the pack (spill overflow included). Returns (list,
+    restore)."""
+    import re
+
+    from raft_tpu_torch.core import logging as tlog
+
+    seen = []
+
+    def sink(level, msg):
+        m = re.search(r"dropped (\d+) overflow vectors", msg)
+        if m:
+            seen.append(int(m.group(1)))
+
+    tlog.set_callback(sink)
+    return seen, lambda: tlog.set_callback(None)
+
+
+def _check_chunked_index(index, n, dropped):
+    """The built index holds every row once: valid ids in [0, n), none
+    twice, each list's valid slots a prefix of length list_sizes[l], and
+    the sum of list_sizes plus the dropped rows equal to n."""
+    import torch
+
+    ids = index.packed_ids
+    sizes = index.list_sizes.long()
+    slot = torch.arange(ids.shape[1], device=ids.device)
+    if not torch.equal(ids >= 0, slot[None, :] < sizes[:, None]):
+        raise SmokeFailure("chunked build: valid ids are not each list's "
+                           "first list_sizes slots")
+    got = ids[ids >= 0]
+    total = int(sizes.sum())
+    if got.numel() != total or total + dropped != n:
+        raise SmokeFailure(f"chunked build: {total} rows in the lists, "
+                           f"{dropped} dropped, of {n}")
+    srt = torch.sort(got.long())[0]
+    if int(srt[0]) < 0 or int(srt[-1]) >= n or bool(
+            (srt[1:] == srt[:-1]).any()):
+        raise SmokeFailure("chunked build: an id is out of [0, n) or "
+                           "appears twice")
+    del got, srt
+
+
+def chunked_resume_check(args, params, chunk_rows):
+    """A checkpointed build on the card, interrupted by an injected error
+    at ``build.chunk_encode`` after two encoded chunks, then resumed, must
+    equal an uninterrupted completion from the same quantizers bit for
+    bit. Two card builds of one seed differ (the k-means centroid sums are
+    ``index_add_`` atomics), so the reference resumes a second checkpoint
+    that holds only the first one's trained quantizers and a manifest at
+    phase ``label``, the state the build writes after its train phase:
+    it runs the label pass and every encode itself."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from raft_tpu_torch.bench.dataset import DeviceSyntheticChunks
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.robust import checkpoint as ckpt
+    from raft_tpu_torch.robust import faults
+
+    n = CHUNKED_RESUME_N
+    ds = DeviceSyntheticChunks(n, CHUNKED_DIM, n_centers=10_000,
+                               seed=args.seed + 1, chunk_rows=chunk_rows,
+                               device="cuda")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chunked_ckpt_") as tmp:
+        d1, d2 = os.path.join(tmp, "interrupted"), os.path.join(tmp, "ref")
+        faults.install_plan({"faults": [{"site": "build.chunk_encode",
+                                         "kind": "error", "after": 3}]})
+        try:
+            ivf_pq.build_chunked(ds, params, chunk_rows=chunk_rows,
+                                 checkpoint_dir=d1)
+            raise SmokeFailure("the injected build.chunk_encode fault did "
+                               "not stop the checkpointed build")
+        except faults.FaultInjected:
+            pass
+        finally:
+            faults.clear_plan()
+        man = ckpt.BuildCheckpoint(d1).load_manifest()
+        if man["phase"] != "encode" or man["chunks_done"] != 2:
+            raise SmokeFailure(f"interrupted build left phase "
+                               f"{man['phase']}, {man['chunks_done']} chunks")
+        os.makedirs(d2)
+        shutil.copy(os.path.join(d1, "quantizers.npz"), d2)
+        ckpt.BuildCheckpoint(d2).write_manifest(
+            {**{k: v for k, v in man.items()
+                if k not in ("phase", "L", "chunks_done", "schema")},
+             "phase": "label"})
+        resumed = ivf_pq.build_chunked(ds, params, chunk_rows=chunk_rows,
+                                       checkpoint_dir=d1, resume=True)
+        reference = ivf_pq.build_chunked(ds, params, chunk_rows=chunk_rows,
+                                         checkpoint_dir=d2, resume=True)
+    differ = [name for name in ivf_pq._ARRAY_FIELDS
+              if not torch.equal(getattr(resumed, name),
+                                 getattr(reference, name))]
+    if differ:
+        raise SmokeFailure(f"resumed chunked build differs from the "
+                           f"uninterrupted one in {differ}")
+    out = {"n": n, "chunks_replayed": man["chunks_done"],
+           "n_chunks": man["n_chunks"], "L": resumed.max_list_size,
+           "seconds": time.perf_counter() - t0}
+    _log(f"[chunked resume] {n} x {CHUNKED_DIM}: a checkpointed build "
+         f"stopped after {man['chunks_done']} of {man['n_chunks']} encode "
+         f"chunks, resumed, equals the completion from its quantizers bit "
+         f"for bit (all {len(ivf_pq._ARRAY_FIELDS)} arrays) "
+         f"({out['seconds']:.1f} s)")
+    return out
+
+
+def chunked_phase(args, rows):
+    """``[chunked]``: the main path at the DEEP-100M shape, built by
+    ``ivf_pq.build_chunked`` on a ``DeviceSyntheticChunks`` provider in
+    1M-row blocks (``tools/build_deep100m.py:40-50``'s parameters but the
+    list cap: ``--chunked-cap``, by default the package's 4 × the mean
+    load, where the tool's 1.5 drops 13 % of these rows to the spill and
+    caps recall near 0.87), then the bench's search
+    (``tools/deep100m_r5.py:155,188``): the LUT scan at k_cand 400 and the
+    exact re-rank by ``refine_provider``. Checks: the index holds every
+    row once, recall@10 ≥ 0.95 against the streamed ground truth on 1,000
+    queries, and B4, B3 and B1 launched on the path; then B4, B3 and B1
+    against their plain versions at the path's shapes, and the resume
+    check. Returns the summary."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.bench.dataset import (Dataset, DeviceSyntheticChunks,
+                                              compute_groundtruth)
+    from raft_tpu_torch.neighbors import ivf_common, ivf_pq
+    from raft_tpu_torch.neighbors import refine as trefine
+    from raft_tpu_torch.ops import kernels as K
+
+    N, dim, B, k, k_cand = args.chunked_n, CHUNKED_DIM, 500, 10, 400
+    nq, n_gt, chunk = args.queries, 1000, 1 << 20
+    dev = torch.device("cuda", 0)
+    ds = DeviceSyntheticChunks(N, dim, n_centers=10_000, seed=args.seed,
+                               chunk_rows=chunk, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_gen = min(N, 4 * chunk)
+    ds[0:n_gen]
+    torch.cuda.synchronize()
+    gen_rate = n_gen / (time.perf_counter() - t0)
+    params = ivf_pq.IndexParams(n_lists=8192, pq_dim=64, pq_bits=8,
+                                spill=True,
+                                list_size_cap_factor=args.chunked_cap,
+                                kmeans_n_iters=10, seed=args.seed)
+    _log(f"[chunked data] DeviceSyntheticChunks {N} x {dim} f32 "
+         f"({N * dim * 4 / 1e9:.1f} GB, never materialized), blocks of "
+         f"{chunk} rows: the generator makes {gen_rate:.0f} rows/s")
+
+    # the path: build, scan passes, re-rank; counts zeroed just before
+    drops, restore = _capture_drops()
+    stages = {}
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        index = ivf_pq.build_chunked(ds, params, chunk_rows=chunk,
+                                     progress=True, device=dev,
+                                     stage_seconds=stages)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    build_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    L = index.max_list_size
+    codes_gb = index.packed_codes.numel() / 1e9
+    # the lists' loads against the tool's cap of 1.5 × the mean load
+    sizes = index.list_sizes.long()
+    cap15 = ivf_common._lane_round(int(N // params.n_lists * 1.5))
+    over = (sizes - cap15).clamp_min(0)
+    _log(f"[chunked build] {build_s:.1f} s: " + ", ".join(
+        f"{s} {v:.1f}s" for s, v in stages.items())
+         + f"; cap factor {params.list_size_cap_factor}, L = {L}; codes "
+         f"{codes_gb:.2f} GB; card peak {peak_gb:.2f} GB; rows dropped "
+         f"{sum(drops)}; largest list {int(sizes.max())} rows, "
+         f"{int((over > 0).sum())} lists hold {int(over.sum())} rows past "
+         f"1.5 x the mean load ({cap15})")
+    _check_chunked_index(index, N, sum(drops))
+
+    queries = ds.queries(nq)
+    sp = ivf_pq.SearchParams(n_probes=64, scan_select="pallas",
+                             lut_dtype="bfloat16")
+
+    def scan_pass():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        out = []
+        start.record()
+        for a in range(0, nq, B):
+            out.append(ivf_pq.search(index, queries[a:a + B], k_cand, sp)[1])
+        end.record()
+        torch.cuda.synchronize()
+        return torch.cat(out), start.elapsed_time(end) / 1e3
+
+    cand, t_scan = scan_pass()
+    qps = [nq / t_scan] + [nq / scan_pass()[1] for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, ids_r = trefine.refine_provider(ds, queries[:n_gt], cand[:n_gt], k,
+                                       device=dev)
+    torch.cuda.synchronize()
+    rerank_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    _log(f"[chunked] launches {json.dumps(launches)}")
+    missing = [n for n in ("fused_l2_argmin", "select_k",
+                           "ivfpq_lut_scan_topk") if launches[n] == 0]
+    if missing:
+        raise SmokeFailure(f"kernels never launched on the chunked path: "
+                           f"{missing}")
+
+    t0 = time.perf_counter()
+    gtds = compute_groundtruth(Dataset("deep100m-synth", ds, queries), k=k,
+                               chunk_rows=chunk, max_queries=n_gt,
+                               device=dev)
+    gt_s = time.perf_counter() - t0
+    gt = gtds.groundtruth
+    cand_h = cand[:n_gt].cpu().numpy()
+    rec = _recall(ids_r.cpu(), gt)
+    rec_cand = _recall(cand_h[:, :k], gt)
+    cover = float(np.mean([len(set(a) & set(b)) / k
+                           for a, b in zip(cand_h, gt)]))
+    _log(f"[chunked search] batch {B}, n_probes 64, bf16 LUT, k_cand "
+         f"{k_cand}, unrefined scan of {nq} queries, three passes (CUDA "
+         f"events): " + ", ".join(f"{x:.0f}" for x in qps) + " QPS; "
+         f"re-rank of {n_gt} queries by refine_provider in {rerank_s:.2f} s;"
+         f" recall@10 on {n_gt} queries against the streamed ground truth "
+         f"({gt_s:.1f} s): re-ranked {rec:.4f}, candidates' first 10 "
+         f"{rec_cand:.4f}, true top-10 among the {k_cand} candidates "
+         f"{cover:.4f}")
+    if not rec >= 0.95:
+        raise SmokeFailure(f"chunked refined recall@10 {rec} < 0.95")
+
+    # the path's kernels against their plain versions at its shapes: B4 at
+    # the training sweep's shape (the first 2,097,152 rows: the sample's
+    # shape), B3 at the label pass's Gram tile, B1 on the built index
+    xa = ds[0:1 << 21].contiguous()
+    _argmin_row(rows, "ivf_pq_chunked", launches, xa,
+                index.centers.contiguous(), "training sweep shape, ")
+    c_sq = (index.centers ** 2).sum(1)
+    tile = (256 << 20) // (4 * params.n_lists)
+    scores = (c_sq[None, :] - 2.0 * (xa[:tile] @ index.centers.T)
+              ).contiguous()
+    del xa
+    _select_k_row(rows, "ivf_pq_chunked", launches, scores, 6,
+                  " (the label pass's tile)")
+    del scores
+    torch.cuda.empty_cache()
+    _lut_scan_row(rows, "ivf_pq_chunked", launches, index,
+                  queries[:B].contiguous(), 64, "bfloat16",
+                  f"{N} rows, ", plain_reps=1)
+    del index, cand
+    torch.cuda.empty_cache()
+    resume = chunked_resume_check(args, params, chunk)
+    return {"n": N, "dim": dim, "n_lists": 8192, "pq_dim": 64,
+            "max_list_size": L, "build_s": build_s, "build_stages_s": stages,
+            "generator_rows_per_s": gen_rate, "card_peak_gb": peak_gb,
+            "rows_dropped": sum(drops), "scan_qps_runs": qps,
+            "rerank_s": rerank_s, "recall_at_10": rec,
+            "recall_at_10_candidates": rec_cand, "candidate_cover": cover,
+            "groundtruth_s": gt_s, "launches": launches, "resume": resume}
+
+
 def pq_recon_phase(args, rows, base, queries, gt):
     """IVF-PQ over its bf16 reconstruction cache: the repo's bench config
     ``ivf_pq.n1024.d64`` (bench.py:211-243) on the IVF-Flat phase's 1M x
@@ -1782,6 +2069,33 @@ def _adc_key64(index, qv_row, gid):
     raise SmokeFailure(f"id {gid} is in no shard")
 
 
+def _bin_rule_picks(index, ranked, k):
+    """The first ``k`` of a row's exact picks ``ranked`` (global ids, best
+    first) that survive the LUT-bin tier's selection: a list's rows fall
+    into 128 strided bins (slot mod 128) and each bin keeps its two best,
+    so a pick with two better picks in its (rank, list, bin) cell is
+    dropped. Returns (ids, count dropped before the k-th survivor)."""
+    import torch
+
+    seen, out, lost = {}, [], 0
+    for gid in ranked.tolist():
+        if gid < 0 or len(out) == k:
+            break
+        for r in range(index.n_shards):
+            hit = torch.nonzero(index.packed_ids[r] == gid)
+            if hit.shape[0]:
+                cell = (r, int(hit[0, 0]), int(hit[0, 1]) % 128)
+                break
+        else:
+            raise SmokeFailure(f"id {gid} is in no shard")
+        seen[cell] = seen.get(cell, 0) + 1
+        if seen[cell] > 2:
+            lost += 1
+        else:
+            out.append(gid)
+    return out + [-1] * (k - len(out)), lost
+
+
 def _ring_lut_scan_row(rows, path, launches, index, q, k, n_probes, mesh,
                        shape, filter_bits=None):
     """ring_lut_scan_merge against its plain version (on the same card) on
@@ -2061,28 +2375,44 @@ def sharded_phase(args, rows):
             raise SmokeFailure(f"fused leg ({mode}) took {d}, not {want}")
     os.environ.pop("RAFT_TPU_RING_FUSED", None)
     (fv, fi), (uv, ui) = res["on"], res["off"]
-    n_swap = 0
-    for row, j in torch.nonzero(fi != ui).tolist():
-        # the fused and unfused picks must tie in f64 (both are ADC keys
-        # of the same codes: l2 key + ‖q_rot‖²)
+    n_swap = n_binned = 0
+    for row in sorted({r for r, _ in torch.nonzero(fi != ui).tolist()}):
+        # the fused tier keeps a list's two best per strided bin, as the
+        # LUT-scan tier does (its contract); the unfused search is exact.
+        # Its reference is the unfused top-2k without the ids that bin
+        # rule drops: those with two better picks in their (rank, list,
+        # bin) cell. Where no id is dropped that is the unfused top-k.
+        os.environ["RAFT_TPU_RING_FUSED"] = "off"
+        u2 = pivf.search_ivf_pq(spf, index, queries[row:row + 1], 2 * k,
+                                mesh)[1][0]
+        os.environ.pop("RAFT_TPU_RING_FUSED", None)
+        want, lost = _bin_rule_picks(index, u2, k)
+        n_binned += lost
         q_rot = queries[row] @ index.rotation[0].T
         qsq = float((q_rot.double() ** 2).sum())
-        d_f = _adc_key64(index, q_rot, fi[row, j]) + qsq
-        d_u = _adc_key64(index, q_rot, ui[row, j]) + qsq
-        if abs(d_f - d_u) > 1e-5 * (abs(d_u) + qsq):
-            raise SmokeFailure(
-                f"fused tier ids differ from the unfused search away from "
-                f"key ties (row {row}, slot {j}: fused id {int(fi[row, j])} "
-                f"f64 key {d_f:.9g}, unfused id {int(ui[row, j])} f64 key "
-                f"{d_u:.9g}; fused row {fi[row].tolist()}, unfused row "
-                f"{ui[row].tolist()})")
-        n_swap += 1
+        for j in range(k):
+            if int(fi[row, j]) == want[j]:
+                continue
+            # the fused pick and the reference's must tie in f64 (both are
+            # ADC keys of the same codes: l2 key + ‖q_rot‖²)
+            d_f = _adc_key64(index, q_rot, fi[row, j]) + qsq
+            d_u = _adc_key64(index, q_rot, want[j]) + qsq
+            if abs(d_f - d_u) > 1e-5 * (abs(d_u) + qsq):
+                raise SmokeFailure(
+                    f"fused tier ids differ from the unfused search away "
+                    f"from key ties (row {row}, slot {j}: fused id "
+                    f"{int(fi[row, j])} f64 key {d_f:.9g}, reference id "
+                    f"{want[j]} f64 key {d_u:.9g}; fused row "
+                    f"{fi[row].tolist()}, unfused row {ui[row].tolist()}, "
+                    f"{lost} dropped by the bin rule)")
+            n_swap += 1
     _log(f"[shard leg 3] batch {bf}, n_probes 64, f32 LUT: fused "
          f"scan-in-ring per call ms median {np.median(lat['on']):.3f} "
          f"(min {min(lat['on']):.3f}), unfused (per_query scan + ring) "
          f"median {np.median(lat['off']):.3f} (min {min(lat['off']):.3f}); "
          f"ids equal over {n_f * bf} queries but {n_swap} picks at f64 key "
-         f"ties")
+         f"ties and {n_binned} ids a list's strided bin dropped (its two "
+         f"best kept)")
     launches = K.launch_counts()
     _log(f"[shard] launches {json.dumps(launches)}")
     missing = [n for n in SHARD_KERNELS if launches[n] == 0]
@@ -2322,6 +2652,8 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--batch", type=int, default=500)
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--chunked-n", type=int, default=100_000_000)
+    ap.add_argument("--chunked-cap", type=float, default=4.0)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2535,6 +2867,13 @@ def main(argv=None) -> int:
                "tiered": tiered_summary, "resilient": resilient_summary}
     _log(f"[summary] {json.dumps(summary)}")
     del index, base, queries, cand, kk, ki, scores, scan
+    torch.cuda.empty_cache()
+
+    try:
+        chunked_summary = chunked_phase(args, rows)
+    except SmokeFailure as e:
+        return _fail(str(e))
+    _log(f"[chunked summary] {json.dumps(chunked_summary)}")
     torch.cuda.empty_cache()
 
     try:

@@ -122,7 +122,7 @@ class DeviceSyntheticChunks:
     size sees identical rows, and a billion-row base never has to exist
     anywhere. Duck-types the slices consumers take: ``shape``, ``dtype``,
     ``provider[a:b]`` (a tensor on ``device``), ``_block(bi)``,
-    ``chunk_rows`` and :meth:`queries`."""
+    ``chunk_rows``, :meth:`queries` and :meth:`sample_rows`."""
 
     def __init__(self, n: int, dim: int, n_centers: int = 10_000,
                  seed: int = 7, std: float = 0.5, scale: float = 10.0,
@@ -175,3 +175,70 @@ class DeviceSyntheticChunks:
     def queries(self, m: int) -> torch.Tensor:
         """Queries from their own key branch of the root split."""
         return self._gen(self._qkey, 0, m)
+
+    def sample_rows(self, idx: np.ndarray) -> torch.Tensor:
+        """Rows ``idx`` (sorted), gathered by regenerating each block that
+        holds one of them: the train-sample path of
+        ``ivf_pq.build_chunked``."""
+        idx = np.asarray(idx)
+        c = self.chunk_rows
+        out = []
+        for bi, a in enumerate(range(0, self.shape[0], c)):
+            b = min(a + c, self.shape[0])
+            local = idx[(idx >= a) & (idx < b)] - a
+            if len(local):
+                out.append(self._block(bi)[torch.as_tensor(
+                    local, device=self.device)])
+        return torch.cat(out)
+
+
+def compute_groundtruth(ds: Dataset, k: int = 100,
+                        device_budget: int = 2 << 30,
+                        chunk_rows: int = 1 << 18,
+                        max_queries: int = 0,
+                        device_base=None, device="cuda") -> Dataset:
+    """Exact top-k ground truth of ``ds.queries`` into ``ds.groundtruth``
+    ([m, k] int32), by the port's own ``brute_force.knn``.
+
+    A base of at most ``device_budget`` bytes (or one already on the card,
+    ``device_base``) is searched whole. A larger one (a memmap, a
+    device-chunk provider) streams through the card in ``chunk_rows``
+    blocks: each block's exact top-k by ``brute_force.knn``, merged into
+    the running top-k by ``select_k`` (ties keep the earlier row, as one
+    search over the whole base does). ``max_queries`` bounds the query
+    count (recall on a subset is the usual practice at 10⁸ rows)."""
+    from raft_tpu_torch.distance.types import SELECT_MIN, resolve_metric
+    from raft_tpu_torch.matrix.select_k import select_k
+    from raft_tpu_torch.neighbors import brute_force
+
+    dev = resolve_device(device)
+    queries = ds.queries
+    if max_queries and queries.shape[0] > max_queries:
+        queries = queries[:max_queries]
+    q = (queries.to(dev, torch.float32) if isinstance(queries, torch.Tensor)
+         else torch.as_tensor(np.asarray(queries, np.float32), device=dev))
+    n = ds.base.shape[0]
+    if device_base is not None or ds.base.nbytes <= device_budget:
+        base = ds.base if device_base is None else device_base
+        if not isinstance(base, (np.ndarray, torch.Tensor)):
+            base = base[0:n]  # a small provider: all its rows at once
+        _, ids = brute_force.knn(base, q, k, metric=ds.metric, device=dev)
+        ds.groundtruth = ids.cpu().numpy().astype(np.int32)
+        return ds
+    select_min = SELECT_MIN[resolve_metric(ds.metric)]
+    best_v = best_i = None
+    for a in range(0, n, chunk_rows):
+        raw = ds.base[a:a + chunk_rows]
+        if not isinstance(raw, torch.Tensor):
+            raw = torch.as_tensor(np.asarray(raw, np.float32))
+        v, i = brute_force.knn(raw, q, min(k, raw.shape[0]),
+                               metric=ds.metric, device=dev)
+        i = i.long() + a
+        if best_v is None:
+            best_v, best_i = v, i
+            continue
+        best_v, best_i = select_k(torch.cat([best_v, v], 1), k,
+                                  select_min=select_min,
+                                  input_indices=torch.cat([best_i, i], 1))
+    ds.groundtruth = best_i.cpu().numpy().astype(np.int32)
+    return ds

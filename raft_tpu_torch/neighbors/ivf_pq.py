@@ -24,13 +24,17 @@ degradation ladder (``robust.degrade``). Every tier takes a
 (``neighbors.sample_filter``): the LUT scan reads per-list keep bytes
 beside the codes, the grouped tiers scan a sentinel-masked id table, the
 per_query tier and the re-rank test the bitset itself. What is not ported
-(per_cluster codebooks, folded codes) raises ``NotImplementedError``
+(per_cluster codebooks) raises ``NotImplementedError``
 naming its ROADMAP item — it never substitutes another tier.
+``build_chunked`` builds from a host array, a memmap or a device-chunk
+provider in O(chunk) card memory, with resumable checkpoints.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 import warnings
 from typing import Dict, Optional, Tuple
 
@@ -41,9 +45,11 @@ from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_balanced import KMeansBalancedParams
 from raft_tpu_torch.core import bitset as _bitset
 from raft_tpu_torch.core import ids as _ids
+from raft_tpu_torch.core import logging as _log
 from raft_tpu_torch.core import serialize as _ser
 from raft_tpu_torch.core.device import resolve_device, to_device
 from raft_tpu_torch.core.errors import expects, not_ported as _not_ported
+from raft_tpu_torch.core.interruptible import cancellation_point
 from raft_tpu_torch.distance.types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import select_k as _select_k
 from raft_tpu_torch.neighbors import ivf_common as ic
@@ -53,6 +59,7 @@ from raft_tpu_torch.ops import kernels as _k
 from raft_tpu_torch.random.rng import RngState
 from raft_tpu_torch.robust import degrade as _degrade
 from raft_tpu_torch.robust import faults as _faults
+from raft_tpu_torch.robust import retry as _retry
 from raft_tpu_torch.utils import precision as _precision
 
 
@@ -140,7 +147,7 @@ class IvfPqIndex:
     centers_rot: torch.Tensor    # [n_lists, rot_dim] f32
     rotation: torch.Tensor       # [rot_dim, dim] f32
     codebooks: torch.Tensor      # [pq_dim, 2^bits, pq_len] f32
-    packed_codes: torch.Tensor   # [n_lists, L, nb] u8 (unfolded)
+    packed_codes: torch.Tensor   # [n_lists, L, nb] u8 (never lane-folded)
     packed_ids: torch.Tensor     # [n_lists, L] i32, -1 pad
     packed_norms: torch.Tensor   # [n_lists, L] f32: ‖c + decoded‖²
     list_sizes: torch.Tensor     # [n_lists] i32
@@ -187,10 +194,21 @@ _ARRAY_FIELDS = ("centers", "centers_rot", "rotation", "codebooks",
                  "packed_codes", "packed_ids", "packed_norms", "list_sizes")
 
 
-def _check_unfolded(packed_codes, pq_dim: int, pq_bits: int) -> None:
-    if packed_codes.shape[-1] != packed_nbytes(
-            pq_dim or packed_codes.shape[-1], pq_bits):
-        raise _not_ported("folded code storage", "A9")
+def _unfold_codes(packed_codes, L: int, pq_dim: int, pq_bits: int):
+    """Codes as ``[n_lists, L, nb]``: that layout as it is, or the JAX
+    package's lane-folded one, ``[n_lists, L·nb/128, 128]``
+    (``IvfPqIndex.codes_folded``, made for code arrays over 1 GB so a TPU
+    pads no lanes), as its row-major view (``codes_chunk`` there). The
+    card has no lanes to pad, so the port never folds. Any other shape
+    raises."""
+    shape = tuple(packed_codes.shape)
+    nb = packed_nbytes(pq_dim or shape[-1], pq_bits)
+    if len(shape) == 3 and shape[1:] == (L, nb):
+        return packed_codes
+    expects(len(shape) == 3 and shape[2] == 128 and shape[1] * 128 == L * nb,
+            "packed_codes %s is neither [n_lists, %d, %d] nor its lane fold "
+            "[n_lists, %d, 128]", shape, L, nb, L * nb // 128)
+    return packed_codes.reshape(shape[0], L, nb)
 
 
 def from_numpy(arrays: Dict[str, np.ndarray], meta: Dict, device="cuda"
@@ -205,8 +223,10 @@ def from_numpy(arrays: Dict[str, np.ndarray], meta: Dict, device="cuda"
         raise _not_ported("per_cluster codebooks", "A9")
     pq_dim = int(meta.get("pq_dim", 0))
     pq_bits = int(meta.get("pq_bits", 8))
-    _check_unfolded(np.asarray(arrays["packed_codes"]), pq_dim, pq_bits)
-    t = {name: to_device(np.asarray(arrays[name]), dev) for name in _ARRAY_FIELDS}
+    arrays = {name: np.asarray(arrays[name]) for name in _ARRAY_FIELDS}
+    arrays["packed_codes"] = _unfold_codes(
+        arrays["packed_codes"], arrays["packed_ids"].shape[1], pq_dim, pq_bits)
+    t = {name: to_device(arrays[name], dev) for name in _ARRAY_FIELDS}
     index = IvfPqIndex(**t, metric=str(meta["metric"]),
                        codebook_kind="per_subspace", pq_bits=pq_bits,
                        pq_dim_static=pq_dim)
@@ -505,6 +525,356 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
     return index
 
 
+def _stable_slots(labels: np.ndarray, n_lists: int,
+                  base: Optional[np.ndarray] = None):
+    """Each row's (list, slot) address from one stable sort, on the host
+    (a copy of the JAX package's): row ``order[i]`` goes to
+    ``(sorted_l[i], slot[i])``; ``base`` offsets slots by the lists'
+    current fill. Rows with the spill marker (label n_lists) rank in a
+    group of their own, which every caller drops."""
+    n = len(labels)
+    order = np.argsort(labels, kind="stable")
+    sorted_l = labels[order]
+    starts = np.searchsorted(sorted_l, np.arange(n_lists + 1))
+    rank = np.arange(n) - starts[sorted_l]
+    slot = rank if base is None else base[np.clip(sorted_l, 0,
+                                                  n_lists - 1)] + rank
+    return order, sorted_l, slot
+
+
+def _count_resume(name: str, value: float = 1.0) -> None:
+    """``resume.*{site=ivf_pq.build_chunked}``, the JAX package's
+    counters (always on here, as every ``obs.spans`` counter is)."""
+    _obs_spans.inc(name, value, site="ivf_pq.build_chunked")
+
+
+# Host → card copies of the packed index go in slices of about this size,
+# so the upload never needs a second full copy anywhere.
+_UPLOAD_BYTES = 256 << 20
+
+
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``dev``: shared on the CPU, else copied
+    in row slices into one buffer on the card."""
+    t = torch.from_numpy(a)
+    if dev.type == "cpu":
+        return t
+    out = torch.empty(a.shape, dtype=t.dtype, device=dev)
+    rows = max(1, _UPLOAD_BYTES // max(1, a[:1].nbytes))
+    for i in range(0, a.shape[0], rows):
+        out[i:i + rows].copy_(t[i:i + rows])
+    return out
+
+
+def build_chunked(dataset, params: Optional[IndexParams] = None,
+                  chunk_rows: int = 1 << 18,
+                  max_train_rows: int = 1 << 21,
+                  progress: bool = False,
+                  checkpoint_dir: Optional[str] = None,
+                  resume=False, device="cuda",
+                  stage_seconds: Optional[Dict[str, float]] = None
+                  ) -> IvfPqIndex:
+    """Build from a host array, a memmap or a device-chunk provider
+    (``bench.dataset.DeviceSyntheticChunks``) with O(``chunk_rows``)
+    memory on the card beside the index itself (reference: the JAX
+    package's ``build_chunked``, step for step).
+
+    Rows are read once per pass (train sample, label, encode); the lists
+    are packed into host arrays and uploaded in slices at the end. With
+    ``checkpoint_dir=`` the build writes the manifest, the trained
+    quantizers, the label pass and one encoded shard per chunk
+    (``robust.checkpoint``, the JAX package's files: a checkpoint written
+    by either package resumes in the other). ``resume=True`` validates the
+    manifest and continues from its last complete chunk, loading the
+    quantizers and labels and replaying completed shards, so a resumed
+    build equals an uninterrupted one bit for bit; ``"auto"`` resumes when
+    a manifest exists. Reads retry under ``robust.retry.IO_POLICY`` (sites
+    ``build.chunk_read``, ``build.train_sample``); an encode chunk that
+    runs out of memory is halved (``degrade.steps`` counts the walk). The
+    codes are never lane-folded: that layout avoids TPU lane padding.
+    ``stage_seconds``, when given, receives the seconds of each stage
+    (sample, train, read, label, spill, encode, pack, upload,
+    recon_cache)."""
+    if params is None:
+        params = IndexParams()
+    dev = resolve_device(device)
+    _precision.enforce()
+    mt = resolve_metric(params.metric)
+    expects(params.codebook_kind in ("per_subspace", "per_cluster"),
+            "codebook_kind must be per_subspace or per_cluster")
+    expects(4 <= params.pq_bits <= 8, "pq_bits must be in [4, 8]")
+    expects(resume in (False, True, "auto"),
+            "resume must be False, True, or 'auto' (got %r)", resume)
+    expects(not resume or checkpoint_dir is not None,
+            "resume=%r needs checkpoint_dir= (there is no manifest to "
+            "resume from without one)", resume)
+    if params.codebook_kind != "per_subspace":
+        raise _not_ported("codebook_kind='per_cluster'", "A9")
+    stage = ic.Stages(stage_seconds, dev)
+    t_start = time.perf_counter()
+
+    def say(msg):
+        if progress:
+            print(f"[build_chunked +{time.perf_counter() - t_start:7.0f}s] "
+                  f"{msg}", flush=True)
+
+    n, dim = dataset.shape
+    ck = manifest = None
+    base_manifest = {}
+    if checkpoint_dir is not None:
+        from raft_tpu_torch.robust import checkpoint as _ckpt
+
+        ck = _ckpt.BuildCheckpoint(checkpoint_dir)
+        # one fingerprint a build (a memmap's samples real rows), threaded
+        # through every manifest write with its seconds
+        ds_sha, p_sha, fp_s = _ckpt.fingerprints_once(
+            dataset, {**dataclasses.asdict(params),
+                      "chunk_rows": chunk_rows,
+                      "max_train_rows": max_train_rows})
+        base_manifest = {"dataset_sha": ds_sha, "params_sha": p_sha,
+                         "fingerprint_s": round(fp_s, 6),
+                         "n": int(n), "dim": int(dim),
+                         "chunk_rows": int(chunk_rows),
+                         "n_chunks": -(-n // chunk_rows)}
+        if resume is True or (resume == "auto"
+                              and os.path.exists(ck.manifest_path)):
+            manifest = ck.load_manifest()
+            ck.validate_manifest(manifest, ds_sha, p_sha)
+            _count_resume("resume.attempts")
+            say(f"resuming from {ck.manifest_path} (phase "
+                f"{manifest.get('phase')}, {manifest.get('chunks_done', 0)} "
+                "chunks done)")
+    spherical = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
+    normalize = mt == DistanceType.CosineExpanded
+
+    def on_device(rows):
+        # a provider's tensors stay where they are; host rows are copied
+        if isinstance(rows, torch.Tensor):
+            x = rows.to(dev, torch.float32)
+        else:
+            x = to_device(np.asarray(rows, np.float32), dev)
+        if normalize:
+            x = x / torch.sqrt((x * x).sum(-1, keepdim=True).clamp_min(1e-12))
+        return x
+
+    def read_chunk(a, b):
+        def once():
+            _faults.faultpoint("build.chunk_read")
+            return on_device(dataset[a:b])
+        with stage("read"):
+            return _retry.retry_call(once, site="build.chunk_read",
+                                     policy=_retry.IO_POLICY)
+
+    pq_dim = params.pq_dim or _default_pq_dim(dim)
+    pq_len = -(-dim // pq_dim)
+    rot_dim = pq_dim * pq_len
+    K = 1 << params.pq_bits
+    km = KMeansBalancedParams(n_iters=params.kmeans_n_iters,
+                              metric="cosine" if spherical else "l2",
+                              seed=params.seed)
+    if manifest is not None:
+        # every manifest phase implies trained quantizers on disk (the
+        # first manifest is written after them)
+        say("resume: loading quantizer state from checkpoint")
+        q = ck.load_arrays("quantizers")
+        centers, rotation, centers_rot, codebooks = (
+            to_device(q[name], dev, torch.float32)
+            for name in ("centers", "rotation", "centers_rot", "codebooks"))
+    else:
+        # 1. quantizers on a sorted random sample (memmap locality)
+        n_train = min(n, max_train_rows,
+                      max(params.n_lists * 4, 4 * K,
+                          int(n * params.kmeans_trainset_fraction)))
+        rng = np.random.default_rng(params.seed)
+        with stage("sample"):
+            tr_idx = np.sort(rng.choice(n, n_train, replace=False))
+            say(f"sampling {n_train} train rows")
+            if hasattr(dataset, "sample_rows"):  # device-chunk provider
+                trainset = on_device(dataset.sample_rows(tr_idx))
+            else:
+                trainset = _retry.retry_call(
+                    lambda: on_device(dataset[tr_idx]),
+                    site="build.train_sample", policy=_retry.IO_POLICY)
+        del tr_idx
+        say("training quantizers (coarse kmeans + rotation + codebooks)")
+        with stage("train"):
+            centers, rotation, centers_rot, codebooks = _train_quantizers(
+                trainset, params, dim, pq_dim, pq_len, K,
+                RngState(params.seed), km)
+        del trainset
+        if ck is not None:
+            # the state a resume must not retrain; f32 round-trips exactly
+            ck.save_arrays("quantizers",
+                           centers=centers.cpu().numpy(),
+                           rotation=rotation.cpu().numpy(),
+                           centers_rot=centers_rot.cpu().numpy(),
+                           codebooks=codebooks.cpu().numpy())
+            ck.write_manifest({**base_manifest, "phase": "label"})
+    say("quantizers trained; label pass")
+
+    # 2. the streaming label pass → list capacity (loaded when the resume
+    # manifest says the pass completed)
+    avg = max(1, n // params.n_lists)
+    have_labels = (manifest is not None
+                   and manifest.get("phase") in ("encode", "done"))
+    if have_labels:
+        say("resume: loading label pass from checkpoint")
+        labels = np.asarray(ck.load_arrays("labels")["labels"], np.int32)
+        expects(labels.shape[0] == n,
+                "resume label checkpoint holds %d rows, dataset has %d",
+                labels.shape[0], n)
+        L = int(manifest["L"])
+        counts = np.bincount(labels[labels < params.n_lists],
+                             minlength=params.n_lists)
+    elif params.spill:
+        # the nearest SPILL_DEPTH centers, then cap and spill: L is the
+        # cap itself, not the skewed largest load
+        NC = min(ic.SPILL_DEPTH, params.n_lists)
+        lk = np.empty((n, NC), np.int32)
+        for a in range(0, n, chunk_rows):
+            cancellation_point()
+            b = min(n, a + chunk_rows)
+            x = read_chunk(a, b)
+            with stage("label"):
+                lk[a:b] = kmeans_balanced.predict_topk(centers, x, NC,
+                                                       km).cpu().numpy()
+            del x
+            if a % (8 * chunk_rows) == 0:
+                say(f"labeled {b}/{n}")
+        L = ic._lane_round(int(avg * params.list_size_cap_factor))
+        say("spilling assignments")
+        with stage("spill"):
+            cols = [to_device(lk[:, c], dev) for c in range(NC)]
+            del lk
+            labels = ic.spill_assignments(cols[0], cols[1], params.n_lists,
+                                          L, *cols[2:]).cpu().numpy()
+            del cols
+        n_spill_drop = int((labels >= params.n_lists).sum())
+        if n_spill_drop:
+            _log.warn("ivf_pq chunked build: %d rows overflowed every spill "
+                      "choice at cap %d", n_spill_drop, L)
+        counts = np.bincount(labels[labels < params.n_lists],
+                             minlength=params.n_lists)
+    else:
+        labels = np.empty(n, np.int32)
+        for a in range(0, n, chunk_rows):
+            cancellation_point()  # chunk seams are cancellation points
+            b = min(n, a + chunk_rows)
+            x = read_chunk(a, b)
+            with stage("label"):
+                labels[a:b] = kmeans_balanced.predict(centers, x,
+                                                      km).cpu().numpy()
+            del x
+        counts = np.bincount(labels, minlength=params.n_lists)
+        L = ic._fit_list_size(counts, avg, params.list_size_cap_factor)
+    if ck is not None and not have_labels:
+        ck.save_arrays("labels", labels=labels)
+        ck.write_manifest({**base_manifest, "phase": "encode", "L": int(L),
+                           "chunks_done": 0})
+    nbytes = packed_nbytes(pq_dim, params.pq_bits)
+
+    # 3. the streaming encode and the host pack
+    def encode_once(lo, hi):
+        xb = read_chunk(lo, hi)
+        with stage("encode"):
+            # the spill marker encodes against the last list, as the JAX
+            # package's clamped gather does; the pack drops those rows
+            lb = to_device(labels[lo:hi], dev).clamp(0, params.n_lists - 1)
+            codes, norms = _encode_with_norms(xb, rotation, centers_rot, lb,
+                                              codebooks)
+            return (pack_bits(codes, params.pq_bits).cpu().numpy(),
+                    norms.cpu().numpy())
+
+    def encode_range(lo, hi):
+        """Encode rows [lo, hi) → host (packed codes, norms). A chunk out
+        of memory is halved and retried (each row encodes alone, so
+        halving changes nothing but the peak), down to 1024 rows."""
+        try:
+            return encode_once(lo, hi)
+        except Exception as e:
+            if not _degrade.is_resource_exhausted(e) or hi - lo <= 1024:
+                raise
+        # past the handler: the failed attempt's tensors are released
+        _degrade.note_step("ivf_pq.build_chunked", "chunk", "half_chunk",
+                           "resource_exhausted")
+        _log.warn("ivf_pq chunked build: RESOURCE_EXHAUSTED encoding rows "
+                  "[%d, %d) — halving the chunk", lo, hi)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        mid = (lo + hi) // 2
+        c1, n1 = encode_range(lo, mid)
+        c2, n2 = encode_range(mid, hi)
+        return np.concatenate([c1, c2]), np.concatenate([n1, n2])
+
+    chunks_done = int(manifest.get("chunks_done", 0)) if have_labels else 0
+    packed = np.zeros((params.n_lists, L, nbytes), np.uint8)
+    # global ids a + row ∈ [0, n) in the policy width of n
+    ids = np.full((params.n_lists, L), -1, _ids.np_id_dtype(n))
+    pnorm = np.zeros((params.n_lists, L), np.float32)
+    cursor = np.zeros(params.n_lists, np.int64)  # next free slot per list
+    dropped = 0
+    for ci, a in enumerate(range(0, n, chunk_rows)):
+        b = min(n, a + chunk_rows)
+        if ci < chunks_done:
+            # completed before the interruption: replay its shard (no
+            # device work) so the pack below is the same
+            shard = ck.load_shard(ci)
+            codes_h = np.asarray(shard["codes"], np.uint8)
+            norms_h = np.asarray(shard["norms"], np.float32)
+            expects(codes_h.shape[0] == b - a,
+                    "resume shard %d holds %d rows, expected %d — corrupt "
+                    "checkpoint; refusing to resume",
+                    ci, codes_h.shape[0], b - a)
+            _count_resume("resume.chunks_replayed")
+        else:
+            cancellation_point()
+            _faults.faultpoint("build.chunk_encode")
+            codes_h, norms_h = encode_range(a, b)
+            if ck is not None:
+                # the shard before the manifest that records it: a death
+                # between the two re-encodes one chunk
+                ck.save_shard(ci, codes=codes_h, norms=norms_h)
+                ck.write_manifest({**base_manifest, "phase": "encode",
+                                   "L": int(L), "chunks_done": ci + 1})
+        with stage("pack"):
+            lb_h = labels[a:b]
+            order, sorted_l, slot = _stable_slots(lb_h, params.n_lists,
+                                                  cursor)
+            keep = (slot < L) & (sorted_l < params.n_lists)
+            dropped += int((~keep).sum())
+            rows = order[keep]
+            ls, sl = sorted_l[keep], slot[keep].astype(np.int64)
+            packed[ls, sl] = codes_h[rows]
+            ids[ls, sl] = (a + rows).astype(ids.dtype)
+            pnorm[ls, sl] = norms_h[rows]
+            cursor = np.minimum(
+                cursor + np.bincount(lb_h, minlength=params.n_lists)[
+                    :params.n_lists], L)
+        if a % (8 * chunk_rows) == 0:
+            say(f"encoded {b}/{n}")
+    if ck is not None:
+        ck.write_manifest({**base_manifest, "phase": "done", "L": int(L),
+                           "chunks_done": -(-n // chunk_rows)})
+    if dropped:
+        _log.warn("ivf_pq chunked build: dropped %d overflow vectors",
+                  dropped)
+    with stage("upload"):
+        index = IvfPqIndex(
+            centers=centers, centers_rot=centers_rot, rotation=rotation,
+            codebooks=codebooks, packed_codes=_upload(packed, dev),
+            packed_ids=_upload(ids, dev), packed_norms=_upload(pnorm, dev),
+            list_sizes=torch.from_numpy(np.minimum(counts, L).astype(
+                np.int32)).to(dev),
+            metric=mt.value, codebook_kind="per_subspace",
+            pq_bits=params.pq_bits, pq_dim_static=pq_dim)
+    del packed, ids, pnorm
+    if _want_recon_cache(params, params.n_lists, L, rot_dim, dev):
+        with stage("recon_cache"):
+            index.packed_recon = _build_recon_cache(index)
+    say("done")
+    return index
+
+
 def extend(index: IvfPqIndex, new_vectors, new_ids=None) -> IvfPqIndex:
     """Append vectors (reference: ivf_pq::extend): encode against the
     existing centers and codebooks, then re-pack with the lists grown to
@@ -515,7 +885,8 @@ def extend(index: IvfPqIndex, new_vectors, new_ids=None) -> IvfPqIndex:
     km = KMeansBalancedParams(metric="cosine" if spherical else "l2")
     dev = index.device
     _precision.enforce()
-    _check_unfolded(index.packed_codes, index.pq_dim, index.pq_bits)
+    codes_in = _unfold_codes(index.packed_codes, index.max_list_size,
+                             index.pq_dim, index.pq_bits)
     x = to_device(new_vectors, dev, torch.float32)
     if mt == DistanceType.CosineExpanded:
         x = x / torch.sqrt((x * x).sum(-1, keepdim=True).clamp_min(1e-12))
@@ -530,11 +901,11 @@ def extend(index: IvfPqIndex, new_vectors, new_ids=None) -> IvfPqIndex:
     new_L = max(L, max(8, -(-int(need.max()) // 8) * 8))
     id_dt = (torch.int64 if torch.int64 in (index.packed_ids.dtype, nid.dtype)
              else torch.int32)
-    packed = torch.zeros((n_lists, new_L, index.packed_codes.shape[2]),
+    packed = torch.zeros((n_lists, new_L, codes_in.shape[2]),
                          dtype=torch.uint8, device=dev)
     ids = torch.full((n_lists, new_L), -1, dtype=id_dt, device=dev)
     pnorm = torch.zeros((n_lists, new_L), device=dev)
-    packed[:, :L] = index.packed_codes
+    packed[:, :L] = codes_in
     ids[:, :L] = index.packed_ids
     pnorm[:, :L] = index.packed_norms
     order, sorted_l, slot = ic.stable_slots(labels, n_lists, old_sizes)
@@ -568,9 +939,10 @@ def save(index: IvfPqIndex, path: str) -> None:
 
 def load(path: str, device="cuda") -> IvfPqIndex:
     """Read an index written by :func:`save` or by the JAX package's
-    ``ivf_pq.save`` (versions 1 and 2) onto ``device``. Folded code
-    storage (a TPU layout) is not ported; the JAX package's lane fold of
-    big code arrays on load is a TPU layout and is not done here."""
+    ``ivf_pq.save`` (versions 1 and 2) onto ``device``. A file with
+    lane-folded codes (the JAX package's layout for code arrays over 1 GB)
+    loads as the row-major view ``[n_lists, L, nb]``; the JAX package's
+    fold on load, a TPU layout, is not done here."""
     dev = resolve_device(device)
     version, meta, a = _ser.load_arrays(path, "ivf_pq")
     expects(version in (1, _SERIAL_VERSION), "unsupported ivf_pq version %d",

@@ -280,8 +280,9 @@ def _lut_shard_args(q_rot, packed, ids, norms, centers_rot, codebooks,
             pq_bits)
     expects(S == pq_dim, "codebooks hold %d subspaces, pq_dim=%d", S, pq_dim)
     expects(nb == (S * pq_bits + 7) // 8 and R == L,
-            "packed codes [%d, %d, %d] are not the unfolded layout for L=%d "
-            "(folded codes are not ported: ROADMAP A9)", n_lists, R, nb, L)
+            "packed codes [%d, %d, %d] are not [n_lists, L, nb] for L=%d "
+            "(ivf_pq.load and from_numpy unfold lane-folded codes)",
+            n_lists, R, nb, L)
     expects(tuple(ids.shape) == (n_lists, L)
             and tuple(norms.shape) == (n_lists, L),
             "ids/norms must be [n_lists, L]")
@@ -1110,8 +1111,9 @@ def ring_lut_scan_kernel_ok(S: int, K: int, P: int, nb: int, Wb: int,
     budget (pallas_kernels.py:1986-2001) replaced by the CUDA kernel's
     own need: a local block (one chunk row's LUT, its member-list table
     and top-ks) that fits the 227 KB of shared memory, at most 16 ranks,
-    and the unfolded code layout (the folded one is not ported: ROADMAP
-    A9). Any mc. ``filtered`` changes nothing: the kernel reads a rank's
+    and codes laid out [n_lists, L, nb] (the port's indexes hold no
+    other layout: ``ivf_pq.load`` and ``from_numpy`` unfold lane-folded
+    codes). Any mc. ``filtered`` changes nothing: the kernel reads a rank's
     keep bytes beside its ids, in no shared memory (the TPU kernel's VMEM
     grew by its filter slots)."""
     if (k > RING_TOPK_MAX_K or n_dev < 2 or n_dev > RING_MAX_RANKS

@@ -123,20 +123,22 @@ def from_numpy(arrays: Dict[str, np.ndarray], meta: Dict, mesh: Mesh
                ) -> ShardedIvfPq:
     """Index from the JAX ``ShardedIvfPq``'s fields as numpy arrays (the
     packed ones with their leading shard axis) and its static fields
-    (``meta``: metric, pq_bits, pq_dim, shard_rows, global_list_cap)."""
+    (``meta``: metric, pq_bits, pq_dim, shard_rows, global_list_cap).
+    Lane-folded codes are taken as their ``[n_lists, L, nb]`` view."""
     n_dev = np.asarray(arrays["packed_codes"]).shape[0]
     expects(n_dev == mesh.size, "index of %d shards on a %d-rank mesh",
             n_dev, mesh.size)
     pq_dim = int(meta.get("pq_dim", 0))
     pq_bits = int(meta.get("pq_bits", 8))
-    expects(np.asarray(arrays["packed_codes"]).shape[-1]
-            == _pq.packed_nbytes(pq_dim, pq_bits),
-            "folded code storage is not ported (ROADMAP A9)")
+    L = np.asarray(arrays["packed_ids"]).shape[2]
     dev0 = mesh.devices[0]
     fields = {name: replicate(to_device(np.asarray(arrays[name]), dev0),
                               mesh) for name in _REPLICATED}
     for name in _SHARDED:
         a = np.asarray(arrays[name])
+        if name == "packed_codes":  # a lane-folded shard as its view
+            a = [_pq._unfold_codes(a[r], L, pq_dim, pq_bits)
+                 for r in range(n_dev)]
         fields[name] = [to_device(a[r], d) for r, d in enumerate(mesh.devices)]
     return ShardedIvfPq(**fields, mesh=mesh, metric=str(meta["metric"]),
                         pq_bits=pq_bits, pq_dim=pq_dim,

@@ -497,6 +497,125 @@ def test_cuda_ring_lut_scan_matches_plain(pq_bits, k, metric, lut_dtype, S,
                      seed=k + n, S=S, ties=ties)
 
 
+def _leg3_ring_operands(dev, n_dev=4, n_lists=8192, L=2440, S=64, P=2,
+                        mc=8, n_probes=64, seed=5):
+    """B8's operands at the shape of ``chip_smoke.py``'s ``[shard leg 3]``
+    (4 ranks on one card, a batch of 32 in chunks of 8, n_probes 64, 512
+    union lists a chunk, 8192 lists of about 610 real rows of 64 one-byte
+    codes, rot 128), made on the card: random codes, ids unique over the
+    ranks, sizes 400–820, Gaussian queries, centers and codebooks."""
+    from raft_tpu_torch.parallel.ivf import _chunk_unions
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    rot = S * P
+    NS = min(mc * n_probes, n_lists)
+    probes = torch.rand((n_dev * mc, n_lists), generator=g, device=dev
+                        ).argsort(1)[:, :n_probes].to(torch.int32)
+    lists, ind = _chunk_unions(probes.view(n_dev, mc, n_probes), NS)
+    qv = torch.randn((n_dev, mc, rot), generator=g, device=dev) * 4
+    centers_rot = torch.randn((n_lists, rot), generator=g, device=dev) * 4
+    cb = torch.randn((S, 256, P), generator=g, device=dev)
+    packed, ids, norms, sizes = [], [], [], []
+    for r in range(n_dev):
+        packed.append(torch.randint(0, 256, (n_lists, L, S), generator=g,
+                                    device=dev, dtype=torch.uint8))
+        ids.append((torch.randperm(n_lists * L, generator=g, device=dev)
+                    .view(n_lists, L) + r * n_lists * L).to(torch.int32))
+        norms.append(torch.rand((n_lists, L), generator=g, device=dev) * 50
+                     + 10)
+        sizes.append(torch.randint(400, 821, (n_lists,), generator=g,
+                                   device=dev, dtype=torch.int32))
+    rep = lambda t: [t] * n_dev  # noqa: E731
+    return ((rep(lists), rep(ind), rep(qv), packed, ids, norms, sizes,
+             rep(centers_rot), rep(cb)),
+            dict(pq_bits=8, pq_dim=S, L=L, lut_dtype="float32"))
+
+
+def test_cuda_ring_lut_scan_is_deterministic():
+    """ROADMAP C5: B8's output for one input is defined by its (key, union
+    position · 256 + column) order, so 200 calls at ``[shard leg 3]``'s
+    shape must give keys and ids bit-equal to the first call's, whatever
+    order the warps take their work items in."""
+    dev = _ring_devices(1)[0]
+    ops, kw = _leg3_ring_operands(dev)
+    first = K.ring_lut_scan_merge(*ops, 10, "l2", **kw)
+    torch.cuda.synchronize()
+    assert sum(int((i >= 0).sum()) for i in first[1]) == 4 * 8 * 10
+    differ = []
+    for call in range(1, 200):
+        kv, ki = K.ring_lut_scan_merge(*ops, 10, "l2", **kw)
+        if not all(torch.equal(a, b) for a, b in zip(kv + ki,
+                                                      first[0] + first[1])):
+            differ.append(call)
+    assert not differ, f"{len(differ)} of 199 calls differ from the first"
+
+
+def test_cuda_fused_ring_search_is_deterministic(monkeypatch):
+    """ROADMAP C5, end to end: ``search_ivf_pq`` on the fused scan-in-ring
+    tier (``RAFT_TPU_RING_FUSED=auto`` on a 4-rank mesh sharing the card,
+    batch 32, n_probes 64, f32 LUT) gives one answer 200 times."""
+    from raft_tpu_torch.bench.dataset import DeviceSynthetic
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.obs import spans
+    from raft_tpu_torch.parallel import ivf as pivf
+    from raft_tpu_torch.parallel import make_mesh
+
+    dev = _ring_devices(1)[0]
+    monkeypatch.setenv("RAFT_TPU_RING_FUSED", "auto")
+    ds = DeviceSynthetic(2_000_000, 128, n_centers=2000, seed=3, device=dev)
+    mesh = make_mesh(4, device=f"cuda:{dev.index}")
+    index = pivf.build_ivf_pq(ivf_pq.IndexParams(
+        n_lists=2048, pq_dim=64, pq_bits=8, kmeans_n_iters=10,
+        cache_reconstruction="never", seed=3), ds.base(), mesh)
+    q = ds.queries(32)
+    sp = ivf_pq.SearchParams(n_probes=64, scan_select="pallas",
+                             lut_dtype="float32")
+    spans.reset()
+    v0, i0 = pivf.search_ivf_pq(sp, index, q, 10, mesh)
+    assert spans.counts()["parallel.merge.dispatch"] == {"ring_fused_scan": 1}
+    differ = []
+    for call in range(1, 200):
+        v, i = pivf.search_ivf_pq(sp, index, q, 10, mesh)
+        if not (torch.equal(v, v0) and torch.equal(i, i0)):
+            differ.append(call)
+    assert not differ, f"{len(differ)} of 199 searches differ from the first"
+
+
+def test_cuda_build_chunked_peak_is_a_chunk_not_the_base():
+    """``ivf_pq.build_chunked`` on a device-chunk provider holds a chunk of
+    rows on the card, never the base: its allocation peak stays below the
+    peak of ``ivf_pq.build`` on the same rows by more than half the base's
+    bytes, and its index holds every row once."""
+    from raft_tpu_torch.bench.dataset import DeviceSyntheticChunks
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    dev = _ring_devices(1)[0]
+    n, d = 4_000_000, 96
+    ds = DeviceSyntheticChunks(n, d, n_centers=2000, seed=5,
+                               chunk_rows=1 << 18, device=dev)
+    p = ivf_pq.IndexParams(n_lists=1024, pq_dim=32, kmeans_n_iters=5,
+                           cache_reconstruction="never", seed=5)
+    peaks = {}
+    for how in ("chunked", "full"):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        base0 = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        if how == "chunked":
+            index = ivf_pq.build_chunked(ds, p, chunk_rows=1 << 18,
+                                         max_train_rows=1 << 19, device=dev)
+        else:
+            index = ivf_pq.build(ds[0:n], p, device=dev)
+        torch.cuda.synchronize(dev)
+        peaks[how] = torch.cuda.max_memory_allocated(dev) - base0
+        ids = index.packed_ids[index.packed_ids >= 0].long()
+        assert ids.numel() == index.size and ids.numel() > 0.99 * n
+        assert torch.equal(torch.unique(ids), torch.sort(ids)[0])
+        del index, ids
+    assert peaks["chunked"] + n * d * 4 // 2 < peaks["full"], peaks
+
+
 def test_cuda_ring_kernels_over_peer_pointers():
     """Ranks alternating over two cards: both ring kernels raise, naming
     ROADMAP A15 (their peer-pointer reads are not shown right yet), and

@@ -213,20 +213,26 @@ def test_resolve_lut_dtype_off_card():
 
 
 def test_unported_paths_raise(corpus):
-    """What the port still refuses: per_cluster codebooks and folded code
-    storage."""
+    """What the port still refuses: per_cluster codebooks, in ``build``,
+    ``build_chunked`` and ``from_numpy``. Folded code storage, refused
+    until ROADMAP A9, is now taken as its [n_lists, L, nb] view."""
     x, q = corpus
     xt = _t(x)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tpq.build(xt, tpq.IndexParams(n_lists=16, pq_dim=16,
                                       codebook_kind="per_cluster"),
                   device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        tpq.build_chunked(x, tpq.IndexParams(n_lists=16, pq_dim=16,
+                                             codebook_kind="per_cluster"),
+                          device="cpu")
     jidx = _jax_index(x)
     arrays, meta = jax_index_arrays(jidx)
     folded = dict(arrays, packed_codes=arrays["packed_codes"].reshape(
         N_LISTS, -1, 128))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tpq.from_numpy(folded, meta, device="cpu")
+    np.testing.assert_array_equal(
+        tpq.from_numpy(folded, meta, device="cpu").packed_codes.numpy(),
+        arrays["packed_codes"])
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tpq.from_numpy(arrays, dict(meta, codebook_kind="per_cluster"),
                        device="cpu")

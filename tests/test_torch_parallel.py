@@ -594,3 +594,57 @@ def test_refined_search_takes_pre_cut_shards(pq_case):
     shards, _ = shard_rows(torch.as_tensor(x), tidx.mesh)
     v1, i1 = tivf.search_ivf_pq(sp, tidx, q, 8, tidx.mesh, dataset=shards)
     assert torch.equal(i0, i1) and torch.equal(v0, v1)
+
+
+def test_fused_scan_is_the_exact_scan_minus_the_bin_rule():
+    """The fused scan-in-ring tier keeps each probed list's two best per
+    strided bin (slot mod 128), as the LUT-scan tier does, so where three
+    or more of a row's exact top-k share a (rank, list, bin) cell it
+    returns the next best instead. ``chip_smoke._bin_rule_picks`` (the
+    reference of the smoke's ``[shard leg 3]`` check) applied to each
+    chunk row's exact top-2k gives the plain fused tier's picks, f64 key
+    ties apart; in this case (lists of ~900 rows, 8 to a bin) the rule
+    drops picks."""
+    import chip_smoke
+
+    n, k = 4, 64
+    c = ring_scan_case(8, n_dev=n, seed=2, L=1000)
+    mc, S = c["mc"], c["S"]
+    cb = c["cb"].astype(np.float64)
+    _, pi = K.ring_lut_scan_merge(*ring_scan_ops(c, ["cpu"] * n), k, "l2",
+                                  pq_bits=8, pq_dim=S, L=c["L"])
+    slot = np.arange(c["L"])
+    valid = (c["ids"] >= 0) & (slot[None, None, :]
+                               < c["list_sizes"][:, :, None])
+
+    class Shards:
+        n_shards = n
+        packed_ids = [torch.tensor(c["ids"][r]) for r in range(n)]
+
+    lost = 0
+    for ch in range(n):
+        for i in range(mc):
+            q = c["qv"][ch, i].astype(np.float64)
+            lut = np.einsum("sp,skp->sk", q.reshape(S, -1), cb)
+            members = c["lists"][ch][c["ind"][ch, :, i] > 0.5]
+            keys, gids = [], []
+            for r in range(n):
+                codes = c["packed"][r, members].astype(np.int64)  # [u, L, S]
+                dot = (c["centers_rot"][members].astype(np.float64) @ q
+                       )[:, None] + lut[np.arange(S), codes].sum(-1)
+                key = c["norms"][r, members] - 2.0 * dot
+                ok = valid[r, members]
+                keys.append(key[ok])
+                gids.append(c["ids"][r, members][ok])
+            keys, gids = np.concatenate(keys), np.concatenate(gids)
+            order = np.argsort(keys, kind="stable")[:2 * k]
+            want, dropped = chip_smoke._bin_rule_picks(
+                Shards, torch.tensor(gids[order]), k)
+            lost += dropped
+            key_of = dict(zip(gids.tolist(), keys.tolist()))
+            got = pi[ch][i].tolist()
+            for j in range(k):
+                if got[j] != want[j]:
+                    a, b = key_of[got[j]], key_of[want[j]]
+                    assert abs(a - b) <= 1e-3 + 1e-4 * abs(b), (ch, i, j)
+    assert lost > 0

@@ -27,6 +27,7 @@ from raft_tpu.core import serialize as jser
 from raft_tpu.neighbors import ivf_flat as jfl
 from raft_tpu.neighbors import ivf_pq as jpq
 from raft_tpu_torch.core import serialize as tser
+from raft_tpu_torch.core.errors import LogicError
 from raft_tpu_torch.neighbors import ivf_flat as tfl
 from raft_tpu_torch.neighbors import ivf_pq as tpq
 
@@ -161,13 +162,23 @@ def test_ivf_pq_files_cross_both_ways(corpus, cache, tmp_path, monkeypatch):
 
 
 def test_ivf_pq_load_refuses_folded_codes(corpus, tmp_path):
+    """A lane-folded file ([n_lists, L·nb/128, 128]) loads as its row-major
+    view [n_lists, L, nb] (ROADMAP queue B, entry 1); what ``load`` still
+    refuses is a code table of any other shape."""
     jidx = _jax_pq(corpus[0], "never")
+    n_lists, L, nb = jidx.packed_codes.shape
     folded = jidx.replace(packed_codes=jidx.packed_codes.reshape(
         16, -1, 128), codes_folded=True)
     path = str(tmp_path / "folded.ivfpq")
     jpq.save(folded, path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tpq.load(path, device="cpu")
+    tidx = tpq.load(path, device="cpu")
+    np.testing.assert_array_equal(tidx.packed_codes.numpy(),
+                                  np.asarray(jidx.packed_codes))
+    other = jidx.replace(packed_codes=jidx.packed_codes.reshape(
+        n_lists, L // 2, 2 * nb))
+    jpq.save(other, str(tmp_path / "other.ivfpq"))
+    with pytest.raises(LogicError, match="neither"):
+        tpq.load(str(tmp_path / "other.ivfpq"), device="cpu")
 
 
 def test_ivf_flat_files_cross_both_ways(corpus, tmp_path, monkeypatch):
