@@ -54,13 +54,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``torch.cuda.OutOfMemoryError`` must be classified (no fault fired),
    walked and recovered, equal to uncapped calls with the final knobs;
 3b. the same path at its target scale, ``[chunked]`` — DEEP-100M-shaped
-   ``DeviceSyntheticChunks`` (100M x 96, ``--chunked-n``, 10,000 centers,
-   1M-row blocks, never materialized): ``ivf_pq.build_chunked`` with
+   ``DeviceSyntheticChunks`` (100M x 96, 10,000 centers, 1M-row blocks,
+   never materialized): ``ivf_pq.build_chunked`` with
    ``tools/build_deep100m.py``'s parameters (8192 lists, pq_dim 64, 8-bit,
-   spill, 10 k-means iterations) but the list cap (``--chunked-cap``,
-   default 4 x the mean load), its seconds by stage and the generator's
-   rate; an unrefined scan of the queries at k_cand 400 (n_probes 64,
-   bf16 LUT, batch 500) in three passes, then the exact re-rank of 1,000
+   spill, 10 k-means iterations) but the list cap, 4 x the mean load
+   (``--chunked-cap`` only reproduces the tool's 1.5), its seconds by
+   stage and the generator's rate; an unrefined scan of the queries at
+   k_cand 400 (n_probes 64, bf16 LUT, batch 500) in three passes, then the exact re-rank of 1,000
    of them by ``refine_provider``; counts zeroed before the build and read
    after the re-rank (fused_l2_argmin, select_k and the LUT scan must have
    launched); checks: every row indexed once or counted as dropped,
@@ -166,6 +166,7 @@ SHARD_RANKS = 4
 SHARD_KERNELS = PQ_KERNELS + ("ring_topk_merge", "ring_lut_scan_merge")
 # The [chunked] phase: the DEEP-100M shape (BASELINE.md target 3), built
 # by ivf_pq.build_chunked; its resume check at a smaller row count.
+CHUNKED_N = 100_000_000
 CHUNKED_DIM = 96
 CHUNKED_RESUME_N = 4_000_000
 
@@ -1452,25 +1453,6 @@ def flat_filter_leg(index, index_cpu, base, queries, k, nq, n_gt, n_pl):
             "launches": launches}
 
 
-def _capture_drops():
-    """A log callback that collects the rows the chunked build reports it
-    dropped from the pack (spill overflow included). Returns (list,
-    restore)."""
-    import re
-
-    from raft_tpu_torch.core import logging as tlog
-
-    seen = []
-
-    def sink(level, msg):
-        m = re.search(r"dropped (\d+) overflow vectors", msg)
-        if m:
-            seen.append(int(m.group(1)))
-
-    tlog.set_callback(sink)
-    return seen, lambda: tlog.set_callback(None)
-
-
 def _check_chunked_index(index, n, dropped):
     """The built index holds every row once: valid ids in [0, n), none
     twice, each list's valid slots a prefix of length list_sizes[l], and
@@ -1568,11 +1550,11 @@ def chunked_phase(args, rows):
     """``[chunked]``: the main path at the DEEP-100M shape, built by
     ``ivf_pq.build_chunked`` on a ``DeviceSyntheticChunks`` provider in
     1M-row blocks (``tools/build_deep100m.py:40-50``'s parameters but the
-    list cap: ``--chunked-cap``, by default the package's 4 × the mean
-    load, where the tool's 1.5 drops 13 % of these rows to the spill and
-    caps recall near 0.87), then the bench's search
-    (``tools/deep100m_r5.py:155,188``): the LUT scan at k_cand 400 and the
-    exact re-rank by ``refine_provider``. Checks: the index holds every
+    list cap: the package's 4 × the mean load, where the tool's 1.5 drops
+    13 % of these rows to the spill and caps recall near 0.85;
+    ``--chunked-cap`` exists only to reproduce that reading), then the
+    bench's search (``tools/deep100m_r5.py:155,188``): the LUT scan at
+    k_cand 400 and the exact re-rank by ``refine_provider``. Checks: the index holds every
     row once, recall@10 ≥ 0.95 against the streamed ground truth on 1,000
     queries, and B4, B3 and B1 launched on the path; then B4, B3 and B1
     against their plain versions at the path's shapes, and the resume
@@ -1584,9 +1566,10 @@ def chunked_phase(args, rows):
                                               compute_groundtruth)
     from raft_tpu_torch.neighbors import ivf_common, ivf_pq
     from raft_tpu_torch.neighbors import refine as trefine
+    from raft_tpu_torch.obs import spans
     from raft_tpu_torch.ops import kernels as K
 
-    N, dim, B, k, k_cand = args.chunked_n, CHUNKED_DIM, 500, 10, 400
+    N, dim, B, k, k_cand = CHUNKED_N, CHUNKED_DIM, 500, 10, 400
     nq, n_gt, chunk = args.queries, 1000, 1 << 20
     dev = torch.device("cuda", 0)
     ds = DeviceSyntheticChunks(N, dim, n_centers=10_000, seed=args.seed,
@@ -1606,18 +1589,17 @@ def chunked_phase(args, rows):
          f"{chunk} rows: the generator makes {gen_rate:.0f} rows/s")
 
     # the path: build, scan passes, re-rank; counts zeroed just before
-    drops, restore = _capture_drops()
     stages = {}
+    drop_site = {"site": "ivf_pq.build_chunked"}
+    drops0 = spans.total("ivf_pq.build.dropped", **drop_site)
     K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    try:
-        index = ivf_pq.build_chunked(ds, params, chunk_rows=chunk,
-                                     progress=True, device=dev,
-                                     stage_seconds=stages)
-        torch.cuda.synchronize()
-    finally:
-        restore()
+    index = ivf_pq.build_chunked(ds, params, chunk_rows=chunk,
+                                 progress=True, device=dev,
+                                 stage_seconds=stages)
+    torch.cuda.synchronize()
+    dropped = int(spans.total("ivf_pq.build.dropped", **drop_site) - drops0)
     build_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     L = index.max_list_size
@@ -1630,10 +1612,10 @@ def chunked_phase(args, rows):
         f"{s} {v:.1f}s" for s, v in stages.items())
          + f"; cap factor {params.list_size_cap_factor}, L = {L}; codes "
          f"{codes_gb:.2f} GB; card peak {peak_gb:.2f} GB; rows dropped "
-         f"{sum(drops)}; largest list {int(sizes.max())} rows, "
+         f"{dropped}; largest list {int(sizes.max())} rows, "
          f"{int((over > 0).sum())} lists hold {int(over.sum())} rows past "
          f"1.5 x the mean load ({cap15})")
-    _check_chunked_index(index, N, sum(drops))
+    _check_chunked_index(index, N, dropped)
 
     queries = ds.queries(nq)
     sp = ivf_pq.SearchParams(n_probes=64, scan_select="pallas",
@@ -1712,7 +1694,7 @@ def chunked_phase(args, rows):
     return {"n": N, "dim": dim, "n_lists": 8192, "pq_dim": 64,
             "max_list_size": L, "build_s": build_s, "build_stages_s": stages,
             "generator_rows_per_s": gen_rate, "card_peak_gb": peak_gb,
-            "rows_dropped": sum(drops), "scan_qps_runs": qps,
+            "rows_dropped": dropped, "scan_qps_runs": qps,
             "rerank_s": rerank_s, "recall_at_10": rec,
             "recall_at_10_candidates": rec_cand, "candidate_cover": cover,
             "groundtruth_s": gt_s, "launches": launches, "resume": resume}
@@ -2074,10 +2056,11 @@ def _bin_rule_picks(index, ranked, k):
     first) that survive the LUT-bin tier's selection: a list's rows fall
     into 128 strided bins (slot mod 128) and each bin keeps its two best,
     so a pick with two better picks in its (rank, list, bin) cell is
-    dropped. Returns (ids, count dropped before the k-th survivor)."""
+    dropped. Returns (ids, [(id, cell)] dropped before the k-th
+    survivor)."""
     import torch
 
-    seen, out, lost = {}, [], 0
+    seen, out, lost = {}, [], []
     for gid in ranked.tolist():
         if gid < 0 or len(out) == k:
             break
@@ -2090,7 +2073,7 @@ def _bin_rule_picks(index, ranked, k):
             raise SmokeFailure(f"id {gid} is in no shard")
         seen[cell] = seen.get(cell, 0) + 1
         if seen[cell] > 2:
-            lost += 1
+            lost.append((gid, cell))
         else:
             out.append(gid)
     return out + [-1] * (k - len(out)), lost
@@ -2375,7 +2358,8 @@ def sharded_phase(args, rows):
             raise SmokeFailure(f"fused leg ({mode}) took {d}, not {want}")
     os.environ.pop("RAFT_TPU_RING_FUSED", None)
     (fv, fi), (uv, ui) = res["on"], res["off"]
-    n_swap = n_binned = 0
+    n_swap = 0
+    binned = []  # every row where the bin rule dropped a pick, with keys
     for row in sorted({r for r, _ in torch.nonzero(fi != ui).tolist()}):
         # the fused tier keeps a list's two best per strided bin, as the
         # LUT-scan tier does (its contract); the unfused search is exact.
@@ -2387,9 +2371,15 @@ def sharded_phase(args, rows):
                                 mesh)[1][0]
         os.environ.pop("RAFT_TPU_RING_FUSED", None)
         want, lost = _bin_rule_picks(index, u2, k)
-        n_binned += lost
         q_rot = queries[row] @ index.rotation[0].T
         qsq = float((q_rot.double() ** 2).sum())
+        if lost:
+            binned.append({
+                "row": row, "fused": fi[row].tolist(), "reference": want,
+                "dropped": [{"id": gid, "rank_list_bin": list(cell),
+                             "f64_key": _adc_key64(index, q_rot, gid) + qsq}
+                            for gid, cell in lost]})
+            _log(f"[shard leg 3 bin rule] {json.dumps(binned[-1])}")
         for j in range(k):
             if int(fi[row, j]) == want[j]:
                 continue
@@ -2404,15 +2394,15 @@ def sharded_phase(args, rows):
                     f"{int(fi[row, j])} f64 key {d_f:.9g}, reference id "
                     f"{want[j]} f64 key {d_u:.9g}; fused row "
                     f"{fi[row].tolist()}, unfused row {ui[row].tolist()}, "
-                    f"{lost} dropped by the bin rule)")
+                    f"{len(lost)} dropped by the bin rule)")
             n_swap += 1
     _log(f"[shard leg 3] batch {bf}, n_probes 64, f32 LUT: fused "
          f"scan-in-ring per call ms median {np.median(lat['on']):.3f} "
          f"(min {min(lat['on']):.3f}), unfused (per_query scan + ring) "
          f"median {np.median(lat['off']):.3f} (min {min(lat['off']):.3f}); "
          f"ids equal over {n_f * bf} queries but {n_swap} picks at f64 key "
-         f"ties and {n_binned} ids a list's strided bin dropped (its two "
-         f"best kept)")
+         f"ties and {sum(len(b['dropped']) for b in binned)} ids a list's "
+         f"strided bin dropped (its two best kept), in {len(binned)} rows")
     launches = K.launch_counts()
     _log(f"[shard] launches {json.dumps(launches)}")
     missing = [n for n in SHARD_KERNELS if launches[n] == 0]
@@ -2510,6 +2500,7 @@ def sharded_phase(args, rows):
             "recall_plain_200": rec_plain,
             "fused_ms_median": float(np.median(lat["on"])),
             "unfused_ms_median": float(np.median(lat["off"])),
+            "fused_bin_rule_rows": binned,
             "byte_model": byte_model, "batch_stages_ms": stages_ms,
             "launches": launches, "filter": filt_summary}
 
@@ -2652,7 +2643,6 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--batch", type=int, default=500)
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--chunked-n", type=int, default=100_000_000)
     ap.add_argument("--chunked-cap", type=float, default=4.0)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()

@@ -11,7 +11,6 @@ the dtype of the whole mesh's row count: the product overflows int32 past
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 INT32_MAX_ROWS = 2**31 - 1
@@ -20,12 +19,6 @@ INT32_MAX_ROWS = 2**31 - 1
 def id_dtype(n_rows: int) -> torch.dtype:
     """int32 while every id of ``n_rows`` rows fits, int64 beyond."""
     return torch.int32 if int(n_rows) <= INT32_MAX_ROWS else torch.int64
-
-
-def np_id_dtype(n_rows: int):
-    """Host (numpy) twin of :func:`id_dtype`: the chunked build stamps
-    global ids into a host id table."""
-    return np.int32 if int(n_rows) <= INT32_MAX_ROWS else np.int64
 
 
 def make_ids(n: int, device=None, start: int = 0) -> torch.Tensor:

@@ -525,23 +525,6 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
     return index
 
 
-def _stable_slots(labels: np.ndarray, n_lists: int,
-                  base: Optional[np.ndarray] = None):
-    """Each row's (list, slot) address from one stable sort, on the host
-    (a copy of the JAX package's): row ``order[i]`` goes to
-    ``(sorted_l[i], slot[i])``; ``base`` offsets slots by the lists'
-    current fill. Rows with the spill marker (label n_lists) rank in a
-    group of their own, which every caller drops."""
-    n = len(labels)
-    order = np.argsort(labels, kind="stable")
-    sorted_l = labels[order]
-    starts = np.searchsorted(sorted_l, np.arange(n_lists + 1))
-    rank = np.arange(n) - starts[sorted_l]
-    slot = rank if base is None else base[np.clip(sorted_l, 0,
-                                                  n_lists - 1)] + rank
-    return order, sorted_l, slot
-
-
 def _count_resume(name: str, value: float = 1.0) -> None:
     """``resume.*{site=ivf_pq.build_chunked}``, the JAX package's
     counters (always on here, as every ``obs.spans`` counter is)."""
@@ -809,7 +792,7 @@ def build_chunked(dataset, params: Optional[IndexParams] = None,
     chunks_done = int(manifest.get("chunks_done", 0)) if have_labels else 0
     packed = np.zeros((params.n_lists, L, nbytes), np.uint8)
     # global ids a + row ∈ [0, n) in the policy width of n
-    ids = np.full((params.n_lists, L), -1, _ids.np_id_dtype(n))
+    ids = torch.full((params.n_lists, L), -1, dtype=_ids.id_dtype(n)).numpy()
     pnorm = np.zeros((params.n_lists, L), np.float32)
     cursor = np.zeros(params.n_lists, np.int64)  # next free slot per list
     dropped = 0
@@ -838,8 +821,9 @@ def build_chunked(dataset, params: Optional[IndexParams] = None,
                                    "L": int(L), "chunks_done": ci + 1})
         with stage("pack"):
             lb_h = labels[a:b]
-            order, sorted_l, slot = _stable_slots(lb_h, params.n_lists,
-                                                  cursor)
+            order, sorted_l, slot = (t.numpy() for t in ic.stable_slots(
+                torch.from_numpy(lb_h), params.n_lists,
+                torch.from_numpy(cursor)))
             keep = (slot < L) & (sorted_l < params.n_lists)
             dropped += int((~keep).sum())
             rows = order[keep]
@@ -855,6 +839,8 @@ def build_chunked(dataset, params: Optional[IndexParams] = None,
     if ck is not None:
         ck.write_manifest({**base_manifest, "phase": "done", "L": int(L),
                            "chunks_done": -(-n // chunk_rows)})
+    _obs_spans.inc("ivf_pq.build.dropped", dropped,
+                   site="ivf_pq.build_chunked")
     if dropped:
         _log.warn("ivf_pq chunked build: dropped %d overflow vectors",
                   dropped)

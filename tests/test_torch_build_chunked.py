@@ -223,8 +223,10 @@ def test_port_finishes_a_jax_label_phase(spill, root, tmp_path):
                             chunk_rows=CHUNK, checkpoint_dir=str(d),
                             resume=True, device="cpu")
     labels = tck.BuildCheckpoint(str(d)).load_arrays("labels")["labels"]
-    if _label_ties(labels, ref["labels"], x, ref["arrays"]["centers"]) == 0:
-        _assert_index_matches(_arrays(got), ref["arrays"], x, 0)
+    # the fixtures label with no f64 argmin tie, so the index is held too
+    assert _label_ties(labels, ref["labels"], x,
+                       ref["arrays"]["centers"]) == 0
+    _assert_index_matches(_arrays(got), ref["arrays"], x, 0)
     assert tspans.total("resume.chunks_replayed", site=SITE) == 0
 
 
@@ -445,6 +447,20 @@ def test_oom_at_encode_halves_the_chunk():
         (SITE, "half_chunk")]
     for name, a in got.items():
         np.testing.assert_array_equal(a, clean[name], name)
+
+
+@pytest.mark.parametrize("spill,cap", [(False, 0.5), (True, 0.5)])
+def test_dropped_rows_are_counted(spill, cap):
+    """A list cap below the largest list drops rows from the pack; the
+    build counts them in ``ivf_pq.build.dropped{site=...}``, and they are
+    the rows the lists do not hold."""
+    x = _data(spill)
+    kw = {**_kw(spill), "list_size_cap_factor": cap}
+    got = tpq.build_chunked(x, tpq.IndexParams(**kw), chunk_rows=CHUNK,
+                            device="cpu")
+    dropped = tspans.total("ivf_pq.build.dropped", site=SITE)
+    assert dropped > 0
+    assert dropped == len(x) - int(got.list_sizes.sum())
 
 
 def test_folded_jax_file_loads_and_searches(root, tmp_path):

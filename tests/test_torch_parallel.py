@@ -640,7 +640,7 @@ def test_fused_scan_is_the_exact_scan_minus_the_bin_rule():
             order = np.argsort(keys, kind="stable")[:2 * k]
             want, dropped = chip_smoke._bin_rule_picks(
                 Shards, torch.tensor(gids[order]), k)
-            lost += dropped
+            lost += len(dropped)
             key_of = dict(zip(gids.tolist(), keys.tolist()))
             got = pi[ch][i].tolist()
             for j in range(k):
