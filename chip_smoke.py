@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``raft_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--n ROWS] [--queries M] [--seed S]
+    python3 chip_smoke.py [--n ROWS] [--queries M] [--seed S] [--obs-dir DIR]
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 
@@ -53,6 +53,26 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    allocator below one native search's peak a real
    ``torch.cuda.OutOfMemoryError`` must be classified (no fault fired),
    walked and recovered, equal to uncapped calls with the final knobs;
+   then ``[obs …]`` (ROADMAP A13; the build above ran with observability
+   on, no sync mode, every search pass before with it off): ``[obs
+   spans]`` ten refined batches under sync-mode recording spans, each
+   span's count, median and p99 (the children's sum within the root's
+   within the wall time; the root's median within 25 % of ``[stages]``'s
+   ``search_total``); ``[obs hbm]`` the ``hbm.*`` gauges equal to
+   ``torch.cuda.memory_stats()`` and ``bytes_limit`` following a memory
+   fraction; ``[obs index]`` ``describe_index`` of the index (list skew,
+   drift over 256 lists, PQ error on 2,048 rows) and the build's
+   ``index.*{index=ivf_pq.build}`` gauges; ``[obs timeline]`` the event
+   ring exported as a Chrome trace and loaded back with every span name,
+   a flight dump with metrics, events and the fleet stamp, and
+   ``ExpoServer``'s ``/metrics`` parsed back to the registry's series;
+   ``[obs prof]`` 20 warm refined batches under ``obs.prof.capture``
+   (``torch.profiler``), the device time of the top 10 kernels by name
+   and the device idle share of the window, B1–B3 named in it and B4 in
+   a capture of one ``fused_l2_argmin`` call; ``[obs off]`` the cost of
+   a disabled span (32 of them under 2 % of a batch) and a refined batch
+   under ``sanitize.no_host_transfers()`` (any host sync is logged with
+   its line, and fails the leg); ``--obs-dir DIR`` keeps the leg's files;
 3b. the same path at its target scale, ``[chunked]`` — DEEP-100M-shaped
    ``DeviceSyntheticChunks`` (100M x 96, 10,000 centers, 1M-row blocks,
    never materialized): ``ivf_pq.build_chunked`` with
@@ -1044,6 +1064,350 @@ def resilient_leg(index, base, queries, sp, B, k):
             "oom_cap_gib": cap / 2**30, "oom_walk_s": walk_s,
             "oom_launches": launches_b}
 
+
+# the port's kernels by the name of their CUDA entry in the profiler's
+# trace (ops/csrc/*.cu) → the TPU kernel each replaces
+PROF_KERNELS = (
+    ("B1", "ivfpq_lut_scan_topk", ("lut_scan_kernel",)),
+    ("B2", "gather_refine_topk", ("gather_refine_kernel",)),
+    ("B3", "select_k", ("select_k_short", "select_k_long")),
+    ("B4", "fused_l2_argmin", ("fused_l2_argmin_kernel",)),
+    ("B5", "segmented_scan_topk", ("segmented_scan_kernel",)),
+    ("B6", "grouped_scan_topk", ("grouped_scan_kernel",)),
+    ("B7", "ring_topk_merge", ("ring_chain_kernel",)),
+    ("B8", "ring_lut_scan_merge", ("ring_local_kernel",)),
+)
+# the profiler's device activities: kernels, copies, fills
+PROF_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _kernel_id(name: str):
+    for bid, _, entries in PROF_KERNELS:
+        if any(e in name for e in entries):
+            return bid
+    return None
+
+
+def read_profile(path: str):
+    """The device activities of a ``torch.profiler`` Chrome trace (what
+    ``obs.prof.capture`` wrote): per name, launches and total ms (top
+    first), the B-ids seen, and the device idle share — 1 − the union of
+    the kernel, copy and fill intervals over the window from the first
+    activity's start to the last one's end."""
+    with open(path) as f:
+        doc = json.load(f)
+    events = [e for e in doc.get("traceEvents", [])
+              if e.get("ph") == "X" and e.get("cat") in PROF_DEVICE_CATS]
+    if not events:
+        raise SmokeFailure(f"[obs prof] the trace {path} holds no device "
+                           "activity")
+    by_name = {}
+    for e in events:
+        n, ms = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, ms + float(e["dur"]) / 1e3)
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events)
+    busy, cur_a, cur_b = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_b:
+            busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    busy += cur_b - cur_a
+    window = max(b for _, b in spans) - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    return {"top": [{"name": n, "id": _kernel_id(n), "launches": c,
+                     "ms": round(ms, 3)} for n, (c, ms) in top],
+            "ids": sorted({_kernel_id(n) for n in by_name} - {None}),
+            "window_ms": window / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / window if window > 0 else 0.0}
+
+
+def obs_leg(args, index, base, queries, sp, B, k, stages_ms, build_reg):
+    """``[obs …]`` on the IVF-PQ phase's index (ROADMAP A13): the main
+    path under recording spans, the device-memory gauges, the index's
+    health, the timeline, flight dump and exposition, the profile of the
+    refined batches, and the cost of spans with observability off. Every
+    check raises SmokeFailure; returns the summary."""
+    import shutil
+    import tempfile
+    import urllib.error
+    import urllib.request
+    import warnings
+
+    import torch
+
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.core import tracing
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.obs import (expo, flight, hbm, index_stats, prof,
+                                    sanitize, trace)
+    from raft_tpu_torch.obs.metrics import quantile_from_state
+    from raft_tpu_torch.ops import kernels as K
+
+    out_dir = args.obs_dir or tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    os.makedirs(out_dir, exist_ok=True)
+    n_b = 10
+    batches = [queries[a:a + B] for a in range(0, n_b * B, B)]
+
+    def run(qs):
+        return [ivf_pq.search(index, q, k, sp, dataset=base) for q in qs]
+
+    run(batches[:2])  # warm
+    torch.cuda.synchronize()
+
+    # [obs spans]: ten refined batches under sync-mode spans
+    reg = obs.MetricsRegistry()
+    trace.get_buffer().clear()
+    obs.enable(sync=True, events=True, registry=reg)
+    try:
+        t0 = time.perf_counter()
+        res = run(batches)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        hists = {n[len("span."):]: st
+                 for n, st in reg.snapshot()["histograms"].items()
+                 if n.startswith("span.")}
+        durs = {}
+        for e in trace.get_buffer().snapshot():
+            if e.get("ph") == "X":
+                durs.setdefault(e["name"], []).append(e["dur"])
+        rows = {}
+        for name, st in sorted(hists.items()):
+            ds = sorted(durs.get(name, []))
+            rows[name] = {
+                "count": st["count"],
+                "median_ms": 1e3 * ds[len(ds) // 2] if ds else None,
+                "p50_ms": 1e3 * quantile_from_state(st, 0.5),
+                "p99_ms": 1e3 * quantile_from_state(st, 0.99),
+                "sum_ms": 1e3 * st["sum"]}
+        _log(f"[obs spans] {n_b} refined batches of {B}, sync mode, "
+             f"device ms by span (count, exact median from the event ring, "
+             f"the histogram's p50 and p99): {json.dumps(rows)}; wall "
+             f"{wall_s * 1e3:.2f} ms")
+        root = "ivf_pq.search"
+        if rows.get(root, {}).get("count") != n_b:
+            raise SmokeFailure(f"[obs spans] root span count "
+                               f"{rows.get(root)} for {n_b} batches")
+        need = [f"{root}.ivf_pq.search", f"{root}.ivf_pq.search.scan",
+                f"{root}.refine", f"{root}.refine.fused_scan"]
+        missing = [n for n in need if rows.get(n, {}).get("count") != n_b]
+        if missing:
+            raise SmokeFailure(f"[obs spans] spans missing or miscounted: "
+                               f"{missing}")
+        stage_sum = sum(rows[n]["sum_ms"] for n in
+                        (f"{root}.ivf_pq.search", f"{root}.refine"))
+        root_sum = rows[root]["sum_ms"]
+        if not stage_sum <= root_sum <= wall_s * 1e3:
+            raise SmokeFailure(f"[obs spans] stages {stage_sum:.3f} ms, root "
+                               f"{root_sum:.3f} ms, wall "
+                               f"{wall_s * 1e3:.3f} ms: not nested")
+        med = rows[root]["median_ms"]
+        ref = stages_ms["search_total"]
+        _log(f"[obs spans] stages {stage_sum:.3f} ms <= root "
+             f"{root_sum:.3f} ms <= wall {wall_s * 1e3:.3f} ms; root median "
+             f"{med:.3f} ms against [stages] search_total {ref:.3f} ms "
+             f"({(med - ref) / ref:+.1%}); build spans (obs on, no sync): "
+             + json.dumps({n[len("span."):]: round(st["sum"], 3) for n, st
+                           in build_reg.snapshot()["histograms"].items()}))
+        if abs(med - ref) > 0.25 * ref:
+            raise SmokeFailure(f"[obs spans] root median {med:.3f} ms is more "
+                               f"than 25 % from search_total {ref:.3f} ms")
+
+        # [obs hbm]
+        g = reg.snapshot()["gauges"]
+        sampled = {n: g.get(n) for n in ("hbm.bytes_in_use",
+                                         "hbm.peak_bytes",
+                                         "hbm.bytes_limit")}
+        hbm.sample(reg)
+        stats = torch.cuda.memory_stats()
+        g = reg.snapshot()["gauges"]
+        total = torch.cuda.get_device_properties(0).total_memory
+        _log(f"[obs hbm] at the last root span's exit: "
+             f"{json.dumps(sampled)}; sampled again: in use "
+             f"{g['hbm.bytes_in_use']:.0f}, peak {g['hbm.peak_bytes']:.0f}, "
+             f"limit {g['hbm.bytes_limit']:.0f}; memory_stats: allocated "
+             f"{stats['allocated_bytes.all.current']}, peak "
+             f"{stats['allocated_bytes.all.peak']}")
+        if (g["hbm.bytes_in_use"] != stats["allocated_bytes.all.current"]
+                or g["hbm.peak_bytes"] != stats["allocated_bytes.all.peak"]
+                or sampled["hbm.bytes_in_use"] is None):
+            raise SmokeFailure("[obs hbm] gauges differ from memory_stats")
+        try:
+            torch.cuda.set_per_process_memory_fraction(0.9)
+            capped = hbm.bytes_limit()
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        _log(f"[obs hbm] bytes_limit {hbm.bytes_limit()} of {total}; at "
+             f"fraction 0.9: {capped}")
+        if capped != int(total * 0.9) or hbm.bytes_limit() != total:
+            raise SmokeFailure("[obs hbm] bytes_limit does not follow the "
+                               "memory fraction")
+
+        # [obs index]
+        t0 = time.perf_counter()
+        desc = index_stats.describe_index(index, base, sample_rows=2048,
+                                          max_lists=256)
+        desc_s = time.perf_counter() - t0
+        pq = desc.get("pq") or {}
+        _log(f"[obs index] describe_index of the {index.size}-row index in "
+             f"{desc_s:.2f} s: lists {json.dumps(desc.get('lists'))}; drift "
+             f"{json.dumps(desc.get('drift'))}; pq error over "
+             f"{pq.get('rows_sampled')} rows: mean {pq.get('mean')}, max "
+             f"{pq.get('max')}, rel {pq.get('rel_error')}"
+             + (f"; error {desc['error']}" if "error" in desc else ""))
+        bg = build_reg.snapshot()["gauges"]
+        cheap = {n: v for n, v in bg.items()
+                 if n.startswith("index.") and "{index=ivf_pq.build}" in n}
+        _log(f"[obs index] the build's gauges: {json.dumps(cheap)}")
+        if ("error" in desc or not desc.get("drift") or not pq
+                or cheap.get("index.n_lists{index=ivf_pq.build}")
+                != index.n_lists
+                or "index.list_cv{index=ivf_pq.build}" not in cheap):
+            raise SmokeFailure("[obs index] index stats or the build's "
+                               "gauges are missing")
+
+        # [obs timeline]
+        tl_path = os.path.join(out_dir, "timeline.json")
+        n_ev = trace.export_chrome(tl_path)
+        doc = trace.load(tl_path)
+        names = {e["name"] for e in doc["traceEvents"] if e.get("ph") == "X"}
+        lost = sorted(set(hists) - names)
+        dump = flight.dump_now(reason="chip_smoke", dump_dir=out_dir)
+        flight.uninstall()
+        with open(dump) as f:
+            fd = json.load(f)
+        fleet = fd.get("fleet") or {}
+        server = expo.ExpoServer(port=0, registry=reg).start()
+        try:
+            with urllib.request.urlopen(server.url + "/metrics",
+                                        timeout=30) as r:
+                text = r.read().decode()
+            codes = {}
+            for route in ("/healthz", "/indexz", "/costz"):
+                try:
+                    with urllib.request.urlopen(server.url + route,
+                                                timeout=30) as r:
+                        codes[route] = r.status
+                except urllib.error.HTTPError as e:
+                    codes[route] = e.code
+        finally:
+            server.stop()
+        parsed = expo.parse_prometheus(text)
+        unserved = sorted({row["name"] for row in reg.collect()
+                           if expo.prom_name(row["name"]) not in parsed})
+        _log(f"[obs timeline] {n_ev} events to {tl_path}, loaded back with "
+             f"{len(names)} span names ({len(lost)} missing); flight dump "
+             f"{dump}: {len(fd.get('events', []))} events, "
+             f"{len(fd.get('metrics', {}).get('histograms', {}))} histograms, "
+             f"fleet run_id {fleet.get('run_id')} pid {fleet.get('pid')}; "
+             f"/metrics {len(text)} bytes, {len(parsed)} families parsed, "
+             f"{len(unserved)} series not served; {json.dumps(codes)}")
+        if (lost or unserved or not fd.get("events")
+                or not fd.get("metrics", {}).get("histograms")
+                or not fleet.get("run_id")
+                or codes != {"/healthz": 200, "/indexz": 404,
+                             "/costz": 404}):
+            raise SmokeFailure(f"[obs timeline] lost spans {lost}, unserved "
+                               f"series {unserved}, routes {codes}")
+    finally:
+        obs.disable()
+    del res
+
+    # [obs prof]: 20 warm refined batches under torch.profiler, obs off
+    prof_batches = [queries[(a % 20) * B:(a % 20 + 1) * B] for a in range(20)]
+    run(prof_batches[:2])
+    cap = prof.capture(out_dir).start()
+    run(prof_batches)
+    cap.stop()
+    if cap.error is not None or cap.path is None:
+        raise SmokeFailure(f"[obs prof] capture failed: {cap.error!r}")
+    main = read_profile(cap.path)
+    x = base[:1 << 20].contiguous()
+    c = index.centers.contiguous()
+    K.fused_l2_argmin(x, c)
+    cap_b = prof.capture(out_dir).start()
+    K.fused_l2_argmin(x, c)
+    cap_b.stop()
+    if cap_b.error is not None or cap_b.path is None:
+        raise SmokeFailure(f"[obs prof] capture failed: {cap_b.error!r}")
+    build = read_profile(cap_b.path)
+    _log(f"[obs prof] 20 refined batches of {B}: device idle share "
+         f"{main['idle_share']:.4f} of a {main['window_ms']:.3f} ms window "
+         f"({main['busy_ms']:.3f} ms busy); top 10 by device time: "
+         + json.dumps(main["top"][:10]))
+    _log(f"[obs prof] one fused_l2_argmin call [{x.shape[0]}, "
+         f"{x.shape[1]}] x [{c.shape[0]}, {c.shape[1]}]: "
+         + json.dumps(build["top"][:3]) + f"; kernels seen "
+         f"{main['ids'] + build['ids']}")
+    seen = set(main["ids"]) | set(build["ids"])
+    if not {"B1", "B2", "B3"} <= set(main["ids"]) or "B4" not in seen:
+        raise SmokeFailure(f"[obs prof] B1–B4 not all named in the profile: "
+                           f"{sorted(seen)}")
+
+    # [obs off]: a disabled span's cost against a batch's time
+    assert not obs.enabled()
+    n = 50_000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with tracing.span("overhead_probe"):
+            pass
+    per_span = (time.perf_counter() - t0) / n
+    t0 = time.perf_counter()
+    for _ in range(n // 5):
+        with torch.profiler.record_function("overhead_probe"):
+            pass
+    per_rf = (time.perf_counter() - t0) / (n // 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(batches)
+    torch.cuda.synchronize()
+    per_batch = (time.perf_counter() - t0) / n_b
+    _log(f"[obs off] one disabled span enter/exit {per_span * 1e6:.3f} us "
+         f"(a record_function range alone {per_rf * 1e6:.3f} us, opened "
+         f"only under a capture); 32 spans {32 * per_span * 1e6:.1f} us = "
+         f"{32 * per_span / per_batch:.4%} of a {per_batch * 1e3:.3f} ms "
+         f"batch")
+    if not 32 * per_span < 0.02 * per_batch:
+        raise SmokeFailure("[obs off] 32 disabled spans cost 2 % or more of "
+                           "a batch")
+    q0 = batches[0]
+    try:
+        with sanitize.no_host_transfers():
+            d0, i0 = ivf_pq.search(index, q0, k, sp, dataset=base)
+        torch.cuda.synchronize()
+        syncs = []
+    except RuntimeError as e:
+        first = str(e).splitlines()[0]
+        torch.cuda.synchronize()
+        prev = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                ivf_pq.search(index, q0, k, sp, dataset=base)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        syncs = [f"{w.filename}:{w.lineno}" for w in caught]
+        for s in syncs:
+            _log(f"[obs off] host sync at {s}")
+        raise SmokeFailure(f"[obs off] a refined batch under "
+                           f"no_host_transfers raised: {first}; "
+                           f"{len(syncs)} syncs logged")
+    _log("[obs off] a refined batch under sanitize.no_host_transfers() "
+         "finished with no host sync")
+    if args.obs_dir is None:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {"spans_ms": rows, "wall_ms": wall_s * 1e3,
+            "hbm": {n: g[n] for n in ("hbm.bytes_in_use", "hbm.peak_bytes",
+                                      "hbm.bytes_limit")},
+            "index": desc, "index_s": desc_s,
+            "prof_top": main["top"][:10], "idle_share": main["idle_share"],
+            "prof_window_ms": main["window_ms"],
+            "span_off_us": per_span * 1e6,
+            "record_function_us": per_rf * 1e6,
+            "batch_ms": per_batch * 1e3}
 
 def flat_resilient_leg(index, queries, k):
     """``[flat resilient]``: IVF-Flat ``search_resilient`` of 500 queries
@@ -2644,6 +3008,10 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=500)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--chunked-cap", type=float, default=4.0)
+    ap.add_argument("--obs-dir", default=None,
+                    help="keep the [obs] leg's timeline, flight dump and "
+                         "profiles here (default: a temporary directory, "
+                         "removed after the leg)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2722,10 +3090,19 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return torch.cat(out), start.elapsed_time(end) / 1e3
 
+    from raft_tpu_torch import obs
+
     K.reset_launch_counts()
+    # the build records its spans and index gauges (obs on, no sync mode)
+    # for the [obs] leg; every search pass below runs with obs off
+    build_reg = obs.MetricsRegistry()
+    obs.enable(registry=build_reg)
     t0 = time.perf_counter()
-    index = ivf_pq.build(base, iparams, stage_seconds=stages)
-    torch.cuda.synchronize()
+    try:
+        index = ivf_pq.build(base, iparams, stage_seconds=stages)
+        torch.cuda.synchronize()
+    finally:
+        obs.disable()
     build_s = time.perf_counter() - t0
     ids_k, search_s = search_pass()
     launches = K.launch_counts()
@@ -2848,13 +3225,24 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         return _fail(str(e))
 
+    # 9. [obs …]: the main path under observation (ROADMAP A13)
+    try:
+        t0 = time.perf_counter()
+        obs_summary = obs_leg(args, index, base, queries, sp, B, k,
+                              stages_ms, build_reg)
+        obs_summary["leg_s"] = time.perf_counter() - t0
+    except SmokeFailure as e:
+        return _fail(str(e))
+    _log(f"[obs] leg in {obs_summary['leg_s']:.1f} s")
+
     summary = {"n": N, "dim": dim, "n_lists": 8192, "pq_dim": 64,
                "max_list_size": index.max_list_size, "build_s": build_s,
                "build_stages_s": stages, "qps_runs": qps_runs,
                "recall_at_10_bf16": rec_bf16, "recall_at_10_f32": rec_f32,
                "recall_kernel_200": rec_kern, "recall_plain_200": rec_plain,
                "batch_stages_ms": stages_ms, "filter": filt_summary,
-               "tiered": tiered_summary, "resilient": resilient_summary}
+               "tiered": tiered_summary, "resilient": resilient_summary,
+               "obs": obs_summary}
     _log(f"[summary] {json.dumps(summary)}")
     del index, base, queries, cand, kk, ki, scores, scan
     torch.cuda.empty_cache()

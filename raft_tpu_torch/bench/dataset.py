@@ -208,7 +208,7 @@ def compute_groundtruth(ds: Dataset, k: int = 100,
     search over the whole base does). ``max_queries`` bounds the query
     count (recall on a subset is the usual practice at 10⁸ rows)."""
     from raft_tpu_torch.distance.types import SELECT_MIN, resolve_metric
-    from raft_tpu_torch.matrix.select_k import select_k
+    from raft_tpu_torch.matrix.select_k import select_k_impl as select_k
     from raft_tpu_torch.neighbors import brute_force
 
     dev = resolve_device(device)

@@ -19,7 +19,9 @@ import torch
 
 from raft_tpu_torch.cluster.kmeans import KMeansParams, init_random
 from raft_tpu_torch.core.device import to_device
-from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_argmin
+from raft_tpu_torch.core.tracing import traced
+from raft_tpu_torch.distance.fused_l2_nn import (
+    fused_l2_nn_argmin_impl as fused_l2_nn_argmin)
 from raft_tpu_torch.parallel.comms import Comms
 from raft_tpu_torch.parallel.merge import resolve_exchange
 from raft_tpu_torch.parallel.mesh import Mesh, replicate, shard_rows
@@ -27,6 +29,7 @@ from raft_tpu_torch.random.rng import RngState
 from raft_tpu_torch.utils import precision as _precision
 
 
+@traced("raft_tpu_torch.distributed_kmeans.fit")
 def fit(params: KMeansParams, x, mesh: Mesh, axis: str = "shard",
         init_centroids=None, weights=None
         ) -> Tuple[torch.Tensor, torch.Tensor, int]:
@@ -100,6 +103,7 @@ def fit(params: KMeansParams, x, mesh: Mesh, axis: str = "shard",
     return cs[0], inertia[0], it
 
 
+@traced("raft_tpu_torch.distributed_kmeans.predict")
 def predict(centroids, x, mesh: Mesh, axis: str = "shard") -> torch.Tensor:
     """Nearest-centroid labels [n] int32 of a row-sharded dataset, on rank
     0's device."""

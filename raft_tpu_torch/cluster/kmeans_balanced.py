@@ -30,8 +30,10 @@ import torch
 
 from raft_tpu_torch.cluster.kmeans import _update_centroids, init_random
 from raft_tpu_torch.core.errors import expects
-from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_argmin
-from raft_tpu_torch.matrix.select_k import select_k
+from raft_tpu_torch.core.tracing import traced
+from raft_tpu_torch.distance.fused_l2_nn import (fused_l2_nn_argmin,
+                                                 fused_l2_nn_argmin_impl)
+from raft_tpu_torch.matrix.select_k import select_k_impl as select_k
 from raft_tpu_torch.random.rng import RngState
 
 # Bound on the level-2 [chunk, T, k] f32 distance block (bytes).
@@ -73,7 +75,7 @@ def _balanced_lloyd(x: torch.Tensor, w: torch.Tensor, c0: torch.Tensor,
     starve_thresh = 0.25 * total_w / n_clusters
     c = c0.float()
     for i in range(n_iters):
-        d2, labels = fused_l2_nn_argmin(xf, c)
+        d2, labels = fused_l2_nn_argmin_impl(xf, c)
         new_c, counts = _update_centroids(xf, wf, labels, n_clusters, c)
         starved = counts < starve_thresh
         if i < split_iters:
@@ -142,6 +144,7 @@ def _lloyd_batch(xf, wf, cs, km, k: int, n_iters: int):
     return cs
 
 
+@traced("raft_tpu_torch.kmeans_balanced.fit")
 def fit(x: torch.Tensor, n_clusters: int,
         params: Optional[KMeansBalancedParams] = None) -> torch.Tensor:
     """Hierarchical balanced fit → centers [n_clusters, d]."""
@@ -191,7 +194,7 @@ def fit(x: torch.Tensor, n_clusters: int,
     if n_drop / max(n, 1) > _LEVEL2_DROP_WARN_FRAC:
         warnings.warn(f"kmeans_balanced: level-2 sampling dropped {n_drop}/"
                       f"{n} training rows past the per-mesocluster cap "
-                      f"{L_meso}", RuntimeWarning, stacklevel=2)
+                      f"{L_meso}", RuntimeWarning, stacklevel=3)
     masks = (mids >= 0).float()
     sizes_c = np.minimum(np.maximum(sizes, 1), L_meso)
     k_active = np.maximum(np.minimum(np.minimum(fine_k, sizes), L_meso), 1)
@@ -219,6 +222,7 @@ def fit(x: torch.Tensor, n_clusters: int,
     return _maybe_normalize(centers, params.metric)
 
 
+@traced("raft_tpu_torch.kmeans_balanced.predict")
 def predict(centers: torch.Tensor, x: torch.Tensor,
             params: Optional[KMeansBalancedParams] = None) -> torch.Tensor:
     """Nearest balanced-center labels [m] int32."""

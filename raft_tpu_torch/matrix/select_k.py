@@ -22,6 +22,12 @@ Tiers, by shape alone:
 Selection is over rows of ``[batch, len]``; ``select_min=True`` keeps the
 smallest values. Positions come back int32; with ``input_indices`` they
 are gathered from it (the reference's in-indices overload).
+
+Each call counts its tier under ``select_k.dispatch{impl=pallas|xla_tiled|
+xla}`` (the JAX package's labels for the kernel, tiled and sort tiers).
+:func:`select_k` is the traced entry point; the port's own modules call
+:func:`select_k_impl`, its untraced body, where the JAX package calls
+``select_k`` inside a jitted program (whose span records nothing).
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch.core.errors import expects
+from raft_tpu_torch.core.tracing import traced
+from raft_tpu_torch.obs import spans as _obs_spans
 from raft_tpu_torch.ops import kernels as _k
 
 _KERNEL_MAX_K = 64
@@ -44,21 +52,32 @@ def _gather_ids(idx: torch.Tensor, input_indices: Optional[torch.Tensor]):
     return torch.gather(input_indices, 1, idx.long())
 
 
+@traced("raft_tpu_torch.select_k")
 def select_k(scores: torch.Tensor, k: int, select_min: bool = True,
              input_indices: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k smallest/largest entries per row → (values [batch, k],
     positions [batch, k] int32, or entries of ``input_indices``)."""
+    return select_k_impl(scores, k, select_min, input_indices)
+
+
+def select_k_impl(scores: torch.Tensor, k: int, select_min: bool = True,
+                  input_indices: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`select_k` without its span."""
     expects(scores.dim() == 2, "scores must be [batch, len]")
     n = scores.shape[1]
     if k > n:
         raise ValueError(f"k={k} > len={n}")
     if k <= _KERNEL_MAX_K:
+        _obs_spans.count_dispatch("select_k", "pallas")
         vals, idx = _k.select_k_cuda(scores.float().contiguous(), k,
                                      select_min)
     elif k > _KERNEL_MAX_K and n >= _LARGE_K_MIN_LEN:
+        _obs_spans.count_dispatch("select_k", "xla_tiled")
         vals, idx = _select_k_tiled(scores, k, select_min)
     else:
+        _obs_spans.count_dispatch("select_k", "xla")
         vals, idx = _k.select_k_plain(scores, k, select_min)
     return vals, _gather_ids(idx, input_indices)
 

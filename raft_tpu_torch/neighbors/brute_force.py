@@ -13,8 +13,9 @@ import torch
 from raft_tpu_torch.core import bitset as _bitset
 from raft_tpu_torch.core.device import resolve_device, to_device
 from raft_tpu_torch.core.errors import expects
+from raft_tpu_torch.core.tracing import traced
 from raft_tpu_torch.distance.types import DistanceType, SELECT_MIN, resolve_metric
-from raft_tpu_torch.matrix.select_k import select_k as _select_k
+from raft_tpu_torch.matrix.select_k import select_k_impl as _select_k
 from raft_tpu_torch.utils import precision as _precision
 
 # Bound on one [m, tile] f32 distance block (elements).
@@ -35,6 +36,7 @@ def _expanded_block(q, db, q_sq, db_sq, mt):
     return torch.sqrt(d2) if mt == DistanceType.L2SqrtExpanded else d2
 
 
+@traced("raft_tpu_torch.brute_force.knn")
 def knn(dataset, queries, k: int, metric="euclidean", filter_bitset=None,
         device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact k nearest neighbours → (distances [m, k], ids [m, k] i32).

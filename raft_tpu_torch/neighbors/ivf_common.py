@@ -18,7 +18,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from raft_tpu_torch.matrix.select_k import select_k
+from raft_tpu_torch.matrix.select_k import select_k_impl as select_k
+from raft_tpu_torch.obs import spans as _obs_spans
+from raft_tpu_torch.obs.spans import span as _span
 from raft_tpu_torch.ops import kernels as _k
 
 SEGMENT_SIZE = 128
@@ -34,25 +36,32 @@ CHUNK_BYTES_TARGET = 256 << 20
 
 
 class Stages:
-    """Per-stage wall seconds of a build (synchronizing the card at each
-    stage boundary) when the caller passes a dict to fill."""
+    """A build's stages: each runs under a recording ``span(<stage>)``
+    (``span.ivf_pq.build.train`` …, as the JAX package names them) when
+    its name is in ``spans`` (default: every stage), and its wall seconds
+    are added to ``out`` when the caller passes a dict to fill. Timing,
+    or a span in sync mode, synchronizes the card at the stage's end."""
 
-    def __init__(self, out: Optional[Dict[str, float]], device):
+    def __init__(self, out: Optional[Dict[str, float]], device,
+                 spans: Optional[Tuple[str, ...]] = None):
         self.out = out
         self.cuda = device.type == "cuda"
+        self.spans = spans
 
     @contextlib.contextmanager
     def __call__(self, name: str):
-        if self.out is None:
-            yield
-            return
-        if self.cuda:
+        timed = self.out is not None
+        if timed and self.cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        yield
-        if self.cuda:
-            torch.cuda.synchronize()
-        self.out[name] = self.out.get(name, 0.0) + time.perf_counter() - t0
+        with (_span(name) if self.spans is None or name in self.spans
+              else contextlib.nullcontext()):
+            yield
+            if self.cuda and (timed or _obs_spans.sync_enabled()):
+                torch.cuda.synchronize()
+        if timed:
+            self.out[name] = (self.out.get(name, 0.0)
+                              + time.perf_counter() - t0)
 
 
 def n_segments(pairs: int, n_lists: int, seg: int) -> int:
@@ -65,41 +74,41 @@ def segment_probes(probes: torch.Tensor, n_lists: int, seg: int, n_seg: int):
     """Bucket (query, probe) pairs into per-list segments.
 
     probes [B, P] list ids → (seg_list [n_seg] i32 — the list each segment
-    scans (unused segments point at an arbitrary list and hold only pads);
+    scans (unused segments point at the last list and hold only pads);
     seg_q [n_seg, seg] i32 — query per slot, -1 pad; pair_seg, pair_slot
     [B, P] i32 — each pair's (segment, slot) address). Exact: one stable
-    sort, so a list's pairs fill its segments in (query, probe) order."""
+    sort, so a list's pairs fill its segments in (query, probe) order.
+    The JAX package fills the table by gathers (scatters serialize on a
+    TPU); here each sorted pair scatters its query to its slot, the same
+    table in half the operations (each costs the host more than the card
+    here)."""
     B, P = probes.shape
     BP = B * P
     dev = probes.device
-    l_flat = probes.reshape(-1).to(torch.int32)
-    sorted_l, order = torch.sort(l_flat, stable=True)
-    starts = torch.searchsorted(
-        sorted_l, torch.arange(n_lists, dtype=torch.int32, device=dev))
-    counts = torch.diff(torch.cat(
-        [starts, torch.tensor([BP], dtype=starts.dtype, device=dev)]))
-    segs_per_list = (counts + seg - 1) // seg
-    seg_base = torch.cumsum(segs_per_list, 0) - segs_per_list  # exclusive
-    seg_ids = torch.arange(n_seg, dtype=seg_base.dtype, device=dev)
-    seg_list = (torch.searchsorted(seg_base, seg_ids, right=True) - 1).clamp(
-        0, n_lists - 1)
-    rank0 = (seg_ids - seg_base[seg_list]) * seg
-    i0 = starts[seg_list] + rank0
-    j = torch.arange(seg, dtype=seg_base.dtype, device=dev)
-    rank = rank0[:, None] + j[None, :]
-    valid = rank < counts[seg_list][:, None]
-    q_of = order // P
-    seg_q = torch.where(valid, q_of[(i0[:, None] + j[None, :]).clamp(0, BP - 1)],
-                        torch.full_like(rank, -1))
-    iota = torch.arange(BP, dtype=seg_base.dtype, device=dev)
+    sorted_l, order = torch.sort(probes.reshape(-1).to(torch.int32),
+                                 stable=True)
+    # each list's first sorted position (and BP past the last list)
+    bounds = torch.searchsorted(
+        sorted_l, torch.arange(n_lists + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    counts = bounds[1:] - bounds[:-1]
+    segs_per_list = (counts + (seg - 1)) // seg
+    seg_end = torch.cumsum(segs_per_list, 0, dtype=torch.int32)
+    seg_base = seg_end - segs_per_list  # exclusive
+    seg_list = torch.searchsorted(
+        seg_end, torch.arange(n_seg, dtype=torch.int32, device=dev),
+        right=True, out_int32=True).clamp_(max=n_lists - 1)
+    # sorted pair i of list l has rank r = i − start(l): slot address
+    # (seg_base[l] + r // seg)·seg + r % seg = seg_base[l]·seg + r
     sl = sorted_l.long()
-    rank_sorted = iota - starts[sl]
-    addr = (seg_base[sl] + rank_sorted // seg) * seg + rank_sorted % seg
-    addr_pair = torch.empty_like(addr)
+    rank = torch.arange(BP, dtype=torch.int32, device=dev) - bounds[sl]
+    addr = seg_base[sl] * seg + rank
+    seg_q = torch.full((n_seg * seg,), -1, dtype=torch.int32, device=dev)
+    seg_q[addr.long()] = (order // P).to(torch.int32)
+    addr_pair = torch.empty(BP, dtype=torch.int32, device=dev)
     addr_pair[order] = addr  # the sort's inverse permutation
-    return (seg_list.to(torch.int32), seg_q.to(torch.int32),
-            (addr_pair // seg).view(B, P).to(torch.int32),
-            (addr_pair % seg).view(B, P).to(torch.int32))
+    return (seg_list, seg_q.view(n_seg, seg), (addr_pair // seg).view(B, P),
+            (addr_pair % seg).view(B, P))
 
 
 def gather_segment_results(seg_vals: torch.Tensor, seg_ids: torch.Tensor,

@@ -54,11 +54,13 @@ from raft_tpu_torch.core import ids as _ids
 from raft_tpu_torch.core import serialize as _ser
 from raft_tpu_torch.core.device import resolve_device, to_device
 from raft_tpu_torch.core.errors import expects, not_ported as _not_ported
+from raft_tpu_torch.core.tracing import traced
 from raft_tpu_torch.distance.types import DistanceType, resolve_metric
-from raft_tpu_torch.matrix.select_k import select_k as _select_k
+from raft_tpu_torch.matrix.select_k import select_k_impl as _select_k
 from raft_tpu_torch.neighbors import ivf_common as ic
 from raft_tpu_torch.neighbors import sample_filter as _sf
 from raft_tpu_torch.neighbors.ivf_common import _fit_list_size, _lane_round
+from raft_tpu_torch.obs import index_stats as _istats
 from raft_tpu_torch.ops import kernels as _k
 from raft_tpu_torch.robust import degrade as _degrade
 from raft_tpu_torch.robust import faults as _faults
@@ -178,6 +180,7 @@ def _normalize_rows(x: torch.Tensor) -> torch.Tensor:
 # build
 # ---------------------------------------------------------------------------
 
+@traced("raft_tpu_torch.ivf_flat.build")
 def build(dataset, params: Optional[IndexParams] = None, device="cuda",
           stage_seconds: Optional[Dict[str, float]] = None) -> IvfFlatIndex:
     """Build the index on ``device`` (reference: ivf_flat::build):
@@ -240,7 +243,7 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
                 warnings.warn(f"ivf_flat: {n_marker} rows overflowed every "
                               f"spill choice at cap {L} (raise "
                               "list_size_cap_factor)", RuntimeWarning,
-                              stacklevel=2)
+                              stacklevel=3)
         else:
             labels = kmeans_balanced.predict(centers, x, km)
             counts = torch.bincount(labels.long(),
@@ -258,15 +261,19 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
         warnings.warn(f"ivf_flat: dropped {n_drop} overflow vectors (raise "
                       "list_size_cap_factor"
                       f"{'' if params.spill else ' or set spill=True'})",
-                      RuntimeWarning, stacklevel=2)
-    return IvfFlatIndex(centers=centers, packed_data=packed, packed_ids=ids,
-                        packed_norms=norms, list_sizes=sizes, metric=mt.value)
+                      RuntimeWarning, stacklevel=3)
+    index = IvfFlatIndex(centers=centers, packed_data=packed, packed_ids=ids,
+                         packed_norms=norms, list_sizes=sizes,
+                         metric=mt.value)
+    _istats.note_index_stats(index, name="ivf_flat.build", cheap=True)
+    return index
 
 
 def build_distributed(*args, **kwargs):
     raise _not_ported("ivf_flat.build_distributed", "A15")
 
 
+@traced("raft_tpu_torch.ivf_flat.extend")
 def extend(index: IvfFlatIndex, new_vectors, new_ids=None) -> IvfFlatIndex:
     """Append vectors (reference: ivf_flat::extend): assign them to the
     existing centers and re-pack, the lists grown to the new largest fill
@@ -296,11 +303,13 @@ def extend(index: IvfFlatIndex, new_vectors, new_ids=None) -> IvfFlatIndex:
     rows, ls, sl = order[keep], sorted_l[keep], slot[keep]
     packed[ls, sl] = x[rows].to(packed.dtype)
     ids[ls, sl] = nid[rows].to(id_dt)
-    return IvfFlatIndex(centers=index.centers, packed_data=packed,
-                        packed_ids=ids,
-                        packed_norms=(packed.float() ** 2).sum(-1),
-                        list_sizes=need.clamp(max=new_L).to(torch.int32),
-                        metric=index.metric)
+    out = IvfFlatIndex(centers=index.centers, packed_data=packed,
+                       packed_ids=ids,
+                       packed_norms=(packed.float() ** 2).sum(-1),
+                       list_sizes=need.clamp(max=new_L).to(torch.int32),
+                       metric=index.metric)
+    _istats.note_index_stats(out, name="ivf_flat.extend", cheap=True)
+    return out
 
 
 # reference: neighbors/ivf_flat_serialize.cuh, the JAX package's format
@@ -450,6 +459,7 @@ def _search_grouped(index: IvfFlatIndex, queries: torch.Tensor, k: int,
     return out_vals, out_ids
 
 
+@traced("raft_tpu_torch.ivf_flat.search")
 def search(index: IvfFlatIndex, queries, k: int,
            params: Optional[SearchParams] = None, filter_bitset=None,
            dataset=None, *, mesh=None, device="cuda"
@@ -508,6 +518,7 @@ def search(index: IvfFlatIndex, queries, k: int,
                         filter_bits=filter_bitset)
 
 
+@traced("raft_tpu_torch.ivf_flat.search_resilient")
 def search_resilient(index: IvfFlatIndex, queries, k: int,
                      params: Optional[SearchParams] = None,
                      filter_bitset=None, dataset=None, deadline=None, *,

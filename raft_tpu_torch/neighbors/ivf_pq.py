@@ -50,16 +50,20 @@ from raft_tpu_torch.core import serialize as _ser
 from raft_tpu_torch.core.device import resolve_device, to_device
 from raft_tpu_torch.core.errors import expects, not_ported as _not_ported
 from raft_tpu_torch.core.interruptible import cancellation_point
+from raft_tpu_torch.core.tracing import span, traced
 from raft_tpu_torch.distance.types import DistanceType, resolve_metric
-from raft_tpu_torch.matrix.select_k import select_k as _select_k
+from raft_tpu_torch.matrix.select_k import select_k_impl as _select_k
 from raft_tpu_torch.neighbors import ivf_common as ic
 from raft_tpu_torch.neighbors import sample_filter as _sf
+from raft_tpu_torch.obs import hbm as _hbm
+from raft_tpu_torch.obs import index_stats as _istats
 from raft_tpu_torch.obs import spans as _obs_spans
 from raft_tpu_torch.ops import kernels as _k
 from raft_tpu_torch.random.rng import RngState
 from raft_tpu_torch.robust import degrade as _degrade
 from raft_tpu_torch.robust import faults as _faults
 from raft_tpu_torch.robust import retry as _retry
+from raft_tpu_torch.utils import graphs as _graphs
 from raft_tpu_torch.utils import precision as _precision
 
 
@@ -112,15 +116,18 @@ def resolve_lut_dtype(lut_dtype: str, n_probes: int, k: int,
     """``lut_dtype="auto"`` for one dispatch: fp8 for oversampled scans
     (n_probes ≥ 64 or k ≥ 400) on the card when the candidate slack
     n_probes·256·selectivity is ≥ 4k, bf16 when it is thinner, exact f32
-    otherwise and off the card. Explicit dtypes pass through."""
+    otherwise and off the card. Explicit dtypes pass through; each "auto"
+    resolution counts under ``ivf_pq.lut.dispatch{dtype=...}``."""
     if lut_dtype != "auto":
         return lut_dtype
     oversampled = n_probes >= 64 or k >= 400
+    chosen = "float32"
     if oversampled and _k._on_cuda():
         surviving = selectivity * n_probes * _k.LUT_SCAN_BINS
-        return ("float8_e4m3" if surviving >= FP8_LUT_MIN_SLACK * k
-                else "bfloat16")
-    return "float32"
+        chosen = ("float8_e4m3" if surviving >= FP8_LUT_MIN_SLACK * k
+                  else "bfloat16")
+    _obs_spans.inc("ivf_pq.lut.dispatch", dtype=chosen)
+    return chosen
 
 
 def _filter_selectivity(filter_bits) -> float:
@@ -393,13 +400,15 @@ def _encode_with_norms(x: torch.Tensor, rotation: torch.Tensor,
 def _want_recon_cache(params: IndexParams, n_lists: int, L: int,
                       rot_dim: int, device) -> bool:
     """The JAX package's rule: "auto" caches while the bf16 cache stays
-    under 3 GB and a fifth of the device's memory."""
+    under 3 GB and a fifth of what the allocator may use
+    (``obs.hbm.bytes_limit``: the card's memory times the process's memory
+    fraction; no limit on the CPU)."""
     if params.cache_reconstruction in ("never", "always"):
         return params.cache_reconstruction == "always"
     cap = 3 << 30
-    if device.type == "cuda":
-        cap = min(cap, torch.cuda.get_device_properties(device)
-                  .total_memory // 5)
+    limit = _hbm.bytes_limit(device)
+    if limit:
+        cap = min(cap, limit // 5)
     return n_lists * L * rot_dim * 2 <= cap
 
 
@@ -423,6 +432,7 @@ def _build_recon_cache(index: IvfPqIndex) -> torch.Tensor:
     return out
 
 
+@traced("raft_tpu_torch.ivf_pq.build")
 def build(dataset, params: Optional[IndexParams] = None, device="cuda",
           stage_seconds: Optional[Dict[str, float]] = None) -> IvfPqIndex:
     """Build the index on ``device`` (reference: ivf_pq::build).
@@ -497,7 +507,7 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
                 warnings.warn(f"ivf_pq: {n_marker} rows overflowed every "
                               f"spill choice at cap {max_list_size} (raise "
                               "list_size_cap_factor)", RuntimeWarning,
-                              stacklevel=2)
+                              stacklevel=3)
         else:
             labels = kmeans_balanced.predict(centers, x, km)
             counts = torch.bincount(labels.long(),
@@ -516,12 +526,13 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
             n_lists=params.n_lists, L=max_list_size, fill_values=[0, 0.0])
     if n_drop:
         warnings.warn(f"ivf_pq: dropped {n_drop} overflow vectors (raise "
-                      "list_size_cap_factor)", RuntimeWarning, stacklevel=2)
+                      "list_size_cap_factor)", RuntimeWarning, stacklevel=3)
     index = IvfPqIndex(packed_codes=packed, packed_ids=ids,
                        packed_norms=pnorm, list_sizes=sizes, **quantizer)
     if _want_recon_cache(params, params.n_lists, max_list_size, rot_dim, dev):
         with stage("recon_cache"):
             index.packed_recon = _build_recon_cache(index)
+    _istats.note_index_stats(index, name="ivf_pq.build", cheap=True)
     return index
 
 
@@ -549,6 +560,7 @@ def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return out
 
 
+@traced("raft_tpu_torch.ivf_pq.build_chunked")
 def build_chunked(dataset, params: Optional[IndexParams] = None,
                   chunk_rows: int = 1 << 18,
                   max_train_rows: int = 1 << 21,
@@ -593,7 +605,8 @@ def build_chunked(dataset, params: Optional[IndexParams] = None,
             "resume from without one)", resume)
     if params.codebook_kind != "per_subspace":
         raise _not_ported("codebook_kind='per_cluster'", "A9")
-    stage = ic.Stages(stage_seconds, dev)
+    # spans as the JAX package names them: train, label, encode_pack
+    stage = ic.Stages(stage_seconds, dev, spans=("train",))
     t_start = time.perf_counter()
 
     def say(msg):
@@ -695,6 +708,53 @@ def build_chunked(dataset, params: Optional[IndexParams] = None,
             ck.write_manifest({**base_manifest, "phase": "label"})
     say("quantizers trained; label pass")
 
+    def label_pass():
+        """The streaming label pass → (labels, L, counts)."""
+        if params.spill:
+            # the nearest SPILL_DEPTH centers, then cap and spill: L is the
+            # cap itself, not the skewed largest load
+            NC = min(ic.SPILL_DEPTH, params.n_lists)
+            lk = np.empty((n, NC), np.int32)
+            for a in range(0, n, chunk_rows):
+                cancellation_point()
+                b = min(n, a + chunk_rows)
+                x = read_chunk(a, b)
+                with stage("label"):
+                    lk[a:b] = kmeans_balanced.predict_topk(centers, x, NC,
+                                                           km).cpu().numpy()
+                del x
+                if a % (8 * chunk_rows) == 0:
+                    say(f"labeled {b}/{n}")
+            L = ic._lane_round(int(avg * params.list_size_cap_factor))
+            say("spilling assignments")
+            with stage("spill"):
+                cols = [to_device(lk[:, c], dev) for c in range(NC)]
+                del lk
+                labels = ic.spill_assignments(
+                    cols[0], cols[1], params.n_lists, L,
+                    *cols[2:]).cpu().numpy()
+                del cols
+            n_spill_drop = int((labels >= params.n_lists).sum())
+            if n_spill_drop:
+                _log.warn("ivf_pq chunked build: %d rows overflowed every "
+                          "spill choice at cap %d", n_spill_drop, L)
+            counts = np.bincount(labels[labels < params.n_lists],
+                                 minlength=params.n_lists)
+        else:
+            labels = np.empty(n, np.int32)
+            for a in range(0, n, chunk_rows):
+                cancellation_point()  # chunk seams are cancellation points
+                b = min(n, a + chunk_rows)
+                x = read_chunk(a, b)
+                with stage("label"):
+                    labels[a:b] = kmeans_balanced.predict(centers, x,
+                                                          km).cpu().numpy()
+                del x
+            counts = np.bincount(labels, minlength=params.n_lists)
+            L = ic._fit_list_size(counts, avg,
+                                  params.list_size_cap_factor)
+        return labels, L, counts
+
     # 2. the streaming label pass → list capacity (loaded when the resume
     # manifest says the pass completed)
     avg = max(1, n // params.n_lists)
@@ -709,47 +769,9 @@ def build_chunked(dataset, params: Optional[IndexParams] = None,
         L = int(manifest["L"])
         counts = np.bincount(labels[labels < params.n_lists],
                              minlength=params.n_lists)
-    elif params.spill:
-        # the nearest SPILL_DEPTH centers, then cap and spill: L is the
-        # cap itself, not the skewed largest load
-        NC = min(ic.SPILL_DEPTH, params.n_lists)
-        lk = np.empty((n, NC), np.int32)
-        for a in range(0, n, chunk_rows):
-            cancellation_point()
-            b = min(n, a + chunk_rows)
-            x = read_chunk(a, b)
-            with stage("label"):
-                lk[a:b] = kmeans_balanced.predict_topk(centers, x, NC,
-                                                       km).cpu().numpy()
-            del x
-            if a % (8 * chunk_rows) == 0:
-                say(f"labeled {b}/{n}")
-        L = ic._lane_round(int(avg * params.list_size_cap_factor))
-        say("spilling assignments")
-        with stage("spill"):
-            cols = [to_device(lk[:, c], dev) for c in range(NC)]
-            del lk
-            labels = ic.spill_assignments(cols[0], cols[1], params.n_lists,
-                                          L, *cols[2:]).cpu().numpy()
-            del cols
-        n_spill_drop = int((labels >= params.n_lists).sum())
-        if n_spill_drop:
-            _log.warn("ivf_pq chunked build: %d rows overflowed every spill "
-                      "choice at cap %d", n_spill_drop, L)
-        counts = np.bincount(labels[labels < params.n_lists],
-                             minlength=params.n_lists)
     else:
-        labels = np.empty(n, np.int32)
-        for a in range(0, n, chunk_rows):
-            cancellation_point()  # chunk seams are cancellation points
-            b = min(n, a + chunk_rows)
-            x = read_chunk(a, b)
-            with stage("label"):
-                labels[a:b] = kmeans_balanced.predict(centers, x,
-                                                      km).cpu().numpy()
-            del x
-        counts = np.bincount(labels, minlength=params.n_lists)
-        L = ic._fit_list_size(counts, avg, params.list_size_cap_factor)
+        with span("label"):
+            labels, L, counts = label_pass()
     if ck is not None and not have_labels:
         ck.save_arrays("labels", labels=labels)
         ck.write_manifest({**base_manifest, "phase": "encode", "L": int(L),
@@ -796,46 +818,47 @@ def build_chunked(dataset, params: Optional[IndexParams] = None,
     pnorm = np.zeros((params.n_lists, L), np.float32)
     cursor = np.zeros(params.n_lists, np.int64)  # next free slot per list
     dropped = 0
-    for ci, a in enumerate(range(0, n, chunk_rows)):
-        b = min(n, a + chunk_rows)
-        if ci < chunks_done:
-            # completed before the interruption: replay its shard (no
-            # device work) so the pack below is the same
-            shard = ck.load_shard(ci)
-            codes_h = np.asarray(shard["codes"], np.uint8)
-            norms_h = np.asarray(shard["norms"], np.float32)
-            expects(codes_h.shape[0] == b - a,
-                    "resume shard %d holds %d rows, expected %d — corrupt "
-                    "checkpoint; refusing to resume",
-                    ci, codes_h.shape[0], b - a)
-            _count_resume("resume.chunks_replayed")
-        else:
-            cancellation_point()
-            _faults.faultpoint("build.chunk_encode")
-            codes_h, norms_h = encode_range(a, b)
-            if ck is not None:
-                # the shard before the manifest that records it: a death
-                # between the two re-encodes one chunk
-                ck.save_shard(ci, codes=codes_h, norms=norms_h)
-                ck.write_manifest({**base_manifest, "phase": "encode",
-                                   "L": int(L), "chunks_done": ci + 1})
-        with stage("pack"):
-            lb_h = labels[a:b]
-            order, sorted_l, slot = (t.numpy() for t in ic.stable_slots(
-                torch.from_numpy(lb_h), params.n_lists,
-                torch.from_numpy(cursor)))
-            keep = (slot < L) & (sorted_l < params.n_lists)
-            dropped += int((~keep).sum())
-            rows = order[keep]
-            ls, sl = sorted_l[keep], slot[keep].astype(np.int64)
-            packed[ls, sl] = codes_h[rows]
-            ids[ls, sl] = (a + rows).astype(ids.dtype)
-            pnorm[ls, sl] = norms_h[rows]
-            cursor = np.minimum(
-                cursor + np.bincount(lb_h, minlength=params.n_lists)[
-                    :params.n_lists], L)
-        if a % (8 * chunk_rows) == 0:
-            say(f"encoded {b}/{n}")
+    with span("encode_pack"):
+        for ci, a in enumerate(range(0, n, chunk_rows)):
+            b = min(n, a + chunk_rows)
+            if ci < chunks_done:
+                # completed before the interruption: replay its shard (no
+                # device work) so the pack below is the same
+                shard = ck.load_shard(ci)
+                codes_h = np.asarray(shard["codes"], np.uint8)
+                norms_h = np.asarray(shard["norms"], np.float32)
+                expects(codes_h.shape[0] == b - a,
+                        "resume shard %d holds %d rows, expected %d — "
+                        "corrupt checkpoint; refusing to resume",
+                        ci, codes_h.shape[0], b - a)
+                _count_resume("resume.chunks_replayed")
+            else:
+                cancellation_point()
+                _faults.faultpoint("build.chunk_encode")
+                codes_h, norms_h = encode_range(a, b)
+                if ck is not None:
+                    # the shard before the manifest that records it: a death
+                    # between the two re-encodes one chunk
+                    ck.save_shard(ci, codes=codes_h, norms=norms_h)
+                    ck.write_manifest({**base_manifest, "phase": "encode",
+                                       "L": int(L), "chunks_done": ci + 1})
+            with stage("pack"):
+                lb_h = labels[a:b]
+                order, sorted_l, slot = (t.numpy() for t in ic.stable_slots(
+                    torch.from_numpy(lb_h), params.n_lists,
+                    torch.from_numpy(cursor)))
+                keep = (slot < L) & (sorted_l < params.n_lists)
+                dropped += int((~keep).sum())
+                rows = order[keep]
+                ls, sl = sorted_l[keep], slot[keep].astype(np.int64)
+                packed[ls, sl] = codes_h[rows]
+                ids[ls, sl] = (a + rows).astype(ids.dtype)
+                pnorm[ls, sl] = norms_h[rows]
+                cursor = np.minimum(
+                    cursor + np.bincount(lb_h, minlength=params.n_lists)[
+                        :params.n_lists], L)
+            if a % (8 * chunk_rows) == 0:
+                say(f"encoded {b}/{n}")
     if ck is not None:
         ck.write_manifest({**base_manifest, "phase": "done", "L": int(L),
                            "chunks_done": -(-n // chunk_rows)})
@@ -857,10 +880,12 @@ def build_chunked(dataset, params: Optional[IndexParams] = None,
     if _want_recon_cache(params, params.n_lists, L, rot_dim, dev):
         with stage("recon_cache"):
             index.packed_recon = _build_recon_cache(index)
+    _istats.note_index_stats(index, name="ivf_pq.build_chunked", cheap=True)
     say("done")
     return index
 
 
+@traced("raft_tpu_torch.ivf_pq.extend")
 def extend(index: IvfPqIndex, new_vectors, new_ids=None) -> IvfPqIndex:
     """Append vectors (reference: ivf_pq::extend): encode against the
     existing centers and codebooks, then re-pack with the lists grown to
@@ -905,6 +930,7 @@ def extend(index: IvfPqIndex, new_vectors, new_ids=None) -> IvfPqIndex:
         list_sizes=need.clamp(max=new_L).to(torch.int32), packed_recon=None)
     if index.packed_recon is not None:
         out.packed_recon = _build_recon_cache(out)
+    _istats.note_index_stats(out, name="ivf_pq.extend", cheap=True)
     return out
 
 
@@ -973,10 +999,18 @@ def _coarse_probes(index: IvfPqIndex, q_all: torch.Tensor, n_probes: int,
     if ip_like:
         _, probes = _select_k(qc, n_probes, select_min=False)
     else:
-        c_sq = (index.centers * index.centers).sum(1)
-        _, probes = _select_k(c_sq[None, :] - 2.0 * qc, n_probes,
-                              select_min=True)
+        _, probes = _select_k(_center_sq(index.centers)[None, :] - 2.0 * qc,
+                              n_probes, select_min=True)
     return qc, probes
+
+
+def _center_sq(centers: torch.Tensor) -> torch.Tensor:
+    """‖c‖² of every center, made once per centers tensor and kept on it
+    (the index's tensors are never written in place)."""
+    c_sq = getattr(centers, "_raft_center_sq", None)
+    if c_sq is None:
+        c_sq = centers._raft_center_sq = (centers * centers).sum(1)
+    return c_sq
 
 
 def _prep_queries(mt, queries: torch.Tensor) -> torch.Tensor:
@@ -1008,19 +1042,38 @@ def _search_impl(index: IvfPqIndex, queries: torch.Tensor, k: int,
     against the gathered bf16 reconstructions, ⟨q, c + d⟩ directly."""
     mt = resolve_metric(index.metric)
     q_all = _prep_queries(mt, queries)
-    S, P, L = index.pq_dim, index.pq_len, index.max_list_size
+    S, P = index.pq_dim, index.pq_len
     ip_like = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
     qc, probes = _coarse_probes(index, q_all, n_probes, ip_like)
     q_rot_all = q_all @ index.rotation.T
+
+    def qlut_of(a, q_rot):
+        return _k.round_to_lut_dtype(torch.einsum(
+            "tsp,skp->tsk", q_rot.view(q_rot.shape[0], S, P),
+            index.codebooks), lut_dtype)
+
+    return _scan_tiles(index, q_rot_all, qlut_of, qc, probes, k, n_probes,
+                       query_tile, lut_dtype == "float32", filter_bits)
+
+
+def _scan_tiles(index: IvfPqIndex, q_rot_all: torch.Tensor, qlut_of, qc,
+                probes, k: int, n_probes: int, query_tile: int,
+                recon_ok: bool, filter_bits=None):
+    """The per_query scan over query tiles: gather each query's probed
+    lists, sum its LUT (``qlut_of(a, q_rot)``: the tile at row ``a``) over
+    their codes — or, with the recon cache, ``recon_ok`` and
+    n_probes·L·pq_dim·2^bits ≥ 2²⁸, take one product against the gathered
+    bf16 reconstructions — then the shared epilogue."""
+    mt = resolve_metric(index.metric)
+    S, L = index.pq_dim, index.max_list_size
     q_sq_all = (q_rot_all * q_rot_all).sum(1)
     pr_all = probes.long()
     qc_probed_all = torch.gather(qc, 1, pr_all)
-    use_recon_dot = (index.packed_recon is not None
-                     and lut_dtype == "float32"
+    use_recon_dot = (index.packed_recon is not None and recon_ok
                      and n_probes * L * S * index.codebooks.shape[1]
                      >= (1 << 28))
     vals, out = [], []
-    for a in range(0, q_all.shape[0], query_tile):
+    for a in range(0, q_rot_all.shape[0], query_tile):
         q_rot = q_rot_all[a:a + query_tile]
         probe = pr_all[a:a + query_tile]
         t = q_rot.shape[0]
@@ -1032,9 +1085,7 @@ def _search_impl(index: IvfPqIndex, queries: torch.Tensor, k: int,
         else:
             codes = _k.unpack_codes(index.packed_codes[probe], S,
                                     index.pq_bits)
-            qlut = _k.round_to_lut_dtype(torch.einsum(
-                "tsp,skp->tsk", q_rot.view(t, S, P), index.codebooks),
-                lut_dtype)
+            qlut = qlut_of(a, q_rot)
             idx = codes.reshape(t, n_probes * L, S).transpose(1, 2)  # [t, S, C]
             qd = torch.gather(qlut, 2, idx).sum(1)                   # [t, C]
             dots = qc_probed_all[a:a + query_tile][:, :, None].expand(
@@ -1112,6 +1163,33 @@ def _search_grouped(index: IvfPqIndex, queries: torch.Tensor, k: int,
     return out_vals, out_ids
 
 
+def _lut_scan_segments(index: IvfPqIndex, probes: torch.Tensor, seg: int,
+                       n_seg: int):
+    """The LUT tier's segment table and the scan's block tables
+    (``kernels.lut_scan_tables``), replayed on the card from one CUDA graph
+    per shape (``utils.graphs``): ~40 small operations whose launches would
+    otherwise hold an isolated batch's scan back by a millisecond or more
+    of host time. → (seg_list, seg_q, pair_seg, pair_slot, tables or
+    None on the CPU, whose plain scan needs none, or when no block fits,
+    where the scan raises)."""
+    fit = _k.lut_scan_fit(index.pq_dim, 1 << index.pq_bits, index.rot_dim,
+                          seg, index.packed_codes.shape[-1])
+    if fit is None or probes.device.type != "cuda":
+        return (*ic.segment_probes(probes, index.n_lists, seg, n_seg), None)
+    qg, n_lists = fit[0], index.n_lists
+
+    def tables(p):
+        seg_list, seg_q, pair_seg, pair_slot = ic.segment_probes(
+            p, n_lists, seg, n_seg)
+        return (seg_list, seg_q, pair_seg, pair_slot,
+                *_k.lut_scan_tables(seg_q, pair_seg, pair_slot, qg))
+
+    out = _graphs.replay(("ivf_pq.lut_scan_segments", tuple(probes.shape),
+                          probes.dtype, n_lists, seg, n_seg, qg),
+                         tables, probes)
+    return (*out[:4], out[4:])
+
+
 def _search_lut_pallas(index: IvfPqIndex, queries: torch.Tensor, k: int,
                        n_probes: int, seg: int, n_seg: int,
                        lut_dtype: str = "float32", filter_bits=None):
@@ -1131,10 +1209,9 @@ def _search_lut_pallas(index: IvfPqIndex, queries: torch.Tensor, k: int,
     B = q_all.shape[0]
     ip_like = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
     _, probes = _coarse_probes(index, q_all, n_probes, ip_like)
-    seg_list, seg_q, pair_seg, pair_slot = ic.segment_probes(
-        probes, index.n_lists, seg, n_seg)
+    seg_list, seg_q, pair_seg, pair_slot, tables = _lut_scan_segments(
+        index, probes, seg, n_seg)
     q_rot = (q_all @ index.rotation.T).contiguous()
-    q_sq = (q_rot * q_rot).sum(1)
     fbytes = (None if filter_bits is None
               else _sf.list_filter_bytes(filter_bits, index.packed_ids))
     keys, kids = _k.ivfpq_lut_scan_topk(
@@ -1142,7 +1219,8 @@ def _search_lut_pallas(index: IvfPqIndex, queries: torch.Tensor, k: int,
         index.packed_ids, index.packed_norms, index.list_sizes,
         index.centers_rot, index.codebooks, "ip" if ip_like else "l2",
         pq_bits=index.pq_bits, pq_dim=index.pq_dim, L=index.max_list_size,
-        lut_dtype=lut_dtype, filter_bytes=fbytes)
+        lut_dtype=lut_dtype, filter_bytes=fbytes, tables=tables)
+    q_sq = (q_rot * q_rot).sum(1)
     C = n_probes * keys.shape[-1]
     pv = keys.view(B, C)
     pi = kids.view(B, C)
@@ -1181,9 +1259,10 @@ def _warn_lut_fallback(reason: str) -> None:
     warnings.warn(f"ivf_pq: scan_select='pallas' requested but the LUT-scan "
                   f"kernel cannot serve this search — reason={reason}: "
                   f"{_LUT_FALLBACK_DETAIL[reason]} — falling back to "
-                  "scan_select='approx'", RuntimeWarning, stacklevel=3)
+                  "scan_select='approx'", RuntimeWarning, stacklevel=4)
 
 
+@traced("raft_tpu_torch.ivf_pq.search")
 def search(index: IvfPqIndex, queries, k: int,
            params: Optional[SearchParams] = None, filter_bitset=None,
            dataset=None, *, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1218,6 +1297,12 @@ def search(index: IvfPqIndex, queries, k: int,
 
         return _refine.route_refined(search, index, q, k, params, dataset,
                                      device, filter_bitset=filter_bitset)
+    if (_obs_spans.stages_enabled() and _obs_spans._trace_clean()
+            and not filtered):
+        # observability stage mode: coarse_quantize, lut and scan as
+        # separate stages, each under a recording span
+        _count_scan_dispatch("staged")
+        return search_staged(index, q, k, params, device=device)
     n_probes = min(params.n_probes, index.n_lists)
     B = q.shape[0]
     mode = params.scan_mode
@@ -1260,9 +1345,12 @@ def search(index: IvfPqIndex, queries, k: int,
                 _obs_spans.count_fallback("ivf_pq.scan", reason)
             if reason is None:
                 _count_scan_dispatch("pallas_lut", filtered)
-                return _search_lut_pallas(index, q, k, n_probes, seg, n_seg,
-                                          lut_dtype=params.lut_dtype,
-                                          filter_bits=filter_bitset)
+                with span("scan") as sp:
+                    out = _search_lut_pallas(index, q, k, n_probes, seg,
+                                             n_seg, lut_dtype=params.lut_dtype,
+                                             filter_bits=filter_bitset)
+                    sp.attach(out)
+                return out
             if params.scan_select == "pallas":
                 _warn_lut_fallback(reason)
                 select = "approx"
@@ -1288,6 +1376,7 @@ def search(index: IvfPqIndex, queries, k: int,
                         lut_dtype=params.lut_dtype, filter_bits=filter_bitset)
 
 
+@traced("raft_tpu_torch.ivf_pq.search_resilient")
 def search_resilient(index: IvfPqIndex, queries, k: int,
                      params: Optional[SearchParams] = None,
                      filter_bitset=None, dataset=None, deadline=None, *,
@@ -1333,3 +1422,48 @@ def search_resilient(index: IvfPqIndex, queries, k: int,
         {"params": params, "dataset": dataset},
         _degrade.standard_search_ladder(q.shape[0], has_lut=True),
         site="ivf_pq.search", deadline=deadline)
+
+
+def search_staged(index: IvfPqIndex, queries, k: int,
+                  params: Optional[SearchParams] = None, *, device="cuda"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stage-decomposed search for observability (the JAX package's
+    ``search_staged``): coarse_quantize, lut and scan run as separate
+    stages, each under a recording :func:`span` — with sync mode on, the
+    spans attribute *device* time per stage. Exact f32-LUT per_query
+    semantics (the whole batch's LUT built in one product, then the
+    per_query tier's tile scan); results match :func:`search`'s per_query
+    tier. :func:`search` routes unrefined, unfiltered searches here when
+    obs stage mode is enabled."""
+    if params is None:
+        params = SearchParams()
+    dev = resolve_device(device)
+    _precision.enforce()
+    expects(index.device.type == dev.type,
+            "index lives on %s, search asked for %s", index.device, dev)
+    q = to_device(queries, index.device, torch.float32)
+    expects(q.dim() == 2 and q.shape[1] == index.dim,
+            "queries must be [m, %d]", index.dim)
+    expects(index.codebook_kind == "per_subspace",
+            "search_staged supports per_subspace codebooks only")
+    mt = resolve_metric(index.metric)
+    ip_like = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
+    n_probes = min(params.n_probes, index.n_lists)
+    q_all = _prep_queries(mt, q)
+    with span("coarse_quantize") as sp:
+        qc, probes = _coarse_probes(index, q_all, n_probes, ip_like)
+        sp.attach(qc, probes)
+    with span("lut") as sp:
+        # rotate the queries and build the query-only LUT [m, S, K] in one
+        # batched product
+        q_rot = q_all @ index.rotation.T
+        qlut = torch.einsum("msp,skp->msk", q_rot.view(
+            q_rot.shape[0], index.pq_dim, index.pq_len), index.codebooks)
+        sp.attach(q_rot, qlut)
+    with span("scan") as sp:
+        out = _scan_tiles(
+            index, q_rot, lambda a, t: qlut[a:a + t.shape[0]], qc, probes,
+            k, n_probes, _fit_query_tile(params.query_tile, n_probes, index),
+            True)
+        sp.attach(out)
+    return out

@@ -65,8 +65,9 @@ import torch
 from raft_tpu_torch.core import bitset as _bitset
 from raft_tpu_torch.core.device import resolve_device, to_device
 from raft_tpu_torch.core.errors import expects
+from raft_tpu_torch.core.tracing import span, traced
 from raft_tpu_torch.distance.types import DistanceType, resolve_metric
-from raft_tpu_torch.matrix.select_k import select_k as _select_k
+from raft_tpu_torch.matrix.select_k import select_k_impl as _select_k
 from raft_tpu_torch.neighbors import ivf_common as ic
 from raft_tpu_torch.neighbors import sample_filter as _sf
 from raft_tpu_torch.obs import spans as _obs_spans
@@ -185,13 +186,17 @@ def _refine_fused(dataset, queries, candidates, k: int, mt: DistanceType,
                   filter_bits=None):
     met = ("ip" if mt == DistanceType.InnerProduct
            else "cos" if mt == DistanceType.CosineExpanded else "l2")
-    keys, ids = _k.gather_refine_topk(
-        dataset.contiguous(), queries.float().contiguous(),
-        candidates.to(torch.int32).contiguous(), k, met,
-        filter_bits=filter_bits)
-    return _gather_keys_to_dists(keys, ids, mt.value)
+    with span("fused_scan") as sp:
+        keys, ids = _k.gather_refine_topk(
+            dataset.contiguous(), queries.float().contiguous(),
+            candidates.to(torch.int32).contiguous(), k, met,
+            filter_bits=filter_bits)
+        out = _gather_keys_to_dists(keys, ids, mt.value)
+        sp.attach(out)
+    return out
 
 
+@traced("raft_tpu_torch.refine")
 def refine(dataset: torch.Tensor, queries, candidates, k: int,
            metric="sqeuclidean", filter_bits=None, device="cuda"
            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -273,6 +278,7 @@ def _host_ids(candidates) -> np.ndarray:
     return np.asarray(candidates)
 
 
+@traced("raft_tpu_torch.refine_landed")
 def refine_landed(cand_rows, queries, candidates, k: int,
                   metric="sqeuclidean", device="cuda"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -293,6 +299,7 @@ def refine_landed(cand_rows, queries, candidates, k: int,
                                 resolve_metric(metric).value)
 
 
+@traced("raft_tpu_torch.refine_gathered")
 def refine_gathered(host_base, queries, candidates, k: int,
                     metric="sqeuclidean", dequant=None, device="cuda"
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -325,6 +332,7 @@ def refine_gathered(host_base, queries, candidates, k: int,
                                 resolve_metric(metric).value)
 
 
+@traced("raft_tpu_torch.refine_provider")
 def refine_provider(provider, queries, candidates, k: int,
                     metric="sqeuclidean", device="cuda"
                     ) -> Tuple[torch.Tensor, torch.Tensor]:

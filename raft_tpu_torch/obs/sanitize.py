@@ -1,6 +1,12 @@
-"""Runtime sanitizer harness — the lock-order tracker (the jax-free half
-of ``raft_tpu.obs.sanitize``).
+"""Runtime sanitizer harness (counterpart of ``raft_tpu.obs.sanitize``).
 
+- :func:`no_host_transfers` — scopes ``torch.cuda.set_sync_debug_mode(
+  "error")`` around a hot path: an operation that synchronizes the host
+  with the card inside the scope (``.item()``, ``.cpu()``, a
+  data-dependent shape such as ``nonzero``) raises instead of silently
+  serializing the launch pipeline; the previous mode is restored on exit.
+  Prepare inputs on the card before the scope. Without a card it guards
+  nothing (there is no transfer to catch).
 - :func:`monitored_lock` / :func:`monitored_rlock` /
   :func:`monitored_condition` + :func:`assert_no_lock_cycles` /
   :func:`blocking_region` — in the sanitize lane (``RAFT_TPU_SANITIZE=1``,
@@ -14,29 +20,58 @@ of ``raft_tpu.obs.sanitize``).
   monitored lock was held. Off the lane the factories return plain stdlib
   primitives — zero wrapper, zero overhead.
 
-The robust layer's fault plan (``robust.faults``) and the tiered prefetch
-reader (``neighbors.tiered``) take their locks and bracket their blocking
-calls here. The JAX package's other halves — ``recompile_budget``,
-``no_host_transfers``, the collective-schedule checker and
-``capacity_report`` — are about XLA programs; their torch counterparts
-come with the rest of ``obs`` (ROADMAP A13).
+The robust layer's fault plan (``robust.faults``), the tiered prefetch
+reader (``neighbors.tiered``) and every ``obs`` registry take their locks
+and bracket their blocking calls here.
 
-Stdlib-only at import.
+The JAX package's other guards check XLA programs, and the port has no
+counterpart of them: ``apply_sanitize_config`` sets jax's rank-promotion
+and NaN-debug flags, which torch does not have; ``recompile_budget`` and
+``compile_count`` count jit-cache misses, and the port runs eagerly with
+no jit cache; the collective-schedule checker and
+``record_comms_schedule`` read a traced jaxpr, and the port's ranks run
+as one eager program with no trace to read; ``capacity_report`` and
+``assert_billion_safe`` trace with abstract shapes, which the port's
+eager code does not do.
+
+Imports only the standard library at import time (torch inside
+:func:`no_host_transfers`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import traceback
 from typing import Dict, Iterator, List, Optional, Tuple
 
 
 def sanitize_enabled() -> bool:
-    """True when the suite runs in ``RAFT_TPU_SANITIZE=1`` mode."""
-    from raft_tpu_torch.obs.spans import env_flag
+    """True when the suite runs in ``RAFT_TPU_SANITIZE=1`` mode (read here,
+    not through ``obs.spans.env_flag``: the registries make their locks
+    here while ``obs.spans`` may still be importing)."""
+    return os.environ.get("RAFT_TPU_SANITIZE", "").strip().lower() not in (
+        "", "0", "false", "off", "no")
 
-    return env_flag("RAFT_TPU_SANITIZE")
+
+@contextlib.contextmanager
+def no_host_transfers() -> Iterator[None]:
+    """Raise on any host–card synchronization inside the scope: the
+    counterpart of the JAX package's ``jax.transfer_guard("disallow")``
+    scope, over ``torch.cuda.set_sync_debug_mode("error")`` (restored on
+    exit). Explicit copies that do not synchronize stay allowed."""
+    import torch
+
+    if not torch.cuda.is_available():
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
 
 
 

@@ -42,7 +42,8 @@ from raft_tpu_torch.core import bitset as _bitset
 from raft_tpu_torch.core import ids as _ids
 from raft_tpu_torch.core.device import to_device
 from raft_tpu_torch.core.errors import expects, not_ported
-from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn_argmin
+from raft_tpu_torch.distance.fused_l2_nn import (
+    fused_l2_nn_argmin_impl as fused_l2_nn_argmin)
 from raft_tpu_torch.distance.types import (SELECT_MIN, DistanceType,
                                            resolve_metric)
 from raft_tpu_torch.neighbors import ivf_common as ic

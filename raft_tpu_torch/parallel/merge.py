@@ -29,7 +29,7 @@ import torch
 
 from raft_tpu_torch.core import ids as _ids
 from raft_tpu_torch.core.errors import expects, not_ported
-from raft_tpu_torch.matrix.select_k import select_k as _select_k
+from raft_tpu_torch.matrix.select_k import select_k_impl as _select_k
 from raft_tpu_torch.obs import spans as _obs_spans
 from raft_tpu_torch.ops import kernels as _k
 from raft_tpu_torch.parallel.comms import Comms

@@ -38,12 +38,11 @@ degradation was reactive (caught OOM) or static (guard decline).
 Entry-point wiring lives with the entry points:
 ``ivf_pq.search_resilient`` / ``ivf_flat.search_resilient`` wrap their
 ``search`` with :func:`standard_search_ladder`; ``ivf_pq.build_chunked``
-halves an OOMing encode chunk via :func:`run_with_degradation` (in the
-JAX package; ROADMAP A9 here).
+halves an OOMing encode chunk (``half_chunk``).
 
-The JAX package also stamps each move with the current request's labels
-and mirrors it into its span-event ring; those wait for the rest of
-``obs`` (ROADMAP A13).
+Each move carries the current request's labels (``obs.trace
+.RequestContext``) in :func:`recent_steps` and, with event recording on,
+lands in the span-event ring as a zero-duration ``degrade.step`` marker.
 """
 
 from __future__ import annotations
@@ -57,6 +56,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from raft_tpu_torch.core import logging as _log
 from raft_tpu_torch.obs import spans as _spans
+from raft_tpu_torch.obs import trace as _trace
 # one classifier for "is this an OOM": retry uses it to refuse blind
 # re-execution, degrade uses it to trigger the ladder — shared so the
 # two policies can never disagree about the same exception; Deadline /
@@ -145,8 +145,21 @@ _steps_tls = threading.local()
 
 def _note_recent(site: str, frm: str, to: str, reason: str) -> None:
     _steps_tls.n = getattr(_steps_tls, "n", 0) + 1
-    _recent.append({"ts": round(time.time(), 3), "site": site,
-                    "from": frm, "to": to, "reason": reason})
+    entry = {"ts": round(time.time(), 3), "site": site,
+             "from": frm, "to": to, "reason": reason}
+    # a move made while a RequestContext is installed on this thread names
+    # the request(s) it degraded for (ids ride only in this bounded ring
+    # and the event, never as counter labels)
+    ctx = _trace.current_request()
+    if ctx is not None:
+        entry.update(ctx.event_labels())
+    _recent.append(entry)
+    # with event recording on, the move also lands in the span-event ring
+    # as a zero-duration marker beside the stage spans
+    if _spans.events_enabled():
+        args = {k: v for k, v in entry.items() if k != "ts"}
+        _trace.get_buffer().record_span("degrade.step", entry["ts"], 0.0,
+                                        args=args)
 
 
 def recent_steps() -> List[Dict[str, Any]]:

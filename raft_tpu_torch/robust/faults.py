@@ -45,8 +45,8 @@ env: ``RAFT_TPU_FAULT_PLAN`` (path to a plan file) or
 fault-point hit. Every fire counts ``faults.fired{site=...,kind=...}``
 (``obs.spans``, always on).
 
-Stdlib-only at import: its only imports beyond the standard library are
-``obs.spans`` and ``obs.sanitize``, which are stdlib-only too.
+Its only imports beyond the standard library are ``obs.spans`` and
+``obs.sanitize``.
 """
 
 from __future__ import annotations

@@ -27,11 +27,13 @@ failure families:
 
 Counters (always on, ``obs.spans``): ``retry.attempts{site=}`` per
 attempt, ``retry.recovered{site=}`` when a later attempt succeeds,
-``retry.exhausted{site=}`` when the policy gives up. The JAX package's
-per-attempt timeline events wait for the rest of ``obs`` (ROADMAP A13).
+``retry.exhausted{site=}`` when the policy gives up. With event recording
+on, each RE-attempt lands in the span-event ring as a zero-duration
+``retry.attempt`` marker carrying the current request's labels.
 
-Stdlib-only at import: torch is looked up in ``sys.modules`` (an
-exception of a torch class exists only once torch is imported).
+Its imports beyond the standard library are ``obs.spans`` and
+``obs.trace``; torch's exception classes are looked up in ``sys.modules``
+(an exception of a torch class exists only once torch is imported).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 from raft_tpu_torch.obs import spans as _spans
+from raft_tpu_torch.obs import trace as _trace
 
 __all__ = ["RetryPolicy", "RetryExhausted", "retry_call", "retrying",
            "default_retryable", "is_resource_exhausted", "is_cuda_error",
@@ -229,6 +232,20 @@ def _count(name: str, site: str) -> None:
     _spans.inc(name, site=site)
 
 
+def _attempt_event(site: str, attempt: int) -> None:
+    """Timeline marker for a RE-attempt (never the first try — a clean
+    call leaves no retry trace), stamped with the current request
+    context, when event recording is on."""
+    if not _spans.events_enabled():
+        return
+    args: Dict[str, Any] = {"site": site, "attempt": attempt}
+    ctx = _trace.current_request()
+    if ctx is not None:
+        args.update(ctx.event_labels())
+    _trace.get_buffer().record_span("retry.attempt", time.time(), 0.0,
+                                    args=args)
+
+
 def retry_call(fn: Callable[..., Any], *args,
                site: str = "unnamed",
                policy: RetryPolicy = DEFAULT_POLICY,
@@ -270,6 +287,8 @@ def retry_call(fn: Callable[..., Any], *args,
     while True:
         st["attempts"] += 1
         _count("retry.attempts", site)
+        if st["attempts"] > 1:
+            _attempt_event(site, st["attempts"])
         try:
             out = fn(*args, **kwargs)
         except BaseException as e:  # noqa: B036 — classified below

@@ -1073,3 +1073,186 @@ def test_cuda_real_oom_is_classified_and_the_ladder_recovers():
     assert spans.total("faults.fired") == 0
     big = torch.empty(2 << 30, dtype=torch.uint8, device=dev)
     assert big.numel() == 2 << 30
+
+
+# ---------------------------------------------------------------------------
+# observability on the card (ROADMAP A13)
+# ---------------------------------------------------------------------------
+
+def test_cuda_sync_span_times_a_lut_scan_as_cuda_events_do():
+    """Sync-mode spans around B1 launches (500 queries × 64 probes over 256
+    lists of 4,000 rows, 8-bit codes, S 64), one launch a span, measure
+    what CUDA events around the same launches measure: the medians of five
+    agree within 10 %, for root spans (their clock stops only once the
+    card has finished) and for spans nested in one root (timed by their own
+    events on the stream, read when the root has waited)."""
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.obs import trace
+
+    dev = cuda_device()
+    c = scan_case(8, S=64, n_lists=256, L=4000, B=500, n_probes=64)
+    args = _lut_ops(c, dev)
+
+    def launch():
+        return K.ivfpq_lut_scan_topk(*args, "l2", pq_bits=8, pq_dim=c["S"],
+                                     L=c["L"], lut_dtype="float32")
+
+    launch()
+    torch.cuda.synchronize()
+    reg = obs.MetricsRegistry()
+    buf = trace.EventBuffer()
+    prev = trace.set_buffer(buf)
+    event_ms = []
+    obs.enable(sync=True, events=True, registry=reg, hbm=False)
+    try:
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with obs.span("scan") as sp:
+                start.record()
+                out = launch()
+                end.record()
+                sp.attach(out)
+            assert end.query(), "the span exited before the launch ended"
+            event_ms.append(start.elapsed_time(end))
+    finally:
+        obs.disable()
+        trace.set_buffer(prev)
+    span_ms = [e["dur"] * 1e3 for e in buf.snapshot() if e["ph"] == "X"]
+    assert reg.snapshot()["histograms"]["span.scan"]["count"] == 5
+    s_med, e_med = sorted(span_ms)[2], sorted(event_ms)[2]
+    assert e_med > 0.5, event_ms
+    assert abs(s_med - e_med) <= 0.10 * e_med, (span_ms, event_ms)
+
+    buf.clear()
+    event_ms = []
+    obs.enable(sync=True, events=True, registry=reg, hbm=False)
+    prev = trace.set_buffer(buf)
+    try:
+        with obs.span("batch") as root:
+            for _ in range(5):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                with obs.span("scan") as sp:
+                    start.record()
+                    out = launch()
+                    end.record()
+                    sp.attach(out)
+                event_ms.append((start, end))
+            root.attach(out)
+    finally:
+        obs.disable()
+        trace.set_buffer(prev)
+    event_ms = [a.elapsed_time(b) for a, b in event_ms]
+    span_ms = [e["dur"] * 1e3 for e in buf.snapshot()
+               if e["ph"] == "X" and e["name"] == "batch.scan"]
+    assert reg.snapshot()["histograms"]["span.batch.scan"]["count"] == 5
+    s_med, e_med = sorted(span_ms)[2], sorted(event_ms)[2]
+    assert abs(s_med - e_med) <= 0.10 * e_med, (span_ms, event_ms)
+
+
+def test_cuda_hbm_gauges_equal_memory_stats():
+    """The ``hbm.*`` gauges are the caching allocator's readings, and
+    ``bytes_limit`` follows the per-process memory fraction."""
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.obs import hbm
+
+    dev = cuda_device()
+    i = torch.cuda.current_device()
+    keep = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    reg = obs.MetricsRegistry()
+    got = hbm.sample(reg)
+    stats = torch.cuda.memory_stats(i)
+    g = reg.snapshot()["gauges"]
+    assert got["bytes_in_use"] == stats["allocated_bytes.all.current"]
+    assert g["hbm.bytes_in_use"] == stats["allocated_bytes.all.current"]
+    assert g[f"hbm.bytes_in_use{{device={i}}}"] == g["hbm.bytes_in_use"]
+    assert g["hbm.peak_bytes"] == stats["allocated_bytes.all.peak"]
+    total = torch.cuda.get_device_properties(i).total_memory
+    assert hbm.bytes_limit(dev) == total
+    try:
+        torch.cuda.set_per_process_memory_fraction(0.5, i)
+        assert hbm.bytes_limit(dev) == int(total * 0.5)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, i)
+    assert hbm.bytes_limit(torch.device("cpu")) is None
+    del keep
+
+
+def test_cuda_span_inside_graph_capture_records_nothing():
+    """Inside a CUDA-graph capture a sync-mode span records nothing and
+    raises nothing (a synchronize there would end the capture)."""
+    from raft_tpu_torch import obs
+
+    dev = cuda_device()
+    x = torch.ones(1 << 20, device=dev)
+    reg = obs.MetricsRegistry()
+    obs.enable(sync=True, events=True, registry=reg)
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            y = x * 2.0  # warm up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            with obs.span("captured") as sp:
+                y = x * 2.0
+                sp.attach(y)
+        g.replay()
+        torch.cuda.synchronize()
+        with obs.span("outside") as sp:
+            sp.attach(x * 3.0)
+    finally:
+        obs.disable()
+    h = reg.snapshot()["histograms"]
+    assert "span.captured" not in h and h["span.outside"]["count"] == 1
+    assert float(y[0]) == 2.0
+
+
+def test_cuda_no_host_transfers_raises_on_item():
+    """``sanitize.no_host_transfers`` turns a synchronizing ``.item()`` on
+    a card tensor into an error, and restores the sync-debug mode."""
+    from raft_tpu_torch.obs import sanitize
+
+    dev = cuda_device()
+    t = torch.arange(8, device=dev, dtype=torch.float32)
+    before = torch.cuda.get_sync_debug_mode()
+    with sanitize.no_host_transfers():
+        u = t * 2.0  # no sync: allowed
+        with pytest.raises(RuntimeError):
+            u.sum().item()
+    assert torch.cuda.get_sync_debug_mode() == before
+    assert float(u.sum()) == 56.0
+
+
+@pytest.mark.parametrize("B,n_probes,n_lists", [(500, 64, 8192), (37, 5, 7),
+                                                (1, 16, 64)])
+def test_cuda_graphed_lut_tables_match_plain(B, n_probes, n_lists):
+    """The LUT tier's segment and block tables replayed from their CUDA
+    graph equal the operations run directly, call after call with new
+    probes (the graph's inputs are refreshed each replay)."""
+    from raft_tpu_torch.neighbors import ivf_common as tic
+    from raft_tpu_torch.utils import graphs
+
+    dev = cuda_device()
+    seg, qg = 128, 4
+    n_seg = tic.n_segments(B * n_probes, n_lists, seg)
+
+    def tables(p):
+        out = tic.segment_probes(p, n_lists, seg, n_seg)
+        return (*out, *K.lut_scan_tables(out[1], out[2], out[3], qg))
+
+    rng = np.random.default_rng(B)
+    graphs.clear()
+    for call in range(3):
+        probes = torch.tensor(np.stack([
+            rng.choice(n_lists, n_probes, replace=False) for _ in range(B)
+        ]).astype(np.int32), device=dev)
+        got = [t.clone() for t in graphs.replay(
+            ("test", B, n_probes, n_lists), tables, probes)]
+        want = tables(probes)
+        assert len(got) == 7
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), call
+    graphs.clear()

@@ -34,7 +34,12 @@ def test_port_imports_neither_jax_nor_raft_tpu():
             "raft_tpu_torch.parallel.merge", "raft_tpu_torch.parallel.knn",
             "raft_tpu_torch.parallel.ivf", "raft_tpu_torch.parallel.build",
             "raft_tpu_torch.cluster.distributed",
-            "raft_tpu_torch.obs.spans"} <= set(mods)
+            "raft_tpu_torch.obs.spans", "raft_tpu_torch.obs.metrics",
+            "raft_tpu_torch.obs.hbm", "raft_tpu_torch.obs.trace",
+            "raft_tpu_torch.obs.fleet", "raft_tpu_torch.obs.flight",
+            "raft_tpu_torch.obs.expo", "raft_tpu_torch.obs.index_stats",
+            "raft_tpu_torch.obs.prof", "raft_tpu_torch.obs.sanitize",
+            "raft_tpu_torch.core.tracing"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "

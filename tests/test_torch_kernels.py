@@ -572,7 +572,8 @@ def test_tile_selection_model_is_a_stable_sort(kk, L, order):
 
 def test_segment_probes_matches_jax():
     rng = np.random.default_rng(4)
-    for B, P, n_lists in ((40, 8, 16), (300, 5, 7), (3, 16, 64)):
+    for B, P, n_lists in ((40, 8, 16), (300, 5, 7), (3, 16, 64),
+                          (500, 64, 8192)):
         probes = np.stack([rng.choice(n_lists, P, replace=False)
                            for _ in range(B)]).astype(np.int32)
         n_seg = jic.n_segments(B * P, n_lists, 128)

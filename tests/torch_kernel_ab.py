@@ -7,7 +7,7 @@ in turns, on one card.
                   ring_lut_scan_merge|segmented_scan|grouped_scan|
                   gather_refine]
         [--rounds R] [--n ROWS] [--seed S]
-        [--wide | --flat-build | --flat-phase]
+        [--wide | --flat-build | --flat-phase | --main-path]
 
 DIR is the root of another checkout of the repo, for example a parent
 commit unpacked with ``git archive``. Its source of the kernel
@@ -72,6 +72,13 @@ reverse, this tree, each other named by its directory.
   other, other, this; one JSON line each with the legs' QPS, the rows
   dropped and the batch's stage times. For paths that two trees share:
   the phase's single-pass legs swing between runs of one tree.
+- ``--main-path``: ``chip_smoke.py``'s ``[main]`` search of each checkout
+  (``DeviceSynthetic`` ``--n`` x 96, ``ivf_pq.build`` with 8192 lists,
+  pq_dim 64, 8-bit codes, then three passes of 10,000 refined queries in
+  batches of 500 at n_probes 64, k_cand 400, bf16 LUT, against the
+  resident base; CUDA events around each pass), each in a process of its
+  own, in the order this, other, other, this, observability off; one JSON
+  line each with the three passes' QPS.
 - ``gather_refine``: the refine of the IVF-PQ phase and of the sharded
   phase's rank: [500, 400] candidates into ``DeviceSynthetic`` ``--n`` x 96
   and ``--n`` / 2 x 128 rows, drawn as the scans draw them (``ivf_pq.build``
@@ -581,10 +588,63 @@ root = os.path.abspath(sys.argv[1])
 os.chdir(root)
 sys.path.insert(0, root)
 import chip_smoke
-s = chip_smoke.flat_phase(types.SimpleNamespace(seed=int(sys.argv[2])), [])
+_, s = chip_smoke.flat_phase(types.SimpleNamespace(seed=int(sys.argv[2])), [])
 print("FLAT_PHASE " + json.dumps({k: s[k] for k in (
     "qps", "dropped_rows", "recall_at_10", "batch_stages_ms")}), flush=True)
 """
+
+
+_MAIN_PATH = """
+import json, os, sys
+root = os.path.abspath(sys.argv[1])
+os.chdir(root)
+sys.path.insert(0, root)
+import torch
+from raft_tpu_torch.bench.dataset import DeviceSynthetic
+from raft_tpu_torch.neighbors import ivf_pq
+from raft_tpu_torch.ops import build as kbuild
+kbuild.build_all()
+n, seed = int(sys.argv[2]), int(sys.argv[3])
+ds = DeviceSynthetic(n, 96, n_centers=10_000, seed=seed, std=0.5, scale=10.0)
+base, queries = ds.base(), ds.queries(10_000)
+index = ivf_pq.build(base, ivf_pq.IndexParams(
+    n_lists=8192, pq_dim=64, pq_bits=8, cache_reconstruction="never",
+    seed=seed))
+sp = ivf_pq.SearchParams(n_probes=64, scan_select="pallas",
+                         refine="f32_regen", refine_ratio=40,
+                         lut_dtype="bfloat16")
+qps = []
+for _ in range(3):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for a in range(0, 10_000, 500):
+        ivf_pq.search(index, queries[a:a + 500], 10, sp, dataset=base)
+    end.record()
+    torch.cuda.synchronize()
+    qps.append(10_000 / (start.elapsed_time(end) / 1e3))
+print("MAIN_PATH " + json.dumps({"qps": qps}), flush=True)
+"""
+
+
+def _ab_main_path(args, card: str) -> None:
+    """chip_smoke.py's [main] search of both checkouts in turns, a process
+    each (see the module note)."""
+    roots = {"this": os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "other": args.other}
+    for rnd in range(args.rounds):
+        for which in ("this", "other", "other", "this"):
+            out = subprocess.run(
+                [sys.executable, "-c", _MAIN_PATH, roots[which],
+                 str(args.n), str(args.seed)], capture_output=True,
+                text=True, check=True)
+            line = [x for x in out.stdout.splitlines()
+                    if x.startswith("MAIN_PATH ")][-1]
+            print(json.dumps({"phase": "main", "round": rnd,
+                              "library": which,
+                              **json.loads(line[len("MAIN_PATH "):])}),
+                  flush=True)
+    print(json.dumps({"card": card, "phase": "main"}), flush=True)
 
 
 def _ab_flat_phase(args, card: str) -> None:
@@ -625,11 +685,13 @@ def main(argv=None) -> int:
                     help="IVF-Flat builds with each tree's fused_l2_argmin")
     ap.add_argument("--flat-phase", action="store_true",
                     help="chip_smoke.py's IVF-Flat phase of each checkout")
+    ap.add_argument("--main-path", action="store_true",
+                    help="chip_smoke.py's [main] search of each checkout")
     args = ap.parse_args(argv)
     if (args.wide or args.flat_build) and args.kernel != "fused_l2_argmin":
         ap.error("--wide and --flat-build take --kernel fused_l2_argmin")
-    if args.flat_build or args.flat_phase or args.kernel in (
-            "ivfpq_lut_scan", "gather_refine"):
+    if (args.flat_build or args.flat_phase or args.main_path
+            or args.kernel in ("ivfpq_lut_scan", "gather_refine")):
         if len(args.other) > 1:
             ap.error("this mode takes one --other")
         args.other = args.other[0]
@@ -643,7 +705,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    if args.flat_phase:
+    if args.main_path:
+        _ab_main_path(args, card)
+    elif args.flat_phase:
         _ab_flat_phase(args, card)
     elif args.kernel == "ivfpq_lut_scan":
         _ab_lut_scan(args, card)
