@@ -69,7 +69,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``[obs prof]`` 20 warm refined batches under ``obs.prof.capture``
    (``torch.profiler``), the device time of the top 10 kernels by name
    and the device idle share of the window, B1–B3 named in it and B4 in
-   a capture of one ``fused_l2_argmin`` call; ``[obs off]`` the cost of
+   one ``fused_l2_argmin`` call after them in the same capture; ``[obs off]`` the cost of
    a disabled span (32 of them under 2 % of a batch) and a refined batch
    under ``sanitize.no_host_transfers()`` (any host sync is logged with
    its line, and fails the leg); ``--obs-dir DIR`` keeps the leg's files;
@@ -1088,16 +1088,33 @@ def _kernel_id(name: str):
     return None
 
 
-def read_profile(path: str):
+def read_profile(path: str, split: str | None = None):
     """The device activities of a ``torch.profiler`` Chrome trace (what
     ``obs.prof.capture`` wrote): per name, launches and total ms (top
     first), the B-ids seen, and the device idle share — 1 − the union of
     the kernel, copy and fill intervals over the window from the first
-    activity's start to the last one's end."""
+    activity's start to the last one's end. With ``split``, the name of a
+    ``record_function`` range entered after a synchronize, the activities
+    before it and from it on are read apart: → (before, after)."""
     with open(path) as f:
         doc = json.load(f)
     events = [e for e in doc.get("traceEvents", [])
               if e.get("ph") == "X" and e.get("cat") in PROF_DEVICE_CATS]
+    if split is None:
+        return _profile_summary(path, events)
+    marks = [float(e["ts"]) for e in doc.get("traceEvents", [])
+             if e.get("ph") == "X" and e.get("name") == split]
+    if not marks:
+        raise SmokeFailure(f"[obs prof] the trace {path} has no range "
+                           f"{split!r}")
+    t = min(marks)
+    return (_profile_summary(path, [e for e in events
+                                    if float(e["ts"]) < t]),
+            _profile_summary(path, [e for e in events
+                                    if float(e["ts"]) >= t]))
+
+
+def _profile_summary(path: str, events):
     if not events:
         raise SmokeFailure(f"[obs prof] the trace {path} holds no device "
                            "activity")
@@ -1318,21 +1335,22 @@ def obs_leg(args, index, base, queries, sp, B, k, stages_ms, build_reg):
     # [obs prof]: 20 warm refined batches under torch.profiler, obs off
     prof_batches = [queries[(a % 20) * B:(a % 20 + 1) * B] for a in range(20)]
     run(prof_batches[:2])
-    cap = prof.capture(out_dir).start()
-    run(prof_batches)
-    cap.stop()
-    if cap.error is not None or cap.path is None:
-        raise SmokeFailure(f"[obs prof] capture failed: {cap.error!r}")
-    main = read_profile(cap.path)
     x = base[:1 << 20].contiguous()
     c = index.centers.contiguous()
     K.fused_l2_argmin(x, c)
-    cap_b = prof.capture(out_dir).start()
-    K.fused_l2_argmin(x, c)
-    cap_b.stop()
-    if cap_b.error is not None or cap_b.path is None:
-        raise SmokeFailure(f"[obs prof] capture failed: {cap_b.error!r}")
-    build = read_profile(cap_b.path)
+    # one capture: the batches, then (after a synchronize, in a range of
+    # its own) one fused_l2_argmin call for the build's B4 — a second
+    # profiler session in one process once came back without device
+    # activity
+    cap = prof.capture(out_dir).start()
+    run(prof_batches)
+    torch.cuda.synchronize()
+    with torch.profiler.record_function("chip_smoke.fused_l2_argmin"):
+        K.fused_l2_argmin(x, c)
+    cap.stop()
+    if cap.error is not None or cap.path is None:
+        raise SmokeFailure(f"[obs prof] capture failed: {cap.error!r}")
+    main, build = read_profile(cap.path, split="chip_smoke.fused_l2_argmin")
     _log(f"[obs prof] 20 refined batches of {B}: device idle share "
          f"{main['idle_share']:.4f} of a {main['window_ms']:.3f} ms window "
          f"({main['busy_ms']:.3f} ms busy); top 10 by device time: "

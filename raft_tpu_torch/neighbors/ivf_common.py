@@ -99,12 +99,12 @@ def segment_probes(probes: torch.Tensor, n_lists: int, seg: int, n_seg: int):
         seg_end, torch.arange(n_seg, dtype=torch.int32, device=dev),
         right=True, out_int32=True).clamp_(max=n_lists - 1)
     # sorted pair i of list l has rank r = i − start(l): slot address
-    # (seg_base[l] + r // seg)·seg + r % seg = seg_base[l]·seg + r
-    sl = sorted_l.long()
-    rank = torch.arange(BP, dtype=torch.int32, device=dev) - bounds[sl]
-    addr = seg_base[sl] * seg + rank
+    # (seg_base[l] + r // seg)·seg + r % seg = seg_base[l]·seg + r, i.e.
+    # i plus its list's offset seg_base[l]·seg − start(l)
+    addr = ((seg_base * seg - bounds[:-1])[sorted_l]
+            + torch.arange(BP, dtype=torch.int32, device=dev))
     seg_q = torch.full((n_seg * seg,), -1, dtype=torch.int32, device=dev)
-    seg_q[addr.long()] = (order // P).to(torch.int32)
+    seg_q[addr] = (order // P).to(torch.int32)
     addr_pair = torch.empty(BP, dtype=torch.int32, device=dev)
     addr_pair[order] = addr  # the sort's inverse permutation
     return (seg_list, seg_q.view(n_seg, seg), (addr_pair // seg).view(B, P),

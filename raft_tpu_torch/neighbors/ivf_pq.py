@@ -63,7 +63,6 @@ from raft_tpu_torch.random.rng import RngState
 from raft_tpu_torch.robust import degrade as _degrade
 from raft_tpu_torch.robust import faults as _faults
 from raft_tpu_torch.robust import retry as _retry
-from raft_tpu_torch.utils import graphs as _graphs
 from raft_tpu_torch.utils import precision as _precision
 
 
@@ -999,18 +998,11 @@ def _coarse_probes(index: IvfPqIndex, q_all: torch.Tensor, n_probes: int,
     if ip_like:
         _, probes = _select_k(qc, n_probes, select_min=False)
     else:
-        _, probes = _select_k(_center_sq(index.centers)[None, :] - 2.0 * qc,
+        c_sq = (index.centers * index.centers).sum(1)
+        # c_sq − 2·qc in one operation (2·qc is exact)
+        _, probes = _select_k(torch.sub(c_sq[None, :], qc, alpha=2.0),
                               n_probes, select_min=True)
     return qc, probes
-
-
-def _center_sq(centers: torch.Tensor) -> torch.Tensor:
-    """‖c‖² of every center, made once per centers tensor and kept on it
-    (the index's tensors are never written in place)."""
-    c_sq = getattr(centers, "_raft_center_sq", None)
-    if c_sq is None:
-        c_sq = centers._raft_center_sq = (centers * centers).sum(1)
-    return c_sq
 
 
 def _prep_queries(mt, queries: torch.Tensor) -> torch.Tensor:
@@ -1163,33 +1155,6 @@ def _search_grouped(index: IvfPqIndex, queries: torch.Tensor, k: int,
     return out_vals, out_ids
 
 
-def _lut_scan_segments(index: IvfPqIndex, probes: torch.Tensor, seg: int,
-                       n_seg: int):
-    """The LUT tier's segment table and the scan's block tables
-    (``kernels.lut_scan_tables``), replayed on the card from one CUDA graph
-    per shape (``utils.graphs``): ~40 small operations whose launches would
-    otherwise hold an isolated batch's scan back by a millisecond or more
-    of host time. → (seg_list, seg_q, pair_seg, pair_slot, tables or
-    None on the CPU, whose plain scan needs none, or when no block fits,
-    where the scan raises)."""
-    fit = _k.lut_scan_fit(index.pq_dim, 1 << index.pq_bits, index.rot_dim,
-                          seg, index.packed_codes.shape[-1])
-    if fit is None or probes.device.type != "cuda":
-        return (*ic.segment_probes(probes, index.n_lists, seg, n_seg), None)
-    qg, n_lists = fit[0], index.n_lists
-
-    def tables(p):
-        seg_list, seg_q, pair_seg, pair_slot = ic.segment_probes(
-            p, n_lists, seg, n_seg)
-        return (seg_list, seg_q, pair_seg, pair_slot,
-                *_k.lut_scan_tables(seg_q, pair_seg, pair_slot, qg))
-
-    out = _graphs.replay(("ivf_pq.lut_scan_segments", tuple(probes.shape),
-                          probes.dtype, n_lists, seg, n_seg, qg),
-                         tables, probes)
-    return (*out[:4], out[4:])
-
-
 def _search_lut_pallas(index: IvfPqIndex, queries: torch.Tensor, k: int,
                        n_probes: int, seg: int, n_seg: int,
                        lut_dtype: str = "float32", filter_bits=None):
@@ -1208,18 +1173,23 @@ def _search_lut_pallas(index: IvfPqIndex, queries: torch.Tensor, k: int,
     q_all = _prep_queries(mt, queries)
     B = q_all.shape[0]
     ip_like = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
-    _, probes = _coarse_probes(index, q_all, n_probes, ip_like)
-    seg_list, seg_q, pair_seg, pair_slot, tables = _lut_scan_segments(
-        index, probes, seg, n_seg)
-    q_rot = (q_all @ index.rotation.T).contiguous()
     fbytes = (None if filter_bits is None
               else _sf.list_filter_bytes(filter_bits, index.packed_ids))
-    keys, kids = _k.ivfpq_lut_scan_topk(
-        seg_list, seg_q, pair_seg, pair_slot, q_rot, index.packed_codes,
-        index.packed_ids, index.packed_norms, index.list_sizes,
-        index.centers_rot, index.codebooks, "ip" if ip_like else "l2",
-        pq_bits=index.pq_bits, pq_dim=index.pq_dim, L=index.max_list_size,
-        lut_dtype=lut_dtype, filter_bytes=fbytes, tables=tables)
+    # A batch alone waits for the host until the scan launches: the index
+    # arithmetic before it runs without autograd's per-operation work, and
+    # its tensors stay inside this function (the bins are read, never
+    # written, after it).
+    with torch.inference_mode():
+        _, probes = _coarse_probes(index, q_all, n_probes, ip_like)
+        seg_list, seg_q, pair_seg, pair_slot = ic.segment_probes(
+            probes, index.n_lists, seg, n_seg)
+        q_rot = (q_all @ index.rotation.T).contiguous()
+        keys, kids = _k.ivfpq_lut_scan_topk(
+            seg_list, seg_q, pair_seg, pair_slot, q_rot, index.packed_codes,
+            index.packed_ids, index.packed_norms, index.list_sizes,
+            index.centers_rot, index.codebooks, "ip" if ip_like else "l2",
+            pq_bits=index.pq_bits, pq_dim=index.pq_dim,
+            L=index.max_list_size, lut_dtype=lut_dtype, filter_bytes=fbytes)
     q_sq = (q_rot * q_rot).sum(1)
     C = n_probes * keys.shape[-1]
     pv = keys.view(B, C)

@@ -347,35 +347,9 @@ def lut_slot_rows(pair_seg: torch.Tensor, pair_slot: torch.Tensor,
     B, P = pair_seg.shape
     rows = torch.full((n_seg * seg,), -1, dtype=torch.int32,
                       device=pair_seg.device)
-    rows[(pair_seg.long() * seg + pair_slot.long()).reshape(-1)] = torch.arange(
+    rows[(pair_seg * seg + pair_slot).reshape(-1)] = torch.arange(
         B * P, dtype=torch.int32, device=pair_seg.device)
     return rows.view(n_seg, seg)
-
-
-def lut_scan_blocks(n_seg: int, pairs: int, qg: int) -> int:
-    """Blocks of a LUT-scan launch: a grid that covers any segment table of
-    ``pairs`` live slots in groups of ≤ qg (blocks past the groups' end
-    return at once)."""
-    return min(n_seg, pairs) + -(-pairs // qg)
-
-
-def lut_scan_tables(seg_q: torch.Tensor, pair_seg: torch.Tensor,
-                    pair_slot: torch.Tensor, qg: int):
-    """The LUT scan's block tables for a segment table: (slot_rows
-    [n_seg, seg] i32 — :func:`lut_slot_rows`; grp_end [n_seg] i32 — the
-    inclusive prefix of each segment's groups of ≤ qg live slots; blk_seg
-    [n_blocks] i32 — each block's segment). Plain PyTorch operations only,
-    so a caller may replay them from a CUDA graph."""
-    n_seg, seg = seg_q.shape
-    slot_rows = lut_slot_rows(pair_seg, pair_slot, n_seg, seg)
-    n_grp = ((seg_q >= 0).sum(1, dtype=torch.int32) + (qg - 1)) // qg
-    grp_end = torch.cumsum(n_grp, 0, dtype=torch.int32)
-    n_blocks = lut_scan_blocks(n_seg, pair_seg.numel(), qg)
-    blk_seg = torch.searchsorted(
-        grp_end, torch.arange(n_blocks, dtype=torch.int32,
-                              device=seg_q.device),
-        right=True, out_int32=True)
-    return slot_rows, grp_end, blk_seg
 
 
 def unpack_filter_bytes(fbytes: torch.Tensor, L: int) -> torch.Tensor:
@@ -465,8 +439,7 @@ def ivfpq_lut_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
                         codebooks: torch.Tensor, metric: str = "l2", *,
                         pq_bits: int, pq_dim: int, L: int,
                         lut_dtype: str = "float32",
-                        filter_bytes: Optional[torch.Tensor] = None,
-                        tables: Optional[Tuple[torch.Tensor, ...]] = None
+                        filter_bytes: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused segmented IVF-PQ scan over packed codes.
 
@@ -487,11 +460,7 @@ def ivfpq_lut_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
     ``filter_bytes`` [n_lists, ceil(L/8)] u8 (``sample_filter.
     list_filter_bytes`` over ``ids``): a row whose keep bit is clear is
     scored as a pad (+inf, −1) before the bins, so the bins hold only
-    kept rows; the kernel reads the keep byte beside the row's id.
-
-    ``tables``: the block tables of :func:`lut_scan_tables` for this
-    segment table, when the caller made them already (the search makes
-    them with its segments, in one CUDA graph)."""
+    kept rows; the kernel reads the keep byte beside the row's id."""
     S, K, P, nb, rot = _lut_scan_args(seg_list, seg_q, q_rot, packed, ids,
                                       norms, centers_rot, codebooks, metric,
                                       pq_bits, pq_dim, L)
@@ -507,12 +476,12 @@ def ivfpq_lut_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
     filt = () if filter_bytes is None else (filter_bytes,)
     if filt:
         _check_filter_bytes(filter_bytes, packed.shape[0], L)
-    cb = lut_codebook(codebooks, lut_dtype)
     if not _use_kernel(seg_list, seg_q, pair_seg, pair_slot, q_rot, packed,
-                       ids, norms, list_sizes, centers_rot, cb, *filt):
-        return ivfpq_lut_scan_topk_plain(seg_list, pair_seg, q_rot, packed,
-                                         ids, norms, list_sizes, centers_rot,
-                                         cb, metric, pq_bits, filter_bytes)
+                       ids, norms, list_sizes, centers_rot, codebooks, *filt):
+        return ivfpq_lut_scan_topk_plain(
+            seg_list, pair_seg, q_rot, packed, ids, norms, list_sizes,
+            centers_rot, lut_codebook(codebooks, lut_dtype), metric,
+            pq_bits, filter_bytes)
     n_seg, seg = seg_q.shape
     B, n_probes = pair_seg.shape
     lib = _lib("ivfpq_lut_scan")
@@ -521,14 +490,18 @@ def ivfpq_lut_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
             S, K)
     qg, R = fit
     dev = q_rot.device
-    slot_rows, grp_end, blk_seg = (
-        tables if tables is not None
-        else lut_scan_tables(seg_q, pair_seg, pair_slot, qg))
-    n_blocks = blk_seg.shape[0]
-    expects(n_blocks == lut_scan_blocks(n_seg, B * n_probes, qg)
-            and grp_end.shape[0] == n_seg
-            and tuple(slot_rows.shape) == (n_seg, seg),
-            "LUT-scan tables do not match the segment table")
+    slot_rows = lut_slot_rows(pair_seg, pair_slot, n_seg, seg)
+    # one block per (segment, group of ≤ qg live slots): the inclusive
+    # prefix of the groups, each block's segment, and a grid that covers
+    # any segment table of B·P live slots (blocks past the prefix's end
+    # return at once)
+    n_grp = ((seg_q >= 0).sum(1, dtype=torch.int32) + (qg - 1)) // qg
+    grp_end = torch.cumsum(n_grp, 0, dtype=torch.int32)
+    pairs = B * n_probes
+    n_blocks = min(n_seg, pairs) + -(-pairs // qg)
+    blk_seg = torch.searchsorted(
+        grp_end, torch.arange(n_blocks, dtype=torch.int32, device=dev),
+        right=True, out_int32=True)
     keys = torch.empty((B, n_probes, LUT_SCAN_BINS), dtype=torch.float32,
                        device=dev)
     kids = torch.empty((B, n_probes, LUT_SCAN_BINS), dtype=torch.int32,
@@ -1088,7 +1061,6 @@ def lut_scan_smem_bytes(qg: int, R: int, S: int, K: int, rot: int, seg: int,
     return b + max(nthr * _lut_row_stride(nb), nthr * 24)
 
 
-@functools.lru_cache(maxsize=64)
 def lut_scan_fit(S: int, K: int, rot: int, seg: int, nb: int):
     """(live queries per pass, row groups) of a LUT-scan block with ``seg``
     slots that fits shared memory — the most LUTs × threads, ties to more

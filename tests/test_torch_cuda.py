@@ -1224,35 +1224,3 @@ def test_cuda_no_host_transfers_raises_on_item():
             u.sum().item()
     assert torch.cuda.get_sync_debug_mode() == before
     assert float(u.sum()) == 56.0
-
-
-@pytest.mark.parametrize("B,n_probes,n_lists", [(500, 64, 8192), (37, 5, 7),
-                                                (1, 16, 64)])
-def test_cuda_graphed_lut_tables_match_plain(B, n_probes, n_lists):
-    """The LUT tier's segment and block tables replayed from their CUDA
-    graph equal the operations run directly, call after call with new
-    probes (the graph's inputs are refreshed each replay)."""
-    from raft_tpu_torch.neighbors import ivf_common as tic
-    from raft_tpu_torch.utils import graphs
-
-    dev = cuda_device()
-    seg, qg = 128, 4
-    n_seg = tic.n_segments(B * n_probes, n_lists, seg)
-
-    def tables(p):
-        out = tic.segment_probes(p, n_lists, seg, n_seg)
-        return (*out, *K.lut_scan_tables(out[1], out[2], out[3], qg))
-
-    rng = np.random.default_rng(B)
-    graphs.clear()
-    for call in range(3):
-        probes = torch.tensor(np.stack([
-            rng.choice(n_lists, n_probes, replace=False) for _ in range(B)
-        ]).astype(np.int32), device=dev)
-        got = [t.clone() for t in graphs.replay(
-            ("test", B, n_probes, n_lists), tables, probes)]
-        want = tables(probes)
-        assert len(got) == 7
-        for g, w in zip(got, want):
-            assert torch.equal(g, w), call
-    graphs.clear()

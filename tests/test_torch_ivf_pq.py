@@ -99,6 +99,21 @@ def test_lut_tier_matches_jax(corpus, lut_dtype, monkeypatch):
                                atol=1e-3)
 
 
+@pytest.mark.parametrize("refined", [False, True])
+def test_lut_tier_returns_ordinary_tensors(corpus, refined):
+    """The LUT tier runs its index arithmetic under inference mode; what
+    it returns is an ordinary tensor that the caller may write in place."""
+    x, q = corpus
+    kw = dict(refine="f32_regen", refine_ratio=4) if refined else {}
+    td, ti = tpq.search(_port_index(_jax_index(x)), _t(q), 10,
+                        tpq.SearchParams(n_probes=8, scan_select="pallas",
+                                         **kw),
+                        dataset=_t(x) if refined else None, device="cpu")
+    assert not td.is_inference() and not ti.is_inference()
+    ti[0, 0] = -1
+    td.mul_(2.0)
+
+
 @pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product",
                                     "cosine"])
 def test_per_query_tier_matches_jax(corpus, metric):

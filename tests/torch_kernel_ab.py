@@ -78,7 +78,10 @@ reverse, this tree, each other named by its directory.
   batches of 500 at n_probes 64, k_cand 400, bf16 LUT, against the
   resident base; CUDA events around each pass), each in a process of its
   own, in the order this, other, other, this, observability off; one JSON
-  line each with the three passes' QPS.
+  line each with the three passes' QPS, the median wall time of a batch
+  run alone (a synchronize before and after each of 20 batches) and,
+  where the checkout has recording spans, the median of ten root spans
+  of ``chip_smoke.py``'s ``[obs spans]`` (sync mode).
 - ``gather_refine``: the refine of the IVF-PQ phase and of the sharded
   phase's rank: [500, 400] candidates into ``DeviceSynthetic`` ``--n`` x 96
   and ``--n`` / 2 x 128 rows, drawn as the scans draw them (``ivf_pq.build``
@@ -595,7 +598,7 @@ print("FLAT_PHASE " + json.dumps({k: s[k] for k in (
 
 
 _MAIN_PATH = """
-import json, os, sys
+import json, os, sys, time
 root = os.path.abspath(sys.argv[1])
 os.chdir(root)
 sys.path.insert(0, root)
@@ -623,7 +626,28 @@ for _ in range(3):
     end.record()
     torch.cuda.synchronize()
     qps.append(10_000 / (start.elapsed_time(end) / 1e3))
-print("MAIN_PATH " + json.dumps({"qps": qps}), flush=True)
+# a batch alone: the host's launches before the scan are not hidden
+batches = [queries[a:a + 500] for a in range(0, 10_000, 500)]
+alone = []
+for q in batches:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ivf_pq.search(index, q, 10, sp, dataset=base)
+    torch.cuda.synchronize()
+    alone.append((time.perf_counter() - t0) * 1e3)
+out = {"qps": qps, "alone_ms_median": sorted(alone)[len(alone) // 2]}
+from raft_tpu_torch import obs
+if hasattr(obs, "enable"):  # a checkout with recording spans
+    from raft_tpu_torch.obs import trace
+    trace.get_buffer().clear()
+    obs.enable(sync=True, events=True, registry=obs.MetricsRegistry())
+    for q in batches[:10]:
+        ivf_pq.search(index, q, 10, sp, dataset=base)
+    obs.disable()
+    root = sorted(1e3 * e["dur"] for e in trace.get_buffer().snapshot()
+                  if e.get("ph") == "X" and e["name"] == "ivf_pq.search")
+    out["root_span_ms_median"] = root[len(root) // 2]
+print("MAIN_PATH " + json.dumps(out), flush=True)
 """
 
 
