@@ -73,6 +73,38 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    a disabled span (32 of them under 2 % of a batch) and a refined batch
    under ``sanitize.no_host_transfers()`` (any host sync is logged with
    its line, and fails the leg); ``--obs-dir DIR`` keeps the leg's files;
+   then ``[serve …]`` (ROADMAP A14): the serving plane over the same index
+   and parameters (``SERVE_CONFIG``: buckets 1…512, queue 8192, linger 2
+   ms, SLO 100 ms), answering single-query requests, observability on
+   (no sync, no hbm sampling): ``[serve warm]`` warmup seconds by bucket
+   and each bucket's first served batch after warmup against its warm
+   median (fails past 5 × and 2 ms over it); ``[serve parity]`` 500
+   single-query submits equal to direct searches of one query but at f32
+   ties, distances within 1e-5 relative; ``[serve load]`` an open-loop
+   sweep at ``SERVE_STEPS`` for 3 s a step over the 10,000 queries with
+   their exact ground truth (launch counts zeroed before and read after:
+   B1–B3 must launch; every request a result or a typed error, no error,
+   recall@10 ≥ 0.95; the highest step with p99 under the SLO); ``[serve
+   prof]`` the 20,000/s step under ``obs.prof.capture``: the idle share
+   and the top kernels, B1–B3 named; ``[serve expo]`` ``/metrics``,
+   ``/healthz``, ``/indexz``, ``/costz`` fetched and parsed during the
+   sweep, the cost ledger's conservation within 1e-6, the flight dump's
+   ``serve_registry``, ``quality`` and ``cost`` sections; ``[serve
+   quality]`` the shadow verifier's exact host replays and their Wilson
+   interval (fails only if its upper bound is under 0.95); ``[serve
+   chaos]`` an injected OOM in the served search walks the ladder (rows
+   equal direct calls with the final knobs, tenant ``degraded``), a stall
+   past the SLO sheds by deadline, ``stop(drain=False)`` sheds the queue
+   as draining, no future unresolved; ``[serve tiers]`` a registry whose
+   budget holds one tenant and the other's codes: admitting a second
+   tenant demotes the first's raw vectors (counter, ``index.bytes``
+   gauges, ``memory_allocated`` falling by the base), its served rows
+   equal the resident answers but at ties, then the reader thread against
+   the inline fetch (``prefetch=False``) at ``SERVE_AB_QPS``, in turns;
+   ``[serve router]`` two pods sharing the card, the tenant replicated,
+   ``SERVE_STORM`` single-query requests from 4 threads with pod b killed
+   at a hop: every request answered by pod a (equal to direct searches
+   but at ties) or shed typed, the ``serve.router.*`` counters matching;
 3b. the same path at its target scale, ``[chunked]`` — DEEP-100M-shaped
    ``DeviceSyntheticChunks`` (100M x 96, 10,000 centers, 1M-row blocks,
    never materialized): ``ivf_pq.build_chunked`` with
@@ -1426,6 +1458,637 @@ def obs_leg(args, index, base, queries, sp, B, k, stages_ms, build_reg):
             "span_off_us": per_span * 1e6,
             "record_function_us": per_rf * 1e6,
             "batch_ms": per_batch * 1e3}
+
+# the [serve …] leg's server settings (PERF.md §4): buckets 1…512 for the
+# main path's batch of 500, the JAX package's linger, an SLO of about 20 ×
+# a full batch's time
+SERVE_CONFIG = {"max_batch": 512, "queue_depth": 8192, "linger_s": 0.002,
+                "default_slo_s": 0.1, "expo_port": 0}
+SERVE_STEPS = (1_000.0, 5_000.0, 20_000.0, 50_000.0)
+SERVE_STEP_S = 3.0
+# the A/B's rate: past what the demoted tenant completes, so batches queue
+# up past 32 requests and take the tiered pipeline (smaller ones take the
+# serial gather, with or without the reader thread)
+SERVE_AB_QPS = 10_000.0
+SERVE_STORM = 2_000
+
+
+def _resolve(futs, timeout=30.0):
+    """Every future's outcome, each waited on with a timeout: ("ok",
+    (distances, ids)), ("shed", reason), ("deadline", None) or ("error",
+    repr). An unresolved future raises SmokeFailure."""
+    import concurrent.futures as cf
+
+    from raft_tpu_torch import serve
+
+    out = []
+    for f in futs:
+        try:
+            out.append(("ok", f.result(timeout=timeout)))
+        except cf.TimeoutError:
+            raise SmokeFailure("[serve] a future was left unresolved")
+        except serve.ShedError as e:
+            out.append(("shed", e.reason))
+        except serve.DeadlineExceeded:
+            out.append(("deadline", None))
+        except Exception as e:  # noqa: BLE001 — counted, checked
+            out.append(("error", repr(e)))
+    return out
+
+
+def _served_rows(outcomes, what):
+    import numpy as np
+
+    bad = [o for o in outcomes if o[0] != "ok"]
+    if bad:
+        raise SmokeFailure(f"{what}: {len(bad)} requests not served: "
+                           f"{bad[:3]}")
+    return (np.stack([o[1][0] for o in outcomes]),
+            np.stack([o[1][1] for o in outcomes]))
+
+
+def _check_rows(queries, base, d_got, i_got, d_ref, i_ref, what):
+    """Served rows against reference rows: ids equal but at f32 ties
+    (checked in f64), distances within 1e-5 relative where the ids
+    agree. Returns the tie count."""
+    import numpy as np
+    import torch
+
+    i_got = torch.as_tensor(np.asarray(i_got)).to(base.device)
+    i_ref = torch.as_tensor(np.asarray(i_ref)).to(base.device)
+    ties = _swaps_are_ties(queries, base, i_got, i_ref, what)
+    same = (i_got == i_ref).cpu().numpy()
+    d_got, d_ref = np.asarray(d_got), np.asarray(d_ref)
+    err = np.abs(d_got - d_ref)[same]
+    lim = (1e-5 * np.abs(d_ref))[same]
+    if np.any(err > lim):
+        raise SmokeFailure(f"{what}: distances differ by up to "
+                           f"{float((err / np.maximum(lim, 1e-30)).max()):.3g}"
+                           " × the 1e-5 relative tolerance")
+    return ties
+
+
+def _span_totals(reg):
+    """``(count, seconds)`` of every ``span.serve.dispatch*`` histogram of
+    a metrics registry: the batcher's time in dispatch and in the stages
+    under it."""
+    return {n[len("span."):]: (h["count"], h["sum"])
+            for n, h in reg.snapshot()["histograms"].items()
+            if n.startswith("span.serve.dispatch")}
+
+
+def serve_leg(args, index, base, queries, sp, B, k):
+    """``[serve …]`` (ROADMAP A14): the serving plane over the IVF-PQ
+    phase's index, searched with the phase's parameters and re-ranked
+    against its device base, answering single-query traffic. Parts:
+    ``[serve warm]`` (warmup seconds by bucket; each bucket's first
+    served batch after warmup against its warm median), ``[serve
+    parity]`` (500 single-query submits equal to direct searches but at
+    f32 ties), ``[serve load]`` (an open-loop sweep at SERVE_STEPS, every
+    request a result or a typed error, recall@10 ≥ 0.95), ``[serve
+    prof]`` (the 20,000/s step under ``obs.prof.capture``), ``[serve
+    expo]`` (the endpoints over HTTP during the sweep, the cost ledger's
+    conservation, the flight dump's sections), ``[serve quality]`` (the
+    shadow verifier's Wilson interval), ``[serve chaos]`` (an injected
+    OOM walks the ladder, a stall sheds by deadline, a stop sheds the
+    queue as draining), ``[serve tiers]`` (a second tenant demotes the
+    first's raw vectors to host; the reader thread against the inline
+    fetch at SERVE_AB_QPS) and ``[serve router]`` (two pods, pod b killed
+    mid-storm). Raises SmokeFailure; returns the summary."""
+    import dataclasses
+    import functools
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import obs, serve
+    from raft_tpu_torch.neighbors import brute_force, ivf_pq, tiered
+    from raft_tpu_torch.obs import expo, flight, prof, trace
+    from raft_tpu_torch.obs.metrics import counter_sum
+    from raft_tpu_torch.ops import kernels as K
+    from raft_tpu_torch.robust import degrade, faults
+    from raft_tpu_torch.serve import dispatch as sdispatch
+    from raft_tpu_torch.serve import loadgen
+    from raft_tpu_torch.serve.server import _FILL_BUCKETS
+
+    t_leg = time.perf_counter()
+    dev = base.device
+    out = {}
+    q_host = queries.cpu().numpy()
+    nq = q_host.shape[0]
+    slo = SERVE_CONFIG["default_slo_s"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    mreg = obs.MetricsRegistry()
+    obs.enable(registry=mreg, hbm=False, events=True)
+    trace.get_buffer().clear()
+    os.environ["RAFT_TPU_FLIGHT_DIR"] = tmp
+    registry = serve.IndexRegistry(device=dev)
+    t0 = time.perf_counter()
+    registry.admit("deep10m", index, params=sp, default_k=k, dataset=base)
+    admit_s = time.perf_counter() - t0
+    # the verifier offers 2 % of completed requests (the JAX package's
+    # default fraction) and takes one a second (its token bucket): 10–30
+    # replays over the sweep and its profile
+    cfg = serve.ServerConfig(**SERVE_CONFIG, verify_sample=0.02,
+                             verify_rate_per_s=1.0)
+    srv = serve.MicroBatchServer(registry, cfg)
+    try:
+        # [serve warm]
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        srv.start(warmup=True)
+        warm_s = time.perf_counter() - t0
+        launches = K.launch_counts()
+        obs.enable(registry=mreg, hbm=False)  # events off from here on
+        by_bucket = {}
+        for e in trace.get_buffer().snapshot():
+            a = e.get("args") or {}
+            if e.get("name") == "serve.dispatch" and "batch" in a:
+                by_bucket.setdefault(int(a["batch"]), []).append(e["dur"])
+        tenant = registry.peek("deep10m")
+        _log(f"[serve warm] admit {admit_s:.2f} s (index stats with the "
+             f"base); start(warmup=True) {warm_s:.2f} s over buckets "
+             f"{list(srv.buckets)}, seconds by bucket "
+             + json.dumps({b: round(sum(v), 4)
+                           for b, v in sorted(by_bucket.items())})
+             + f"; state {tenant.state}; launches {json.dumps(launches)}")
+        if sorted(by_bucket) != list(srv.buckets) or tenant.state != \
+                "serving":
+            raise SmokeFailure("[serve warm] warmup did not run every "
+                               "bucket through dispatch")
+        missing = [n for n in PQ_KERNELS if n != "fused_l2_argmin"
+                   and launches[n] == 0]
+        if missing:
+            raise SmokeFailure(f"[serve warm] kernels never launched: "
+                               f"{missing}")
+        ratios = {}
+        for j, b in enumerate(srv.buckets):
+            qb = np.zeros((b, q_host.shape[1]), np.float32)
+            qb[:] = q_host[(j * 512 + np.arange(b)) % nq]
+            qd = torch.from_numpy(qb).to(base.device)
+            times = []
+            for _ in range(6):
+                t = time.perf_counter()
+                sdispatch.dispatch_batch(tenant, qd, k)
+                times.append((time.perf_counter() - t) * 1e3)
+            med = float(np.median(times[1:]))
+            ratios[b] = (round(times[0], 3), round(med, 3),
+                         round(times[0] / med, 3))
+        _log("[serve warm] first served batch after warmup against the warm "
+             "median, ms (first, median of 5, ratio): " + json.dumps(ratios))
+        slow = {b: r for b, r in ratios.items()
+                if r[2] > 5.0 and r[0] - r[1] > 2.0}
+        if slow:
+            raise SmokeFailure(f"[serve warm] first batches > 5 × and > 2 ms "
+                               f"over their warm medians: {slow}")
+        out["warm"] = {"admit_s": admit_s, "start_s": warm_s,
+                       "by_bucket_s": {b: sum(v) for b, v in
+                                       by_bucket.items()},
+                       "first_vs_warm_ms": ratios}
+
+        # [serve parity]
+        n_par = 500
+        with srv._cond:  # one batch: the batcher waits for the lock
+            futs = [srv.submit("deep10m", q_host[j], k, slo_s=None)
+                    for j in range(n_par)]
+        d_s, i_s = _served_rows(_resolve(futs), "[serve parity]")
+        ref = [ivf_pq.search(index, queries[j:j + 1], k, sp, dataset=base,
+                             device=dev) for j in range(n_par)]
+        d_r = torch.cat([r[0] for r in ref]).cpu().numpy()
+        i_r = torch.cat([r[1] for r in ref]).cpu().numpy()
+        ties = _check_rows(queries[:n_par], base, d_s, i_s, d_r, i_r,
+                           "[serve parity]")
+        _log(f"[serve parity] {n_par} single-query submits (one batch of "
+             f"{n_par}, bucket 512) equal {n_par} direct searches of one "
+             f"query: ids but at {ties} f32 ties, distances within 1e-5 "
+             "relative")
+        out["parity_ties"] = ties
+
+        # [serve load] with [serve expo] fetching during it
+        t0 = time.perf_counter()
+        gt = torch.cat([brute_force.knn(base, queries[a:a + 1000], k,
+                                        metric="sqeuclidean", device=dev)[1]
+                        for a in range(0, nq, 1000)]).cpu().numpy()
+        gt_s = time.perf_counter() - t0
+        scraped = {}
+        stop_scrape = threading.Event()
+
+        def scrape():
+            url = srv.expo.url
+            while not stop_scrape.is_set():
+                for ep in ("/metrics", "/healthz", "/indexz", "/costz"):
+                    with urllib.request.urlopen(url + ep, timeout=10) as r:
+                        body = r.read().decode()
+                    scraped[ep] = (expo.parse_prometheus(body)
+                                   if ep == "/metrics" else json.loads(body))
+                    scraped.setdefault("n", 0)
+                    scraped["n"] += 1
+                stop_scrape.wait(0.5)
+
+        scraper = threading.Thread(target=scrape, daemon=True)
+        scraper.start()
+        K.reset_launch_counts()
+        rows = []
+        fills = []
+        for j, rate in enumerate(SERVE_STEPS[:2]):
+            h0 = mreg.histogram("serve.batch_fill", buckets=_FILL_BUCKETS).state()
+            rows.append(loadgen.run_step(srv, "deep10m", q_host, k, rate,
+                                         SERVE_STEP_S, seed=j,
+                                         ground_truth=gt))
+            h1 = mreg.histogram("serve.batch_fill", buckets=_FILL_BUCKETS).state()
+            fills.append((h1["sum"] - h0["sum"])
+                         / max(h1["count"] - h0["count"], 1))
+        # [serve prof]: the 20,000/s step under the profiler
+        cap = prof.capture(os.path.join(tmp, "prof")).start()
+        spans0 = _span_totals(mreg)
+        h0 = mreg.histogram("serve.batch_fill", buckets=_FILL_BUCKETS).state()
+        rows.append(loadgen.run_step(srv, "deep10m", q_host, k,
+                                     SERVE_STEPS[2], SERVE_STEP_S, seed=2,
+                                     ground_truth=gt))
+        h1 = mreg.histogram("serve.batch_fill", buckets=_FILL_BUCKETS).state()
+        fills.append((h1["sum"] - h0["sum"])
+                     / max(h1["count"] - h0["count"], 1))
+        cap.stop()
+        spans1 = _span_totals(mreg)
+        for j, rate in enumerate(SERVE_STEPS[3:], start=3):
+            h0 = mreg.histogram("serve.batch_fill", buckets=_FILL_BUCKETS).state()
+            rows.append(loadgen.run_step(srv, "deep10m", q_host, k, rate,
+                                         SERVE_STEP_S, seed=j,
+                                         ground_truth=gt))
+            h1 = mreg.histogram("serve.batch_fill", buckets=_FILL_BUCKETS).state()
+            fills.append((h1["sum"] - h0["sum"])
+                         / max(h1["count"] - h0["count"], 1))
+        stop_scrape.set()
+        scraper.join(timeout=15)
+        launches = K.launch_counts()
+        _log(f"[serve load] launches over the sweep {json.dumps(launches)}")
+        missing = [n for n in PQ_KERNELS if n != "fused_l2_argmin"
+                   and launches[n] == 0]
+        if missing:
+            raise SmokeFailure(f"[serve load] kernels never launched: "
+                               f"{missing}")
+        for row, fill in zip(rows, fills):
+            row["arrival_rate"] = row["sent"] / SERVE_STEP_S
+            row["mean_fill"] = fill
+            row.pop("slow_trace_ids", None)
+            _log("[serve load] " + json.dumps(
+                {key: row[key] for key in (
+                    "offered_qps", "arrival_rate", "qps", "latency_p50_s",
+                    "latency_p99_s", "sent", "completed", "shed",
+                    "shed_reasons", "deadline_missed", "errors",
+                    "mean_fill", "recall", "device_s", "cost_share")}))
+            ends = (row["completed"] + row["shed"] + row["deadline_missed"]
+                    + row["errors"])
+            if ends != row["sent"]:
+                raise SmokeFailure(f"[serve load] {row['sent']} sent, "
+                                   f"{ends} ended")
+            if row["errors"]:
+                raise SmokeFailure(f"[serve load] {row['errors']} errors at "
+                                   f"{row['offered_qps']}/s")
+            if row["completed"] and row["recall"] < 0.95:
+                raise SmokeFailure(f"[serve load] recall@10 {row['recall']}"
+                                   f" < 0.95 at {row['offered_qps']}/s")
+        under = [r["offered_qps"] for r in rows
+                 if r["latency_p99_s"] is not None
+                 and r["latency_p99_s"] < slo]
+        best = max(under) if under else None
+        arrived = {r["offered_qps"]: round(r["arrival_rate"], 1)
+                   for r in rows}
+        _log(f"[serve load] ground truth of {nq} queries in {gt_s:.1f} s; "
+             f"the highest offered step with p99 under the {slo * 1e3:.0f} "
+             f"ms SLO: {best} (arrivals the open-loop client reached, "
+             f"by offered rate: {json.dumps(arrived)})")
+        out["load"] = rows
+        out["best_step_under_slo"] = best
+
+        summ = read_profile(cap.path)
+        ids = summ["ids"]
+        _log(f"[serve prof] {SERVE_STEPS[2]:.0f}/s for {SERVE_STEP_S} s "
+             f"under torch.profiler: device idle {summ['idle_share']:.4f} "
+             f"of {summ['window_ms']:.1f} ms; top kernels "
+             + json.dumps([{key: t[key] for key in ("name", "id", "launches",
+                                                    "ms")}
+                           for t in summ["top"][:10]]))
+        host = {n_: (v[0] - spans0.get(n_, (0, 0.0))[0],
+                     (v[1] - spans0.get(n_, (0, 0.0))[1]) * 1e3)
+                for n_, v in spans1.items()}
+        n_disp, disp_ms = host.get("serve.dispatch", (0, 0.0))
+        _log(f"[serve prof] host: {n_disp} batches in the step, "
+             f"serve.dispatch spans {disp_ms:.1f} ms in all "
+             f"({disp_ms / max(n_disp, 1):.2f} ms a batch, the card busy "
+             f"{summ['busy_ms'] / max(n_disp, 1):.2f} ms a batch); spans "
+             "(count, ms): " + json.dumps({n_: [v[0], round(v[1], 1)]
+                                          for n_, v in host.items()}))
+        if not {"B1", "B2", "B3"} <= set(ids):
+            raise SmokeFailure(f"[serve prof] B1–B3 not all named: {ids}")
+        out["prof"] = {"idle_share": summ["idle_share"],
+                       "window_ms": summ["window_ms"],
+                       "top": summ["top"][:10], "batches": n_disp,
+                       "dispatch_ms": disp_ms}
+
+        # [serve expo]
+        if scraped.get("n", 0) < 4:
+            raise SmokeFailure("[serve expo] the endpoints were not scraped")
+        fams = scraped["/metrics"]
+        need = ("raft_tpu_serve_requests", "raft_tpu_serve_latency_s",
+                "raft_tpu_cost_device_s")
+        if not all(any(f.startswith(n) for f in fams) for n in need):
+            raise SmokeFailure(f"[serve expo] /metrics lacks {need}")
+        health, indexz = scraped["/healthz"], scraped["/indexz"]
+        costz = scraped["/costz"]
+        if health.get("tenants", {}).get("deep10m") != "serving" or \
+                "deep10m" not in indexz.get("tenants", {}) or \
+                "deep10m" not in costz.get("ledger", {}).get("tenants", {}):
+            raise SmokeFailure("[serve expo] a payload misses the tenant")
+        cons = srv.ledger.conservation()
+        path = flight.dump_now(reason="serve_smoke")
+        with open(path) as f:
+            dump = json.load(f)
+        flight.uninstall()
+        sections = [s for s in ("serve_registry", "quality", "cost")
+                    if s in dump]
+        _log(f"[serve expo] {scraped['n']} scrapes during the sweep: "
+             f"/metrics {len(fams)} families; /healthz "
+             f"{json.dumps({k2: health[k2] for k2 in ('status', 'tenants', 'resident')})}"
+             f"; /indexz lists {indexz['tenants']['deep10m']['stats']['lists']['n_lists']}"
+             f" lists, bytes {json.dumps(indexz['tenants']['deep10m'].get('bytes'))}"
+             f"; /costz device_s "
+             f"{costz['ledger']['tenants']['deep10m']['device_s']:.4f}; "
+             f"conservation {json.dumps(cons)}; flight dump sections "
+             f"{sections}")
+        if cons["rel_err"] > 1e-6:
+            raise SmokeFailure(f"[serve expo] conservation off by "
+                               f"{cons['rel_err']}")
+        if len(sections) != 3:
+            raise SmokeFailure(f"[serve expo] the dump has {sections}")
+        out["expo"] = {"scrapes": scraped["n"], "families": len(fams),
+                       "conservation": cons}
+
+        # [serve quality]: wait for the verdicts
+        t0 = time.perf_counter()
+        ver = srv.verifier
+        while time.perf_counter() - t0 < 60.0:
+            with ver._lock:
+                pending = len(ver._pending)
+            if not pending:
+                break
+            time.sleep(0.2)
+        time.sleep(3.0)  # the replay in flight
+        summary = ver.recall_summary("deep10m").get(k, {})
+        state = ver.state()
+        _log(f"[serve quality] {state['verified_total']} exact host replays "
+             f"(waited {time.perf_counter() - t0:.1f} s after the sweep): "
+             f"recall@10 {summary.get('recall')}, Wilson 95 % interval "
+             f"[{summary.get('ci_low')}, {summary.get('ci_high')}] over "
+             f"{summary.get('n')} verdicts; skips "
+             + json.dumps({key: v for key, v in
+                           mreg.snapshot()["counters"].items()
+                           if key.startswith("quality.skipped")}))
+        if not summary or summary["ci_high"] < 0.95:
+            raise SmokeFailure(f"[serve quality] interval {summary}")
+        out["quality"] = {**summary, "verified": state["verified_total"]}
+
+        # [serve chaos]
+        degrade.clear_recent()
+        n_c = 64
+        faults.install_plan({"faults": [{"site": "ivf_pq.search",
+                                         "kind": "oom", "times": 1}]})
+        try:
+            with srv._cond:
+                futs = [srv.submit("deep10m", q_host[j], k, slo_s=None)
+                        for j in range(n_c)]
+            d_c, i_c = _served_rows(_resolve(futs), "[serve chaos] oom")
+        finally:
+            faults.clear_plan()
+        path_c = [st["to"] for st in degrade.recent_steps()
+                  if st["site"] == "ivf_pq.search"]
+        knobs = _final_knobs(path_c, {"params": sp, "dataset": base}, n_c,
+                             True)
+        d_d, i_d = _direct(functools.partial(ivf_pq.search, device=dev),
+                           index, queries[:n_c], k, knobs)
+        if not (np.array_equal(i_c, i_d.cpu().numpy())
+                and np.array_equal(d_c, d_d.cpu().numpy())):
+            raise SmokeFailure("[serve chaos] the walked batch differs from "
+                               "direct calls with its final knobs")
+        st_oom = registry.peek("deep10m").state
+        if st_oom != "degraded" or not path_c:
+            raise SmokeFailure(f"[serve chaos] path {path_c}, state "
+                               f"{st_oom}")
+        shed0 = counter_sum(mreg.collect(), "serve.shed", reason="deadline")
+        faults.install_plan({"faults": [{"site": "serve.dispatch",
+                                         "kind": "sleep",
+                                         "sleep_s": 2.5 * slo,
+                                         "times": 1}]})
+        try:
+            slow_f = srv.submit("deep10m", q_host[0], k, slo_s=None)
+            time.sleep(0.05)
+            doomed = srv.submit("deep10m", q_host[1], k)
+            o_stall = _resolve([slow_f, doomed])
+        finally:
+            faults.clear_plan()
+        shed1 = counter_sum(mreg.collect(), "serve.shed", reason="deadline")
+        if o_stall[0][0] != "ok" or o_stall[1][0] != "deadline" or \
+                shed1 - shed0 != 1:
+            raise SmokeFailure(f"[serve chaos] stall: {o_stall}, deadline "
+                               f"sheds {shed1 - shed0}")
+        faults.install_plan({"faults": [{"site": "serve.dispatch",
+                                         "kind": "sleep", "sleep_s": 0.3,
+                                         "times": 0}]})
+        try:
+            first = srv.submit("deep10m", q_host[0], k, slo_s=None)
+            time.sleep(0.05)
+            queued = [srv.submit("deep10m", q_host[j], k, slo_s=None)
+                      for j in range(32)]
+            srv.stop(drain=False)
+            o_stop = _resolve([first] + queued)
+        finally:
+            faults.clear_plan()
+        kinds = [o[0] if o[0] != "shed" else o[1] for o in o_stop]
+        _log(f"[serve chaos] injected OOM in the served search: path "
+             f"{path_c}, {n_c} rows equal direct calls with its final knobs "
+             f"bit for bit, tenant {st_oom}; a {2.5 * slo:.2f} s stall at "
+             f"serve.dispatch: {[o[0] for o in o_stall]}, serve.shed"
+             f"{{reason=deadline}} +{shed1 - shed0:.0f}; stop(drain=False) "
+             f"with 32 queued: {kinds.count('ok')} ok, "
+             f"{kinds.count('draining')} draining; no future unresolved")
+        if kinds.count("draining") < 1 or set(kinds) - {"ok", "draining"}:
+            raise SmokeFailure(f"[serve chaos] stop outcomes {kinds}")
+        out["chaos"] = {"oom_path": path_c, "stop": kinds.count("draining")}
+    finally:
+        srv.stop(drain=False)
+        flight.uninstall()
+
+    # [serve tiers]
+    s_idx = serve.index_device_bytes(index, dev)
+    s_raw = base.numel() * base.element_size()
+    budget = 2 * s_idx + s_raw + s_raw // 2
+    treg = serve.IndexRegistry(budget_bytes=budget, headroom_frac=0.0,
+                               device=dev)
+    treg.admit("t_a", index, params=sp, default_k=k, dataset=base.clone())
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    treg.admit("t_b", index, params=sp, default_k=k, dataset=base)
+    demote_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    freed = alloc0 - torch.cuda.memory_allocated()
+    gauges = {(r["labels"]["index"], r["labels"]["tier"]): r["value"]
+              for r in mreg.collect()
+              if r["name"] == "index.bytes" and r["kind"] == "gauge"}
+    demoted = counter_sum(mreg.collect(), "serve.registry.demote",
+                          tenant="t_a")
+    want = {("t_a", "hbm"): s_idx, ("t_a", "host"): s_raw,
+            ("t_b", "hbm"): s_idx + s_raw, ("t_b", "host"): 0}
+    _log(f"[serve tiers] budget {budget:,} B (two tenants need "
+         f"{2 * (s_idx + s_raw):,}): admitting t_b demoted t_a's raw "
+         f"vectors in {demote_s:.2f} s (serve.registry.demote "
+         f"{demoted:.0f}); memory_allocated fell {freed:,} B (the base is "
+         f"{s_raw:,}); index.bytes "
+         + json.dumps({f"{a}/{b}": v for (a, b), v in sorted(
+             gauges.items()) if a in ("t_a", "t_b")}))
+    if demoted != 1 or any(gauges.get(key) != v for key, v in want.items()):
+        raise SmokeFailure("[serve tiers] demotion counters or gauges wrong")
+    if abs(freed - s_raw) > s_raw // 100:
+        raise SmokeFailure(f"[serve tiers] {freed} B freed, not the base's")
+    tsrv = serve.MicroBatchServer(treg, serve.ServerConfig(**{
+        **SERVE_CONFIG, "expo_port": None}))
+    orig = tiered.search_refined_tiered
+    try:
+        tsrv.start(warmup=True)
+        with tsrv._cond:
+            futs = [tsrv.submit("t_a", q_host[j], k, slo_s=None)
+                    for j in range(B)]
+        d_h, i_h = _served_rows(_resolve(futs), "[serve tiers]")
+        d_res, i_res = ivf_pq.search(index, queries[:B], k, sp,
+                                     dataset=base, device=dev)
+        ties_t = _swaps_are_ties(queries[:B], base,
+                                 torch.from_numpy(i_h).to(base.device),
+                                 i_res, "[serve tiers]")
+        ab = []
+        for mode in ("thread", "inline", "thread", "inline"):
+            tiered.search_refined_tiered = (
+                orig if mode == "thread"
+                else functools.partial(orig, prefetch=False))
+            spans_before = mreg.snapshot()["counters"]
+            row = loadgen.run_step(tsrv, "t_a", q_host, k, SERVE_AB_QPS,
+                                   SERVE_STEP_S, seed=11)
+            after = mreg.snapshot()["counters"]
+            hits = sum(v - spans_before.get(key, 0) for key, v in
+                       after.items() if key.startswith("serve.prefetch.hit"))
+            stalls = sum(v - spans_before.get(key, 0) for key, v in
+                         after.items()
+                         if key.startswith("serve.prefetch.stall"))
+            ab.append({"mode": mode, "qps": row["qps"],
+                       "p50_s": row["latency_p50_s"],
+                       "p99_s": row["latency_p99_s"], "sent": row["sent"],
+                       "shed": row["shed"],
+                       "missed": row["deadline_missed"],
+                       "errors": row["errors"], "hits": hits,
+                       "stalls": stalls})
+    finally:
+        tiered.search_refined_tiered = orig
+        tsrv.stop(drain=False)
+    _log(f"[serve tiers] the demoted tenant's {B} served rows equal the "
+         f"resident answers but at {ties_t} f32 ties")
+    for r in ab:
+        _log("[serve tiers] A/B " + json.dumps(r))
+    if any(r["errors"] for r in ab):
+        raise SmokeFailure("[serve tiers] errors in the A/B steps")
+    out["tiers"] = {"freed_bytes": freed, "demote_s": demote_s,
+                    "ties": ties_t, "ab": ab}
+    for name in ("t_a", "t_b"):
+        treg.evict(name)
+    del treg, tsrv
+    torch.cuda.empty_cache()
+
+    # [serve router]
+    pods = [serve.Pod(n, registry=serve.IndexRegistry(device=dev))
+            for n in "ab"]
+    router = serve.FleetRouter(pods)
+    placed = router.place("deep10m", index, hot=True, params=sp,
+                          default_k=k, dataset=base)
+    for p in pods:
+        p.registry.mark("deep10m", "serving")
+    c0 = mreg.snapshot()["counters"]
+    kill_at = SERVE_STORM // 4
+    faults.install_plan({"faults": [{"site": "serve.router.hop.b",
+                                     "kind": "error", "after": kill_at // 2,
+                                     "times": 0}]})
+    results = [None] * SERVE_STORM
+    qd = queries[:SERVE_STORM]
+
+    def client(lo, hi):
+        for j in range(lo, hi):
+            try:
+                d, i = router.dispatch("deep10m", qd[j:j + 1], k)
+                results[j] = ("ok", d.cpu(), i.cpu())
+            except serve.ShedError as e:
+                results[j] = ("shed", e.reason)
+            except Exception as e:  # noqa: BLE001 — checked below
+                results[j] = ("error", repr(e))
+
+    t0 = time.perf_counter()
+    try:
+        per = SERVE_STORM // 4
+        threads = [threading.Thread(target=client, args=(a, a + per))
+                   for a in range(0, SERVE_STORM, per)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        faults.clear_plan()
+    storm_s = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or any(r is None for r in results):
+        raise SmokeFailure("[serve router] a request was left unanswered")
+    c1 = {key: v - c0.get(key, 0)
+          for key, v in mreg.snapshot()["counters"].items()
+          if key.startswith(("serve.router.", "faults.fired"))
+          and v != c0.get(key, 0)}
+    ok = [j for j, r in enumerate(results) if r[0] == "ok"]
+    shed = [r for r in results if r[0] == "shed"]
+    errs = [r for r in results if r[0] == "error"]
+    d_o = torch.cat([results[j][1] for j in ok])
+    i_o = torch.cat([results[j][2] for j in ok])
+    ref = [ivf_pq.search(index, qd[j:j + 1], k, sp, dataset=base, device=dev)
+           for j in ok]
+    d_ref = torch.cat([r[0] for r in ref]).cpu()
+    i_ref = torch.cat([r[1] for r in ref]).cpu()
+    ties_r = _check_rows(qd[ok], base, d_o.numpy(), i_o.numpy(),
+                         d_ref.numpy(), i_ref.numpy(), "[serve router]")
+    down = c1.get("serve.router.pod_down{pod=b}", 0)
+    fired = c1.get("faults.fired{kind=error,site=serve.router.hop.b}", 0)
+    _log(f"[serve router] pods {placed} hold the tenant (replicate); "
+         f"{SERVE_STORM} single-query requests from 4 threads in "
+         f"{storm_s:.2f} s, pod b killed at its {kill_at // 2}th hop: "
+         f"{len(ok)} answered (equal to direct searches but at {ties_r} f32 "
+         f"ties), {len(shed)} shed, {len(errs)} errors; pod b healthy "
+         f"{pods[1].healthy}; counters {json.dumps(c1)}")
+    if errs or shed or len(ok) != SERVE_STORM or pods[1].healthy:
+        raise SmokeFailure(f"[serve router] outcomes: {errs[:2]} {shed[:2]}")
+    if c1.get("serve.router.requests{tenant=deep10m}") != SERVE_STORM or \
+            down != fired or down < 1 or \
+            c1.get("serve.router.degraded{reason=pod_lost}") != down or \
+            c1.get("serve.router.shed{reason=pod_unhealthy}", 0) != 0:
+        raise SmokeFailure(f"[serve router] counters {c1} do not match the "
+                           "outcomes")
+    out["router"] = {"answered": len(ok), "pod_down": down,
+                     "storm_s": storm_s, "ties": ties_r}
+    for p in pods:
+        p.registry.evict("deep10m")
+    del pods, router
+    obs.disable()
+    os.environ.pop("RAFT_TPU_FLIGHT_DIR", None)
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["leg_s"] = time.perf_counter() - t_leg
+    _log(f"[serve] leg in {out['leg_s']:.1f} s")
+    return out
+
 
 def flat_resilient_leg(index, queries, k):
     """``[flat resilient]``: IVF-Flat ``search_resilient`` of 500 queries
@@ -3253,6 +3916,13 @@ def main(argv=None) -> int:
         return _fail(str(e))
     _log(f"[obs] leg in {obs_summary['leg_s']:.1f} s")
 
+    # 10. [serve …]: single-query traffic through the serving plane
+    # (ROADMAP A14)
+    try:
+        serve_summary = serve_leg(args, index, base, queries, sp, B, k)
+    except SmokeFailure as e:
+        return _fail(str(e))
+
     summary = {"n": N, "dim": dim, "n_lists": 8192, "pq_dim": 64,
                "max_list_size": index.max_list_size, "build_s": build_s,
                "build_stages_s": stages, "qps_runs": qps_runs,
@@ -3260,7 +3930,7 @@ def main(argv=None) -> int:
                "recall_kernel_200": rec_kern, "recall_plain_200": rec_plain,
                "batch_stages_ms": stages_ms, "filter": filt_summary,
                "tiered": tiered_summary, "resilient": resilient_summary,
-               "obs": obs_summary}
+               "obs": obs_summary, "serve": serve_summary}
     _log(f"[summary] {json.dumps(summary)}")
     del index, base, queries, cand, kk, ki, scores, scan
     torch.cuda.empty_cache()

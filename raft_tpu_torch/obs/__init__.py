@@ -25,10 +25,17 @@ names, so dumps, traces and scrapes cross between the packages):
 - :mod:`raft_tpu_torch.obs.sanitize` — the lock-order tracker and the
   ``no_host_transfers`` scope.
 
+- :mod:`raft_tpu_torch.obs.quality` — the shadow recall verifier (Wilson
+  intervals over exact host replays of sampled requests);
+- :mod:`raft_tpu_torch.obs.cost`    — per-tenant attribution of device time
+  and memory byte-seconds;
+- :mod:`raft_tpu_torch.obs.capacity` — utilization and saturation
+  forecasting.
+
 Recording is off by default and adds no sync point until :func:`enable`
 is called (or ``RAFT_TPU_OBS=1`` is set); the counters are always on.
-``quality``, ``cost`` and ``capacity`` come with the serving plane
-(ROADMAP A14).
+The serving plane (:mod:`raft_tpu_torch.serve`) drives ``quality``,
+``cost`` and ``capacity``.
 """
 
 from raft_tpu_torch.obs.metrics import (  # noqa: F401
@@ -71,3 +78,6 @@ from raft_tpu_torch.obs import expo  # noqa: F401
 from raft_tpu_torch.obs import index_stats  # noqa: F401
 from raft_tpu_torch.obs import fleet  # noqa: F401
 from raft_tpu_torch.obs import sanitize  # noqa: F401
+from raft_tpu_torch.obs import capacity  # noqa: F401
+from raft_tpu_torch.obs import cost  # noqa: F401
+from raft_tpu_torch.obs import quality  # noqa: F401

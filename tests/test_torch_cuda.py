@@ -26,6 +26,8 @@ filter gives the unfiltered kernel's output bit for bit.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1224,3 +1226,152 @@ def test_cuda_no_host_transfers_raises_on_item():
             u.sum().item()
     assert torch.cuda.get_sync_debug_mode() == before
     assert float(u.sum()) == 56.0
+
+
+# ---------------------------------------------------------------------------
+# the serving plane on the card (ROADMAP A14)
+# ---------------------------------------------------------------------------
+
+def _card_tenant(dev, n=20_000, d=32, seed=3):
+    """A refined IVF-PQ tenant on the card: index, base, params (k_cand
+    400: the re-rank takes the gather kernel from 256 candidates on)."""
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    x = torch.from_numpy(blobs(n, d, 64, seed)).to(dev)
+    index = ivf_pq.build(x, ivf_pq.IndexParams(
+        n_lists=64, pq_dim=16, cache_reconstruction="never"), device=dev)
+    sp = ivf_pq.SearchParams(n_probes=16, scan_select="pallas",
+                             refine="f32_regen", refine_ratio=40)
+    return index, x, sp
+
+
+def _outcomes(futs):
+    """Every future's outcome, each awaited with a timeout (an unresolved
+    one fails the test by timing out)."""
+    from raft_tpu_torch import serve
+
+    out = []
+    for f in futs:
+        try:
+            d, i = f.result(timeout=60)
+            out.append(("ok", d, i))
+        except serve.ShedError as e:
+            out.append(("shed", e.reason))
+        except serve.DeadlineExceeded:
+            out.append(("deadline",))
+    return out
+
+
+def test_cuda_server_serves_what_a_direct_search_returns():
+    """Single-query submits on a card registry: one coalesced batch equals
+    a direct search of the same padded bucket bit for bit, the kernels of
+    the path launch, and the results reach the client as host arrays."""
+    from raft_tpu_torch import serve
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    dev = cuda_device()
+    index, x, sp = _card_tenant(dev)
+    reg = serve.IndexRegistry(device=dev)
+    assert reg.device.type == dev.type
+    reg.admit("t", index, params=sp, default_k=10, dataset=x)
+    srv = serve.MicroBatchServer(reg, serve.ServerConfig(
+        max_batch=16, linger_s=0.002, default_slo_s=None))
+    q = x[:13].cpu().numpy() + 0.01
+    try:
+        srv.start()
+        K.reset_launch_counts()
+        with srv._cond:  # one batch of 13 (bucket 16)
+            futs = [srv.submit("t", r, 10) for r in q]
+        got = _outcomes(futs)
+    finally:
+        srv.stop()
+    launches = K.launch_counts()
+    assert [o[0] for o in got] == ["ok"] * 13
+    assert all(isinstance(o[2], np.ndarray) for o in got)
+    padded = torch.zeros((16, q.shape[1]))
+    padded[:13] = torch.from_numpy(q)
+    d_ref, i_ref = ivf_pq.search(index, padded.to(dev), 10, sp, dataset=x,
+                                 device=dev)
+    np.testing.assert_array_equal(np.stack([o[2] for o in got]),
+                                  i_ref[:13].cpu().numpy())
+    np.testing.assert_array_equal(np.stack([o[1] for o in got]),
+                                  d_ref[:13].cpu().numpy())
+    for name in ("ivfpq_lut_scan_topk", "select_k", "gather_refine_topk"):
+        assert launches[name] >= 1, launches
+
+
+def test_cuda_no_unresolved_future_under_faults():
+    """On the card: an injected OOM walks the ladder and still answers, a
+    stall past a request's budget sheds it by deadline, and a stop with
+    work queued sheds it as draining — every future resolves, typed."""
+    from raft_tpu_torch import serve
+    from raft_tpu_torch.robust import faults
+
+    dev = cuda_device()
+    index, x, sp = _card_tenant(dev)
+    reg = serve.IndexRegistry(device=dev)
+    reg.admit("t", index, params=sp, default_k=10, dataset=x)
+    srv = serve.MicroBatchServer(reg, serve.ServerConfig(
+        max_batch=8, linger_s=0.002, default_slo_s=0.1, drain_s=5.0))
+    q = x[:8].cpu().numpy()
+    try:
+        srv.start()
+        faults.install_plan({"faults": [{"site": "ivf_pq.search",
+                                         "kind": "oom", "times": 1}]})
+        walked = _outcomes([srv.submit("t", r, 10, slo_s=None) for r in q])
+        faults.clear_plan()
+        assert [o[0] for o in walked] == ["ok"] * 8
+        assert reg.peek("t").state == "degraded"
+        faults.install_plan({"faults": [{"site": "serve.dispatch",
+                                         "kind": "sleep", "sleep_s": 0.3,
+                                         "times": 0}]})
+        slow = srv.submit("t", q[0], 10, slo_s=None)
+        time.sleep(0.05)
+        doomed = srv.submit("t", q[1], 10)
+        queued = [srv.submit("t", r, 10, slo_s=None) for r in q]
+        time.sleep(0.4)
+        srv.stop(drain=False)
+        out = _outcomes([slow, doomed] + queued)
+    finally:
+        faults.clear_plan()
+        srv.stop(drain=False)
+    kinds = [o[0] if o[0] != "shed" else o[1] for o in out]
+    assert kinds[0] == "ok" and kinds[1] == "deadline"
+    assert set(kinds[2:]) <= {"ok", "draining"} and "draining" in kinds
+
+
+def test_cuda_registry_demotion_frees_the_base():
+    """A second tenant past the budget demotes the first's raw vectors to
+    host: the card's allocated bytes fall by the base's, the tiers read
+    right, and the demoted tenant's dispatch equals its resident answers
+    but at f32 ties."""
+    from raft_tpu_torch import serve
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.serve import dispatch
+
+    dev = cuda_device()
+    index, x, sp = _card_tenant(dev, n=100_000)
+    s_idx = serve.index_device_bytes(index, dev)
+    s_raw = x.numel() * 4
+    reg = serve.IndexRegistry(budget_bytes=2 * s_idx + s_raw + s_raw // 2,
+                              headroom_frac=0.0, device=dev)
+    reg.admit("a", index, params=sp, default_k=10, dataset=x.clone())
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    reg.admit("b", index, params=sp, default_k=10, dataset=x)
+    torch.cuda.synchronize()
+    assert before - torch.cuda.memory_allocated() == s_raw
+    a = reg.peek("a")
+    assert a.demoted and a.placement.raw == "host"
+    assert isinstance(a.dataset, np.ndarray)
+    assert serve.index_bytes_by_tier(index, a.dataset, dev) == {
+        "hbm": s_idx, "host": s_raw}
+    q = x[:64] + 0.01
+    d_h, i_h = dispatch.dispatch_batch(a, q, 10)
+    d_r, i_r = ivf_pq.search(index, q, 10, sp, dataset=x, device=dev)
+    diff = torch.nonzero(i_h != i_r).tolist()
+    for r, j in diff:  # ties only: equal f64 distances within f32 rounding
+        qa = q[r].double()
+        da = float(((qa - x[i_h[r, j]].double()) ** 2).sum())
+        db = float(((qa - x[i_r[r, j]].double()) ** 2).sum())
+        assert abs(da - db) <= 1e-4 + 1e-5 * float((qa * qa).sum())

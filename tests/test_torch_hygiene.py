@@ -39,6 +39,12 @@ def test_port_imports_neither_jax_nor_raft_tpu():
             "raft_tpu_torch.obs.fleet", "raft_tpu_torch.obs.flight",
             "raft_tpu_torch.obs.expo", "raft_tpu_torch.obs.index_stats",
             "raft_tpu_torch.obs.prof", "raft_tpu_torch.obs.sanitize",
+            "raft_tpu_torch.obs.quality", "raft_tpu_torch.obs.cost",
+            "raft_tpu_torch.obs.capacity", "raft_tpu_torch.bench.runner",
+            "raft_tpu_torch.serve.errors", "raft_tpu_torch.serve.registry",
+            "raft_tpu_torch.serve.dispatch", "raft_tpu_torch.serve.server",
+            "raft_tpu_torch.serve.slo", "raft_tpu_torch.serve.loadgen",
+            "raft_tpu_torch.serve.router", "raft_tpu_torch.serve.placement",
             "raft_tpu_torch.core.tracing"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -69,6 +75,7 @@ def test_entry_points_refuse_cpu_by_default(monkeypatch):
     from raft_tpu_torch.bench.dataset import DeviceSynthetic
     from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, refine
     from raft_tpu_torch.parallel import make_mesh
+    from raft_tpu_torch import serve
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = torch.zeros((64, 8))
@@ -80,6 +87,7 @@ def test_entry_points_refuse_cpu_by_default(monkeypatch):
         lambda: brute_force.knn(x, x[:4], 2),
         lambda: DeviceSynthetic(10, 4, n_centers=2),
         lambda: make_mesh(4),
+        lambda: serve.IndexRegistry(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
