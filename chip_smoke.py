@@ -184,10 +184,34 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    tier at batch 32 with each rank's keep bytes against the filtered
    allgather tier (equal except at f32 ties, checked in f64), counts
    zeroed before and read after, and B8 with its filter operand against
-   its plain version (row ``sharded_filter``). The ranks share cuda:0
-   whatever the card count: the ring kernels over ranks on several cards
-   are not ported yet;
-6. the run's wall time, the card's line, the kernel JSON line, then
+   its plain version (row ``sharded_filter``); ``[shard hier]``: the same
+   four ranks as a (dcn, ici) = (2, 2) mesh (``hier_mesh``), counts zeroed
+   before and read after: ``sharded_knn`` and a refined batch of 500 with
+   ``merge="hier"`` equal to the allgather tier (values bit for bit, ids
+   but at f32 ties, checked in f64), the hier
+   tier taken once a call, B7 launched once a pod, the dcn bytes equal to
+   the survivor model, and B7 over a pod's two ranks against its plain
+   version (row ``sharded_hier``). The ranks share cuda:0 whatever the
+   card count: the ring kernels over ranks on several cards are not
+   ported yet;
+   after the IVF-Flat phase, ``[shard flat]``: sharded IVF-Flat on its
+   1M x 128 set over the 4 ranks (``shard_flat_leg``: both builds, QPS and
+   recall at batch 10,000, the ring tier against the allgather, the
+   exhaustive search against brute force, the flat sha under the
+   determinism mode);
+6. ``[dist build]``: the SIFT-1B-shaped distributed build of
+   ``DIST_RANK_CHUNKS`` x 2^20 rows a rank on the 4 ranks
+   (``dist_build_phase``: ``ivf_pq.build_distributed`` and
+   ``build_chunked`` of one provider held by ``index_sha16`` under
+   ``torch.use_deterministic_algorithms``, every row once or dropped, the
+   build's comms allgatherv only, the per-shard output searched refined
+   against the streamed ground truth and by the fused tier, B4 at the
+   label pass's chunk against its plain version (row ``dist_build``), and
+   ``[dist resume]``: a build stopped at rank 2's second encode chunk,
+   resumed to the uninterrupted build's sha, then prefetch on against off
+   in turns); ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts for
+   that mode;
+7. the run's wall time, the card's line, the kernel JSON line, then
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -221,6 +245,14 @@ SHARD_KERNELS = PQ_KERNELS + ("ring_topk_merge", "ring_lut_scan_merge")
 CHUNKED_N = 100_000_000
 CHUNKED_DIM = 96
 CHUNKED_RESUME_N = 4_000_000
+# The [dist build] phase: BASELINE.md target 5's SIFT-1B over 64 chips is
+# 15.6M rows a chip; here 10 chunks of 2^20 rows a rank on the sharded
+# phase's 4 ranks (41,943,040 rows): at 15 chunks a rank the shards' lists,
+# padded to the fattest list of any shard (18,816 slots), took 44.4 GB,
+# which with the 32.2 GB re-rank base does not fit the card. Its resume
+# check at 4 chunks a rank.
+DIST_RANK_CHUNKS = 10
+DIST_RESUME_RANK_CHUNKS = 4
 
 # The [resilient] leg's injected plan, and the rungs its walk must take
 # from the main path's knobs (bf16 LUT, refined against the resident
@@ -3323,6 +3355,8 @@ def sharded_phase(args, rows):
                                f"{rel} relative")
         knn[merge] = {"ids_differing": n_diff, "max_rel_err": rel,
                       "seconds": time.perf_counter() - t1}
+        if merge == "allgather":
+            knn_ag = (v, i)
     _log(f"[shard leg 1] sharded_knn of {n_gt} queries, k {k}, against "
          f"single-rank brute_force.knn: {json.dumps(knn)}")
     gt = gt.cpu()
@@ -3530,6 +3564,9 @@ def sharded_phase(args, rows):
          f"{json.dumps(stages_ms)}")
     filt_summary = shard_filter_leg(rows, index, base, queries, mesh, sp,
                                     spf, B, bf, k)
+    hier_summary = shard_hier_leg(rows, index, base, queries, mesh, sp, B,
+                                  k, knn_ag)
+    del knn_ag
 
     _log(f"[shard transport] the {SHARD_RANKS} ranks shared cuda:0 "
          f"({torch.cuda.device_count()} card(s) visible): ring_topk_merge "
@@ -3547,7 +3584,8 @@ def sharded_phase(args, rows):
             "unfused_ms_median": float(np.median(lat["off"])),
             "fused_bin_rule_rows": binned,
             "byte_model": byte_model, "batch_stages_ms": stages_ms,
-            "launches": launches, "filter": filt_summary}
+            "launches": launches, "filter": filt_summary,
+            "hier": hier_summary}
 
 
 def shard_filter_leg(rows, index, base, queries, mesh, sp, spf, B, bf, k):
@@ -3682,6 +3720,532 @@ def shard_filter_leg(rows, index, base, queries, mesh, sp, spf, B, bf, k):
             "filtered_launches": filtered}
 
 
+def shard_hier_leg(rows, index, base, queries, mesh, sp, B, k, knn_ag):
+    """``[shard hier]``: the hier tier over a (dcn, ici) = (2, 2) mesh of
+    the same four ranks. With the counts zeroed just before and read just
+    after: ``sharded_knn`` of 1,000 queries and one refined IVF-PQ batch of
+    ``B`` with ``merge="hier"``, each equal to the 1-D mesh's allgather
+    tier: values bit for bit, ids but where two rows tie in f32 (the
+    per-pod ring breaks a tie by ring order, the allgather by rank order;
+    checked in f64), ``parallel.merge.dispatch{impl=
+    hier}`` counted once a call, B7 launched once a pod a call, and the
+    survivor exchange's ``comms.bytes{axis=dcn,op=alltoall}`` equal to the
+    JAX package's model (``tests/test_parallel.py:346-360``): n_outer ·
+    (mc / n_outer) · k entries of 8 bytes a rank. Then B7 over a pod's two
+    ranks against its plain version. Returns the leg's summary."""
+    import torch
+
+    from raft_tpu_torch.obs import spans
+    from raft_tpu_torch.ops import kernels as K
+    from raft_tpu_torch.parallel import comms, hier_mesh, merge
+    from raft_tpu_torch.parallel import ivf as pivf
+    from raft_tpu_torch.parallel import knn as pknn
+
+    n_outer, n_inner = 2, SHARD_RANKS // 2
+    mesh2 = hier_mesh(n_inner, n_outer, devices="cuda:0")
+    axis = ("dcn", "ici")
+    qg = queries[:1000].contiguous()
+    q0 = queries[:B].contiguous()
+    K.reset_launch_counts()
+    spans.reset()
+    out, dcn, swaps = {}, {}, {}
+    ref_pq = pivf.search_ivf_pq(sp, index, q0, k, mesh, dataset=base,
+                                merge="allgather")
+    for what, run, ref, qs in (
+            ("sharded_knn", lambda: pknn.sharded_knn(
+                base, qg, k, mesh2, axis=axis, merge="hier"), knn_ag, qg),
+            ("refined_ivf_pq", lambda: pivf.search_ivf_pq(
+                sp, index, q0, k, mesh2, axis=axis, dataset=base,
+                merge="hier"), ref_pq, q0)):
+        m = qs.shape[0]
+        comms.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, i = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(v, ref[0]):
+            bad = torch.nonzero(v != ref[0]).tolist()[:5]
+            raise SmokeFailure(f"{what}: the hier tier's values differ from "
+                               f"the allgather tier's at {bad}")
+        # the ring breaks an f32 tie by ring order, the allgather by rank
+        # order: ids may differ only between f64-tied rows
+        swaps[what] = _swaps_are_ties(qs, base, i.long(), ref[1].long(),
+                                      f"{what}, hier against allgather")
+        c = comms.counters()["bytes"]
+        mc = merge.hier_chunk_rows(m, n_inner, n_outer)
+        model = n_outer * (mc // n_outer) * k * 8
+        got = c.get(("alltoall", "dcn"), 0)
+        if got != model or set(a for _, a in c) != {"dcn", "ici"}:
+            raise SmokeFailure(f"{what}: dcn alltoall bytes {got} against "
+                               f"the survivor model {model} ({c})")
+        dcn[what] = {"bytes": {f"{op}/{a}": n for (op, a), n in c.items()},
+                     "dcn_model": model}
+        out[what] = ms
+    launches = K.launch_counts()
+    disp = spans.counts().get("parallel.merge.dispatch", {})
+    if disp.get("hier", 0) != 2:
+        raise SmokeFailure(f"the hier tier was not taken once a call: {disp}")
+    if launches["ring_topk_merge"] != 2 * n_outer:
+        raise SmokeFailure(f"B7 launched {launches['ring_topk_merge']} "
+                           f"times, not once a pod a call")
+    _log(f"[shard hier] hier_mesh({n_inner}, {n_outer}), axis {axis}: "
+         f"sharded_knn of 1000 queries and a refined batch of {B}: values "
+         f"equal to the allgather tier's bit for bit, ids equal but "
+         f"{json.dumps(swaps)} swapped at f32 ties (checked in f64); dispatch "
+         f"{json.dumps(disp)}; launches {json.dumps(launches)}; ms "
+         f"{json.dumps(out)}; comms bytes (the JAX package's model of "
+         f"separate devices, not a measurement) {json.dumps(dcn)}")
+    vals, gids = pivf._per_rank_topk(sp, index, q0, k, 64, mesh, base)
+    _ring_topk_row(rows, "sharded_hier", launches, vals[:n_inner],
+                   gids[:n_inner], k, f"one pod's {n_inner} ranks, refined "
+                   f"batch {B}")
+    return {"ms": out, "comms": dcn, "launches": launches,
+            "swaps_at_ties": swaps}
+
+
+def shard_flat_leg(args, rows, base, queries, gt):
+    """``[shard flat]``: sharded IVF-Flat on the 4-rank mesh over the flat
+    phase's 1M x 128 ``make_synthetic_hard`` set (bench.py:194-210's
+    ``ivf_flat.n1024``: 1024 lists; the sharded builds take no spill, so
+    the package's cap factor 4), k 10. With the counts zeroed just before
+    the builds and read after the last search: ``parallel.build_ivf_flat``
+    (distributed Lloyd) and ``ivf_flat.build_distributed`` (chunks of
+    125,000 rows); the 10,000 queries at n_probes 32 in one batch (merge
+    auto: the allgather, as the ring kernel's rule refuses mc 2,500), QPS
+    and recall@10 of both builds; the ring tier (B7, batches of 2,500)
+    equal to the allgather tier but at f32 ties checked in f64, values
+    equal; at n_probes 1024 the search exhaustive, equal to
+    ``brute_force.knn`` but at ties on 200 queries; B4, B3 and B7
+    launched. Then, under ``torch.use_deterministic_algorithms``,
+    ``index_sha16(assemble_ivf_flat(build_distributed))`` equal to
+    ``ivf_flat.build`` with the same parameters. Returns the summary."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.ops import kernels as K
+    from raft_tpu_torch.parallel import (assemble_ivf_flat, index_sha16,
+                                         make_mesh)
+    from raft_tpu_torch.parallel import ivf as pivf
+
+    N, nq, k, n_gt = base.shape[0], queries.shape[0], 10, gt.shape[0]
+    n_ex = 200  # the exhaustive search gathers every list a query
+    mesh = make_mesh(SHARD_RANKS, device="cuda:0")
+    params = ivf_flat.IndexParams(n_lists=1024, seed=args.seed)
+    chunk = N // SHARD_RANKS // 2
+    K.reset_launch_counts()
+    built, secs = {}, {}
+    for name, build in (
+            ("psum_lloyd", lambda: pivf.build_ivf_flat(params, base, mesh)),
+            ("build_distributed", lambda: ivf_flat.build_distributed(
+                base, params, mesh=mesh, chunk_rows=chunk))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built[name] = build()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    summary = {"build_s": secs}
+    sp32 = ivf_flat.SearchParams(n_probes=32)
+    for name, index in built.items():
+        def run(merge="auto", q=queries, sp=sp32):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            v, i = pivf.search_ivf_flat(sp, index, q, k, mesh, merge=merge)
+            end.record()
+            torch.cuda.synchronize()
+            return v, i, start.elapsed_time(end)
+
+        v_ag, i_ag, ms = run()
+        ms2 = run()[2]
+        rec = _recall(i_ag[:n_gt].cpu(), gt)
+        # both tiers on the same batches: a batch's products (the coarse
+        # distances, the candidates' bmm) give other last bits at other
+        # row counts
+        parts = {mg: [run(mg, queries[a:a + 2500])
+                      for a in range(0, nq, 2500)]
+                 for mg in ("ring", "allgather")}
+        v_r, i_r, v_a, i_a = (torch.cat([p[j] for p in parts[mg]])
+                              for mg in ("ring", "allgather")
+                              for j in (0, 1))
+        if not torch.equal(v_r, v_a):
+            raise SmokeFailure(f"[shard flat] {name}: the ring tier's values "
+                               f"differ from the allgather tier's")
+        n_tied = _swaps_are_ties(queries, base, i_r, i_a,
+                                 f"[shard flat] {name}, ring against "
+                                 f"allgather")
+        v_x, i_x, ms_x = run(q=queries[:n_ex],
+                             sp=ivf_flat.SearchParams(n_probes=1024))
+        gt_t = torch.as_tensor(gt[:n_ex], device=i_x.device)
+        n_x = _swaps_are_ties(queries[:n_ex], base, i_x.long(), gt_t.long(),
+                              f"[shard flat] {name} at n_probes 1024 "
+                              f"against brute_force.knn")
+        summary[name] = {"qps": [nq / (ms / 1e3), nq / (ms2 / 1e3)],
+                         "recall_at_10": rec, "ring_swaps_at_ties": n_tied,
+                         "exhaustive_swaps_at_ties": n_x,
+                         "exhaustive_ms": ms_x, "size": index.size}
+        _log(f"[shard flat] {name}: build {secs[name]:.2f} s, "
+             f"{index.size} rows indexed, L {index.max_list_size}; n_probes "
+             f"32, batch {nq}, merge auto (allgather): {nq / (ms / 1e3):.0f}"
+             f" then {nq / (ms2 / 1e3):.0f} QPS (CUDA events), recall@10 "
+             f"{rec:.4f} on {n_gt}; ring tier in batches of 2,500 equal "
+             f"to the allgather but {n_tied} swaps at f32 ties; n_probes "
+             f"1024 over {n_ex} queries ({ms_x:.0f} ms) equal to "
+             f"brute_force.knn but {n_x} swaps at ties")
+    launches = K.launch_counts()
+    missing = [n for n in ("fused_l2_argmin", "select_k", "ring_topk_merge")
+               if launches[n] == 0]
+    if missing:
+        raise SmokeFailure(f"kernels never launched on the sharded "
+                           f"IVF-Flat path: {missing}")
+    summary["launches"] = launches
+    del built
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(True)
+    try:
+        dist = ivf_flat.build_distributed(base, params, mesh=mesh,
+                                          chunk_rows=chunk)
+        single = ivf_flat.build(base, params)
+        sha_d = index_sha16(assemble_ivf_flat(dist))
+        sha_s = index_sha16(single)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del dist, single
+    torch.cuda.empty_cache()
+    if sha_d != sha_s:
+        raise SmokeFailure(f"[shard flat] assemble_ivf_flat(build_"
+                           f"distributed) sha {sha_d} != ivf_flat.build's "
+                           f"{sha_s}")
+    summary["sha"] = sha_d
+    _log(f"[shard flat] launches {json.dumps(launches)}; under the "
+         f"determinism mode index_sha16(assemble_ivf_flat(build_distributed"
+         f")) = index_sha16(ivf_flat.build) = {sha_d}")
+    return summary
+
+
+def _sha_mismatch(a, b):
+    """{field: rows differing} of two single-device IVF-PQ indexes."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    out = {}
+    for name in ivf_pq._ARRAY_FIELDS:
+        x, y = getattr(a, name), getattr(b, name)
+        if x is None or y is None:
+            continue
+        x, y = x.cpu(), y.cpu()
+        if x.shape != y.shape:
+            out[name] = f"shapes {tuple(x.shape)} vs {tuple(y.shape)}"
+        elif not torch.equal(x, y):
+            ne = (x != y).reshape(x.shape[0], -1).any(1)
+            out[name] = int(ne.sum())
+    return out
+
+
+def dist_resume_check(args, params, chunk, mesh):
+    """The distributed build's resume at ``DIST_RESUME_RANK_CHUNKS`` chunks
+    a rank: a checkpointed build stopped by a fault at rank 2's second
+    encode chunk, resumed, equal (sha) to the uninterrupted build of that
+    size (both under the determinism mode); its ``resume.*`` counters;
+    then the wall time of ``prefetch=True`` against ``prefetch=False``, in
+    turns (uninterrupted builds, no stage timing). Runs under the
+    caller's determinism mode. Returns the summary."""
+    import tempfile
+
+    import torch
+
+    from raft_tpu_torch.bench.dataset import DeviceSyntheticChunks
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.obs import spans
+    from raft_tpu_torch.parallel import index_sha16
+    from raft_tpu_torch.robust import checkpoint as ckpt
+    from raft_tpu_torch.robust import faults
+
+    per_rank = DIST_RESUME_RANK_CHUNKS
+    n = SHARD_RANKS * per_rank * chunk
+    ds = DeviceSyntheticChunks(n, SHARD_DIM, n_centers=10_000,
+                               seed=args.seed + 1, chunk_rows=chunk,
+                               device="cuda")
+    site = "ivf_pq.build_distributed"
+    spans.reset()
+    t0 = time.perf_counter()
+    walls = {"on": [], "off": []}
+    with tempfile.TemporaryDirectory(prefix="dist_ckpt_") as tmp:
+        # ranks 0 and 1 encode their chunks first: rank 2's second chunk
+        # is the (2·per_rank + 2)-th encode
+        faults.install_plan({"faults": [{
+            "site": "build.chunk_encode", "kind": "error",
+            "after": 2 * per_rank + 2}]})
+        try:
+            ivf_pq.build_distributed(ds, params, mesh=mesh, chunk_rows=chunk,
+                                     checkpoint_dir=tmp)
+            raise SmokeFailure("the injected build.chunk_encode fault did "
+                               "not stop the distributed build")
+        except faults.FaultInjected:
+            pass
+        finally:
+            faults.clear_plan()
+        man = ckpt.BuildCheckpoint(tmp).load_manifest()
+        done = man["shard_chunks_done"]
+        if man["phase"] != "encode" or done != [per_rank, per_rank, 1, 0]:
+            raise SmokeFailure(f"interrupted distributed build left phase "
+                               f"{man['phase']}, shard chunks {done}")
+        resumed = ivf_pq.build_distributed(ds, params, mesh=mesh,
+                                           chunk_rows=chunk,
+                                           checkpoint_dir=tmp, resume=True)
+        sha_r = index_sha16(resumed)
+        del resumed
+    resume_counts = {name: spans.total(name, site=site) for name in (
+        "resume.attempts", "resume.chunks_replayed")}
+    if resume_counts["resume.chunks_replayed"] != sum(done):
+        raise SmokeFailure(f"resume replayed {resume_counts} chunks, the "
+                           f"manifest recorded {sum(done)}")
+    sha_u = None
+    for turn in ("on", "off", "on", "off"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        idx = ivf_pq.build_distributed(ds, params, mesh=mesh,
+                                       chunk_rows=chunk,
+                                       prefetch=turn == "on")
+        torch.cuda.synchronize()
+        walls[turn].append(time.perf_counter() - t1)
+        if sha_u is None:
+            sha_u = index_sha16(idx)
+        del idx
+    if sha_r != sha_u:
+        raise SmokeFailure(f"the resumed distributed build's sha {sha_r} "
+                           f"!= the uninterrupted build's {sha_u}")
+    out = {"n": n, "shard_chunks_done": done, "counters": resume_counts,
+           "sha": sha_r, "prefetch_wall_s": walls,
+           "seconds": time.perf_counter() - t0}
+    _log(f"[dist resume] {n} x {SHARD_DIM} ({per_rank} chunks a rank): a "
+         f"checkpointed build stopped at rank 2's second encode chunk "
+         f"(shard chunks done {done}), resumed: sha {sha_r} = the "
+         f"uninterrupted build's; {json.dumps(resume_counts)}; wall s of "
+         f"uninterrupted builds in turns, prefetch=True "
+         f"{[round(w, 2) for w in walls['on']]}, prefetch=False "
+         f"{[round(w, 2) for w in walls['off']]} "
+         f"({out['seconds']:.1f} s)")
+    return out
+
+
+def dist_build_phase(args, rows):
+    """``[dist build]``: the SIFT-1B-shaped distributed build (BASELINE.md
+    target 5 as ``__graft_entry__.py:615-754`` rehearses it: 128-d, 8192
+    lists, pq_dim 64, 8-bit, the sharded phase's k-means iterations, list
+    cap 4; ``chunk_rows = 1 << 20``, ``tools/build_deep100m.py:50``'s) over
+    ``DeviceSyntheticChunks``, ``DIST_RANK_CHUNKS`` chunks a rank on 4
+    ranks sharing the card, ``spill=False``. Under
+    ``torch.use_deterministic_algorithms(True)``: ``ivf_pq.
+    build_distributed`` then ``ivf_pq.build_chunked`` of the same provider
+    and parameters; their quantizers equal and ``index_sha16(
+    assemble_ivf_pq(sharded)) == index_sha16(chunked)`` (on a mismatch the
+    fields that differ, in how many rows); every row in the shards once
+    or counted as dropped; the build's comms ``allgatherv`` only; then the
+    per-shard output searched directly: refined (n_probes 64,
+    refine_ratio 40, bf16 LUT, ``scan_select="pallas"``, batch 500,
+    re-ranked against each rank's rows on the card) with recall@10 ≥ 0.95
+    on 1,000 queries against ``compute_groundtruth``'s streamed truth, and
+    the fused tier (B8) at batch 32 with an f32 LUT. Counts zeroed before
+    the distributed build and read after the fused tier: B1–B4, B7, B8
+    must have launched. Logs stage seconds, prefetch hits and stalls, the
+    card's peak memory and QPS; then B4 at the label pass's chunk against
+    its plain version, and the resume check. Returns the summary."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.bench.dataset import (Dataset, DeviceSyntheticChunks,
+                                              compute_groundtruth)
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.obs import spans
+    from raft_tpu_torch.ops import kernels as K
+    from raft_tpu_torch.parallel import (assemble_ivf_pq, comms,
+                                         index_sha16, make_mesh, shard_ranges)
+    from raft_tpu_torch.parallel import ivf as pivf
+
+    chunk = 1 << 20
+    n_chunks = DIST_RANK_CHUNKS
+    N, dim, B, k = SHARD_RANKS * n_chunks * chunk, SHARD_DIM, 500, 10
+    nq, n_gt = 10_000, 1000
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(SHARD_RANKS, device="cuda:0")
+    ds = DeviceSyntheticChunks(N, dim, n_centers=10_000, seed=args.seed,
+                               chunk_rows=chunk, device=dev)
+    params = ivf_pq.IndexParams(n_lists=8192, pq_dim=64, pq_bits=8,
+                                spill=False, cache_reconstruction="never",
+                                seed=args.seed)
+    _log(f"[dist data] DeviceSyntheticChunks {N} x {dim} f32 "
+         f"({N * dim * 4 / 1e9:.1f} GB, never whole), {n_chunks} "
+         f"chunks of {chunk} rows a rank on {SHARD_RANKS} ranks sharing "
+         f"cuda:0")
+
+    # the path: both builds, the searches; counts zeroed just before
+    K.reset_launch_counts()
+    spans.reset()
+    comms.reset_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    st_d, st_c = {}, {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        sharded = ivf_pq.build_distributed(ds, params, mesh=mesh,
+                                           chunk_rows=chunk,
+                                           stage_seconds=st_d)
+        torch.cuda.synchronize()
+        dist_s = time.perf_counter() - t0
+        peak_d = torch.cuda.max_memory_allocated(dev) / 1e9
+        build_comms = comms.counters()
+        pf = {kind: spans.total(f"build.prefetch.{kind}",
+                                site="ivf_pq.build_distributed")
+              for kind in ("hit", "stall")}
+        dropped = int(spans.total("ivf_pq.build.dropped",
+                                  site="ivf_pq.build_distributed"))
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        chunked = ivf_pq.build_chunked(ds, params, chunk_rows=chunk,
+                                       device=dev, stage_seconds=st_c)
+        torch.cuda.synchronize()
+        chunked_s = time.perf_counter() - t0
+        peak_c = torch.cuda.max_memory_allocated(dev) / 1e9
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _log(f"[dist build] build_distributed {dist_s:.1f} s ("
+         + ", ".join(f"{s} {v:.1f}s" for s, v in st_d.items())
+         + f"), card peak {peak_d:.2f} GB, prefetch {json.dumps(pf)}, "
+         f"global L {sharded.global_list_cap}, L_shard "
+         f"{sharded.max_list_size}, rows dropped {dropped}; build_chunked "
+         f"{chunked_s:.1f} s ("
+         + ", ".join(f"{s} {v:.1f}s" for s, v in st_c.items())
+         + f"), card peak {peak_c:.2f} GB, L {chunked.max_list_size}")
+    ops = {f"{op}/{a}": n for (op, a), n in build_comms["ops"].items()}
+    if set(build_comms["ops"]) != {("allgatherv", "shard")}:
+        raise SmokeFailure(f"the distributed build's comms are not "
+                           f"allgatherv only: {ops}")
+    t0 = time.perf_counter()
+    sha_c = index_sha16(chunked)
+    asm = assemble_ivf_pq(sharded, device="cpu")
+    sha_d = index_sha16(asm)
+    sha_s = time.perf_counter() - t0
+    q_equal = all(torch.equal(getattr(asm, f).cpu(), getattr(chunked, f).cpu())
+                  for f in ("centers", "rotation", "centers_rot", "codebooks"))
+    if sha_d != sha_c or not q_equal:
+        raise SmokeFailure(f"[dist build] assemble_ivf_pq(build_distributed)"
+                           f" sha {sha_d} != build_chunked's {sha_c}; "
+                           f"quantizers equal: {q_equal}; rows differing by "
+                           f"field: {json.dumps(_sha_mismatch(asm, chunked))}")
+    del asm, chunked
+    torch.cuda.empty_cache()
+    # every row once or dropped
+    ids = torch.cat([t[t >= 0] for t in sharded.packed_ids]).long()
+    srt = torch.sort(ids)[0]
+    if (srt.numel() + dropped != N or int(srt[0]) < 0 or int(srt[-1]) >= N
+            or bool((srt[1:] == srt[:-1]).any())
+            or srt.numel() != sharded.size):
+        raise SmokeFailure(f"[dist build] {srt.numel()} ids in the shards, "
+                           f"{dropped} dropped, of {N}, or an id twice")
+    del ids, srt
+    _log(f"[dist build] index_sha16(assemble_ivf_pq(sharded)) = "
+         f"index_sha16(build_chunked) = {sha_d}, quantizers equal "
+         f"({sha_s:.1f} s to assemble and hash); every row in the shards "
+         f"once or dropped ({dropped}); comms ops {json.dumps(ops)}, bytes "
+         + json.dumps({f"{op}/{a}": n
+                       for (op, a), n in build_comms["bytes"].items()}))
+
+    # the per-shard output, searched directly
+    queries = ds.queries(nq)
+    ranges, _ = shard_ranges(N, SHARD_RANKS)
+    t0 = time.perf_counter()
+    shards = [ds[lo:hi] for lo, hi in ranges]
+    torch.cuda.synchronize()
+    _log(f"[dist search] re-rank base: each rank's {ranges[0][1]} rows on "
+         f"the card ({sum(s.numel() for s in shards) * 4 / 1e9:.1f} GB) in "
+         f"{time.perf_counter() - t0:.1f} s")
+    sp = ivf_pq.SearchParams(n_probes=64, scan_select="pallas",
+                             refine="f32_regen", refine_ratio=40,
+                             lut_dtype="bfloat16")
+
+    def search_pass():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        out = []
+        start.record()
+        for a in range(0, nq, B):
+            out.append(pivf.search_ivf_pq(sp, sharded, queries[a:a + B], k,
+                                          mesh, dataset=shards)[1])
+        end.record()
+        torch.cuda.synchronize()
+        return torch.cat(out), start.elapsed_time(end) / 1e3
+
+    spans.reset()
+    ids_r, t_cold = search_pass()
+    disp = spans.counts().get("parallel.merge.dispatch", {})
+    qps = [nq / t_cold] + [nq / search_pass()[1] for _ in range(2)]
+    spf = ivf_pq.SearchParams(n_probes=64, scan_select="pallas",
+                              lut_dtype="float32")
+    lat = []
+    spans.reset()
+    for c in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fv, fi = pivf.search_ivf_pq(spf, sharded, queries[c * 32:(c + 1) * 32],
+                                    k, mesh)
+        end.record()
+        torch.cuda.synchronize()
+        lat.append(start.elapsed_time(end))
+        if fi.shape != (32, k) or bool((fi < 0).any()) or not bool(
+                torch.isfinite(fv).all()):
+            raise SmokeFailure("[dist search] the fused tier returned a "
+                               "malformed result")
+    fdisp = spans.counts().get("parallel.merge.dispatch", {})
+    if fdisp.get("ring_fused_scan", 0) != 20:
+        raise SmokeFailure(f"[dist search] the fused tier was not taken: "
+                           f"{fdisp}")
+    launches = K.launch_counts()
+    _log(f"[dist] launches {json.dumps(launches)}")
+    missing = [n for n in SHARD_KERNELS if launches[n] == 0]
+    if missing:
+        raise SmokeFailure(f"kernels never launched on the distributed "
+                           f"build's path: {missing}")
+    t0 = time.perf_counter()
+    gtds = compute_groundtruth(Dataset("sift1b-synth", ds, queries), k=k,
+                               chunk_rows=chunk, max_queries=n_gt,
+                               device=dev)
+    gt_s = time.perf_counter() - t0
+    rec = _recall(ids_r[:n_gt].cpu(), gtds.groundtruth)
+    _log(f"[dist search] refined, batch {B}, n_probes 64, refine_ratio 40, "
+         f"bf16 LUT, merge auto -> {json.dumps(disp)}: "
+         + ", ".join(f"{x:.0f}" for x in qps) + " QPS (CUDA events; cold "
+         f"pass first); recall@10 {rec:.4f} on {n_gt} queries against the "
+         f"streamed ground truth ({gt_s:.1f} s); fused tier, batch 32, f32 "
+         f"LUT: per call ms median {float(np.median(lat)):.3f} (min "
+         f"{min(lat):.3f}) over 20 calls, {json.dumps(fdisp)}")
+    if not rec >= 0.95:
+        raise SmokeFailure(f"[dist search] refined recall@10 {rec} < 0.95")
+    del shards
+    torch.cuda.empty_cache()
+
+    xa = ds[0:chunk].contiguous()
+    _argmin_row(rows, "dist_build", launches, xa,
+                sharded.centers[0].contiguous(), "the label pass's chunk, ")
+    del xa, sharded
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(True)
+    try:
+        resume = dist_resume_check(args, params, chunk, mesh)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return {"n": N, "dim": dim, "ranks": SHARD_RANKS,
+            "rank_chunks": n_chunks, "dist_build_s": dist_s,
+            "dist_stages_s": st_d, "chunked_build_s": chunked_s,
+            "chunked_stages_s": st_c, "card_peak_gb": [peak_d, peak_c],
+            "prefetch": pf, "rows_dropped": dropped, "sha": sha_d,
+            "comms_ops": ops, "qps": qps, "recall_at_10": rec,
+            "fused_ms_median": float(np.median(lat)), "launches": launches,
+            "resume": resume}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=10_000_000)
@@ -3695,6 +4259,12 @@ def main(argv=None) -> int:
                          "removed after the leg)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    # the [dist build] and [shard flat] builds run under
+    # torch.use_deterministic_algorithms, whose cuBLAS calls need a fixed
+    # workspace configuration set before CUDA starts; on Hopper it is
+    # PyTorch's default workspace size, so the other legs run as without it
+    # (tests/torch_cublas_env_ab.py)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
     import torch
 
@@ -3947,9 +4517,12 @@ def main(argv=None) -> int:
         _log(f"[flat summary] {json.dumps(flat_summary)}")
         torch.cuda.empty_cache()
         pq_summary = pq_recon_phase(args, rows, **data)
+        _log(f"[pq summary] {json.dumps(pq_summary)}")
+        torch.cuda.empty_cache()
+        flat_shard_summary = shard_flat_leg(args, rows, **data)
     except SmokeFailure as e:
         return _fail(str(e))
-    _log(f"[pq summary] {json.dumps(pq_summary)}")
+    _log(f"[shard flat summary] {json.dumps(flat_shard_summary)}")
     del data
     torch.cuda.empty_cache()
     try:
@@ -3957,6 +4530,12 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         return _fail(str(e))
     _log(f"[shard summary] {json.dumps(shard_summary)}")
+    torch.cuda.empty_cache()
+    try:
+        dist_summary = dist_build_phase(args, rows)
+    except SmokeFailure as e:
+        return _fail(str(e))
+    _log(f"[dist summary] {json.dumps(dist_summary)}")
     _log(f"[wall] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -6,9 +6,9 @@ The reference's multi-node pattern: each rank assigns its shard with the
 fused L2 argmin and sums its clusters locally, then ``allreduce`` merges
 the sums, counts and inertia. Here the loop runs over the ranks of a
 :class:`~raft_tpu_torch.parallel.mesh.Mesh` in one process, the assign on
-the ``fused_l2_argmin`` kernel, the sums with ``index_add_``. The JAX
-package's other distributed entry points (the chunked builders' coarse
-modes) are not ported yet (ROADMAP A15).
+the ``fused_l2_argmin`` kernel, the sums with ``index_add_``. The
+chunked distributed builders' ``coarse="distributed"`` mode
+(``parallel.build``) fits its centers here, with weights.
 """
 
 from __future__ import annotations

@@ -64,6 +64,32 @@ class Stages:
                               + time.perf_counter() - t0)
 
 
+def sharded_dispatch(index, mesh, cls_name: str):
+    """The sharded-tier gate of the IVF search entries: the
+    ``raft_tpu_torch.parallel.ivf`` module when ``(index, mesh)`` route to
+    the sharded tier, ``None`` for the single-device path. A sharded index
+    exists only once ``parallel.ivf`` is imported, so a plain search never
+    imports it. A sharded index without its mesh, or ``mesh=`` with a
+    single-device index, is refused."""
+    import sys
+
+    from raft_tpu_torch.core.errors import expects
+
+    if mesh is None and "raft_tpu_torch.parallel.ivf" not in sys.modules:
+        return None
+    from raft_tpu_torch.parallel import ivf as _divf
+
+    cls = getattr(_divf, cls_name)
+    if mesh is None and not isinstance(index, cls):
+        return None
+    expects(isinstance(index, cls),
+            "mesh= dispatch needs a parallel.%s index (got %s)",
+            cls_name, type(index).__name__)
+    expects(mesh is not None, "a %s index needs search(..., mesh=...)",
+            cls_name)
+    return _divf
+
+
 def n_segments(pairs: int, n_lists: int, seg: int) -> int:
     """Static upper bound on the segment count: floor(pairs/seg) + n_lists
     bounds sum ceil(load/seg) for any load histogram."""

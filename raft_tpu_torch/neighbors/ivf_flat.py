@@ -269,8 +269,28 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
     return index
 
 
-def build_distributed(*args, **kwargs):
-    raise _not_ported("ivf_flat.build_distributed", "A15")
+@traced("raft_tpu_torch.ivf_flat.build_distributed")
+def build_distributed(dataset, params: Optional[IndexParams] = None, *,
+                      mesh, axis: str = "shard",
+                      chunk_rows: int = 1 << 18,
+                      max_train_rows: int = 1 << 21,
+                      prefetch: bool = True,
+                      coarse: str = "replicated",
+                      progress: bool = False,
+                      stage_seconds: Optional[Dict[str, float]] = None):
+    """Distributed chunked build over the ranks of ``mesh`` from a host
+    array, a memmap or a device-chunk provider
+    (``parallel.build.build_ivf_flat_distributed``). Returns a
+    ``parallel.ivf.ShardedIvfFlat``; ``parallel.build.assemble_ivf_flat``
+    of it equals :func:`build` over the same data and parameters."""
+    if params is None:
+        params = IndexParams()
+    from raft_tpu_torch.parallel import build as _dbuild
+
+    return _dbuild.build_ivf_flat_distributed(
+        dataset, params, mesh, axis=axis, chunk_rows=chunk_rows,
+        max_train_rows=max_train_rows, prefetch=prefetch, coarse=coarse,
+        progress=progress, stage_seconds=stage_seconds)
 
 
 @traced("raft_tpu_torch.ivf_flat.extend")
@@ -462,18 +482,30 @@ def _search_grouped(index: IvfFlatIndex, queries: torch.Tensor, k: int,
 @traced("raft_tpu_torch.ivf_flat.search")
 def search(index: IvfFlatIndex, queries, k: int,
            params: Optional[SearchParams] = None, filter_bitset=None,
-           dataset=None, *, mesh=None, device="cuda"
+           dataset=None, *, mesh=None, mesh_axis="shard",
+           merge: str = "auto", device="cuda"
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search (reference: ivf_flat::search) → (distances [m, k], ids [m, k]
     int32; −1 marks slots beyond the valid candidates). ``filter_bitset``:
     a packed bitset over dataset rows; rows whose bit is clear are never
-    returned."""
+    returned. Handed a ``parallel.ShardedIvfFlat`` and its ``mesh``, the
+    search routes to the sharded tier (``parallel.search_ivf_flat``, the
+    merge picked by ``merge`` over ``mesh_axis``)."""
     if params is None:
         params = SearchParams()
     dev = resolve_device(device)
     _precision.enforce()
-    if mesh is not None:
-        raise _not_ported("sharded IVF-Flat search (mesh=)", "A15")
+    _divf = ic.sharded_dispatch(index, mesh, "ShardedIvfFlat")
+    if _divf is not None:
+        expects(mesh.devices[0].type == dev.type,
+                "the mesh's ranks live on %s, search asked for %s",
+                mesh.devices[0], dev)
+        expects(params.refine == "none",
+                "sharded IVF-Flat search takes no refine (got %r)",
+                params.refine)
+        return _divf.search_ivf_flat(params, index, queries, k, mesh,
+                                     axis=mesh_axis, merge=merge,
+                                     filter_bitset=filter_bitset)
     expects(index.device.type == dev.type,
             "index lives on %s, search asked for %s", index.device, dev)
     filtered = filter_bitset is not None

@@ -345,11 +345,15 @@ def _vmapped_lloyd(data: torch.Tensor, k: int, n_iters: int,
 def _train_quantizers(trainset: torch.Tensor, params: IndexParams, dim: int,
                       pq_dim: int, pq_len: int, K: int, state: RngState,
                       km: KMeansBalancedParams,
-                      max_codebook_rows: int = 1 << 16):
-    """Coarse centers + rotation + per_subspace codebooks."""
+                      max_codebook_rows: int = 1 << 16,
+                      centers: Optional[torch.Tensor] = None):
+    """Coarse centers + rotation + per_subspace codebooks. Given
+    ``centers`` (the distributed build's ``coarse="distributed"``), the
+    coarse fit is skipped and the codebooks train on residuals to them."""
     n_train = trainset.shape[0]
     rot_dim = pq_dim * pq_len
-    centers = kmeans_balanced.fit(trainset, params.n_lists, km)
+    if centers is None:
+        centers = kmeans_balanced.fit(trainset, params.n_lists, km)
     rotation = make_rotation_matrix(state.fold(1), rot_dim, dim,
                                     trainset.device)
     centers_rot = centers @ rotation.T
@@ -884,6 +888,38 @@ def build_chunked(dataset, params: Optional[IndexParams] = None,
     return index
 
 
+@traced("raft_tpu_torch.ivf_pq.build_distributed")
+def build_distributed(dataset, params: Optional[IndexParams] = None, *,
+                      mesh, axis: str = "shard",
+                      chunk_rows: int = 1 << 18,
+                      max_train_rows: int = 1 << 21,
+                      prefetch: bool = True,
+                      coarse: str = "replicated",
+                      checkpoint_dir: Optional[str] = None,
+                      resume=False, progress: bool = False,
+                      stage_seconds: Optional[Dict[str, float]] = None):
+    """Distributed chunked build from a host array, a memmap or a
+    device-chunk provider over the ranks of ``mesh`` — the sharded twin of
+    :func:`build_chunked` (``parallel.build.build_ivf_pq_distributed``).
+    Returns a ``parallel.ivf.ShardedIvfPq`` that :func:`search` (with
+    ``mesh=``) takes as it is; ``parallel.build.assemble_ivf_pq`` of it
+    equals ``build_chunked`` over the same data and parameters, bit for
+    bit, when each shard's rows are a multiple of ``chunk_rows`` and
+    ``coarse="replicated"``. Each shard walks its slice through a
+    prefetcher (``prefetch=False``: inline reads); the comms are two
+    ``allgatherv``; ``checkpoint_dir=`` / ``resume=`` as in
+    :func:`build_chunked`, per (shard, chunk)."""
+    if params is None:
+        params = IndexParams()
+    from raft_tpu_torch.parallel import build as _dbuild
+
+    return _dbuild.build_ivf_pq_distributed(
+        dataset, params, mesh, axis=axis, chunk_rows=chunk_rows,
+        max_train_rows=max_train_rows, prefetch=prefetch, coarse=coarse,
+        checkpoint_dir=checkpoint_dir, resume=resume, progress=progress,
+        stage_seconds=stage_seconds)
+
+
 @traced("raft_tpu_torch.ivf_pq.extend")
 def extend(index: IvfPqIndex, new_vectors, new_ids=None) -> IvfPqIndex:
     """Append vectors (reference: ivf_pq::extend): encode against the
@@ -1235,18 +1271,32 @@ def _warn_lut_fallback(reason: str) -> None:
 @traced("raft_tpu_torch.ivf_pq.search")
 def search(index: IvfPqIndex, queries, k: int,
            params: Optional[SearchParams] = None, filter_bitset=None,
-           dataset=None, *, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+           dataset=None, *, mesh=None, mesh_axis="shard",
+           merge: str = "auto", device="cuda"
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Search (reference: ivf_pq::search) → (distances [m, k], ids [m, k]
     int32). ``params.refine="f32_regen"`` re-ranks k·refine_ratio
     candidates exactly against ``dataset`` (a tensor on the index's
     device, a host numpy array or memmap, or a device-chunk provider;
     ``refine.route_refined``). ``filter_bitset``: a packed bitset over dataset rows
     (``core.bitset`` words, numpy uint32 or a tensor); rows whose bit is
-    clear are never returned."""
+    clear are never returned. Handed a ``parallel.ShardedIvfPq`` and its
+    ``mesh``, the search routes to the sharded tier
+    (``parallel.search_ivf_pq``: per-rank scan, re-rank against
+    ``dataset``'s rows when refined, the merge picked by ``merge`` over
+    ``mesh_axis``)."""
     if params is None:
         params = SearchParams()
     dev = resolve_device(device)
     _precision.enforce()
+    _divf = ic.sharded_dispatch(index, mesh, "ShardedIvfPq")
+    if _divf is not None:
+        expects(mesh.devices[0].type == dev.type,
+                "the mesh's ranks live on %s, search asked for %s",
+                mesh.devices[0], dev)
+        return _divf.search_ivf_pq(params, index, queries, k, mesh,
+                                   axis=mesh_axis, dataset=dataset,
+                                   merge=merge, filter_bitset=filter_bitset)
     expects(index.device.type == dev.type,
             "index lives on %s, search asked for %s", index.device, dev)
     filtered = filter_bitset is not None

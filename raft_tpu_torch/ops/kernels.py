@@ -880,6 +880,16 @@ def ring_topk_kernel_ok(m: int, k: int, n_dev: int) -> bool:
     return vmem <= _RING_VMEM_BUDGET
 
 
+def ring_topk_inner_ok(m: int, k: int, n_inner: int) -> bool:
+    """Whether the ring kernel takes the hier tier's per-pod (inner-axis)
+    stage (the JAX package's ``ring_topk_inner_ok``,
+    pallas_kernels.py:1390): the same rule as :func:`ring_topk_kernel_ok`
+    over the pod's ranks. The TPU kernel offsets its logical device ids
+    by the pod's base; this one is handed the pod's tensors and addresses
+    its ranks through that list."""
+    return ring_topk_kernel_ok(m, k, n_inner)
+
+
 def _ring_use_kernel(*per_rank: Sequence[torch.Tensor]) -> bool:
     """True when every rank's tensors lie on one CUDA card, False when they
     all lie on the CPU; a rank whose tensors straddle devices raises, and

@@ -1,5 +1,5 @@
-"""Sharded IVF-PQ over a mesh of ranks — distributed build and search
-(counterpart of the IVF-PQ half of ``raft_tpu.parallel.ivf``).
+"""Sharded IVF-PQ and IVF-Flat over a mesh of ranks — distributed build
+and search (counterpart of ``raft_tpu.parallel.ivf``).
 
 - **coarse centers**: one distributed Lloyd (``cluster.distributed.fit``)
   over the row-sharded dataset, so every shard's lists follow the global
@@ -24,7 +24,13 @@ replicated) composes with each shard's id table, whose ids are global:
 the fused ring reads each rank's keep bytes over its own table, the
 per_query tier and the refined scan take the bitset itself, and the
 per-rank re-rank of the refined path takes none (its candidates are
-already kept ones). Sharded IVF-Flat is not ported yet (ROADMAP A15).
+already kept ones).
+
+Sharded IVF-Flat: the same coarse fit, each rank's rows assigned by the
+fused L2 argmin kernel and packed with global ids (``ivf_common.
+pack_lists``), then per rank the per_query tier and the shared merge.
+The chunked builders that read a host dataset shard by shard are
+``parallel.build``'s.
 """
 
 from __future__ import annotations
@@ -41,12 +47,13 @@ from raft_tpu_torch.cluster.kmeans import KMeansParams
 from raft_tpu_torch.core import bitset as _bitset
 from raft_tpu_torch.core import ids as _ids
 from raft_tpu_torch.core.device import to_device
-from raft_tpu_torch.core.errors import expects, not_ported
+from raft_tpu_torch.core.errors import expects
 from raft_tpu_torch.distance.fused_l2_nn import (
     fused_l2_nn_argmin_impl as fused_l2_nn_argmin)
 from raft_tpu_torch.distance.types import (SELECT_MIN, DistanceType,
                                            resolve_metric)
 from raft_tpu_torch.neighbors import ivf_common as ic
+from raft_tpu_torch.neighbors import ivf_flat as _flat
 from raft_tpu_torch.neighbors import ivf_pq as _pq
 from raft_tpu_torch.neighbors import sample_filter as _sf
 from raft_tpu_torch.obs import spans as _obs_spans
@@ -55,6 +62,7 @@ from raft_tpu_torch.parallel import merge as _merge
 from raft_tpu_torch.parallel.comms import Comms
 from raft_tpu_torch.parallel.mesh import Mesh, replicate, shard_rows
 from raft_tpu_torch.random.rng import RngState
+from raft_tpu_torch.robust import faults as _faults
 from raft_tpu_torch.utils import precision as _precision
 
 # Codebook training rows at most (the single-device build's
@@ -161,11 +169,12 @@ def to_numpy(index: ShardedIvfPq) -> Tuple[Dict[str, np.ndarray], Dict]:
 
 
 def _coarse_centers(n_lists: int, n_iters: int, seed: int, x: torch.Tensor,
-                    mesh: Mesh, spherical: bool) -> torch.Tensor:
+                    mesh: Mesh, spherical: bool, axis: str = "shard"
+                    ) -> torch.Tensor:
     """Distributed Lloyd over the (unpadded) rows; spherical metrics
     re-normalize the centers."""
     km = KMeansParams(n_clusters=n_lists, max_iter=n_iters, seed=seed)
-    centers, _, _ = dkm.fit(km, x, mesh)
+    centers, _, _ = dkm.fit(km, x, mesh, axis=axis)
     if spherical:
         centers = centers / torch.sqrt(
             (centers * centers).sum(-1, keepdim=True).clamp_min(1e-12))
@@ -224,7 +233,7 @@ def build_ivf_pq(params: _pq.IndexParams, dataset, mesh: Mesh,
 
     # 1. global coarse centers (dkm.fit zero-weights its own padding)
     centers = _coarse_centers(n_lists, params.kmeans_n_iters, params.seed, x,
-                              mesh, spherical)
+                              mesh, spherical, axis)
     shards, n_real = shard_rows(x, mesh)
     shard_n = shards[0].shape[0]
 
@@ -540,15 +549,188 @@ def search_ivf_pq(params: _pq.SearchParams, index: ShardedIvfPq, queries,
     vals, gids = _per_rank_topk(params, index, q, k, n_probes, mesh, dataset,
                                 filter_bitset)
     rv, ri = _merge.merge_topk(vals, gids, mesh, m, k, n_dev, select_min,
-                               tier=tier, impl=impl)
-    spec = _merge.merge_out_spec(tier)
-    return (_merge.assemble(spec, rv, m, dev0),
-            _merge.assemble(spec, ri, m, dev0))
+                               tier=tier, impl=impl, axis=axis)
+    spec = _merge.merge_out_spec(tier, axis)
+    return (_merge.assemble(spec, rv, m, dev0, mesh),
+            _merge.assemble(spec, ri, m, dev0, mesh))
 
 
-def build_ivf_flat(*args, **kwargs):
-    raise not_ported("sharded IVF-Flat (build_ivf_flat)", "A15")
+# ---------------------------------------------------------------------------
+# sharded IVF-Flat
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ShardedIvfFlat:
+    """IVF-Flat index sharded over a mesh: the centers replicated (ranks on
+    one device share them), each rank's packed raw-vector lists its own."""
+
+    centers: List[torch.Tensor]        # [n_lists, dim] replicated
+    packed_data: List[torch.Tensor]    # [n_lists, L, dim] per rank
+    packed_ids: List[torch.Tensor]     # [n_lists, L] global ids, -1 pad
+    packed_norms: List[torch.Tensor]   # [n_lists, L] f32
+    list_sizes: List[torch.Tensor]     # [n_lists] i32
+    mesh: Mesh
+    metric: str = "sqeuclidean"
+    # the list capacity a single-device build of the same data fits
+    # (stamped by parallel.build's chunked builder; 0 = unknown):
+    # parallel.build.assemble_ivf_flat cuts the rank-order concatenation
+    # of the shards' lists there
+    global_list_cap: int = 0
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.packed_data)
+
+    @property
+    def n_lists(self) -> int:
+        return self.centers[0].shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.centers[0].shape[1]
+
+    @property
+    def max_list_size(self) -> int:
+        return self.packed_ids[0].shape[1]
+
+    @property
+    def size(self) -> int:
+        return int(sum(int(s.sum()) for s in self.list_sizes))
+
+    def local(self, r: int) -> _flat.IvfFlatIndex:
+        """Rank r's shard as a single-device index."""
+        return _flat.IvfFlatIndex(
+            centers=self.centers[r], packed_data=self.packed_data[r],
+            packed_ids=self.packed_ids[r], packed_norms=self.packed_norms[r],
+            list_sizes=self.list_sizes[r], metric=self.metric)
+
+    @classmethod
+    def from_numpy(cls, arrays: Dict[str, np.ndarray], meta: Dict,
+                   mesh: Mesh) -> "ShardedIvfFlat":
+        """Index from the JAX ``ShardedIvfFlat``'s fields as numpy arrays
+        (the packed ones with their leading shard axis) and its static
+        fields (``meta``: metric, global_list_cap)."""
+        n_dev = np.asarray(arrays["packed_data"]).shape[0]
+        expects(n_dev == mesh.size, "index of %d shards on a %d-rank mesh",
+                n_dev, mesh.size)
+        _flat._check_data_dtype(np.asarray(arrays["packed_data"]).dtype)
+        fields = {"centers": replicate(to_device(
+            np.asarray(arrays["centers"]), mesh.devices[0]), mesh)}
+        for name in _FLAT_SHARDED:
+            a = np.asarray(arrays[name])
+            fields[name] = [to_device(a[r], d)
+                            for r, d in enumerate(mesh.devices)]
+        return cls(**fields, mesh=mesh, metric=str(meta["metric"]),
+                   global_list_cap=int(meta.get("global_list_cap", 0)))
+
+    def to_numpy(self) -> Tuple[Dict[str, np.ndarray], Dict]:
+        """(arrays, meta) — the inverse of :meth:`from_numpy`."""
+        arrays = {"centers": self.centers[0].cpu().numpy()}
+        for name in _FLAT_SHARDED:
+            arrays[name] = np.stack([t.cpu().numpy()
+                                     for t in getattr(self, name)])
+        return arrays, {"metric": self.metric,
+                        "global_list_cap": self.global_list_cap}
 
 
-def search_ivf_flat(*args, **kwargs):
-    raise not_ported("sharded IVF-Flat (search_ivf_flat)", "A15")
+_FLAT_SHARDED = ("packed_data", "packed_ids", "packed_norms", "list_sizes")
+
+
+def build_ivf_flat(params: _flat.IndexParams, dataset, mesh: Mesh,
+                   axis: str = "shard") -> ShardedIvfFlat:
+    """Distributed IVF-Flat build over the dataset row-sharded across the
+    mesh: global coarse centers (distributed Lloyd), then per rank the
+    assignment by the fused L2 argmin kernel and the pack of its raw rows
+    with global ids. Rows past a list's capacity are dropped and counted
+    (``ivf_flat.build.dropped{site=parallel.build_ivf_flat}``)."""
+    _precision.enforce()
+    mt = resolve_metric(params.metric)
+    _merge.resolve_exchange(mesh, axis)
+    dev0 = mesh.devices[0]
+    x = to_device(dataset, dev0, torch.float32)
+    n_dev = mesh.size
+    spherical = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
+    if mt == DistanceType.CosineExpanded:
+        x = x / torch.sqrt((x * x).sum(-1, keepdim=True).clamp_min(1e-12))
+    n_lists = params.n_lists
+    centers = _coarse_centers(n_lists, params.kmeans_n_iters, params.seed, x,
+                              mesh, spherical, axis)
+    shards, n_real = shard_rows(x, mesh)
+    shard_n = shards[0].shape[0]
+    avg = max(1, shard_n // n_lists)
+    L = max(8, -(-int(avg * params.list_size_cap_factor) // 8) * 8)
+    cs = replicate(centers, mesh)
+    out = {name: [] for name in _FLAT_SHARDED}
+    dropped = 0
+    for r, dev in enumerate(mesh.devices):
+        x_r = shards[r]
+        gid = _ids.global_ids(r, shard_n, _ids.make_ids(shard_n, device=dev),
+                              n_total=n_dev * shard_n)
+        _, labels = fused_l2_nn_argmin(x_r, cs[r])
+        labels = torch.where(gid < n_real, labels.long(),
+                             torch.full_like(labels, n_lists,
+                                             dtype=torch.long))
+        norms = (x_r * x_r).sum(1)
+        (pdata, pnorms), pids, sizes, n_drop, _ = ic.pack_lists(
+            [x_r, norms], labels, gid, n_lists=n_lists, L=L,
+            fill_values=[0.0, 0.0])
+        dropped += n_drop
+        out["packed_data"].append(pdata)
+        out["packed_ids"].append(pids)
+        out["packed_norms"].append(pnorms)
+        out["list_sizes"].append(sizes)
+    _obs_spans.inc("ivf_flat.build.dropped", dropped,
+                   site="parallel.build_ivf_flat")
+    if dropped:
+        warnings.warn(f"sharded ivf_flat build: dropped {dropped} overflow "
+                      "vectors (raise list_size_cap_factor)", RuntimeWarning,
+                      stacklevel=2)
+    return ShardedIvfFlat(centers=cs, **out, mesh=mesh, metric=mt.value)
+
+
+def search_ivf_flat(params: _flat.SearchParams, index: ShardedIvfFlat,
+                    queries, k: int, mesh: Mesh,
+                    axis: Union[str, Sequence[str]] = "shard",
+                    merge: str = "auto", filter_bitset=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sharded IVF-Flat search: each rank's per_query scan of its lists,
+    then the cross-shard merge (``merge`` = auto | allgather | ring |
+    hier). ``filter_bitset`` (packed words over global row ids,
+    replicated) masks each rank's scan over its global id table. Returns
+    (distances [m, k], global ids [m, k]) on rank 0's device."""
+    _precision.enforce()
+    mt = resolve_metric(index.metric)
+    select_min = SELECT_MIN[mt]
+    n_probes = min(params.n_probes, index.n_lists)
+    dev0 = mesh.devices[0]
+    q = to_device(queries, dev0, torch.float32)
+    expects(q.dim() == 2 and q.shape[1] == index.dim,
+            "queries must be [m, %d]", index.dim)
+    _faults.faultpoint("ivf_flat.search")
+    m = q.shape[0]
+    n_dev = index.n_shards
+    ax_dev, whole_mesh, hier_axes = _merge.resolve_exchange(mesh, axis)
+    expects(n_dev == ax_dev, "index sharded over %d ranks, mesh axis has %d",
+            n_dev, ax_dev)
+    expects(list(index.mesh.devices) == list(mesh.devices),
+            "the index lives on another mesh's devices")
+    tier, impl = _merge.merge_tier(n_dev, m, k, explicit=merge,
+                                   whole_mesh=whole_mesh, hier_axes=hier_axes,
+                                   n_cards=mesh.n_cards)
+    qs = replicate(q, mesh)
+    fbs = ([None] * n_dev if filter_bitset is None else
+           replicate(_bitset.as_words(filter_bitset, dev0), mesh))
+    vals, gids = [], []
+    for r in range(n_dev):
+        local = index.local(r)
+        v, g = _flat._search_impl(
+            local, qs[r], k, n_probes,
+            _flat._fit_query_tile(params.query_tile, n_probes, local),
+            filter_bits=fbs[r])
+        vals.append(v)
+        gids.append(g)
+    rv, ri = _merge.merge_topk(vals, gids, mesh, m, k, n_dev, select_min,
+                               tier=tier, impl=impl, axis=axis)
+    spec = _merge.merge_out_spec(tier, axis)
+    return (_merge.assemble(spec, rv, m, dev0, mesh),
+            _merge.assemble(spec, ri, m, dev0, mesh))

@@ -30,8 +30,11 @@ def sharded_knn(dataset, queries, k: int, mesh: Mesh,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN over a dataset row-sharded across the mesh: per rank a
     tiled brute force and a local top-k, then the cross-shard merge
-    (``merge`` = auto | allgather | ring). Returns (distances [m, k],
-    global ids [m, k]) on rank 0's device."""
+    (``merge`` = auto | allgather | ring | hier). ``axis`` may be a 2-D
+    mesh's ``(outer, inner)`` axes: the dataset shards over both (outer
+    major) and, the outer axis DCN-labeled, the merge takes the hier tier
+    under auto. Returns (distances [m, k], global ids [m, k]) on rank 0's
+    device."""
     mt = resolve_metric(metric)
     select_min = SELECT_MIN[mt]
     n_dev, whole_mesh, hier_axes = _merge.resolve_exchange(mesh, axis)
@@ -59,17 +62,19 @@ def sharded_knn(dataset, queries, k: int, mesh: Mesh,
         vals.append(torch.where(g < n, v, torch.full_like(v, pad_val)))
         gids.append(torch.where(g < n, g, torch.full_like(g, -1)))
     rv, ri = _merge.merge_topk(vals, gids, mesh, m, k, n_dev, select_min,
-                               tier=tier, impl=impl)
-    spec = _merge.merge_out_spec(tier)
-    return (_merge.assemble(spec, rv, m, dev0),
-            _merge.assemble(spec, ri, m, dev0))
+                               tier=tier, impl=impl, axis=axis)
+    spec = _merge.merge_out_spec(tier, axis)
+    return (_merge.assemble(spec, rv, m, dev0, mesh),
+            _merge.assemble(spec, ri, m, dev0, mesh))
 
 
 def replicated_knn(dataset, queries, k: int, mesh: Mesh,
-                   axis: str = "shard", metric="sqeuclidean"
+                   axis: Union[str, Sequence[str]] = "shard",
+                   metric="sqeuclidean"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN with the dataset replicated and the queries row-sharded
-    over the mesh. Returns (distances, ids) [m, k] on rank 0's device."""
+    over the mesh (over both axes of a 2-D mesh, ``axis=(outer,
+    inner)``). Returns (distances, ids) [m, k] on rank 0's device."""
     mt = resolve_metric(metric)
     _merge.resolve_exchange(mesh, axis)
     dev0 = mesh.devices[0]

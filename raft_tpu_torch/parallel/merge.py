@@ -1,6 +1,6 @@
 """Cross-shard top-k merge tiers (counterpart of
 ``raft_tpu.parallel.merge``) — the one dispatch point behind the
-sharded kNN and sharded IVF-PQ merges.
+sharded kNN and the sharded IVF merges.
 
 - **allgather**: every rank gathers the ``[n_dev, m, k]`` candidate
   tables and selects locally. The result is replicated.
@@ -14,11 +14,21 @@ sharded kNN and sharded IVF-PQ merges.
   ``Comms.ring_topk_hop`` and ``select_k`` (the plain schedule the JAX
   package runs off the TPU, and the port runs for int64 ids and off the
   card).
+- **hier**: the two-level merge of a 2-D ``(outer, inner)`` mesh
+  (``mesh.hier_mesh``). The ring tier runs per pod over the inner axis —
+  the ring kernel handed the pod's ranks where
+  ``kernels.ring_topk_inner_ok`` admits the shape, else the plain
+  schedule — leaving each rank its pod's merged ``[mc, k]`` block; then
+  one ``alltoall`` over the outer axis hands each rank every pod's k
+  survivors for its ``mc / n_outer`` owned rows, and a ``select_k`` of
+  ``n_outer·k`` finishes them. The result is sharded over (inner, outer):
+  rank (d, i) holds sub-chunk d of inner chunk i.
 
-``RAFT_TPU_RING_TOPK`` (auto | on | off) picks the tier; an explicit
-``merge=`` argument of a search overrides it. Every decision is counted
-under ``parallel.merge.dispatch`` (``obs.spans``). The ``hier`` tier and
-2-D exchanges are not ported yet (ROADMAP A15).
+``RAFT_TPU_RING_TOPK`` (auto | on | off) picks the flat tier;
+``RAFT_TPU_HIER_MERGE`` (auto | on | off) gates the hier tier, taken under
+auto whenever the exchange is 2-D with a DCN-labeled outer axis; an
+explicit ``merge=`` argument of a search overrides both. Every decision
+is counted under ``parallel.merge.dispatch`` (``obs.spans``).
 """
 
 from __future__ import annotations
@@ -28,28 +38,45 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 
 from raft_tpu_torch.core import ids as _ids
-from raft_tpu_torch.core.errors import expects, not_ported
+from raft_tpu_torch.core.errors import expects
 from raft_tpu_torch.matrix.select_k import select_k_impl as _select_k
 from raft_tpu_torch.obs import spans as _obs_spans
 from raft_tpu_torch.ops import kernels as _k
 from raft_tpu_torch.parallel.comms import Comms
-from raft_tpu_torch.parallel.mesh import Mesh
+from raft_tpu_torch.parallel.mesh import Mesh, is_dcn_axis
 
 MERGE_TIERS = ("allgather", "ring", "hier")
 REPLICATED = "replicated"
 QUERY_SHARDED = "query_sharded"
 
+# (outer_axis, inner_axis, n_outer, n_inner): the hier tier's topology,
+# built from a mesh and a 2-tuple ``axis``. None = 1-D exchange.
+HierAxes = Tuple[str, str, int, int]
+
 
 def resolve_exchange(mesh: Mesh, axis: Union[str, Sequence[str]]
-                     ) -> Tuple[int, bool, None]:
+                     ) -> Tuple[int, bool, Optional[HierAxes]]:
     """``(n_dev, whole_mesh, hier_axes)`` of a search's ``axis`` argument:
-    one axis name, the mesh's own. A 2-tuple (the hier exchange) is not
-    ported (A15)."""
-    if not isinstance(axis, str):
-        raise not_ported("2-D (outer, inner) exchanges", "A15")
-    expects(axis == mesh.axis_name, "axis %r is not the mesh's axis %r",
-            axis, mesh.axis_name)
-    return mesh.size, True, None
+    a 1-D mesh's own axis name, or a 2-D mesh's ``(outer, inner)`` axes in
+    its order. A 2-tuple never counts as the whole mesh (the JAX
+    package's flat ring kernel addresses one named axis), and carries the
+    hier topology when its outer axis is DCN-labeled."""
+    if isinstance(axis, str):
+        expects(mesh.ndim == 1 and axis == mesh.axis_name,
+                "axis %r is not the mesh's axis %r (a 2-D mesh exchanges "
+                "over axis=(outer, inner))", axis, mesh.axis_name)
+        return mesh.size, True, None
+    names = tuple(axis)
+    expects(len(names) == 2,
+            "axis must be one mesh axis name or a 2-tuple "
+            "(outer, inner), got %r", axis)
+    expects(names == tuple(mesh.axis_names),
+            "axis %r must be the 2-D mesh's axes in its order %r", names,
+            mesh.axis_names)
+    outer, inner = names
+    n_outer, n_inner = mesh.shape
+    hier = (outer, inner, n_outer, n_inner) if is_dcn_axis(outer) else None
+    return n_outer * n_inner, False, hier
 
 
 def ring_auto_wanted(m: int, k: int, n_dev: int) -> bool:
@@ -60,20 +87,40 @@ def ring_auto_wanted(m: int, k: int, n_dev: int) -> bool:
     return 2 * (n_dev - 1) * mc <= n_dev * m
 
 
+def hier_chunk_rows(m: int, n_inner: int, n_outer: int) -> int:
+    """Query rows per rank of the hier tier's per-pod ring: the flat
+    ring's chunk for ``n_inner`` ranks, padded up so the outer survivor
+    exchange splits it into ``n_outer`` even sub-chunks."""
+    mc = _k.ring_chunk_rows(m, n_inner)
+    return -(-mc // n_outer) * n_outer
+
+
 def merge_tier(n_dev: int, m: int, k: int, explicit: Optional[str] = None,
-               whole_mesh: bool = True, hier_axes=None, n_cards: int = 1
-               ) -> Tuple[str, str]:
+               whole_mesh: bool = True, hier_axes: Optional[HierAxes] = None,
+               n_cards: int = 1) -> Tuple[str, str]:
     """(tier, impl) for one sharded search call, impl ∈ {allgather,
-    ring_kernel, ring_ppermute}. ``explicit`` ("auto" defers) overrides
-    ``RAFT_TPU_RING_TOPK``; auto takes the ring where the kernel serves
-    the shape on a card and the shape is bandwidth-bound enough to win
-    (:func:`ring_auto_wanted`). ``n_cards`` is the cards the mesh's ranks
-    span (``Mesh.n_cards``): the kernel serves ranks on one card only, so
-    a ring over several cards takes ``ring_ppermute`` (ROADMAP A15)."""
+    ring_kernel, ring_ppermute, hier}. ``explicit`` ("auto" defers)
+    overrides ``RAFT_TPU_RING_TOPK``; auto takes the ring where the kernel
+    serves the shape on a card and the shape is bandwidth-bound enough to
+    win (:func:`ring_auto_wanted`). ``hier_axes`` (a 2-D exchange with a
+    DCN-labeled outer axis) enables the hier tier: taken on
+    ``merge="hier"`` or, under auto, unless ``RAFT_TPU_HIER_MERGE=off``.
+    ``n_cards`` is the cards the mesh's ranks span (``Mesh.n_cards``): the
+    kernel serves ranks on one card only, so a ring over several cards
+    takes ``ring_ppermute`` (ROADMAP A15)."""
     hier_force = _obs_spans.env_tristate("RAFT_TPU_HIER_MERGE")
-    if explicit == "hier" or hier_axes is not None:
-        raise not_ported("the hier merge tier", "A15")
-    if hier_force == "on" and explicit in (None, "auto"):
+    if explicit == "hier":
+        expects(hier_axes is not None,
+                "merge='hier' needs a 2-D (outer, inner) exchange: call "
+                "the search with axis=(dcn_axis, ici_axis) over a "
+                "hier_mesh-shaped mesh (DCN-labeled outer axis)")
+    if hier_axes is not None and (
+            explicit == "hier"
+            or (explicit in (None, "auto") and hier_force != "off")):
+        _obs_spans.count_dispatch("parallel.merge", "hier")
+        return "hier", "hier"
+    if hier_axes is None and hier_force == "on" \
+            and explicit in (None, "auto"):
         _obs_spans.count_fallback("parallel.merge", "no_hier_axes")
     force = _obs_spans.env_tristate("RAFT_TPU_RING_TOPK")
     kernel_ok = (_k._on_cuda() and whole_mesh and n_cards <= 1
@@ -101,34 +148,50 @@ def merge_tier(n_dev: int, m: int, k: int, explicit: Optional[str] = None,
     return tier, impl
 
 
-def merge_out_spec(tier: str) -> str:
+def merge_out_spec(tier: str, axis: Union[str, Sequence[str], None] = None
+                   ) -> Union[str, Tuple[str, str]]:
     """How the merged result lies over the ranks: ``"replicated"`` (every
-    rank holds [m, k]; the allgather tier) or ``"query_sharded"`` (rank r
-    holds chunk r; the ring tier) — the JAX package's ``P()`` and
-    ``P(axis)`` out-specs."""
+    rank holds [m, k]; the allgather tier), ``"query_sharded"`` (rank r
+    holds chunk r; the ring tier), or for the hier tier the axes it is
+    sharded over, ``(inner, outer)`` (rank (d, i) holds sub-chunk d of
+    inner chunk i) — the JAX package's ``P()``, ``P(axis)`` and
+    ``P((inner, outer))`` out-specs."""
     if tier == "hier":
-        raise not_ported("the hier merge tier", "A15")
+        expects(axis is not None and not isinstance(axis, str)
+                and len(tuple(axis)) == 2,
+                "the hier out-spec needs axis=(outer, inner), got %r", axis)
+        outer, inner = axis
+        return (inner, outer)
     return REPLICATED if tier == "allgather" else QUERY_SHARDED
 
 
-def merged_rows(tier: str, m: int, n_dev: int) -> int:
+def merged_rows(tier: str, m: int, n_dev: int, n_outer: int = 1) -> int:
     """Rows of the assembled merge result (the ring pads the query axis to
-    n_dev chunks; pad rows sit at the end)."""
+    n_dev chunks; pad rows sit at the end). For the hier tier ``n_dev`` is
+    the inner axis size and ``n_outer`` the pod count."""
     if tier == "allgather":
         return m
     if tier == "hier":
-        raise not_ported("the hier merge tier", "A15")
+        return hier_chunk_rows(m, n_dev, n_outer) * n_dev
     return _k.ring_chunk_rows(m, n_dev) * n_dev
 
 
-def assemble(out_spec: str, parts: Sequence[torch.Tensor], m: int,
-             device: torch.device) -> torch.Tensor:
+def assemble(out_spec, parts: Sequence[torch.Tensor], m: int,
+             device: torch.device, mesh: Optional[Mesh] = None
+             ) -> torch.Tensor:
     """The global [m, ...] result on ``device`` from per-rank parts: rank
-    0's copy when replicated, the chunks in rank order when query-sharded
-    (the assembly ``shard_map`` does for its out-specs), cut to m rows."""
+    0's copy when replicated, the chunks in rank order when query-sharded,
+    and under an axes out-spec (the hier tier's) the parts in the order of
+    the ranks' coordinates on those axes (``mesh`` needed) — the assembly
+    ``shard_map`` does for its out-specs — cut to m rows."""
     if out_spec == REPLICATED:
         return parts[0].to(device)[:m]
-    return torch.cat([p.to(device) for p in parts])[:m]
+    if out_spec == QUERY_SHARDED:
+        return torch.cat([p.to(device) for p in parts])[:m]
+    expects(mesh is not None, "assembling a %r out-spec needs the mesh",
+            out_spec)
+    (order,) = mesh.groups(out_spec)
+    return torch.cat([parts[r].to(device) for r in order])[:m]
 
 
 def _merge_allgather(vals, ids, comms: Comms, m: int, k: int, n_dev: int,
@@ -149,13 +212,17 @@ def _merge_allgather(vals, ids, comms: Comms, m: int, k: int, n_dev: int,
 
 
 def _ring_merge_fallback(vals, ids, comms: Comms, m: int, k: int,
-                         n_dev: int, select_min: bool):
+                         n_dev: int, select_min: bool,
+                         mc: Optional[int] = None):
     """The ring schedule hop by hop over ``Comms.ring_topk_hop`` and
-    ``select_k``: rank i starts chunk (i − 1) mod n_dev and merges the
-    incoming partial with its own block for chunk (i − s − 2) mod n_dev
-    at hop s; after n_dev − 1 hops rank i owns chunk i. Ids keep their
-    width (core.ids)."""
-    mc = _k.ring_chunk_rows(m, n_dev)
+    ``select_k``, within each of the communicator's groups: the rank at
+    position i starts chunk (i − 1) mod n_dev and merges the incoming
+    partial with its own block for chunk (i − s − 2) mod n_dev at hop s;
+    after n_dev − 1 hops it owns chunk i. ``mc`` overrides the chunk rows
+    (the hier tier's outer-divisible pad). Ids keep their width
+    (core.ids)."""
+    if mc is None:
+        mc = _k.ring_chunk_rows(m, n_dev)
     m_pad = mc * n_dev
     big = float("inf") if select_min else float("-inf")
     v3s, i3s = [], []
@@ -168,14 +235,15 @@ def _ring_merge_fallback(vals, ids, comms: Comms, m: int, k: int,
         v = torch.where(i < 0, torch.full_like(v, big), v)
         v3s.append(v.view(n_dev, mc, k))
         i3s.append(i.view(n_dev, mc, k))
-    ranks = comms.get_rank()
-    run_v = [v3s[r][(r + n_dev - 1) % n_dev] for r in ranks]
-    run_i = [i3s[r][(r + n_dev - 1) % n_dev] for r in ranks]
+    pos = comms.get_rank()
+    ranks = range(len(pos))
+    run_v = [v3s[r][(pos[r] + n_dev - 1) % n_dev] for r in ranks]
+    run_i = [i3s[r][(pos[r] + n_dev - 1) % n_dev] for r in ranks]
     for s in range(n_dev - 1):
         run_v, run_i = comms.ring_topk_hop(run_v, run_i)
         nv, ni = [], []
         for r in ranks:
-            c = (r + 2 * n_dev - s - 2) % n_dev
+            c = (pos[r] + 2 * n_dev - s - 2) % n_dev
             cat_v = torch.cat([run_v[r], v3s[r][c]], 1)
             cat_i = torch.cat([run_i[r], i3s[r][c]], 1)
             v, i = _select_k(cat_v, k, select_min=select_min,
@@ -186,24 +254,90 @@ def _ring_merge_fallback(vals, ids, comms: Comms, m: int, k: int,
     return run_v, run_i
 
 
+def _merge_hier(vals, ids, mesh: Mesh, outer: str, inner: str, m: int,
+                k: int, select_min: bool):
+    """Two-level merge: the ring per pod over ``inner``, then ONE
+    survivor ``alltoall`` over ``outer``.
+
+    Inner stage: the ring kernel handed each pod's ranks where
+    ``ring_topk_inner_ok`` admits the shape and the pod chunk needs no
+    extra pad (int32 ids, one card), else the plain schedule over the
+    inner communicator, leaving each rank its pod's merged ``[mc, k]``
+    block, ``mc`` divisible by ``n_outer``. Outer stage: rank (e, i)'s
+    sub-chunk f goes to rank (f, i); each rank then holds every pod's k
+    survivors for its ``mc / n_outer`` owned rows and selects k of
+    ``n_outer·k``. Each stage counts on its own axis (``comms.bytes``
+    ``axis=inner`` for the ring, ``axis=outer, op=alltoall`` for the
+    survivors: ``mc·k`` entries a rank)."""
+    inner_c = Comms(mesh, inner)
+    outer_c = Comms(mesh, outer)
+    n_inner = inner_c.get_size()
+    n_outer = outer_c.get_size()
+    mc = hier_chunk_rows(m, n_inner, n_outer)
+    kernel_ok = (_k._on_cuda() and mesh.n_cards <= 1
+                 and _k.ring_topk_inner_ok(m, k, n_inner)
+                 and mc == _k.ring_chunk_rows(m, n_inner))
+    if kernel_ok and any(i.dtype == torch.int64 for i in ids):
+        # the kernel takes int32 ids: an int64 table keeps its width on
+        # the plain schedule, as in the flat tier
+        _obs_spans.count_fallback("parallel.merge", "id_width")
+        kernel_ok = False
+    if kernel_ok:
+        inner_c.count_ring_topk(n_inner - 1, ((mc, k), torch.float32),
+                                ((mc, k), torch.int32))
+        pv, pi = [None] * mesh.size, [None] * mesh.size
+        for pod in mesh.groups((inner,)):
+            kv, ki = _k.ring_topk_merge([vals[r] for r in pod],
+                                        [ids[r] for r in pod], k, select_min)
+            for j, r in enumerate(pod):
+                pv[r], pi[r] = kv[j], ki[j]
+    else:
+        pv, pi = _ring_merge_fallback(vals, ids, inner_c, m, k, n_inner,
+                                      select_min, mc=mc)
+    mc_d = mc // n_outer
+    ex_v = outer_c.alltoall(pv)
+    ex_i = outer_c.alltoall(pi)
+    out_v, out_i = [], []
+    for v, i in zip(ex_v, ex_i):
+        flat_v = v.view(n_outer, mc_d, k).permute(1, 0, 2).reshape(
+            mc_d, n_outer * k)
+        flat_i = i.view(n_outer, mc_d, k).permute(1, 0, 2).reshape(
+            mc_d, n_outer * k)
+        sv, si = _select_k(flat_v, k, select_min=select_min,
+                           input_indices=flat_i)
+        out_v.append(sv)
+        out_i.append(si)
+    return out_v, out_i
+
+
 def merge_topk(vals: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
                mesh: Mesh, m: int, k: int, n_dev: int, select_min: bool,
-               tier: str = "allgather", impl: Optional[str] = None
+               tier: str = "allgather", impl: Optional[str] = None,
+               axis: Union[str, Sequence[str], None] = None
                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Cross-shard merge of per-rank [m, k] local top-k tables (global ids,
     −1 invalid, invalid keys at the select sentinel). The allgather tier
-    returns every rank the [m, k] result; the ring tier rank r its chunk
-    (pair with :func:`merge_out_spec` and :func:`assemble`). All traffic
-    is counted by ``Comms``: the allgather the gathered table, the ring
-    n_dev − 1 surviving-block hops under ``ring_topk``."""
+    returns every rank the [m, k] result; the ring tier rank r its chunk;
+    the hier tier (``axis=(outer, inner)``) each rank its (inner chunk,
+    outer sub-chunk) block (pair with :func:`merge_out_spec` and
+    :func:`assemble`). ``axis=None`` takes the mesh's own axes. All
+    traffic is counted by ``Comms``: the allgather the gathered table,
+    the ring n_dev − 1 surviving-block hops under ``ring_topk``, the hier
+    tier its per-pod ring on the inner axis and one survivor alltoall on
+    the outer."""
     expects(tier in MERGE_TIERS, "unknown merge tier %r", tier)
     expects(all(tuple(v.shape) == (m, k) and tuple(i.shape) == (m, k)
                 for v, i in zip(vals, ids)) and len(vals) == n_dev,
             "merge_topk expects %d per-rank [m, k] tables (m=%d k=%d)",
             n_dev, m, k)
+    if axis is None:
+        axis = mesh.axis_name if mesh.ndim == 1 else tuple(mesh.axis_names)
     if tier == "hier":
-        raise not_ported("the hier merge tier", "A15")
-    comms = Comms(mesh)
+        expects(not isinstance(axis, str) and len(tuple(axis)) == 2,
+                "hier merge needs axis=(outer, inner), got %r", axis)
+        outer, inner = axis
+        return _merge_hier(vals, ids, mesh, outer, inner, m, k, select_min)
+    comms = Comms(mesh, axis)
     if tier == "allgather":
         return _merge_allgather(vals, ids, comms, m, k, n_dev, select_min)
     if impl == "ring_kernel" and any(i.dtype == torch.int64 for i in ids):

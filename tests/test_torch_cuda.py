@@ -1375,3 +1375,121 @@ def test_cuda_registry_demotion_frees_the_base():
         da = float(((qa - x[i_h[r, j]].double()) ** 2).sum())
         db = float(((qa - x[i_r[r, j]].double()) ** 2).sum())
         assert abs(da - db) <= 1e-4 + 1e-5 * float((qa * qa).sum())
+
+
+# ---------------------------------------------------------------------------
+# the sharded tier's other half: the hier tier, the prefetcher, the
+# distributed build (parallel.merge, parallel.build)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dcn,ici,m,select_min,variant", [
+    (2, 2, 500, True, "sentinels"), (2, 2, 27, False, "sentinels"),
+    (2, 4, 96, True, "ties")])
+def test_cuda_hier_ring_per_pod_matches_plain(dcn, ici, m, select_min,
+                                              variant):
+    """The hier tier launches B7 once per pod, handed the pod's ranks: each
+    pod's blocks equal B7's plain version on the same tables (exact, ties
+    included), and on tie-free keys the tier's result equals the same
+    merge on CPU ranks (the plain schedule) and the allgather tier."""
+    from raft_tpu_torch.parallel import hier_mesh, merge
+
+    dev = cuda_device()
+    n, k = dcn * ici, 10
+    vals, ids = ring_tables(n, m, k, seed=m + n, select_min=select_min,
+                            variant=variant)
+    mesh = hier_mesh(ici, dcn, devices=str(dev))
+    for pod in mesh.groups(("ici",)):
+        K.reset_launch_counts()
+        kv, ki = K.ring_topk_merge([torch.tensor(vals[r]).to(dev)
+                                    for r in pod],
+                                   [torch.tensor(ids[r]).to(dev)
+                                    for r in pod], k, select_min)
+        assert K.launch_counts()["ring_topk_merge"] == 1
+        pv, pi = K.ring_topk_merge([torch.tensor(vals[r]) for r in pod],
+                                   [torch.tensor(ids[r]) for r in pod], k,
+                                   select_min)
+        for j in range(ici):
+            assert torch.equal(kv[j].cpu(), pv[j])
+            assert torch.equal(ki[j].cpu(), pi[j])
+    if variant == "ties":
+        return
+    out = {}
+    for where in ("cuda", "cpu"):
+        mesh = hier_mesh(ici, dcn, devices=str(dev) if where == "cuda"
+                         else "cpu")
+        d = mesh.devices[0]
+        K.reset_launch_counts()
+        for tier in ("hier", "allgather"):
+            rv, ri = merge.merge_topk(
+                [torch.tensor(v).to(d) for v in vals],
+                [torch.tensor(i).to(d) for i in ids], mesh, m, k, n,
+                select_min, tier=tier, impl=tier, axis=("dcn", "ici"))
+            spec = merge.merge_out_spec(tier, ("dcn", "ici"))
+            out[where, tier] = (
+                merge.assemble(spec, rv, m, torch.device("cpu"), mesh),
+                merge.assemble(spec, ri, m, torch.device("cpu"), mesh))
+        if where == "cuda":
+            assert K.launch_counts()["ring_topk_merge"] == dcn
+    for key in (("cpu", "hier"), ("cuda", "allgather")):
+        assert torch.equal(out["cuda", "hier"][0], out[key][0])
+        assert torch.equal(out["cuda", "hier"][1].long(),
+                           out[key][1].long())
+
+
+def test_cuda_prefetcher_side_stream_handoff():
+    """50 chunks generated on the prefetcher's own stream (each after a
+    spin of the card, so a missing event wait would read rows not yet
+    written) equal the same rows generated directly; the consumer's
+    stream is kept busy between gets."""
+    from raft_tpu_torch.bench.dataset import DeviceSyntheticChunks
+    from raft_tpu_torch.parallel import ChunkPrefetcher
+
+    dev = cuda_device()
+    prov = DeviceSyntheticChunks(50 * 4096, 64, n_centers=100, seed=3,
+                                 chunk_rows=4096, device=dev)
+
+    def read(a, b):
+        torch.cuda._sleep(2_000_000)
+        return prov[a:b]
+
+    ranges = [(a, a + 4096) for a in range(0, 50 * 4096, 4096)]
+    busy = torch.randn((2048, 2048), device=dev)
+    pf = ChunkPrefetcher(read, ranges, device=dev)
+    try:
+        for a, b in ranges:
+            busy = busy @ busy.T / 2048.0
+            x = pf.get()
+            assert torch.equal(x, prov[a:b]), (a, b)
+    finally:
+        pf.close()
+
+
+def test_cuda_distributed_build_is_build_chunked_deterministically(
+        monkeypatch):
+    """Under ``torch.use_deterministic_algorithms(True)`` a small
+    distributed build (4 ranks on the card, each rank's rows a multiple of
+    the chunk) assembles to ``build_chunked``'s index: equal shas."""
+    from raft_tpu_torch.bench.dataset import DeviceSyntheticChunks
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.parallel import (assemble_ivf_pq, index_sha16,
+                                         make_mesh)
+
+    dev = cuda_device()
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    chunk = 8192
+    prov = DeviceSyntheticChunks(4 * 2 * chunk, 32, n_centers=300, seed=5,
+                                 chunk_rows=chunk, device=dev)
+    params = ivf_pq.IndexParams(n_lists=64, pq_dim=16, kmeans_n_iters=6,
+                                seed=5, cache_reconstruction="never")
+    torch.use_deterministic_algorithms(True)
+    try:
+        sharded = ivf_pq.build_distributed(
+            prov, params, mesh=make_mesh(4, device=str(dev)),
+            chunk_rows=chunk)
+        chunked = ivf_pq.build_chunked(prov, params, chunk_rows=chunk,
+                                       device=dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    asm = assemble_ivf_pq(sharded, device="cpu")
+    assert index_sha16(asm) == index_sha16(chunked)
+    assert asm.size == chunked.size > 0.99 * prov.shape[0]

@@ -220,18 +220,19 @@ def test_ring_wrappers_refuse_mixed_devices():
 
 
 def test_unported_sharded_paths_name_their_roadmap_item():
-    from raft_tpu_torch.parallel import build as pbuild
-    from raft_tpu_torch.parallel import comms, ivf, make_mesh, merge, mesh
+    """What is left of A15 needs cards on several hosts or several cards
+    (fault C4): each such entry raises naming its item and the fault."""
+    from raft_tpu_torch.obs import prof
+    from raft_tpu_torch.parallel import comms, mesh
 
-    m = make_mesh(2, device="cpu")
-    for call in (lambda: mesh.hier_mesh(2, 2), lambda: mesh.submesh(m, 1),
-                 lambda: ivf.build_ivf_flat(None, None, m),
-                 lambda: ivf.search_ivf_flat(None, None, None, 1, m),
-                 lambda: pbuild.build_ivf_pq_distributed(),
-                 lambda: merge.merge_tier(2, 8, 4, explicit="hier"),
-                 lambda: merge.resolve_exchange(m, ("dcn", "ici")),
-                 lambda: comms.Comms(m).alltoall([])):
+    for call in (lambda: mesh.make_hybrid_mesh((2,), (2,), ("dcn", "ici")),
+                 lambda: comms.initialize_distributed(),
+                 lambda: prof.interconnect_peak()):
         with pytest.raises(NotImplementedError, match="A15"):
+            call()
+    for call in (lambda: mesh.make_hybrid_mesh((2,), (2,), ("dcn", "ici")),
+                 lambda: comms.initialize_distributed()):
+        with pytest.raises(NotImplementedError, match="C4"):
             call()
 
 

@@ -315,14 +315,13 @@ def test_unported_paths_raise(corpus):
     with pytest.raises(NotImplementedError, match="ROADMAP A19"):
         tfl.build(np.clip(x * 10, -127, 127).astype(np.int8),
                   tfl.IndexParams(n_lists=4), device="cpu")
-    calls = [
-        lambda: tfl.search(idx, qt, 10, tfl.SearchParams(n_probes=4),
-                           mesh=object(), device="cpu"),
-        lambda: tfl.build_distributed(x),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # the sharded routes are ported (ROADMAP A15): they refuse a
+    # single-device index handed a mesh, and a build without one
+    with pytest.raises(Exception, match="ShardedIvfFlat"):
+        tfl.search(idx, qt, 10, tfl.SearchParams(n_probes=4),
+                   mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="mesh"):
+        tfl.build_distributed(x)
 
 
 def test_refined_search_matches_unrefined_exact_rows(corpus):

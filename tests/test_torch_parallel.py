@@ -648,3 +648,150 @@ def test_fused_scan_is_the_exact_scan_minus_the_bin_rule():
                     a, b = key_of[got[j]], key_of[want[j]]
                     assert abs(a - b) <= 1e-3 + 1e-4 * abs(b), (ch, i, j)
     assert lost > 0
+
+
+# ---------------------------------------------------------------------------
+# sharded IVF-Flat (mirrors tests/test_parallel_ivf.py:115-200)
+# ---------------------------------------------------------------------------
+
+FLAT_SHARDS = 4
+
+
+@pytest.fixture(scope="module")
+def flat_case():
+    """The JAX package's sharded IVF-Flat data (4096 × 32 normals, 64
+    queries), their exact top-10, and a JAX-built 4-shard index."""
+    from raft_tpu.neighbors import ivf_flat as jflat
+    from raft_tpu.parallel import build_ivf_flat as jbuild
+
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((4096, 32), dtype=np.float32)
+    q = rng.standard_normal((64, 32), dtype=np.float32)
+    jidx = jbuild(jflat.IndexParams(n_lists=32, kmeans_n_iters=8, seed=3),
+                  jnp.asarray(x), jax_mesh(FLAT_SHARDS))
+    return x, q, exact_knn(x, q, 10), jidx
+
+
+def _recall10(ids, gt):
+    return overlap(np.asarray(ids), gt)
+
+
+def test_sharded_flat_recall_matches_single_device(flat_case):
+    """The port's sharded build and search: recall ≥ 0.8 and within 0.08
+    of its single-device index, within 0.02 of the JAX package's sharded
+    build, every id valid; ``list_sizes`` sum to the rows kept."""
+    from raft_tpu.neighbors import ivf_flat as jflat
+    from raft_tpu.parallel import search_ivf_flat as jsearch
+    from raft_tpu_torch.neighbors import ivf_flat as tflat
+
+    x, q, gt, jidx = flat_case
+    params = tflat.IndexParams(n_lists=32, kmeans_n_iters=8, seed=3)
+    sp = tflat.SearchParams(n_probes=16)
+    single = tflat.build(x, params, device="cpu")
+    r1 = _recall10(tflat.search(single, q, 10, sp, device="cpu")[1], gt)
+    mesh = _cpu_mesh(FLAT_SHARDS)
+    sharded = tivf.build_ivf_flat(params, x, mesh)
+    assert sharded.size + tspans.total(
+        "ivf_flat.build.dropped", site="parallel.build_ivf_flat") == len(x)
+    _, ids = tivf.search_ivf_flat(sp, sharded, q, 10, mesh)
+    r4 = _recall10(ids, gt)
+    _, jids = jsearch(jflat.SearchParams(n_probes=16), jidx, jnp.asarray(q),
+                      10, jax_mesh(FLAT_SHARDS))
+    assert r4 >= 0.8 and r4 >= r1 - 0.08, (r4, r1)
+    assert abs(r4 - _recall10(jids, gt)) <= 0.02
+    assert bool((ids >= 0).all())
+
+
+def _flat_from_jax(jidx, mesh):
+    arrays = {name: np.asarray(getattr(jidx, name))
+              for name in ("centers", "packed_data", "packed_ids",
+                           "packed_norms", "list_sizes")}
+    return tivf.ShardedIvfFlat.from_numpy(
+        arrays, {"metric": jidx.metric,
+                 "global_list_cap": jidx.global_list_cap}, mesh)
+
+
+@pytest.mark.parametrize("merge", ["allgather", "ring"])
+def test_crossed_flat_index_searches_agree(flat_case, merge):
+    """A JAX-built sharded IVF-Flat index crossed into the port: both
+    packages' searches give the same ids away from value ties (values
+    rtol 1e-4), through the merge tier asked for."""
+    from raft_tpu.neighbors import ivf_flat as jflat
+    from raft_tpu.parallel import search_ivf_flat as jsearch
+    from raft_tpu_torch.neighbors import ivf_flat as tflat
+
+    x, q, _, jidx = flat_case
+    mesh = _cpu_mesh(FLAT_SHARDS)
+    tidx = _flat_from_jax(jidx, mesh)
+    jv, ji = jsearch(jflat.SearchParams(n_probes=8), jidx, jnp.asarray(q),
+                     10, jax_mesh(FLAT_SHARDS), merge=merge)
+    tv, ti = tivf.search_ivf_flat(tflat.SearchParams(n_probes=8), tidx, q,
+                                  10, mesh, merge=merge)
+    assert_ids_match_away_from_ties(ti.numpy(), tv.numpy(), np.asarray(ji),
+                                    np.asarray(jv))
+
+
+def test_sharded_flat_exact_within_probed_lists(flat_case):
+    """n_probes = n_lists: the sharded scan is exhaustive, recall 1.0."""
+    from raft_tpu_torch.neighbors import ivf_flat as tflat
+
+    x, q, _, _ = flat_case
+    mesh = _cpu_mesh(FLAT_SHARDS)
+    sharded = tivf.build_ivf_flat(tflat.IndexParams(
+        n_lists=16, kmeans_n_iters=4, list_size_cap_factor=32.0), x, mesh)
+    _, ids = tivf.search_ivf_flat(tflat.SearchParams(n_probes=16), sharded,
+                                  q[:16], 10, mesh)
+    assert _recall10(ids, exact_knn(x, q[:16], 10)) >= 0.999
+
+
+def test_sharded_flat_ring_and_hier_match_allgather(flat_case):
+    """Through ``ivf_flat.search(mesh=)``: the ring and the hier merge
+    (over a (dcn, ici) mesh of the same ranks) equal the allgather tier;
+    a filter over the global ids is honoured by every tier."""
+    from raft_tpu_torch.core import bitset as tbits
+    from raft_tpu_torch.neighbors import ivf_flat as tflat
+    from raft_tpu_torch.parallel import hier_mesh
+
+    x, q, _, jidx = flat_case
+    mesh = _cpu_mesh(FLAT_SHARDS)
+    tidx = _flat_from_jax(jidx, mesh)
+    sp = tflat.SearchParams(n_probes=8)
+    va, ia = tflat.search(tidx, q, 10, sp, mesh=mesh, merge="allgather",
+                          device="cpu")
+    vr, ir = tflat.search(tidx, q, 10, sp, mesh=mesh, merge="ring",
+                          device="cpu")
+    mesh2 = hier_mesh(2, 2, devices="cpu")
+    vh, ih = tflat.search(tidx, q, 10, sp, mesh=mesh2,
+                          mesh_axis=("dcn", "ici"), device="cpu")
+    for v, i in ((vr, ir), (vh, ih)):
+        assert torch.equal(i, ia) and torch.equal(v, va)
+    keep = np.random.default_rng(1).random(len(x)) < 0.3
+    words = tbits.to_numpy(tbits.from_mask(torch.from_numpy(keep)))
+    for merge in ("allgather", "ring"):
+        _, fi = tflat.search(tidx, q, 10, sp, filter_bitset=words,
+                             mesh=mesh, merge=merge, device="cpu")
+        fi = fi.numpy()
+        assert keep[fi[fi >= 0]].all()
+
+
+def test_flat_mesh_dispatch_validates(flat_case):
+    from raft_tpu_torch.neighbors import ivf_flat as tflat
+    from raft_tpu_torch.neighbors import ivf_pq as tpq
+
+    x, q, _, jidx = flat_case
+    mesh = _cpu_mesh(FLAT_SHARDS)
+    single = tflat.build(x[:512], tflat.IndexParams(n_lists=16,
+                                                    kmeans_n_iters=2),
+                         device="cpu")
+    with pytest.raises(Exception, match="ShardedIvfFlat"):
+        tflat.search(single, q, 5, tflat.SearchParams(n_probes=4),
+                     mesh=mesh, device="cpu")
+    with pytest.raises(Exception, match="mesh="):
+        tflat.search(_flat_from_jax(jidx, mesh), q, 5,
+                     tflat.SearchParams(n_probes=4), device="cpu")
+    pq_single = tpq.build(x[:512], tpq.IndexParams(n_lists=16, pq_dim=8,
+                                                   kmeans_n_iters=2),
+                          device="cpu")
+    with pytest.raises(Exception, match="ShardedIvfPq"):
+        tpq.search(pq_single, q, 5, tpq.SearchParams(n_probes=4), mesh=mesh,
+                   device="cpu")
