@@ -199,6 +199,19 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    recall at batch 10,000, the ring tier against the allgather, the
    exhaustive search against brute force, the flat sha under the
    determinism mode);
+5b. ``[cagra]`` (ROADMAP A16; BASELINE.md target 4, GIST-1M's shape):
+   ``CAGRA_N`` x ``CAGRA_DIM`` ``DeviceSynthetic`` rows, 1,000 queries,
+   ``cagra.build`` with graph_degree 64 (the cluster algorithm over the
+   auto 128-d projection), searches at itopk 64, width 8, 6 iterations:
+   f32, int8 traversal, filtered at selectivity 0.1, each with QPS at batch
+   1,000, latency at batch 10 and recall@10; counts zeroed before the build
+   and read after the f32 passes (fused_l2_argmin must launch); the graph's
+   invariants, the card's search equal to the CPU's on 100 queries but at
+   f64 ties, the nn_descent refusal, B4 at the build's predict shape (row
+   ``cagra_build``), then the ivf_pq build algorithm on ``CAGRA_PQ_N`` rows
+   with counts zeroed before its build (fused_l2_argmin and select_k must
+   launch; rows ``cagra_ivf_pq``: B4 at its label pass's shape, B3 at its
+   coarse select's) (``cagra_leg``);
 6. ``[dist build]``: the SIFT-1B-shaped distributed build of
    ``DIST_RANK_CHUNKS`` x 2^20 rows a rank on the 4 ranks
    (``dist_build_phase``: ``ivf_pq.build_distributed`` and
@@ -208,8 +221,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    against the streamed ground truth and by the fused tier, B4 at the
    label pass's chunk against its plain version (row ``dist_build``), and
    ``[dist resume]``: a build stopped at rank 2's second encode chunk,
-   resumed to the uninterrupted build's sha, then prefetch on against off
-   in turns); ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts for
+   resumed to the sha of the uninterrupted build, made with prefetch on
+   and again off); ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts for
    that mode;
 7. the run's wall time, the card's line, the kernel JSON line, then
    ``{"ok": true, "device": {...}}`` last.
@@ -253,6 +266,16 @@ CHUNKED_RESUME_N = 4_000_000
 # check at 4 chunks a rank.
 DIST_RANK_CHUNKS = 10
 DIST_RESUME_RANK_CHUNKS = 4
+# The [cagra] leg: BASELINE.md target 4 (GIST-1M: 1M x 960, its 1,000 test
+# queries, graph_degree 64), the ivf_pq build algorithm on the first
+# CAGRA_PQ_N of those rows.
+CAGRA_N = 1_000_000
+CAGRA_DIM = 960
+CAGRA_QUERIES = 1_000
+CAGRA_DEGREE = 64
+CAGRA_PQ_N = 100_000
+CAGRA_KERNELS = ("fused_l2_argmin",)
+CAGRA_PQ_KERNELS = ("fused_l2_argmin", "select_k")
 
 # The [resilient] leg's injected plan, and the rungs its walk must take
 # from the main path's knobs (bf16 LUT, refined against the resident
@@ -3948,9 +3971,10 @@ def dist_resume_check(args, params, chunk, mesh):
     a rank: a checkpointed build stopped by a fault at rank 2's second
     encode chunk, resumed, equal (sha) to the uninterrupted build of that
     size (both under the determinism mode); its ``resume.*`` counters;
-    then the wall time of ``prefetch=True`` against ``prefetch=False``, in
-    turns (uninterrupted builds, no stage timing). Runs under the
-    caller's determinism mode. Returns the summary."""
+    the uninterrupted build made twice, ``prefetch=True`` then
+    ``prefetch=False`` (their wall times logged, no stage timing), each
+    held to the resumed build's sha. Runs under the caller's determinism
+    mode. Returns the summary."""
     import tempfile
 
     import torch
@@ -4001,8 +4025,7 @@ def dist_resume_check(args, params, chunk, mesh):
     if resume_counts["resume.chunks_replayed"] != sum(done):
         raise SmokeFailure(f"resume replayed {resume_counts} chunks, the "
                            f"manifest recorded {sum(done)}")
-    sha_u = None
-    for turn in ("on", "off", "on", "off"):
+    for turn in ("on", "off"):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         idx = ivf_pq.build_distributed(ds, params, mesh=mesh,
@@ -4010,23 +4033,330 @@ def dist_resume_check(args, params, chunk, mesh):
                                        prefetch=turn == "on")
         torch.cuda.synchronize()
         walls[turn].append(time.perf_counter() - t1)
-        if sha_u is None:
-            sha_u = index_sha16(idx)
+        sha_u = index_sha16(idx)
         del idx
-    if sha_r != sha_u:
-        raise SmokeFailure(f"the resumed distributed build's sha {sha_r} "
-                           f"!= the uninterrupted build's {sha_u}")
+        if sha_r != sha_u:
+            raise SmokeFailure(f"the resumed distributed build's sha {sha_r}"
+                               f" != the uninterrupted build's {sha_u} "
+                               f"(prefetch {turn})")
     out = {"n": n, "shard_chunks_done": done, "counters": resume_counts,
            "sha": sha_r, "prefetch_wall_s": walls,
            "seconds": time.perf_counter() - t0}
     _log(f"[dist resume] {n} x {SHARD_DIM} ({per_rank} chunks a rank): a "
          f"checkpointed build stopped at rank 2's second encode chunk "
          f"(shard chunks done {done}), resumed: sha {sha_r} = the "
-         f"uninterrupted build's; {json.dumps(resume_counts)}; wall s of "
-         f"uninterrupted builds in turns, prefetch=True "
-         f"{[round(w, 2) for w in walls['on']]}, prefetch=False "
-         f"{[round(w, 2) for w in walls['off']]} "
+         f"uninterrupted builds' with prefetch=True "
+         f"({walls['on'][0]:.2f} s) and prefetch=False "
+         f"({walls['off'][0]:.2f} s); {json.dumps(resume_counts)} "
          f"({out['seconds']:.1f} s)")
+    return out
+
+
+def _cagra_passes(search, queries, batch):
+    """Seconds of three passes over ``queries`` in batches (cold, then two
+    warm; CUDA events around each pass) and the last pass's (distances,
+    ids)."""
+    import torch
+
+    secs = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        outs = []
+        start.record()
+        for a in range(0, queries.shape[0], batch):
+            outs.append(search(queries[a:a + batch]))
+        end.record()
+        torch.cuda.synchronize()
+        secs.append(start.elapsed_time(end) / 1e3)
+    return (secs, torch.cat([o[0] for o in outs]),
+            torch.cat([o[1] for o in outs]))
+
+
+def _latency_ms(search, q, reps: int = 20) -> float:
+    """Median ms of one search of ``q`` (CUDA events around each call,
+    after one warm-up)."""
+    import torch
+
+    search(q)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        search(q)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return sorted(ms)[reps // 2]
+
+
+def _cagra_graph_checks(index, knn, n):
+    """The graph's invariants: [n, 64] int32, every id in [0, n) or −1, no
+    row holding its own id, every row's first 32 edges among its 128
+    intermediate edges. Returns the count of −1 entries."""
+    import torch
+
+    g = index.graph
+    if g.dtype != torch.int32 or tuple(g.shape) != (n, CAGRA_DEGREE):
+        raise SmokeFailure(f"cagra graph is {g.dtype} {tuple(g.shape)}, "
+                           f"not int32 [{n}, {CAGRA_DEGREE}]")
+    if not bool(((g >= -1) & (g < n)).all()):
+        raise SmokeFailure("cagra graph holds ids outside [0, n) and -1")
+    self_hits, not_inter = 0, 0
+    half = CAGRA_DEGREE // 2
+    for a in range(0, n, 100_000):
+        ga, ka = g[a:a + 100_000], knn[a:a + 100_000]
+        own = torch.arange(a, a + ga.shape[0], device=g.device)[:, None]
+        self_hits += int((ga == own).sum())
+        inside = (ga[:, :half, None] == ka[:, None, :]).any(2)
+        not_inter += int((~inside).sum())
+    if self_hits:
+        raise SmokeFailure(f"cagra graph: {self_hits} rows hold their own id")
+    if not_inter:
+        raise SmokeFailure(f"cagra graph: {not_inter} of the rows' first "
+                           f"{half} edges are not among their "
+                           f"{knn.shape[1]} intermediate edges")
+    return int((g < 0).sum())
+
+
+def _edge_recall(base, graph, sample, k):
+    """Recall of ``graph``'s rows ``sample`` (their first k edges) against
+    the exact k nearest rows of ``base`` (self excluded)."""
+    import torch
+
+    from raft_tpu_torch.neighbors import brute_force
+
+    _, ex = brute_force.knn(base, base[sample], k + 1, metric="sqeuclidean")
+    own = sample[:, None].to(ex.dtype)
+    ex = torch.stack([r[r != o][:k] for r, o in zip(ex, own)])
+    got = graph[sample][:, :k]
+    hit = (got[:, :, None] == ex[:, None, :]).any(2).sum()
+    return float(hit) / (sample.shape[0] * k)
+
+
+def cagra_leg(args, rows):
+    """``[cagra]`` (ROADMAP A16, BASELINE.md target 4, ``bench.py:274-279``
+    ``gist.cagra.d64``): ``CAGRA_N`` x ``CAGRA_DIM`` ``DeviceSynthetic`` rows
+    and ``CAGRA_QUERIES`` queries (GIST-1M's shape), k 10, exact ground
+    truth by ``brute_force.knn``. Counts zeroed before ``cagra.build``
+    (``IndexParams(graph_degree=64)``: the cluster algorithm over the auto
+    128-d projection) and read after the f32 search passes (itopk 64,
+    width 8, 6 iterations; batch 1,000: a cold then two warm passes, CUDA
+    events; the latency at batch 10): fused_l2_argmin must have launched.
+    Prints the build's seconds by stage and the card's peak, the
+    intermediate graph's edge recall on 1,000 sampled rows, QPS, latency and
+    recall@10 of the f32 search, of ``traverse="int8"`` on the index with
+    its quantized rows added, and of a filtered search at selectivity 0.1
+    (``bench_keep``; against the filtered ground truth, no cleared id);
+    then the ``ivf_pq`` algorithm on the first ``CAGRA_PQ_N`` rows: graph
+    edge recall, recall@10 and the tier counters ``ivf_pq.search`` and
+    ``refine`` recorded, counts zeroed before its build and read after it
+    (``CAGRA_PQ_KERNELS`` must have launched), fused_l2_argmin at its label
+    pass's shape and select_k at its coarse select's against their plain
+    versions (rows ``cagra_ivf_pq``). Checks: the graph's invariants
+    (``_cagra_graph_checks``), the first 100 queries searched on the card
+    equal to the same index searched on the CPU (f32, int8, filtered:
+    ``bench.dataset.tie_swaps``), ``build_algo="nn_descent"`` raising A16, and
+    fused_l2_argmin against its plain version at the build's predict
+    shape (row ``cagra_build``). Frees its rows at the end."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.bench.dataset import DeviceSynthetic, tie_swaps
+    from raft_tpu_torch.core import bitset
+    from raft_tpu_torch.neighbors import brute_force, cagra
+    from raft_tpu_torch.obs import spans
+    from raft_tpu_torch.ops import kernels as K
+
+    t_leg = time.perf_counter()
+    n, dim, m, k = CAGRA_N, CAGRA_DIM, CAGRA_QUERIES, 10
+    try:
+        cagra.build(torch.zeros((64, 8)), cagra.IndexParams(
+            build_algo="nn_descent"))
+        raise SmokeFailure("cagra build_algo='nn_descent' did not raise")
+    except NotImplementedError as e:
+        if "A16" not in str(e):
+            raise SmokeFailure(f"nn_descent refusal names no A16: {e}")
+    ds = DeviceSynthetic(n, dim, n_centers=10_000, seed=args.seed + 3)
+    base = ds.base()
+    queries = ds.queries(m)
+    _, gt = brute_force.knn(base, queries, k, metric="sqeuclidean")
+    gt = gt.cpu()
+    params = cagra.IndexParams(graph_degree=CAGRA_DEGREE, seed=args.seed)
+    sp = cagra.SearchParams(itopk_size=64, search_width=8, max_iterations=6,
+                            traverse="f32")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    stages, inter = {}, {}
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    index = cagra.build(base, params, stage_seconds=stages,
+                        intermediates=inter)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    secs, d_f32, i_f32 = _cagra_passes(
+        lambda qb: cagra.search(index, qb, k, sp), queries, m)
+    launches = K.launch_counts()
+    missing = [name for name in CAGRA_KERNELS if launches[name] == 0]
+    if missing:
+        raise SmokeFailure(f"kernels never launched on the cagra path: "
+                           f"{missing}")
+    lat = _latency_ms(lambda qb: cagra.search(index, qb, k, sp),
+                      queries[:10])
+    rec = _recall(i_f32.cpu(), gt)
+    n_neg = _cagra_graph_checks(index, inter["knn_graph"], n)
+    sample = torch.from_numpy(np.random.default_rng(args.seed).choice(
+        n, 1000, replace=False)).to(base.device)
+    edge_rec = _edge_recall(base, inter["knn_graph"], sample,
+                            inter["knn_graph"].shape[1])
+    _log(f"[cagra] {n} x {dim} ({base_gb:.2f} GB allocated before the "
+         f"build), IndexParams(graph_degree={CAGRA_DEGREE}): build "
+         f"{build_s:.1f} s ("
+         + ", ".join(f"{s} {v:.2f}s" for s, v in stages.items())
+         + f"); card peak {peak_gb:.2f} GB; n_lists "
+         f"{index.centers.shape[0]}; graph {tuple(index.graph.shape)}, "
+         f"{n_neg} ids -1; intermediate graph edge recall "
+         f"{edge_rec:.4f} on 1,000 rows (k {inter['knn_graph'].shape[1]})")
+    _log(f"[cagra] launches {json.dumps(launches)}")
+    _log(f"[cagra search] f32 itopk 64 width 8 iters 6: {m} queries at "
+         f"batch {m}, cold then warm (CUDA events): "
+         + ", ".join(f"{m / s:.0f}" for s in secs)
+         + f" QPS; batch 10 latency {lat:.3f} ms (median of 20); "
+         f"recall@10 {rec:.4f}")
+    if i_f32.shape != (m, k) or bool((i_f32 < 0).any()):
+        raise SmokeFailure("cagra search returned a malformed id table")
+
+    # B4 at the build's predict shape: the scanned rows against the centers
+    _argmin_row(rows, "cagra_build", launches, inter["build_rows"],
+                inter["build_centers"].contiguous(), "predict ")
+    del inter
+
+    # int8 traversal: the quantized rows added to the same index
+    codes, scale, zero = cagra._quantize_rows(base)
+    index_q = dataclasses.replace(index, dataset_q=codes, q_scale=scale,
+                                  q_zero=zero)
+    sp8 = dataclasses.replace(sp, traverse="int8")
+    secs8, _, i_8 = _cagra_passes(
+        lambda qb: cagra.search(index_q, qb, k, sp8), queries, m)
+    lat8 = _latency_ms(lambda qb: cagra.search(index_q, qb, k, sp8),
+                       queries[:10])
+    rec8 = _recall(i_8.cpu(), gt)
+    _log(f"[cagra search] int8 traversal (+{codes.numel() / 1e9:.2f} GB "
+         f"of codes): " + ", ".join(f"{m / s:.0f}" for s in secs8)
+         + f" QPS; batch 10 latency {lat8:.3f} ms; recall@10 {rec8:.4f}")
+
+    # filtered at selectivity 0.1
+    keep = bench_keep(n, 0.1, k)
+    bits = bitset.from_mask(keep)
+    _, gt_f = brute_force.knn(base, queries, k, metric="sqeuclidean",
+                              filter_bitset=bits)
+    secs_f, _, i_f = _cagra_passes(
+        lambda qb: cagra.search(index, qb, k, sp, filter_bitset=bits),
+        queries, m)
+    lat_f = _latency_ms(lambda qb: cagra.search(index, qb, k, sp,
+                                                 filter_bitset=bits),
+                        queries[:10])
+    n_unfilled = _check_kept(i_f.cpu(), keep, "cagra filtered search")
+    rec_f = _recall(i_f.cpu(), gt_f.cpu())
+    _log(f"[cagra search] filtered, selectivity 0.1 ({int(keep.sum())} rows "
+         f"kept): " + ", ".join(f"{m / s:.0f}" for s in secs_f)
+         + f" QPS; batch 10 latency {lat_f:.3f} ms; recall@10 {rec_f:.4f} "
+         f"against the filtered ground truth; {n_unfilled} slots -1")
+
+    # the card's search against the same index searched on the CPU
+    t0 = time.perf_counter()
+    n_cmp = 100
+    base_cpu = base.cpu()
+    cpu_index = cagra.CagraIndex(
+        dataset=base_cpu, graph=index.graph.cpu(), metric=index.metric,
+        centers=index.centers.cpu(), entry_ids=index.entry_ids.cpu(),
+        dataset_q=codes.cpu(), q_scale=scale.cpu(), q_zero=zero.cpu())
+    q_cmp = queries[:n_cmp]
+    swaps = {}
+    for what, idx_c, spc, fb in (("f32", index, sp, None),
+                                 ("int8", index_q, sp8, None),
+                                 ("filtered", index, sp, bits)):
+        d_c, i_c = cagra.search(idx_c, q_cmp, k, spc, filter_bitset=fb)
+        d_p, i_p = cagra.search(cpu_index, q_cmp.cpu(), k, spc,
+                                filter_bitset=None if fb is None
+                                else fb.cpu(), device="cpu")
+        try:
+            swaps[what] = tie_swaps(q_cmp, base_cpu, i_c, d_c, i_p, d_p)
+        except ValueError as e:
+            raise SmokeFailure(f"cagra {what} card vs CPU: {e}") from e
+    _log(f"[cagra check] {n_cmp} queries, the card's search = the CPU's "
+         f"but at f64 ties (swapped slots {json.dumps(swaps)}; "
+         f"{time.perf_counter() - t0:.1f} s); nn_descent refused (A16)")
+    del cpu_index, base_cpu, index_q, codes, index
+
+    # the ivf_pq build algorithm at GIST's width on CAGRA_PQ_N rows
+    t0 = time.perf_counter()
+    x_pq = base[:CAGRA_PQ_N].contiguous()
+    del base
+    torch.cuda.empty_cache()
+    _, gt_pq = brute_force.knn(x_pq, queries, k, metric="sqeuclidean")
+    spans.reset()
+    K.reset_launch_counts()
+    inter_pq, stages_pq = {}, {}
+    t1 = time.perf_counter()
+    index_pq = cagra.build(x_pq, dataclasses.replace(
+        params, build_algo="ivf_pq"), stage_seconds=stages_pq,
+        intermediates=inter_pq)
+    torch.cuda.synchronize()
+    build_pq_s = time.perf_counter() - t1
+    tiers = {name: v for name, v in spans.counts().items()
+             if name.endswith(".dispatch") or name.endswith(".fallback")}
+    launches_pq = K.launch_counts()
+    missing = [name for name in CAGRA_PQ_KERNELS if launches_pq[name] == 0]
+    if missing:
+        raise SmokeFailure(f"kernels never launched on the cagra ivf_pq "
+                           f"build: {missing}")
+    _, i_pq = cagra.search(index_pq, queries, k, sp)
+    rec_pq = _recall(i_pq.cpu(), gt_pq.cpu())
+    sample_pq = torch.from_numpy(np.random.default_rng(args.seed).choice(
+        CAGRA_PQ_N, 1000, replace=False)).to(x_pq.device)
+    edge_pq = _edge_recall(x_pq, inter_pq["knn_graph"], sample_pq,
+                           inter_pq["knn_graph"].shape[1])
+    pq_s = time.perf_counter() - t0
+    _log(f"[cagra ivf_pq] {CAGRA_PQ_N} x {dim}, build_algo='ivf_pq': build "
+         f"{build_pq_s:.1f} s (" + ", ".join(
+             f"{s} {v:.2f}s" for s, v in stages_pq.items())
+         + f"); intermediate graph edge recall {edge_pq:.4f} on "
+         f"{sample_pq.numel()} rows; recall@10 {rec_pq:.4f}; tiers "
+         f"{json.dumps(tiers)}; launches {json.dumps(launches_pq)} "
+         f"(sub-leg {pq_s:.1f} s)")
+    # its kernels against their plain versions at its shapes: B4 at the
+    # IVF-PQ label pass's (all rows against the coarse centers), B3 at the
+    # self-search's coarse select of one 16,384-row chunk
+    centers_pq = inter_pq["build_centers"].contiguous()
+    _argmin_row(rows, "cagra_ivf_pq", launches_pq, x_pq, centers_pq,
+                "label pass ")
+    n_probes = max(2, centers_pq.shape[0] // 8)
+    scores = torch.sub((centers_pq * centers_pq).sum(1)[None, :],
+                       x_pq[:16384] @ centers_pq.T, alpha=2.0).contiguous()
+    _select_k_row(rows, "cagra_ivf_pq", launches_pq, scores, n_probes,
+                  " (the self-search's coarse select of one chunk)")
+    del x_pq, index_pq, inter_pq, centers_pq, scores
+    torch.cuda.empty_cache()
+    out = {"n": n, "dim": dim, "build_s": build_s, "build_stages_s": stages,
+           "peak_gb": peak_gb, "edge_recall": edge_rec, "neg_ids": n_neg,
+           "qps_f32": [m / s for s in secs], "latency10_ms_f32": lat,
+           "recall_f32": rec, "qps_int8": [m / s for s in secs8],
+           "latency10_ms_int8": lat8, "recall_int8": rec8,
+           "qps_filtered": [m / s for s in secs_f],
+           "latency10_ms_filtered": lat_f, "recall_filtered": rec_f,
+           "card_cpu_swaps": swaps, "ivf_pq": {
+               "n": CAGRA_PQ_N, "build_s": build_pq_s,
+               "stages_s": stages_pq, "edge_recall": edge_pq,
+               "recall": rec_pq, "tiers": tiers, "sub_leg_s": pq_s},
+           "seconds": time.perf_counter() - t_leg}
+    _log(f"[cagra] leg in {out['seconds']:.1f} s")
     return out
 
 
@@ -4530,6 +4860,12 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         return _fail(str(e))
     _log(f"[shard summary] {json.dumps(shard_summary)}")
+    torch.cuda.empty_cache()
+    try:
+        cagra_summary = cagra_leg(args, rows)
+    except SmokeFailure as e:
+        return _fail(str(e))
+    _log(f"[cagra summary] {json.dumps(cagra_summary)}")
     torch.cuda.empty_cache()
     try:
         dist_summary = dist_build_phase(args, rows)

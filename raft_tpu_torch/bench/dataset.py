@@ -242,3 +242,42 @@ def compute_groundtruth(ds: Dataset, k: int = 100,
                                   input_indices=torch.cat([best_i, i], 1))
     ds.groundtruth = best_i.cpu().numpy().astype(np.int32)
     return ds
+
+
+def tie_swaps(q, x, ids_a, d_a, ids_b, d_b, rtol: float = 1e-4) -> int:
+    """Two searches of one index for queries ``q`` over the rows ``x``
+    (ids and squared-l2 distances [m, k], tensors on any device or numpy)
+    agree but at ties: the same infinite slots, finite distances within
+    ``rtol`` relative (at least ``rtol`` absolute), and every slot whose
+    ids differ holds two ids at the same f64 distance from the query
+    (within ``rtol``). Returns the count of such slots; raises
+    ``ValueError`` naming the first disagreement. Only the rows the
+    differing ids name are read from ``x``."""
+    def host(t, dtype=None):
+        t = t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+        return t if dtype is None else t.astype(dtype)
+
+    ia, ib = host(ids_a), host(ids_b)
+    da, db = host(d_a, np.float64), host(d_b, np.float64)
+    fin = np.isfinite(db)
+    if not (np.isfinite(da) == fin).all():
+        raise ValueError("the two searches differ in their +inf slots")
+    rel = np.abs(da[fin] - db[fin]) / np.maximum(np.abs(db[fin]), 1.0)
+    if rel.size and rel.max() > rtol:
+        raise ValueError(f"distances differ by {rel.max():.3g} relative")
+    r, c = np.nonzero(ia != ib)
+    q64 = host(q, np.float64)[r]
+
+    def f64_dist(ids):
+        rows = (x[torch.from_numpy(ids).long().to(x.device)]
+                if isinstance(x, torch.Tensor) else np.asarray(x)[ids])
+        return ((q64 - host(rows, np.float64)) ** 2).sum(1)
+
+    fa, fb = f64_dist(ia[r, c]), f64_dist(ib[r, c])
+    bad = np.abs(fa - fb) > rtol * np.maximum(fb, 1.0)
+    if bad.any():
+        i = int(np.argmax(bad))
+        raise ValueError(f"ids differ away from an f64 tie (query {r[i]}, "
+                         f"slot {c[i]}: {ia[r[i], c[i]]} at {fa[i]:.6f} "
+                         f"against {ib[r[i], c[i]]} at {fb[i]:.6f})")
+    return int(r.size)

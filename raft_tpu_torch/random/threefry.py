@@ -99,20 +99,25 @@ def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0,
     return out.view(*shape)
 
 
-def randint(key: Key, shape, minval: int, maxval: int, device="cpu"
-            ) -> torch.Tensor:
-    """``jax.random.randint(key, shape, minval, maxval)`` as int32 (two
-    32-bit draws a value, folded modulo the span)."""
-    n = int(np.prod(shape))
-    ka, kb = split(key)
+def _fold_span(hi: torch.Tensor, lo: torch.Tensor, minval: int,
+               maxval: int) -> torch.Tensor:
+    """Two 32-bit draws a value → int32 in [minval, maxval): folded modulo
+    the span in JAX's uint32 arithmetic, so 2³² mod span is (2¹⁶ mod
+    span)² wrapped to 32 bits, then mod span."""
     span = max(1, maxval - minval) if maxval > minval else 1
     mult = (65536 % span) & _M32
-    mult = (mult * mult) % span
-    hi = random_bits(ka, n, device) % span
-    lo = random_bits(kb, n, device) % span
-    off = ((hi * mult) & _M32) + lo
-    off = (off & _M32) % span
-    return (off + minval).to(torch.int32).view(*shape)
+    mult = ((mult * mult) & _M32) % span  # the square wraps in uint32
+    off = ((hi % span * mult) & _M32) + lo % span
+    return ((off & _M32) % span + minval).to(torch.int32)
+
+
+def randint(key: Key, shape, minval: int, maxval: int, device="cpu"
+            ) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` as int32."""
+    n = int(np.prod(shape))
+    ka, kb = split(key)
+    return _fold_span(random_bits(ka, n, device), random_bits(kb, n, device),
+                      minval, maxval).view(*shape)
 
 
 _ERFINV_LT = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
@@ -149,3 +154,34 @@ def normal(key: Key, shape, device="cpu") -> torch.Tensor:
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0, device)
     return erfinv(u) * float(np.float32(np.sqrt(2)))
+
+
+# ---------------------------------------------------------------------------
+# one key per row: a tensor of keys, each pair of words a row's key
+# ---------------------------------------------------------------------------
+
+def fold_in_rows(key: Key, data: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.vmap(lambda i: jax.random.fold_in(key, i))(data)``: one key a
+    row, returned as its two words (int64 tensors shaped like ``data``)."""
+    d = data.to(torch.int64) & _M32
+    return threefry2x32(key, torch.zeros_like(d), d)
+
+
+def randint_rows(keys: Tuple[torch.Tensor, torch.Tensor], n: int,
+                 minval: int, maxval: int) -> torch.Tensor:
+    """``jax.vmap(lambda k: jax.random.randint(k, (n,), minval, maxval))``
+    over the row keys ``keys`` (two [t] word tensors) → [t, n] int32, each
+    row what :func:`randint` gives for that row's key."""
+    k1, k2 = keys
+    zero = torch.zeros_like(k1)
+    ka = threefry2x32((k1, k2), zero, zero)
+    kb = threefry2x32((k1, k2), zero, zero + 1)
+    idx = torch.arange(n, dtype=torch.int64, device=k1.device)[None, :]
+
+    def bits(k):
+        b0, b1 = threefry2x32((k[0][:, None], k[1][:, None]), idx >> 32,
+                              idx & _M32)
+        return b0 ^ b1
+
+    return _fold_span(bits(ka), bits(kb), minval, maxval)

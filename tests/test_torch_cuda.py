@@ -1493,3 +1493,116 @@ def test_cuda_distributed_build_is_build_chunked_deterministically(
     asm = assemble_ivf_pq(sharded, device="cpu")
     assert index_sha16(asm) == index_sha16(chunked)
     assert asm.size == chunked.size > 0.99 * prov.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# CAGRA (neighbors/cagra.py): its own code is plain torch; the default
+# build runs B4 through the balanced k-means
+# ---------------------------------------------------------------------------
+
+def _cagra_graph(n: int, D: int, seed: int) -> torch.Tensor:
+    """A kNN-like id table with repeated ids and a hub (node 7 in the
+    forward half of a third of the rows)."""
+    rng = np.random.default_rng(seed)
+    g = np.sort((np.arange(n)[:, None] + rng.integers(1, 6 * D, (n, D))) % n,
+                axis=1)
+    rows = rng.choice(n, n // 10, replace=False)
+    g[rows, D // 2:] = g[rows, :D - D // 2]
+    hub = rng.choice(n, n // 3, replace=False)
+    g[hub, rng.integers(0, D // 4, hub.size)] = 7
+    return torch.from_numpy(g.astype(np.int32))
+
+
+def test_cuda_cagra_optimize_graph_matches_cpu():
+    from raft_tpu_torch.neighbors import cagra
+
+    dev = cuda_device()
+    g = _cagra_graph(20_000, 128, seed=1)
+    want = cagra.optimize_graph(g, 64, device="cpu")
+    got = cagra.optimize_graph(g.to(dev), 64, device=dev)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_cuda_cagra_blocked_scan_matches_cpu():
+    """The blocked scan on the card against the CPU on the same packed
+    inputs: each sampled row's ids equal where its k-th candidate is
+    tie-free in f64."""
+    from raft_tpu_torch.cluster import kmeans_balanced as kb
+    from raft_tpu_torch.neighbors import cagra, ivf_common as ic
+
+    from torch_parity import blocked_tie_free_rows
+
+    dev = cuda_device()
+    x = blobs(40_000, 32, 64, seed=3, std=0.5)
+    xt = torch.from_numpy(x)
+    n_lists, T, k = 78, 6, 32
+    km = kb.KMeansBalancedParams(n_iters=6, seed=0)
+    centers = kb.fit(xt, n_lists, km)
+    labels = kb.predict(centers, xt, km)
+    L = ic._fit_list_size(torch.bincount(labels.long()).numpy(),
+                          len(x) // n_lists, 4.0)
+    (packed,), pids, _, _, (rl, rs) = ic.pack_lists(
+        [xt], labels, torch.arange(len(x), dtype=torch.int32), n_lists, L,
+        [0.0])
+    args = (packed, pids, centers, rl, rs.clamp(0, L - 1))
+    want = cagra._cluster_blocked_knn(*args, k, n_lists, T, 16, False)
+    got = cagra._cluster_blocked_knn(*(a.to(dev) for a in args), k, n_lists,
+                                     T, 5, False).cpu()
+    p = {"centers": centers.numpy(), "row_list": rl.numpy(),
+         "pids": pids.numpy()}
+    rows = np.random.default_rng(0).choice(len(x), 500, replace=False)
+    checked = blocked_tie_free_rows(x, p, rows, T, k)
+    assert len(checked) > 300
+    for r, ref in checked:
+        assert set(got[r].tolist()) == ref == set(want[r].tolist()), r
+
+
+def test_cuda_cagra_build_launches_b4():
+    from raft_tpu_torch.neighbors import cagra
+
+    dev = cuda_device()
+    x = blobs(30_000, 48, 64, seed=5, std=0.5)
+    K.reset_launch_counts()
+    inter = {}
+    index = cagra.build(x, cagra.IndexParams(
+        intermediate_graph_degree=64, graph_degree=32,
+        knn_rows_per_list=512, quantize_dataset=True), device=dev,
+        intermediates=inter)
+    assert K.launch_counts()["fused_l2_argmin"] > 0
+    g = index.graph.cpu()
+    assert g.dtype == torch.int32 and tuple(g.shape) == (30_000, 32)
+    assert not bool((g == torch.arange(30_000)[:, None]).any())
+    assert bool(((g >= -1) & (g < 30_000)).all())
+    knn = inter["knn_graph"].cpu()
+    assert all(set(a[:16].tolist()) <= set(b.tolist())
+               for a, b in zip(g, knn))
+    assert index.centers.device.type == index.dataset.device.type == dev.type
+    assert index.dataset_q.dtype == torch.int8
+
+
+@pytest.mark.parametrize("variant", ["f32", "int8", "filtered"])
+def test_cuda_cagra_search_matches_cpu(variant):
+    """One index searched on the card and on the CPU: distances within
+    1e-4 relative, ids equal but at f64 ties."""
+    from raft_tpu_torch.bench.dataset import tie_swaps
+    from raft_tpu_torch.core import bitset
+    from raft_tpu_torch.neighbors import cagra
+
+    dev = cuda_device()
+    x = blobs(30_000, 64, 64, seed=6, std=0.5)
+    q = blobs(300, 64, 64, seed=7, std=0.5)
+    index = cagra.build(x, cagra.IndexParams(
+        intermediate_graph_degree=64, graph_degree=32, knn_rows_per_list=512,
+        quantize_dataset=True), device=dev)
+    on_cpu = cagra.from_numpy(*cagra.to_numpy(index), device="cpu")
+    sp = cagra.SearchParams(itopk_size=64, search_width=8, max_iterations=6,
+                            traverse="int8" if variant == "int8" else "f32")
+    bits = None
+    if variant == "filtered":
+        bits = bitset.from_mask(filter_keep(len(x), "sel0.1", seed=3),
+                                device=dev)
+    dc, ic_ = cagra.search(index, q, 10, sp, filter_bitset=bits, device=dev)
+    dp, ip_ = cagra.search(on_cpu, q, 10, sp, filter_bitset=bits,
+                           device="cpu")
+    assert ic_.dtype == torch.int32
+    tie_swaps(q, x, ic_, dc, ip_, dp)

@@ -549,3 +549,58 @@ def assert_filtered_match(ti, td, ji, jd, keep, rtol: float = 1e-4,
                                     rtol=rtol, atol=atol)
     assert keep[ti[ti >= 0]].all()
     assert (ti[~np.isfinite(td)] == -1).all()
+
+
+CAGRA_FIELDS = ("dataset", "graph", "centers", "entry_ids", "dataset_q",
+                "q_scale", "q_zero")
+
+
+def jax_cagra_arrays(index):
+    """A raft_tpu ``CagraIndex`` → (arrays, meta) for ``cagra.from_numpy``
+    (absent optional fields left out)."""
+    return ({name: np.asarray(getattr(index, name)) for name in CAGRA_FIELDS
+             if getattr(index, name) is not None}, {"metric": index.metric})
+
+
+def jax_cagra_from_arrays(arrays, meta):
+    """(arrays, meta) → a raft_tpu ``CagraIndex``."""
+    import jax.numpy as jnp
+    from raft_tpu.neighbors import cagra as jcg
+
+    return jcg.CagraIndex(
+        **{name: jnp.asarray(arrays[name]) for name in CAGRA_FIELDS
+           if name in arrays}, metric=meta["metric"])
+
+
+# ---------------------------------------------------------------------------
+# CAGRA checks (JAX-free)
+# ---------------------------------------------------------------------------
+
+def f64_tied(d: np.ndarray, k: int, scale: float) -> bool:
+    """Whether the k-th and (k+1)-th of the f64 distances ``d`` lie within
+    the f32 error of the expanded form (norms up to ``scale``: a bound of
+    its rounding over a few dozen terms)."""
+    s = np.sort(d)
+    return len(s) > k and s[k] - s[k - 1] <= 1e-6 * scale + 1e-4
+
+
+def blocked_tie_free_rows(x, p, rows, T, k):
+    """(row, its f64 top-k id set) for the sampled rows whose k-th
+    candidate, and whose list's T-th neighbour list, are tie-free."""
+    c = p["centers"].astype(np.float64)
+    cd = ((c[:, None] - c[None]) ** 2).sum(-1)
+    order = np.argsort(cd, axis=1, kind="stable")
+    scale = 2 * float((x.astype(np.float64) ** 2).sum(1).max())
+    out = []
+    for r in rows:
+        lst = p["row_list"][r]
+        if f64_tied(cd[lst], T, scale):
+            continue
+        cand = p["pids"][order[lst, :T]].reshape(-1)
+        cand = cand[(cand >= 0) & (cand != r)]
+        d = ((x[cand].astype(np.float64) - x[r]) ** 2).sum(-1)
+        if f64_tied(d, k, scale):
+            continue
+        out.append((r, set(cand[np.argsort(d, kind="stable")[:k]].tolist())))
+    return out
+
