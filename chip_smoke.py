@@ -211,7 +211,19 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``cagra_build``), then the ivf_pq build algorithm on ``CAGRA_PQ_N`` rows
    with counts zeroed before its build (fused_l2_argmin and select_k must
    launch; rows ``cagra_ivf_pq``: B4 at its label pass's shape, B3 at its
-   coarse select's) (``cagra_leg``);
+   coarse select's) (``cagra_leg``); ``[cagra nn_descent]`` before the rows
+   are freed: ``build_algo="nn_descent"`` on the same rows (20 sweeps),
+   its stages, peak, invariants, edge recall, QPS and recall@10, and
+   NN-Descent on 20,000 x 16 small-integer rows on the card equal to the
+   CPU's bit for bit (``cagra_nn_descent_leg``);
+5c. ``[ball_cover]`` (ROADMAP A16): 1M x 3 ``DeviceSynthetic`` rows and the
+   same rows on the unit sphere for haversine, ``ball_cover.build`` with
+   1,000 landmarks and three passes of ``knn`` (k 10, 32 lists a round;
+   select_k must launch), checked against the general brute force, the
+   CPU's search and f64 thresholding of ``eps_nn``; select_k at one probe
+   round's merge shape (row ``ball_cover``); then ``[eps]``:
+   ``eps_neighbors_l2sq`` of 2,000 rows against the 1M, mean degree 20-50,
+   against the CPU (``ball_cover_leg``);
 6. ``[dist build]``: the SIFT-1B-shaped distributed build of
    ``DIST_RANK_CHUNKS`` x 2^20 rows a rank on the 4 ranks
    (``dist_build_phase``: ``ivf_pq.build_distributed`` and
@@ -222,8 +234,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    label pass's chunk against its plain version (row ``dist_build``), and
    ``[dist resume]``: a build stopped at rank 2's second encode chunk,
    resumed to the sha of the uninterrupted build, made with prefetch on
-   and again off); ``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts for
-   that mode;
+   and again off); ``CUBLAS_WORKSPACE_CONFIG`` is set for that mode's
+   blocks only (``deterministic``);
 7. the run's wall time, the card's line, the kernel JSON line, then
    ``{"ok": true, "device": {...}}`` last.
 
@@ -233,6 +245,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -276,6 +289,19 @@ CAGRA_DEGREE = 64
 CAGRA_PQ_N = 100_000
 CAGRA_KERNELS = ("fused_l2_argmin",)
 CAGRA_PQ_KERNELS = ("fused_l2_argmin", "select_k")
+# CAGRA's nn_descent build and its small exactness check (card = CPU bit
+# for bit on small-integer rows).
+CAGRA_NND_EXACT_N = 20_000
+# The [ball_cover] leg: exact kNN over a point cloud of 1M three-dimensional
+# rows, and the same rows on the unit sphere as (lat, lon) radians for
+# haversine; L landmarks, ROUND_LISTS lists a probe round; then [eps]:
+# EPS_ROWS of those rows against all of them.
+BALL_N = 1_000_000
+BALL_QUERIES = 1_000
+BALL_LANDMARKS = 1_000
+BALL_ROUND_LISTS = 32
+BALL_KERNELS = ("select_k",)
+EPS_ROWS = 2_000
 
 # The [resilient] leg's injected plan, and the rungs its walk must take
 # from the main path's knobs (bf16 LUT, refined against the resident
@@ -381,6 +407,30 @@ def _timed_best(fn, reps: int, rounds: int = 5) -> float:
     for calls bound by the host, whose means swing with its load. Kernel
     and library call of one row are timed alike."""
     return min(_timed(fn, reps) for _ in range(rounds))
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` for the builds compared
+    by sha, with the cuBLAS workspace setting it requires
+    (``CUBLAS_WORKSPACE_CONFIG=:4096:8``, PyTorch's default size on
+    Hopper) set for the block only: PyTorch reads the variable at every
+    cuBLAS call, which costs the host ~60 µs a product while it is set
+    (``tests/torch_lut_host_cost.py --isolated``), and the other legs
+    time their searches as a process without it runs them."""
+    import torch
+
+    saved = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if saved is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved
 
 
 def _bound_ms(n_bytes: float, flops: float,
@@ -1286,10 +1336,16 @@ def obs_leg(args, index, base, queries, sp, B, k, stages_ms, build_reg):
                 "p50_ms": 1e3 * quantile_from_state(st, 0.5),
                 "p99_ms": 1e3 * quantile_from_state(st, 0.99),
                 "sum_ms": 1e3 * st["sum"]}
+        import threading
+
+        # the host's state, which the root rule reads (ROADMAP C6): an
+        # isolated batch waits for the host's launches before B1
         _log(f"[obs spans] {n_b} refined batches of {B}, sync mode, "
              f"device ms by span (count, exact median from the event ring, "
              f"the histogram's p50 and p99): {json.dumps(rows)}; wall "
-             f"{wall_s * 1e3:.2f} ms")
+             f"{wall_s * 1e3:.2f} ms; host load average "
+             f"{os.getloadavg()[0]:.2f}, Python threads "
+             f"{sorted(t.name for t in threading.enumerate())}")
         root = "ivf_pq.search"
         if rows.get(root, {}).get("count") != n_b:
             raise SmokeFailure(f"[obs spans] root span count "
@@ -3924,15 +3980,12 @@ def shard_flat_leg(args, rows, base, queries, gt):
     summary["launches"] = launches
     del built
     torch.cuda.empty_cache()
-    torch.use_deterministic_algorithms(True)
-    try:
+    with deterministic():
         dist = ivf_flat.build_distributed(base, params, mesh=mesh,
                                           chunk_rows=chunk)
         single = ivf_flat.build(base, params)
         sha_d = index_sha16(assemble_ivf_flat(dist))
         sha_s = index_sha16(single)
-    finally:
-        torch.use_deterministic_algorithms(False)
     del dist, single
     torch.cuda.empty_cache()
     if sha_d != sha_s:
@@ -4158,9 +4211,10 @@ def cagra_leg(args, rows):
     versions (rows ``cagra_ivf_pq``). Checks: the graph's invariants
     (``_cagra_graph_checks``), the first 100 queries searched on the card
     equal to the same index searched on the CPU (f32, int8, filtered:
-    ``bench.dataset.tie_swaps``), ``build_algo="nn_descent"`` raising A16, and
-    fused_l2_argmin against its plain version at the build's predict
-    shape (row ``cagra_build``). Frees its rows at the end."""
+    ``bench.dataset.tie_swaps``), and fused_l2_argmin against its plain
+    version at the build's predict shape (row ``cagra_build``); then the
+    ``nn_descent`` algorithm on the same rows (``cagra_nn_descent_leg``).
+    Frees its rows at the end."""
     import dataclasses
 
     import numpy as np
@@ -4174,13 +4228,6 @@ def cagra_leg(args, rows):
 
     t_leg = time.perf_counter()
     n, dim, m, k = CAGRA_N, CAGRA_DIM, CAGRA_QUERIES, 10
-    try:
-        cagra.build(torch.zeros((64, 8)), cagra.IndexParams(
-            build_algo="nn_descent"))
-        raise SmokeFailure("cagra build_algo='nn_descent' did not raise")
-    except NotImplementedError as e:
-        if "A16" not in str(e):
-            raise SmokeFailure(f"nn_descent refusal names no A16: {e}")
     ds = DeviceSynthetic(n, dim, n_centers=10_000, seed=args.seed + 3)
     base = ds.base()
     queries = ds.queries(m)
@@ -4292,8 +4339,12 @@ def cagra_leg(args, rows):
             raise SmokeFailure(f"cagra {what} card vs CPU: {e}") from e
     _log(f"[cagra check] {n_cmp} queries, the card's search = the CPU's "
          f"but at f64 ties (swapped slots {json.dumps(swaps)}; "
-         f"{time.perf_counter() - t0:.1f} s); nn_descent refused (A16)")
+         f"{time.perf_counter() - t0:.1f} s)")
     del cpu_index, base_cpu, index_q, codes, index
+    torch.cuda.empty_cache()
+
+    # the nn_descent build algorithm on the same rows
+    nnd = cagra_nn_descent_leg(args, base, queries, gt, params, sp)
 
     # the ivf_pq build algorithm at GIST's width on CAGRA_PQ_N rows
     t0 = time.perf_counter()
@@ -4351,12 +4402,353 @@ def cagra_leg(args, rows):
            "latency10_ms_int8": lat8, "recall_int8": rec8,
            "qps_filtered": [m / s for s in secs_f],
            "latency10_ms_filtered": lat_f, "recall_filtered": rec_f,
-           "card_cpu_swaps": swaps, "ivf_pq": {
+           "card_cpu_swaps": swaps, "nn_descent": nnd, "ivf_pq": {
                "n": CAGRA_PQ_N, "build_s": build_pq_s,
                "stages_s": stages_pq, "edge_recall": edge_pq,
                "recall": rec_pq, "tiers": tiers, "sub_leg_s": pq_s},
            "seconds": time.perf_counter() - t_leg}
     _log(f"[cagra] leg in {out['seconds']:.1f} s")
+    return out
+
+
+def cagra_nn_descent_leg(args, base, queries, gt, params, sp):
+    """``[cagra nn_descent]``: ``cagra.build`` with ``build_algo=
+    "nn_descent"`` on the leg's rows (the auto 128-d projection,
+    intermediate degree 128, ``nn_descent_niter`` 20 sweeps of 8 samples),
+    its seconds by stage and the card's peak, the graph's invariants
+    (``_cagra_graph_checks``), the intermediate graph's edge recall on
+    1,000 sampled rows, the f32 search's QPS (a cold then two warm passes
+    at batch 1,000) and recall@10 with the leg's ``SearchParams``; then
+    ``nn_descent.build_knn_graph_with_distances`` on ``CAGRA_NND_EXACT_N`` x
+    16 small-integer rows on the card and on the CPU, equal bit for bit in
+    ids and distances (every f32 sum there is exact in any order)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.neighbors import cagra, nn_descent
+
+    t_leg = time.perf_counter()
+    n, m, k = base.shape[0], queries.shape[0], 10
+    pn = dataclasses.replace(params, build_algo="nn_descent")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stages, inter = {}, {}
+    t0 = time.perf_counter()
+    index = cagra.build(base, pn, stage_seconds=stages, intermediates=inter)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    knn = inter.pop("knn_graph")
+    del inter
+    n_neg = _cagra_graph_checks(index, knn, n)
+    sample = torch.from_numpy(np.random.default_rng(args.seed + 1).choice(
+        n, 1000, replace=False)).to(base.device)
+    edge_rec = _edge_recall(base, knn, sample, knn.shape[1])
+    del knn
+    secs, _, ids = _cagra_passes(lambda qb: cagra.search(index, qb, k, sp),
+                                 queries, m)
+    rec = _recall(ids.cpu(), gt)
+    _log(f"[cagra nn_descent] {n} x {base.shape[1]}, IndexParams("
+         f"build_algo='nn_descent', intermediate_graph_degree="
+         f"{pn.intermediate_graph_degree}, graph_degree={pn.graph_degree}, "
+         f"nn_descent_niter={pn.nn_descent_niter}): build {build_s:.1f} s ("
+         + ", ".join(f"{s} {v:.2f}s" for s, v in stages.items())
+         + f"); card peak {peak_gb:.2f} GB; {n_neg} ids -1; intermediate "
+         f"graph edge recall {edge_rec:.4f} on 1,000 rows; f32 search "
+         + ", ".join(f"{m / s:.0f}" for s in secs)
+         + f" QPS (cold, warm, warm); recall@10 {rec:.4f}")
+    if ids.shape != (m, k) or bool((ids < 0).any()):
+        raise SmokeFailure("cagra nn_descent search returned a malformed id "
+                           "table")
+    del index, ids
+
+    # card = CPU bit for bit on small-integer rows
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(args.seed)
+    xi = torch.randint(-8, 9, (CAGRA_NND_EXACT_N, 16), generator=g).float()
+    kw = dict(n_iters=6, seed=args.seed)
+    ic_, dc = nn_descent.build_knn_graph_with_distances(xi.cuda(), 32, **kw)
+    ip_, dp = nn_descent.build_knn_graph_with_distances(xi, 32, device="cpu",
+                                                        **kw)
+    if not (torch.equal(ic_.cpu(), ip_) and torch.equal(
+            dc.cpu().view(torch.int32), dp.view(torch.int32))):
+        raise SmokeFailure(
+            f"nn_descent on {CAGRA_NND_EXACT_N} x 16 integer rows: the card "
+            f"differs from the CPU ({int((ic_.cpu() != ip_).sum())} ids)")
+    _log(f"[cagra nn_descent] {CAGRA_NND_EXACT_N} x 16 small-integer rows, "
+         f"k 32, 6 sweeps: the card's graph and distances = the CPU's bit "
+         f"for bit ({time.perf_counter() - t0:.1f} s)")
+    return {"build_s": build_s, "build_stages_s": stages,
+            "peak_gb": peak_gb, "neg_ids": n_neg, "edge_recall": edge_rec,
+            "qps_f32": [m / s for s in secs], "recall_f32": rec,
+            "seconds": time.perf_counter() - t_leg}
+
+
+def _on_sphere(v):
+    """Rows of 3-d points → (lat, lon) radians of their directions from
+    the cube's centre (``DeviceSynthetic`` draws centers in [0, 10)³)."""
+    import torch
+
+    c = (v - 5.0).double()
+    r = c.norm(dim=1)
+    return torch.stack([torch.asin(c[:, 2] / r),
+                        torch.atan2(c[:, 1], c[:, 0])], 1).float()
+
+
+def _f64_dists(q, rows, metric):
+    """f64 distances of q [r, d] to rows [r, d] (pairwise by row) or, with
+    rows [n, d] and q [m, d] broadcast as [m, 1, d] / [1, n, d], [m, n]."""
+    import torch
+
+    q, rows = q.double(), rows.double()
+    if metric == "haversine":
+        lat1, lon1, lat2, lon2 = q[..., 0], q[..., 1], rows[..., 0], \
+            rows[..., 1]
+        h = (torch.sin(0.5 * (lat2 - lat1)) ** 2 + torch.cos(lat1)
+             * torch.cos(lat2) * torch.sin(0.5 * (lon2 - lon1)) ** 2)
+        return 2.0 * torch.asin(torch.sqrt(h.clamp(0.0, 1.0)))
+    return ((q - rows) ** 2).sum(-1).sqrt()
+
+
+def _metric_tie_swaps(q, x, ids_a, d_a, ids_b, d_b, metric, what,
+                      rtol: float = 1e-5, atol: float = 1e-7):
+    """Two [m, k] kNN results over rows ``x`` in ``metric`` (euclidean or
+    haversine distances, not squared): the same +inf slots, distances
+    within ``rtol`` relative + ``atol``, and where the ids differ the two
+    picks' f64 distances to the query within the same tolerance. Returns
+    the count of such slots."""
+    import torch
+
+    ia, ib = ids_a.cpu(), ids_b.cpu()
+    da, db = d_a.cpu().double(), d_b.cpu().double()
+    fin = torch.isfinite(db)
+    if not torch.equal(torch.isfinite(da), fin):
+        raise SmokeFailure(f"{what}: the +inf slots differ")
+    tol = atol + rtol * db[fin].abs()
+    if bool(((da[fin] - db[fin]).abs() > tol).any()):
+        raise SmokeFailure(f"{what}: distances differ by "
+                           f"{float((da[fin] - db[fin]).abs().max()):.3g}")
+    r, c = torch.nonzero(ia != ib, as_tuple=True)
+    if r.numel():
+        qr = q[r.to(q.device)]
+        fa = _f64_dists(qr, x[ia[r, c].long().to(x.device)], metric)
+        fb = _f64_dists(qr, x[ib[r, c].long().to(x.device)], metric)
+        bad = (fa - fb).abs() > atol + rtol * fb.abs()
+        if bool(bad.any()):
+            i = int(torch.nonzero(bad)[0])
+            raise SmokeFailure(
+                f"{what}: ids differ away from an f64 tie (query {int(r[i])}"
+                f", slot {int(c[i])}: {float(fa[i]):.9f} against "
+                f"{float(fb[i]):.9f})")
+    return int(r.numel())
+
+
+def _ball_cover_round_scores(index, q, k, round_lists, metric):
+    """The first probe round's merge input: [m, k + round_lists ·
+    max_list], the carried +inf best then the round's candidate
+    distances (+inf on pad slots), as ``ball_cover.knn`` builds it."""
+    import torch
+
+    from raft_tpu_torch.distance import pairwise_distance
+    from raft_tpu_torch.neighbors import ball_cover
+
+    mt = ball_cover._true_metric(metric)
+    order = torch.sort(pairwise_distance(q, index.landmarks, metric=mt),
+                       dim=1, stable=True)[1][:, :round_lists]
+    cand = index.packed_data[order].reshape(q.shape[0], -1, index.dim)
+    cid = index.packed_ids[order].reshape(q.shape[0], -1)
+    d = ball_cover._cand_dists(q, cand, mt)
+    d = torch.where(cid >= 0, d, torch.full_like(d, float("inf")))
+    return torch.cat([torch.full((q.shape[0], k), float("inf"),
+                                 device=q.device), d], 1).contiguous()
+
+
+def _ball_cover_metric(args, rows, x, q, metric, k):
+    """One metric of ``[ball_cover]``: build, three passes of knn, the
+    checks and (euclidean) the B3 row; returns its summary."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ball_cover, brute_force
+    from raft_tpu_torch.ops import kernels as K
+
+    n, m = x.shape[0], q.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    index = ball_cover.build(x, metric, n_landmarks=BALL_LANDMARKS,
+                             seed=args.seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    max_list = index.packed_data.shape[1]
+    secs, stats = [], {}
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        d, ids = ball_cover.knn(index, q, k, round_lists=BALL_ROUND_LISTS,
+                                stats=stats)
+        end.record()
+        torch.cuda.synchronize()
+        secs.append(start.elapsed_time(end) / 1e3)
+    launches = K.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    missing = [name for name in BALL_KERNELS if launches[name] == 0]
+    if missing:
+        raise SmokeFailure(f"kernels never launched on the ball cover path "
+                           f"({metric}): {missing}")
+    if ids.shape != (m, k) or bool((ids < 0).any()):
+        raise SmokeFailure(f"ball cover {metric}: malformed id table")
+    _log(f"[ball_cover] {metric}: {n} rows, L {index.n_landmarks}, largest "
+         f"list {max_list}: build {build_s:.2f} s; knn of {m} queries, k "
+         f"{k}, round_lists {BALL_ROUND_LISTS}: "
+         + ", ".join(f"{m / s:.0f}" for s in secs)
+         + f" QPS (cold, warm, warm; CUDA events); probe rounds "
+         f"{stats['rounds']} (query tile {stats['tile']}); card peak "
+         f"{peak_gb:.2f} GB ({before_gb:.2f} GB before the build); "
+         f"launches {json.dumps(launches)}")
+
+    # the same metric by brute force (the general path)
+    t0 = time.perf_counter()
+    gd, gi = brute_force.knn(x, q, k, metric="l2_sqrt_unexpanded"
+                             if metric == "euclidean" else "haversine")
+    swaps_bf = _metric_tie_swaps(q, x, ids, d, gi, gd, metric,
+                                 f"ball cover {metric} vs brute force")
+    # the first 100 queries on the same index on the CPU
+    n_cmp = min(100, m)
+    cpu_index = ball_cover.from_numpy(*ball_cover.to_numpy(index),
+                                      device="cpu")
+    dc, ic_ = ball_cover.knn(cpu_index, q[:n_cmp].cpu(), k,
+                             round_lists=BALL_ROUND_LISTS, device="cpu")
+    swaps_cpu = _metric_tie_swaps(q[:n_cmp], x, ids[:n_cmp], d[:n_cmp], ic_,
+                                  dc, metric, f"ball cover {metric} card "
+                                  f"vs CPU")
+    del cpu_index
+    # eps_nn at the median 10th-neighbour distance against f64 thresholding
+    eps = float(d[:n_cmp, -1].median())
+    keep, kid = ball_cover.eps_nn(index, q[:n_cmp], eps)
+    got = torch.zeros((n_cmp, n), dtype=torch.bool, device=x.device)
+    r, c = torch.nonzero(keep, as_tuple=True)
+    got[r, kid[c].long()] = True
+    d64 = torch.cat([_f64_dists(q[a:a + 10, None, :], x[None], metric)
+                     for a in range(0, n_cmp, 10)])
+    want = d64 <= eps
+    diff = got ^ want
+    bad = diff & ((d64 - eps).abs() > 1e-5 * eps + 1e-7)
+    if bool(bad.any()):
+        raise SmokeFailure(f"ball cover {metric} eps_nn: {int(bad.sum())} "
+                           f"pairs differ from thresholding away from eps")
+    _log(f"[ball_cover check] {metric}: ids = brute_force.knn's but at f64 "
+         f"ties ({swaps_bf} slots), the first {n_cmp} queries on the card = "
+         f"on the CPU but at f64 ties ({swaps_cpu} slots); eps_nn at eps "
+         f"{eps:.6g} on {n_cmp} queries: {int(got.sum())} pairs, "
+         f"{int(diff.sum())} within f32 rounding of eps "
+         f"({time.perf_counter() - t0:.1f} s)")
+    del got, d64, want, diff, bad, keep
+    if metric == "euclidean":
+        scores = _ball_cover_round_scores(index, q, k, BALL_ROUND_LISTS,
+                                          metric)
+        _select_k_row(rows, "ball_cover", launches, scores, k,
+                      " (one probe round's merge)")
+        del scores
+    return {"build_s": build_s, "n_landmarks": index.n_landmarks,
+            "max_list": max_list, "qps": [m / s for s in secs],
+            "rounds": stats["rounds"], "tile": stats["tile"],
+            "peak_gb": peak_gb, "launches": launches,
+            "swaps_brute_force": swaps_bf, "swaps_cpu": swaps_cpu,
+            "eps": eps}
+
+
+def eps_leg(base):
+    """``[eps]``: ``eps_neighbors_l2sq`` of the first ``EPS_ROWS`` rows
+    against all of them, ``eps_sq`` the median squared distance to a row's
+    30th nearest row (a DBSCAN-style neighbourhood; the mean degree must be
+    20–50); its seconds and the card's peak. Checks: ``vd ==
+    adj.sum(1)``, and the first 100 rows equal the CPU's except pairs
+    within the expanded form's f32 rounding of ``eps_sq``."""
+    import torch
+
+    from raft_tpu_torch.neighbors import brute_force, epsilon_neighborhood
+
+    xq = base[:EPS_ROWS]
+    dk, _ = brute_force.knn(base, xq, 30, metric="sqeuclidean")
+    eps_sq = float(dk[:, -1].median())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    adj, vd = epsilon_neighborhood.eps_neighbors_l2sq(xq, base, eps_sq)
+    end.record()
+    torch.cuda.synchronize()
+    secs = start.elapsed_time(end) / 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mean_deg = float(vd.float().mean())
+    if not torch.equal(vd, adj.sum(1, dtype=torch.int32)):
+        raise SmokeFailure("eps_neighbors_l2sq: vd != adj.sum(1)")
+    if not 20.0 <= mean_deg <= 50.0:
+        raise SmokeFailure(f"eps: mean degree {mean_deg} outside 20-50")
+    n_cmp = 100
+    adj_c, _ = epsilon_neighborhood.eps_neighbors_l2sq(
+        xq[:n_cmp].cpu(), base.cpu(), eps_sq, device="cpu")
+    r, c = torch.nonzero(adj[:n_cmp].cpu() ^ adj_c, as_tuple=True)
+    if r.numel():
+        qa = xq[:n_cmp].cpu().double()[r]
+        ya = base.cpu().double()[c]
+        d64 = ((qa - ya) ** 2).sum(1)
+        tol = 1e-5 * ((qa * qa).sum(1) + (ya * ya).sum(1)) + 1e-6
+        if bool(((d64 - eps_sq).abs() > tol).any()):
+            raise SmokeFailure("eps_neighbors_l2sq: the card differs from "
+                               "the CPU away from eps_sq")
+    _log(f"[eps] eps_neighbors_l2sq of {EPS_ROWS} rows against "
+         f"{base.shape[0]} x {base.shape[1]}: eps_sq {eps_sq:.6g} (median "
+         f"30th-neighbour squared distance), mean degree {mean_deg:.2f}, "
+         f"{secs * 1e3:.2f} ms (CUDA events); card peak {peak_gb:.2f} GB "
+         f"({before_gb:.2f} GB before); the first {n_cmp} rows = the CPU's "
+         f"but {int(r.numel())} pairs within f32 rounding of eps_sq")
+    return {"eps_sq": eps_sq, "mean_degree": mean_deg, "seconds": secs,
+            "peak_gb": peak_gb, "cpu_edge_pairs": int(r.numel())}
+
+
+def ball_cover_leg(args, rows):
+    """``[ball_cover]`` (ROADMAP A16): ``BALL_N`` x 3 ``DeviceSynthetic``
+    rows (users: exact kNN over point clouds) and the same rows on the
+    unit sphere as (lat, lon) radians (users: exact kNN over geographic
+    points) with ``BALL_QUERIES`` queries, k 10: ``ball_cover.build`` with
+    ``BALL_LANDMARKS`` landmarks, counts zeroed before it and read after
+    three passes of ``knn`` at ``BALL_ROUND_LISTS`` lists a round (select_k
+    must have launched); prints build seconds, L, the largest list, the
+    rounds taken, QPS (CUDA events: a cold then two warm passes) and the
+    card's peak. Checks per metric: ids equal ``brute_force.knn`` with the
+    same metric (``l2_sqrt_unexpanded`` or ``haversine``: the general path)
+    but at f64 ties; the first 100 queries on the card equal the same index
+    searched on the CPU but at f64 ties; ``eps_nn`` on 100 queries at the
+    median 10th-neighbour distance equal to f64 thresholding but within f32
+    rounding of eps; and select_k at one probe round's merge shape against
+    its plain version (row ``ball_cover``). Then ``[eps]`` on the
+    euclidean rows (``eps_leg``)."""
+    import torch
+
+    from raft_tpu_torch.bench.dataset import DeviceSynthetic
+
+    t_leg = time.perf_counter()
+    ds = DeviceSynthetic(BALL_N, 3, n_centers=10_000, seed=args.seed + 5)
+    base = ds.base()
+    queries = ds.queries(BALL_QUERIES)
+    out = {"euclidean": _ball_cover_metric(args, rows, base, queries,
+                                           "euclidean", 10)}
+    torch.cuda.empty_cache()
+    out["haversine"] = _ball_cover_metric(args, rows, _on_sphere(base),
+                                          _on_sphere(queries), "haversine",
+                                          10)
+    torch.cuda.empty_cache()
+    out["eps"] = eps_leg(base)
+    out["seconds"] = time.perf_counter() - t_leg
+    _log(f"[ball_cover] leg in {out['seconds']:.1f} s")
     return out
 
 
@@ -4416,8 +4808,7 @@ def dist_build_phase(args, rows):
     comms.reset_counters()
     torch.cuda.reset_peak_memory_stats(dev)
     st_d, st_c = {}, {}
-    torch.use_deterministic_algorithms(True)
-    try:
+    with deterministic():
         t0 = time.perf_counter()
         sharded = ivf_pq.build_distributed(ds, params, mesh=mesh,
                                            chunk_rows=chunk,
@@ -4438,8 +4829,6 @@ def dist_build_phase(args, rows):
         torch.cuda.synchronize()
         chunked_s = time.perf_counter() - t0
         peak_c = torch.cuda.max_memory_allocated(dev) / 1e9
-    finally:
-        torch.use_deterministic_algorithms(False)
     _log(f"[dist build] build_distributed {dist_s:.1f} s ("
          + ", ".join(f"{s} {v:.1f}s" for s, v in st_d.items())
          + f"), card peak {peak_d:.2f} GB, prefetch {json.dumps(pf)}, "
@@ -4561,11 +4950,8 @@ def dist_build_phase(args, rows):
                 sharded.centers[0].contiguous(), "the label pass's chunk, ")
     del xa, sharded
     torch.cuda.empty_cache()
-    torch.use_deterministic_algorithms(True)
-    try:
+    with deterministic():
         resume = dist_resume_check(args, params, chunk, mesh)
-    finally:
-        torch.use_deterministic_algorithms(False)
     return {"n": N, "dim": dim, "ranks": SHARD_RANKS,
             "rank_chunks": n_chunks, "dist_build_s": dist_s,
             "dist_stages_s": st_d, "chunked_build_s": chunked_s,
@@ -4589,12 +4975,6 @@ def main(argv=None) -> int:
                          "removed after the leg)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
-    # the [dist build] and [shard flat] builds run under
-    # torch.use_deterministic_algorithms, whose cuBLAS calls need a fixed
-    # workspace configuration set before CUDA starts; on Hopper it is
-    # PyTorch's default workspace size, so the other legs run as without it
-    # (tests/torch_cublas_env_ab.py)
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
     import torch
 
@@ -4866,6 +5246,12 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         return _fail(str(e))
     _log(f"[cagra summary] {json.dumps(cagra_summary)}")
+    torch.cuda.empty_cache()
+    try:
+        ball_summary = ball_cover_leg(args, rows)
+    except SmokeFailure as e:
+        return _fail(str(e))
+    _log(f"[ball_cover summary] {json.dumps(ball_summary)}")
     torch.cuda.empty_cache()
     try:
         dist_summary = dist_build_phase(args, rows)

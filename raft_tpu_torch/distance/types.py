@@ -1,8 +1,7 @@
 """Distance metric taxonomy (reference: distance/distance_types.hpp:23-67).
 
 A copy of ``raft_tpu.distance.types`` (the port imports nothing of the
-JAX package). The ported slice serves the expanded metrics only:
-sqeuclidean, euclidean, inner_product and cosine.
+JAX package).
 """
 
 from __future__ import annotations

@@ -1,8 +1,11 @@
-"""Exact kNN (counterpart of ``raft_tpu.neighbors.brute_force.knn``) for
-the expanded metrics: tiled ``torch.matmul`` distance blocks, a per-tile
-``select_k`` and a running merge — the [m, n] matrix is never held. It
-supplies the ground truth of the recall checks, filtered ones included
-(``filter_bitset``)."""
+"""Exact kNN (counterpart of ``raft_tpu.neighbors.brute_force.knn``):
+distance blocks over tiles of the base rows, a per-tile ``select_k`` and
+a running merge — the [m, n] matrix is never held. The expanded metrics
+take a ``torch.matmul`` block; every other metric the JAX package's
+general path, ``pairwise_distance`` of the tile (``metric_arg`` its Lp
+exponent). Ties keep the lower base row, as one select over the whole row
+does. It supplies the ground truth of the recall checks, filtered ones
+included (``filter_bitset``)."""
 
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from raft_tpu_torch.core import bitset as _bitset
 from raft_tpu_torch.core.device import resolve_device, to_device
 from raft_tpu_torch.core.errors import expects
 from raft_tpu_torch.core.tracing import traced
+from raft_tpu_torch.distance.pairwise import pairwise_distance_impl
 from raft_tpu_torch.distance.types import DistanceType, SELECT_MIN, resolve_metric
 from raft_tpu_torch.matrix.select_k import select_k_impl as _select_k
 from raft_tpu_torch.utils import precision as _precision
@@ -38,7 +42,8 @@ def _expanded_block(q, db, q_sq, db_sq, mt):
 
 @traced("raft_tpu_torch.brute_force.knn")
 def knn(dataset, queries, k: int, metric="euclidean", filter_bitset=None,
-        device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+        device="cuda", metric_arg: float = 2.0
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact k nearest neighbours → (distances [m, k], ids [m, k] i32).
 
     ``filter_bitset``: a packed bitset over the dataset's rows
@@ -48,9 +53,6 @@ def knn(dataset, queries, k: int, metric="euclidean", filter_bitset=None,
     dev = resolve_device(device)
     _precision.enforce()
     mt = resolve_metric(metric)
-    if mt not in _EXPANDED:
-        raise NotImplementedError(f"brute-force {mt.value} is not ported to "
-                                  "raft_tpu_torch yet (ROADMAP A17)")
     db = to_device(dataset, dev, torch.float32)
     q = to_device(queries, dev, torch.float32)
     expects(q.dim() == 2 and q.shape[1] == db.shape[1],
@@ -65,7 +67,10 @@ def knn(dataset, queries, k: int, metric="euclidean", filter_bitset=None,
     best_v = best_i = None
     for a in range(0, n, it):
         blk = db[a:a + it]
-        dists = _expanded_block(q, blk, q_sq, (blk * blk).sum(1), mt)
+        if mt in _EXPANDED:
+            dists = _expanded_block(q, blk, q_sq, (blk * blk).sum(1), mt)
+        else:
+            dists = pairwise_distance_impl(q, blk, mt, metric_arg)
         if keep is not None:
             dists = torch.where(keep[None, a:a + it], dists, torch.full_like(
                 dists, float("inf") if select_min else float("-inf")))

@@ -45,11 +45,14 @@ from raft_tpu_torch.core import bitset as _bitset
 from raft_tpu_torch.core import ids as _ids
 from raft_tpu_torch.core import logging as _log
 from raft_tpu_torch.core import serialize as ser
-from raft_tpu_torch.core.device import resolve_device, to_device
-from raft_tpu_torch.core.errors import expects, not_ported
+from raft_tpu_torch.core.device import (resolve_device, to_device,
+                                         work_block_bytes)
+from raft_tpu_torch.core.errors import expects
 from raft_tpu_torch.core.tracing import traced
 from raft_tpu_torch.distance.types import DistanceType, resolve_metric
+from raft_tpu_torch.neighbors import _ties
 from raft_tpu_torch.neighbors import ivf_common as ic
+from raft_tpu_torch.neighbors import nn_descent as _nn_descent
 from raft_tpu_torch.neighbors import sample_filter as _sf
 from raft_tpu_torch.random import threefry as _tf
 from raft_tpu_torch.utils import precision as _precision
@@ -59,18 +62,15 @@ _ARRAY_FIELDS = ("dataset", "graph", "centers", "entry_ids", "dataset_q",
                  "q_scale", "q_zero")
 # The traversal checks for a settled tile every this many steps.
 _CONVERGE_EVERY = 4
-# Work-block bounds, bytes: the CPU keeps the JAX package's 192 MB blocks;
-# on the card a block takes an eighth of the free memory, at most 4 GB (a
-# block's temporaries are a few times its nominal size).
-_CPU_BLOCK_BYTES = 192 << 20
-_CUDA_BLOCK_BYTES_MAX = 4 << 30
 
 
 @dataclasses.dataclass
 class IndexParams:
     """reference: ``cagra::index_params`` (the JAX package's fields and
     defaults). ``build_algo``: "auto" → "cluster" (:func:`cluster_knn_graph`),
-    "ivf_pq" (:func:`build_knn_graph`); "nn_descent" is not ported yet (A16).
+    "ivf_pq" (:func:`build_knn_graph`), "nn_descent"
+    (``nn_descent.build_knn_graph`` over the build's rows,
+    ``nn_descent_niter`` sweeps; no entries, so search seeds at random).
     ``build_projection_dim``: −1 auto (d > 256 projects onto a random
     orthonormal 128-d basis for the build's scans only), 0 off, or a dim.
     ``quantize_dataset``: keep int8 rows beside the f32 ones for
@@ -161,20 +161,6 @@ def to_numpy(index: CagraIndex) -> Tuple[Dict[str, np.ndarray], Dict]:
     return arrays, {"metric": index.metric}
 
 
-def _block_bytes(dev: torch.device) -> int:
-    if dev.type != "cuda":
-        return _CPU_BLOCK_BYTES
-    free, _ = torch.cuda.mem_get_info(dev)
-    return max(_CPU_BLOCK_BYTES, min(_CUDA_BLOCK_BYTES_MAX, free // 8))
-
-
-def _top_k_low(keys: torch.Tensor, k: int) -> torch.Tensor:
-    """Positions of the ``k`` smallest keys of each row, ascending, the
-    lower position first among equal keys (``lax.top_k(-keys, k)``'s
-    order); −0.0 is read as +0.0, as a comparison does, on both devices."""
-    return torch.sort(keys + 0.0, dim=1, stable=True)[1][:, :k]
-
-
 def _take(a: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return torch.gather(a, 1, pos)
 
@@ -236,7 +222,7 @@ def _cluster_blocked_knn(packed, pids, centers, row_list, row_slot, k: int,
     own id, in any order)."""
     c_sq = (centers * centers).sum(1)
     cd = c_sq[:, None] + c_sq[None, :] - 2.0 * (centers @ centers.T)
-    nbrs = _top_k_low(cd, T)                                # [n_lists, T]
+    nbrs = _ties.top_k_low(cd, T)                                # [n_lists, T]
     L = packed.shape[1]
     res = torch.empty((n_lists, L, k), dtype=pids.dtype, device=pids.device)
     fill = float("-inf") if ip else float("inf")
@@ -283,7 +269,7 @@ def _overflow_knn(x, packed, pids, rows, lists, k: int, ip: bool,
         key = -s if ip else (blk * blk).sum(-1) - 2.0 * s
         bad = (bids < 0) | (bids == rows_c[:, None])
         key = torch.where(bad, torch.full_like(key, float("inf")), key)
-        pos = _top_k_low(key, k)
+        pos = _ties.top_k_low(key, k)
         ids = torch.where(torch.isinf(_take(key, pos)),
                           torch.full_like(bids[:, :k], -1), _take(bids, pos))
         out.append(ids.to(torch.int32))
@@ -359,7 +345,7 @@ def cluster_knn_graph(dataset, k: int, metric: str = "sqeuclidean",
         # a block of lists: its [C, L, T·L] f32 distances, its [C, T·L, d]
         # candidate rows and its mask under the block bound
         per_list = L * T * L * 6 + T * L * d * 8
-        chunk = max(1, min(n_lists, _block_bytes(dev) // per_list))
+        chunk = max(1, min(n_lists, work_block_bytes(dev) // per_list))
         graph = _cluster_blocked_knn(packed, pids, centers, row_list,
                                      row_slot, kk, n_lists, T, chunk, ip)
     if n_over:
@@ -370,7 +356,7 @@ def cluster_knn_graph(dataset, k: int, metric: str = "sqeuclidean",
             _log.warn("cluster_knn_graph: %d rows overflowed their list; "
                       "patching their graph rows via an in-cluster scan",
                       n_over)
-            o_chunk = max(8, _block_bytes(dev) // max(1, L * d * 12))
+            o_chunk = max(8, work_block_bytes(dev) // max(1, L * d * 12))
             ov = _overflow_knn(x, packed, pids, overflow_rows,
                                row_list[overflow_rows], min(kk, L - 1), ip,
                                o_chunk)
@@ -450,7 +436,7 @@ def optimize_graph(knn_graph, out_degree: int, device="cuda") -> torch.Tensor:
     d_half = out_degree // 2
     sv, sp = torch.sort(g, dim=1, stable=True)
     sp = sp.to(torch.int16 if D < 2**15 else torch.int32)
-    batch = max(1, _block_bytes(dev) // (D * D * 40))
+    batch = max(1, work_block_bytes(dev) // (D * D * 40))
     counts = torch.cat([_detour_counts(g, sv, sp, g[a:a + batch])
                         for a in range(0, n, batch)])
     del sv, sp
@@ -519,9 +505,8 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
                    DistanceType.InnerProduct),
             "cagra supports sqeuclidean/euclidean/inner_product")
     algo = "cluster" if params.build_algo == "auto" else params.build_algo
-    if algo == "nn_descent":
-        raise not_ported("cagra build_algo='nn_descent'", "A16")
-    expects(algo in ("cluster", "ivf_pq"), "unknown build_algo %s",
+    expects(algo in ("cluster", "ivf_pq", "nn_descent"),
+            "unknown build_algo %s",
             params.build_algo)
     stage = ic.Stages(stage_seconds, dev,
                       spans=("knn_graph", "optimize", "quantize"))
@@ -547,13 +532,18 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
                 neighborhood=params.knn_neighborhood, return_entries=True,
                 centers_from=x if x_build is not x else None, device=dev,
                 stage_seconds=stage_seconds, intermediates=intermediates)
+        elif algo == "nn_descent":
+            knn = _nn_descent.build_knn_graph(
+                x_build, inter_d, metric=mt.value,
+                n_iters=params.nn_descent_niter, seed=params.seed,
+                device=dev)
         else:
             knn = build_knn_graph(x, inter_d, metric=mt.value,
                                   seed=params.seed, device=dev,
                                   intermediates=intermediates)
     if intermediates is not None:
         intermediates["knn_graph"] = knn
-        intermediates["build_rows"] = x_build if algo == "cluster" else x
+        intermediates["build_rows"] = x if algo == "ivf_pq" else x_build
     del x_build
     with stage("optimize"):
         graph = optimize_graph(knn, out_d, device=dev)
@@ -603,15 +593,6 @@ def _dists_to(index: CagraIndex, q: torch.Tensor, ids: torch.Tensor,
     return torch.cat(out) if len(out) > 1 else out[0]
 
 
-def _first_occurrence(ids: torch.Tensor) -> torch.Tensor:
-    """True where an id repeats an earlier one of its row (sort-based:
-    equal ids adjacent after a stable sort, the first kept)."""
-    s, order = torch.sort(ids, dim=1, stable=True)
-    dup = torch.zeros_like(s, dtype=torch.bool)
-    dup[:, 1:] = s[:, 1:] == s[:, :-1]
-    return torch.empty_like(dup).scatter_(1, order, dup)
-
-
 def _dup_pairwise(ids: torch.Tensor, block: int) -> torch.Tensor:
     """The same mask from the [t, C, C] equality of every pair, an id
     against the earlier positions of its row, in row blocks."""
@@ -649,7 +630,7 @@ def _search_tile(index: CagraIndex, q: torch.Tensor, qstart: int, k: int,
     t = q.shape[0]
     idt = _ids.id_dtype(n)
     inf = float("inf")
-    block = _block_bytes(dev)
+    block = work_block_bytes(dev)
 
     def dists(ids, quantized=use_q):
         return _dists_to(index, q, ids, quantized, ip, block)
@@ -661,7 +642,7 @@ def _search_tile(index: CagraIndex, q: torch.Tensor, qstart: int, k: int,
         cts = index.centers
         qc = q @ cts.T
         c_score = qc if ip else 2.0 * qc - (cts * cts).sum(1)[None, :]
-        top_l = _top_k_low(-c_score, min(entry_clusters, cts.shape[0]))
+        top_l = _ties.top_k_low(-c_score, min(entry_clusters, cts.shape[0]))
         ent = index.entry_ids[top_l.long()].reshape(t, -1)
         n_rand = max(num_seeds or max(itopk, 512), itopk)
         n_seed = -(-(ent.shape[1] + n_rand) // 128) * 128
@@ -675,17 +656,17 @@ def _search_tile(index: CagraIndex, q: torch.Tensor, qstart: int, k: int,
         init_ids = _seed_draws(seed, qstart, t, n_seed, n, dev).to(
             idt, copy=True)
     # drawn with replacement: a repeated seed scores +inf
-    dup0 = _first_occurrence(init_ids)
+    dup0 = _ties.first_occurrence(init_ids)
     c = max(1, block // max(1, t * q.shape[1] * 8))
     seed_d = torch.cat([dists(init_ids[:, a:a + c])
                         for a in range(0, n_seed, c)], 1)
     seed_d = torch.where(dup0, inf, seed_d)
-    best = _top_k_low(seed_d, itopk)
+    best = _ties.top_k_low(seed_d, itopk)
     buf_i = _take(init_ids, best)
     buf_d = _take(seed_d, best)
     if filter_bits is not None:
         buf_d = torch.where(_sf.passes(filter_bits, buf_i), buf_d, inf)
-    order = _top_k_low(buf_d, itopk)
+    order = _ties.top_k_low(buf_d, itopk)
     buf_d, buf_i = _take(buf_d, order), _take(buf_i, order)
     buf_v = torch.zeros((t, itopk), dtype=torch.bool, device=dev)
 
@@ -696,7 +677,7 @@ def _search_tile(index: CagraIndex, q: torch.Tensor, qstart: int, k: int,
         frozen = buf_v.all(1, keepdim=True)
         # 1. the best unvisited entries are the parents
         cand = torch.where(buf_v, inf, buf_d)
-        ppos = _top_k_low(cand, width)
+        ppos = _ties.top_k_low(cand, width)
         parents = _take(buf_i, ppos)
         valid = (_take(cand, ppos) < inf).repeat_interleave(deg, 1)
         new_v = buf_v.scatter(1, ppos, True)
@@ -709,14 +690,14 @@ def _search_tile(index: CagraIndex, q: torch.Tensor, qstart: int, k: int,
             drop |= ~_sf.passes(filter_bits, nbrs)
         # 4. dedup against the buffer and within the candidates
         drop |= (nbrs[:, :, None] == buf_i[:, None, :]).any(2)
-        drop |= (_first_occurrence(nbrs) if dedup == "sort"
+        drop |= (_ties.first_occurrence(nbrs) if dedup == "sort"
                  else _dup_pairwise(nbrs, block))
         nd = torch.where(drop, inf, nd)
         # 5. merge into the buffer
         all_d = torch.cat([buf_d, nd], 1)
         all_i = torch.cat([buf_i, nbrs.to(idt)], 1)
         all_v = torch.cat([new_v, torch.zeros_like(drop)], 1)
-        pos = _top_k_low(all_d, itopk)
+        pos = _ties.top_k_low(all_d, itopk)
         buf_d = torch.where(frozen, buf_d, _take(all_d, pos))
         buf_i = torch.where(frozen, buf_i, _take(all_i, pos))
         buf_v = torch.where(frozen, buf_v, _take(all_v, pos))
@@ -724,7 +705,7 @@ def _search_tile(index: CagraIndex, q: torch.Tensor, qstart: int, k: int,
         # exact f32 re-rank of the final buffer
         exact = dists(buf_i.clamp(0, n - 1), quantized=False)
         exact = torch.where(torch.isinf(buf_d), inf, exact)
-        pos = _top_k_low(exact, k)
+        pos = _ties.top_k_low(exact, k)
         buf_d, buf_i = _take(exact, pos), _take(buf_i, pos)
     out_d, out_i = buf_d[:, :k], buf_i[:, :k]
     if filter_bits is not None:

@@ -63,6 +63,7 @@ from raft_tpu_torch.random.rng import RngState
 from raft_tpu_torch.robust import degrade as _degrade
 from raft_tpu_torch.robust import faults as _faults
 from raft_tpu_torch.robust import retry as _retry
+from raft_tpu_torch.utils import graphs as _graphs
 from raft_tpu_torch.utils import precision as _precision
 
 
@@ -1027,6 +1028,18 @@ def _finish_candidates(dots, cand_ids, cand_norms, q_sq, mt, k,
     return vals, ids
 
 
+def _center_sq(index: IvfPqIndex) -> torch.Tensor:
+    """‖c‖² of the coarse centers as a row [1, n_lists], made once per
+    centers tensor and kept on it (made again if it is written in place),
+    so a search batch does not launch it."""
+    c = index.centers
+    kept = getattr(c, "_rtt_sq", None)
+    if kept is None or kept[0] != c._version:
+        with torch.inference_mode(False), torch.no_grad():
+            kept = c._rtt_sq = (c._version, (c * c).sum(1)[None, :])
+    return kept[1]
+
+
 def _coarse_probes(index: IvfPqIndex, q_all: torch.Tensor, n_probes: int,
                    ip_like: bool):
     """(qc [m, n_lists] = ⟨q, c⟩, probes [m, n_probes] i32)."""
@@ -1034,11 +1047,21 @@ def _coarse_probes(index: IvfPqIndex, q_all: torch.Tensor, n_probes: int,
     if ip_like:
         _, probes = _select_k(qc, n_probes, select_min=False)
     else:
-        c_sq = (index.centers * index.centers).sum(1)
         # c_sq − 2·qc in one operation (2·qc is exact)
-        _, probes = _select_k(torch.sub(c_sq[None, :], qc, alpha=2.0),
+        _, probes = _select_k(torch.sub(_center_sq(index), qc, alpha=2.0),
                               n_probes, select_min=True)
     return qc, probes
+
+
+def _index_tables(probes: torch.Tensor, n_lists: int, seg: int, n_seg: int,
+                  qg: int):
+    """``segment_probes`` and the LUT scan's launch tables
+    (``kernels.lut_scan_tables`` at group size ``qg``) in one function, so
+    one CUDA graph replays both."""
+    seg_list, seg_q, pair_seg, pair_slot = ic.segment_probes(
+        probes, n_lists, seg, n_seg)
+    return ((seg_list, seg_q, pair_seg, pair_slot)
+            + _k.lut_scan_tables(seg_q, pair_seg, pair_slot, qg))
 
 
 def _prep_queries(mt, queries: torch.Tensor) -> torch.Tensor:
@@ -1211,21 +1234,26 @@ def _search_lut_pallas(index: IvfPqIndex, queries: torch.Tensor, k: int,
     ip_like = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
     fbytes = (None if filter_bits is None
               else _sf.list_filter_bytes(filter_bits, index.packed_ids))
-    # A batch alone waits for the host until the scan launches: the index
-    # arithmetic before it runs without autograd's per-operation work, and
-    # its tensors stay inside this function (the bins are read, never
-    # written, after it).
-    with torch.inference_mode():
-        _, probes = _coarse_probes(index, q_all, n_probes, ip_like)
-        seg_list, seg_q, pair_seg, pair_slot = ic.segment_probes(
-            probes, index.n_lists, seg, n_seg)
-        q_rot = (q_all @ index.rotation.T).contiguous()
+    # A batch alone waits for the host until the scan launches, so the
+    # segmenting and the scan's launch tables replay from one CUDA graph
+    # on the card (``utils.graphs``: one launch for ~35; the scan reads
+    # them inside the block).
+    fit = _k.lut_scan_fit(index.pq_dim, 1 << index.pq_bits, index.rot_dim,
+                          seg, index.packed_codes.shape[-1])
+    tabled = q_all.is_cuda and fit is not None
+    _, probes = _coarse_probes(index, q_all, n_probes, ip_like)
+    q_rot = (q_all @ index.rotation.T).contiguous()
+    with (_graphs.replayed(_index_tables, (probes,), index.n_lists, seg,
+                           n_seg, fit[0]) if tabled else
+          _graphs.replayed(ic.segment_probes, (probes,), index.n_lists, seg,
+                           n_seg)) as tabs:
         keys, kids = _k.ivfpq_lut_scan_topk(
-            seg_list, seg_q, pair_seg, pair_slot, q_rot, index.packed_codes,
-            index.packed_ids, index.packed_norms, index.list_sizes,
-            index.centers_rot, index.codebooks, "ip" if ip_like else "l2",
+            *tabs[:4], q_rot, index.packed_codes, index.packed_ids,
+            index.packed_norms, index.list_sizes, index.centers_rot,
+            index.codebooks, "ip" if ip_like else "l2",
             pq_bits=index.pq_bits, pq_dim=index.pq_dim,
-            L=index.max_list_size, lut_dtype=lut_dtype, filter_bytes=fbytes)
+            L=index.max_list_size, lut_dtype=lut_dtype, filter_bytes=fbytes,
+            tables=tabs[4:] if tabled else None)
     q_sq = (q_rot * q_rot).sum(1)
     C = n_probes * keys.shape[-1]
     pv = keys.view(B, C)

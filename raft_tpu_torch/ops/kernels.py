@@ -43,6 +43,7 @@ import torch
 
 from raft_tpu_torch.core.errors import expects, not_ported
 from raft_tpu_torch.ops import build as _build
+from raft_tpu_torch.utils import graphs as _graphs
 
 # Bin-table width of the LUT scan: two best per strided bin of 128.
 LUT_SCAN_BINS = 256
@@ -71,6 +72,8 @@ def _use_kernel(*tensors: torch.Tensor) -> bool:
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    if t.dtype == dtype and t.dim() == ndim and t.is_contiguous():
+        return  # the messages below are built only for a failing operand
     expects(t.dtype == dtype, "%s must be %s (got %s)", name, dtype, t.dtype)
     expects(t.dim() == ndim, "%s must be %d-D (got shape %s)", name, ndim,
             tuple(t.shape))
@@ -352,6 +355,27 @@ def lut_slot_rows(pair_seg: torch.Tensor, pair_slot: torch.Tensor,
     return rows.view(n_seg, seg)
 
 
+def lut_scan_tables(seg_q: torch.Tensor, pair_seg: torch.Tensor,
+                    pair_slot: torch.Tensor, qg: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The LUT scan's launch tables for a segment table: the slot rows
+    (:func:`lut_slot_rows`), and one block per (segment, group of ≤ ``qg``
+    live slots) — the inclusive prefix of the groups and each block's
+    segment, over a grid that covers any segment table of B·P live slots
+    (blocks past the prefix's end return at once)."""
+    n_seg, seg = seg_q.shape
+    B, P = pair_seg.shape
+    slot_rows = lut_slot_rows(pair_seg, pair_slot, n_seg, seg)
+    n_grp = ((seg_q >= 0).sum(1, dtype=torch.int32) + (qg - 1)) // qg
+    grp_end = torch.cumsum(n_grp, 0, dtype=torch.int32)
+    n_blocks = min(n_seg, B * P) + -(-(B * P) // qg)
+    blk_seg = torch.searchsorted(
+        grp_end, torch.arange(n_blocks, dtype=torch.int32,
+                              device=seg_q.device), right=True,
+        out_int32=True)
+    return slot_rows, grp_end, blk_seg
+
+
 def unpack_filter_bytes(fbytes: torch.Tensor, L: int) -> torch.Tensor:
     """[..., ceil(L/8)] u8 keep bytes → [..., L] bool (bit j of byte b is
     position 8·b + j): the inverse of ``sample_filter.pack_mask_bytes``."""
@@ -439,7 +463,8 @@ def ivfpq_lut_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
                         codebooks: torch.Tensor, metric: str = "l2", *,
                         pq_bits: int, pq_dim: int, L: int,
                         lut_dtype: str = "float32",
-                        filter_bytes: Optional[torch.Tensor] = None
+                        filter_bytes: Optional[torch.Tensor] = None,
+                        tables: Optional[Tuple[torch.Tensor, ...]] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused segmented IVF-PQ scan over packed codes.
 
@@ -460,7 +485,12 @@ def ivfpq_lut_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
     ``filter_bytes`` [n_lists, ceil(L/8)] u8 (``sample_filter.
     list_filter_bytes`` over ``ids``): a row whose keep bit is clear is
     scored as a pad (+inf, −1) before the bins, so the bins hold only
-    kept rows; the kernel reads the keep byte beside the row's id."""
+    kept rows; the kernel reads the keep byte beside the row's id.
+
+    ``tables``: the launch tables :func:`lut_scan_tables` makes from the
+    segment table at ``lut_scan_fit``'s group size, when the caller made
+    them with it (one CUDA graph for both); else they replay from a graph
+    of their own here. The plain version reads none."""
     S, K, P, nb, rot = _lut_scan_args(seg_list, seg_q, q_rot, packed, ids,
                                       norms, centers_rot, codebooks, metric,
                                       pq_bits, pq_dim, L)
@@ -490,18 +520,6 @@ def ivfpq_lut_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
             S, K)
     qg, R = fit
     dev = q_rot.device
-    slot_rows = lut_slot_rows(pair_seg, pair_slot, n_seg, seg)
-    # one block per (segment, group of ≤ qg live slots): the inclusive
-    # prefix of the groups, each block's segment, and a grid that covers
-    # any segment table of B·P live slots (blocks past the prefix's end
-    # return at once)
-    n_grp = ((seg_q >= 0).sum(1, dtype=torch.int32) + (qg - 1)) // qg
-    grp_end = torch.cumsum(n_grp, 0, dtype=torch.int32)
-    pairs = B * n_probes
-    n_blocks = min(n_seg, pairs) + -(-pairs // qg)
-    blk_seg = torch.searchsorted(
-        grp_end, torch.arange(n_blocks, dtype=torch.int32, device=dev),
-        right=True, out_int32=True)
     keys = torch.empty((B, n_probes, LUT_SCAN_BINS), dtype=torch.float32,
                        device=dev)
     kids = torch.empty((B, n_probes, LUT_SCAN_BINS), dtype=torch.int32,
@@ -509,13 +527,28 @@ def ivfpq_lut_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
     rot_lut = lut_rotated(S, pq_bits)
     _check_code_alignment(rot_lut, packed)
     cbk = lut_kernel_codebook(codebooks, rot_lut, lut_dtype)
-    rc = lib.rtt_ivfpq_lut_scan_topk(
-        _ptr(seg_list), _ptr(seg_q), _ptr(slot_rows), _ptr(grp_end),
-        _ptr(blk_seg), _ptr(q_rot), _ptr(packed), _ptr(ids), _ptr(norms),
-        _ptr(list_sizes), _ptr(centers_rot), _ptr(cbk),
-        _ptr(filter_bytes) if filt else None, _ptr(keys),
-        _ptr(kids), n_seg, n_blocks, seg, rot, S, K, P, pq_bits, nb, L,
-        1 if metric == "ip" else 0, qg, R, int(rot_lut), _stream())
+
+    def launch(slot_rows, grp_end, blk_seg):
+        expects(slot_rows.shape == seg_q.shape
+                and grp_end.shape[0] == n_seg,
+                "tables must be lut_scan_tables of this segment table")
+        return lib.rtt_ivfpq_lut_scan_topk(
+            _ptr(seg_list), _ptr(seg_q), _ptr(slot_rows), _ptr(grp_end),
+            _ptr(blk_seg), _ptr(q_rot), _ptr(packed), _ptr(ids),
+            _ptr(norms), _ptr(list_sizes), _ptr(centers_rot), _ptr(cbk),
+            _ptr(filter_bytes) if filt else None, _ptr(keys),
+            _ptr(kids), n_seg, blk_seg.shape[0], seg, rot, S, K, P,
+            pq_bits, nb, L, 1 if metric == "ip" else 0, qg, R,
+            int(rot_lut), _stream())
+
+    if tables is not None:
+        rc = launch(*tables)
+    else:
+        # the launch tables replay from a CUDA graph, read by the launch
+        # inside the block
+        with _graphs.replayed(lut_scan_tables, (seg_q, pair_seg, pair_slot),
+                              qg) as made:
+            rc = launch(*made)
     ivfpq_lut_scan_topk.launches += 1
     ivfpq_lut_scan_topk.filtered_launches += bool(filt)
     _raise_on(rc, "ivfpq_lut_scan_topk")
@@ -1071,10 +1104,11 @@ def lut_scan_smem_bytes(qg: int, R: int, S: int, K: int, rot: int, seg: int,
     return b + max(nthr * _lut_row_stride(nb), nthr * 24)
 
 
+@functools.lru_cache(maxsize=None)
 def lut_scan_fit(S: int, K: int, rot: int, seg: int, nb: int):
     """(live queries per pass, row groups) of a LUT-scan block with ``seg``
     slots that fits shared memory — the most LUTs × threads, ties to more
-    threads — or None."""
+    threads — or None. Kept per shape: a search asks once a batch."""
     fits = [(g * r, r, g) for r in (4, 3, 2, 1) for g in (4, 3, 2, 1)
             if seg <= LUT_SCAN_LANES * r
             and lut_scan_smem_bytes(g, r, S, K, rot, seg, nb) <= _MAX_SMEM]

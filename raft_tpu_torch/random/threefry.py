@@ -5,8 +5,8 @@ makes the JAX package's synthetic data from the same seed.
 
 A key is a pair of Python ints (two uint32 words). Bits are int64 tensors
 holding uint32 values (torch has no full uint32 arithmetic). ``split``,
-``fold_in``, ``random_bits``, ``uniform`` and ``randint`` give the same
-numbers as ``jax.random`` bit for bit. ``normal`` maps the same uniforms
+``fold_in``, ``random_bits``, ``uniform``, ``randint`` and ``permutation`` give the
+same numbers as ``jax.random`` bit for bit. ``normal`` maps the same uniforms
 through the same erf⁻¹ polynomial (XLA's single-precision one, with its
 multiply-adds fused); XLA's ``log1p`` is its own approximation, so a
 normal may differ from JAX's in its last bit or two (about 1% of 96,000
@@ -118,6 +118,18 @@ def randint(key: Key, shape, minval: int, maxval: int, device="cpu"
     ka, kb = split(key)
     return _fold_span(random_bits(ka, n, device), random_bits(kb, n, device),
                       minval, maxval).view(*shape)
+
+
+def permutation(key: Key, n: int, device="cpu") -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` as int32: JAX's ``_shuffle`` of
+    ``arange(n)``, ⌈3·ln(n) / ln(2³² − 1)⌉ rounds, each splitting the key
+    and stably sorting by 32 random bits an element from the subkey."""
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(_M32)))
+    x = torch.arange(n, dtype=torch.int32, device=device)
+    for _ in range(rounds):
+        key, sub = split(key)
+        x = x[torch.sort(random_bits(sub, n, device), stable=True)[1]]
+    return x
 
 
 _ERFINV_LT = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,

@@ -107,6 +107,24 @@ def test_the_same_build_and_search_give_the_same_cagra_spans():
 
 
 def test_nn_descent_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A16"):
-        tcg.build(np.zeros((64, 8), np.float32),
-                  tcg.IndexParams(build_algo="nn_descent"), device="cpu")
+    """CAGRA's NN-Descent build runs on the CPU (the name is kept from the
+    refusal this test once checked): the graph passes the invariants —
+    [n, 16] int32, ids in [0, n) or −1, no row holding its own id, each
+    row's first 8 edges among its 32 intermediate ones — and the index has
+    no entries, so search seeds at random."""
+    x = blobs(3000, 16, 30, seed=9)
+    inter, stages = {}, {}
+    idx = tcg.build(x, tcg.IndexParams(
+        intermediate_graph_degree=32, graph_degree=16,
+        build_algo="nn_descent", nn_descent_niter=6), device="cpu",
+        intermediates=inter, stage_seconds=stages)
+    g, knn = idx.graph.numpy(), inter["knn_graph"].numpy()
+    assert g.shape == (3000, 16) and idx.graph.dtype == torch.int32
+    assert ((g >= -1) & (g < 3000)).all()
+    assert not (g == np.arange(3000)[:, None]).any()
+    assert all(set(a[:8]) <= set(b) for a, b in zip(g, knn))
+    assert idx.centers is None and idx.entry_ids is None
+    assert {"knn_graph", "optimize"} <= set(stages)
+    gt = exact_knn(x, x[:100], 10)
+    assert _search_recall(tcg, idx, x[:100], gt, torch.from_numpy,
+                          device="cpu") >= 0.9

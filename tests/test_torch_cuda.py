@@ -1606,3 +1606,228 @@ def test_cuda_cagra_search_matches_cpu(variant):
                            device="cpu")
     assert ic_.dtype == torch.int32
     tie_swaps(q, x, ic_, dc, ip_, dp)
+
+
+# ---------------------------------------------------------------------------
+# the distance layer, ball cover and NN-Descent (plain torch on both
+# devices; ball cover's probe rounds merge through B3)
+# ---------------------------------------------------------------------------
+
+_PAIRWISE_CASES = [
+    ("sqeuclidean", "real"), ("euclidean", "real"), ("cosine", "real"),
+    ("inner_product", "real"), ("correlation", "real"),
+    ("hellinger", "prob"), ("jaccard", "sparse"), ("dice", "sparse"),
+    ("russelrao", "binary"), ("l1", "real"), ("l2_unexpanded", "real"),
+    ("l2_sqrt_unexpanded", "real"), ("linf", "real"), ("canberra", "sparse"),
+    ("lp", "real"), ("braycurtis", "sparse"), ("jensenshannon", "prob"),
+    ("hamming", "binary"), ("kl_divergence", "prob"), ("haversine", "geo"),
+]
+
+
+def _pairwise_rows(kind: str, seed: int):
+    rng = np.random.default_rng(seed)
+    if kind == "geo":
+        scale = np.array([np.pi, 2 * np.pi], np.float32)
+        return [(rng.random((r, 2), dtype=np.float32) - 0.5) * scale
+                for r in (300, 700)]
+    x = rng.random((300, 24), dtype=np.float32)
+    y = rng.random((700, 24), dtype=np.float32)
+    if kind == "binary":
+        return (x > 0.5).astype(np.float32), (y > 0.5).astype(np.float32)
+    if kind == "prob":
+        x[x < 0.2] = 0.0
+        y[y < 0.2] = 0.0
+        return x / x.sum(1, keepdims=True), y / y.sum(1, keepdims=True)
+    if kind == "sparse":
+        x[x < 0.6] = 0.0
+        y[y < 0.6] = 0.0
+        x[0] = y[0] = 0.0
+    return x, y
+
+
+@pytest.mark.parametrize("metric,kind", _PAIRWISE_CASES,
+                         ids=[m for m, _ in _PAIRWISE_CASES])
+def test_cuda_pairwise_distance_matches_cpu(metric, kind):
+    """Every metric on the card against its CPU result: within 1e-5
+    relative (1e-6 absolute for values near 0); Lp with exponent 3.
+    Haversine: 2·asin(√h) has the slope 1/√(1 − h), unbounded toward
+    antipodal pairs, so past 2 radians a last-bit difference in sin or cos
+    moves the distance by up to ~1e-4 relative; there h = sin²(d/2) is
+    held within 1e-6 instead."""
+    from raft_tpu_torch.distance import pairwise_distance
+
+    dev = cuda_device()
+    x, y = _pairwise_rows(kind, 21)
+    want = pairwise_distance(x, y, metric, metric_arg=3.0,
+                             device="cpu").numpy()
+    got = pairwise_distance(x, y, metric, metric_arg=3.0, device=dev)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    got = got.cpu().numpy()
+    near = want <= 2.0 if metric == "haversine" else np.ones_like(want, bool)
+    np.testing.assert_allclose(got[near], want[near], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np.sin(got[~near] / 2) ** 2,
+                               np.sin(want[~near] / 2) ** 2, rtol=0,
+                               atol=1e-6)
+
+
+def test_cuda_ball_cover_knn_matches_cpu():
+    """One index built on the card, searched there and on the CPU (the
+    same arrays): distances within 1e-5 relative, ids equal away from
+    ties; the probe rounds' merge launches select_k."""
+    from raft_tpu_torch.neighbors import ball_cover
+
+    from torch_parity import assert_ids_match_away_from_ties
+
+    dev = cuda_device()
+    x = blobs(60_000, 3, 40, seed=8, std=1.0)
+    q = blobs(500, 3, 40, seed=9, std=1.0)
+    index = ball_cover.build(x, seed=2, device=dev)
+    on_cpu = ball_cover.from_numpy(*ball_cover.to_numpy(index), device="cpu")
+    for k, rl in ((10, 0), (64, 4)):
+        K.reset_launch_counts()
+        dc, ic_ = ball_cover.knn(index, q, k, round_lists=rl, device=dev)
+        assert K.launch_counts()["select_k"] > 0
+        dp, ip_ = ball_cover.knn(on_cpu, q, k, round_lists=rl, device="cpu")
+        assert ic_.dtype == torch.int32 and ic_.device.type == "cuda"
+        assert_ids_match_away_from_ties(ic_.cpu().numpy(), dc.cpu().numpy(),
+                                        ip_.numpy(), dp.numpy(), rtol=1e-5,
+                                        atol=1e-6)
+
+
+def test_cuda_ball_cover_eps_nn_matches_cpu():
+    """Integer rows (exact distances): the card's build equals the CPU's
+    (radii within 1e-6 relative), the packed keep mask and ids equal the
+    CPU's exactly, and ``eps_neighbors_l2sq`` too."""
+    from raft_tpu_torch.neighbors import ball_cover, epsilon_neighborhood
+
+    dev = cuda_device()
+    rng = np.random.default_rng(10)
+    x = rng.integers(-30, 31, size=(20_000, 3)).astype(np.float32)
+    q = rng.integers(-30, 31, size=(200, 3)).astype(np.float32) + 0.5
+    index = ball_cover.build(x, seed=3, device=dev)
+    on_cpu = ball_cover.from_numpy(*ball_cover.to_numpy(index), device="cpu")
+    ref = ball_cover.build(x, seed=3, device="cpu")
+    for name in ("landmarks", "packed_data", "packed_ids", "list_sizes"):
+        assert torch.equal(getattr(ref, name), getattr(on_cpu, name)), name
+    torch.testing.assert_close(on_cpu.radii, ref.radii, rtol=1e-6, atol=0)
+    kc, idc = ball_cover.eps_nn(index, q, 4.0, device=dev)
+    kp, idp = ball_cover.eps_nn(on_cpu, q, 4.0, device="cpu")
+    assert torch.equal(kc.cpu(), kp) and torch.equal(idc.cpu(), idp)
+    assert int(kp.sum()) > 0
+    ac, vc = epsilon_neighborhood.eps_neighbors_l2sq(q, x, 20.0, device=dev)
+    ap, vp = epsilon_neighborhood.eps_neighbors_l2sq(q, x, 20.0,
+                                                     device="cpu")
+    assert torch.equal(ac.cpu(), ap) and torch.equal(vc.cpu(), vp)
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+def test_cuda_nn_descent_matches_cpu_bit_for_bit(metric, monkeypatch):
+    """Small-integer rows (every f32 sum exact): the card's graph and
+    distances equal the CPU's bit for bit, chunked differently."""
+    from raft_tpu_torch.neighbors import nn_descent
+
+    dev = cuda_device()
+    x = np.random.default_rng(11).integers(-8, 9, size=(5000, 16)).astype(
+        np.float32)
+    ic_, dc = nn_descent.build_knn_graph_with_distances(
+        x, 16, metric=metric, n_iters=6, seed=4, device=dev)
+    monkeypatch.setattr(nn_descent, "_chunk_rows", lambda *a: 777)
+    ip_, dp = nn_descent.build_knn_graph_with_distances(
+        x, 16, metric=metric, n_iters=6, seed=4, device="cpu")
+    assert torch.equal(ic_.cpu(), ip_)
+    assert torch.equal(dc.cpu().view(torch.int32), dp.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the LUT tier's index tables replayed from CUDA graphs (utils.graphs)
+# ---------------------------------------------------------------------------
+
+def test_cuda_graphed_tables_equal_eager_tables():
+    """``segment_probes`` and the LUT scan's launch tables replayed from a
+    graph equal the eager operations bit for bit, for new inputs at every
+    replay, apart and in the one graph of the LUT tier; CPU tensors run
+    eagerly."""
+    from raft_tpu_torch.neighbors import ivf_common as ic
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.utils import graphs
+
+    dev = cuda_device()
+    graphs.clear()
+    n_lists, seg, B, P = 512, ic.SEGMENT_SIZE, 300, 32
+    n_seg = ic.n_segments(B * P, n_lists, seg)
+    g = torch.Generator(device=dev).manual_seed(3)
+    for _ in range(3):
+        probes = torch.randint(0, n_lists, (B, P), generator=g, device=dev,
+                               dtype=torch.int32)
+        want = ic.segment_probes(probes, n_lists, seg, n_seg)
+        tw = K.lut_scan_tables(want[1], want[2], want[3], 16)
+        with graphs.replayed(ic.segment_probes, (probes,), n_lists, seg,
+                             n_seg) as got:
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            with graphs.replayed(K.lut_scan_tables,
+                                 (got[1], got[2], got[3]), 16) as tg:
+                assert all(torch.equal(a, b) for a, b in zip(tg, tw))
+        # both in one graph, as the LUT tier replays them
+        with graphs.replayed(ivf_pq._index_tables, (probes,), n_lists, seg,
+                             n_seg, 16) as both:
+            assert all(torch.equal(a, b)
+                       for a, b in zip(both, tuple(want) + tuple(tw)))
+    cpu = probes.cpu()
+    with graphs.replayed(ic.segment_probes, (cpu,), n_lists, seg,
+                         n_seg) as out:
+        assert out[0].device.type == "cpu"
+        assert all(torch.equal(b, a.cpu()) for a, b in zip(want, out))
+
+
+def test_cuda_lut_tier_threads_share_no_tables():
+    """Twelve threads (more than the host's cores) search one index on one
+    stream at once, each its own batches through the LUT tier, whose
+    tables replay from graphs they share: every result equals the same
+    search run alone, ids and distances bit for bit (a replay outside the
+    graph's lock would let one thread overwrite the tables another
+    thread's kernel was about to read)."""
+    import sys
+    import threading
+
+    from raft_tpu_torch.bench.dataset import DeviceSynthetic
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    dev = cuda_device()
+    ds = DeviceSynthetic(200_000, 64, n_centers=500, seed=4, device=dev)
+    index = ivf_pq.build(ds.base(), ivf_pq.IndexParams(
+        n_lists=512, pq_dim=32, pq_bits=8, cache_reconstruction="never",
+        seed=4), device=dev)
+    qs = ds.queries(12 * 4 * 200).view(12, 4, 200, 64)
+    sp = ivf_pq.SearchParams(n_probes=32, scan_select="pallas",
+                             lut_dtype="float32")
+    want = [[ivf_pq.search(index, q, 10, sp, device=dev) for q in batch]
+            for batch in qs]
+    got = [None] * 12
+    errors = []
+
+    def work(t):
+        try:
+            got[t] = [(b, ivf_pq.search(index, q, 10, sp, device=dev))
+                      for _ in range(5) for b, q in enumerate(qs[t])]
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(t,))
+                   for t in range(12)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(switch)
+    torch.cuda.synchronize()
+    assert not errors, errors
+    for t in range(12):
+        assert len(got[t]) == 20
+        for b, (gv, gi) in got[t]:
+            wv, wi = want[t][b]
+            assert torch.equal(gi, wi) and torch.equal(gv, wv), (t, b)

@@ -221,9 +221,7 @@ def test_ring_wrappers_refuse_mixed_devices():
 
 def test_unported_sharded_paths_name_their_roadmap_item():
     """What is left of A15 needs cards on several hosts or several cards
-    (fault C4): each such entry raises naming its item and the fault.
-    CAGRA's NN-Descent build is the rest of A16."""
-    from raft_tpu_torch.neighbors import cagra
+    (fault C4): each such entry raises naming its item and the fault."""
     from raft_tpu_torch.obs import prof
     from raft_tpu_torch.parallel import comms, mesh
 
@@ -232,9 +230,6 @@ def test_unported_sharded_paths_name_their_roadmap_item():
                  lambda: prof.interconnect_peak()):
         with pytest.raises(NotImplementedError, match="A15"):
             call()
-    with pytest.raises(NotImplementedError, match="A16"):
-        cagra.build(np.zeros((64, 8), np.float32),
-                    cagra.IndexParams(build_algo="nn_descent"), device="cpu")
     for call in (lambda: mesh.make_hybrid_mesh((2,), (2,), ("dcn", "ici")),
                  lambda: comms.initialize_distributed()):
         with pytest.raises(NotImplementedError, match="C4"):

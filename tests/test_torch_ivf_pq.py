@@ -101,8 +101,8 @@ def test_lut_tier_matches_jax(corpus, lut_dtype, monkeypatch):
 
 @pytest.mark.parametrize("refined", [False, True])
 def test_lut_tier_returns_ordinary_tensors(corpus, refined):
-    """The LUT tier runs its index arithmetic under inference mode; what
-    it returns is an ordinary tensor that the caller may write in place."""
+    """What the LUT tier returns is an ordinary tensor that the caller may
+    write in place, never a tensor of its index arithmetic's graphs."""
     x, q = corpus
     kw = dict(refine="f32_regen", refine_ratio=4) if refined else {}
     td, ti = tpq.search(_port_index(_jax_index(x)), _t(q), 10,
@@ -391,3 +391,40 @@ def test_filter_selectivity_feeds_the_lut_dtype(monkeypatch):
     monkeypatch.setattr(tk, "_on_cuda", lambda: True)
     assert tpq.resolve_lut_dtype("auto", 64, 500, 1.0) == "float8_e4m3"
     assert tpq.resolve_lut_dtype("auto", 64, 500, sel) == "bfloat16"
+
+
+def test_index_tables_are_segments_and_launch_tables():
+    """The LUT tier's one replayed function is ``segment_probes`` followed
+    by the scan's launch tables, bit for bit (on the CPU it runs as it
+    is)."""
+    from raft_tpu_torch.neighbors import ivf_common as tic
+    from raft_tpu_torch.ops import kernels as tk
+
+    g = torch.Generator().manual_seed(5)
+    n_lists, seg, qg = 64, tic.SEGMENT_SIZE, 16
+    probes = torch.randint(0, n_lists, (40, 12), generator=g,
+                           dtype=torch.int32)
+    n_seg = tic.n_segments(probes.numel(), n_lists, seg)
+    got = tpq._index_tables(probes, n_lists, seg, n_seg, qg)
+    want = tic.segment_probes(probes, n_lists, seg, n_seg)
+    want = tuple(want) + tuple(tk.lut_scan_tables(*want[1:], qg))
+    assert len(got) == len(want) == 7
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_center_norms_are_kept_per_centers_version(corpus):
+    """‖c‖² of the coarse centers is made once per centers tensor, as a
+    row, and made again after the centers are written in place."""
+    import dataclasses
+
+    x, _ = corpus
+    idx = _port_index(_jax_index(x))
+    idx = dataclasses.replace(idx, centers=idx.centers.clone())
+    c_sq = tpq._center_sq(idx)
+    assert c_sq.shape == (1, idx.n_lists)
+    assert torch.equal(c_sq[0], (idx.centers * idx.centers).sum(1))
+    assert tpq._center_sq(idx) is c_sq
+    idx.centers.mul_(2.0)
+    again = tpq._center_sq(idx)
+    assert again is not c_sq
+    assert torch.equal(again[0], (idx.centers * idx.centers).sum(1))

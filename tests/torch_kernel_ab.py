@@ -81,7 +81,9 @@ reverse, this tree, each other named by its directory.
   line each with the three passes' QPS, the median wall time of a batch
   run alone (a synchronize before and after each of 20 batches) and,
   where the checkout has recording spans, the median of ten root spans
-  of ``chip_smoke.py``'s ``[obs spans]`` (sync mode).
+  of ``chip_smoke.py``'s ``[obs spans]`` (sync mode) against
+  ``[stages]``' ``search_total`` (one batch, five calls back to back),
+  the quantity of ``[obs spans]``' 25 % rule.
 - ``gather_refine``: the refine of the IVF-PQ phase and of the sharded
   phase's rank: [500, 400] candidates into ``DeviceSynthetic`` ``--n`` x 96
   and ``--n`` / 2 x 128 rows, drawn as the scans draw them (``ivf_pq.build``
@@ -636,6 +638,18 @@ for q in batches:
     torch.cuda.synchronize()
     alone.append((time.perf_counter() - t0) * 1e3)
 out = {"qps": qps, "alone_ms_median": sorted(alone)[len(alone) // 2]}
+# chip_smoke.py's [stages] search_total: one batch, five calls back to back
+q0 = queries[:500].contiguous()
+ivf_pq.search(index, q0, 10, sp, dataset=base)
+torch.cuda.synchronize()
+start = torch.cuda.Event(enable_timing=True)
+end = torch.cuda.Event(enable_timing=True)
+start.record()
+for _ in range(5):
+    ivf_pq.search(index, q0, 10, sp, dataset=base)
+end.record()
+torch.cuda.synchronize()
+out["search_total_ms"] = start.elapsed_time(end) / 5
 from raft_tpu_torch import obs
 if hasattr(obs, "enable"):  # a checkout with recording spans
     from raft_tpu_torch.obs import trace
@@ -647,6 +661,8 @@ if hasattr(obs, "enable"):  # a checkout with recording spans
     root = sorted(1e3 * e["dur"] for e in trace.get_buffer().snapshot()
                   if e.get("ph") == "X" and e["name"] == "ivf_pq.search")
     out["root_span_ms_median"] = root[len(root) // 2]
+    out["root_over_search_total"] = (out["root_span_ms_median"]
+                                     / out["search_total_ms"] - 1.0)
 print("MAIN_PATH " + json.dumps(out), flush=True)
 """
 

@@ -572,6 +572,27 @@ def jax_cagra_from_arrays(arrays, meta):
            if name in arrays}, metric=meta["metric"])
 
 
+BALL_COVER_FIELDS = ("landmarks", "packed_data", "packed_ids", "radii",
+                     "list_sizes")
+
+
+def jax_ball_cover_arrays(index):
+    """A raft_tpu ``BallCoverIndex`` → (arrays, meta) for
+    ``ball_cover.from_numpy``."""
+    return ({name: np.asarray(getattr(index, name))
+             for name in BALL_COVER_FIELDS}, {"metric": index.metric})
+
+
+def jax_ball_cover_from_arrays(arrays, meta):
+    """(arrays, meta) → a raft_tpu ``BallCoverIndex``."""
+    import jax.numpy as jnp
+    from raft_tpu.neighbors import ball_cover as jbc
+
+    return jbc.BallCoverIndex(
+        **{name: jnp.asarray(arrays[name]) for name in BALL_COVER_FIELDS},
+        metric=meta["metric"])
+
+
 # ---------------------------------------------------------------------------
 # CAGRA checks (JAX-free)
 # ---------------------------------------------------------------------------
