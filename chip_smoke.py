@@ -26,7 +26,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    bound logged; the LUT scan's shared-memory look-up floor logged beside
    its bytes bound; gather_refine_topk timed with the L2 cold, beside
    its warm time, the kernel alone in a CUDA graph and the wrapper's host
-   time), and a stage breakdown of one batch; then ``[filter main]``, the
+   time), and a stage breakdown of one batch; ``[refine bf16]`` (ROADMAP
+   A8) before it: the same refined path against the base cast to bf16
+   (counts zeroed before and read after: B2 must launch on the 2-byte
+   rows), QPS, recall@10 at least 0.95 against the ground truth and,
+   against the bf16 rows' own ground truth, within 0.01 of the f32 base's,
+   B2 on bf16 rows against its plain version (row ``ivf_pq_bf16``, its
+   bound at 2 bytes a value); then ``[filter main]``, the
    path filtered (ROADMAP A6): keep masks drawn as the JAX bench draws
    them (``bench_keep``) at selectivity 0.1 and 0.01, each leg with the
    counts zeroed just before and read just after (B1 and B2 must launch
@@ -164,6 +170,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    against their plain versions on
    the n_probes 64 segment table over the bf16 cache (bounds: two TF32
    products, 2-byte rows), and a stage breakdown of one approx batch;
+   ``[pq per_cluster]`` (ROADMAP A9, ``pq_per_cluster_leg``): the same
+   config with ``codebook_kind="per_cluster"``, its build by stage with
+   ``_train_per_cluster`` timed alone, refined approx at 64 and 128, exact
+   at 64 and ``scan_select="pallas"`` at 64 (the LUT-scan kernel declines
+   it: the fallback counter, no B1 launch), recall beside the
+   per_subspace index's and its rules, and 100 queries on the card equal
+   to the CPU's but at f64 ties;
+   ``[flat uint8]`` (ROADMAP A19, ``flat_uint8_leg``, inside the IVF-Flat
+   phase): the 1M x 128 set cast to uint8 by one affine map, ``ivf_flat.
+   n1024`` on the bytes: approx at 16–128 and exact at 32 over uint8
+   lists, a filtered exact leg at selectivity 0.1, the f32 cell's recall
+   rules against exact search on the bytes, B5 and B6 against their plain
+   versions (rows ``ivf_flat_uint8``), the index's bytes beside the f32
+   index's;
 5. sharded path — BASELINE.md target 5's shape cut to one card: 20M x 128
    ``DeviceSynthetic`` rows (``SHARD_N``) on a 4-rank mesh whose ranks share
    cuda:0, ``parallel.build_ivf_pq`` (8192 lists, pq_dim 64, 8-bit codes,
@@ -215,7 +235,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    are freed: ``build_algo="nn_descent"`` on the same rows (20 sweeps),
    its stages, peak, invariants, edge recall, QPS and recall@10, and
    NN-Descent on 20,000 x 16 small-integer rows on the card equal to the
-   CPU's bit for bit (``cagra_nn_descent_leg``);
+   CPU's bit for bit (``cagra_nn_descent_leg``); ``[gist flat]`` (ROADMAP
+   A10, ``gist_flat_leg``) on the same rows: ``gist.ivf_flat.n1024``,
+   whose 8.87 GB pack takes ``pack_rows_chunked`` (counter), equal bit for
+   bit to the one-shot ``pack_lists`` of its labels, each pack's peak,
+   every row once or dropped, approx at 32 and 64 and exact at 32, B5 and
+   B6 at d 960 (rows ``gist_flat``);
 5c. ``[ball_cover]`` (ROADMAP A16): 1M x 3 ``DeviceSynthetic`` rows and the
    same rows on the unit sphere for haversine, ``ball_cover.build`` with
    1,000 landmarks and three passes of ``knn`` (k 10, 32 lists a round;
@@ -276,9 +301,10 @@ CHUNKED_RESUME_N = 4_000_000
 # phase's 4 ranks (41,943,040 rows): at 15 chunks a rank the shards' lists,
 # padded to the fattest list of any shard (18,816 slots), took 44.4 GB,
 # which with the 32.2 GB re-rank base does not fit the card. Its resume
-# check at 4 chunks a rank.
+# check at 2 chunks a rank (cut from 4 for the run's time limit): the fault
+# still stops the build midway, at rank 2's last chunk, rank 3 not begun.
 DIST_RANK_CHUNKS = 10
-DIST_RESUME_RANK_CHUNKS = 4
+DIST_RESUME_RANK_CHUNKS = 2
 # The [cagra] leg: BASELINE.md target 4 (GIST-1M: 1M x 960, its 1,000 test
 # queries, graph_degree 64), the ivf_pq build algorithm on the first
 # CAGRA_PQ_N of those rows.
@@ -754,10 +780,12 @@ def _lut_scan_row(rows, path, launches, index, q0, n_probes, lut_dtype,
 def _refine_row(rows, path, launches, base, q0, cand, k, shape="",
                 filter_bits=None):
     """gather_refine_topk against its plain version on ``q0``'s candidates
-    into ``base``: keys within 1e-5·(‖q‖² + |key|), ids equal away from key
-    ties; then its row: ms with the L2 cold, beside the warm, kernel-alone
-    and host times. ``filter_bits``: both take the bitset's words, and the
-    bound counts the kept candidates' rows and a word a candidate."""
+    into ``base`` (f32 or bf16 rows: both versions widen bf16 to f32):
+    keys within 1e-5·(‖q‖² + |key|), ids equal away from key ties; then
+    its row: ms with the L2 cold, beside the warm, kernel-alone and host
+    times. The bound counts the rows at the base's bytes a value.
+    ``filter_bits``: both take the bitset's words, and the bound counts
+    the kept candidates' rows and a word a candidate."""
     import torch
 
     from raft_tpu_torch.neighbors import sample_filter
@@ -797,13 +825,91 @@ def _refine_row(rows, path, launches, base, q0, cand, k, shape="",
          launches["gather_refine_topk"], err, _timed_cold(call, 30),
          _timed(lambda: K.gather_refine_topk_plain(base, q0, cand, k, "l2",
                                                    filter_bits), 10),
-         n_rows * dim * 4 + B * C * 4 + words + B * dim * 4 + B * k * 8,
+         n_rows * dim * base.element_size() + B * C * 4 + words
+         + B * dim * 4 + B * k * 8,
          4.0 * n_rows * dim, None,
          f"{shape}[{B},{C}] candidates ({n_rows} rows to load) into "
-         f"[{base.shape[0]},{dim}], k={k}, id agreement {id_agree:.6f}, ms "
-         f"with the L2 cold",
+         f"[{base.shape[0]},{dim}] {str(base.dtype)[6:]}, k={k}, id "
+         f"agreement {id_agree:.6f}, ms with the L2 cold",
          warm_ms=_timed(call, 50), kernel_ms=_graph_ms(call, 50),
          host_ms=_host_ms(call, 20))
+
+
+def refine_bf16_leg(args, rows, index, base, queries, sp, B, k, gt,
+                    rec_f32_base, q0, cand):
+    """``[refine bf16]`` (ROADMAP A8): the main path re-ranked against the
+    DEEP-10M-shaped base cast to bf16 (a store that keeps its re-rank
+    copy at half the memory): every query in batches of ``B`` through
+    ``ivf_pq.search(..., dataset=base_bf16)`` (k_cand 400), counts zeroed
+    just before and read just after (gather_refine_topk must launch: the
+    fused tier takes bf16 rows), three passes of QPS (CUDA events),
+    recall@10 against the f32 ground truth ``gt`` at least 0.95; against
+    the ground truth of the bf16 rows themselves (``brute_force.knn`` on
+    their f32 cast: what an exact re-rank of these rows can reach) within
+    0.01 of the f32 base's recall against ``gt`` (``rec_f32_base``, the
+    same queries, knobs and scan), like for like. The rows' own rounding
+    costs recall against ``gt``: the ceiling, exact search over the bf16
+    rows against ``gt``, is logged beside it. Then B2 on bf16 rows against
+    its plain version at the first batch's 400 candidates (row
+    ``ivf_pq_bf16``, the bound at 2 bytes a value). Frees the bf16 copy.
+    Raises SmokeFailure; returns the summary."""
+    import torch
+
+    from raft_tpu_torch.neighbors import brute_force, ivf_pq
+    from raft_tpu_torch.ops import kernels as K
+
+    base_bf16 = base.to(torch.bfloat16)
+    n_gt = gt.shape[0]
+    _, gt16 = brute_force.knn(base_bf16.float(), queries[:n_gt], k,
+                              metric="sqeuclidean")
+    gt16 = gt16.cpu()
+    ceiling = _recall(gt16, gt)
+
+    def search_pass():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        out = []
+        start.record()
+        for a in range(0, args.queries, B):
+            out.append(ivf_pq.search(index, queries[a:a + B], k, sp,
+                                     dataset=base_bf16)[1])
+        end.record()
+        torch.cuda.synchronize()
+        return torch.cat(out), start.elapsed_time(end) / 1e3
+
+    K.reset_launch_counts()
+    ids, secs = search_pass()
+    launches = K.launch_counts()
+    if launches["gather_refine_topk"] == 0:
+        raise SmokeFailure(f"[refine bf16]: gather_refine_topk never "
+                           f"launched on the bf16 base: {launches}")
+    qps = [args.queries / secs] + [args.queries / search_pass()[1]
+                                   for _ in range(2)]
+    ids = ids.cpu()
+    rec = _recall(ids[:n_gt], gt)
+    rec16 = _recall(ids[:n_gt], gt16)
+    _log(f"[refine bf16] {base.shape[0]} x {base.shape[1]} bf16 base "
+         f"({base_bf16.numel() * 2 / 1e9:.2f} GB against "
+         f"{base.numel() * 4 / 1e9:.2f} GB in f32), k_cand "
+         f"{int(round(k * sp.refine_ratio))}, batch {B}: QPS "
+         + ", ".join(f"{x:.0f}" for x in qps) + f" (CUDA events); recall@10 "
+         f"on {n_gt} queries {rec:.4f} against the f32 ground truth (the "
+         f"bf16 rows' exact search reaches {ceiling:.4f}), {rec16:.4f} "
+         f"against the bf16 rows' own (f32 base against its own "
+         f"{rec_f32_base:.4f}); launches {json.dumps(launches)}")
+    if ids.shape != (args.queries, k) or bool((ids < 0).any()):
+        raise SmokeFailure("[refine bf16]: malformed id table")
+    if rec < 0.95 or abs(rec16 - rec_f32_base) > 0.01:
+        raise SmokeFailure(f"[refine bf16]: recall@10 {rec} against the f32 "
+                           f"ground truth (under 0.95?), {rec16} against the "
+                           f"bf16 rows' (more than 0.01 from the f32 base's "
+                           f"{rec_f32_base}?)")
+    _refine_row(rows, "ivf_pq_bf16", launches, base_bf16, q0, cand, k)
+    del base_bf16
+    torch.cuda.empty_cache()
+    return {"qps": qps, "recall_at_10": rec, "recall_bf16_truth": rec16,
+            "bf16_exact_ceiling": ceiling, "recall_f32_base": rec_f32_base,
+            "launches": launches}
 
 
 def filter_main_leg(args, rows, index, base, queries, index_cpu, base_cpu,
@@ -2502,6 +2608,8 @@ def flat_phase(args, rows):
     bin_bytes = {p: ivf_common.n_segments(nq * p, index.n_lists, seg) * seg
                  * K.LUT_SCAN_BINS * 8 for p in (16, 32, 64, 128)}
     resil = flat_resilient_leg(index, queries, k)
+    del sk, si_, pair_seg, pair_slot
+    uint8 = flat_uint8_leg(args, rows, index, base, queries)
     data = {"base": base, "queries": queries, "gt": gt}
     return data, {"n": N, "dim": dim, "n_lists": 1024, "max_list_size": L,
             "dropped_rows": dropped, "build_s": build_s,
@@ -2511,7 +2619,210 @@ def flat_phase(args, rows):
             "recall_at_10": recall, "recall_plain_200": plain_rec,
             "bin_table_bytes": bin_bytes, "batch_stages_ms": stages_ms,
             "select_k_ms": sel_ms, "launches": launches,
-            "filter": filt_summary, "resilient": resil}
+            "filter": filt_summary, "resilient": resil, "uint8": uint8}
+
+
+def _index_bytes(index) -> int:
+    """Bytes of an IVF-Flat index's arrays on the card."""
+    return sum(t.numel() * t.element_size() for t in (
+        index.centers, index.packed_data, index.packed_ids,
+        index.packed_norms, index.list_sizes))
+
+
+def _scan_rows(rows, path, launches, seg_list, seg_q, q, packed, ids,
+               sizes, k, key_of, shape):
+    """B5 and B6 against their plain versions on one segment table over
+    ``packed`` lists (any row type the kernels take), checked by
+    ``_check_scan`` with ``key_of(si, sj, picks_b5, picks_b6)`` giving the
+    f64 keys of the picks; then their rows. The bound: the probed lists'
+    real rows at the lists' bytes a value (and a 4-byte id), the queries
+    and tables, the output; ⟨q, x⟩ as two TF32 products per (live pair,
+    real row) for 2- and 1-byte rows, three for f32."""
+    import torch
+
+    from raft_tpu_torch.ops import kernels as K
+
+    args_k = (seg_list, seg_q, q, packed, ids)
+    dim = q.shape[1]
+    live = seg_q >= 0
+    lists = torch.unique(seg_list[live.any(1)].long())
+    rows_real = int(sizes[lists].sum())
+    pair_rows = int((live.sum(1).long() * sizes[seg_list.long()]).sum())
+    products = 3.0 if packed.dtype == torch.float32 else 2.0
+    flops = products * 2.0 * dim * pair_rows
+    in_bytes = (rows_real * (dim * packed.element_size() + 4)
+                + q.numel() * 4 + seg_list.numel() * 4 + seg_q.numel() * 4)
+    shape = (f"{shape}{str(packed.dtype)[6:]} lists: n_seg "
+             f"{seg_list.numel()} x {seg_q.shape[1]} slots "
+             f"({int(live.sum())} live), L {packed.shape[1]}, "
+             f"{lists.numel()} lists of {rows_real} real rows, d {dim}")
+    sk, si_ = K.segmented_scan_topk(*args_k, "l2")
+    spk, spi = K.segmented_scan_topk_plain(*args_k, "l2")
+    err, agree = _check_scan(f"segmented_scan_topk ({path})", sk, si_, spk,
+                             spi, seg_q, q,
+                             lambda a, b, picks: key_of(a, b, picks, None))
+    del spk, spi
+    beside = dict(bound_bytes_ms=in_bytes / HBM_BYTES_PER_S * 1e3)
+    _row(rows, path, "segmented_scan_topk", "segmented_scan.cu", 397,
+         launches["segmented_scan_topk"], err,
+         _timed(lambda: K.segmented_scan_topk(*args_k, "l2"), 5),
+         _timed(lambda: K.segmented_scan_topk_plain(*args_k, "l2"), 1),
+         in_bytes + sk.numel() * 8, flops, None,
+         shape + f", id agreement {agree:.6f}", flop_rate=TF32_FLOP_PER_S,
+         logged=beside)
+    del sk, si_
+    gk, gp = K.grouped_scan_topk(*args_k, k, "l2")
+    pgk, pgp = K.grouped_scan_topk_plain(*args_k, k, "l2")
+    err, agree = _check_scan(f"grouped_scan_topk ({path})", gk, gp, pgk,
+                             pgp, seg_q, q,
+                             lambda a, b, picks: key_of(a, b, None, picks))
+    del pgk, pgp
+    _row(rows, path, "grouped_scan_topk", "grouped_scan.cu", 281,
+         launches["grouped_scan_topk"], err,
+         _timed(lambda: K.grouped_scan_topk(*args_k, k, "l2"), 5),
+         _timed(lambda: K.grouped_scan_topk_plain(*args_k, k, "l2"), 1),
+         in_bytes + gk.numel() * 8, flops, None,
+         shape + f", kk {k}, position agreement {agree:.6f}",
+         flop_rate=TF32_FLOP_PER_S, logged=beside)
+
+
+def flat_uint8_leg(args, rows, index_f32, base, queries):
+    """``[flat uint8]`` (ROADMAP A19): the IVF-Flat phase's 1M x 128 hard
+    set cast to uint8 by one affine map of its value range (uint8 is
+    SIFT's and BIGANN's own type), the queries through the same map, and
+    ``ivf_flat.n1024`` (bench.py:194-210: 1024 lists, spill, cap 1.5)
+    built on the bytes. Counts zeroed before the build and read after the
+    last search (fused_l2_argmin, select_k and both scans must launch).
+    Legs at batch 10,000: approx at n_probes 16/32/64/128 (the segmented
+    scan over uint8 lists), exact at 32 (the grouped scan), exact at 32
+    filtered at selectivity 0.1 (``bench_keep``), each with QPS and
+    recall@10 against exact ``brute_force.knn`` on the uint8 values as f32
+    (filtered: with the bitset); the f32 cell's rules: exact grouped
+    within 0.002 of per_query, approx recall not falling as n_probes
+    rises, no cleared id returned. Then B5 and B6 against their plain
+    versions on the n_probes 32 segment table (rows ``ivf_flat_uint8``),
+    and the index's bytes against the f32 index's. Raises SmokeFailure;
+    returns the summary."""
+    import torch
+
+    from raft_tpu_torch.core import bitset
+    from raft_tpu_torch.neighbors import brute_force, ivf_common, ivf_flat
+    from raft_tpu_torch.ops import kernels as K
+
+    t_leg = time.perf_counter()
+    N, dim = base.shape
+    nq, k, n_gt = queries.shape[0], 10, 1000
+    lo, hi = float(base.min()), float(base.max())
+    scale = 255.0 / (hi - lo)
+
+    def to_u8(x):
+        return ((x - lo) * scale).round().clamp(0, 255).to(torch.uint8)
+
+    base8 = to_u8(base)
+    q8 = to_u8(queries).float()
+    _, gt = brute_force.knn(base8.float(), q8[:n_gt], k, metric="sqeuclidean")
+    gt = gt.cpu()
+    K.reset_launch_counts()
+    stages = {}
+    t0 = time.perf_counter()
+    index = ivf_flat.build(base8, ivf_flat.IndexParams(
+        n_lists=1024, spill=True, list_size_cap_factor=1.5, seed=args.seed),
+        stage_seconds=stages)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if index.packed_data.dtype != torch.uint8:
+        raise SmokeFailure(f"[flat uint8]: lists kept as "
+                           f"{index.packed_data.dtype}")
+
+    def sp(n_probes, select, mode="grouped"):
+        return ivf_flat.SearchParams(n_probes=n_probes, scan_mode=mode,
+                                     scan_select=select)
+
+    def timed(params, q, fb=None):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ivf_flat.search(index, q, k, params, filter_bitset=fb)
+        end.record()
+        torch.cuda.synchronize()
+        return out[1].cpu(), start.elapsed_time(end) / 1e3
+
+    keep = bench_keep(N, 0.1, k)
+    bits = bitset.from_mask(keep, device=base.device)
+    _, fgt = brute_force.knn(base8.float(), q8[:n_gt], k,
+                             metric="sqeuclidean", filter_bitset=bits)
+    fgt = fgt.cpu()
+    legs = {}
+    for name, params, fb, truth in (
+            [(f"approx_{p}", sp(p, "approx"), None, gt)
+             for p in (16, 32, 64, 128)]
+            + [("exact_32", sp(32, "exact"), None, gt),
+               ("exact_32_filtered_0.1", sp(32, "exact"), bits, fgt)]):
+        secs = []
+        for _ in range(2):
+            ids, t = timed(params, q8, fb)
+            secs.append(t)
+        if ids.shape != (nq, k):
+            raise SmokeFailure(f"[flat uint8] {name}: malformed id table")
+        legs[name] = {"qps": [nq / t for t in secs],
+                      "recall_at_10": _recall(ids[:n_gt], truth)}
+        if fb is not None:
+            legs[name]["empty_slots"] = _check_kept(ids, keep,
+                                                    f"[flat uint8] {name}")
+        elif bool((ids < 0).any()):
+            raise SmokeFailure(f"[flat uint8] {name}: empty slots")
+    launches = K.launch_counts()
+    ids_pq, _ = timed(sp(32, "approx", "per_query"), q8[:n_gt])
+    rec_pq = _recall(ids_pq, gt)
+    for name, leg in legs.items():
+        _log(f"[flat uint8] {name}: QPS "
+             + ", ".join(f"{x:.0f}" for x in leg["qps"])
+             + f" (batch {nq}, CUDA events); recall@10 "
+             f"{leg['recall_at_10']:.4f}")
+    b8, b32 = _index_bytes(index), _index_bytes(index_f32)
+    _log(f"[flat uint8] build {build_s:.2f} s (" + ", ".join(
+        f"{s_} {v:.2f}s" for s_, v in stages.items())
+        + f"); L = {index.max_list_size}; dropped rows {N - index.size}; "
+        f"per_query n_probes 32 recall@10 {rec_pq:.4f}; index "
+        f"{b8 / 1e9:.3f} GB against the f32 index's {b32 / 1e9:.3f} GB; "
+        f"launches {json.dumps(launches)}")
+    missing = [n for n in FLAT_KERNELS if launches[n] == 0]
+    if missing:
+        raise SmokeFailure(f"[flat uint8]: kernels never launched: {missing}")
+    if abs(legs["exact_32"]["recall_at_10"] - rec_pq) > 0.002:
+        raise SmokeFailure(f"[flat uint8]: exact grouped recall "
+                           f"{legs['exact_32']['recall_at_10']} vs per_query "
+                           f"{rec_pq}")
+    curve = [legs[f"approx_{p}"]["recall_at_10"] for p in (16, 32, 64, 128)]
+    if any(b < a for a, b in zip(curve, curve[1:])):
+        raise SmokeFailure(f"[flat uint8]: approx recall falls as n_probes "
+                           f"rises: {curve}")
+
+    # B5 and B6 on the n_probes 32 segment table over the uint8 lists
+    n_probes, seg = 32, ivf_common.SEGMENT_SIZE
+    mt = ivf_flat.resolve_metric(index.metric)
+    probes = ivf_flat._probes(index, q8, n_probes, mt)
+    n_seg = ivf_common.n_segments(nq * n_probes, index.n_lists, seg)
+    seg_list, seg_q, _, _ = ivf_common.segment_probes(
+        probes, index.n_lists, seg, n_seg)
+    qrow = seg_q.clamp_min(0).long()
+    lst_of = seg_list.long()
+
+    def key_of(si, sj, picks5, picks6):
+        qv = q8[qrow[si, sj]].double()
+        x = (base8[picks5.long()] if picks5 is not None
+             else index.packed_data[lst_of[si], picks6.long()]).double()
+        return ((qv - x) ** 2).sum(1)
+
+    _scan_rows(rows, "ivf_flat_uint8", launches, seg_list, seg_q, q8,
+               index.packed_data, index.packed_ids, index.list_sizes.long(),
+               k, key_of, "")
+    del index, base8, q8
+    torch.cuda.empty_cache()
+    return {"build_s": build_s, "build_stages_s": stages, "legs": legs,
+            "recall_per_query_32": rec_pq, "index_bytes": b8,
+            "f32_index_bytes": b32, "affine": [lo, scale],
+            "launches": launches, "seconds": time.perf_counter() - t_leg}
 
 
 def flat_filter_leg(index, index_cpu, base, queries, k, nq, n_gt, n_pl):
@@ -3137,15 +3448,165 @@ def pq_recon_phase(args, rows, base, queries, gt):
     }
     _log(f"[pq stages] one refined approx batch of {nq} queries at n_probes "
          f"64, ms: {json.dumps(stages_ms)}")
+    dropped = N - index.size
+    del index, cand, sk, si_
+    torch.cuda.empty_cache()
+    per_cluster = pq_per_cluster_leg(args, base, queries, gt, params, recall)
     return {"n": N, "dim": dim, "n_lists": 1024, "pq_dim": 64,
-            "max_list_size": L, "dropped_rows": N - index.size,
+            "max_list_size": L, "dropped_rows": dropped,
             "recon_cache_gb": recon_gb, "build_s": build_s,
             "build_stages_s": stages, "twin_build_s": twin_s,
             "qps": {name: leg["qps"] for name, leg in legs.items()},
             "small_batch_ms": {bsz: lat for bsz, (_, lat) in small.items()},
             "recall_at_10": recall, "recall_kernel_200": rec_kern,
             "recall_plain_200": rec_plain, "batch_stages_ms": stages_ms,
-            "launches": launches, "filter": filt}
+            "launches": launches, "filter": filt, "per_cluster": per_cluster}
+
+
+def pq_per_cluster_leg(args, base, queries, gt, params, recall_subspace):
+    """``[pq per_cluster]`` (ROADMAP A9): the recon cell's config
+    (``ivf_pq.n1024.d64``, bench.py:211-243: 1024 lists, pq_dim 64, spill,
+    cap factor 1.5, refine_ratio 4) with ``codebook_kind="per_cluster"``
+    on the same 1M x 128 hard set, nothing cut. Counts zeroed before the
+    build and read after the last leg. Prints the build's seconds by stage
+    with ``_train_per_cluster`` timed on its own, refined approx search at
+    n_probes 64 and 128 (the segmented scan over the bf16 cache), the
+    refined exact leg at 64 (the grouped scan over it), and
+    ``scan_select="pallas"`` at 64, which the LUT-scan kernel declines
+    (``ivf_pq.scan.fallback{reason=per_cluster}`` must count, B1 must not
+    launch), each with QPS and recall@10 beside the per_subspace index's
+    (``recall_subspace``). Checks: the per_subspace cell's rules (the
+    exact leg within 0.01 of approx at 64, approx not falling from 64 to
+    128), both scans launched, and 100 queries searched unrefined (approx,
+    n_probes 64) on the card equal to the same index on the CPU but at
+    ties of their f64 distances to the cache rows
+    (``bench.dataset.tie_swaps``). Raises SmokeFailure; returns the
+    summary."""
+    import warnings
+
+    import torch
+
+    from raft_tpu_torch.bench.dataset import tie_swaps
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.obs import spans
+    from raft_tpu_torch.ops import kernels as K
+
+    N, dim = base.shape
+    nq, k, n_gt = queries.shape[0], 10, gt.shape[0]
+    t_leg = time.perf_counter()
+    train_s = []
+    trainer = ivf_pq._train_per_cluster
+
+    def timed_trainer(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer(*a, **kw)
+        torch.cuda.synchronize()
+        train_s.append(time.perf_counter() - t0)
+        return out
+
+    spans.reset()
+    K.reset_launch_counts()
+    stages = {}
+    ivf_pq._train_per_cluster = timed_trainer
+    try:
+        t0 = time.perf_counter()
+        index = ivf_pq.build(base, ivf_pq.IndexParams(
+            **params, codebook_kind="per_cluster"), stage_seconds=stages)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    finally:
+        ivf_pq._train_per_cluster = trainer
+    if index.packed_recon is None or tuple(index.codebooks.shape) != (
+            params["n_lists"], 256, dim // params["pq_dim"]):
+        raise SmokeFailure(f"[pq per_cluster]: codebooks "
+                           f"{list(index.codebooks.shape)}, recon cache "
+                           f"{index.packed_recon is not None}")
+    _log(f"[pq per_cluster] build {build_s:.2f} s (" + ", ".join(
+        f"{s_} {v:.2f}s" for s_, v in stages.items())
+        + f"; _train_per_cluster {train_s[0]:.2f}s of train); L = "
+        f"{index.max_list_size}; dropped rows {N - index.size}; codebooks "
+        f"{list(index.codebooks.shape)}")
+
+    def sp(n_probes, select, refine="f32_regen"):
+        return ivf_pq.SearchParams(n_probes=n_probes, scan_select=select,
+                                   refine=refine, refine_ratio=4)
+
+    legs = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)   # the pallas leg's
+        for name, n_probes, select in (("approx_64", 64, "approx"),
+                                       ("approx_128", 128, "approx"),
+                                       ("exact_64", 64, "exact"),
+                                       ("pallas_64", 64, "pallas")):
+            secs = []
+            for _ in range(2):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                _, ids = ivf_pq.search(index, queries, k, sp(n_probes, select),
+                                       dataset=base)
+                end.record()
+                torch.cuda.synchronize()
+                secs.append(start.elapsed_time(end) / 1e3)
+            ids = ids.cpu()
+            if ids.shape != (nq, k) or bool((ids < 0).any()):
+                raise SmokeFailure(f"[pq per_cluster] {name}: malformed ids")
+            legs[name] = {"qps": [nq / t for t in secs],
+                          "recall_at_10": _recall(ids[:n_gt], gt)}
+    launches = K.launch_counts()
+    fallback = spans.total("ivf_pq.scan.fallback", reason="per_cluster")
+    for name, leg in legs.items():
+        _log(f"[pq per_cluster] {name}: QPS "
+             + ", ".join(f"{x:.0f}" for x in leg["qps"])
+             + f" (batch {nq}, refine_ratio 4, CUDA events); recall@10 "
+             f"{leg['recall_at_10']:.4f} (per_subspace "
+             f"{recall_subspace.get(name, float('nan')):.4f})")
+    _log(f"[pq per_cluster] launches {json.dumps(launches)}; "
+         f"ivf_pq.scan.fallback{{reason=per_cluster}} {fallback}")
+    if launches["ivfpq_lut_scan_topk"] or fallback < 1:
+        raise SmokeFailure(f"[pq per_cluster]: the LUT-scan kernel was not "
+                           f"declined (launches {launches}, fallback "
+                           f"{fallback})")
+    if not (launches["segmented_scan_topk"] and launches["grouped_scan_topk"]):
+        raise SmokeFailure(f"[pq per_cluster]: the scans over the cache did "
+                           f"not both launch: {launches}")
+    r = {name: leg["recall_at_10"] for name, leg in legs.items()}
+    if r["approx_128"] < r["approx_64"]:
+        raise SmokeFailure(f"[pq per_cluster]: approx recall falls from 64 "
+                           f"to 128: {r}")
+    if abs(r["exact_64"] - r["approx_64"]) > 0.01:
+        raise SmokeFailure(f"[pq per_cluster]: exact recall not within 0.01 "
+                           f"of approx at 64: {r}")
+
+    # 100 queries on the card against the same index on the CPU
+    t0 = time.perf_counter()
+    n_cmp = 100
+    q_cmp = queries[:n_cmp]
+    index_cpu = ivf_pq.from_numpy(*ivf_pq.to_numpy(index), device="cpu")
+    sp_cmp = sp(64, "approx", "none")
+    d_c, i_c = ivf_pq.search(index, q_cmp, k, sp_cmp)
+    d_p, i_p = ivf_pq.search(index_cpu, q_cmp.cpu(), k, sp_cmp, device="cpu")
+    # the f64 distances are to the cache rows, in the rotated space
+    rot = index.rot_dim
+    valid = index.packed_ids.view(-1) >= 0
+    by_id = torch.zeros((N, rot), device=base.device)
+    by_id[index.packed_ids.view(-1)[valid].long()] = \
+        index.packed_recon.view(-1, rot)[valid].float()
+    try:
+        swaps = tie_swaps(q_cmp @ index.rotation.T, by_id, i_c, d_c, i_p, d_p)
+    except ValueError as e:
+        raise SmokeFailure(f"[pq per_cluster] card vs CPU: {e}") from e
+    _log(f"[pq per_cluster] {n_cmp} queries (approx, n_probes 64, "
+         f"unrefined): the card's ids = the CPU's but at f64 ties ({swaps} "
+         f"swapped slots; {time.perf_counter() - t0:.1f} s)")
+    del index, index_cpu, by_id
+    torch.cuda.empty_cache()
+    return {"build_s": build_s, "build_stages_s": stages,
+            "train_per_cluster_s": train_s[0], "legs": legs,
+            "recall_per_subspace": {n: recall_subspace.get(n) for n in legs},
+            "launches": launches, "fallback_per_cluster": fallback,
+            "card_cpu_swaps": swaps, "seconds": time.perf_counter() - t_leg}
 
 
 def _ring_topk_row(rows, path, launches, vals, gids, k, shape):
@@ -4345,6 +4806,8 @@ def cagra_leg(args, rows):
 
     # the nn_descent build algorithm on the same rows
     nnd = cagra_nn_descent_leg(args, base, queries, gt, params, sp)
+    # IVF-Flat's chunked pack on the same rows
+    gist = gist_flat_leg(args, rows, base, queries, gt)
 
     # the ivf_pq build algorithm at GIST's width on CAGRA_PQ_N rows
     t0 = time.perf_counter()
@@ -4402,13 +4865,173 @@ def cagra_leg(args, rows):
            "latency10_ms_int8": lat8, "recall_int8": rec8,
            "qps_filtered": [m / s for s in secs_f],
            "latency10_ms_filtered": lat_f, "recall_filtered": rec_f,
-           "card_cpu_swaps": swaps, "nn_descent": nnd, "ivf_pq": {
+           "card_cpu_swaps": swaps, "nn_descent": nnd, "gist_flat": gist,
+           "ivf_pq": {
                "n": CAGRA_PQ_N, "build_s": build_pq_s,
                "stages_s": stages_pq, "edge_recall": edge_pq,
                "recall": rec_pq, "tiers": tiers, "sub_leg_s": pq_s},
            "seconds": time.perf_counter() - t_leg}
     _log(f"[cagra] leg in {out['seconds']:.1f} s")
     return out
+
+
+def gist_flat_leg(args, rows, base, queries, gt):
+    """``[gist flat]`` (ROADMAP A10): ``gist.ivf_flat.n1024`` (bench.py:
+    264-272: 1024 lists, spill, cap factor 1.25) on the ``[cagra]`` leg's
+    1M x 960 rows. Its pack, (n + n_lists·L)·d·4 bytes, passes
+    ``ivf_flat.PACK_CHUNKED_BYTES`` (8 GiB), so the build must take
+    ``ivf_common.pack_rows_chunked`` (its dispatch counter must count one;
+    the call is wrapped here to keep its labels and time its peak).
+    Checks: the one-shot ``pack_lists`` of the same labels on the card
+    equal to the build's chunked pack bit for bit (rows, ids, sizes, drop
+    count), every row in the lists once or dropped (by the pack or as a
+    spill marker), and both scans launched. Prints each pack's peak above
+    what was allocated before it, QPS and recall@10 of approx search at
+    n_probes 32 and 64 and exact at 32 (the queries of ``[cagra]``, batch
+    1,000), and B5 and B6 against their plain versions at d 960 (rows
+    ``gist_flat``). Raises SmokeFailure; returns the summary."""
+    import torch
+
+    from raft_tpu_torch.core import ids as ids_
+    from raft_tpu_torch.neighbors import ivf_common, ivf_flat
+    from raft_tpu_torch.obs import spans
+    from raft_tpu_torch.ops import kernels as K
+
+    t_leg = time.perf_counter()
+    N, dim = base.shape
+    nq, k = queries.shape[0], 10
+    n_lists = 1024
+    packer = ivf_common.pack_rows_chunked
+    seen = {}
+
+    def watched(x, labels, n_lists_, L, chunk_rows=1 << 17):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = packer(x, labels, n_lists_, L, chunk_rows=chunk_rows)
+        torch.cuda.synchronize()
+        seen.update(labels=labels.clone(), L=L, chunk_rows=chunk_rows,
+                    s=time.perf_counter() - t0,
+                    peak=torch.cuda.max_memory_allocated() - before)
+        return out
+
+    spans.reset()
+    K.reset_launch_counts()
+    stages = {}
+    ivf_common.pack_rows_chunked = watched
+    try:
+        t0 = time.perf_counter()
+        index = ivf_flat.build(base, ivf_flat.IndexParams(
+            n_lists=n_lists, spill=True, list_size_cap_factor=1.25,
+            seed=args.seed), stage_seconds=stages)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    finally:
+        ivf_common.pack_rows_chunked = packer
+    L = index.max_list_size
+    pack_bytes = (N + n_lists * L) * dim * 4
+    chunked = spans.total("ivf_flat.pack.dispatch", impl="pack_rows_chunked")
+    if chunked != 1 or "labels" not in seen:
+        raise SmokeFailure(f"[gist flat]: the pack of {pack_bytes} bytes did "
+                           f"not take pack_rows_chunked (counter {chunked})")
+    labels = seen.pop("labels")
+    n_marker = int((labels >= n_lists).sum())
+    # the one-shot pack of the same labels, its peak above what it found
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (one,), one_ids, one_sizes, one_drop, _ = ivf_common.pack_lists(
+        [base], labels, ids_.make_ids(N, device=base.device),
+        n_lists=n_lists, L=L, fill_values=[0])
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one_peak = torch.cuda.max_memory_allocated() - before
+    n_drop = N - index.size - n_marker
+    same = (torch.equal(one, index.packed_data)
+            and torch.equal(one_ids, index.packed_ids)
+            and torch.equal(one_sizes, index.list_sizes)
+            and one_drop == n_drop)
+    del one, one_ids, one_sizes
+    torch.cuda.empty_cache()
+    got = index.packed_ids[index.packed_ids >= 0]
+    once = int(torch.unique(got).numel()) == got.numel() == index.size
+    _log(f"[gist flat] gist.ivf_flat.n1024 on {N} x {dim}: build "
+         f"{build_s:.2f} s (" + ", ".join(
+             f"{s_} {v:.2f}s" for s_, v in stages.items())
+         + f"); L = {L}; pack {pack_bytes / 1e9:.2f} GB > 8 GiB: "
+         f"pack_rows_chunked ({seen['chunk_rows']}-row chunks) "
+         f"{seen['s']:.2f} s, peak +{seen['peak'] / 1e9:.2f} GB; one-shot "
+         f"pack_lists {one_s:.2f} s, peak +{one_peak / 1e9:.2f} GB; equal bit "
+         f"for bit: {same}; rows dropped by the pack {n_drop}, spill markers "
+         f"{n_marker}, every other row once: {once}")
+    if not same:
+        raise SmokeFailure("[gist flat]: the chunked pack differs from the "
+                           "one-shot pack_lists")
+    if not once:
+        raise SmokeFailure("[gist flat]: a row is in the lists twice, or a "
+                           "row is missing uncounted")
+
+    def timed(params):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ivf_flat.search(index, queries, k, params)
+        end.record()
+        torch.cuda.synchronize()
+        return out[1].cpu(), start.elapsed_time(end) / 1e3
+
+    legs = {}
+    for name, n_probes, select in (("approx_32", 32, "approx"),
+                                   ("approx_64", 64, "approx"),
+                                   ("exact_32", 32, "exact")):
+        secs = []
+        for _ in range(3):
+            ids, t = timed(ivf_flat.SearchParams(
+                n_probes=n_probes, scan_mode="grouped", scan_select=select))
+            secs.append(t)
+        legs[name] = {"qps": [nq / t for t in secs],
+                      "recall_at_10": _recall(ids, gt)}
+        _log(f"[gist flat] {name}: QPS " + ", ".join(
+            f"{nq / t:.0f}" for t in secs) + f" (batch {nq}, CUDA events); "
+            f"recall@10 {legs[name]['recall_at_10']:.4f}")
+    launches = K.launch_counts()
+    tier = ("the segmented scan (B5)" if launches["segmented_scan_topk"]
+            else "the plain grouped tier")
+    _log(f"[gist flat] approx at d {dim} ran {tier}; launches "
+         f"{json.dumps(launches)}")
+    missing = [n for n in FLAT_KERNELS if launches[n] == 0]
+    if missing:
+        raise SmokeFailure(f"[gist flat]: kernels never launched: {missing}")
+
+    # B5 and B6 at d 960 on the n_probes 32 segment table
+    mt = ivf_flat.resolve_metric(index.metric)
+    seg = ivf_common.SEGMENT_SIZE
+    probes = ivf_flat._probes(index, queries, 32, mt)
+    n_seg = ivf_common.n_segments(nq * 32, n_lists, seg)
+    seg_list, seg_q, _, _ = ivf_common.segment_probes(probes, n_lists, seg,
+                                                      n_seg)
+    qrow = seg_q.clamp_min(0).long()
+    lst_of = seg_list.long()
+
+    def key_of(si, sj, picks5, picks6):
+        qv = queries[qrow[si, sj]].double()
+        x = (base[picks5.long()] if picks5 is not None
+             else index.packed_data[lst_of[si], picks6.long()]).double()
+        return ((qv - x) ** 2).sum(1)
+
+    _scan_rows(rows, "gist_flat", launches, seg_list, seg_q, queries,
+               index.packed_data, index.packed_ids, index.list_sizes.long(),
+               k, key_of, "")
+    del index, labels
+    torch.cuda.empty_cache()
+    return {"build_s": build_s, "build_stages_s": stages, "L": L,
+            "pack_bytes": pack_bytes, "chunked_pack_s": seen["s"],
+            "chunked_pack_peak": seen["peak"], "one_shot_pack_s": one_s,
+            "one_shot_pack_peak": one_peak, "dropped": n_drop,
+            "spill_markers": n_marker, "legs": legs, "tier": tier,
+            "launches": launches, "seconds": time.perf_counter() - t_leg}
 
 
 def cagra_nn_descent_leg(args, base, queries, gt, params, sp):
@@ -5138,6 +5761,8 @@ def main(argv=None) -> int:
         _, cand = ivf_pq.search(index, q0, 400, sp_scan)
         cand = cand.contiguous()
         _refine_row(rows, "ivf_pq", launches, base, q0, cand, k)
+        bf16_summary = refine_bf16_leg(args, rows, index, base, queries, sp,
+                                       B, k, gt, rec_bf16, q0, cand)
     except SmokeFailure as e:
         return _fail(str(e))
     kk, ki, probes = scan["kk"], scan["ki"], scan["probes"]
@@ -5208,7 +5833,8 @@ def main(argv=None) -> int:
                "build_stages_s": stages, "qps_runs": qps_runs,
                "recall_at_10_bf16": rec_bf16, "recall_at_10_f32": rec_f32,
                "recall_kernel_200": rec_kern, "recall_plain_200": rec_plain,
-               "batch_stages_ms": stages_ms, "filter": filt_summary,
+               "batch_stages_ms": stages_ms, "refine_bf16": bf16_summary,
+               "filter": filt_summary,
                "tiered": tiered_summary, "resilient": resilient_summary,
                "obs": obs_summary, "serve": serve_summary}
     _log(f"[summary] {json.dumps(summary)}")

@@ -191,6 +191,46 @@ def fit_seg_chunk(seg: int, L: int, d: int, want: int) -> int:
     return max(1, min(want, CHUNK_BYTES_TARGET // max(1, per_seg)))
 
 
+def pack_rows_chunked(x: torch.Tensor, labels: torch.Tensor, n_lists: int,
+                      L: int, chunk_rows: int = 1 << 17):
+    """Row-chunked packing of ``x [n, d]`` into ``[n_lists, L, d]`` for
+    wide datasets (``raft_tpu.neighbors.ivf_common.pack_rows_chunked``):
+    one stable sort gives every row its flat destination ``list·L +
+    rank`` (or none: a label outside [0, n_lists) or a rank ≥ L), then
+    chunks of ``chunk_rows`` rows are gathered and scattered into one
+    preallocated output, so the peak is the input, the output and one
+    chunk, where :func:`pack_lists`' one-shot gather holds a second copy
+    of the rows. Equal to :func:`pack_lists` bit for bit (rows, ids — the
+    row numbers as int32 —, sizes and the drop count).
+
+    Returns (packed [n_lists, L, d], ids [n_lists, L] (−1 pad), sizes
+    [n_lists] i32, n_dropped)."""
+    n, d = x.shape
+    dev = x.device
+    lab = labels.long()
+    sorted_l, order = torch.sort(lab, stable=True)
+    starts = torch.searchsorted(sorted_l, torch.arange(n_lists, device=dev))
+    rank = torch.arange(n, device=dev) - starts[sorted_l.clamp(0, n_lists - 1)]
+    valid = (sorted_l >= 0) & (sorted_l < n_lists) & (rank < L)
+    dest = torch.where(valid, sorted_l * L + rank,
+                       torch.full_like(rank, n_lists * L))
+    del sorted_l, rank, starts, valid
+    in_range = (lab >= 0) & (lab < n_lists)
+    counts = torch.bincount(lab[in_range], minlength=n_lists)
+    sizes = counts.clamp(max=L)
+    out = torch.zeros((n_lists * L, d), dtype=x.dtype, device=dev)
+    ids = torch.full((n_lists * L,), -1, dtype=torch.int32, device=dev)
+    for a in range(0, n, chunk_rows):
+        dst, rows = dest[a:a + chunk_rows], order[a:a + chunk_rows]
+        keep = dst < n_lists * L
+        dst, rows = dst[keep], rows[keep]
+        out[dst] = x[rows]
+        ids[dst] = rows.to(torch.int32)
+    n_dropped = int((counts - sizes).sum())
+    return (out.view(n_lists, L, d), ids.view(n_lists, L),
+            sizes.to(torch.int32), n_dropped)
+
+
 def choose_list_chunk(n_lists: int, target: int) -> int:
     """Largest divisor of ``n_lists`` that is ≤ target (a chunked pass over
     [n_lists, …] reshapes it to [n_chunks, chunk, …])."""

@@ -21,15 +21,20 @@ The index is one dense ``[n_lists, L, dim]`` block of list rows (+ ids,
 - ``search_resilient``, the search behind the degradation ladder
   (``robust.degrade``);
 - ``extend``, ``save`` and ``load`` (the JAX package's file format);
-- ``from_numpy``/``to_numpy``, which carry an index between the packages.
+- ``from_numpy``/``to_numpy``, which carry an index between the packages;
+- list data in the dataset's own dtype: f32, bf16, int8 or uint8 (k-means
+  trains and assigns on the f32 cast, the norms are those of the cast,
+  queries are f32); the scan kernels read 1-byte lists as they are stored
+  and widen them in registers;
+- the chunked pack (``ivf_common.pack_rows_chunked``) of datasets whose
+  rows and padded lists pass ``PACK_CHUNKED_BYTES``.
 
 The JAX package takes the kernel tiers only on a TPU and only when a list
 block fits its VMEM budget. The CUDA kernels tile the list and feature
 axes, so no list size is too large for them: on the card the segmented
 scan runs whenever ``scan_select="approx"`` and kk ≤ 128, the grouped scan
 whenever ``scan_select="exact"`` and kk ≤ 64. The same tiers run on the
-CPU, each wrapper with its plain version. What is not ported raises
-``NotImplementedError`` naming its ROADMAP item.
+CPU, each wrapper with its plain version.
 
 Filtered search (``filter_bitset``, ``neighbors.sample_filter``): the
 per_query tier tests the bitset, the grouped scan and the plain grouped
@@ -53,7 +58,7 @@ from raft_tpu_torch.core import bitset as _bitset
 from raft_tpu_torch.core import ids as _ids
 from raft_tpu_torch.core import serialize as _ser
 from raft_tpu_torch.core.device import resolve_device, to_device
-from raft_tpu_torch.core.errors import expects, not_ported as _not_ported
+from raft_tpu_torch.core.errors import expects
 from raft_tpu_torch.core.tracing import traced
 from raft_tpu_torch.distance.types import DistanceType, resolve_metric
 from raft_tpu_torch.matrix.select_k import select_k_impl as _select_k
@@ -61,6 +66,7 @@ from raft_tpu_torch.neighbors import ivf_common as ic
 from raft_tpu_torch.neighbors import sample_filter as _sf
 from raft_tpu_torch.neighbors.ivf_common import _fit_list_size, _lane_round
 from raft_tpu_torch.obs import index_stats as _istats
+from raft_tpu_torch.obs import spans as _obs_spans
 from raft_tpu_torch.ops import kernels as _k
 from raft_tpu_torch.robust import degrade as _degrade
 from raft_tpu_torch.robust import faults as _faults
@@ -109,7 +115,7 @@ class IvfFlatIndex:
     one device."""
 
     centers: torch.Tensor       # [n_lists, dim] f32
-    packed_data: torch.Tensor   # [n_lists, L, dim] f32 or bf16
+    packed_data: torch.Tensor   # [n_lists, L, dim] f32, bf16, int8, uint8
     packed_ids: torch.Tensor    # [n_lists, L] i32, -1 pad
     packed_norms: torch.Tensor  # [n_lists, L] f32 squared norms
     list_sizes: torch.Tensor    # [n_lists] i32
@@ -140,10 +146,13 @@ _ARRAY_FIELDS = ("centers", "packed_data", "packed_ids", "packed_norms",
                  "list_sizes")
 
 
-def _check_data_dtype(dtype) -> None:
-    """numpy or torch dtype (or None) of the list data."""
-    if str(dtype).rsplit(".", 1)[-1] in ("int8", "uint8"):
-        raise _not_ported("int8/uint8 IVF-Flat data (the dp4a path)", "A19")
+# The list data types an index keeps as they are; other data is cast to f32.
+_DATA_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.uint8)
+
+# The one-shot pack's bound: past this many bytes of rows plus padded lists
+# the build packs in row chunks (``ivf_common.pack_rows_chunked``), the
+# JAX package's threshold (``raft_tpu/neighbors/ivf_flat.py:272``).
+PACK_CHUNKED_BYTES = 8 << 30
 
 
 def from_numpy(arrays: Dict[str, np.ndarray], meta: Dict, device="cuda"
@@ -151,7 +160,6 @@ def from_numpy(arrays: Dict[str, np.ndarray], meta: Dict, device="cuda"
     """Index from the JAX index's fields as numpy arrays (``arrays``) and
     its static field (``meta["metric"]``)."""
     dev = resolve_device(device)
-    _check_data_dtype(np.asarray(arrays["packed_data"]).dtype)
     t = {name: to_device(np.asarray(arrays[name]), dev)
          for name in _ARRAY_FIELDS}
     expects(t["packed_ids"].dtype == torch.int32,
@@ -176,6 +184,13 @@ def _normalize_rows(x: torch.Tensor) -> torch.Tensor:
     return x / torch.sqrt((x * x).sum(-1, keepdim=True).clamp_min(1e-12))
 
 
+def _row_norms(packed: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+    """Σ x² of the f32 cast of every packed row, [n_lists, L], in chunks of
+    lists: the cast of a whole wide index would double its size."""
+    return torch.cat([(packed[a:a + chunk].float() ** 2).sum(-1)
+                      for a in range(0, packed.shape[0], chunk)])
+
+
 # ---------------------------------------------------------------------------
 # build
 # ---------------------------------------------------------------------------
@@ -185,16 +200,19 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
           stage_seconds: Optional[Dict[str, float]] = None) -> IvfFlatIndex:
     """Build the index on ``device`` (reference: ivf_flat::build):
     balanced-kmeans coarse fit on a trainset subsample, assign every row,
-    pack padded lists. ``stage_seconds``, when given, receives the seconds
-    of each stage (train, assign, pack)."""
+    pack padded lists. f32, bf16, int8 and uint8 data is packed in its own
+    dtype (k-means sees the f32 cast); other dtypes are cast to f32. Past
+    ``PACK_CHUNKED_BYTES`` of rows and padded lists the pack goes in row
+    chunks (``ivf_flat.pack.dispatch{impl=pack_rows_chunked}``, else
+    ``impl=pack_lists``). ``stage_seconds``, when given, receives the
+    seconds of each stage (train, assign, pack)."""
     if params is None:
         params = IndexParams()
     dev = resolve_device(device)
     _precision.enforce()
     mt = resolve_metric(params.metric)
-    _check_data_dtype(getattr(dataset, "dtype", None))
     x = to_device(dataset, dev)
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if x.dtype not in _DATA_DTYPES:
         x = x.float()
     n, d = x.shape
     expects(params.n_lists <= n, "n_lists=%d > n=%d", params.n_lists, n)
@@ -233,7 +251,8 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
 
     with stage("assign"):
         if params.spill:
-            lk = kmeans_balanced.predict_topk(centers, x, ic.SPILL_DEPTH, km)
+            lk = kmeans_balanced.predict_topk(centers, x.float(),
+                                              ic.SPILL_DEPTH, km)
             L = _lane_round(int(avg * params.list_size_cap_factor))
             labels = ic.spill_assignments(
                 lk[:, 0], lk[:, 1], params.n_lists, L,
@@ -245,18 +264,24 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
                               "list_size_cap_factor)", RuntimeWarning,
                               stacklevel=3)
         else:
-            labels = kmeans_balanced.predict(centers, x, km)
+            labels = kmeans_balanced.predict(centers, x.float(), km)
             counts = torch.bincount(labels.long(),
                                     minlength=params.n_lists).cpu().numpy()
             L = _fit_list_size(counts, avg, params.list_size_cap_factor)
-    if (n + params.n_lists * L) * d * x.element_size() > (8 << 30):
-        raise _not_ported("the chunked pack of wide datasets "
-                          "(pack_rows_chunked, above 8 GB)", "A10")
     with stage("pack"):
-        (packed,), ids, sizes, n_drop, _ = ic.pack_lists(
-            [x], labels, _ids.make_ids(n, device=dev), n_lists=params.n_lists,
-            L=L, fill_values=[0])
-        norms = (packed.float() ** 2).sum(-1)
+        if (n + params.n_lists * L) * d * x.element_size() \
+                > PACK_CHUNKED_BYTES:
+            # wide datasets: the one-shot pack's gather copy of every row
+            # would sit beside the input and the padded output
+            _obs_spans.count_dispatch("ivf_flat.pack", "pack_rows_chunked")
+            packed, ids, sizes, n_drop = ic.pack_rows_chunked(
+                x, labels, params.n_lists, L, chunk_rows=1 << 16)
+        else:
+            _obs_spans.count_dispatch("ivf_flat.pack", "pack_lists")
+            (packed,), ids, sizes, n_drop, _ = ic.pack_lists(
+                [x], labels, _ids.make_ids(n, device=dev),
+                n_lists=params.n_lists, L=L, fill_values=[0])
+        norms = _row_norms(packed)
     if n_drop:
         warnings.warn(f"ivf_flat: dropped {n_drop} overflow vectors (raise "
                       "list_size_cap_factor"
@@ -324,8 +349,7 @@ def extend(index: IvfFlatIndex, new_vectors, new_ids=None) -> IvfFlatIndex:
     packed[ls, sl] = x[rows].to(packed.dtype)
     ids[ls, sl] = nid[rows].to(id_dt)
     out = IvfFlatIndex(centers=index.centers, packed_data=packed,
-                       packed_ids=ids,
-                       packed_norms=(packed.float() ** 2).sum(-1),
+                       packed_ids=ids, packed_norms=_row_norms(packed),
                        list_sizes=need.clamp(max=new_L).to(torch.int32),
                        metric=index.metric)
     _istats.note_index_stats(out, name="ivf_flat.extend", cheap=True)
@@ -350,7 +374,6 @@ def load(path: str, device="cuda") -> IvfFlatIndex:
     version, meta, arrays = _ser.load_arrays(path, "ivf_flat")
     expects(version == _SERIAL_VERSION, "unsupported ivf_flat version %d",
             version)
-    _check_data_dtype(arrays["packed_data"].dtype)
     t = {name: _ser.to_tensor(arrays[name], dev) for name in _ARRAY_FIELDS}
     return IvfFlatIndex(**t, metric=str(meta["metric"]))
 

@@ -7,7 +7,9 @@ with ‖c + d‖² precomputed per candidate at build and ⟨q, d⟩ = Σ_s
 LUT[s, code_s] from a query-only look-up table.
 
 Ported: ``build`` with balanced k-means coarse centers, a random
-rotation, per_subspace codebooks, bit-packed 4–8-bit codes, ``spill``,
+rotation, per_subspace or per_cluster codebooks (one codebook a list,
+``[n_lists, 2^bits, pq_len]``, trained over the list's residual
+sub-vectors of every subspace), bit-packed 4–8-bit codes, ``spill``,
 ``add_data_on_build=False`` and the bf16 reconstruction cache
 (``packed_recon``: c + decoded residual of every slot); ``extend``,
 ``save`` and ``load``; ``search`` through the per_query tier (the plain
@@ -23,11 +25,18 @@ degradation ladder (``robust.degrade``). Every tier takes a
 ``filter_bitset``
 (``neighbors.sample_filter``): the LUT scan reads per-list keep bytes
 beside the codes, the grouped tiers scan a sentinel-masked id table, the
-per_query tier and the re-rank test the bitset itself. What is not ported
-(per_cluster codebooks) raises ``NotImplementedError``
-naming its ROADMAP item — it never substitutes another tier.
+per_query tier and the re-rank test the bitset itself.
 ``build_chunked`` builds from a host array, a memmap or a device-chunk
 provider in O(chunk) card memory, with resumable checkpoints.
+
+per_cluster indexes search as in the JAX package: the per_query tier
+builds a look-up table a (query, probed list); the LUT-scan kernel
+decodes per_subspace codebooks only, so it declines them
+(``ivf_pq.scan.fallback{reason=per_cluster}``; an explicit
+``scan_select="pallas"`` warns and takes "approx"), and their grouped
+searches scan the recon cache with the segmented or grouped scan, or
+decode each probed list against its own codebook. ``search_staged`` and
+the sharded builds refuse them, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ from raft_tpu_torch.core import ids as _ids
 from raft_tpu_torch.core import logging as _log
 from raft_tpu_torch.core import serialize as _ser
 from raft_tpu_torch.core.device import resolve_device, to_device
-from raft_tpu_torch.core.errors import expects, not_ported as _not_ported
+from raft_tpu_torch.core.errors import expects
 from raft_tpu_torch.core.interruptible import cancellation_point
 from raft_tpu_torch.core.tracing import span, traced
 from raft_tpu_torch.distance.types import DistanceType, resolve_metric
@@ -59,6 +68,7 @@ from raft_tpu_torch.obs import hbm as _hbm
 from raft_tpu_torch.obs import index_stats as _istats
 from raft_tpu_torch.obs import spans as _obs_spans
 from raft_tpu_torch.ops import kernels as _k
+from raft_tpu_torch.random import threefry as _threefry
 from raft_tpu_torch.random.rng import RngState
 from raft_tpu_torch.robust import degrade as _degrade
 from raft_tpu_torch.robust import faults as _faults
@@ -77,7 +87,7 @@ class IndexParams:
     pq_bits: int = 8          # 4..8
     kmeans_n_iters: int = 20
     kmeans_trainset_fraction: float = 0.5
-    codebook_kind: str = "per_subspace"  # "per_cluster" not ported (A9)
+    codebook_kind: str = "per_subspace"  # | "per_cluster"
     add_data_on_build: bool = True
     list_size_cap_factor: float = 4.0
     spill: bool = False
@@ -153,7 +163,7 @@ class IvfPqIndex:
     centers: torch.Tensor        # [n_lists, dim] f32
     centers_rot: torch.Tensor    # [n_lists, rot_dim] f32
     rotation: torch.Tensor       # [rot_dim, dim] f32
-    codebooks: torch.Tensor      # [pq_dim, 2^bits, pq_len] f32
+    codebooks: torch.Tensor      # [pq_dim | n_lists, 2^bits, pq_len] f32
     packed_codes: torch.Tensor   # [n_lists, L, nb] u8 (never lane-folded)
     packed_ids: torch.Tensor     # [n_lists, L] i32, -1 pad
     packed_norms: torch.Tensor   # [n_lists, L] f32: ‖c + decoded‖²
@@ -222,21 +232,21 @@ def from_numpy(arrays: Dict[str, np.ndarray], meta: Dict, device="cuda"
                ) -> IvfPqIndex:
     """Index from the JAX index's fields as numpy arrays (``arrays``) and
     its static fields (``meta``: metric, pq_bits, pq_dim, codebook_kind,
-    has_recon). The bf16 cache never crosses as an array (numpy has no
-    bf16): ``has_recon`` rebuilds it here, as the JAX package's ``load``
-    does."""
+    has_recon; per_cluster codebooks are ``[n_lists, K, pq_len]``). The
+    bf16 cache never crosses as an array (numpy has no bf16):
+    ``has_recon`` rebuilds it here, as the JAX package's ``load`` does."""
     dev = resolve_device(device)
-    if meta.get("codebook_kind", "per_subspace") != "per_subspace":
-        raise _not_ported("per_cluster codebooks", "A9")
+    kind = meta.get("codebook_kind", "per_subspace")
+    expects(kind in ("per_subspace", "per_cluster"),
+            "codebook_kind must be per_subspace or per_cluster")
     pq_dim = int(meta.get("pq_dim", 0))
     pq_bits = int(meta.get("pq_bits", 8))
     arrays = {name: np.asarray(arrays[name]) for name in _ARRAY_FIELDS}
     arrays["packed_codes"] = _unfold_codes(
         arrays["packed_codes"], arrays["packed_ids"].shape[1], pq_dim, pq_bits)
     t = {name: to_device(arrays[name], dev) for name in _ARRAY_FIELDS}
-    index = IvfPqIndex(**t, metric=str(meta["metric"]),
-                       codebook_kind="per_subspace", pq_bits=pq_bits,
-                       pq_dim_static=pq_dim)
+    index = IvfPqIndex(**t, metric=str(meta["metric"]), codebook_kind=kind,
+                       pq_bits=pq_bits, pq_dim_static=pq_dim)
     if meta.get("has_recon"):
         index.packed_recon = _build_recon_cache(index)
     return index
@@ -343,14 +353,97 @@ def _vmapped_lloyd(data: torch.Tensor, k: int, n_iters: int,
     return torch.cat(out, 0)
 
 
+def _cluster_init_indices(mask: torch.Tensor, k: int, key
+                          ) -> torch.Tensor:
+    """Each cluster's k initial centroid rows, [C, k] int64: the JAX
+    package's ``jax.random.choice(subkey_c, cap, (k,), replace=False,
+    p=w / max(Σw, 1))`` with ``subkey_c`` cluster c's key of
+    ``jax.random.split(key, C)``. That draw is a Gumbel top-k:
+    ``-log(-log(u)) + log(p)`` over the cap rows, ``u`` uniform in [tiny,
+    1) from the subkey (``threefry.uniform_rows``, bit for bit), pad rows
+    at ``log 0 = −inf``, and the k largest with ties to the lower row
+    (``lax.top_k``'s order; a stable descending sort here). The logs are
+    torch's, which may differ from XLA's in a last bit."""
+    C, cap = mask.shape
+    w = mask.float()
+    p = w / w.sum(1, keepdim=True).clamp_min(1.0)
+    u = _threefry.uniform_rows(_threefry.split_rows(key, C, mask.device), cap,
+                               float(np.finfo(np.float32).tiny), 1.0)
+    g = -torch.log(-torch.log(u)) + torch.log(p)
+    return torch.sort(g, dim=1, descending=True, stable=True)[1][:, :k]
+
+
+def _vmapped_lloyd_masked(data: torch.Tensor, mask: torch.Tensor, k: int,
+                          n_iters: int, key, block_bytes: int = 1 << 30
+                          ) -> torch.Tensor:
+    """Independent k-means per cluster over padded row blocks: ``data [C,
+    cap, P]``, ``mask [C, cap]`` (pad rows weigh 0) → codebooks [C, k, P]
+    (the JAX package's ``_vmapped_lloyd_masked``; ``key`` a
+    ``random.threefry`` key). Initial centroids by
+    :func:`_cluster_init_indices`; a centroid that no weighted row picks
+    keeps its value. The JAX package's ``vmap`` is a batch dimension here,
+    in cluster chunks that bound the [chunk, cap, k] block."""
+    C, cap, P = data.shape
+    dev = data.device
+    idx0 = _cluster_init_indices(mask, k, key).to(dev)
+    chunk = max(1, min(C, block_bytes // max(1, cap * k * 4)))
+    out = []
+    for a in range(0, C, chunk):
+        sub = data[a:a + chunk].float()
+        w = mask[a:a + chunk].float()
+        b = sub.shape[0]
+        c = torch.gather(sub, 1, idx0[a:a + chunk, :, None].expand(-1, -1, P))
+        x_sq = (sub * sub).sum(-1)
+        base = (torch.arange(b, device=dev) * k)[:, None]
+        wsub = (sub * w[..., None]).reshape(-1, P)
+        for _ in range(n_iters):
+            d2 = (x_sq[..., None] + (c * c).sum(-1)[:, None, :]
+                  - 2.0 * torch.bmm(sub, c.transpose(1, 2)))
+            flat = (d2.argmin(-1) + base).reshape(-1)
+            del d2
+            sums = torch.zeros((b * k, P), device=dev).index_add_(
+                0, flat, wsub).view(b, k, P)
+            counts = torch.zeros(b * k, device=dev).index_add_(
+                0, flat, w.reshape(-1)).view(b, k)
+            c = torch.where(counts[..., None] > 0,
+                            sums / counts.clamp_min(1e-12)[..., None], c)
+        out.append(c)
+    return torch.cat(out, 0)
+
+
+def _train_per_cluster(tr_res: torch.Tensor, tr_labels: torch.Tensor,
+                       n_lists: int, pq_dim: int, pq_len: int, K: int,
+                       n_iters: int, key) -> torch.Tensor:
+    """per_cluster codebooks [n_lists, K, pq_len] (the JAX package's
+    ``_train_per_cluster``): each cluster trains one codebook over its
+    residual sub-vectors pooled across every subspace, grouped by
+    ``ivf_common.pack_lists`` into blocks of ``cap`` rows (a cluster past
+    the cap keeps its first ``cap``: the trainset is already a random
+    sample)."""
+    n_sub = tr_res.shape[0] * pq_dim
+    flat_sub = tr_res.reshape(n_sub, pq_len)
+    flat_lbl = tr_labels.long().repeat_interleave(pq_dim)
+    avg = max(1, n_sub // max(n_lists, 1))
+    cap = min(max(2 * K, -(-4 * avg // 8) * 8), max(2 * K, 8192))
+    (packed,), _, sizes, _, _ = ic.pack_lists(
+        [flat_sub], flat_lbl,
+        torch.arange(n_sub, dtype=torch.int32, device=tr_res.device),
+        n_lists=n_lists, L=cap, fill_values=[0.0])
+    mask = (torch.arange(cap, device=tr_res.device)[None, :]
+            < sizes[:, None])
+    return _vmapped_lloyd_masked(packed, mask, K, n_iters, key)
+
+
 def _train_quantizers(trainset: torch.Tensor, params: IndexParams, dim: int,
                       pq_dim: int, pq_len: int, K: int, state: RngState,
                       km: KMeansBalancedParams,
                       max_codebook_rows: int = 1 << 16,
                       centers: Optional[torch.Tensor] = None):
-    """Coarse centers + rotation + per_subspace codebooks. Given
-    ``centers`` (the distributed build's ``coarse="distributed"``), the
-    coarse fit is skipped and the codebooks train on residuals to them."""
+    """Coarse centers + rotation + codebooks of ``params.codebook_kind``.
+    Given ``centers`` (the distributed build's ``coarse="distributed"``),
+    the coarse fit is skipped and the codebooks train on residuals to
+    them. per_cluster codebooks draw their initial rows from the JAX
+    package's key, ``fold_in(PRNGKey(state.seed), 2)``."""
     n_train = trainset.shape[0]
     rot_dim = pq_dim * pq_len
     if centers is None:
@@ -363,6 +456,12 @@ def _train_quantizers(trainset: torch.Tensor, params: IndexParams, dim: int,
     n_cb = tr_cb.shape[0]
     cb_labels = kmeans_balanced.predict(centers, tr_cb, km)
     tr_res = tr_cb @ rotation.T - centers_rot[cb_labels.long()]
+    if params.codebook_kind == "per_cluster":
+        key = _threefry.fold_in(_threefry.prng_key(state.seed), 2)
+        codebooks = _train_per_cluster(tr_res, cb_labels, params.n_lists,
+                                       pq_dim, pq_len, K,
+                                       params.kmeans_n_iters, key)
+        return centers, rotation, centers_rot, codebooks
     sub = tr_res.view(n_cb, pq_dim, pq_len).transpose(0, 1).contiguous()
     codebooks = _vmapped_lloyd(sub, K, params.kmeans_n_iters, state.fold(2))
     return centers, rotation, centers_rot, codebooks
@@ -377,26 +476,60 @@ def _decode_codes(codes: torch.Tensor, codebooks: torch.Tensor
                                                           S * P)
 
 
+def _decode_codes_cluster(codes: torch.Tensor, cb_rows: torch.Tensor
+                          ) -> torch.Tensor:
+    """per_cluster decode: codes [b, S] with each row's own codebook
+    ``cb_rows [b, K, P]`` → decoded residuals [b, S·P] f32 (a gather; the
+    JAX package's one-hot product is the TPU's form of it, and in f32 it
+    gives the same values)."""
+    rows = torch.arange(codes.shape[0], device=codes.device)[:, None]
+    return cb_rows[rows, codes.long()].reshape(codes.shape[0], -1)
+
+
+def _decode_lists_cluster(codes: torch.Tensor, cb: torch.Tensor
+                          ) -> torch.Tensor:
+    """per_cluster decode of a chunk of packed lists: codes [C, L, S] with
+    one codebook a list ``cb [C, K, P]`` → [C, L, S·P] f32."""
+    C, L, _ = codes.shape
+    lists = torch.arange(C, device=codes.device)[:, None, None]
+    return cb[lists, codes.long()].reshape(C, L, -1)
+
+
 def _encode_with_norms(x: torch.Tensor, rotation: torch.Tensor,
                        centers_rot: torch.Tensor, labels: torch.Tensor,
-                       codebooks: torch.Tensor, block: int = 16384):
-    """(codes [n, S] u8, ‖c + decoded‖² [n] f32) per_subspace, in row
-    blocks; rows are rotated per block (``x @ rotationᵀ``)."""
-    S, K, P = codebooks.shape
+                       codebooks: torch.Tensor,
+                       codebook_kind: str = "per_subspace",
+                       block: int = 16384):
+    """(codes [n, S] u8, ‖c + decoded‖² [n] f32) in row blocks; rows are
+    rotated per block (``x @ rotationᵀ``). per_cluster: every subspace of
+    a row quantizes against its list's codebook ``codebooks[label]``."""
     n = x.shape[0]
-    cb_sq = (codebooks * codebooks).sum(-1)                   # [S, K]
+    K, P = codebooks.shape[1:]
+    S = centers_rot.shape[1] // P
+    per_cluster = codebook_kind == "per_cluster"
+    cb_sq = (codebooks * codebooks).sum(-1)            # [S | n_lists, K]
     codes = torch.empty((n, S), dtype=torch.uint8, device=x.device)
     norms = torch.empty((n,), dtype=torch.float32, device=x.device)
     for a in range(0, n, block):
         lbl = labels[a:a + block].long()
         rows = x[a:a + block] @ rotation.T
         res = rows - centers_rot[lbl]
-        sub = res.view(res.shape[0], S, P).transpose(0, 1)    # [S, b, P]
-        d2 = ((sub * sub).sum(-1)[..., None] + cb_sq[:, None, :]
-              - 2.0 * torch.bmm(sub, codebooks.transpose(1, 2)))  # [S, b, K]
-        c = d2.argmin(-1).T                                   # [b, S]
+        if per_cluster:
+            sub = res.view(res.shape[0], S, P)                # [b, S, P]
+            cb = codebooks[lbl]                               # [b, K, P]
+            d2 = ((sub * sub).sum(-1)[..., None] + cb_sq[lbl][:, None, :]
+                  - 2.0 * torch.bmm(sub, cb.transpose(1, 2)))  # [b, S, K]
+            c = d2.argmin(-1)                                 # [b, S]
+            dec = _decode_codes_cluster(c, cb)
+        else:
+            sub = res.view(res.shape[0], S, P).transpose(0, 1)  # [S, b, P]
+            d2 = ((sub * sub).sum(-1)[..., None] + cb_sq[:, None, :]
+                  - 2.0 * torch.bmm(sub, codebooks.transpose(1, 2)))
+            c = d2.argmin(-1).T                               # [b, S]
+            dec = _decode_codes(c, codebooks)
+        del d2
         codes[a:a + block] = c.to(torch.uint8)
-        rec = centers_rot[lbl] + _decode_codes(c, codebooks)
+        rec = centers_rot[lbl] + dec
         norms[a:a + block] = (rec * rec).sum(1)
     return codes, norms
 
@@ -429,8 +562,12 @@ def _build_recon_cache(index: IvfPqIndex) -> torch.Tensor:
     for a in range(0, n_lists, chunk):
         codes = _k.unpack_codes(index.packed_codes[a:a + chunk], S,
                                 index.pq_bits)
-        dec = _decode_codes(codes.reshape(chunk * L, S),
-                            index.codebooks).view(chunk, L, -1)
+        if index.codebook_kind == "per_cluster":
+            dec = _decode_lists_cluster(codes,
+                                        index.codebooks[a:a + chunk])
+        else:
+            dec = _decode_codes(codes.reshape(chunk * L, S),
+                                index.codebooks).view(chunk, L, -1)
         out[a:a + chunk] = (dec + index.centers_rot[a:a + chunk, None, :]
                             ).to(torch.bfloat16)
     return out
@@ -447,9 +584,9 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
     dev = resolve_device(device)
     _precision.enforce()
     mt = resolve_metric(params.metric)
+    expects(params.codebook_kind in ("per_subspace", "per_cluster"),
+            "codebook_kind must be per_subspace or per_cluster")
     expects(4 <= params.pq_bits <= 8, "pq_bits must be in [4, 8]")
-    if params.codebook_kind != "per_subspace":
-        raise _not_ported("codebook_kind='per_cluster'", "A9")
     stage = ic.Stages(stage_seconds, dev)
 
     x = to_device(dataset, dev, torch.float32)
@@ -482,8 +619,8 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
     avg = max(1, n // params.n_lists)
     quantizer = dict(centers=centers, centers_rot=centers_rot,
                      rotation=rotation, codebooks=codebooks, metric=mt.value,
-                     codebook_kind="per_subspace", pq_bits=params.pq_bits,
-                     pq_dim_static=pq_dim)
+                     codebook_kind=params.codebook_kind,
+                     pq_bits=params.pq_bits, pq_dim_static=pq_dim)
     if not params.add_data_on_build:
         L = max(8, int(avg * params.list_size_cap_factor))
         return IvfPqIndex(
@@ -521,7 +658,7 @@ def build(dataset, params: Optional[IndexParams] = None, device="cuda",
     with stage("encode"):
         codes, norms = _encode_with_norms(
             x, rotation, centers_rot, labels.clamp(0, params.n_lists - 1),
-            codebooks)
+            codebooks, params.codebook_kind)
         codes_p = pack_bits(codes, params.pq_bits)
         del codes
     with stage("pack"):
@@ -607,8 +744,6 @@ def build_chunked(dataset, params: Optional[IndexParams] = None,
     expects(not resume or checkpoint_dir is not None,
             "resume=%r needs checkpoint_dir= (there is no manifest to "
             "resume from without one)", resume)
-    if params.codebook_kind != "per_subspace":
-        raise _not_ported("codebook_kind='per_cluster'", "A9")
     # spans as the JAX package names them: train, label, encode_pack
     stage = ic.Stages(stage_seconds, dev, spans=("train",))
     t_start = time.perf_counter()
@@ -790,7 +925,7 @@ def build_chunked(dataset, params: Optional[IndexParams] = None,
             # package's clamped gather does; the pack drops those rows
             lb = to_device(labels[lo:hi], dev).clamp(0, params.n_lists - 1)
             codes, norms = _encode_with_norms(xb, rotation, centers_rot, lb,
-                                              codebooks)
+                                              codebooks, params.codebook_kind)
             return (pack_bits(codes, params.pq_bits).cpu().numpy(),
                     norms.cpu().numpy())
 
@@ -878,7 +1013,7 @@ def build_chunked(dataset, params: Optional[IndexParams] = None,
             packed_ids=_upload(ids, dev), packed_norms=_upload(pnorm, dev),
             list_sizes=torch.from_numpy(np.minimum(counts, L).astype(
                 np.int32)).to(dev),
-            metric=mt.value, codebook_kind="per_subspace",
+            metric=mt.value, codebook_kind=params.codebook_kind,
             pq_bits=params.pq_bits, pq_dim_static=pq_dim)
     del packed, ids, pnorm
     if _want_recon_cache(params, params.n_lists, L, rot_dim, dev):
@@ -941,7 +1076,8 @@ def extend(index: IvfPqIndex, new_vectors, new_ids=None) -> IvfPqIndex:
            if new_ids is None else to_device(new_ids, dev))
     labels = kmeans_balanced.predict(index.centers, x, km)
     codes, norms = _encode_with_norms(x, index.rotation, index.centers_rot,
-                                      labels, index.codebooks)
+                                      labels, index.codebooks,
+                                      index.codebook_kind)
     n_lists, L = index.packed_ids.shape
     old_sizes = index.list_sizes.long()
     need = old_sizes + torch.bincount(labels.long(), minlength=n_lists)
@@ -1076,18 +1212,24 @@ def _fit_query_tile(want: int, n_probes: int, index: IvfPqIndex) -> int:
     stay under 1 GB: the f32 [t, n_probes, L, rot_dim] recon gather on the
     recon-dot branch, or the unpacked codes on the LUT branch, sized on the
     wider of the two (the JAX package's rule; the port's unpacked codes are
-    int64, 8 bytes a code)."""
+    int64, 8 bytes a code); per_cluster, also the f32 [t, n_probes,
+    pq_dim, 2^bits] look-up tables."""
     L = index.max_list_size
     row_bytes = max(index.pq_dim * 8, index.rot_dim * 4
                     if index.packed_recon is not None else 0)
-    return max(1, min(want, (1 << 30) // max(1, n_probes * L * row_bytes)))
+    t = (1 << 30) // max(1, n_probes * L * row_bytes)
+    if index.codebook_kind == "per_cluster":
+        t = min(t, (1 << 30) // max(1, n_probes * index.pq_dim
+                                    * index.codebooks.shape[1] * 4))
+    return max(1, min(want, t))
 
 
 def _search_impl(index: IvfPqIndex, queries: torch.Tensor, k: int,
                  n_probes: int, query_tile: int, lut_dtype: str = "float32",
                  filter_bits=None):
     """The per_query tier: each query gathers its probed lists' codes and
-    sums its quantized LUT over them — the plain semantic anchor. With the
+    sums its quantized LUT over them — the plain semantic anchor
+    (per_cluster: a LUT a probed list, against that list's codebook). With the
     recon cache, an f32 LUT and n_probes·L·pq_dim·2^bits ≥ 2²⁸ it takes
     the JAX package's recon-dot branch instead: one product of the query
     against the gathered bf16 reconstructions, ⟨q, c + d⟩ directly."""
@@ -1098,10 +1240,14 @@ def _search_impl(index: IvfPqIndex, queries: torch.Tensor, k: int,
     qc, probes = _coarse_probes(index, q_all, n_probes, ip_like)
     q_rot_all = q_all @ index.rotation.T
 
-    def qlut_of(a, q_rot):
+    def qlut_of(a, q_rot, probe):
+        q_sub = q_rot.view(q_rot.shape[0], S, P)
+        if index.codebook_kind == "per_cluster":
+            # a table per (query, probed list): ⟨q_s, cb[list][k]⟩
+            return _k.round_to_lut_dtype(torch.einsum(
+                "tsp,tjkp->tjsk", q_sub, index.codebooks[probe]), lut_dtype)
         return _k.round_to_lut_dtype(torch.einsum(
-            "tsp,skp->tsk", q_rot.view(q_rot.shape[0], S, P),
-            index.codebooks), lut_dtype)
+            "tsp,skp->tsk", q_sub, index.codebooks), lut_dtype)
 
     return _scan_tiles(index, q_rot_all, qlut_of, qc, probes, k, n_probes,
                        query_tile, lut_dtype == "float32", filter_bits)
@@ -1111,8 +1257,9 @@ def _scan_tiles(index: IvfPqIndex, q_rot_all: torch.Tensor, qlut_of, qc,
                 probes, k: int, n_probes: int, query_tile: int,
                 recon_ok: bool, filter_bits=None):
     """The per_query scan over query tiles: gather each query's probed
-    lists, sum its LUT (``qlut_of(a, q_rot)``: the tile at row ``a``) over
-    their codes — or, with the recon cache, ``recon_ok`` and
+    lists, sum its LUT (``qlut_of(a, q_rot, probe)``: the tile at row
+    ``a``, [t, S, K], or per_cluster [t, n_probes, S, K]) over their codes
+    — or, with the recon cache, ``recon_ok`` and
     n_probes·L·pq_dim·2^bits ≥ 2²⁸, take one product against the gathered
     bf16 reconstructions — then the shared epilogue."""
     mt = resolve_metric(index.metric)
@@ -1136,9 +1283,15 @@ def _scan_tiles(index: IvfPqIndex, q_rot_all: torch.Tensor, qlut_of, qc,
         else:
             codes = _k.unpack_codes(index.packed_codes[probe], S,
                                     index.pq_bits)
-            qlut = qlut_of(a, q_rot)
-            idx = codes.reshape(t, n_probes * L, S).transpose(1, 2)  # [t, S, C]
-            qd = torch.gather(qlut, 2, idx).sum(1)                   # [t, C]
+            qlut = qlut_of(a, q_rot, probe)
+            if qlut.dim() == 4:
+                # per_cluster: [t, n_probes, S, L] look-ups, summed over S
+                idx = codes.transpose(2, 3)
+                qd = torch.gather(qlut, 3, idx).sum(2).reshape(
+                    t, n_probes * L)
+            else:
+                idx = codes.reshape(t, n_probes * L, S).transpose(1, 2)
+                qd = torch.gather(qlut, 2, idx).sum(1)           # [t, C]
             dots = qc_probed_all[a:a + query_tile][:, :, None].expand(
                 t, n_probes, L).reshape(t, n_probes * L) + qd
         v, i = _finish_candidates(dots, cand_ids, cand_norms,
@@ -1201,8 +1354,12 @@ def _search_grouped(index: IvfPqIndex, queries: torch.Tensor, k: int,
             def rows_of(sl):
                 codes = _k.unpack_codes(index.packed_codes[sl],
                                         index.pq_dim, index.pq_bits)
-                dec = _decode_codes(codes.reshape(-1, index.pq_dim),
-                                    index.codebooks).view(sl.shape[0], L, -1)
+                if index.codebook_kind == "per_cluster":
+                    dec = _decode_lists_cluster(codes, index.codebooks[sl])
+                else:
+                    dec = _decode_codes(codes.reshape(-1, index.pq_dim),
+                                        index.codebooks).view(
+                                            sl.shape[0], L, -1)
                 return dec + index.centers_rot[sl][:, None, :]
         out_vals, out_ids = ic.grouped_scan_plain_tier(
             seg_list, seg_q, pair_seg, pair_slot, q_rot, rows_of,
@@ -1279,6 +1436,8 @@ _TIER_LABELS = {"segk": "segk", "kernel": "grouped_pallas",
 _LUT_FALLBACK_DETAIL = {
     "bin_capacity": "too few probes for the requested k (needs "
                     "n_probes·256 ≥ k)",
+    "per_cluster": "per_cluster codebooks (the kernel decodes "
+                   "per_subspace only)",
     "mem_guard": "the lut_scan_mem_ok memory guard declined the shape",
 }
 _lut_fallback_warned = False
@@ -1334,19 +1493,41 @@ def search(index: IvfPqIndex, queries, k: int,
     expects(q.dim() == 2 and q.shape[1] == index.dim,
             "queries must be [m, %d]", index.dim)
     _faults.faultpoint("ivf_pq.search")
-    if params.lut_dtype == "auto" and params.refine == "none":
+    if params.refine != "none":
+        from raft_tpu_torch.neighbors import refine as _refine
+
+        return _refine.route_refined(_refined_scan, index, q, k, params,
+                                     dataset, device,
+                                     filter_bitset=filter_bitset)
+    return _search_scan(index, q, k, params, filter_bitset, device)
+
+
+def _refined_scan(index: IvfPqIndex, q: torch.Tensor, k: int,
+                  params: SearchParams, filter_bitset=None, device="cuda"):
+    """The scan of a refined search, called by ``refine.route_refined`` on
+    the arguments :func:`search` validated: the ``ivf_pq.search`` span and
+    fault site of the JAX package's second call to its public ``search``,
+    without that call's validation and routing."""
+    with span("ivf_pq.search") as sp:
+        _faults.faultpoint("ivf_pq.search")
+        out = _search_scan(index, q, k, params, filter_bitset, device)
+        sp.attach(out)
+        return out
+
+
+def _search_scan(index: IvfPqIndex, q: torch.Tensor, k: int,
+                 params: SearchParams, filter_bitset, device):
+    """The unrefined search behind :func:`search`: ``q`` f32 on the
+    index's device, ``filter_bitset`` its words (or None)."""
+    filtered = filter_bitset is not None
+    if params.lut_dtype == "auto":
         # only kept candidates fill the bins: the filter's selectivity
         # discounts the fp8 slack
         params = dataclasses.replace(params, lut_dtype=resolve_lut_dtype(
             "auto", min(params.n_probes, index.n_lists), k,
             selectivity=_filter_selectivity(filter_bitset)))
-    if params.refine != "none":
-        from raft_tpu_torch.neighbors import refine as _refine
-
-        return _refine.route_refined(search, index, q, k, params, dataset,
-                                     device, filter_bitset=filter_bitset)
     if (_obs_spans.stages_enabled() and _obs_spans._trace_clean()
-            and not filtered):
+            and not filtered and index.codebook_kind == "per_subspace"):
         # observability stage mode: coarse_quantize, lut and scan as
         # separate stages, each under a recording span
         _count_scan_dispatch("staged")
@@ -1378,8 +1559,9 @@ def search(index: IvfPqIndex, queries, k: int,
                                          _k.LUT_SCAN_BINS)
                       and (not filtered
                            or ic.filtered_scan_mem_ok(index.n_lists, L)))
-            reason = "bin_capacity" if n_probes * _k.LUT_SCAN_BINS < k \
-                else None
+            reason = ("bin_capacity" if n_probes * _k.LUT_SCAN_BINS < k
+                      else "per_cluster"
+                      if index.codebook_kind != "per_subspace" else None)
             if reason is None and not (
                     mem_ok and not _faults.forced("ivf_pq.scan.mem_guard")):
                 reason = "mem_guard"
@@ -1510,7 +1692,8 @@ def search_staged(index: IvfPqIndex, queries, k: int,
         sp.attach(q_rot, qlut)
     with span("scan") as sp:
         out = _scan_tiles(
-            index, q_rot, lambda a, t: qlut[a:a + t.shape[0]], qc, probes,
+            index, q_rot, lambda a, t, probe: qlut[a:a + t.shape[0]], qc,
+            probes,
             k, n_probes, _fit_query_tile(params.query_tile, n_probes, index),
             True)
         sp.attach(out)

@@ -9,8 +9,11 @@ tiers, chosen by shape as in the JAX package:
 
 - **fused** — the hand-written gather-refine kernel (no ``[m, C, d]``
   gather buffer) for oversampled shapes: k ≤ 64, C ≥ 256, and C ≥ 400 or
-  a gather buffer of ≥ 1 GB, on an f32 dataset — the JAX package's rule
-  (``pallas_gather_refine_wanted``). Its VMEM model of the TPU kernel's
+  a gather buffer of ≥ 1 GB, on an f32 or bf16 dataset (a bf16 base, such
+  as a re-rank copy kept at half the memory, streams its 2-byte rows and
+  widens them in the kernel) — the JAX package's rule
+  (``pallas_gather_refine_wanted``); any other dtype (int8) takes the
+  gather tier, as there. Its VMEM model of the TPU kernel's
   row block has no counterpart: the CUDA kernel holds no row or key block,
   so it takes any C and any d;
 - **gather** — gather the candidate rows and re-rank with one batched
@@ -165,12 +168,13 @@ def _fused_refine_wanted(dataset, queries, candidates, k: int) -> bool:
     package."""
     if not isinstance(dataset, torch.Tensor) or dataset.dim() != 2:
         return False
-    if dataset.dtype != torch.float32:
+    if dataset.dtype not in (torch.float32, torch.bfloat16):
         return False
     m, C = candidates.shape
     d = dataset.shape[1]
-    mem_ok = ic.gather_refine_mem_ok(dataset.shape[0], d, 4, m=m, C=C,
-                                     row_align=1)
+    itemsize = dataset.element_size()
+    mem_ok = ic.gather_refine_mem_ok(dataset.shape[0], d, itemsize, m=m,
+                                     C=C, row_align=1)
     if _faults.forced("refine.mem_guard"):  # CI-testable decline path
         mem_ok = False
     if not mem_ok:
@@ -179,7 +183,7 @@ def _fused_refine_wanted(dataset, queries, candidates, k: int) -> bool:
         return False
     if k > _k.GATHER_REFINE_MAX_K or C < 2 * _k.LUT_SCAN_LANES:
         return False
-    return C >= 400 or m * C * d * 4 >= (1 << 30)
+    return C >= 400 or m * C * d * itemsize >= (1 << 30)
 
 
 def _refine_fused(dataset, queries, candidates, k: int, mt: DistanceType,

@@ -16,16 +16,23 @@
 // Output: ascending (key, candidate position), ties to the earliest
 // candidate, as the TPU kernel's first-index extraction gives.
 //
+// Rows are f32, or bf16 (the TPU kernel kept the dtype of its row DMAs,
+// l.1195-1197: the bf16 reconstruction cache as a re-rank base): a bf16
+// row loads 2 bytes a value and widens to f32 in registers, and the keys
+// are computed in f32 exactly as for f32 rows.
+//
 // Bound on the H100: bytes. The m * C candidate rows are a random gather
-// (m * C * d * 4 bytes); at the main path's [500, 400] x 96 f32 that is
-// 76.8 MB, ~23 us at 3.35 TB/s. The arithmetic is 4 FLOPs per element, on
-// the CUDA cores in fp32. Filtered: the kept candidates' rows and a 4-byte
-// word a candidate.
+// (m * C * d * 4 bytes, * 2 for bf16 rows); at the main path's [500, 400] x
+// 96 f32 that is 76.8 MB, ~23 us at 3.35 TB/s (38.4 MB, ~11 us, in bf16).
+// The arithmetic is 4 FLOPs per element, on the CUDA cores in fp32.
+// Filtered: the kept candidates' rows and a 4-byte word a candidate.
 //
 // Design: enough rows in flight to reach the bytes bound. One block of four
 // warps per query; a warp splits into four lane groups of 8 lanes, and a
-// group takes 4 candidate rows at a time: each lane issues the 16-, 8- or
-// 4-byte loads (the widest the rows' bytes and alignment allow) of its
+// group takes 4 candidate rows at a time: each lane issues the loads of V
+// values (V = 4, 2 or 1: 16-, 8- or 4-byte loads of f32 rows, 8-, 4- or
+// 2-byte loads of bf16 rows, the widest the rows' bytes and alignment
+// allow) of its
 // share of all 4 rows before it reduces any of them, so a warp has 16 rows
 // in flight and a group reduces a row in 3 shuffles. The next step's ids
 // are read while the rows load. At m = 500 the 500 blocks are resident at
@@ -43,6 +50,7 @@
 // at the end. About k (1 + ln(C / k)) keys are offered in random order (47
 // of 400 at k 10). No [C] key array exists, so any C runs.
 #include <climits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -59,7 +67,9 @@ constexpr int kP = 4;                   // loads a lane issues per row and pass
 constexpr int kStep = (32 / kG) * kU;   // rows a warp takes at a time: 16
 constexpr int kQW = 32;                 // queue entries a warp
 
-// V floats from global memory, not kept in L1 (the rows are streamed)
+// V values of a row from global memory as f32, not kept in L1 (the rows
+// are streamed); bf16 values widen in registers (a bf16 is the high half
+// of its f32)
 template <int V>
 __device__ __forceinline__ void load_row(float (&x)[V], const float* p) {
   if constexpr (V == 4) {
@@ -72,6 +82,29 @@ __device__ __forceinline__ void load_row(float (&x)[V], const float* p) {
                  : "l"(p));
   } else {
     asm("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(x[0]) : "l"(p));
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_row(float (&x)[V], const __nv_bfloat16* p) {
+  if constexpr (V == 4) {
+    uint32_t w0, w1;
+    asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];"
+                 : "=r"(w0), "=r"(w1)
+                 : "l"(p));
+    x[0] = __uint_as_float(w0 << 16);
+    x[1] = __uint_as_float(w0 & 0xffff0000u);
+    x[2] = __uint_as_float(w1 << 16);
+    x[3] = __uint_as_float(w1 & 0xffff0000u);
+  } else if constexpr (V == 2) {
+    uint32_t w;
+    asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(w) : "l"(p));
+    x[0] = __uint_as_float(w << 16);
+    x[1] = __uint_as_float(w & 0xffff0000u);
+  } else {
+    unsigned short h;
+    asm("ld.global.nc.L1::no_allocate.u16 %0, [%1];" : "=h"(h) : "l"(p));
+    x[0] = __uint_as_float((uint32_t)h << 16);
   }
 }
 
@@ -101,9 +134,9 @@ __device__ __forceinline__ int kept_id(int id, const int* __restrict__ bits,
   return (bits[w] >> (id & 31)) & 1 ? id : -1;
 }
 
-template <int V>
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads, 4)
-gather_refine_kernel(const float* __restrict__ data, long n, int d,
+gather_refine_kernel(const T* __restrict__ data, long n, int d,
                      const float* __restrict__ queries,
                      const int* __restrict__ cand,
                      const int* __restrict__ bits, long n_words, int C, int k,
@@ -142,7 +175,7 @@ gather_refine_kernel(const float* __restrict__ data, long n, int d,
     id[u] = c < C ? kept_id(crow[c], bits, n_words, n) : -1;
   }
   for (; c0 < C; c0 += kWarps * kStep) {
-    const float* xr[kU];
+    const T* xr[kU];
     bool ok[kU];
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
@@ -250,20 +283,40 @@ gather_refine_kernel(const float* __restrict__ data, long n, int d,
   }
 }
 
-template <int V>
-cudaError_t launch(const float* data, long n, int d, const float* queries,
+template <typename T, int V>
+cudaError_t launch(const void* data, long n, int d, const float* queries,
                    const int* cand, const int* bits, long n_words, int m, int C,
                    int k, int metric, float* out_v, int* out_i, cudaStream_t st) {
-  gather_refine_kernel<V><<<m, kThreads, 0, st>>>(
-      data, n, d, queries, cand, bits, n_words, C, k, metric, out_v, out_i);
+  gather_refine_kernel<T, V><<<m, kThreads, 0, st>>>(
+      static_cast<const T*>(data), n, d, queries, cand, bits, n_words, C, k, metric,
+      out_v, out_i);
   return cudaGetLastError();
+}
+
+// The widest load (V values) that the rows' bytes and alignment and the
+// query rows' allow.
+template <typename T>
+cudaError_t launch(const void* data, long n, int d, const float* queries,
+                   const int* cand, const int* bits, long n_words, int m, int C,
+                   int k, int metric, float* out_v, int* out_i, cudaStream_t st) {
+  const uintptr_t a = (uintptr_t)data, aq = (uintptr_t)queries;
+  const auto fits = [&](int v) {
+    return d % v == 0 && a % (v * sizeof(T)) == 0 && aq % (v * 4) == 0;
+  };
+  return fits(4) ? launch<T, 4>(data, n, d, queries, cand, bits, n_words, m, C, k,
+                                metric, out_v, out_i, st)
+       : fits(2) ? launch<T, 2>(data, n, d, queries, cand, bits, n_words, m, C, k,
+                                metric, out_v, out_i, st)
+                 : launch<T, 1>(data, n, d, queries, cand, bits, n_words, m, C, k,
+                                metric, out_v, out_i, st);
 }
 
 }  // namespace
 
 // metric: 0 l2 (squared), 1 inner product, 2 cosine. Any C; k <= 64.
-// bits: the filter's n_words 32-bit words, or null for no filter.
-extern "C" int rtt_gather_refine_topk(const float* data, long n, int d,
+// bf16: the rows are bf16, else f32. bits: the filter's n_words 32-bit
+// words, or null for no filter.
+extern "C" int rtt_gather_refine_topk(const void* data, long n, int d, int bf16,
                                       const float* queries, const int* cand,
                                       const int* bits, long n_words, int m,
                                       int C, int k, int metric, float* out_v,
@@ -273,16 +326,10 @@ extern "C" int rtt_gather_refine_topk(const float* data, long n, int d,
     return (int)cudaErrorInvalidValue;
   if (m == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  // the widest load the rows (and the query rows) allow
-  const uintptr_t a = (uintptr_t)data | (uintptr_t)queries;
   const cudaError_t e =
-      d % 4 == 0 && a % 16 == 0
-          ? launch<4>(data, n, d, queries, cand, bits, n_words, m, C, k, metric,
-                      out_v, out_i, st)
-      : d % 2 == 0 && a % 8 == 0
-          ? launch<2>(data, n, d, queries, cand, bits, n_words, m, C, k, metric,
-                      out_v, out_i, st)
-          : launch<1>(data, n, d, queries, cand, bits, n_words, m, C, k, metric,
-                      out_v, out_i, st);
+      bf16 ? launch<__nv_bfloat16>(data, n, d, queries, cand, bits, n_words, m, C, k,
+                                   metric, out_v, out_i, st)
+           : launch<float>(data, n, d, queries, cand, bits, n_words, m, C, k, metric,
+                           out_v, out_i, st);
   return (int)e;
 }

@@ -1,5 +1,6 @@
-// grouped_scan_topk: grouped IVF list scan over raw (f32 or bf16) vectors
-// with an exact per-(segment, query slot) top-kk (kk <= 64) kept on chip.
+// grouped_scan_topk: grouped IVF list scan over raw (f32, bf16, int8 or
+// uint8) vectors with an exact per-(segment, query slot) top-kk (kk <= 64)
+// kept on chip.
 //
 // Replaces the TPU kernel raft_tpu/ops/pallas_kernels.py:grouped_scan_topk
 // (l.281; body _grouped_scan_kernel l.207), which took gathered per-chunk
@@ -52,14 +53,17 @@ namespace {
 
 using namespace rtt_scan;
 
-constexpr int kS = 3;                     // stages of each warp's ring
+// stages of each warp's ring: three (six for 1-byte rows with the queries
+// resident, scan_common.cuh)
+template <typename T, bool kQRes>
+constexpr int kStagesOf = kQRes && sizeof(T) == 1 ? kByteStages : 3;
 constexpr int kPerWarp = kQG / kWarps;    // queries a warp owns
 constexpr int kKeyStride = kRows + 1;     // the tile's keys: [kQG][kRows + 1]
 
 template <typename T, bool kQRes>
 size_t dyn_smem_bytes(int d, int kk) {
   // + the tile's keys, the buffers [kQG][kk] of keys and of positions
-  return ring_bytes<T, kQRes, kS>() + (kQRes ? qres_bytes(d) : 0) +
+  return ring_bytes<T, kQRes, kStagesOf<T, kQRes>>() + (kQRes ? qres_bytes(d) : 0) +
          ((size_t)kQG * kKeyStride + 2 * (size_t)kQG * kk) * sizeof(float);
 }
 
@@ -107,8 +111,8 @@ grouped_scan_kernel(const int* __restrict__ seg_list, const int* __restrict__ se
   __shared__ Stage st;
   extern __shared__ __align__(16) char dyn[];
   char* ring = dyn;
-  float2* qres = reinterpret_cast<float2*>(dyn + ring_bytes<T, kQRes, kS>());
-  float* tkey = reinterpret_cast<float*>(dyn + ring_bytes<T, kQRes, kS>() +
+  float2* qres = reinterpret_cast<float2*>(dyn + ring_bytes<T, kQRes, kStagesOf<T, kQRes>>());
+  float* tkey = reinterpret_cast<float*>(dyn + ring_bytes<T, kQRes, kStagesOf<T, kQRes>>() +
                                          (kQRes ? qres_bytes(d) : 0));  // [kQG][kKeyStride]
   float* bv = tkey + kQG * kKeyStride;               // [kQG][kk] sorted keys
   int* bp = reinterpret_cast<int*>(bv + kQG * kk);   // [kQG][kk] positions
@@ -133,7 +137,7 @@ grouped_scan_kernel(const int* __restrict__ seg_list, const int* __restrict__ se
 #pragma unroll
   for (int u = 0; u < kPerWarp; ++u) tq[u] = CUDART_INF_F;
 
-  scan_tiles<T, kQRes, kS>(ring, qres, list, lid, n_rows, d, q, st, nq, xvec, qvec,
+  scan_tiles<T, kQRes, kStagesOf<T, kQRes>>(ring, qres, list, lid, n_rows, d, q, st, nq, xvec, qvec,
                            [&](int t0, auto& acc, auto& xn, auto& id) {
 #pragma unroll
     for (int i = 0; i < kMT; ++i)
@@ -204,24 +208,29 @@ cudaError_t launch(long blocks, cudaStream_t st, const int* seg_list,
 
 }  // namespace
 
-// metric: 0 l2, 1 inner product, 2 cosine. bf16: packed is bf16, else f32.
+// metric: 0 l2, 1 inner product, 2 cosine. row_type: the packed rows'
+// element type (RowType: 0 f32, 1 bf16, 2 int8, 3 uint8).
 extern "C" int rtt_grouped_scan_topk(const int* seg_list, const int* seg_q,
                                      const float* q, const void* packed, const int* ids,
                                      float* out_keys, int* out_pos, int n_seg, int S,
-                                     int d, int L, int kk, int bf16, int metric,
+                                     int d, int L, int kk, int row_type, int metric,
                                      void* stream) {
   if (S < 1 || S > kMaxS || d < 1 || L < 1 || kk < 1 || kk > rtt::kMaxK || metric < 0 ||
-      metric > 2)
+      metric > 2 || row_type < kRowF32 || row_type > kRowU8)
     return (int)cudaErrorInvalidValue;
   if (n_seg == 0) return (int)cudaSuccess;
   const int n_groups = (S + kQG - 1) / kQG;
   const long blocks = (long)n_seg * n_groups;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t e =
-      bf16 ? launch<__nv_bfloat16>(blocks, st, seg_list, seg_q, q, packed, ids,
-                                   out_keys, out_pos, S, d, L, kk, n_groups, metric)
-           : launch<float>(blocks, st, seg_list, seg_q, q, packed, ids, out_keys,
-                           out_pos, S, d, L, kk, n_groups, metric);
+  auto go = [&](auto row) {
+    using T = decltype(row);
+    return launch<T>(blocks, st, seg_list, seg_q, q, packed, ids, out_keys, out_pos,
+                     S, d, L, kk, n_groups, metric);
+  };
+  const cudaError_t e = row_type == kRowBF16 ? go(__nv_bfloat16{})
+                        : row_type == kRowI8 ? go(int8_t{})
+                        : row_type == kRowU8 ? go(uint8_t{})
+                                             : go(float{});
   return (int)e;
 }

@@ -9,7 +9,9 @@
 // then added in f32 (as fused_l2_argmin.cu: the tensor cores' accumulation
 // does not round to nearest, and over one long k its error grew past the
 // tolerance there). bf16 list data is exact in TF32, so x_lo = 0 and two
-// products suffice. |x|^2 and |q|^2 are plain f32 sums.
+// products suffice; so are int8 and uint8 rows (|x| <= 255 needs 8 of
+// TF32's 11 significant bits), which load as bytes and widen to f32 in
+// registers as the fragments are read. |x|^2 and |q|^2 are plain f32 sums.
 //
 // A block owns one segment (one list) and a group of up to 32 of its live
 // queries, and walks the list in tiles of 128 rows up to its last row with
@@ -29,8 +31,18 @@
 // as the rows' alignment allows; plain loads for 2-byte-aligned bf16 rows),
 // zero-filled past d and past the walked rows, so any d runs; the warps
 // never wait for each other inside the walk. Slices are stored at row
-// strides of 36 words (f32) and 20 words (bf16), the resident queries at
-// dp + 4 (hi, lo) pairs, and read as fragments free of bank conflicts.
+// strides of 36 words (f32), 20 words (bf16) and 12 words (int8, uint8:
+// 48 bytes, so 16-byte copies stay aligned and the 8 rows of a fragment
+// load start in 8 distinct banks), the resident queries at dp + 4 (hi, lo)
+// pairs, and read as fragments free of bank conflicts.
+//
+// 1-byte rows keep the 128-row x 32-deep tile: a tile row is a strided bin,
+// and the fragment ownership that keeps each (query, bin) in one thread's
+// registers fixes the tile's shape. What the smaller rows change is the
+// ring: a stage holds 768 bytes of list rows against f32's 2,304, so with
+// resident queries each warp's ring runs 6 stages deep (kByteStages), 4.5
+// KB of rows in flight a warp, and a block takes 36.9 KB of ring beside its
+// resident queries (two blocks an SM up to d 256, as for f32 rows).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,9 +67,15 @@ constexpr int kQS = kBK + 4;               // query slice row stride, words
 constexpr int kMaxS = 1024;                // largest segment
 constexpr int kQResMax = 256;              // resident queries up to this dp
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kByteStages = 6;             // ring stages of 1-byte rows
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
+__device__ __forceinline__ float to_f32(uint8_t v) { return (float)v; }
+
+// The list rows' element type, as the wrappers pass it.
+enum RowType { kRowF32 = 0, kRowBF16 = 1, kRowI8 = 2, kRowU8 = 3 };
 
 template <typename T>
 struct ListSlice;
@@ -73,6 +91,17 @@ struct ListSlice<__nv_bfloat16> {   // 40 halves = 20 words a row
     return __float2bfloat16(0.f);
   }
 };
+template <>
+struct ListSlice<int8_t> {          // 48 bytes = 12 words a row
+  static constexpr int kStride = kBK + 16;
+  static __device__ __forceinline__ int8_t zero() { return 0; }
+};
+template <>
+struct ListSlice<uint8_t> {
+  static constexpr int kStride = kBK + 16;
+  static __device__ __forceinline__ uint8_t zero() { return 0; }
+};
+
 
 // one stage of a warp's ring: its list rows [16][stride] T, then (queries
 // streamed) the query slice [32][kQS] f32 (both multiples of 16 bytes)
@@ -235,7 +264,7 @@ __device__ __forceinline__ void issue_stage(char* dst, bool valid, long r0, int 
         else if (xvec == 8) rtt::cp_async8(to, from, ok);
         else rtt::cp_async4(to, from, ok);
       }
-    } else {  // rows aligned to 2 bytes only: plain loads, read stages on
+    } else {  // rows not 4-byte aligned: plain loads, read stages on
       for (int e = lane; e < kWRows * kBK; e += 32) {
         const int r = e / kBK, col = e % kBK;
         const bool ok = r0 + r < n_rows && c0 + col < d;
@@ -268,7 +297,7 @@ __device__ __forceinline__ void stage_mma(const char* stage,
                                           int c0, float (&acc)[kMT][kNT][4],
                                           float (&nsq)[kNT]) {
   constexpr int XS = ListSlice<T>::kStride;
-  constexpr bool kExact = sizeof(T) == 2;  // bf16: x is exact in TF32
+  constexpr bool kExact = sizeof(T) <= 2;  // bf16, int8, uint8: exact in TF32
   const T* xs = reinterpret_cast<const T*>(stage);
   const float* qs = reinterpret_cast<const float*>(stage + list_slice_bytes<T>());
   const int lane = threadIdx.x & 31;

@@ -1,5 +1,5 @@
-// segmented_scan_topk: segmented IVF list scan over raw (f32 or bf16)
-// vectors keeping the two best candidates per strided bin (position mod
+// segmented_scan_topk: segmented IVF list scan over raw (f32, bf16, int8
+// or uint8) vectors keeping the two best candidates per strided bin (position mod
 // 128) for every (segment, query slot).
 //
 // Replaces the TPU kernel raft_tpu/ops/pallas_kernels.py:segmented_scan_topk
@@ -58,10 +58,10 @@ constexpr int kCols = 2 * kRows;  // output columns per slot
 
 constexpr uint32_t kNoTile = 0xffffu;
 
-// stages of each warp's ring: four with the queries resident, three when
-// each stage also carries the query slice
-template <bool kQRes>
-constexpr int kStagesOf = kQRes ? 4 : 3;
+// stages of each warp's ring: four with the queries resident (six for
+// 1-byte rows), three when each stage also carries the query slice
+template <typename T, bool kQRes>
+constexpr int kStagesOf = !kQRes ? 3 : sizeof(T) == 1 ? kByteStages : 4;
 
 template <typename T, bool kQRes>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -73,7 +73,7 @@ segmented_scan_kernel(const int* __restrict__ seg_list, const int* __restrict__ 
   __shared__ Stage st;
   extern __shared__ __align__(16) char dyn[];
   char* ring = dyn;
-  constexpr int kS = kStagesOf<kQRes>;
+  constexpr int kS = kStagesOf<T, kQRes>;
   float2* qres = reinterpret_cast<float2*>(dyn + ring_bytes<T, kQRes, kS>());
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -173,7 +173,7 @@ cudaError_t launch(long blocks, cudaStream_t st, const int* seg_list, const int*
                    const float* q, const void* packed, const int* ids, float* out_keys,
                    int* out_ids, int S, int d, int L, int n_groups, int metric) {
   const size_t smem =
-      ring_bytes<T, kQRes, kStagesOf<kQRes>>() + (kQRes ? qres_bytes(d) : 0);
+      ring_bytes<T, kQRes, kStagesOf<T, kQRes>>() + (kQRes ? qres_bytes(d) : 0);
   cudaError_t e = cudaFuncSetAttribute(segmented_scan_kernel<T, kQRes>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
@@ -199,16 +199,17 @@ cudaError_t launch(long blocks, cudaStream_t st, const int* seg_list, const int*
 
 }  // namespace
 
-// metric: 0 l2, 1 inner product, 2 cosine. bf16: packed is bf16, else f32.
-// out_keys / out_ids must be 8-byte aligned (fresh tensors are); L < 2^23
-// (a pick keeps its 16-bit tile index).
+// metric: 0 l2, 1 inner product, 2 cosine. row_type: the packed rows'
+// element type (RowType: 0 f32, 1 bf16, 2 int8, 3 uint8). out_keys /
+// out_ids must be 8-byte aligned (fresh tensors are); L < 2^23 (a pick
+// keeps its 16-bit tile index).
 extern "C" int rtt_segmented_scan_topk(const int* seg_list, const int* seg_q,
                                        const float* q, const void* packed,
                                        const int* ids, float* out_keys, int* out_ids,
-                                       int n_seg, int S, int d, int L, int bf16,
+                                       int n_seg, int S, int d, int L, int row_type,
                                        int metric, void* stream) {
   if (S < 1 || S > kMaxS || d < 1 || L < 1 || L >= (int)(kNoTile * kRows) ||
-      metric < 0 || metric > 2 ||
+      metric < 0 || metric > 2 || row_type < kRowF32 || row_type > kRowU8 ||
       ((uintptr_t)out_keys & 7) || ((uintptr_t)out_ids & 7))
     return (int)cudaErrorInvalidValue;
   if (n_seg == 0) return (int)cudaSuccess;
@@ -216,10 +217,14 @@ extern "C" int rtt_segmented_scan_topk(const int* seg_list, const int* seg_q,
   const long blocks = (long)n_seg * n_groups;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t e =
-      bf16 ? launch<__nv_bfloat16>(blocks, st, seg_list, seg_q, q, packed, ids, out_keys,
-                                   out_ids, S, d, L, n_groups, metric)
-           : launch<float>(blocks, st, seg_list, seg_q, q, packed, ids, out_keys, out_ids,
-                           S, d, L, n_groups, metric);
+  auto go = [&](auto row) {
+    using T = decltype(row);
+    return launch<T>(blocks, st, seg_list, seg_q, q, packed, ids, out_keys, out_ids,
+                     S, d, L, n_groups, metric);
+  };
+  const cudaError_t e = row_type == kRowBF16 ? go(__nv_bfloat16{})
+                        : row_type == kRowI8 ? go(int8_t{})
+                        : row_type == kRowU8 ? go(uint8_t{})
+                                             : go(float{});
   return (int)e;
 }

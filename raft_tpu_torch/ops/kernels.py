@@ -617,15 +617,19 @@ def gather_refine_topk(dataset: torch.Tensor, queries: torch.Tensor,
                        candidates: torch.Tensor, k: int, metric: str = "l2",
                        filter_bits: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused exact re-rank: dataset [n, d] f32, queries [m, d] f32,
-    candidates [m, C] i32 (−1 invalid, others clipped for the fetch) →
+    """Fused exact re-rank: dataset [n, d] f32 or bf16 (bf16 rows widen
+    to f32 in the kernel's registers: the keys are those of the f32
+    values), queries [m, d] f32, candidates [m, C] i32 (−1 invalid,
+    others clipped for the fetch) →
     (keys [m, k] ascending, ids [m, k], −1 where fewer than k valid).
     Keys: l2 squared distance, ip −score, cos cosine distance; ties to the
     earliest candidate. Any C: the kernel streams the keys through a
     running top-k and keeps no [C] array. ``filter_bits`` [n_words] i32
     (``core.bitset`` words): a candidate whose bit is clear is invalid;
     the kernel tests it before the row's load, so it costs no row."""
-    _check(dataset, "dataset", torch.float32, 2)
+    expects(dataset.dtype in (torch.float32, torch.bfloat16),
+            "dataset must be float32 or bfloat16 (got %s)", dataset.dtype)
+    _check(dataset, "dataset", dataset.dtype, 2)
     _check(queries, "queries", torch.float32, 2)
     _check(candidates, "candidates", torch.int32, 2)
     expects(metric in _REFINE_METRICS, "metric must be l2, ip or cos")
@@ -645,7 +649,8 @@ def gather_refine_topk(dataset: torch.Tensor, queries: torch.Tensor,
     out_v = torch.empty((m, k), dtype=torch.float32, device=queries.device)
     out_i = torch.empty((m, k), dtype=torch.int32, device=queries.device)
     rc = _lib("gather_refine").rtt_gather_refine_topk(
-        _ptr(dataset), dataset.shape[0], d, _ptr(queries), _ptr(candidates),
+        _ptr(dataset), dataset.shape[0], d,
+        int(dataset.dtype == torch.bfloat16), _ptr(queries), _ptr(candidates),
         _ptr(filter_bits) if filt else None,
         filter_bits.shape[0] if filt else 0, m, C, k,
         _REFINE_METRICS[metric], _ptr(out_v), _ptr(out_i), _stream())
@@ -676,12 +681,19 @@ SCAN_K_SLICE = 32
 SEGMENTED_SCAN_MAX_L = 0xFFFF * 128
 
 
+# The scans' list row types, by the code their C entry points take
+# (``RowType`` in csrc/scan_common.cuh).
+SCAN_ROW_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+                  torch.uint8: 3}
+
+
 def _scan_args(seg_list, seg_q, q, packed, ids, metric):
     _check(seg_list, "seg_list", torch.int32, 1)
     _check(seg_q, "seg_q", torch.int32, 2)
     _check(q, "q", torch.float32, 2)
-    expects(packed.dtype in (torch.float32, torch.bfloat16),
-            "packed must be float32 or bfloat16 (got %s)", packed.dtype)
+    expects(packed.dtype in SCAN_ROW_TYPES,
+            "packed must be float32, bfloat16, int8 or uint8 (got %s)",
+            packed.dtype)
     _check(packed, "packed", packed.dtype, 3)
     _check(ids, "ids", torch.int32, 2)
     expects(metric in _SCAN_METRICS, "metric must be l2, ip or cos (got %s)",
@@ -777,7 +789,8 @@ def segmented_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
 
     seg_list [n_seg] i32 — the list each segment scans; seg_q [n_seg, S]
     i32 — query per slot, −1 pad; q [B, d] f32 queries; packed [n_lists,
-    L, d] f32 or bf16 list data (bf16 is widened to f32); ids [n_lists,
+    L, d] f32, bf16, int8 or uint8 list data (widened to f32 as it is
+    read); ids [n_lists,
     L] i32 global ids, −1 pad. Returns (keys, ids) [n_seg, S, 256]: per
     live slot, minimized keys (l2 ‖q‖² + ‖x‖² − 2⟨q,x⟩ clamped at 0, ip
     −⟨q,x⟩, cos 1 − ⟨q,x⟩/(‖q‖‖x‖)) and global ids; column b holds bin
@@ -788,7 +801,8 @@ def segmented_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
     Unlike the TPU kernel, which took the gathered ``[n_seg, S, d]``
     queries, this one takes ``q`` and ``seg_q`` and gathers on chip. The
     kernel computes ⟨q, x⟩ as three TF32 products of split operands on
-    the tensor cores (two for bf16 lists), as the TPU kernel's
+    the tensor cores (two for bf16, int8 and uint8 lists, which TF32 holds
+    exactly), as the TPU kernel's
     Precision.HIGHEST asked, and keeps the bins in registers."""
     n_seg, S, d, L = _scan_args(seg_list, seg_q, q, packed, ids, metric)
     if not _use_kernel(seg_list, seg_q, q, packed, ids):
@@ -803,7 +817,7 @@ def segmented_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
     rc = _lib("segmented_scan").rtt_segmented_scan_topk(
         _ptr(seg_list), _ptr(seg_q), _ptr(q), _ptr(packed), _ptr(ids),
         _ptr(keys), _ptr(kids), n_seg, S, d, L,
-        int(packed.dtype == torch.bfloat16), _SCAN_METRICS[metric], _stream())
+        SCAN_ROW_TYPES[packed.dtype], _SCAN_METRICS[metric], _stream())
     segmented_scan_topk.launches += 1
     _raise_on(rc, "segmented_scan_topk")
     return keys, kids
@@ -863,7 +877,7 @@ def grouped_scan_topk(seg_list: torch.Tensor, seg_q: torch.Tensor,
     rc = _lib("grouped_scan").rtt_grouped_scan_topk(
         _ptr(seg_list), _ptr(seg_q), _ptr(q), _ptr(packed), _ptr(ids),
         _ptr(keys), _ptr(pos), n_seg, S, d, L, kk,
-        int(packed.dtype == torch.bfloat16), _SCAN_METRICS[metric], _stream())
+        SCAN_ROW_TYPES[packed.dtype], _SCAN_METRICS[metric], _stream())
     grouped_scan_topk.launches += 1
     _raise_on(rc, "grouped_scan_topk")
     return keys, pos

@@ -613,7 +613,6 @@ class ShardedIvfFlat:
         n_dev = np.asarray(arrays["packed_data"]).shape[0]
         expects(n_dev == mesh.size, "index of %d shards on a %d-rank mesh",
                 n_dev, mesh.size)
-        _flat._check_data_dtype(np.asarray(arrays["packed_data"]).dtype)
         fields = {"centers": replicate(to_device(
             np.asarray(arrays["centers"]), mesh.devices[0]), mesh)}
         for name in _FLAT_SHARDED:

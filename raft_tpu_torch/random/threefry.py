@@ -6,8 +6,9 @@ makes the JAX package's synthetic data from the same seed.
 A key is a pair of Python ints (two uint32 words). Bits are int64 tensors
 holding uint32 values (torch has no full uint32 arithmetic). ``split``,
 ``fold_in``, ``random_bits``, ``uniform``, ``randint`` and ``permutation`` give the
-same numbers as ``jax.random`` bit for bit. ``normal`` maps the same uniforms
-through the same erf⁻¹ polynomial (XLA's single-precision one, with its
+same numbers as ``jax.random`` bit for bit, and so do ``split_rows`` and the
+per-row keys' ``randint_rows`` and ``uniform_rows``. ``normal`` maps the same
+uniforms through the same erf⁻¹ polynomial (XLA's single-precision one, with its
 multiply-adds fused); XLA's ``log1p`` is its own approximation, so a
 normal may differ from JAX's in its last bit or two (about 1% of 96,000
 draws differed, by 4.8e-7 at most, in the port's CPU test).
@@ -189,11 +190,34 @@ def randint_rows(keys: Tuple[torch.Tensor, torch.Tensor], n: int,
     zero = torch.zeros_like(k1)
     ka = threefry2x32((k1, k2), zero, zero)
     kb = threefry2x32((k1, k2), zero, zero + 1)
+    return _fold_span(_row_bits(ka, n), _row_bits(kb, n), minval, maxval)
+
+
+def _row_bits(keys: Tuple[torch.Tensor, torch.Tensor], n: int
+              ) -> torch.Tensor:
+    """32 random bits for flat positions 0 … n − 1 of each row key's draw
+    (:func:`random_bits` a row) → [t, n] int64."""
+    k1, k2 = keys
     idx = torch.arange(n, dtype=torch.int64, device=k1.device)[None, :]
+    b0, b1 = threefry2x32((k1[:, None], k2[:, None]), idx >> 32, idx & _M32)
+    return b0 ^ b1
 
-    def bits(k):
-        b0, b1 = threefry2x32((k[0][:, None], k[1][:, None]), idx >> 32,
-                              idx & _M32)
-        return b0 ^ b1
 
-    return _fold_span(bits(ka), bits(kb), minval, maxval)
+def split_rows(key: Key, num: int, device="cpu"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.random.split(key, num)`` as its two words (int64 [num]
+    tensors): key i hashes the counter (0, i)."""
+    i = torch.arange(num, dtype=torch.int64, device=device)
+    return threefry2x32(key, torch.zeros_like(i), i)
+
+
+def uniform_rows(keys: Tuple[torch.Tensor, torch.Tensor], n: int,
+                 minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.vmap(lambda k: jax.random.uniform(k, (n,), float32, minval,
+    maxval))`` over the row keys ``keys`` (two [t] word tensors) → [t, n]
+    f32, each row what :func:`uniform` gives for that row's key."""
+    dev = keys[0].device
+    lo = torch.tensor(np.float32(minval), device=dev)
+    hi = torch.tensor(np.float32(maxval), device=dev)
+    f = _unit_floats(_row_bits(keys, n))
+    return torch.maximum(lo, f * (hi - lo) + lo)

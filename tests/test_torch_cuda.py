@@ -369,6 +369,103 @@ def test_cuda_grouped_scan_integer_keys_bit_for_bit(d, L, bf16):
             assert torch.equal(tp, pp), (metric, kk)
 
 
+# (d, L, rows): 1-byte list rows over the whole int8 / uint8 range: d 128
+# and 960 take 16-byte copies, 100 8-byte, 37 (not a multiple of 4) plain
+# loads; L 77 is one partial tile, 1536 twelve tiles
+BYTE_CASES = [(128, 1536, "int8"), (128, 1536, "uint8"), (960, 300, "uint8"),
+              (100, 77, "int8"), (37, 300, "uint8"), (16, 96, "int8")]
+
+
+@pytest.mark.parametrize("d,L,rows", BYTE_CASES)
+def test_cuda_scans_over_byte_lists_match_plain(d, L, rows):
+    """B5 and B6 read int8 and uint8 lists as they are stored (ROADMAP
+    A19), widened in registers, against their plain versions at l2, ip and
+    cos: keys within tolerance, picks equal away from key ties."""
+    dev = cuda_device()
+    c = flat_scan_case(L, d, seed=4, rows=rows)
+    args = flat_scan_operands(c, dev)
+    assert args[3].dtype == (torch.int8 if rows == "int8" else torch.uint8)
+    for metric in ("l2", "ip", "cos"):
+        tk, ti = K.segmented_scan_topk(*args, metric)
+        pk, pi = K.segmented_scan_topk_plain(*args, metric)
+        assert_scan_match(tk.cpu(), ti.cpu(), pk.cpu(), pi.cpu(), c, metric,
+                          "ids", rtol=1e-5, atol=1e-4)
+        for kk in (1, 10, 64):
+            tk, tp = K.grouped_scan_topk(*args, kk, metric)
+            pk, pp = K.grouped_scan_topk_plain(*args, kk, metric)
+            assert_scan_match(tk.cpu(), tp.cpu(), pk.cpu(), pp.cpu(), c,
+                              metric, "pos", rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+def test_cuda_gather_refine_bf16_rows_match_plain(metric):
+    """B2 on bf16 rows (ROADMAP A8) against its plain version on the same
+    rows, without and with a filter: keys within 1e-5, ids equal away from
+    key ties; no kept-out id returned; the filtered launch counted."""
+    dev = cuda_device()
+    data, q, cand = refine_case(seed=6, C=400, n=2000, d=96)
+    data = torch.tensor(data).to(dev).to(torch.bfloat16)
+    q, cand = torch.tensor(q).to(dev), torch.tensor(cand).to(dev)
+    keep = filter_keep(2000, "sel0.1", seed=2)
+    for bits in (None, _keep_bits(keep, dev)):
+        K.reset_launch_counts()
+        v, i = K.gather_refine_topk(data, q, cand, 10, metric,
+                                    filter_bits=bits)
+        assert K.launch_counts()["gather_refine_topk"] == 1
+        assert K.filtered_launch_counts()["gather_refine_topk"] == int(
+            bits is not None)
+        pv, pi = K.gather_refine_topk_plain(data, q, cand, 10, metric, bits)
+        torch.testing.assert_close(v, pv, rtol=1e-5, atol=1e-5)
+        fin = torch.isfinite(pv)
+        tol = 1e-5 * (1.0 + torch.where(fin, pv, 0.0).abs())
+        gap = (pv[:, 1:] - pv[:, :-1]).abs() <= tol[:, 1:]
+        tie = torch.zeros_like(pv, dtype=torch.bool)
+        tie[:, 1:] |= gap
+        tie[:, :-1] |= gap
+        tie[:, -1] = True
+        assert bool(((i == pi) | tie | ~fin).all()), metric
+        if bits is not None:
+            got = i[i >= 0].cpu().numpy()
+            assert np.append(keep, [False] * 32)[got].all()
+
+
+def test_cuda_per_cluster_search_matches_the_cpu():
+    """A per_cluster IVF-PQ index (ROADMAP A9) built on the CPU, searched on
+    the card and on the CPU: per_query, approx and exact grouped tiers over
+    its recon cache (B5, B6), ids equal but at f64 ties of the cache rows
+    (the per_query tier's look-up tables: distances within 1e-4)."""
+    from raft_tpu_torch.bench.dataset import tie_swaps
+    from raft_tpu_torch.neighbors import ivf_pq as tpq
+
+    dev = cuda_device()
+    x = blobs(6000, 32, 40, seed=5)
+    q = blobs(200, 32, 40, seed=6)
+    idx = tpq.build(x, tpq.IndexParams(
+        n_lists=32, pq_dim=16, codebook_kind="per_cluster",
+        cache_reconstruction="always"), device="cpu")
+    card = tpq.from_numpy(*tpq.to_numpy(idx), device=dev)
+    assert torch.equal(card.packed_recon.cpu(), idx.packed_recon)
+    valid = idx.packed_ids.view(-1) >= 0
+    by_id = torch.zeros((x.shape[0], idx.rot_dim))
+    by_id[idx.packed_ids.view(-1)[valid].long()] = \
+        idx.packed_recon.view(-1, idx.rot_dim)[valid].float()
+    q_rot = torch.tensor(q) @ idx.rotation.T
+    K.reset_launch_counts()
+    for mode, select in (("per_query", "exact"), ("grouped", "approx"),
+                         ("grouped", "exact")):
+        sp = tpq.SearchParams(n_probes=8, scan_mode=mode, scan_select=select)
+        d_c, i_c = tpq.search(card, torch.tensor(q).to(dev), 10, sp,
+                              device=dev)
+        d_p, i_p = tpq.search(idx, torch.tensor(q), 10, sp, device="cpu")
+        if mode == "per_query":
+            torch.testing.assert_close(d_c.cpu(), d_p, rtol=1e-4, atol=1e-4)
+            continue
+        tie_swaps(q_rot, by_id, i_c.cpu(), d_c.cpu(), i_p, d_p)
+    counts = K.launch_counts()
+    assert counts["segmented_scan_topk"] and counts["grouped_scan_topk"]
+    assert counts["ivfpq_lut_scan_topk"] == 0
+
+
 def test_cuda_launch_counts_move():
     dev = cuda_device()
     K.reset_launch_counts()

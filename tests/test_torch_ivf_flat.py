@@ -309,12 +309,15 @@ def test_make_synthetic_hard_matches_jax(n, dim, seed):
 # ---------------------------------------------------------------------------
 
 def test_unported_paths_raise(corpus):
+    """int8 data, refused until ROADMAP A19, builds an index that keeps its
+    lists as int8; the sharded routes refuse what they refused."""
     x, q = corpus
     idx = _port_index(_jax_index(x))
     qt = _t(q)
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-        tfl.build(np.clip(x * 10, -127, 127).astype(np.int8),
-                  tfl.IndexParams(n_lists=4), device="cpu")
+    idx8 = tfl.build(np.clip(x * 10, -127, 127).astype(np.int8),
+                     tfl.IndexParams(n_lists=4), device="cpu")
+    assert idx8.packed_data.dtype == torch.int8
+    assert idx8.size == x.shape[0]
     # the sharded routes are ported (ROADMAP A15): they refuse a
     # single-device index handed a mesh, and a build without one
     with pytest.raises(Exception, match="ShardedIvfFlat"):

@@ -228,19 +228,32 @@ def test_resolve_lut_dtype_off_card():
 
 
 def test_unported_paths_raise(corpus):
-    """What the port still refuses: per_cluster codebooks, in ``build``,
-    ``build_chunked`` and ``from_numpy``. Folded code storage, refused
-    until ROADMAP A9, is now taken as its [n_lists, L, nb] view."""
+    """per_cluster codebooks, refused until ROADMAP A9, are taken by
+    ``build``, ``build_chunked`` and ``from_numpy``; the sharded build and
+    ``search_staged`` still refuse them, as the JAX package does. Folded
+    code storage is taken as its [n_lists, L, nb] view."""
+    from raft_tpu_torch.core.errors import LogicError
+    from raft_tpu_torch.parallel import ivf as tpivf
+    from raft_tpu_torch.parallel import make_mesh
+
     x, q = corpus
     xt = _t(x)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tpq.build(xt, tpq.IndexParams(n_lists=16, pq_dim=16,
-                                      codebook_kind="per_cluster"),
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tpq.build_chunked(x, tpq.IndexParams(n_lists=16, pq_dim=16,
-                                             codebook_kind="per_cluster"),
-                          device="cpu")
+    pc = tpq.IndexParams(n_lists=N_LISTS, pq_dim=PQ_DIM, kmeans_n_iters=4,
+                         codebook_kind="per_cluster")
+    idx = tpq.build(xt, pc, device="cpu")
+    assert idx.codebook_kind == "per_cluster"
+    assert tuple(idx.codebooks.shape) == (N_LISTS, 256, D // PQ_DIM)
+    chunked = tpq.build_chunked(x, pc, chunk_rows=1000, device="cpu")
+    assert chunked.codebook_kind == "per_cluster"
+    assert tuple(chunked.codebooks.shape) == (N_LISTS, 256, D // PQ_DIM)
+    back = tpq.from_numpy(*tpq.to_numpy(idx), device="cpu")
+    assert back.codebook_kind == "per_cluster"
+    np.testing.assert_array_equal(back.packed_codes.numpy(),
+                                  idx.packed_codes.numpy())
+    with pytest.raises(LogicError, match="per_subspace"):
+        tpq.search_staged(idx, _t(q), 10, device="cpu")
+    with pytest.raises(LogicError, match="per_subspace"):
+        tpivf.build_ivf_pq(pc, xt, make_mesh(2, device="cpu"))
     jidx = _jax_index(x)
     arrays, meta = jax_index_arrays(jidx)
     folded = dict(arrays, packed_codes=arrays["packed_codes"].reshape(
@@ -248,9 +261,6 @@ def test_unported_paths_raise(corpus):
     np.testing.assert_array_equal(
         tpq.from_numpy(folded, meta, device="cpu").packed_codes.numpy(),
         arrays["packed_codes"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tpq.from_numpy(arrays, dict(meta, codebook_kind="per_cluster"),
-                       device="cpu")
 
 
 # ---------------------------------------------------------------------------

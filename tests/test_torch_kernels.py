@@ -659,7 +659,7 @@ def test_scan_wrappers_check_their_operands():
         K.grouped_scan_topk(*args, 65)
     with pytest.raises(Exception, match="metric"):
         K.segmented_scan_topk(*args, "l1")
-    with pytest.raises(Exception, match="float32 or bfloat16"):
+    with pytest.raises(Exception, match="float32, bfloat16, int8 or uint8"):
         K.segmented_scan_topk(*args[:3], args[3].double(), args[4])
 
 

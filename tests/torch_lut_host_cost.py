@@ -181,6 +181,8 @@ def _isolated_child(args) -> int:
 
     for mod, attr, event in (
             (ivf_pq, "search", False), (R, "route_refined", False),
+            (ivf_pq, "_refined_scan", False),
+            (ivf_pq, "_search_scan", False),
             (ivf_pq, "_search_lut_pallas", False),
             (ivf_pq, "_coarse_probes", False), (ivf_pq, "_select_k", False),
             (spans, "count_dispatch", False), (K, "select_k_cuda", True),

@@ -200,20 +200,30 @@ def assert_bins_match(tk, ti, jk, ji, ref, rtol: float, atol: float):
                 assert any(near), (s, j, b, r, kb)
 
 
+# The byte row types of the list scans: each one's value range.
+BYTE_ROWS = {"int8": (-128, 128, torch.int8), "uint8": (0, 256, torch.uint8)}
+
+
 def flat_scan_case(L: int, d: int, bf16: bool = False, seed: int = 0,
                    n_lists: int = 6, B: int = 40, n_probes: int = 3,
-                   seg: int = 16, ties: bool = False):
+                   seg: int = 16, ties: bool = False, rows: str = ""):
     """Raw-vector list blocks, ids (10 % invalid, one list with an invalid
     tail), queries and their segment table (its trailing segments are
     empty: ``n_segments`` is an upper bound). bf16 list data is returned
     already rounded, as float32 numpy. ``ties``: small integer vectors, so
     every key is exact in f32 whatever the order of its sums, and many
-    keys tie."""
+    keys tie. ``rows`` "int8" or "uint8": list rows drawn over that type's
+    whole range (as float32 numpy; :func:`flat_scan_operands` casts them),
+    queries at the same scale."""
     from raft_tpu_torch.neighbors import ivf_common as tic
 
     rng = np.random.default_rng(seed * 1000 + L + d)
-    packed = _int_rows(rng, (n_lists, L, d)) if ties else (
-        rng.standard_normal((n_lists, L, d)).astype(np.float32))
+    if rows:
+        lo, hi, _ = BYTE_ROWS[rows]
+        packed = rng.integers(lo, hi, (n_lists, L, d)).astype(np.float32)
+    else:
+        packed = _int_rows(rng, (n_lists, L, d)) if ties else (
+            rng.standard_normal((n_lists, L, d)).astype(np.float32))
     if bf16:
         packed = torch.tensor(packed).to(torch.bfloat16).float().numpy()
     ids = rng.permutation(n_lists * L).reshape(n_lists, L).astype(np.int32)
@@ -221,13 +231,15 @@ def flat_scan_case(L: int, d: int, bf16: bool = False, seed: int = 0,
     ids[1, L // 2:] = -1
     q = (_int_rows(rng, (B, d)) if ties
          else rng.standard_normal((B, d)).astype(np.float32))
+    if rows:
+        q = (q * 40.0 + (0.0 if rows == "int8" else 128.0)).astype(np.float32)
     probes = np.stack([rng.choice(n_lists, n_probes, replace=False)
                        for _ in range(B)]).astype(np.int32)
     n_seg = tic.n_segments(B * n_probes, n_lists, seg)
     seg_list, seg_q, _, _ = tic.segment_probes(torch.tensor(probes), n_lists,
                                                seg, n_seg)
     return dict(seg_list=seg_list.numpy(), seg_q=seg_q.numpy(), q=q,
-                packed=packed, ids=ids, bf16=bf16)
+                packed=packed, ids=ids, bf16=bf16, rows=rows)
 
 
 def flat_scan_operands(c, device="cpu"):
@@ -235,6 +247,8 @@ def flat_scan_operands(c, device="cpu"):
     packed = torch.tensor(c["packed"])
     if c["bf16"]:
         packed = packed.to(torch.bfloat16)
+    if c.get("rows"):
+        packed = packed.to(BYTE_ROWS[c["rows"]][2])
     return [torch.tensor(c["seg_list"]).to(device),
             torch.tensor(c["seg_q"]).to(device),
             torch.tensor(c["q"]).to(device), packed.to(device),
