@@ -261,6 +261,26 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    resumed to the sha of the uninterrupted build, made with prefetch on
    and again off); ``CUBLAS_WORKSPACE_CONFIG`` is set for that mode's
    blocks only (``deterministic``);
+5d. ``[kmeans]`` (ROADMAP A5, ``kmeans_leg``): SIFT-1M's shape (1M x 128
+   ``DeviceSynthetic`` rows around 1,000 centers): ``kmeans.fit`` with
+   k-means++ (25 sweeps; init and Lloyd timed by their sync-mode spans),
+   with ``init="random"``, and ``fit_minibatch`` (batch 65,536, 100
+   steps), counts zeroed before and read after (B4 must launch); checks
+   as the function says, B4's row ``kmeans`` at [1M, 128] x [1000, 128];
+   ``find_k`` on 12 well-separated centers; then ``[bf index]`` (A3, A4,
+   ``bf_index_leg``) on the same rows: ``brute_force.build`` and
+   ``knn(index, …)`` of 10,000 queries (impl auto and sort, equal to
+   ``knn_arrays`` bit for bit, QPS), a filter at selectivity 0.1,
+   ``merge_parts`` of 8 parts, B3's row ``bf_index`` at the tile's shape;
+   after the sharded phase, ``[shard axis]`` (A15 on one card,
+   ``shard_axis_leg``): IVF-PQ over one axis of a 2 x 2 mesh, refined
+   search and ``sharded_knn`` under allgather and ring (``ring_ppermute``:
+   no B7), bit for bit the same shards' answer on a 1-D mesh, every
+   replica group equal; ``[tristates]`` (A1, ``tristates_leg``, after
+   ``[serve]``): ``RAFT_TPU_PALLAS_LUTSCAN`` and ``_REFINE`` off on the
+   main index, ``_GROUPED`` off on the IVF-Flat index (in ``flat_phase``),
+   each leaving its kernel's counter at 0 and its recall no more than
+   0.005 below the default's, and ``RAFT_TPU_FP8_LUT``'s auto/off;
 7. the run's wall time, the card's line, the kernel JSON line, then
    ``{"ok": true, "device": {...}}`` last.
 
@@ -642,30 +662,46 @@ def _product_ms(xa, ya, chunk: int = 1 << 16) -> float:
     return ms
 
 
-def _select_k_check(scores, k):
-    """The select_k kernel against its plain version (a stable sort):
-    values and positions must be equal. Returns (kernel ms, sort ms)."""
+def _select_k_check(scores, k, bias=None):
+    """The select_k kernel against its plain version (a stable sort), with
+    the bias row where the path passes one: values and positions must be
+    equal. Returns (kernel ms, sort ms)."""
     import torch
 
     from raft_tpu_torch.ops import kernels as K
 
-    v_k, p_k = K.select_k_cuda(scores, k)
-    v_p, p_p = K.select_k_plain(scores, k)
+    v_k, p_k = K.select_k_cuda(scores, k, True, bias)
+    v_p, p_p = K.select_k_plain(scores, k, True, bias)
     if not (torch.equal(v_k, v_p) and torch.equal(p_k, p_p)):
         raise SmokeFailure(f"select_k differs from its plain version at "
-                           f"{list(scores.shape)} k={k}")
-    return (_timed_best(lambda: K.select_k_cuda(scores, k), 100),
-            _timed(lambda: K.select_k_plain(scores, k), 5))
+                           f"{list(scores.shape)} k={k}"
+                           + (" with its bias row" if bias is not None
+                              else ""))
+    return (_timed_best(lambda: K.select_k_cuda(scores, k, True, bias), 100),
+            _timed(lambda: K.select_k_plain(scores, k, True, bias), 5))
 
 
-def _select_k_row(rows, path, launches, scores, k, shape):
+def _select_k_row(rows, path, launches, scores, k, shape, bias=None):
+    """B3's row. With ``bias`` the kernel ranks bias − 2·scores (the coarse
+    probe's form); its library call is ``torch.topk`` over those keys
+    formed beforehand, and the kernel's time over the formed keys without
+    the bias row stands beside it (``keys_formed_ms``)."""
     import torch
 
-    ms, plain_ms = _select_k_check(scores, k)
+    from raft_tpu_torch.ops import kernels as K
+
+    ms, plain_ms = _select_k_check(scores, k, bias)
+    keys = (scores if bias is None
+            else torch.sub(bias.reshape(1, -1), scores, alpha=2.0))
+    extra = ({} if bias is None else dict(keys_formed_ms=_timed_best(
+        lambda: K.select_k_cuda(keys, k), 100)))
     _row(rows, path, "select_k", "select_k.cu", 1317, launches["select_k"],
-         0.0, ms, plain_ms, scores.numel() * 4 + scores.shape[0] * k * 8, 0.0,
-         _timed_best(lambda: torch.topk(scores, k, largest=False), 100),
-         f"[{scores.shape[0]},{scores.shape[1]}] k={k}{shape}")
+         0.0, ms, plain_ms,
+         scores.numel() * 4 + scores.shape[0] * k * 8
+         + (0 if bias is None else bias.numel() * 4), 0.0,
+         _timed_best(lambda: torch.topk(keys, k, largest=False), 100),
+         f"[{scores.shape[0]},{scores.shape[1]}] k={k}"
+         + (" with bias row" if bias is not None else "") + shape, **extra)
 
 
 def _lut_scan_row(rows, path, launches, index, q0, n_probes, lut_dtype,
@@ -860,8 +896,8 @@ def refine_bf16_leg(args, rows, index, base, queries, sp, B, k, gt,
 
     base_bf16 = base.to(torch.bfloat16)
     n_gt = gt.shape[0]
-    _, gt16 = brute_force.knn(base_bf16.float(), queries[:n_gt], k,
-                              metric="sqeuclidean")
+    _, gt16 = brute_force.knn_arrays(base_bf16.float(), queries[:n_gt], k,
+                                     metric="sqeuclidean")
     gt16 = gt16.cpu()
     ceiling = _recall(gt16, gt)
 
@@ -951,8 +987,8 @@ def filter_main_leg(args, rows, index, base, queries, index_cpu, base_cpu,
         keep = bench_keep(N, sel, k)
         bits = bitset.from_mask(keep, device=base.device)
         kept_bits[sel] = bits
-        _, fgt = brute_force.knn(base, queries[:n_gt], k,
-                                 metric="sqeuclidean", filter_bitset=bits)
+        _, fgt = brute_force.knn(brute_force.build(base, "sqeuclidean"),
+                                 queries[:n_gt], k, filter_bitset=bits)
         fgt = fgt.cpu()
         K.reset_launch_counts()
         ids_f, t_f = search_pass(bits)
@@ -1887,8 +1923,8 @@ def serve_leg(args, index, base, queries, sp, B, k):
 
         # [serve load] with [serve expo] fetching during it
         t0 = time.perf_counter()
-        gt = torch.cat([brute_force.knn(base, queries[a:a + 1000], k,
-                                        metric="sqeuclidean", device=dev)[1]
+        gt = torch.cat([brute_force.knn_arrays(base, queries[a:a + 1000], k,
+                                               metric="sqeuclidean", device=dev)[1]
                         for a in range(0, nq, 1000)]).cpu().numpy()
         gt_s = time.perf_counter() - t0
         scraped = {}
@@ -2436,7 +2472,8 @@ def flat_phase(args, rows):
 
     # recall against exact search, every leg
     n_gt = 1000
-    _, gt = brute_force.knn(base, queries[:n_gt], k, metric="sqeuclidean")
+    _, gt = brute_force.knn_arrays(base, queries[:n_gt], k,
+                                   metric="sqeuclidean")
     gt = gt.cpu()
     recall = {name: _recall(leg["ids"][:n_gt], gt)
               for name, leg in legs.items()}
@@ -2464,6 +2501,17 @@ def flat_phase(args, rows):
     curve = [recall[f"approx_{p}"] for p in (16, 32, 64, 128)]
     if any(b < a for a, b in zip(curve, curve[1:])):
         raise SmokeFailure(f"approx recall falls as n_probes rises: {curve}")
+    # [tristates] RAFT_TPU_PALLAS_GROUPED=off: neither scan launches, the
+    # plain grouped tier answers (ROADMAP A1)
+    grouped_off = {}
+    for select in ("approx", "exact"):
+        grouped_off[select] = _tristate_off(
+            "RAFT_TPU_PALLAS_GROUPED", ("segmented_scan_topk",
+                                        "grouped_scan_topk"),
+            lambda: ivf_flat.search(index, queries[:n_gt], k,
+                                    sp(32, select))[1],
+            gt, recall[f"{select}_32"], f"IVF-Flat {select} at n_probes 32, "
+            f"{n_gt} queries")[0]
 
     # kernel path against the plain path: the same index on the CPU
     n_pl = 200
@@ -2619,7 +2667,8 @@ def flat_phase(args, rows):
             "recall_at_10": recall, "recall_plain_200": plain_rec,
             "bin_table_bytes": bin_bytes, "batch_stages_ms": stages_ms,
             "select_k_ms": sel_ms, "launches": launches,
-            "filter": filt_summary, "resilient": resil, "uint8": uint8}
+            "filter": filt_summary, "resilient": resil, "uint8": uint8,
+            "grouped_off_recall": grouped_off}
 
 
 def _index_bytes(index) -> int:
@@ -2720,7 +2769,8 @@ def flat_uint8_leg(args, rows, index_f32, base, queries):
 
     base8 = to_u8(base)
     q8 = to_u8(queries).float()
-    _, gt = brute_force.knn(base8.float(), q8[:n_gt], k, metric="sqeuclidean")
+    _, gt = brute_force.knn_arrays(base8.float(), q8[:n_gt], k,
+                                   metric="sqeuclidean")
     gt = gt.cpu()
     K.reset_launch_counts()
     stages = {}
@@ -2749,8 +2799,8 @@ def flat_uint8_leg(args, rows, index_f32, base, queries):
 
     keep = bench_keep(N, 0.1, k)
     bits = bitset.from_mask(keep, device=base.device)
-    _, fgt = brute_force.knn(base8.float(), q8[:n_gt], k,
-                             metric="sqeuclidean", filter_bitset=bits)
+    _, fgt = brute_force.knn(brute_force.build(base8.float(), "sqeuclidean"),
+                             q8[:n_gt], k, filter_bitset=bits)
     fgt = fgt.cpu()
     legs = {}
     for name, params, fb, truth in (
@@ -2846,8 +2896,8 @@ def flat_filter_leg(index, index_cpu, base, queries, k, nq, n_gt, n_pl):
     N, sel = base.shape[0], 0.1
     keep = bench_keep(N, sel, k)
     bits = bitset.from_mask(keep, device=base.device)
-    _, fgt = brute_force.knn(base, queries[:n_gt], k, metric="sqeuclidean",
-                             filter_bitset=bits)
+    _, fgt = brute_force.knn(brute_force.build(base, "sqeuclidean"),
+                             queries[:n_gt], k, filter_bitset=bits)
     fgt = fgt.cpu()
 
     def timed_search(params, q):
@@ -3314,8 +3364,8 @@ def pq_recon_phase(args, rows, base, queries, gt):
     for sel in (0.01, 0.1, 0.5):
         keep = bench_keep(N, sel, k)
         bits = bitset.from_mask(keep, device=base.device)
-        _, fgt = brute_force.knn(base, queries[:n_gt], k,
-                                 metric="sqeuclidean", filter_bitset=bits)
+        _, fgt = brute_force.knn(brute_force.build(base, "sqeuclidean"),
+                                 queries[:n_gt], k, filter_bitset=bits)
         fgt = fgt.cpu()
         K.reset_launch_counts()
         secs = []
@@ -3880,7 +3930,7 @@ def sharded_phase(args, rows):
     # leg 1: sharded kNN, both merge tiers, against single-rank brute force
     n_gt = 1000
     qg = queries[:n_gt].contiguous()
-    gv, gt = brute_force.knn(base, qg, k, metric="sqeuclidean")
+    gv, gt = brute_force.knn_arrays(base, qg, k, metric="sqeuclidean")
     knn = {}
     for merge in ("allgather", "ring"):
         torch.cuda.synchronize()
@@ -4154,7 +4204,7 @@ def shard_filter_leg(rows, index, base, queries, mesh, sp, spf, B, bf, k):
     keep = bench_keep(N, sel, k)
     bits = bitset.from_mask(keep, device=base.device)
     q0 = queries[:B].contiguous()
-    _, fgt = brute_force.knn(base, q0, k, metric="sqeuclidean",
+    _, fgt = brute_force.knn(brute_force.build(base, "sqeuclidean"), q0, k,
                              filter_bitset=bits)
     K.reset_launch_counts()
     spans.reset()
@@ -4642,7 +4692,8 @@ def _edge_recall(base, graph, sample, k):
 
     from raft_tpu_torch.neighbors import brute_force
 
-    _, ex = brute_force.knn(base, base[sample], k + 1, metric="sqeuclidean")
+    _, ex = brute_force.knn_arrays(base, base[sample], k + 1,
+                                   metric="sqeuclidean")
     own = sample[:, None].to(ex.dtype)
     ex = torch.stack([r[r != o][:k] for r, o in zip(ex, own)])
     got = graph[sample][:, :k]
@@ -4692,7 +4743,7 @@ def cagra_leg(args, rows):
     ds = DeviceSynthetic(n, dim, n_centers=10_000, seed=args.seed + 3)
     base = ds.base()
     queries = ds.queries(m)
-    _, gt = brute_force.knn(base, queries, k, metric="sqeuclidean")
+    _, gt = brute_force.knn_arrays(base, queries, k, metric="sqeuclidean")
     gt = gt.cpu()
     params = cagra.IndexParams(graph_degree=CAGRA_DEGREE, seed=args.seed)
     sp = cagra.SearchParams(itopk_size=64, search_width=8, max_iterations=6,
@@ -4762,8 +4813,8 @@ def cagra_leg(args, rows):
     # filtered at selectivity 0.1
     keep = bench_keep(n, 0.1, k)
     bits = bitset.from_mask(keep)
-    _, gt_f = brute_force.knn(base, queries, k, metric="sqeuclidean",
-                              filter_bitset=bits)
+    _, gt_f = brute_force.knn(brute_force.build(base, "sqeuclidean"), queries,
+                              k, filter_bitset=bits)
     secs_f, _, i_f = _cagra_passes(
         lambda qb: cagra.search(index, qb, k, sp, filter_bitset=bits),
         queries, m)
@@ -4814,7 +4865,7 @@ def cagra_leg(args, rows):
     x_pq = base[:CAGRA_PQ_N].contiguous()
     del base
     torch.cuda.empty_cache()
-    _, gt_pq = brute_force.knn(x_pq, queries, k, metric="sqeuclidean")
+    _, gt_pq = brute_force.knn_arrays(x_pq, queries, k, metric="sqeuclidean")
     spans.reset()
     K.reset_launch_counts()
     inter_pq, stages_pq = {}, {}
@@ -4852,10 +4903,10 @@ def cagra_leg(args, rows):
     _argmin_row(rows, "cagra_ivf_pq", launches_pq, x_pq, centers_pq,
                 "label pass ")
     n_probes = max(2, centers_pq.shape[0] // 8)
-    scores = torch.sub((centers_pq * centers_pq).sum(1)[None, :],
-                       x_pq[:16384] @ centers_pq.T, alpha=2.0).contiguous()
+    scores = (x_pq[:16384] @ centers_pq.T).contiguous()
     _select_k_row(rows, "cagra_ivf_pq", launches_pq, scores, n_probes,
-                  " (the self-search's coarse select of one chunk)")
+                  " (the self-search's coarse select of one chunk)",
+                  bias=(centers_pq * centers_pq).sum(1))
     del x_pq, index_pq, inter_pq, centers_pq, scores
     torch.cuda.empty_cache()
     out = {"n": n, "dim": dim, "build_s": build_s, "build_stages_s": stages,
@@ -5236,8 +5287,8 @@ def _ball_cover_metric(args, rows, x, q, metric, k):
 
     # the same metric by brute force (the general path)
     t0 = time.perf_counter()
-    gd, gi = brute_force.knn(x, q, k, metric="l2_sqrt_unexpanded"
-                             if metric == "euclidean" else "haversine")
+    gd, gi = brute_force.knn_arrays(x, q, k, metric="l2_sqrt_unexpanded"
+                                    if metric == "euclidean" else "haversine")
     swaps_bf = _metric_tie_swaps(q, x, ids, d, gi, gd, metric,
                                  f"ball cover {metric} vs brute force")
     # the first 100 queries on the same index on the CPU
@@ -5297,7 +5348,7 @@ def eps_leg(base):
     from raft_tpu_torch.neighbors import brute_force, epsilon_neighborhood
 
     xq = base[:EPS_ROWS]
-    dk, _ = brute_force.knn(base, xq, 30, metric="sqeuclidean")
+    dk, _ = brute_force.knn_arrays(base, xq, 30, metric="sqeuclidean")
     eps_sq = float(dk[:, -1].median())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5585,6 +5636,507 @@ def dist_build_phase(args, rows):
             "resume": resume}
 
 
+# ---------------------------------------------------------------------------
+# k-means whole, brute force's index API, one axis of a 2-D mesh,
+# the kernel tri-states
+# ---------------------------------------------------------------------------
+
+KMEANS_N = 1_000_000
+KMEANS_DIM = 128
+KMEANS_K = 1_000
+KMEANS_ITERS = 25
+KMEANS_MB_BATCH = 65_536
+KMEANS_MB_ITERS = 100
+# a row lies ~11.3 from its center, centers ~46 apart: at std 0.5 the
+# clusters part so far that k-means++'s missed clusters, not the
+# optimizer, decide every cost comparison; at 2.0 they merge so far that
+# any init ends near the same cost (CPU runs at 100-300 clusters)
+KMEANS_STD = 1.0
+FIND_K_N = 200_000
+FIND_K_CENTERS = 12
+FIND_K_MAX = 16
+BF_QUERIES = 10_000
+BF_PARTS = 8
+AXIS_N = 2_000_000
+AXIS_DIM = 96
+AXIS_QUERIES = 1_000
+
+
+def kmeans_leg(args, rows):
+    """``[kmeans]`` (ROADMAP A5): SIFT-1M's shape, ``KMEANS_N`` x
+    ``KMEANS_DIM`` ``DeviceSynthetic`` rows around 1,000 centers. With the
+    counts zeroed just before and read just after: ``kmeans.fit`` (1,000
+    clusters, k-means++, 25 sweeps, tol 1e-4) with its init and Lloyd
+    timed by their sync-mode spans, the same fit with ``init="random"``,
+    and ``fit_minibatch`` (batch 65,536, 100 steps) from the ++ fit's own
+    seeds; B4 must have launched. Checks: ``cluster_cost`` of the final centers equals the
+    inertia of one more sweep from them (``fit(init="array",
+    max_iter=1)``: ``fit``'s inertia is the cost of its last sweep's
+    assignment, as in the JAX package, so it is at least the final
+    centers' cost, which is checked too); ``predict`` equals
+    ``fused_l2_argmin_plain`` but at f32 ties (B4's row at [1,000,000,
+    128] x [1,000, 128], ``torch.matmul``'s time beside it); the ++ fit's
+    inertia at most the random init's; the mini-batch cost within 10 % of
+    full Lloyd's. Then ``find_k`` up to ``FIND_K_MAX`` on ``FIND_K_N``
+    rows of 12 well-separated centers returns 12 (the elbow rule picks
+    from 3 … k_max − 1, so k_max 12 could not). Returns the data for the
+    ``[bf index]`` leg and the summary."""
+    import torch
+
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.bench.dataset import DeviceSynthetic
+    from raft_tpu_torch.cluster import kmeans
+    from raft_tpu_torch.ops import kernels as K
+    from raft_tpu_torch.random import threefry
+    from raft_tpu_torch.random.rng import RngState
+
+    ds = DeviceSynthetic(KMEANS_N, KMEANS_DIM, n_centers=KMEANS_K,
+                         seed=args.seed, std=KMEANS_STD, scale=10.0)
+    x = ds.base()
+    torch.cuda.synchronize()
+    p = kmeans.KMeansParams(n_clusters=KMEANS_K, max_iter=KMEANS_ITERS,
+                            tol=1e-4, seed=args.seed)
+    K.reset_launch_counts()
+    reg = obs.MetricsRegistry()
+    obs.enable(sync=True, registry=reg)
+    try:
+        t0 = time.perf_counter()
+        c, inertia, n_iter = kmeans.fit(p, x)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        obs.disable()
+    hists = reg.snapshot()["histograms"]
+    init_s = hists["span.kmeans.fit.init"]["sum"]
+    lloyd_s = hists["span.kmeans.fit.lloyd"]["sum"]
+    t0 = time.perf_counter()
+    c_r, inertia_r, n_iter_r = kmeans.fit(
+        kmeans.KMeansParams(**{**p.__dict__, "init": "random"}), x)
+    torch.cuda.synchronize()
+    fit_r_s = time.perf_counter() - t0
+    # the mini-batch fit from the full fit's own seeds (its trial-0 key),
+    # so the comparison is of the two optimizers
+    seeds = kmeans.init_plus_plus(
+        threefry.fold_in(RngState(args.seed).key(), 0), x, KMEANS_K)
+    t0 = time.perf_counter()
+    c_mb, cost_mb, n_mb = kmeans.fit_minibatch(
+        kmeans.KMeansParams(**{**p.__dict__, "init": "array"}), x,
+        batch_size=KMEANS_MB_BATCH, n_iters=KMEANS_MB_ITERS,
+        init_centroids=seeds)
+    torch.cuda.synchronize()
+    mb_s = time.perf_counter() - t0
+    labels = kmeans.predict(c, x)
+    cost = float(kmeans.cluster_cost(c, x))
+    launches = K.launch_counts()
+    if launches["fused_l2_argmin"] == 0:
+        raise SmokeFailure("[kmeans]: fused_l2_argmin never launched")
+    _, again, _ = kmeans.fit(kmeans.KMeansParams(
+        **{**p.__dict__, "init": "array", "max_iter": 1}), x,
+        init_centroids=c)
+    inertia, inertia_r, cost_mb = float(inertia), float(inertia_r), \
+        float(cost_mb)
+    if abs(cost - float(again)) > 1e-5 * abs(cost):
+        raise SmokeFailure(f"[kmeans]: cluster_cost {cost} is not the "
+                           f"inertia {float(again)} of a sweep from the "
+                           f"final centers")
+    if not cost <= inertia * (1 + 1e-5):
+        raise SmokeFailure(f"[kmeans]: the final centers' cost {cost} is "
+                           f"above the last sweep's inertia {inertia}")
+    if not inertia <= inertia_r:
+        raise SmokeFailure(f"[kmeans]: k-means++ inertia {inertia} above "
+                           f"the random init's {inertia_r}")
+    if not cost_mb <= 1.10 * cost:
+        raise SmokeFailure(f"[kmeans]: mini-batch cost {cost_mb} is not "
+                           f"within 10 % of full Lloyd's {cost}")
+    if labels.shape != (KMEANS_N,) or not bool(
+            ((labels >= 0) & (labels < KMEANS_K)).all()):
+        raise SmokeFailure("[kmeans]: predict returned malformed labels")
+    _argmin_row(rows, "kmeans", launches, x, c.contiguous(),
+                "predict/sweep ")
+    _log(f"[kmeans] fit {KMEANS_N} x {KMEANS_DIM} into {KMEANS_K}: "
+         f"k-means++ init {init_s:.3f} s + Lloyd {lloyd_s:.3f} s "
+         f"({int(n_iter)} sweeps, {lloyd_s / max(1, int(n_iter)) * 1e3:.3f} "
+         f"ms a sweep; sync-mode spans), fit {fit_s:.3f} s in all; inertia "
+         f"{inertia:.6g} (final centers' cost {cost:.6g}); random init: "
+         f"{fit_r_s:.3f} s, {int(n_iter_r)} sweeps, inertia "
+         f"{inertia_r:.6g}; fit_minibatch batch {KMEANS_MB_BATCH} x "
+         f"{n_mb} steps from the ++ seeds {mb_s:.3f} s, cost {cost_mb:.6g} "
+         f"({cost_mb / cost:.4f} of full Lloyd's); launches "
+         f"{json.dumps(launches)}")
+    del labels
+    fk = DeviceSynthetic(FIND_K_N, KMEANS_DIM, n_centers=FIND_K_CENTERS,
+                         seed=args.seed + 1, std=0.2, scale=10.0)
+    t0 = time.perf_counter()
+    best_k, curve = kmeans.find_k(fk.base(), k_max=FIND_K_MAX)
+    find_s = time.perf_counter() - t0
+    _log(f"[kmeans find_k] {FIND_K_N} rows of {FIND_K_CENTERS} centers, "
+         f"k_max {FIND_K_MAX}: k {best_k} in {find_s:.2f} s; inertias "
+         + ", ".join(f"{v:.4g}" for v in curve.tolist()))
+    if best_k != FIND_K_CENTERS:
+        raise SmokeFailure(f"[kmeans]: find_k returned {best_k}, not "
+                           f"{FIND_K_CENTERS}")
+    return ds, x, {"init_s": init_s, "lloyd_s": lloyd_s, "fit_s": fit_s,
+                   "n_iter": int(n_iter), "inertia": inertia, "cost": cost,
+                   "random_init": {"s": fit_r_s, "n_iter": int(n_iter_r),
+                                   "inertia": inertia_r},
+                   "minibatch": {"s": mb_s, "steps": n_mb, "cost": cost_mb},
+                   "find_k": {"k": best_k, "s": find_s},
+                   "launches": launches}
+
+
+def bf_index_leg(args, rows, ds, x):
+    """``[bf index]`` (ROADMAP A3, A4) on the ``[kmeans]`` rows: with the
+    counts zeroed just before and read just after, ``brute_force.build``
+    (its cached norms) and ``knn(index, …)`` of ``BF_QUERIES`` queries at
+    k 10 with ``impl`` "auto" and "sort", three passes each, and the same
+    search at selectivity 0.1 (``bench_keep``); select_k (B3) must have
+    launched. Checks: both impls equal ``knn_arrays`` bit for bit; the
+    filtered search returns no id with its bit clear and the ids of an
+    exact search over the kept rows alone, but at f32 ties (f64);
+    ``merge_parts`` of ``BF_PARTS`` row blocks' top-10s equal to one
+    ``select_k`` over their concatenation bit for bit, and the full
+    search's ids but at ties. Then B3 at the search's tile shape against
+    its plain version (row ``bf_index``). Returns the summary."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch.core import bitset
+    from raft_tpu_torch.matrix.select_k import merge_parts, select_k_impl
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.ops import kernels as K
+
+    n, k = x.shape[0], 10
+    q = ds.queries(BF_QUERIES)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    index = brute_force.build(x, "sqeuclidean")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    def passes(fn):
+        out, qps = None, []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            torch.cuda.synchronize()
+            qps.append(BF_QUERIES / (start.elapsed_time(end) / 1e3))
+        return out, qps
+
+    (v_a, i_a), qps_auto = passes(lambda: brute_force.knn(index, q, k))
+    (v_s, i_s), qps_sort = passes(
+        lambda: brute_force.knn(index, q, k, impl="sort"))
+    keep = bench_keep(n, 0.1, k)
+    bits = bitset.from_mask(torch.from_numpy(keep).to(x.device))
+    (v_f, i_f), qps_filt = passes(
+        lambda: brute_force.knn(index, q, k, filter_bitset=bits))
+    launches = K.launch_counts()
+    if launches["select_k"] == 0:
+        raise SmokeFailure("[bf index]: select_k never launched")
+    v_r, i_r = brute_force.knn_arrays(x, q, k, metric="sqeuclidean")
+    for what, (v, i) in (("auto", (v_a, i_a)), ("sort", (v_s, i_s))):
+        if not (torch.equal(v, v_r) and torch.equal(i, i_r)):
+            raise SmokeFailure(f"[bf index]: knn(index, impl={what!r}) "
+                               f"differs from knn_arrays")
+    _check_kept(i_f.cpu(), keep, "[bf index] filtered")
+    kept_rows = torch.from_numpy(np.flatnonzero(keep)).to(x.device)
+    _, i_k = brute_force.knn_arrays(x[kept_rows], q, k,
+                                    metric="sqeuclidean")
+    swaps_f = _swaps_are_ties(q, x, i_f.long(), kept_rows[i_k.long()],
+                              "[bf index] filtered against the kept rows")
+    # merge_parts: the top-10 of each of BF_PARTS row blocks, global ids
+    step = -(-n // BF_PARTS)
+    pv, pi = [], []
+    for a in range(0, n, step):
+        v, i = brute_force.knn_arrays(x[a:a + step], q, k,
+                                      metric="sqeuclidean")
+        pv.append(v)
+        pi.append(i + a)
+    pv, pi = torch.stack(pv), torch.stack(pi)
+    mv, mi = merge_parts(pv, pi, k)
+    cv, ci = select_k_impl(pv.permute(1, 0, 2).reshape(BF_QUERIES, -1), k,
+                           input_indices=pi.permute(1, 0, 2).reshape(
+                               BF_QUERIES, -1))
+    if not (torch.equal(mv, cv) and torch.equal(mi, ci)):
+        raise SmokeFailure("[bf index]: merge_parts differs from one "
+                           "select_k over the concatenated parts")
+    swaps_m = _swaps_are_ties(q, x, mi.long(), i_r.long(),
+                              "[bf index] merge_parts against the full "
+                              "search")
+    merge_ms = _timed(lambda: merge_parts(pv, pi, k), 20)
+    _log(f"[bf index] build {n} x {x.shape[1]} ({build_s:.3f} s, norms "
+         f"cached); knn of {BF_QUERIES} queries, k {k}, three passes (CUDA "
+         f"events): impl auto "
+         + ", ".join(f"{v:.0f}" for v in qps_auto) + " QPS, sort "
+         + ", ".join(f"{v:.0f}" for v in qps_sort) + " QPS, both equal to "
+         f"knn_arrays bit for bit; selectivity 0.1: "
+         + ", ".join(f"{v:.0f}" for v in qps_filt)
+         + f" QPS, the kept rows' exact search but {swaps_f} f32-tie swaps; "
+         f"merge_parts of {BF_PARTS} x [{BF_QUERIES}, {k}] {merge_ms:.3f} "
+         f"ms, equal to select_k over the concatenation, the full search's "
+         f"ids but {swaps_m} tie swaps; launches {json.dumps(launches)}")
+    # B3 at the search's tile shape: the first tile's distance block
+    it = min(n, max(1 << 14, brute_force._TILE_BUDGET_ELEMS // BF_QUERIES))
+    blk = x[:it]
+    tile = brute_force._expanded_block(q, blk, (q * q).sum(1),
+                                       index.norms[:it], index.metric)
+    _select_k_row(rows, "bf_index", launches, tile.contiguous(), k,
+                  " (one tile of the search)")
+    del tile, index, v_r, i_r, pv, pi
+    torch.cuda.empty_cache()
+    return {"build_s": build_s, "qps_auto": qps_auto, "qps_sort": qps_sort,
+            "qps_filtered_0.1": qps_filt, "merge_parts_ms": merge_ms,
+            "tie_swaps": {"filtered": swaps_f, "merge_parts": swaps_m},
+            "launches": launches}
+
+
+def _groups_agree(spec, vals, ids, mesh, axis, what):
+    """Every group of ranks along ``axis`` holds the same merged answer:
+    each rank's table (allgather), or each group's chunks in position
+    order (ring)."""
+    import torch
+
+    from raft_tpu_torch.parallel import merge as pmerge
+
+    if spec == pmerge.REPLICATED:
+        answers = [(vals[r], ids[r]) for r in range(mesh.size)]
+    else:
+        answers = [(torch.cat([vals[r] for r in g]),
+                    torch.cat([ids[r] for r in g]))
+                   for g in mesh.groups((axis,))]
+    for v, i in answers[1:]:
+        if not (torch.equal(v, answers[0][0]) and
+                torch.equal(i, answers[0][1])):
+            raise SmokeFailure(f"{what}: the groups along {axis!r} hold "
+                               f"different answers")
+    return len(answers)
+
+
+def shard_axis_leg(args, rows):
+    """``[shard axis]`` (ROADMAP A15 on one card): a (dcn, ici) = (2, 2)
+    mesh of 4 ranks on cuda:0, IVF-PQ over DEEP's d 96 (``AXIS_N`` rows,
+    1,024 lists, pq_dim 48) sharded over "ici" and replicated over "dcn".
+    With the counts zeroed just before the build and read after the
+    searches: refined search (k 10, ``AXIS_QUERIES`` queries, n_probes 64,
+    the LUT scan and 40× re-rank) under ``merge`` allgather and ring, and
+    ``sharded_knn`` over "ici" under both. Checks: B4, B3, B1 and B2
+    launched and B7 and B8 not (a sub-axis takes ``ring_ppermute``);
+    ``parallel.merge.dispatch`` ring_ppermute and allgather only; the comms
+    counted under "ici" alone; each result equal bit for bit to the same
+    shards (``to_numpy`` → ``from_numpy``) searched over a 1-D 2-rank mesh;
+    every replica group's merged answer equal; recall@10 against the exact
+    search. Returns the summary."""
+    import torch
+
+    from raft_tpu_torch.bench.dataset import DeviceSynthetic
+    from raft_tpu_torch.neighbors import brute_force, ivf_pq
+    from raft_tpu_torch.obs import spans
+    from raft_tpu_torch.ops import kernels as K
+    from raft_tpu_torch.parallel import comms, hier_mesh, make_mesh
+    from raft_tpu_torch.parallel import ivf as pivf
+    from raft_tpu_torch.parallel import knn as pknn
+    from raft_tpu_torch.parallel import merge as pmerge
+
+    axis, k = "ici", 10
+    ds = DeviceSynthetic(AXIS_N, AXIS_DIM, n_centers=2_000,
+                         seed=args.seed + 19, std=0.5, scale=10.0)
+    base = ds.base()
+    q = ds.queries(AXIS_QUERIES)
+    mesh2 = hier_mesh(2, 2, devices="cuda:0")
+    mesh1 = make_mesh(2, device="cuda:0", axis_name=axis)
+    sp = ivf_pq.SearchParams(n_probes=64, scan_select="pallas",
+                             refine="f32_regen", refine_ratio=40,
+                             lut_dtype="float32")
+    K.reset_launch_counts()
+    spans.reset()
+    t0 = time.perf_counter()
+    index2 = pivf.build_ivf_pq(ivf_pq.IndexParams(
+        n_lists=1024, pq_dim=48, pq_bits=8, seed=args.seed), base, mesh2,
+        axis=axis)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    out, ms = {}, {}
+    comms.reset_counters()
+    for merge in ("allgather", "ring"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[("ivf_pq", merge)] = pivf.search_ivf_pq(
+            sp, index2, q, k, mesh2, axis=axis, dataset=base, merge=merge)
+        torch.cuda.synchronize()
+        ms[f"ivf_pq/{merge}"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        out[("knn", merge)] = pknn.sharded_knn(base, q, k, mesh2, axis=axis,
+                                               merge=merge)
+        torch.cuda.synchronize()
+        ms[f"knn/{merge}"] = (time.perf_counter() - t0) * 1e3
+    launches = K.launch_counts()
+    disp = spans.counts().get("parallel.merge.dispatch", {})
+    c = comms.counters()
+    need = ("fused_l2_argmin", "select_k", "ivfpq_lut_scan_topk",
+            "gather_refine_topk")
+    missing = [n_ for n_ in need if launches[n_] == 0]
+    if missing:
+        raise SmokeFailure(f"[shard axis]: never launched: {missing}")
+    if launches["ring_topk_merge"] or launches["ring_lut_scan_merge"]:
+        raise SmokeFailure(f"[shard axis]: a ring kernel launched on a "
+                           f"sub-axis: {launches}")
+    if disp != {"allgather": 2.0, "ring_ppermute": 2.0}:
+        raise SmokeFailure(f"[shard axis]: merge dispatch {disp}")
+    if {a for _, a in c["ops"]} != {axis}:
+        raise SmokeFailure(f"[shard axis]: comms counted off the axis: {c}")
+    # the same shards over a 1-D mesh of the axis's two ranks
+    arrays, meta = pivf.to_numpy(index2)
+    index1 = pivf.from_numpy(arrays, meta, mesh1, axis=axis)
+    del arrays
+    for merge in ("allgather", "ring"):
+        for what, run in (
+                ("ivf_pq", lambda: pivf.search_ivf_pq(
+                    sp, index1, q, k, mesh1, axis=axis, dataset=base,
+                    merge=merge)),
+                ("knn", lambda: pknn.sharded_knn(
+                    base, q, k, mesh1, axis=axis, merge=merge))):
+            v1, i1 = run()
+            v2, i2 = out[(what, merge)]
+            if not (torch.equal(v1, v2) and torch.equal(i1, i2)):
+                raise SmokeFailure(f"[shard axis] {what} {merge}: the 2-D "
+                                   f"mesh's answer differs from the 1-D "
+                                   f"mesh's")
+    # every replica group's merged answer, from the per-rank tables
+    n_dev = index2.n_shards
+    vals, gids = pivf._per_rank_topk(sp, index2, q, k, sp.n_probes, mesh2,
+                                     base)
+    groups = {}
+    for merge in ("allgather", "ring"):
+        tier, impl = pmerge.merge_tier(n_dev, q.shape[0], k, explicit=merge,
+                                       whole_mesh=False,
+                                       n_cards=mesh2.n_cards)
+        rv, ri = pmerge.merge_topk(vals, gids, mesh2, q.shape[0], k, n_dev,
+                                   True, tier=tier, impl=impl, axis=axis)
+        groups[merge] = _groups_agree(pmerge.merge_out_spec(tier, axis), rv,
+                                      ri, mesh2, axis, f"[shard axis] {merge}")
+    _, gt = brute_force.knn_arrays(base, q, k, metric="sqeuclidean")
+    rec = {merge: _recall(out[("ivf_pq", merge)][1].cpu(), gt.cpu())
+           for merge in ("allgather", "ring")}
+    knn_exact = all(torch.equal(out[("knn", m_)][1], gt)
+                    for m_ in ("allgather", "ring"))
+    _log(f"[shard axis] hier_mesh(2, 2) on cuda:0, IVF-PQ {AXIS_N} x "
+         f"{AXIS_DIM} (1024 lists, pq_dim 48) sharded over {axis!r}, "
+         f"replicated over 'dcn': build {build_s:.2f} s; refined search of "
+         f"{AXIS_QUERIES} queries and sharded_knn, ms {json.dumps(ms)}; "
+         f"recall@10 {json.dumps(rec)}; sharded_knn exact {knn_exact}; "
+         f"equal bit for bit to the same shards on a 1-D 2-rank mesh; "
+         f"replica groups equal {json.dumps(groups)}; dispatch "
+         f"{json.dumps(disp)}; launches {json.dumps(launches)}; comms "
+         f"(the JAX package's model) "
+         + json.dumps({f"{op}/{a}": n_ for (op, a), n_ in c["bytes"].items()}))
+    if min(rec.values()) < 0.9:
+        raise SmokeFailure(f"[shard axis]: recall {rec}")
+    del index2, index1, base, vals, gids
+    torch.cuda.empty_cache()
+    return {"build_s": build_s, "ms": ms, "recall_at_10": rec,
+            "knn_exact": knn_exact, "launches": launches, "dispatch": disp,
+            "groups": groups}
+
+
+def _tristate_off(env, kernels, search, truth, want, what):
+    """``env`` set to "off" around ``search()`` (restored after): the
+    launch counters of ``kernels`` must not move and recall@10 must not
+    fall more than 0.005 below ``want``. Returns (recall, dispatch and
+    fallback counts of the call)."""
+    from raft_tpu_torch.obs import spans
+    from raft_tpu_torch.ops import kernels as K
+
+    saved = os.environ.get(env)
+    os.environ[env] = "off"
+    before = spans.counts()
+    try:
+        K.reset_launch_counts()
+        ids = search()
+        launches = K.launch_counts()
+    finally:
+        if saved is None:
+            del os.environ[env]
+        else:
+            os.environ[env] = saved
+    after = spans.counts()
+    moved = {f"{s}{{{lk}}}": v - before.get(s, {}).get(lk, 0.0)
+             for s, d in after.items() for lk, v in d.items()
+             if s.startswith(("ivf_pq.scan.", "refine."))
+             and v != before.get(s, {}).get(lk, 0.0)}
+    ran = {n_: launches[n_] for n_ in kernels if launches[n_]}
+    if ran:
+        raise SmokeFailure(f"[tristates] {env}=off: {ran} launched ({what})")
+    rec = _recall(ids.cpu(), truth)
+    # one-sided: the other tier may rank more exactly than the kernel's
+    # (B1 keeps two candidates a strided bin; the plain grouped tier the
+    # exact top k_cand), which is no fault
+    if rec < want - 0.005:
+        raise SmokeFailure(f"[tristates] {env}=off ({what}): recall@10 "
+                           f"{rec} more than 0.005 below the default's "
+                           f"{want}")
+    _log(f"[tristates] {env}=off, {what}: launches of {list(kernels)} 0; "
+         f"recall@10 {rec:.4f} against the default's {want:.4f}; "
+         f"dispatch {json.dumps(moved)}")
+    return rec, moved
+
+
+def tristates_leg(index, base, queries, sp, B, k, gt, rec_default,
+                  rec_f32):
+    """``[tristates]`` (ROADMAP A1) on the main index: the refined search
+    of the first ``len(gt)`` queries in batches of ``B`` with
+    ``RAFT_TPU_PALLAS_LUTSCAN`` off (B1 must not launch: the approx tier
+    answers, the plain grouped tier on this cacheless index, no more than
+    0.005 below the default tier's recall@10 at the f32 LUT, ``rec_f32``:
+    the off tier ranks exact f32 ADC distances and keeps the exact top
+    k_cand, where B1 keeps two candidates a strided bin, so it may read
+    higher) and with ``RAFT_TPU_PALLAS_REFINE`` off (B2 must not launch:
+    the gather tier re-ranks the same candidates, no more than 0.005 below
+    ``rec_default``); then ``RAFT_TPU_FP8_LUT``: unset,
+    "auto" at n_probes 64 resolves fp8 on the card, "off" resolves
+    float32. ``RAFT_TPU_PALLAS_GROUPED`` is read in ``flat_phase``, whose
+    IVF-Flat index B5 and B6 scan. Returns the summary."""
+    import torch
+
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    n_gt = gt.shape[0]
+
+    def search():
+        return torch.cat([ivf_pq.search(index, queries[a:a + B], k, sp,
+                                        dataset=base)[1]
+                          for a in range(0, n_gt, B)])
+
+    out = {}
+    t0 = time.perf_counter()
+    # off, the plain grouped tier ranks exact f32 ADC distances: it is held
+    # to the default tier at the f32 LUT, the precision it computes at
+    out["lutscan_off"] = _tristate_off(
+        "RAFT_TPU_PALLAS_LUTSCAN", ("ivfpq_lut_scan_topk",), search, gt,
+        rec_f32, f"refined search of {n_gt}")
+    out["refine_off"] = _tristate_off(
+        "RAFT_TPU_PALLAS_REFINE", ("gather_refine_topk",), search, gt,
+        rec_default, f"refined search of {n_gt}")
+    saved = os.environ.pop("RAFT_TPU_FP8_LUT", None)
+    try:
+        auto = ivf_pq.resolve_lut_dtype("auto", 64, k)
+        os.environ["RAFT_TPU_FP8_LUT"] = "off"
+        off = ivf_pq.resolve_lut_dtype("auto", 64, k)
+    finally:
+        os.environ.pop("RAFT_TPU_FP8_LUT", None)
+        if saved is not None:
+            os.environ["RAFT_TPU_FP8_LUT"] = saved
+    if auto != "float8_e4m3" or off != "float32":
+        raise SmokeFailure(f"[tristates] RAFT_TPU_FP8_LUT: auto -> {auto}, "
+                           f"off -> {off} at n_probes 64")
+    _log(f"[tristates] RAFT_TPU_FP8_LUT at n_probes 64, k {k}: auto -> "
+         f"{auto}, off -> {off}; leg {time.perf_counter() - t0:.1f} s")
+    return {"lutscan_off": out["lutscan_off"][0],
+            "refine_off": out["refine_off"][0], "fp8_auto": auto,
+            "fp8_off": off}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=10_000_000)
@@ -5709,7 +6261,8 @@ def main(argv=None) -> int:
 
     # 4. checks
     n_gt = min(1000, args.queries)
-    _, gt = brute_force.knn(base, queries[:n_gt], k, metric="sqeuclidean")
+    _, gt = brute_force.knn_arrays(base, queries[:n_gt], k,
+                                   metric="sqeuclidean")
     gt = gt.cpu()
     rec_bf16 = _recall(ids_k[:n_gt], gt)
     sp32 = ivf_pq.SearchParams(**{**sp.__dict__, "lut_dtype": "float32"})
@@ -5744,10 +6297,11 @@ def main(argv=None) -> int:
         # the 8192 centers
         _argmin_row(rows, "ivf_pq", launches, base,
                     index.centers.contiguous(), "")
-        # select_k: the coarse-probe distances of the first batch
-        c_sq = (index.centers ** 2).sum(1)
-        scores = (c_sq[None, :] - 2.0 * (q0 @ index.centers.T)).contiguous()
-        _select_k_row(rows, "ivf_pq", launches, scores, 64, "")
+        # select_k: the coarse probes of the first batch, ⟨q, c⟩ with the
+        # ‖c‖² bias row the kernel folds in (c_sq − 2·qc)
+        c_sq = ivf_pq._center_sq(index)
+        scores = (q0 @ index.centers.T).contiguous()
+        _select_k_row(rows, "ivf_pq", launches, scores, 64, "", bias=c_sq)
     except SmokeFailure as e:
         return _fail(str(e))
 
@@ -5828,6 +6382,14 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         return _fail(str(e))
 
+    # 11. [tristates]: the kernel tri-states turned off on the main index
+    # (ROADMAP A1)
+    try:
+        tristate_summary = tristates_leg(index, base, queries, sp, B, k, gt,
+                                         rec_bf16, rec_f32)
+    except SmokeFailure as e:
+        return _fail(str(e))
+
     summary = {"n": N, "dim": dim, "n_lists": 8192, "pq_dim": 64,
                "max_list_size": index.max_list_size, "build_s": build_s,
                "build_stages_s": stages, "qps_runs": qps_runs,
@@ -5836,7 +6398,8 @@ def main(argv=None) -> int:
                "batch_stages_ms": stages_ms, "refine_bf16": bf16_summary,
                "filter": filt_summary,
                "tiered": tiered_summary, "resilient": resilient_summary,
-               "obs": obs_summary, "serve": serve_summary}
+               "obs": obs_summary, "serve": serve_summary,
+               "tristates": tristate_summary}
     _log(f"[summary] {json.dumps(summary)}")
     del index, base, queries, cand, kk, ki, scores, scan
     torch.cuda.empty_cache()
@@ -5868,6 +6431,12 @@ def main(argv=None) -> int:
     _log(f"[shard summary] {json.dumps(shard_summary)}")
     torch.cuda.empty_cache()
     try:
+        axis_summary = shard_axis_leg(args, rows)
+    except SmokeFailure as e:
+        return _fail(str(e))
+    _log(f"[shard axis summary] {json.dumps(axis_summary)}")
+    torch.cuda.empty_cache()
+    try:
         cagra_summary = cagra_leg(args, rows)
     except SmokeFailure as e:
         return _fail(str(e))
@@ -5878,6 +6447,15 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         return _fail(str(e))
     _log(f"[ball_cover summary] {json.dumps(ball_summary)}")
+    torch.cuda.empty_cache()
+    try:
+        km_ds, km_x, kmeans_summary = kmeans_leg(args, rows)
+        _log(f"[kmeans summary] {json.dumps(kmeans_summary)}")
+        bf_summary = bf_index_leg(args, rows, km_ds, km_x)
+    except SmokeFailure as e:
+        return _fail(str(e))
+    _log(f"[bf index summary] {json.dumps(bf_summary)}")
+    del km_ds, km_x
     torch.cuda.empty_cache()
     try:
         dist_summary = dist_build_phase(args, rows)

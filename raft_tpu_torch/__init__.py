@@ -14,3 +14,8 @@ This package imports ``torch`` and numpy only — never ``jax`` and never
 """
 
 __version__ = "0.1.0"
+
+from raft_tpu_torch.core.resources import (  # noqa: F401,E402
+    DeviceResources,
+    Resources,
+)

@@ -222,7 +222,8 @@ def compute_groundtruth(ds: Dataset, k: int = 100,
         base = ds.base if device_base is None else device_base
         if not isinstance(base, (np.ndarray, torch.Tensor)):
             base = base[0:n]  # a small provider: all its rows at once
-        _, ids = brute_force.knn(base, q, k, metric=ds.metric, device=dev)
+        _, ids = brute_force.knn_arrays(base, q, k, metric=ds.metric,
+                                         device=dev)
         ds.groundtruth = ids.cpu().numpy().astype(np.int32)
         return ds
     select_min = SELECT_MIN[resolve_metric(ds.metric)]
@@ -231,8 +232,8 @@ def compute_groundtruth(ds: Dataset, k: int = 100,
         raw = ds.base[a:a + chunk_rows]
         if not isinstance(raw, torch.Tensor):
             raw = torch.as_tensor(np.asarray(raw, np.float32))
-        v, i = brute_force.knn(raw, q, min(k, raw.shape[0]),
-                               metric=ds.metric, device=dev)
+        v, i = brute_force.knn_arrays(raw, q, min(k, raw.shape[0]),
+                                      metric=ds.metric, device=dev)
         i = i.long() + a
         if best_v is None:
             best_v, best_i = v, i

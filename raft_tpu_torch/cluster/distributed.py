@@ -24,7 +24,8 @@ from raft_tpu_torch.distance.fused_l2_nn import (
     fused_l2_nn_argmin_impl as fused_l2_nn_argmin)
 from raft_tpu_torch.parallel.comms import Comms
 from raft_tpu_torch.parallel.merge import resolve_exchange
-from raft_tpu_torch.parallel.mesh import Mesh, replicate, shard_rows
+from raft_tpu_torch.parallel.mesh import (Mesh, per_shard, replicate,
+                                          shard_rows)
 from raft_tpu_torch.random.rng import RngState
 from raft_tpu_torch.utils import precision as _precision
 
@@ -35,16 +36,18 @@ def fit(params: KMeansParams, x, mesh: Mesh, axis: str = "shard",
         ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Distributed Lloyd fit over a row-sharded dataset ``x [n, d]``.
 
-    Rows are zero-padded to a multiple of the rank count with zero
-    weights; zero-weight rows join no centroid and no inertia. Stops after
-    ``params.max_iter`` iterations or when the squared centroid shift
-    falls to ``params.tol²``. Without ``init_centroids`` the initial
+    Rows shard over ``axis`` (one axis of a 2-D mesh: sharded over it,
+    replicated over the other; the ranks that share a shard and a device
+    share its sums) and are zero-padded to a multiple of its rank count
+    with zero weights; zero-weight rows join no centroid and no inertia.
+    Stops after ``params.max_iter`` iterations or when the squared
+    centroid shift falls to ``params.tol²``. Without ``init_centroids`` the initial
     centroids are ``n_clusters`` distinct real rows drawn from
     ``params.seed`` (not the JAX package's draw: the generators differ).
     Returns (centroids [k, d], inertia, n_iter) on rank 0's device."""
     _precision.enforce()
-    resolve_exchange(mesh, axis)
-    comms = Comms(mesh)
+    n_dev, _, _ = resolve_exchange(mesh, axis)
+    comms = Comms(mesh, axis)
     dev0 = mesh.devices[0]
     xf = to_device(x, dev0, torch.float32)
     n = xf.shape[0]
@@ -59,32 +62,18 @@ def fit(params: KMeansParams, x, mesh: Mesh, axis: str = "shard",
             # seed a dead centroid
             init_centroids = init_random(state, xf[w > 0], k)
     c0 = to_device(init_centroids, dev0, torch.float32)
-    xs, _ = shard_rows(xf, mesh)
-    if w is None and xs[0].shape[0] * mesh.size != n:
+    xs, _ = shard_rows(xf, mesh, axis)
+    if w is None and xs[0].shape[0] * n_dev != n:
         w = torch.ones((n,), dtype=torch.float32, device=dev0)
-    ws = shard_rows(w, mesh)[0] if w is not None else [None] * mesh.size
+    ws = (shard_rows(w, mesh, axis)[0] if w is not None
+          else [None] * mesh.size)
     cs = replicate(c0, mesh)
     shift2 = float("inf")
     it = 0
     inertia = None
     while it < params.max_iter and shift2 > params.tol * params.tol:
-        sums, counts, inert = [], [], []
-        for r in comms.get_rank():
-            d2, lab = fused_l2_nn_argmin(xs[r], cs[r])
-            lab = lab.long()
-            s = torch.zeros((k, xs[r].shape[1]), dtype=torch.float32,
-                            device=xs[r].device)
-            c = torch.zeros((k,), dtype=torch.float32, device=xs[r].device)
-            if ws[r] is None:
-                s.index_add_(0, lab, xs[r])
-                c.index_add_(0, lab, torch.ones_like(d2))
-                inert.append(d2.sum())
-            else:
-                s.index_add_(0, lab, xs[r] * ws[r][:, None])
-                c.index_add_(0, lab, ws[r])
-                inert.append((ws[r] * d2).sum())
-            sums.append(s)
-            counts.append(c)
+        sums, counts, inert = map(list, zip(*per_shard(
+            mesh, axis, lambda r, p: _local_sums(xs[r], ws[r], cs[r], k))))
         sums = comms.allreduce(sums)
         counts = comms.allreduce(counts)
         inertia = comms.allreduce(inert)
@@ -103,14 +92,30 @@ def fit(params: KMeansParams, x, mesh: Mesh, axis: str = "shard",
     return cs[0], inertia[0], it
 
 
+def _local_sums(x: torch.Tensor, w, c: torch.Tensor, k: int):
+    """One shard's assignment (B4) and its per-cluster sums, counts and
+    inertia (weighted when ``w`` is given)."""
+    d2, lab = fused_l2_nn_argmin(x, c)
+    lab = lab.long()
+    s = torch.zeros((k, x.shape[1]), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((k,), dtype=torch.float32, device=x.device)
+    if w is None:
+        s.index_add_(0, lab, x)
+        cnt.index_add_(0, lab, torch.ones_like(d2))
+        return s, cnt, d2.sum()
+    s.index_add_(0, lab, x * w[:, None])
+    cnt.index_add_(0, lab, w)
+    return s, cnt, (w * d2).sum()
+
+
 @traced("raft_tpu_torch.distributed_kmeans.predict")
 def predict(centroids, x, mesh: Mesh, axis: str = "shard") -> torch.Tensor:
-    """Nearest-centroid labels [n] int32 of a row-sharded dataset, on rank
-    0's device."""
+    """Nearest-centroid labels [n] int32 of a dataset row-sharded over
+    ``axis``, on rank 0's device."""
     resolve_exchange(mesh, axis)
     dev0 = mesh.devices[0]
-    xs, n = shard_rows(to_device(x, dev0, torch.float32), mesh)
+    xs, n = shard_rows(to_device(x, dev0, torch.float32), mesh, axis)
     cs = replicate(to_device(centroids, dev0, torch.float32), mesh)
-    labels = [fused_l2_nn_argmin(xs[r], cs[r])[1].to(dev0)
-              for r in range(mesh.size)]
+    first = mesh.groups((axis,) if isinstance(axis, str) else axis)[0]
+    labels = [fused_l2_nn_argmin(xs[r], cs[r])[1].to(dev0) for r in first]
     return torch.cat(labels)[:n]

@@ -62,9 +62,13 @@ def select_k(scores: torch.Tensor, k: int, select_min: bool = True,
 
 
 def select_k_impl(scores: torch.Tensor, k: int, select_min: bool = True,
-                  input_indices: Optional[torch.Tensor] = None
+                  input_indices: Optional[torch.Tensor] = None,
+                  bias: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`select_k` without its span."""
+    """:func:`select_k` without its span. ``bias`` (a row of len f32
+    values) ranks ``bias − 2·scores`` instead of ``scores``: the kernel
+    tier forms it as it loads a score (``ops.kernels.select_k_cuda``), the
+    other tiers with one ``torch.sub`` first."""
     expects(scores.dim() == 2, "scores must be [batch, len]")
     n = scores.shape[1]
     if k > n:
@@ -72,8 +76,11 @@ def select_k_impl(scores: torch.Tensor, k: int, select_min: bool = True,
     if k <= _KERNEL_MAX_K:
         _obs_spans.count_dispatch("select_k", "pallas")
         vals, idx = _k.select_k_cuda(scores.float().contiguous(), k,
-                                     select_min)
-    elif k > _KERNEL_MAX_K and n >= _LARGE_K_MIN_LEN:
+                                     select_min, bias)
+        return vals, _gather_ids(idx, input_indices)
+    if bias is not None:
+        scores = torch.sub(bias.reshape(1, -1), scores, alpha=2.0)
+    if n >= _LARGE_K_MIN_LEN:
         _obs_spans.count_dispatch("select_k", "xla_tiled")
         vals, idx = _select_k_tiled(scores, k, select_min)
     else:
@@ -101,3 +108,23 @@ def _select_k_tiled(scores, k, select_min):
     vals, pos = _k.select_k_plain(tv.reshape(batch, n_tiles * kk), k,
                                   select_min)
     return vals, torch.gather(ti.reshape(batch, n_tiles * kk), 1, pos.long())
+
+
+def merge_parts(part_vals: torch.Tensor, part_idx: torch.Tensor, k: int,
+                select_min: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-part top-k candidate lists into one top-k (counterpart of
+    ``knn_merge_parts``, neighbors/detail/knn_merge_parts.cuh): parts come
+    from index chunks, shards or probes, each holding its local top-k
+    with *global* ids in ``part_idx``.
+
+    ``part_vals``, ``part_idx``: [n_parts, batch, k_part] → (values,
+    ids) [batch, k], one :func:`select_k` over each row's n_parts·k_part
+    candidates in part order (the kernel tier, B3, for k ≤ 64), so ties
+    keep the lower part."""
+    expects(part_vals.dim() == 3 and part_idx.shape == part_vals.shape,
+            "parts must be [n_parts, batch, k_part] values and ids (got %s "
+            "and %s)", tuple(part_vals.shape), tuple(part_idx.shape))
+    n_parts, batch, k_part = part_vals.shape
+    flat_v = part_vals.permute(1, 0, 2).reshape(batch, n_parts * k_part)
+    flat_i = part_idx.permute(1, 0, 2).reshape(batch, n_parts * k_part)
+    return select_k(flat_v, k, select_min=select_min, input_indices=flat_i)

@@ -307,9 +307,9 @@ def cluster_knn_graph(dataset, k: int, metric: str = "sqeuclidean",
     ip = resolve_metric(metric) == DistanceType.InnerProduct
     if n <= (1 << 14) or n // rows_per_list < 4:
         with stage("brute_force"):
-            _, knn_ids = _bf.knn(x, x, min(n, k + 1),
-                                 metric="inner_product" if ip
-                                 else "sqeuclidean", device=dev)
+            _, knn_ids = _bf.knn_arrays(x, x, min(n, k + 1),
+                                        metric="inner_product" if ip
+                                        else "sqeuclidean", device=dev)
             g = _drop_self_edges(knn_ids, n, k)
         return (g, None, None) if return_entries else g
 

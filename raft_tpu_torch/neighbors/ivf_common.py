@@ -309,7 +309,12 @@ def grouped_tier(approx: bool, kk: int) -> str:
     grouped scan, kk ≤ 64) for exact, else "plain". The JAX package also
     asks that a list block fit the TPU kernels' VMEM
     (``pallas_segmented_wanted`` / ``pallas_grouped_wanted``); the CUDA
-    scans tile L and d, so only kk decides here."""
+    scans tile L and d, so only kk decides here. ``RAFT_TPU_PALLAS_GROUPED``
+    (auto | on | off, the JAX package's tri-state) set to off takes the
+    plain tier, the JAX package's XLA grouped tier; "on" keeps the kk
+    gates."""
+    if _obs_spans.env_tristate("RAFT_TPU_PALLAS_GROUPED") == "off":
+        return "plain"
     if approx:
         return "segk" if kk <= _k.LUT_SCAN_LANES else "plain"
     return "kernel" if kk <= _k.GROUPED_SCAN_MAX_KK else "plain"

@@ -126,13 +126,17 @@ def resolve_lut_dtype(lut_dtype: str, n_probes: int, k: int,
     """``lut_dtype="auto"`` for one dispatch: fp8 for oversampled scans
     (n_probes ≥ 64 or k ≥ 400) on the card when the candidate slack
     n_probes·256·selectivity is ≥ 4k, bf16 when it is thinner, exact f32
-    otherwise and off the card. Explicit dtypes pass through; each "auto"
+    otherwise and off the card. ``RAFT_TPU_FP8_LUT`` (auto | on | off, the
+    JAX package's tri-state): "on" applies the policy off the card too,
+    "off" pins "auto" to f32. Explicit dtypes pass through; each "auto"
     resolution counts under ``ivf_pq.lut.dispatch{dtype=...}``."""
     if lut_dtype != "auto":
         return lut_dtype
+    force = _obs_spans.env_tristate("RAFT_TPU_FP8_LUT")
     oversampled = n_probes >= 64 or k >= 400
     chosen = "float32"
-    if oversampled and _k._on_cuda():
+    if (force != "off" and oversampled
+            and (force == "on" or _k._on_cuda())):
         surviving = selectivity * n_probes * _k.LUT_SCAN_BINS
         chosen = ("float8_e4m3" if surviving >= FP8_LUT_MIN_SLACK * k
                   else "bfloat16")
@@ -1183,9 +1187,10 @@ def _coarse_probes(index: IvfPqIndex, q_all: torch.Tensor, n_probes: int,
     if ip_like:
         _, probes = _select_k(qc, n_probes, select_min=False)
     else:
-        # c_sq − 2·qc in one operation (2·qc is exact)
-        _, probes = _select_k(torch.sub(_center_sq(index), qc, alpha=2.0),
-                              n_probes, select_min=True)
+        # c_sq − 2·qc formed inside the select (B3's bias row; 2·qc is
+        # exact, so the keys are torch.sub(c_sq, qc, alpha=2)'s)
+        _, probes = _select_k(qc, n_probes, select_min=True,
+                              bias=_center_sq(index))
     return qc, probes
 
 
@@ -1439,6 +1444,8 @@ _LUT_FALLBACK_DETAIL = {
     "per_cluster": "per_cluster codebooks (the kernel decodes "
                    "per_subspace only)",
     "mem_guard": "the lut_scan_mem_ok memory guard declined the shape",
+    "kernel_ineligible": "RAFT_TPU_PALLAS_LUTSCAN=off turns the kernel "
+                         "tier off",
 }
 _lut_fallback_warned = False
 
@@ -1571,6 +1578,11 @@ def _search_scan(index: IvfPqIndex, q: torch.Tensor, k: int,
                     "ivf_pq.search", "pallas_lut", "grouped_" + (
                         "approx" if params.scan_select == "pallas"
                         else select), "mem_guard")
+            if reason is None and _obs_spans.env_tristate(
+                    "RAFT_TPU_PALLAS_LUTSCAN") == "off":
+                # the JAX package's kernel gate turned off: the grouped
+                # tiers answer ("on" keeps every gate above)
+                reason = "kernel_ineligible"
             if reason is not None:
                 _obs_spans.count_fallback("ivf_pq.scan", reason)
             if reason is None:

@@ -165,7 +165,10 @@ def _fused_refine_wanted(dataset, queries, candidates, k: int) -> bool:
     """True when the fused gather-refine kernel serves this call. The
     memory guard's decline (or a ``refine.mem_guard`` force fault) counts
     one ``degrade.steps`` move to the gather tier, as in the JAX
-    package."""
+    package. ``RAFT_TPU_PALLAS_REFINE`` (auto | on | off, the JAX
+    package's tri-state): "off" takes the gather tier, "on" the kernel at
+    every shape its k and C gates admit (auto asks C ≥ 400 or a 1 GB
+    gather buffer)."""
     if not isinstance(dataset, torch.Tensor) or dataset.dim() != 2:
         return False
     if dataset.dtype not in (torch.float32, torch.bfloat16):
@@ -181,9 +184,11 @@ def _fused_refine_wanted(dataset, queries, candidates, k: int) -> bool:
         _degrade.note_step("refine", "pallas_gather", "xla_gather",
                            "mem_guard")
         return False
-    if k > _k.GATHER_REFINE_MAX_K or C < 2 * _k.LUT_SCAN_LANES:
+    force = _obs_spans.env_tristate("RAFT_TPU_PALLAS_REFINE")
+    if (force == "off" or k > _k.GATHER_REFINE_MAX_K
+            or C < 2 * _k.LUT_SCAN_LANES):
         return False
-    return C >= 400 or m * C * d * itemsize >= (1 << 30)
+    return force == "on" or C >= 400 or m * C * d * itemsize >= (1 << 30)
 
 
 def _refine_fused(dataset, queries, candidates, k: int, mt: DistanceType,

@@ -133,7 +133,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             "rtt_fused_l2_argmin": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
             "rtt_fused_l2_argmin_scratch_floats": [_I, _I]},
         "select_k": {
-            "rtt_select_k": [_P] + [_I] * 7 + [_P, _P, _P]},
+            "rtt_select_k": [_P, _P] + [_I] * 7 + [_P, _P, _P]},
         "ivfpq_lut_scan": {
             "rtt_ivfpq_lut_scan_topk": [_P] * 15 + [_I] * 14 + [_P],
             "rtt_lut_scan_smem_bytes": [_I] * 7},

@@ -36,6 +36,12 @@
 //   that bin in position order (per-warp counts over contiguous spans, a
 //   prefix over the warps), land in a k-slot shared table; one warp sorts
 //   those k by (key, position) with the short variant's rounds.
+//
+// Bias row: with `bias` (a row of len floats, or null) the kernel ranks
+// bias[j] - 2 * scores[i, j], formed as it loads a score, and returns
+// those values: the IVF-PQ coarse probe's ||c||^2 - 2<q, c> without a
+// separate elementwise launch before the select. 2 * score is exact, so
+// the value equals torch.sub(bias, scores, alpha=2) bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,6 +63,13 @@ __device__ __forceinline__ uint32_t select_key(float v, bool select_min) {
   return select_min ? o : ~o;
 }
 
+// The value the select ranks at position p of a row.
+__device__ __forceinline__ float score_at(const float* src,
+                                          const float* bias, int p) {
+  const float v = __ldg(src + p);
+  return bias != nullptr ? __ldg(bias + p) - 2.f * v : v;
+}
+
 // Position of a lane's i-th register in a row read as 16-byte vectors
 // (kVec 4) or as single floats (kVec 1); it grows with i, so a lane's
 // first minimum is its lowest position.
@@ -68,23 +81,25 @@ __device__ __forceinline__ uint32_t lane_pos(int lane, int i) {
 
 // Ranks lane and lane + 32 of a row's result: positions and the row's
 // values at them.
-__device__ __forceinline__ void store_row(const float* src, uint32_t res0,
+__device__ __forceinline__ void store_row(const float* src,
+                                          const float* bias, uint32_t res0,
                                           uint32_t res1, int k, float* ov,
                                           int* oi, int lane) {
   if (lane < k) {
     oi[lane] = (int)res0;
-    ov[lane] = src[res0];
+    ov[lane] = score_at(src, bias, (int)res0);
   }
   if (lane + 32 < k) {
     oi[lane + 32] = (int)res1;
-    ov[lane + 32] = src[res1];
+    ov[lane + 32] = score_at(src, bias, (int)res1);
   }
 }
 
 // One warp per row; kPer keys a lane (a multiple of kVec).
 template <int kVec, int kPer>
 __global__ void __launch_bounds__(kShortWarps * 32)
-select_k_short(const float* __restrict__ scores, int m, int len, int k,
+select_k_short(const float* __restrict__ scores,
+               const float* __restrict__ bias, int m, int len, int k,
                bool select_min, float* __restrict__ out_v,
                int* __restrict__ out_i) {
   const int lane = threadIdx.x & 31;
@@ -99,7 +114,12 @@ select_k_short(const float* __restrict__ scores, int m, int len, int k,
     for (int j = 0; j < kPer / 4; ++j) {
       const int v = lane + 32 * j;
       const bool in = v < n4;
-      const float4 f = in ? __ldg(src4 + v) : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 f = in ? __ldg(src4 + v) : make_float4(0.f, 0.f, 0.f, 0.f);
+      if (bias != nullptr && in) {
+        const float4 b = __ldg(reinterpret_cast<const float4*>(bias) + v);
+        f = make_float4(b.x - 2.f * f.x, b.y - 2.f * f.y, b.z - 2.f * f.z,
+                        b.w - 2.f * f.w);
+      }
       key[4 * j + 0] = in ? select_key(f.x, select_min) : kGone;
       key[4 * j + 1] = in ? select_key(f.y, select_min) : kGone;
       key[4 * j + 2] = in ? select_key(f.z, select_min) : kGone;
@@ -109,7 +129,8 @@ select_k_short(const float* __restrict__ scores, int m, int len, int k,
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int p = lane + 32 * i;
-      key[i] = p < len ? select_key(__ldg(src + p), select_min) : kGone;
+      key[i] = p < len ? select_key(score_at(src, bias, p), select_min)
+                       : kGone;
     }
   }
   uint32_t res0 = 0u, res1 = 0u;  // positions of ranks lane and lane + 32
@@ -133,14 +154,15 @@ select_k_short(const float* __restrict__ scores, int m, int len, int k,
     if (t == lane) res0 = wp;
     if (t == lane + 32) res1 = wp;
   }
-  store_row(src, res0, res1, k, out_v + row * k, out_i + row * k, lane);
+  store_row(src, bias, res0, res1, k, out_v + row * k, out_i + row * k,
+            lane);
 }
 
 // One block per row. kStaged: the row's keys sit in dynamic shared memory.
 template <bool kStaged>
 __global__ void __launch_bounds__(kLongWarps * 32)
-select_k_long(const float* __restrict__ scores, int len, int k,
-              bool select_min, float* __restrict__ out_v,
+select_k_long(const float* __restrict__ scores,
+              const float* __restrict__ bias, int len, int k, bool select_min, float* __restrict__ out_v,
               int* __restrict__ out_i) {
   extern __shared__ uint32_t staged[];
   __shared__ uint32_t hist[kBins];
@@ -152,11 +174,12 @@ select_k_long(const float* __restrict__ scores, int len, int k,
   const long row = blockIdx.x;
   const float* src = scores + row * len;
   auto key_at = [&](int p) -> uint32_t {
-    return kStaged ? staged[p] : select_key(__ldg(src + p), select_min);
+    return kStaged ? staged[p]
+                   : select_key(score_at(src, bias, p), select_min);
   };
   if (kStaged) {
     for (int p = tid; p < len; p += blockDim.x)
-      staged[p] = select_key(src[p], select_min);
+      staged[p] = select_key(score_at(src, bias, p), select_min);
   }
 
   // Radix descent: after each pass `prefix` holds the k-th key's top bits
@@ -293,11 +316,13 @@ select_k_long(const float* __restrict__ scores, int len, int k,
     if (t == lane) res0 = wp;
     if (t == lane + 32) res1 = wp;
   }
-  store_row(src, res0, res1, k, out_v + row * k, out_i + row * k, lane);
+  store_row(src, bias, res0, res1, k, out_v + row * k, out_i + row * k,
+            lane);
 }
 
 struct Launch {
   const float* scores;
+  const float* bias;
   int m, len, k;
   bool select_min;
   float* out_v;
@@ -309,28 +334,31 @@ template <int kVec, int kPer>
 int launch_short(const Launch& a) {
   const int blocks = (a.m + kShortWarps - 1) / kShortWarps;
   select_k_short<kVec, kPer><<<blocks, kShortWarps * 32, 0, a.stream>>>(
-      a.scores, a.m, a.len, a.k, a.select_min, a.out_v, a.out_i);
+      a.scores, a.bias, a.m, a.len, a.k, a.select_min, a.out_v, a.out_i);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// scores [m, len] f32 -> out_v [m, k] f32, out_i [m, k] i32. The variant
+// scores [m, len] f32 (with bias, a [len] f32 row or null: the select
+// ranks bias[j] - 2 * scores[i, j]) -> out_v [m, k] f32, out_i [m, k] i32.
+// The variant
 // comes from ops/kernels.py:select_k_plan: per_lane > 0 is the short
 // variant with `vec`-wide loads and per_lane keys a lane; per_lane == 0 the
 // long one, its keys staged when smem_bytes == len * 4 (0: not staged).
-extern "C" int rtt_select_k(const float* scores, int m, int len, int k,
-                            int select_min, int vec, int per_lane,
+extern "C" int rtt_select_k(const float* scores, const float* bias, int m,
+                            int len, int k, int select_min, int vec, int per_lane,
                             int smem_bytes, float* out_v, int* out_i,
                             void* stream) {
   if (k < 1 || k > kMaxK || k > len) return (int)cudaErrorInvalidValue;
   if (m <= 0) return (int)cudaSuccess;
-  const Launch a{scores, m, len, k, select_min != 0, out_v, out_i,
+  const Launch a{scores, bias, m, len, k, select_min != 0, out_v, out_i,
                  (cudaStream_t)stream};
   if (per_lane > 0) {
     if (len > 32 * per_lane) return (int)cudaErrorInvalidValue;
     if (vec == 4) {
-      if (len % 4 != 0 || ((uintptr_t)scores & 15u) != 0)
+      if (len % 4 != 0 || ((uintptr_t)scores & 15u) != 0 ||
+          ((uintptr_t)bias & 15u) != 0)
         return (int)cudaErrorInvalidValue;
       switch (per_lane) {
         case 4: return launch_short<4, 4>(a);
@@ -355,10 +383,10 @@ extern "C" int rtt_select_k(const float* scores, int m, int len, int k,
     return (int)cudaErrorInvalidValue;
   if (smem_bytes > 0) {
     select_k_long<true><<<m, kLongWarps * 32, smem_bytes, a.stream>>>(
-        scores, len, k, a.select_min, out_v, out_i);
+        scores, bias, len, k, a.select_min, out_v, out_i);
   } else {
     select_k_long<false><<<m, kLongWarps * 32, 0, a.stream>>>(
-        scores, len, k, a.select_min, out_v, out_i);
+        scores, bias, len, k, a.select_min, out_v, out_i);
   }
   return (int)cudaGetLastError();
 }

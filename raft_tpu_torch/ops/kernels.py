@@ -166,9 +166,14 @@ fused_l2_argmin.launches = 0
 # select_k
 # ---------------------------------------------------------------------------
 
-def select_k_plain(scores: torch.Tensor, k: int, select_min: bool = True
+def select_k_plain(scores: torch.Tensor, k: int, select_min: bool = True,
+                   bias: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sorted top-k per row, ties to the lowest position (a stable sort)."""
+    """Sorted top-k per row, ties to the lowest position (a stable sort).
+    With ``bias`` (a row of len values) the rows ranked are
+    ``bias − 2·scores``, formed by one ``torch.sub``."""
+    if bias is not None:
+        scores = torch.sub(bias.reshape(1, -1), scores, alpha=2.0)
     vals, idx = torch.sort(scores, dim=1, descending=not select_min,
                            stable=True)
     return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
@@ -197,25 +202,39 @@ def select_k_plan(length: int, aligned: bool) -> Tuple[int, int, int]:
     return 1, 0, length * 4 if length <= SELECT_K_STAGE_MAX else 0
 
 
-def select_k_cuda(scores: torch.Tensor, k: int, select_min: bool = True
+def select_k_cuda(scores: torch.Tensor, k: int, select_min: bool = True,
+                  bias: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-wise top-k, k ≤ 64: scores [m, len] f32 → (values [m, k] f32,
-    positions [m, k] i32), sorted, ties to the lowest position."""
+    positions [m, k] i32), sorted, ties to the lowest position. ``bias``
+    (f32, len values: [len] or [1, len], contiguous) makes the kernel rank
+    ``bias[j] − 2·scores[i, j]``, formed as it loads a score, and return
+    those values (IVF-PQ's coarse probe ‖c‖² − 2⟨q, c⟩; 2·score is exact,
+    so equal bit for bit to ``torch.sub(bias, scores, alpha=2)``)."""
     _check(scores, "scores", torch.float32, 2)
     m, n = scores.shape
     expects(0 < k <= SELECT_K_MAX_K, "k=%d outside (0, %d]", k,
             SELECT_K_MAX_K)
     expects(k <= n, "k=%d > len=%d", k, n)
+    if bias is not None and not (
+            bias.dtype == torch.float32 and bias.numel() == n
+            and bias.is_contiguous() and bias.dim() <= 2
+            and bias.device == scores.device):
+        # the message is built only for a failing operand
+        expects(False, "bias must be a contiguous f32 row of %d values on "
+                "%s (got %s %s on %s)", n, scores.device, bias.dtype,
+                tuple(bias.shape), bias.device)
     if not scores.is_cuda and not _use_kernel(scores):
-        return select_k_plain(scores, k, select_min)
+        return select_k_plain(scores, k, select_min, bias)
     dev = scores.device
     ptr = _ptr(scores)
-    vec, per_lane, smem = select_k_plan(n, ptr % 16 == 0)
+    bptr = 0 if bias is None else _ptr(bias)
+    vec, per_lane, smem = select_k_plan(n, ptr % 16 == 0 and bptr % 16 == 0)
     out_v = torch.empty((m, k), dtype=torch.float32, device=dev)
     out_i = torch.empty_like(out_v, dtype=torch.int32)
     rc = _lib("select_k").rtt_select_k(
-        ptr, m, n, k, int(select_min), vec, per_lane, smem, _ptr(out_v),
-        _ptr(out_i), _stream(dev))
+        ptr, bptr or None, m, n, k, int(select_min), vec, per_lane, smem,
+        _ptr(out_v), _ptr(out_i), _stream(dev))
     select_k_cuda.launches += 1
     _raise_on(rc, "select_k")
     return out_v, out_i

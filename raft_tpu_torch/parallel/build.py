@@ -57,7 +57,7 @@ import torch
 from raft_tpu_torch.core import ids as _ids
 from raft_tpu_torch.core import logging as _log
 from raft_tpu_torch.core.device import to_device
-from raft_tpu_torch.core.errors import expects
+from raft_tpu_torch.core.errors import expects, not_ported
 from raft_tpu_torch.core.interruptible import cancellation_point
 from raft_tpu_torch.core.tracing import span
 from raft_tpu_torch.obs import sanitize as _sanitize
@@ -523,7 +523,9 @@ def build_ivf_pq_distributed(dataset, params, mesh: Mesh,
             "resume must be False, True, or 'auto' (got %r)", resume)
     expects(not resume or checkpoint_dir is not None,
             "resume=%r needs checkpoint_dir=", resume)
-    _merge.resolve_exchange(mesh, axis)
+    if _merge.resolve_exchange(mesh, axis)[0] != mesh.size:
+        raise not_ported("the distributed chunked build over one axis of "
+                         "a 2-D mesh", "A15")
     n, dim = dataset.shape
     n_dev = mesh.size
     dev0 = mesh.devices[0]
@@ -793,7 +795,9 @@ def build_ivf_flat_distributed(dataset, params, mesh: Mesh,
             "distributed build does not support spill=True yet")
     expects(coarse in ("replicated", "distributed"),
             "coarse must be 'replicated' or 'distributed' (got %r)", coarse)
-    _merge.resolve_exchange(mesh, axis)
+    if _merge.resolve_exchange(mesh, axis)[0] != mesh.size:
+        raise not_ported("the distributed chunked build over one axis of "
+                         "a 2-D mesh", "A15")
     n, dim = dataset.shape
     expects(params.n_lists <= n, "n_lists=%d > n=%d", params.n_lists, n)
     n_dev = mesh.size

@@ -26,6 +26,11 @@ per_query tier and the refined scan take the bitset itself, and the
 per-rank re-rank of the refined path takes none (its candidates are
 already kept ones).
 
+Over one axis of a 2-D mesh (``axis="ici"``) the lists shard over that
+axis and replicate over the other (``shard_axis`` on the index): each
+(shard, device) is encoded and searched once and its ranks share it, and
+the merge runs within each group along the axis.
+
 Sharded IVF-Flat: the same coarse fit, each rank's rows assigned by the
 fused L2 argmin kernel and packed with global ids (``ivf_common.
 pack_lists``), then per rank the per_query tier and the shared merge.
@@ -37,7 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -60,7 +65,8 @@ from raft_tpu_torch.obs import spans as _obs_spans
 from raft_tpu_torch.ops import kernels as _k
 from raft_tpu_torch.parallel import merge as _merge
 from raft_tpu_torch.parallel.comms import Comms
-from raft_tpu_torch.parallel.mesh import Mesh, replicate, shard_rows
+from raft_tpu_torch.parallel.mesh import (Mesh, per_shard, replicate,
+                                          shard_rows)
 from raft_tpu_torch.random.rng import RngState
 from raft_tpu_torch.robust import faults as _faults
 from raft_tpu_torch.utils import precision as _precision
@@ -92,10 +98,14 @@ class ShardedIvfPq:
     # rank·shard_rows + local (0 = unknown)
     shard_rows: int = 0
     global_list_cap: int = 0
+    # the mesh axis (or axes) the lists shard over; None: every rank of
+    # the mesh. Over one axis of a 2-D mesh the ranks that share a
+    # position along it hold the same shard (replicas over the other axis)
+    shard_axis: Union[str, Tuple[str, ...], None] = None
 
     @property
     def n_shards(self) -> int:
-        return len(self.packed_codes)
+        return self.mesh.positions(self.shard_axis)[0]
 
     @property
     def n_lists(self) -> int:
@@ -128,15 +138,34 @@ _REPLICATED = ("centers", "centers_rot", "rotation", "codebooks")
 _SHARDED = ("packed_codes", "packed_ids", "packed_norms", "list_sizes")
 
 
-def from_numpy(arrays: Dict[str, np.ndarray], meta: Dict, mesh: Mesh
-               ) -> ShardedIvfPq:
+def _place_shards(shards: Sequence, mesh: Mesh, axis) -> List[torch.Tensor]:
+    """One tensor per rank from one array per shard position along
+    ``axis``: rank r takes shard ``positions(axis)[r]`` on its device,
+    made once a (shard, device)."""
+    return per_shard(mesh, axis,
+                     lambda r, p: to_device(shards[p], mesh.devices[r]))
+
+
+def _first_group(mesh: Mesh, axis) -> List[int]:
+    """The ranks of the first group along ``axis``, in position order: one
+    rank per shard."""
+    axes = mesh.axis_names if axis is None else (
+        (axis,) if isinstance(axis, str) else tuple(axis))
+    return mesh.groups(axes)[0]
+
+
+def from_numpy(arrays: Dict[str, np.ndarray], meta: Dict, mesh: Mesh,
+               axis: Union[str, Sequence[str], None] = None) -> ShardedIvfPq:
     """Index from the JAX ``ShardedIvfPq``'s fields as numpy arrays (the
     packed ones with their leading shard axis) and its static fields
-    (``meta``: metric, pq_bits, pq_dim, shard_rows, global_list_cap).
-    Lane-folded codes are taken as their ``[n_lists, L, nb]`` view."""
+    (``meta``: metric, pq_bits, pq_dim, shard_rows, global_list_cap),
+    sharded over ``axis`` of the mesh (None: every rank; one axis of a 2-D
+    mesh: replicated over the other). Lane-folded codes are taken as their
+    ``[n_lists, L, nb]`` view."""
     n_dev = np.asarray(arrays["packed_codes"]).shape[0]
-    expects(n_dev == mesh.size, "index of %d shards on a %d-rank mesh",
-            n_dev, mesh.size)
+    n_axis = mesh.positions(axis)[0]
+    expects(n_dev == n_axis, "index of %d shards on a mesh axis of %d "
+            "ranks", n_dev, n_axis)
     pq_dim = int(meta.get("pq_dim", 0))
     pq_bits = int(meta.get("pq_bits", 8))
     L = np.asarray(arrays["packed_ids"]).shape[2]
@@ -146,22 +175,25 @@ def from_numpy(arrays: Dict[str, np.ndarray], meta: Dict, mesh: Mesh
     for name in _SHARDED:
         a = np.asarray(arrays[name])
         if name == "packed_codes":  # a lane-folded shard as its view
-            a = [_pq._unfold_codes(a[r], L, pq_dim, pq_bits)
-                 for r in range(n_dev)]
-        fields[name] = [to_device(a[r], d) for r, d in enumerate(mesh.devices)]
+            a = [_pq._unfold_codes(a[p], L, pq_dim, pq_bits)
+                 for p in range(n_dev)]
+        fields[name] = _place_shards(a, mesh, axis)
     return ShardedIvfPq(**fields, mesh=mesh, metric=str(meta["metric"]),
                         pq_bits=pq_bits, pq_dim=pq_dim,
                         shard_rows=int(meta.get("shard_rows", 0)),
-                        global_list_cap=int(meta.get("global_list_cap", 0)))
+                        global_list_cap=int(meta.get("global_list_cap", 0)),
+                        shard_axis=axis)
 
 
 def to_numpy(index: ShardedIvfPq) -> Tuple[Dict[str, np.ndarray], Dict]:
-    """(arrays, meta) — the inverse of :func:`from_numpy`."""
+    """(arrays, meta) — the inverse of :func:`from_numpy` (one shard a
+    position along the index's axis)."""
+    first = _first_group(index.mesh, index.shard_axis)
     arrays = {name: getattr(index, name)[0].cpu().numpy()
               for name in _REPLICATED}
     for name in _SHARDED:
-        arrays[name] = np.stack([t.cpu().numpy()
-                                 for t in getattr(index, name)])
+        arrays[name] = np.stack([getattr(index, name)[r].cpu().numpy()
+                                 for r in first])
     meta = {"metric": index.metric, "pq_bits": index.pq_bits,
             "pq_dim": index.pq_dim, "shard_rows": index.shard_rows,
             "global_list_cap": index.global_list_cap}
@@ -182,24 +214,24 @@ def _coarse_centers(n_lists: int, n_iters: int, seed: int, x: torch.Tensor,
 
 
 def _gather_trainset(shards: Sequence[torch.Tensor], mesh: Mesh, t: int,
-                     seed: int, n_real: int) -> List[torch.Tensor]:
+                     seed: int, n_real: int, axis=None) -> List[torch.Tensor]:
     """Replicated codebook sample: ``n_dev·t`` global row ids drawn
     uniformly (with replacement) from the real rows, every ``stride``-th
-    kept so at most 65,536 remain; each rank contributes the rows it owns
-    (zeros elsewhere) and an allreduce assembles the sample, so pad rows
-    never reach codebook training."""
-    n_dev = mesh.size
+    kept so at most 65,536 remain; each rank contributes the rows its
+    shard owns (zeros elsewhere) and an allreduce over ``axis`` assembles
+    the sample, so pad rows never reach codebook training."""
+    n_dev, pos = mesh.positions(axis)
     total = n_dev * t
     gidx = torch.randint(0, n_real, (total,),
                          generator=RngState(seed).generator(),
                          dtype=torch.int64)
     gidx = gidx[::max(1, -(-total // _CODEBOOK_ROWS))]
-    comms = Comms(mesh)
+    comms = Comms(mesh, axis)
     contrib = []
-    for r in comms.get_rank():
+    for r, p in enumerate(pos):
         x_r = shards[r]
         shard_n = x_r.shape[0]
-        loc = _ids.local_ids(gidx.to(x_r.device), r, shard_n)
+        loc = _ids.local_ids(gidx.to(x_r.device), p, shard_n)
         owned = (loc >= 0) & (loc < shard_n)
         rows = x_r[loc.clamp(0, shard_n - 1)]
         contrib.append(torch.where(owned[:, None], rows,
@@ -208,20 +240,22 @@ def _gather_trainset(shards: Sequence[torch.Tensor], mesh: Mesh, t: int,
 
 
 def build_ivf_pq(params: _pq.IndexParams, dataset, mesh: Mesh,
-                 axis: str = "shard") -> ShardedIvfPq:
-    """Distributed IVF-PQ build over the dataset row-sharded across the
-    mesh: global coarse centers, replicated rotation and per_subspace
-    codebooks, per-rank encode and pack with global ids."""
+                 axis: Union[str, Sequence[str]] = "shard") -> ShardedIvfPq:
+    """Distributed IVF-PQ build over the dataset row-sharded across
+    ``axis`` of the mesh: global coarse centers, replicated rotation and
+    per_subspace codebooks, per-shard encode and pack with global ids.
+    Over one axis of a 2-D mesh the rows shard over it and replicate over
+    the other: each (shard, device) is encoded once and its ranks share
+    it."""
     _precision.enforce()
     mt = resolve_metric(params.metric)
     expects(params.codebook_kind == "per_subspace",
             "distributed build supports per_subspace codebooks")
     expects(4 <= params.pq_bits <= 8, "pq_bits must be in [4, 8]")
-    _merge.resolve_exchange(mesh, axis)
+    n_dev, _, _ = _merge.resolve_exchange(mesh, axis)
     dev0 = mesh.devices[0]
     x = to_device(dataset, dev0, torch.float32)
     n, dim = x.shape
-    n_dev = mesh.size
     spherical = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
     if mt == DistanceType.CosineExpanded:
         x = x / torch.sqrt((x * x).sum(-1, keepdim=True).clamp_min(1e-12))
@@ -234,7 +268,7 @@ def build_ivf_pq(params: _pq.IndexParams, dataset, mesh: Mesh,
     # 1. global coarse centers (dkm.fit zero-weights its own padding)
     centers = _coarse_centers(n_lists, params.kmeans_n_iters, params.seed, x,
                               mesh, spherical, axis)
-    shards, n_real = shard_rows(x, mesh)
+    shards, n_real = shard_rows(x, mesh, axis)
     shard_n = shards[0].shape[0]
 
     # 2. rotation + codebooks on a replicated cross-shard sample
@@ -246,7 +280,8 @@ def build_ivf_pq(params: _pq.IndexParams, dataset, mesh: Mesh,
     expects(t * n_dev >= K,
             "trainset too small for pq_bits=%d: %d < %d codebook entries",
             params.pq_bits, t * n_dev, K)
-    trainset = _gather_trainset(shards, mesh, t, params.seed, n_real)[0]
+    trainset = _gather_trainset(shards, mesh, t, params.seed, n_real,
+                                axis)[0]
     _, tr_labels = fused_l2_nn_argmin(trainset, centers)
     tr_res = trainset @ rotation.T - centers_rot[tr_labels.long()]
     sub = tr_res.view(-1, pq_dim, pq_len).transpose(0, 1).contiguous()
@@ -260,13 +295,12 @@ def build_ivf_pq(params: _pq.IndexParams, dataset, mesh: Mesh,
     rep = {name: replicate(v, mesh) for name, v in (
         ("centers", centers), ("centers_rot", centers_rot),
         ("rotation", rotation), ("codebooks", codebooks))}
-    out = {name: [] for name in _SHARDED}
-    dropped = 0
-    for r, dev in enumerate(mesh.devices):
-        x_r = shards[r]
+
+    def encode(r, p):
+        x_r, dev = shards[r], mesh.devices[r]
         # global ids in the policy dtype of the mesh's row count:
-        # rank·shard_n overflows int32 past 2³¹ rows
-        gid = _ids.global_ids(r, shard_n, _ids.make_ids(shard_n, device=dev),
+        # shard·shard_n overflows int32 past 2³¹ rows
+        gid = _ids.global_ids(p, shard_n, _ids.make_ids(shard_n, device=dev),
                               n_total=n_dev * shard_n)
         _, labels = fused_l2_nn_argmin(x_r, rep["centers"][r])
         labels = torch.where(gid < n_real, labels.long(),
@@ -280,19 +314,18 @@ def build_ivf_pq(params: _pq.IndexParams, dataset, mesh: Mesh,
         (pcodes, pnorms), pids, sizes, n_drop, _ = ic.pack_lists(
             [codes_p, norms], labels, gid, n_lists=n_lists, L=L,
             fill_values=[0, 0.0])
-        del codes_p, norms
-        dropped += n_drop
-        out["packed_codes"].append(pcodes)
-        out["packed_ids"].append(pids)
-        out["packed_norms"].append(pnorms)
-        out["list_sizes"].append(sizes)
+        return pcodes, pids, pnorms, sizes, n_drop
+
+    done = per_shard(mesh, axis, encode)
+    out = dict(zip(_SHARDED, map(list, zip(*[d[:4] for d in done]))))
+    dropped = sum(done[r][4] for r in _first_group(mesh, axis))
     if dropped:
         warnings.warn(f"sharded ivf_pq build: dropped {dropped} overflow "
                       "vectors (raise list_size_cap_factor)", RuntimeWarning,
                       stacklevel=2)
     return ShardedIvfPq(**rep, **out, mesh=mesh, metric=mt.value,
                         pq_bits=params.pq_bits, pq_dim=pq_dim,
-                        shard_rows=shard_n)
+                        shard_rows=shard_n, shard_axis=axis)
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +345,9 @@ def _ring_fused_wanted(index: ShardedIvfPq, m: int, k: int, n_probes: int,
     other than "pallas" (or "approx" at n_probes ≥ 64 or k ≥ 400), for
     cosine, for int64 ids, for latency-bound shapes (auto only) and where
     :func:`~raft_tpu_torch.ops.kernels.ring_lut_scan_kernel_ok` refuses
-    the shape or the ranks span several cards (``n_cards``; ROADMAP A15),
+    the shape, the ranks span several cards (``n_cards``; ROADMAP A15) or
+    the exchange is one axis of a 2-D mesh (auto declines it before, as
+    the JAX package does: not the whole mesh),
     and, ``filtered``, where ``filtered_scan_mem_ok`` refuses the ranks'
     keep bytes ("mem_guard")."""
     force = _obs_spans.env_tristate("RAFT_TPU_RING_FUSED")
@@ -320,6 +355,9 @@ def _ring_fused_wanted(index: ShardedIvfPq, m: int, k: int, n_probes: int,
         return False, ""
     if force != "on" and not (_k._on_cuda() and whole_mesh):
         return False, ""
+    if n_dev != index.mesh.size:
+        # one axis of a 2-D mesh: the fused kernel runs over every rank
+        return False, "kernel_ineligible"
     if not (scan_select == "pallas"
             or (scan_select == "approx" and (n_probes >= 64 or k >= 400))):
         return False, "scan_select"
@@ -434,9 +472,12 @@ def _per_rank_topk(params: _pq.SearchParams, index: ShardedIvfPq,
     oversampled scan through ``ivf_pq.search`` and the exact re-rank
     against the rank's own rows of ``dataset``. ``filter_bits`` (global
     row ids) goes to each rank's scan on the rank's device; the re-rank
-    takes none: the scan's candidates are already kept rows."""
+    takes none: the scan's candidates are already kept rows. The ranks
+    that hold one shard on one device (replicas over the other axis of a
+    2-D mesh) share its search."""
     mt = resolve_metric(index.metric)
-    n_dev = index.n_shards
+    # the index's own layout (``_check_layout`` holds the search's to it)
+    n_dev = index.mesh.positions(index.shard_axis)[0]
     dev0 = mesh.devices[0]
     refined = params.refine != "none"
     if refined:
@@ -451,8 +492,8 @@ def _per_rank_topk(params: _pq.SearchParams, index: ShardedIvfPq,
                          for x, d in zip(dataset, mesh.devices)]
         else:
             ds_shards, _ = shard_rows(to_device(dataset, dev0, torch.float32),
-                                      mesh)
-        expects(len(ds_shards) == n_dev and all(
+                                      index.mesh, index.shard_axis)
+        expects(len(ds_shards) == mesh.size and all(
             x.dim() == 2 and x.shape[1] == index.dim for x in ds_shards),
             "refine dataset shards do not match the index dim %d", index.dim)
         if mt == DistanceType.CosineExpanded:
@@ -468,25 +509,38 @@ def _per_rank_topk(params: _pq.SearchParams, index: ShardedIvfPq,
         scan_params = dataclasses.replace(params, refine="none")
     qs = replicate(q, mesh)
     fbs = (replicate(filter_bits, mesh) if filter_bits is not None
-           else [None] * n_dev)
-    vals, gids = [], []
-    for r, dev in enumerate(mesh.devices):
-        local = index.local(r)
-        if refined:
-            _, i0 = _pq.search(local, qs[r], k_cand, scan_params,
-                               filter_bitset=fbs[r], device=dev)
-            li = _ids.local_ids(i0, r, shard_n)
-            v, lids = _refine.refine(ds_shards[r], qs[r], li, k,
-                                     metric=index.metric, device=dev)
-            g = _ids.global_ids(r, shard_n, lids, n_total=n_dev * shard_n)
-        else:
-            v, g = _pq._search_impl(
+           else [None] * mesh.size)
+
+    def scan(r, p):
+        local, dev = index.local(r), mesh.devices[r]
+        if not refined:
+            return _pq._search_impl(
                 local, qs[r], k, n_probes,
                 _pq._fit_query_tile(params.query_tile, n_probes, local),
                 lut_dtype=params.lut_dtype, filter_bits=fbs[r])
-        vals.append(v)
-        gids.append(g)
+        _, i0 = _pq.search(local, qs[r], k_cand, scan_params,
+                           filter_bitset=fbs[r], device=dev)
+        li = _ids.local_ids(i0, p, shard_n)
+        v, lids = _refine.refine(ds_shards[r], qs[r], li, k,
+                                 metric=index.metric, device=dev)
+        return v, _ids.global_ids(p, shard_n, lids, n_total=n_dev * shard_n)
+
+    vals, gids = map(list, zip(*per_shard(index.mesh, index.shard_axis,
+                                          scan)))
     return vals, gids
+
+
+def _check_layout(index, mesh: Mesh, axis, n_dev: int, ax_dev: int) -> None:
+    """The search's exchange must run over the axis the index's lists
+    shard over, on the same devices."""
+    expects(n_dev == ax_dev, "index sharded over %d ranks, mesh axis has %d",
+            n_dev, ax_dev)
+    expects(list(index.mesh.devices) == list(mesh.devices),
+            "the index lives on another mesh's devices")
+    expects(mesh.positions(axis)[1]
+            == index.mesh.positions(index.shard_axis)[1],
+            "the index shards over %r, the search exchanges over %r",
+            index.shard_axis, axis)
 
 
 def search_ivf_pq(params: _pq.SearchParams, index: ShardedIvfPq, queries,
@@ -521,10 +575,7 @@ def search_ivf_pq(params: _pq.SearchParams, index: ShardedIvfPq, queries,
     m = q.shape[0]
     n_dev = index.n_shards
     ax_dev, whole_mesh, hier_axes = _merge.resolve_exchange(mesh, axis)
-    expects(n_dev == ax_dev, "index sharded over %d ranks, mesh axis has %d",
-            n_dev, ax_dev)
-    expects(list(index.mesh.devices) == list(mesh.devices),
-            "the index lives on another mesh's devices")
+    _check_layout(index, mesh, axis, n_dev, ax_dev)
     refined = params.refine != "none"
     if params.lut_dtype == "auto" and not refined:
         params = dataclasses.replace(params, lut_dtype=_pq.resolve_lut_dtype(
@@ -576,10 +627,12 @@ class ShardedIvfFlat:
     # parallel.build.assemble_ivf_flat cuts the rank-order concatenation
     # of the shards' lists there
     global_list_cap: int = 0
+    # the mesh axis (or axes) the lists shard over (ShardedIvfPq's)
+    shard_axis: Union[str, Tuple[str, ...], None] = None
 
     @property
     def n_shards(self) -> int:
-        return len(self.packed_data)
+        return self.mesh.positions(self.shard_axis)[0]
 
     @property
     def n_lists(self) -> int:
@@ -606,28 +659,31 @@ class ShardedIvfFlat:
 
     @classmethod
     def from_numpy(cls, arrays: Dict[str, np.ndarray], meta: Dict,
-                   mesh: Mesh) -> "ShardedIvfFlat":
+                   mesh: Mesh, axis: Union[str, Sequence[str], None] = None
+                   ) -> "ShardedIvfFlat":
         """Index from the JAX ``ShardedIvfFlat``'s fields as numpy arrays
         (the packed ones with their leading shard axis) and its static
-        fields (``meta``: metric, global_list_cap)."""
+        fields (``meta``: metric, global_list_cap), sharded over ``axis``
+        (as :func:`from_numpy`)."""
         n_dev = np.asarray(arrays["packed_data"]).shape[0]
-        expects(n_dev == mesh.size, "index of %d shards on a %d-rank mesh",
-                n_dev, mesh.size)
+        n_axis = mesh.positions(axis)[0]
+        expects(n_dev == n_axis, "index of %d shards on a mesh axis of %d "
+                "ranks", n_dev, n_axis)
         fields = {"centers": replicate(to_device(
             np.asarray(arrays["centers"]), mesh.devices[0]), mesh)}
         for name in _FLAT_SHARDED:
-            a = np.asarray(arrays[name])
-            fields[name] = [to_device(a[r], d)
-                            for r, d in enumerate(mesh.devices)]
+            fields[name] = _place_shards(np.asarray(arrays[name]), mesh, axis)
         return cls(**fields, mesh=mesh, metric=str(meta["metric"]),
-                   global_list_cap=int(meta.get("global_list_cap", 0)))
+                   global_list_cap=int(meta.get("global_list_cap", 0)),
+                   shard_axis=axis)
 
     def to_numpy(self) -> Tuple[Dict[str, np.ndarray], Dict]:
         """(arrays, meta) — the inverse of :meth:`from_numpy`."""
+        first = _first_group(self.mesh, self.shard_axis)
         arrays = {"centers": self.centers[0].cpu().numpy()}
         for name in _FLAT_SHARDED:
-            arrays[name] = np.stack([t.cpu().numpy()
-                                     for t in getattr(self, name)])
+            arrays[name] = np.stack([getattr(self, name)[r].cpu().numpy()
+                                     for r in first])
         return arrays, {"metric": self.metric,
                         "global_list_cap": self.global_list_cap}
 
@@ -636,34 +692,34 @@ _FLAT_SHARDED = ("packed_data", "packed_ids", "packed_norms", "list_sizes")
 
 
 def build_ivf_flat(params: _flat.IndexParams, dataset, mesh: Mesh,
-                   axis: str = "shard") -> ShardedIvfFlat:
-    """Distributed IVF-Flat build over the dataset row-sharded across the
-    mesh: global coarse centers (distributed Lloyd), then per rank the
-    assignment by the fused L2 argmin kernel and the pack of its raw rows
-    with global ids. Rows past a list's capacity are dropped and counted
+                   axis: Union[str, Sequence[str]] = "shard"
+                   ) -> ShardedIvfFlat:
+    """Distributed IVF-Flat build over the dataset row-sharded across
+    ``axis`` of the mesh: global coarse centers (distributed Lloyd), then
+    per shard the assignment by the fused L2 argmin kernel and the pack of
+    its raw rows with global ids (once a (shard, device) over one axis of
+    a 2-D mesh). Rows past a list's capacity are dropped and counted
     (``ivf_flat.build.dropped{site=parallel.build_ivf_flat}``)."""
     _precision.enforce()
     mt = resolve_metric(params.metric)
-    _merge.resolve_exchange(mesh, axis)
+    n_dev, _, _ = _merge.resolve_exchange(mesh, axis)
     dev0 = mesh.devices[0]
     x = to_device(dataset, dev0, torch.float32)
-    n_dev = mesh.size
     spherical = mt in (DistanceType.InnerProduct, DistanceType.CosineExpanded)
     if mt == DistanceType.CosineExpanded:
         x = x / torch.sqrt((x * x).sum(-1, keepdim=True).clamp_min(1e-12))
     n_lists = params.n_lists
     centers = _coarse_centers(n_lists, params.kmeans_n_iters, params.seed, x,
                               mesh, spherical, axis)
-    shards, n_real = shard_rows(x, mesh)
+    shards, n_real = shard_rows(x, mesh, axis)
     shard_n = shards[0].shape[0]
     avg = max(1, shard_n // n_lists)
     L = max(8, -(-int(avg * params.list_size_cap_factor) // 8) * 8)
     cs = replicate(centers, mesh)
-    out = {name: [] for name in _FLAT_SHARDED}
-    dropped = 0
-    for r, dev in enumerate(mesh.devices):
-        x_r = shards[r]
-        gid = _ids.global_ids(r, shard_n, _ids.make_ids(shard_n, device=dev),
+
+    def pack(r, p):
+        x_r, dev = shards[r], mesh.devices[r]
+        gid = _ids.global_ids(p, shard_n, _ids.make_ids(shard_n, device=dev),
                               n_total=n_dev * shard_n)
         _, labels = fused_l2_nn_argmin(x_r, cs[r])
         labels = torch.where(gid < n_real, labels.long(),
@@ -673,18 +729,19 @@ def build_ivf_flat(params: _flat.IndexParams, dataset, mesh: Mesh,
         (pdata, pnorms), pids, sizes, n_drop, _ = ic.pack_lists(
             [x_r, norms], labels, gid, n_lists=n_lists, L=L,
             fill_values=[0.0, 0.0])
-        dropped += n_drop
-        out["packed_data"].append(pdata)
-        out["packed_ids"].append(pids)
-        out["packed_norms"].append(pnorms)
-        out["list_sizes"].append(sizes)
+        return pdata, pids, pnorms, sizes, n_drop
+
+    done = per_shard(mesh, axis, pack)
+    out = dict(zip(_FLAT_SHARDED, map(list, zip(*[d[:4] for d in done]))))
+    dropped = sum(done[r][4] for r in _first_group(mesh, axis))
     _obs_spans.inc("ivf_flat.build.dropped", dropped,
                    site="parallel.build_ivf_flat")
     if dropped:
         warnings.warn(f"sharded ivf_flat build: dropped {dropped} overflow "
                       "vectors (raise list_size_cap_factor)", RuntimeWarning,
                       stacklevel=2)
-    return ShardedIvfFlat(centers=cs, **out, mesh=mesh, metric=mt.value)
+    return ShardedIvfFlat(centers=cs, **out, mesh=mesh, metric=mt.value,
+                          shard_axis=axis)
 
 
 def search_ivf_flat(params: _flat.SearchParams, index: ShardedIvfFlat,
@@ -709,25 +766,23 @@ def search_ivf_flat(params: _flat.SearchParams, index: ShardedIvfFlat,
     m = q.shape[0]
     n_dev = index.n_shards
     ax_dev, whole_mesh, hier_axes = _merge.resolve_exchange(mesh, axis)
-    expects(n_dev == ax_dev, "index sharded over %d ranks, mesh axis has %d",
-            n_dev, ax_dev)
-    expects(list(index.mesh.devices) == list(mesh.devices),
-            "the index lives on another mesh's devices")
+    _check_layout(index, mesh, axis, n_dev, ax_dev)
     tier, impl = _merge.merge_tier(n_dev, m, k, explicit=merge,
                                    whole_mesh=whole_mesh, hier_axes=hier_axes,
                                    n_cards=mesh.n_cards)
     qs = replicate(q, mesh)
-    fbs = ([None] * n_dev if filter_bitset is None else
+    fbs = ([None] * mesh.size if filter_bitset is None else
            replicate(_bitset.as_words(filter_bitset, dev0), mesh))
-    vals, gids = [], []
-    for r in range(n_dev):
+
+    def scan(r, p):
         local = index.local(r)
-        v, g = _flat._search_impl(
+        return _flat._search_impl(
             local, qs[r], k, n_probes,
             _flat._fit_query_tile(params.query_tile, n_probes, local),
             filter_bits=fbs[r])
-        vals.append(v)
-        gids.append(g)
+
+    vals, gids = map(list, zip(*per_shard(index.mesh, index.shard_axis,
+                                          scan)))
     rv, ri = _merge.merge_topk(vals, gids, mesh, m, k, n_dev, select_min,
                                tier=tier, impl=impl, axis=axis)
     spec = _merge.merge_out_spec(tier, axis)

@@ -24,6 +24,12 @@ sharded kNN and the sharded IVF merges.
   ``n_outer·k`` finishes them. The result is sharded over (inner, outer):
   rank (d, i) holds sub-chunk d of inner chunk i.
 
+A search over ONE axis of a 2-D mesh (``axis="ici"``) exchanges within
+each group of ranks along it (data sharded over it, replicated over the
+other axis): it is not the whole mesh, so the ring takes ``ring_ppermute``
+(B7 addresses every rank), and :func:`assemble` returns the first group's
+answer (every group's is the same).
+
 ``RAFT_TPU_RING_TOPK`` (auto | on | off) picks the flat tier;
 ``RAFT_TPU_HIER_MERGE`` (auto | on | off) gates the hier tier, taken under
 auto whenever the exchange is 2-D with a DCN-labeled outer axis; an
@@ -57,15 +63,20 @@ HierAxes = Tuple[str, str, int, int]
 def resolve_exchange(mesh: Mesh, axis: Union[str, Sequence[str]]
                      ) -> Tuple[int, bool, Optional[HierAxes]]:
     """``(n_dev, whole_mesh, hier_axes)`` of a search's ``axis`` argument:
-    a 1-D mesh's own axis name, or a 2-D mesh's ``(outer, inner)`` axes in
-    its order. A 2-tuple never counts as the whole mesh (the JAX
-    package's flat ring kernel addresses one named axis), and carries the
-    hier topology when its outer axis is DCN-labeled."""
+    one axis name of the mesh, or a 2-D mesh's ``(outer, inner)`` axes in
+    its order. One axis of a 2-D mesh exchanges over that axis alone
+    (``n_dev = mesh.shape[axis]``, the JAX package's ``merge.py:81-83``):
+    data shard over it and replicate over the other axis, and it is not
+    the whole mesh, so the ring takes ``ring_ppermute``. A 2-tuple never
+    counts as the whole mesh (the JAX package's flat ring kernel addresses
+    one named axis), and carries the hier topology when its outer axis is
+    DCN-labeled."""
     if isinstance(axis, str):
-        expects(mesh.ndim == 1 and axis == mesh.axis_name,
-                "axis %r is not the mesh's axis %r (a 2-D mesh exchanges "
-                "over axis=(outer, inner))", axis, mesh.axis_name)
-        return mesh.size, True, None
+        expects(axis in mesh.axis_names,
+                "axis %r is not an axis of the mesh %s", axis,
+                mesh.axis_names)
+        n_dev = mesh.axis_sizes[axis]
+        return n_dev, n_dev == mesh.size, None
     names = tuple(axis)
     expects(len(names) == 2,
             "axis must be one mesh axis name or a 2-tuple "
@@ -155,13 +166,18 @@ def merge_out_spec(tier: str, axis: Union[str, Sequence[str], None] = None
     holds chunk r; the ring tier), or for the hier tier the axes it is
     sharded over, ``(inner, outer)`` (rank (d, i) holds sub-chunk d of
     inner chunk i) — the JAX package's ``P()``, ``P(axis)`` and
-    ``P((inner, outer))`` out-specs."""
+    ``P((inner, outer))`` out-specs. The ring over one named axis returns
+    ``(axis,)``: its chunks lie in the order of the ranks' positions on
+    that axis, and on a 2-D mesh every group along the other axis holds
+    them."""
     if tier == "hier":
         expects(axis is not None and not isinstance(axis, str)
                 and len(tuple(axis)) == 2,
                 "the hier out-spec needs axis=(outer, inner), got %r", axis)
         outer, inner = axis
         return (inner, outer)
+    if tier == "ring" and isinstance(axis, str):
+        return (axis,)
     return REPLICATED if tier == "allgather" else QUERY_SHARDED
 
 
@@ -183,14 +199,16 @@ def assemble(out_spec, parts: Sequence[torch.Tensor], m: int,
     0's copy when replicated, the chunks in rank order when query-sharded,
     and under an axes out-spec (the hier tier's) the parts in the order of
     the ranks' coordinates on those axes (``mesh`` needed) — the assembly
-    ``shard_map`` does for its out-specs — cut to m rows."""
+    ``shard_map`` does for its out-specs — cut to m rows. Where the axes
+    leave other axes out (one axis of a 2-D mesh), every group along them
+    holds the same answer: the first group's is returned."""
     if out_spec == REPLICATED:
         return parts[0].to(device)[:m]
     if out_spec == QUERY_SHARDED:
         return torch.cat([p.to(device) for p in parts])[:m]
     expects(mesh is not None, "assembling a %r out-spec needs the mesh",
             out_spec)
-    (order,) = mesh.groups(out_spec)
+    order = mesh.groups(out_spec)[0]
     return torch.cat([parts[r].to(device) for r in order])[:m]
 
 
@@ -316,7 +334,8 @@ def merge_topk(vals: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
                axis: Union[str, Sequence[str], None] = None
                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Cross-shard merge of per-rank [m, k] local top-k tables (global ids,
-    −1 invalid, invalid keys at the select sentinel). The allgather tier
+    −1 invalid, invalid keys at the select sentinel; one table per rank of
+    the mesh, ``n_dev`` the exchange's rank count). The allgather tier
     returns every rank the [m, k] result; the ring tier rank r its chunk;
     the hier tier (``axis=(outer, inner)``) each rank its (inner chunk,
     outer sub-chunk) block (pair with :func:`merge_out_spec` and
@@ -326,12 +345,14 @@ def merge_topk(vals: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
     tier its per-pod ring on the inner axis and one survivor alltoall on
     the outer."""
     expects(tier in MERGE_TIERS, "unknown merge tier %r", tier)
-    expects(all(tuple(v.shape) == (m, k) and tuple(i.shape) == (m, k)
-                for v, i in zip(vals, ids)) and len(vals) == n_dev,
-            "merge_topk expects %d per-rank [m, k] tables (m=%d k=%d)",
-            n_dev, m, k)
     if axis is None:
         axis = mesh.axis_name if mesh.ndim == 1 else tuple(mesh.axis_names)
+    expects(all(tuple(v.shape) == (m, k) and tuple(i.shape) == (m, k)
+                for v, i in zip(vals, ids)) and len(vals) == mesh.size
+            and n_dev == (mesh.axis_sizes[axis] if isinstance(axis, str)
+                          else mesh.size),
+            "merge_topk expects one [m, k] table a rank (m=%d k=%d) over "
+            "%d ranks of the exchange", m, k, n_dev)
     if tier == "hier":
         expects(not isinstance(axis, str) and len(tuple(axis)) == 2,
                 "hier merge needs axis=(outer, inner), got %r", axis)

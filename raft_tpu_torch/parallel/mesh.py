@@ -34,7 +34,8 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -124,6 +125,24 @@ class Mesh:
                 grp.append(int(np.ravel_multi_index(c, self.shape)))
             out.append(grp)
         return out
+
+    def positions(self, axes: Union[str, Sequence[str], None] = None
+                  ) -> Tuple[int, List[int]]:
+        """``(n, pos)``: the rank count of a collective over ``axes`` (a
+        name, a tuple, or None for every axis) and each rank's position
+        in its group — the per-rank ``lax.axis_index`` over ``axes``. Over
+        one axis of a 2-D mesh, ranks that share a position hold the same
+        shard (``P(axis)``: sharded over it, replicated over the other)."""
+        if axes is None:
+            axes = self.axis_names
+        elif isinstance(axes, str):
+            axes = (axes,)
+        groups = self.groups(axes)
+        pos = [0] * self.size
+        for g in groups:
+            for j, r in enumerate(g):
+                pos[r] = j
+        return len(groups[0]), pos
 
     @property
     def n_cards(self) -> int:
@@ -271,18 +290,39 @@ def replicate(x: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
     return [per_dev[d] for d in mesh.devices]
 
 
-def shard_rows(x: torch.Tensor, mesh: Mesh) -> Tuple[List[torch.Tensor], int]:
-    """Row-shard ``x [n, ...]`` over every rank of the mesh (rank order,
-    the JAX package's ``P(axes)`` over all of a mesh's axes): zero-pad n
-    to a multiple of the rank count, rank r takes rows ``[r·s, (r+1)·s)``
-    on its device (a view when it already lies there). Returns (shards,
-    n)."""
+def per_shard(mesh: Mesh, axis: Union[str, Sequence[str], None],
+              fn: Callable[[int, int], Any]) -> List[Any]:
+    """``fn(r, p)`` once per (position p along ``axis``, device), at the
+    first rank r that holds them, its result handed to every rank that
+    shares them: over one axis of a 2-D mesh the ranks that replicate a
+    shard on one device share its work. Returns one result a rank."""
+    _, pos = mesh.positions(axis)
+    made: Dict[Tuple[int, torch.device], Any] = {}
+    out = []
+    for r, p in enumerate(pos):
+        key = (p, mesh.devices[r])
+        if key not in made:
+            made[key] = fn(r, p)
+        out.append(made[key])
+    return out
+
+
+def shard_rows(x: torch.Tensor, mesh: Mesh,
+               axis: Union[str, Sequence[str], None] = None
+               ) -> Tuple[List[torch.Tensor], int]:
+    """Row-shard ``x [n, ...]`` over ``axis`` (None: every axis of the
+    mesh, rank order; the JAX package's ``P(axis)``): zero-pad n to a
+    multiple of the axis's rank count n_dev; the rank at position p along
+    ``axis`` takes rows ``[p·s, (p+1)·s)`` on its device (a view when it
+    already lies there). Over one axis of a 2-D mesh the ranks that share
+    a position (the other axis's replicas) share one tensor a device.
+    Returns (one shard per rank, n)."""
     n = x.shape[0]
-    n_dev = mesh.size
+    n_dev = mesh.positions(axis)[0]
     padded = -(-n // n_dev) * n_dev
     if padded != n:
         x = torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1)
                                     + (0, padded - n))
     s = padded // n_dev
-    return [x[r * s:(r + 1) * s].to(mesh.devices[r])
-            for r in range(n_dev)], n
+    return per_shard(mesh, axis, lambda r, p: x[p * s:(p + 1) * s].to(
+        mesh.devices[r])), n

@@ -3,6 +3,10 @@
 ``jax_threefry_partitionable`` on (JAX's default since 0.5), so the port
 makes the JAX package's synthetic data from the same seed.
 
+``gumbel`` is JAX's default ("low") mode, −log(−log(u)) of the same
+uniforms u on [tiny, 1); its logs are torch's, so a value may differ from
+JAX's in its last bit, never its order.
+
 A key is a pair of Python ints (two uint32 words). Bits are int64 tensors
 holding uint32 values (torch has no full uint32 arithmetic). ``split``,
 ``fold_in``, ``random_bits``, ``uniform``, ``randint`` and ``permutation`` give the
@@ -98,6 +102,13 @@ def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0,
         f = _unit_floats(random_bits(key, b - a, device, a))
         out[a:b] = torch.maximum(lo, f * (hi - lo) + lo)
     return out.view(*shape)
+
+
+def gumbel(key: Key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in JAX's default mode
+    ("low": ``-log(-log(uniform(key, shape, tiny, 1)))``)."""
+    tiny = float(np.finfo(np.float32).tiny)
+    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0, device)))
 
 
 def _fold_span(hi: torch.Tensor, lo: torch.Tensor, minval: int,

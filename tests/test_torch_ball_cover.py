@@ -74,7 +74,7 @@ def test_knn_matches_jax_and_brute_force(integer_indexes, k, round_lists):
     assert tid.dtype == torch.int32 and tuple(tid.shape) == (50, k)
     assert_ids_match_away_from_ties(tid.numpy(), td.numpy(), np.asarray(jid),
                                     np.asarray(jd), rtol=1e-5, atol=1e-5)
-    bd, bi = tbf.knn(x, q, k, metric="euclidean", device="cpu")
+    bd, bi = tbf.knn_arrays(x, q, k, metric="euclidean", device="cpu")
     assert_ids_match_away_from_ties(tid.numpy(), td.numpy(), bi.numpy(),
                                     bd.numpy(), rtol=1e-5, atol=1e-5)
     assert len(stats["rounds"]) == 1 and 1 <= stats["rounds"][0]
@@ -107,7 +107,7 @@ def test_haversine_matches_jax_and_brute_force():
     td, tid = tbc.knn(ti, q, 5, device="cpu")
     assert_ids_match_away_from_ties(tid.numpy(), td.numpy(), np.asarray(jid),
                                     np.asarray(jd), rtol=1e-5, atol=1e-6)
-    bd, bi = tbf.knn(p, q, 5, metric="haversine", device="cpu")
+    bd, bi = tbf.knn_arrays(p, q, 5, metric="haversine", device="cpu")
     assert_ids_match_away_from_ties(tid.numpy(), td.numpy(), bi.numpy(),
                                     bd.numpy(), rtol=1e-5, atol=1e-6)
 

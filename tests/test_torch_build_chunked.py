@@ -519,7 +519,7 @@ def test_streamed_groundtruth_equals_brute_force(metric):
                                      chunk_rows=700, device="cpu")
     base = prov[0:5000].numpy()
     q = prov.queries(60).numpy()
-    _, want = tbf.knn(base, q[:50], 10, metric=metric, device="cpu")
+    _, want = tbf.knn_arrays(base, q[:50], 10, metric=metric, device="cpu")
     for src in (base, prov):
         ds = tds.Dataset("s", src, q, metric=metric)
         tds.compute_groundtruth(ds, k=10, device_budget=1 << 12,

@@ -1928,3 +1928,143 @@ def test_cuda_lut_tier_threads_share_no_tables():
         for b, (gv, gi) in got[t]:
             wv, wi = want[t][b]
             assert torch.equal(gi, wi) and torch.equal(gv, wv), (t, b)
+
+
+# ---------------------------------------------------------------------------
+# B3's bias row, B4 under k-means, a handle's stream, the
+# tri-states' "off"
+# ---------------------------------------------------------------------------
+
+def test_cuda_select_k_bias_row_matches_plain():
+    """B3 with a bias row ranks bias − 2·scores bit for bit as its plain
+    version and as the kernel over ``torch.sub(bias, scores, alpha=2)``
+    (2·score is exact), on short and long rows, aligned and not."""
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(19)
+    for m, n in ((500, 1024), (300, 1000), (64, 8192), (32, 20000),
+                 (7, 1027)):
+        s = torch.randn((m, n), generator=g, device=dev)
+        b = torch.rand((n,), generator=g, device=dev) * 4.0
+        for k in (1, 20, 64):
+            v, i = K.select_k_cuda(s, k, True, bias=b)
+            pv, pi = K.select_k_plain(s, k, True, bias=b)
+            assert torch.equal(v, pv) and torch.equal(i, pi), (m, n, k)
+            wv, wi = K.select_k_cuda(torch.sub(b, s, alpha=2.0), k, True)
+            assert torch.equal(v, wv) and torch.equal(i, wi), (m, n, k)
+    # a row view [1, n] is taken as the bias too
+    v2, i2 = K.select_k_cuda(s, 8, True, bias=b[None, :])
+    assert torch.equal(v2, K.select_k_cuda(s, 8, True, bias=b)[0])
+
+
+def test_cuda_kmeans_fit_runs_b4_and_matches_plain():
+    """``kmeans.fit`` on the card launches B4 once a sweep. Against the CPU
+    (the plain version) on well-separated blobs: the same k-means++ seed
+    rows (the threefry draws); one sweep from them gives centroids and
+    inertia within 1e-5 relative; the whole fit's cost within 1e-4 of the
+    CPU fit's; B4's labels on the final centers equal its plain version's.
+    The sweep counts may differ: the card's cluster sums (``index_add_``
+    atomics) move the tol test's last bits from run to run."""
+    from raft_tpu_torch.cluster import kmeans
+    from raft_tpu_torch.random import threefry
+    from raft_tpu_torch.random.rng import RngState
+
+    dev = cuda_device()
+    x = torch.from_numpy(blobs(20_000, 32, 16, seed=5, std=0.5))
+    xd = x.to(dev)
+    p = kmeans.KMeansParams(n_clusters=16, max_iter=30, seed=3)
+    K.reset_launch_counts()
+    c, inertia, n_iter = kmeans.fit(p, xd, device=dev)
+    assert K.launch_counts()["fused_l2_argmin"] == int(n_iter)
+    key = threefry.fold_in(RngState(3).key(), 0)
+    seeds = kmeans.init_plus_plus(key, x, 16)
+    assert torch.equal(kmeans.init_plus_plus(key, xd, 16).cpu(), seeds)
+    one = kmeans.KMeansParams(n_clusters=16, max_iter=1, init="array")
+    c1, in1, _ = kmeans.fit(one, xd, init_centroids=seeds, device=dev)
+    p1, pin1, _ = kmeans.fit(one, x, init_centroids=seeds, device="cpu")
+    torch.testing.assert_close(c1.cpu(), p1, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(float(in1), float(pin1), rtol=1e-5, atol=0.0)
+    pc, _, _ = kmeans.fit(p, x, device="cpu")
+    cost = float(kmeans.cluster_cost(c, xd, device=dev))
+    pcost = float(kmeans.cluster_cost(pc, x, device="cpu"))
+    assert abs(cost - pcost) <= 1e-4 * pcost, (cost, pcost)
+    _, lab = K.fused_l2_argmin(xd, c)
+    _, plab = K.fused_l2_argmin_plain(xd, c)
+    assert torch.equal(lab, plab)
+
+
+def test_cuda_handle_stream_sync_waits():
+    """A handle's own stream: work enqueued inside ``stream_context`` runs
+    there (not on the default stream), ``sync()`` waits for it, and a
+    pool of two handles gives two streams."""
+    from raft_tpu_torch.core import resources
+
+    dev = cuda_device()
+    h = resources.DeviceResources(device=dev)
+    s = h.stream
+    assert s is not None and s != torch.cuda.default_stream(dev)
+    with h.stream_context():
+        assert torch.cuda.current_stream(dev) == s
+        torch.cuda._sleep(200_000_000)        # ~0.1 s of the card's clock
+        done = torch.ones(8, device=dev).sum()
+    assert not s.query()
+    h.sync()
+    assert s.query() and float(done) == 8.0
+    m = resources.DeviceResourcesManager()
+    m.set_pool_size(2)
+    a, b = m.get_resources(dev), m.get_resources(dev)
+    assert a.stream != b.stream and m.get_resources(dev) is a
+
+
+@pytest.mark.parametrize("env,kernel", [
+    ("RAFT_TPU_PALLAS_LUTSCAN", "ivfpq_lut_scan_topk"),
+    ("RAFT_TPU_PALLAS_GROUPED", "segmented_scan_topk"),
+    ("RAFT_TPU_PALLAS_GROUPED", "grouped_scan_topk"),
+    ("RAFT_TPU_PALLAS_REFINE", "gather_refine_topk")])
+def test_cuda_tristate_off_leaves_the_kernel_still(monkeypatch, env, kernel):
+    """With the tri-state "off" the kernel's launch counter does not move
+    and the JAX package's other tier answers, ids overlapping the kernel
+    tier's ≥ 0.95 (B1 and B2 on an IVF-PQ index, B5 and B6 on an IVF-Flat
+    one, whose f32 lists the plain grouped tier scans at the kernels'
+    precision); unset, the kernel launches."""
+    from raft_tpu_torch.bench.dataset import DeviceSynthetic
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+
+    dev = cuda_device()
+    ds = DeviceSynthetic(100_000, 64, n_centers=200, seed=6, device=dev)
+    base = ds.base()
+    q = ds.queries(500)
+    if env == "RAFT_TPU_PALLAS_GROUPED":
+        index = ivf_flat.build(base, ivf_flat.IndexParams(n_lists=256,
+                                                          seed=6), device=dev)
+        select = "approx" if kernel == "segmented_scan_topk" else "exact"
+
+        def search():
+            return ivf_flat.search(index, q, 10, ivf_flat.SearchParams(
+                n_probes=32, scan_select=select, scan_mode="grouped"),
+                device=dev)[1]
+    else:
+        index = ivf_pq.build(base, ivf_pq.IndexParams(
+            n_lists=256, pq_dim=32, seed=6, cache_reconstruction="never"),
+            device=dev)
+        sp = ivf_pq.SearchParams(
+            n_probes=32, scan_select="pallas", scan_mode="grouped",
+            lut_dtype="float32",
+            refine="f32_regen" if kernel == "gather_refine_topk" else "none",
+            refine_ratio=40.0)
+
+        def search():
+            return ivf_pq.search(index, q, 10, sp, dataset=base,
+                                 device=dev)[1]
+    out = {}
+    for value in (None, "off"):
+        if value is None:
+            monkeypatch.delenv(env, raising=False)
+        else:
+            monkeypatch.setenv(env, value)
+        K.reset_launch_counts()
+        out[value] = search()
+        launched = K.launch_counts()[kernel]
+        assert (launched == 0) == (value == "off"), (value, launched)
+    hits = sum(len(set(a.tolist()) & set(b.tolist()))
+               for a, b in zip(out[None].cpu(), out["off"].cpu()))
+    assert hits >= 0.95 * out[None].numel(), hits

@@ -192,8 +192,9 @@ def test_brute_force_general_metrics_match_jax(monkeypatch, metric,
                      filter_bitset=None if bits is None
                      else jnp.asarray(bits))
     monkeypatch.setattr(tbf, "_TILE_BUDGET_ELEMS", 0)
-    tv, ti = tbf.knn(x, q, k, metric=metric, metric_arg=3.0,
-                     filter_bitset=bits, device="cpu")
+    tv, ti = tbf.knn(tbf.build(x, metric=metric, metric_arg=3.0,
+                               device="cpu"), q, k,
+                     filter_bitset=bits)
     assert_ids_match_away_from_ties(ti.numpy(), tv.numpy(), np.asarray(ji),
                                     np.asarray(jv), rtol=1e-5, atol=1e-6)
     if keep is not None:

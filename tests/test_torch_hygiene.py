@@ -84,7 +84,7 @@ def test_entry_points_refuse_cpu_by_default(monkeypatch):
         lambda: ivf_pq.build(x, ivf_pq.IndexParams(n_lists=2)),
         lambda: ivf_flat.build(x, ivf_flat.IndexParams(n_lists=2)),
         lambda: refine.refine(x, x[:4], cand, 2),
-        lambda: brute_force.knn(x, x[:4], 2),
+        lambda: brute_force.knn_arrays(x, x[:4], 2),
         lambda: DeviceSynthetic(10, 4, n_centers=2),
         lambda: make_mesh(4),
         lambda: serve.IndexRegistry(),

@@ -215,7 +215,7 @@ def test_brute_force_matches_jax(metric):
     q = rng.standard_normal((25, 16)).astype(np.float32)
     jd, ji = jbf.knn(jbf.build(jnp.asarray(data), metric=metric),
                      jnp.asarray(q), 10)
-    td, ti = tbf.knn(_t(data), _t(q), 10, metric=metric, device="cpu")
+    td, ti = tbf.knn_arrays(_t(data), _t(q), 10, metric=metric, device="cpu")
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-4,
                                atol=1e-4)
     assert overlap(ti.numpy(), np.asarray(ji)) >= 0.99
@@ -382,8 +382,8 @@ def test_filtered_brute_force_matches_jax(metric, sel):
     keep, bits = _keep(sel, n=1500, seed=3)
     jd, ji = jbf.knn(jbf.build(jnp.asarray(data), metric=metric),
                      jnp.asarray(q), 10, filter_bitset=bits)
-    td, ti = tbf.knn(_t(data), _t(q), 10, metric=metric,
-                     filter_bitset=np.asarray(bits), device="cpu")
+    td, ti = tbf.knn(tbf.build(_t(data), metric=metric, device="cpu"),
+                     _t(q), 10, filter_bitset=np.asarray(bits))
     assert_filtered_match(ti, td, ji, jd, keep)
     if keep.sum() < 10:
         assert (ti.numpy()[:, keep.sum():] == -1).all()

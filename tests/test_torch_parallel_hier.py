@@ -349,8 +349,10 @@ def test_exchange_axes_are_validated():
     mesh2 = tmesh.hier_mesh(2, 2, devices="cpu")
     assert tmerge.resolve_exchange(mesh2, ("dcn", "ici")) == (
         4, False, ("dcn", "ici", 2, 2))
-    with pytest.raises(LogicError, match="2-D mesh"):
-        tmerge.resolve_exchange(mesh2, "ici")
+    # one axis of a 2-D mesh exchanges over that axis alone
+    assert tmerge.resolve_exchange(mesh2, "ici") == (2, False, None)
+    with pytest.raises(LogicError, match="not an axis of the mesh"):
+        tmerge.resolve_exchange(mesh2, "shard")
     with pytest.raises(LogicError, match="in its order"):
         tmerge.resolve_exchange(mesh2, ("ici", "dcn"))
     flat = tmesh.make_mesh(4, device="cpu")

@@ -51,9 +51,9 @@ def main() -> int:
     ds = DeviceSynthetic(1_000_000, 960, n_centers=10_000, seed=args.seed + 3)
     base = ds.base()
     q = ds.queries(1000)
-    _, gt = brute_force.knn(base, q, 10, metric="sqeuclidean")
+    _, gt = brute_force.knn_arrays(base, q, 10, metric="sqeuclidean")
     gt = gt.cpu().numpy()
-    d, _ = brute_force.knn(base, q[:100], 200, metric="sqeuclidean")
+    d, _ = brute_force.knn_arrays(base, q[:100], 200, metric="sqeuclidean")
     print("[grid] exact distances of ranks 1/10/100/101/200:",
           d[:, [0, 9, 99, 100, 199]].mean(0).tolist(), flush=True)
     for kw in BUILDS:

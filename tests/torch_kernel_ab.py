@@ -405,7 +405,7 @@ def _ab_flat_build(args, card: str) -> None:
                              seed=args.seed)
     base = torch.from_numpy(ds.base).cuda()
     queries = torch.from_numpy(ds.queries[:1000]).cuda()
-    _, gt = brute_force.knn(base, queries, k, metric="sqeuclidean")
+    _, gt = brute_force.knn_arrays(base, queries, k, metric="sqeuclidean")
     gt = gt.cpu().numpy()
     try:
         for rnd in range(args.rounds):

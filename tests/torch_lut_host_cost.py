@@ -31,7 +31,8 @@ among others does not. Each process builds the index and prints, as
   select's (B3) and the scan's (B1) wrappers and from there to the end
   (CUDA events recorded at those entries);
 - ``sequence``: each step before B1 run alone in the batch's order
-  (``_sequence``).
+  (``_sequence``; a tree whose coarse select takes the ‖c‖² bias row, B3's
+  operand, reads its ``sub`` step as 0).
 
 ``--cublas-workspace`` runs the children with chip_smoke.py's former
 process-wide ``CUBLAS_WORKSPACE_CONFIG``. ``--other DIR`` runs the same
@@ -268,6 +269,8 @@ def _sequence(index, q) -> None:
     queries; ``host_sleep``, the host asleep 6 ms first. ``block`` runs
     again with ``CUBLAS_WORKSPACE_CONFIG`` set, in the same process
     (PyTorch reads it at each cuBLAS call)."""
+    import importlib
+    import inspect
     import statistics
 
     import torch
@@ -283,6 +286,10 @@ def _sequence(index, q) -> None:
                         index.packed_codes.shape[-1])[0]
     tables = getattr(ivf_pq, "_index_tables", None)
     c_sq = (index.centers * index.centers).sum(1)[None, :]
+    # a tree whose select takes the ‖c‖² bias row has no separate sub (read
+    # from the module: ``_isolated_child`` wraps ivf_pq._select_k to stamp it)
+    folded = "bias" in inspect.signature(importlib.import_module(
+        "raft_tpu_torch.matrix.select_k").select_k_impl).parameters
     saved = os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
     try:
         cycles = int(4e-3 * 1.98e9)
@@ -308,9 +315,14 @@ def _sequence(index, q) -> None:
                 t = [time.perf_counter()]
                 qc = q @ index.centers.T
                 t.append(time.perf_counter())
-                keys = torch.sub(c_sq, qc, alpha=2.0)
-                t.append(time.perf_counter())
-                _, probes = ivf_pq._select_k(keys, P, select_min=True)
+                if folded:      # B3 forms c_sq − 2·qc itself: no sub step
+                    t.append(time.perf_counter())
+                    _, probes = ivf_pq._select_k(qc, P, select_min=True,
+                                                 bias=c_sq)
+                else:
+                    keys = torch.sub(c_sq, qc, alpha=2.0)
+                    t.append(time.perf_counter())
+                    _, probes = ivf_pq._select_k(keys, P, select_min=True)
                 t.append(time.perf_counter())
                 q_rot = (q @ index.rotation.T).contiguous()
                 t.append(time.perf_counter())
