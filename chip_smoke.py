@@ -227,7 +227,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    1,000, latency at batch 10 and recall@10; counts zeroed before the build
    and read after the f32 passes (fused_l2_argmin must launch); the graph's
    invariants, the card's search equal to the CPU's on 100 queries but at
-   f64 ties, the nn_descent refusal, B4 at the build's predict shape (row
+   f64 ties or where its traversal parts from the CPU's at a rounding tie
+   (``cagra_card_vs_cpu``), the nn_descent refusal, B4 at the build's predict shape (row
    ``cagra_build``), then the ivf_pq build algorithm on ``CAGRA_PQ_N`` rows
    with counts zeroed before its build (fused_l2_argmin and select_k must
    launch; rows ``cagra_ivf_pq``: B4 at its label pass's shape, B3 at its
@@ -281,6 +282,18 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    main index, ``_GROUPED`` off on the IVF-Flat index (in ``flat_phase``),
    each leaving its kernel's counter at 0 and its recall no more than
    0.005 below the default's, and ``RAFT_TPU_FP8_LUT``'s auto/off;
+5e. ``[prims …]`` (ROADMAP A17's first half, ``prims_leg``, after
+   ``[bf index]``): a clustering job and an embedding evaluated as cuML
+   does at SIFT-1M's shape — ``random.make_blobs`` of 1M x 128 rows
+   around 1,000 centers (card = CPU on 100,000 rows), ``kmeans.fit``
+   (random init, 10 sweeps; B4 must launch) scored by the contingency
+   metrics (card = CPU, = float64 from the counts), ``linalg`` and
+   ``stats`` on the rows (cov, eig, rsvd, qr, lstsq, the rank-1 Cholesky
+   update, multi-variable gaussians, reduce by key, histogram, each
+   against float64 or numpy), silhouette and trustworthiness (against
+   float64 and the CPU), and ``label.connected_components`` of a kNN
+   graph (B3 must launch) and an RMAT graph against scipy's, with
+   ``merge_labels`` of two halves; B3's row ``prims`` at the kNN tile;
 7. the run's wall time, the card's line, the kernel JSON line, then
    ``{"ok": true, "device": {...}}`` last.
 
@@ -4701,6 +4714,169 @@ def _edge_recall(base, graph, sample, k):
     return float(hit) / (sample.shape[0] * k)
 
 
+def _traced_cagra_search(index, q, k, sp, bits, device):
+    """``cagra.search`` with every selection of its traversal recorded:
+    the keys and the picked positions of each ``_ties.top_k_low`` call
+    (entry clusters, seeds, the buffer's order, each iteration's parents
+    and merge, the int8 re-rank), copied to the host. Returns (distances,
+    ids, [(keys, picks), ...])."""
+    from raft_tpu_torch.neighbors import _ties, cagra
+
+    calls = []
+    low = _ties.top_k_low
+
+    def recorded(keys, kk):
+        pos = low(keys, kk)
+        calls.append((keys.cpu(), pos.cpu()))
+        return pos
+
+    _ties.top_k_low = recorded
+    try:
+        d, i = cagra.search(index, q, k, sp, filter_bitset=bits,
+                            device=device)
+    finally:
+        _ties.top_k_low = low
+    return d, i, calls
+
+
+def _selection_name(j, n_calls, centers, use_q):
+    """What the ``j``-th of a traversal's ``n_calls`` selections picks."""
+    head = (["entry clusters"] if centers else []) + ["seeds",
+                                                      "buffer order"]
+    if j < len(head):
+        return head[j]
+    if use_q and j == n_calls - 1:
+        return "int8 re-rank"
+    it, step = divmod(j - len(head), 2)
+    return f"iteration {it} {('parents', 'merge')[step]}"
+
+
+def split_at_tie(calls_a, calls_b, r, rtol=1e-5):
+    """Where two traversals of query row ``r`` (``_traced_cagra_search``'s
+    records on the card and on the CPU) first pick differently, shown to be
+    a rounding tie: every earlier selection picked the same positions on
+    both sides, so the two sides rank the same candidates; at the split
+    their keys hold +inf in the same slots and agree within ``rtol`` of the
+    row's largest finite key; and each side's picks are its own keys'
+    smallest, the lower position first at equal keys (checked on the host).
+    The two sides then swap a pair only because their f32 keys round
+    differently. Returns the split (selection index, slot, the swapped
+    pair's keys on both sides); raises ValueError otherwise."""
+    import torch
+
+    from raft_tpu_torch.neighbors import _ties
+
+    for j, ((ka, pa), (kb, pb)) in enumerate(zip(calls_a, calls_b)):
+        if ka.shape != kb.shape or pa.shape != pb.shape:
+            raise ValueError(f"selection {j}: shapes {tuple(ka.shape)} and "
+                             f"{tuple(kb.shape)}")
+        if torch.equal(pa[r], pb[r]):
+            continue
+        a, b = ka[r].double(), kb[r].double()
+        fin = torch.isfinite(b)
+        if not torch.equal(torch.isfinite(a), fin):
+            raise ValueError(f"selection {j}: +inf in other slots")
+        scale = float(b[fin].abs().max()) if bool(fin.any()) else 1.0
+        diff = float((a - b)[fin].abs().max()) if bool(fin.any()) else 0.0
+        if not diff <= rtol * scale:
+            raise ValueError(f"selection {j}: keys differ by {diff:.6g}, "
+                             f"more than {rtol} of {scale:.6g}")
+        for keys, picks in ((ka, pa), (kb, pb)):
+            if not torch.equal(_ties.top_k_low(keys[r:r + 1],
+                                               picks.shape[1])[0], picks[r]):
+                raise ValueError(f"selection {j}: picks that are not the "
+                                 f"keys' smallest")
+        slot = int(torch.nonzero(pa[r] != pb[r])[0])
+        x, y = int(pa[r, slot]), int(pb[r, slot])
+        return {"selection": j, "slot": slot, "positions": [x, y],
+                "keys_card": [float(a[x]), float(a[y])],
+                "keys_cpu": [float(b[x]), float(b[y])],
+                "max_key_diff": diff, "scale": scale}
+    raise ValueError(f"the traversals pick alike in all "
+                     f"{min(len(calls_a), len(calls_b))} selections")
+
+
+def _dump_cagra_case(what, r, q, index, out_c, out_p, calls_c, calls_p):
+    """The failing query's record, written to ``chiprun_out/``: the query,
+    both searches' output rows, both traversals' selections (keys and
+    picks of row ``r``) and the graph's sha256. Returns the path."""
+    import hashlib
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
+    path = os.path.join(here, "chiprun_out", f"cagra_{what}_q{r}.json")
+    sha = hashlib.sha256(index.graph.cpu().numpy().tobytes()).hexdigest()
+    rec = {"mode": what, "query_row": r, "graph_sha256": sha,
+           "query": q[r].cpu().tolist(),
+           "card": {"d": out_c[0][r].cpu().tolist(),
+                    "ids": out_c[1][r].cpu().tolist()},
+           "cpu": {"d": out_p[0][r].tolist(), "ids": out_p[1][r].tolist()},
+           "selections": [{"keys_card": kc[r].tolist(),
+                           "picks_card": pc[r].tolist(),
+                           "keys_cpu": kp[r].tolist(),
+                           "picks_cpu": pp[r].tolist()}
+                          for (kc, pc), (kp, pp) in zip(calls_c, calls_p)]}
+    with open(path, "w") as f:
+        json.dump(rec, f)
+    return path
+
+
+def cagra_card_vs_cpu(index, index_q, base, q, k, sp, sp8, bits):
+    """The queries ``q`` searched on the card against the same index
+    searched on the CPU, f32, int8 (``index_q``, ``sp8``) and filtered
+    (``bits``). Each query's ten results must agree but at f64 ties
+    (``bench.dataset.tie_swaps``); a query that differs away from them
+    must have traversals that split at a rounding tie (``split_at_tie``):
+    CAGRA's search is plain torch on both devices, and a greedy traversal
+    that picks one of two candidates whose keys the card and the CPU round
+    to opposite orders walks on along other edges. A query that fails both
+    is dumped (``_dump_cagra_case``) and raises SmokeFailure. Returns, per
+    mode, the slots swapped at f64 ties and the queries split at a tie
+    (named by their selection)."""
+    from raft_tpu_torch.bench.dataset import tie_swaps
+    from raft_tpu_torch.neighbors import cagra
+
+    base_cpu = base.cpu()
+    cpu_index = cagra.CagraIndex(
+        dataset=base_cpu, graph=index.graph.cpu(), metric=index.metric,
+        centers=index.centers.cpu(), entry_ids=index.entry_ids.cpu(),
+        dataset_q=index_q.dataset_q.cpu(), q_scale=index_q.q_scale.cpu(),
+        q_zero=index_q.q_zero.cpu())
+    out = {}
+    for what, idx_c, spc, fb in (("f32", index, sp, None),
+                                 ("int8", index_q, sp8, None),
+                                 ("filtered", index, sp, bits)):
+        d_c, i_c, calls_c = _traced_cagra_search(idx_c, q, k, spc, fb,
+                                                 idx_c.device)
+        d_p, i_p, calls_p = _traced_cagra_search(
+            cpu_index, q.cpu(), k, spc, None if fb is None else fb.cpu(),
+            "cpu")
+        swapped, splits = 0, []
+        for r in range(q.shape[0]):
+            try:
+                swapped += tie_swaps(q[r:r + 1], base_cpu, i_c[r:r + 1],
+                                     d_c[r:r + 1], i_p[r:r + 1],
+                                     d_p[r:r + 1])
+                continue
+            except ValueError as e:
+                outputs = str(e)
+            try:
+                split = split_at_tie(calls_c, calls_p, r)
+            except ValueError as e:
+                path = _dump_cagra_case(what, r, q, index, (d_c, i_c),
+                                        (d_p, i_p), calls_c, calls_p)
+                raise SmokeFailure(
+                    f"cagra {what} card vs CPU, query {r}: {outputs}; its "
+                    f"traversals split at no tie: {e} (record: {path})"
+                ) from e
+            split["selection"] = _selection_name(
+                split["selection"], len(calls_c), index.centers is not None,
+                spc.traverse == "int8")
+            splits.append({"query": r, "outputs": outputs, **split})
+        out[what] = {"swapped": swapped, "splits": splits}
+    return out
+
+
 def cagra_leg(args, rows):
     """``[cagra]`` (ROADMAP A16, BASELINE.md target 4, ``bench.py:274-279``
     ``gist.cagra.d64``): ``CAGRA_N`` x ``CAGRA_DIM`` ``DeviceSynthetic`` rows
@@ -4726,13 +4902,15 @@ def cagra_leg(args, rows):
     ``bench.dataset.tie_swaps``), and fused_l2_argmin against its plain
     version at the build's predict shape (row ``cagra_build``); then the
     ``nn_descent`` algorithm on the same rows (``cagra_nn_descent_leg``).
-    Frees its rows at the end."""
+    Frees its rows at the end. The build is a user's (its atomic sums
+    change the graph from run to run), so the card-vs-CPU check meets a
+    new graph in every run (``cagra_card_vs_cpu``; ROADMAP C7)."""
     import dataclasses
 
     import numpy as np
     import torch
 
-    from raft_tpu_torch.bench.dataset import DeviceSynthetic, tie_swaps
+    from raft_tpu_torch.bench.dataset import DeviceSynthetic
     from raft_tpu_torch.core import bitset
     from raft_tpu_torch.neighbors import brute_force, cagra
     from raft_tpu_torch.obs import spans
@@ -4831,28 +5009,17 @@ def cagra_leg(args, rows):
     # the card's search against the same index searched on the CPU
     t0 = time.perf_counter()
     n_cmp = 100
-    base_cpu = base.cpu()
-    cpu_index = cagra.CagraIndex(
-        dataset=base_cpu, graph=index.graph.cpu(), metric=index.metric,
-        centers=index.centers.cpu(), entry_ids=index.entry_ids.cpu(),
-        dataset_q=codes.cpu(), q_scale=scale.cpu(), q_zero=zero.cpu())
-    q_cmp = queries[:n_cmp]
-    swaps = {}
-    for what, idx_c, spc, fb in (("f32", index, sp, None),
-                                 ("int8", index_q, sp8, None),
-                                 ("filtered", index, sp, bits)):
-        d_c, i_c = cagra.search(idx_c, q_cmp, k, spc, filter_bitset=fb)
-        d_p, i_p = cagra.search(cpu_index, q_cmp.cpu(), k, spc,
-                                filter_bitset=None if fb is None
-                                else fb.cpu(), device="cpu")
-        try:
-            swaps[what] = tie_swaps(q_cmp, base_cpu, i_c, d_c, i_p, d_p)
-        except ValueError as e:
-            raise SmokeFailure(f"cagra {what} card vs CPU: {e}") from e
+    checks = cagra_card_vs_cpu(index, index_q, base, queries[:n_cmp], k, sp,
+                               sp8, bits)
     _log(f"[cagra check] {n_cmp} queries, the card's search = the CPU's "
-         f"but at f64 ties (swapped slots {json.dumps(swaps)}; "
-         f"{time.perf_counter() - t0:.1f} s)")
-    del cpu_index, base_cpu, index_q, codes, index
+         f"but at f64 ties or at a traversal's rounding tie (swapped slots "
+         + json.dumps({w: c["swapped"] for w, c in checks.items()})
+         + "; queries split at a tie "
+         + json.dumps({w: [(s_["query"], s_["selection"])
+                           for s_ in c["splits"]]
+                       for w, c in checks.items()})
+         + f"; {time.perf_counter() - t0:.1f} s)")
+    del index_q, codes, index
     torch.cuda.empty_cache()
 
     # the nn_descent build algorithm on the same rows
@@ -4916,7 +5083,9 @@ def cagra_leg(args, rows):
            "latency10_ms_int8": lat8, "recall_int8": rec8,
            "qps_filtered": [m / s for s in secs_f],
            "latency10_ms_filtered": lat_f, "recall_filtered": rec_f,
-           "card_cpu_swaps": swaps, "nn_descent": nnd, "gist_flat": gist,
+           "card_cpu_swaps": {w: c["swapped"] for w, c in checks.items()},
+           "card_cpu_splits": {w: c["splits"] for w, c in checks.items()},
+           "nn_descent": nnd, "gist_flat": gist,
            "ivf_pq": {
                "n": CAGRA_PQ_N, "build_s": build_pq_s,
                "stages_s": stages_pq, "edge_recall": edge_pq,
@@ -6137,6 +6306,471 @@ def tristates_leg(index, base, queries, sp, B, k, gt, rec_default,
             "fp8_off": off}
 
 
+# ---------------------------------------------------------------------------
+# A17's first half: a clustering job and an embedding evaluated as cuML
+# does, on SIFT-1M's shape
+# ---------------------------------------------------------------------------
+
+PRIMS_N = 1_000_000
+PRIMS_DIM = 128
+PRIMS_K = 1_000
+PRIMS_CPU_N = 100_000
+PRIMS_SWEEPS = 10
+PRIMS_SIL_N = 20_000
+PRIMS_TRUST_N = 10_000
+PRIMS_EMBED_DIM = 16
+PRIMS_GRAPH_N = 200_000
+PRIMS_GRAPH_K = 10
+PRIMS_GRAPH_BATCH = 25_000
+PRIMS_RMAT_EDGES = 1 << 20
+PRIMS_RMAT_SCALE = 18
+PRIMS_SCORES = ("adjusted_rand_index", "rand_index", "mutual_info_score",
+                "homogeneity_score", "completeness_score", "v_measure")
+
+
+def _scores_f64(c):
+    """The contingency scores in float64 numpy from the counts ``c``
+    (rows the truth, columns the prediction)."""
+    import numpy as np
+
+    c = c.astype(np.float64)
+    n = c.sum()
+
+    def comb2(v):
+        return v * (v - 1.0) / 2.0
+
+    s_c, s_a, s_b = comb2(c).sum(), comb2(c.sum(1)).sum(), \
+        comb2(c.sum(0)).sum()
+    tot = comb2(n)
+    exp = s_a * s_b / tot
+    p = c / n
+    pi, pj = p.sum(1, keepdims=True), p.sum(0, keepdims=True)
+    nz = p > 0
+    mi = float((p[nz] * np.log(p[nz] / (pi * pj)[nz])).sum())
+
+    def ent(q):
+        q = q[q > 0]
+        return float(-(q * np.log(q)).sum())
+
+    h = mi / ent(pi.ravel())
+    comp = mi / ent(pj.ravel())
+    return {"adjusted_rand_index": (s_c - exp) / (0.5 * (s_a + s_b) - exp),
+            "rand_index": (tot + 2 * s_c - s_a - s_b) / tot,
+            "mutual_info_score": mi, "homogeneity_score": h,
+            "completeness_score": comp,
+            "v_measure": 2 * h * comp / (h + comp)}
+
+
+def _silhouette_f64(x, labels, k):
+    """The mean silhouette in float64 from exact distances (self 0)."""
+    import torch
+
+    xd = x.double()
+    d = torch.cdist(xd, xd)
+    lab = labels.long()
+    onehot = torch.nn.functional.one_hot(lab, k).double()
+    sums = d @ onehot
+    counts = onehot.sum(0)
+    own = counts[lab]
+    rows = torch.arange(x.shape[0], device=x.device)
+    a = torch.where(own > 1, sums[rows, lab] / (own - 1).clamp_min(1), 0.0)
+    mean_to = sums / counts.clamp_min(1)
+    mean_to[rows, lab] = float("inf")
+    mean_to = torch.where(counts[None] > 0, mean_to, float("inf"))
+    b = mean_to.amin(1)
+    s = torch.where(own > 1, (b - a) / torch.maximum(a, b), 0.0)
+    return float(s.mean())
+
+
+def _same_partition(labels, ref) -> bool:
+    """Two labelings split the vertices alike: relabelled by first
+    occurrence, they are equal."""
+    import numpy as np
+
+    def first_seen(v):
+        _, first, inv = np.unique(v, return_index=True, return_inverse=True)
+        order = np.empty(len(first), np.int64)
+        order[np.argsort(first)] = np.arange(len(first))
+        return order[inv]
+
+    return np.array_equal(first_seen(np.asarray(labels)),
+                          first_seen(np.asarray(ref)))
+
+
+def _root_ids(mono, k):
+    """Monotonic component labels → each vertex's component's least vertex
+    id (the vertex-id labels ``merge_labels`` takes)."""
+    import torch
+
+    n = mono.shape[0]
+    roots = torch.full((k,), n, dtype=torch.int32, device=mono.device)
+    roots.scatter_reduce_(0, mono.long(), torch.arange(
+        n, dtype=torch.int32, device=mono.device), "amin")
+    return roots[mono.long()]
+
+
+def prims_leg(args, rows):
+    """``[prims …]`` (ROADMAP A17's first half): a clustering job and an
+    embedding evaluated as cuML does, at SIFT-1M's shape, each part timed
+    by the host's clock around synchronized calls.
+
+    (a) ``[prims blobs]``: ``random.make_blobs(PRIMS_N, PRIMS_DIM, 1000
+    clusters, std 1.0)`` on the card; on ``PRIMS_CPU_N`` rows the card's
+    labels and ``permute``'s permutation equal the CPU's bit for bit and
+    every row within 1e-5 of the CPU's (row norms). (b) ``[prims
+    cluster]``: with the counts zeroed just before and read just after,
+    ``kmeans.fit`` (random init, 10 sweeps; B4 must launch) and
+    ``predict``, then the contingency scores against the blob labels at
+    n_classes 1000: card = CPU within 1e-4 relative, = float64 numpy from
+    the counts within 1e-3, the counts exact (= ``numpy.bincount``).
+    (c) ``[prims linalg]``: ``stats.cov`` then ``eig_dc``; ``rsvd`` of the
+    centred rows at k 32: with p 96 the sketch spans all 128 columns and
+    s²/(n − 1) must be within 1e-3 of the top 32 eigenvalues; at its
+    defaults (p 10, 2 power iterations: a sketch of 42 columns) the card's
+    s within 1e-4 relative of the same call's on the CPU (the same Ω), its
+    error from the eigenvalues logged; ``qr`` of the
+    rows (QᵀQ in float64 within 1e-4 of I); ``lstsq`` on
+    ``make_regression(PRIMS_N, 128, noise=0.1)`` (coefficients within
+    1e-2 of the truth, norm-relative); ``cholesky_r1_update`` of the
+    covariance's factor within 1e-3 of the float64 factor of LLᵀ + vvᵀ;
+    ``multi_variable_gaussian`` of 1M samples by both methods (the sample
+    covariance within 2e-2 of the covariance, Frobenius-relative);
+    ``reduce_rows_by_key`` by the 1,000 labels within 1e-4 of float64
+    (scale-relative); ``histogram`` equal to ``numpy.histogram`` on the
+    values away from bin edges. (d) ``[prims embed]``: ``silhouette_score``
+    of ``PRIMS_SIL_N`` rows drawn by ``subsample`` within 1e-3 of float64;
+    ``trustworthiness_score`` of the 16-dim ``rsvd`` projection of
+    ``PRIMS_TRUST_N`` rows, k 10, within 1e-4 of the CPU's; the card's peak
+    memory. (e) ``[prims labels]``: with the counts zeroed just before and
+    read just after, the symmetrised kNN graph (k 10) of ``PRIMS_GRAPH_N``
+    rows through ``brute_force.knn_arrays`` (B3 must launch) and a
+    symmetrised ``rmat_rectangular`` graph (2^20 edges, scale 18): each
+    ``connected_components`` partition equal to
+    ``scipy.sparse.csgraph``'s, its rounds printed; ``merge_labels`` of the
+    kNN graph's two halves' root labelings gives the whole graph's
+    partition. Then B3 at the kNN tile's shape against its plain version
+    (row ``prims``). Returns the summary."""
+    import numpy as np
+    import torch
+    from scipy.sparse import csgraph
+
+    from raft_tpu_torch import label, linalg, random as trandom, sparse, \
+        stats
+    from raft_tpu_torch.cluster import kmeans
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.ops import kernels as K
+
+    st = trandom.RngState(args.seed)
+    out = {}
+    t_leg = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    # (a) blobs
+    (x, lab), blobs_s = timed(lambda: trandom.make_blobs(
+        PRIMS_N, PRIMS_DIM, n_clusters=PRIMS_K, cluster_std=1.0, state=st))
+    dev = x.device
+    (xs, ls), small_s = timed(lambda: trandom.make_blobs(
+        PRIMS_CPU_N, PRIMS_DIM, n_clusters=PRIMS_K, cluster_std=1.0,
+        state=st))
+    t0 = time.perf_counter()
+    xc, lc = trandom.make_blobs(PRIMS_CPU_N, PRIMS_DIM, n_clusters=PRIMS_K,
+                                cluster_std=1.0, state=st, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if lab.dtype != torch.int32 or x.shape != (PRIMS_N, PRIMS_DIM):
+        raise SmokeFailure("[prims blobs]: malformed rows or labels")
+    if not torch.equal(ls.cpu(), lc):
+        raise SmokeFailure("[prims blobs]: the card's labels differ from "
+                           "the CPU's")
+    ar = torch.arange(PRIMS_CPU_N, dtype=torch.int32)
+    if not torch.equal(trandom.permute(ar.to(dev), st).cpu(),
+                       trandom.permute(ar, st)):
+        raise SmokeFailure("[prims blobs]: the card's permutation differs "
+                           "from the CPU's")
+    row_err = float(((xs.cpu() - xc).norm(dim=1)
+                     / xc.norm(dim=1).clamp_min(1e-30)).max())
+    if not row_err <= 1e-5:
+        raise SmokeFailure(f"[prims blobs]: rows differ from the CPU's by "
+                           f"{row_err:.3g} (relative)")
+    del xs, ls, xc, lc
+    _log(f"[prims blobs] make_blobs {PRIMS_N} x {PRIMS_DIM}, {PRIMS_K} "
+         f"clusters: {blobs_s:.3f} s on the card; {PRIMS_CPU_N} rows "
+         f"{small_s:.3f} s on the card, {cpu_s:.2f} s on the CPU: labels "
+         f"and permutation equal, rows within {row_err:.3g} (relative)")
+    out["blobs"] = {"s": blobs_s, "cpu_rows_s": cpu_s, "row_err": row_err}
+
+    # (b) clustering and its scores
+    K.reset_launch_counts()
+    p = kmeans.KMeansParams(n_clusters=PRIMS_K, max_iter=PRIMS_SWEEPS,
+                            tol=0.0, init="random", seed=args.seed)
+    (fit, fit_s) = timed(lambda: kmeans.fit(p, x))
+    centers, inertia, n_iter = fit
+    pred, pred_s = timed(lambda: kmeans.predict(centers, x))
+    launches = K.launch_counts()
+    if launches["fused_l2_argmin"] == 0:
+        raise SmokeFailure("[prims cluster]: fused_l2_argmin never launched")
+    cont, cont_s = timed(lambda: stats.contingency_matrix(
+        lab, pred, PRIMS_K, PRIMS_K))
+    counts = cont.cpu().numpy()
+    lab_c, pred_c = lab.cpu(), pred.cpu()
+    want = np.bincount(lab_c.numpy().astype(np.int64) * PRIMS_K
+                       + pred_c.numpy(), minlength=PRIMS_K * PRIMS_K)
+    if not (np.array_equal(counts.reshape(-1), want) and np.array_equal(
+            stats.contingency_matrix(lab_c, pred_c, PRIMS_K,
+                                     PRIMS_K).numpy(), counts)):
+        raise SmokeFailure("[prims cluster]: contingency counts are not "
+                           "exact")
+    ref = _scores_f64(counts)
+    scores, score_ms = {}, {}
+    for name in PRIMS_SCORES:
+        fn = getattr(stats, name)
+        v, s_ = timed(lambda: fn(lab, pred, PRIMS_K))
+        v, v_cpu = float(v), float(fn(lab_c, pred_c, PRIMS_K))
+        scores[name], score_ms[name] = v, s_ * 1e3
+        if not abs(v - v_cpu) <= 1e-4 * max(abs(v_cpu), 1e-30):
+            raise SmokeFailure(f"[prims cluster]: {name} {v} on the card, "
+                               f"{v_cpu} on the CPU")
+        if not abs(v - ref[name]) <= 1e-3 * max(abs(ref[name]), 1.0):
+            raise SmokeFailure(f"[prims cluster]: {name} {v}, float64 "
+                               f"{ref[name]}")
+    _log(f"[prims cluster] kmeans.fit random init, {int(n_iter)} sweeps "
+         f"{fit_s:.3f} s, predict {pred_s * 1e3:.2f} ms, contingency "
+         f"[{PRIMS_K}, {PRIMS_K}] {cont_s * 1e3:.2f} ms (counts exact); "
+         + ", ".join(f"{n} {scores[n]:.6f} ({score_ms[n]:.2f} ms)"
+                     for n in PRIMS_SCORES)
+         + "; card = CPU within 1e-4, = float64 within 1e-3; launches "
+         f"{json.dumps(launches)}")
+    out["cluster"] = {"fit_s": fit_s, "n_iter": int(n_iter),
+                      "inertia": float(inertia), "scores": scores,
+                      "score_ms": score_ms, "launches": launches}
+    del pred, pred_c, centers
+
+    # (c) linear algebra
+    la = {}
+    cov, la["cov_s"] = timed(lambda: stats.cov(x))
+    (w, _), la["eig_s"] = timed(lambda: linalg.eig_dc(cov))
+    top = w.flip(0)[:32].double()
+    xcent = stats.mean_center(x)
+    n = PRIMS_N
+    (_, s_full, _), la["rsvd_s"] = timed(lambda: linalg.rsvd(xcent, 32,
+                                                             p=96))
+    (_, s_def, _), la["rsvd_default_s"] = timed(lambda: linalg.rsvd(xcent,
+                                                                    32))
+    rsvd_err = float(((s_full.double() ** 2 / (n - 1) - top).abs()
+                      / top).max())
+    rsvd_def_err = float(((s_def.double() ** 2 / (n - 1) - top).abs()
+                          / top).max())
+    if not rsvd_err <= 1e-3:
+        raise SmokeFailure(f"[prims linalg]: rsvd's s^2/(n-1) {rsvd_err:.3g}"
+                           f" from the top eigenvalues")
+    # at its defaults (k + p = 42 of 128 columns) rsvd is a sketch: the
+    # card's range finder and power iterations against the CPU's on the
+    # same Ω (PRNGKey(0))
+    s_def_cpu = linalg.rsvd(xcent.cpu(), 32)[1].double()
+    rsvd_cpu_err = float(((s_def.cpu().double() - s_def_cpu).abs()
+                          / s_def_cpu).max())
+    if not rsvd_cpu_err <= 1e-4:
+        raise SmokeFailure(f"[prims linalg]: rsvd(k=32) at its defaults: "
+                           f"s {rsvd_cpu_err:.3g} from the CPU's")
+    (q, _), la["qr_s"] = timed(lambda: linalg.qr(x))
+    qd = q.double()
+    orth = float((qd.T @ qd - torch.eye(PRIMS_DIM, dtype=torch.float64,
+                                        device=dev)).abs().max())
+    del q, qd
+    if not orth <= 1e-4:
+        raise SmokeFailure(f"[prims linalg]: QᵀQ is {orth:.3g} from I")
+    rx, ry, rw = trandom.make_regression(PRIMS_N, PRIMS_DIM, noise=0.1,
+                                         state=st.advance(1))
+    coef, la["lstsq_s"] = timed(lambda: linalg.lstsq(rx, ry))
+    coef_err = float((coef - rw).norm() / rw.norm())
+    del rx, ry
+    if not coef_err <= 1e-2:
+        raise SmokeFailure(f"[prims linalg]: lstsq coefficients "
+                           f"{coef_err:.3g} from the truth")
+    fac = torch.linalg.cholesky(cov)
+    v = trandom.normal(st.advance(2), (PRIMS_DIM,))
+    up, la["r1_update_s"] = timed(lambda: linalg.cholesky_r1_update(fac, v))
+    fd = fac.double()
+    want_up = torch.linalg.cholesky(fd @ fd.T + torch.outer(v.double(),
+                                                            v.double()))
+    r1_err = float((up.double() - want_up).abs().max())
+    if not r1_err <= 1e-3:
+        raise SmokeFailure(f"[prims linalg]: cholesky_r1_update "
+                           f"{r1_err:.3g} from the fresh factor")
+    mean = x.mean(0)
+    mvg_err = {}
+    for method in ("cholesky", "eig"):
+        smp, la[f"mvg_{method}_s"] = timed(
+            lambda: trandom.multi_variable_gaussian(st.advance(3), mean, cov,
+                                                    PRIMS_N, method))
+        mvg_err[method] = float((stats.cov(smp) - cov).norm() / cov.norm())
+        del smp
+        if not mvg_err[method] <= 2e-2:
+            raise SmokeFailure(f"[prims linalg]: multi_variable_gaussian "
+                               f"({method}) covariance {mvg_err[method]:.3g}"
+                               f" from the target")
+    sums, la["reduce_rows_by_key_s"] = timed(
+        lambda: linalg.reduce_rows_by_key(x, lab, PRIMS_K))
+    want_sums = torch.zeros((PRIMS_K, PRIMS_DIM), dtype=torch.float64,
+                            device=dev).index_add_(0, lab.long(), x.double())
+    red_err = float((sums.double() - want_sums).abs().max()
+                    / want_sums.abs().max())
+    if not red_err <= 1e-4:
+        raise SmokeFailure(f"[prims linalg]: reduce_rows_by_key "
+                           f"{red_err:.3g} from float64")
+    col = x[:, 0].contiguous()
+    n_bins, lo, hi = 64, -15.0, 15.0
+    hist, la["histogram_s"] = timed(lambda: stats.histogram(col, n_bins, lo,
+                                                            hi))
+    col_h = col.cpu().numpy()
+    edges = np.linspace(lo, hi, n_bins + 1)
+    near = np.abs(col_h[:, None] - edges[None, :]).min(1) <= 1e-5 * (hi - lo)
+    away = torch.from_numpy(col_h[~near]).to(dev)
+    h_away = stats.histogram(away, n_bins, lo, hi).cpu().numpy()
+    h_np, _ = np.histogram(col_h[~near], bins=n_bins, range=(lo, hi))
+    if not np.array_equal(h_away, h_np) or int(hist.sum()) != int(
+            ((col_h >= lo) & (col_h <= hi)).sum()):
+        raise SmokeFailure("[prims linalg]: histogram differs from "
+                           "numpy.histogram away from the bin edges")
+    _log("[prims linalg] " + ", ".join(
+        f"{k_[:-2]} {v_ * 1e3:.2f} ms" for k_, v_ in la.items())
+        + f"; rsvd (p 96) {rsvd_err:.3g} from the eigenvalues; rsvd at "
+        f"its defaults: s {rsvd_cpu_err:.3g} from the CPU's (limit 1e-4), "
+        f"{rsvd_def_err:.3g} from the eigenvalues (a sketch: no limit); "
+        f"QᵀQ {orth:.3g} from I, lstsq "
+        f"{coef_err:.3g}, r1 update {r1_err:.3g}, multi_variable_gaussian "
+        f"{mvg_err['cholesky']:.3g} / {mvg_err['eig']:.3g}, "
+        f"reduce_rows_by_key {red_err:.3g}, histogram = numpy on "
+        f"{int((~near).sum())} of {PRIMS_N} values")
+    out["linalg"] = {"s": la, "rsvd_err": rsvd_err,
+                     "rsvd_default_err": rsvd_def_err,
+                     "rsvd_default_cpu_err": rsvd_cpu_err, "qtq_err": orth,
+                     "lstsq_err": coef_err, "r1_err": r1_err,
+                     "mvg_err": mvg_err, "reduce_err": red_err}
+    del cov, fac, sums, want_sums, xcent
+
+    # (d) the embedding's quality
+    idx = trandom.subsample(st.advance(4), PRIMS_N, PRIMS_SIL_N).long()
+    xs, ls = x[idx], lab[idx]
+    sil, sil_s = timed(lambda: stats.silhouette_score(xs, ls, PRIMS_K))
+    sil, sil_ref = float(sil), _silhouette_f64(xs, ls, PRIMS_K)
+    if not abs(sil - sil_ref) <= 1e-3:
+        raise SmokeFailure(f"[prims embed]: silhouette {sil}, float64 "
+                           f"{sil_ref}")
+    xt = xs[:PRIMS_TRUST_N].contiguous()
+    xt_c = stats.mean_center(xt)
+    _, _, vt = linalg.rsvd(xt_c, PRIMS_EMBED_DIM)
+    emb = (xt_c @ vt.T).contiguous()
+    tw, tw_s = timed(lambda: stats.trustworthiness_score(xt, emb, 10))
+    t0 = time.perf_counter()
+    tw_cpu = float(stats.trustworthiness_score(xt.cpu(), emb.cpu(), 10))
+    tw_cpu_s = time.perf_counter() - t0
+    tw = float(tw)
+    if not abs(tw - tw_cpu) <= 1e-4:
+        raise SmokeFailure(f"[prims embed]: trustworthiness {tw} on the "
+                           f"card, {tw_cpu} on the CPU")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _log(f"[prims embed] silhouette of {PRIMS_SIL_N} subsampled rows "
+         f"{sil:.6f} ({sil_s * 1e3:.1f} ms; float64 {sil_ref:.6f}); "
+         f"trustworthiness of the {PRIMS_EMBED_DIM}-dim rsvd projection of "
+         f"{PRIMS_TRUST_N} rows, k 10: {tw:.6f} ({tw_s * 1e3:.1f} ms; CPU "
+         f"{tw_cpu:.6f} in {tw_cpu_s:.2f} s); card peak {peak:.2f} GiB")
+    out["embed"] = {"silhouette": sil, "silhouette_f64": sil_ref,
+                    "silhouette_s": sil_s, "trust": tw, "trust_cpu": tw_cpu,
+                    "trust_s": tw_s, "trust_cpu_s": tw_cpu_s,
+                    "peak_gib": peak}
+    del xs, ls, xt, xt_c, emb
+
+    # (e) labels: connected components of two graphs
+    K.reset_launch_counts()
+    xg = x[:PRIMS_GRAPH_N].contiguous()
+
+    def knn_graph():
+        return torch.cat([brute_force.knn_arrays(
+            xg, xg[a:a + PRIMS_GRAPH_BATCH], PRIMS_GRAPH_K,
+            metric="sqeuclidean")[1]
+            for a in range(0, PRIMS_GRAPH_N, PRIMS_GRAPH_BATCH)])
+
+    nbr, knn_s = timed(knn_graph)
+    launches_g = K.launch_counts()
+    if launches_g["select_k"] == 0:
+        raise SmokeFailure("[prims labels]: select_k never launched")
+
+    def symmetrised(src, dst, n_):
+        r = torch.cat([src, dst]).int()
+        c = torch.cat([dst, src]).int()
+        ones = torch.ones(r.shape[0], dtype=torch.float32, device=dev)
+        return sparse.coo_to_csr(sparse.make_coo(r, c, ones, (n_, n_)))
+
+    def check_cc(name, csr):
+        stats_ = {}
+        (mono, k_), cc_s = timed(lambda: label.connected_components(
+            csr, stats=stats_))
+        sc = sparse.to_scipy(csr)
+        t0 = time.perf_counter()
+        nc, ref_lab = csgraph.connected_components(sc, directed=False)
+        sc_s = time.perf_counter() - t0
+        if k_ != nc or not _same_partition(mono.cpu().numpy(), ref_lab):
+            raise SmokeFailure(f"[prims labels]: {name} components differ "
+                               f"from scipy's ({k_} against {nc})")
+        return mono, k_, stats_["rounds"], cc_s, sc_s
+
+    src = torch.arange(PRIMS_GRAPH_N, device=dev).repeat_interleave(
+        PRIMS_GRAPH_K)
+    dst = nbr.reshape(-1).long()
+    csr_knn = symmetrised(src, dst, PRIMS_GRAPH_N)
+    mono, k_knn, rounds_knn, cc_s, sc_s = check_cc("kNN graph", csr_knn)
+    half = src.shape[0] // 2
+    roots = []
+    for sl in (slice(0, half), slice(half, None)):
+        m_, k_h = label.connected_components(
+            symmetrised(src[sl], dst[sl], PRIMS_GRAPH_N))
+        roots.append(_root_ids(m_, k_h))
+    merged = label.merge_labels(*roots)
+    if not torch.equal(label.make_monotonic(merged)[0], mono):
+        raise SmokeFailure("[prims labels]: merge_labels of the halves "
+                           "differs from the whole kNN graph's components")
+    edges, rmat_s = timed(lambda: trandom.rmat_rectangular(
+        st.advance(5), PRIMS_RMAT_EDGES, PRIMS_RMAT_SCALE, PRIMS_RMAT_SCALE))
+    n_r = 1 << PRIMS_RMAT_SCALE
+    csr_r = symmetrised(edges[:, 0].long(), edges[:, 1].long(), n_r)
+    _, k_r, rounds_r, cc_r_s, sc_r_s = check_cc("RMAT graph", csr_r)
+    _log(f"[prims labels] kNN graph of {PRIMS_GRAPH_N} rows, k "
+         f"{PRIMS_GRAPH_K} ({knn_s:.3f} s): {k_knn} components in "
+         f"{rounds_knn} rounds ({cc_s * 1e3:.1f} ms; scipy "
+         f"{sc_s * 1e3:.1f} ms), merge_labels of its halves = the whole; "
+         f"RMAT {PRIMS_RMAT_EDGES} edges at scale {PRIMS_RMAT_SCALE} "
+         f"({rmat_s * 1e3:.1f} ms): {k_r} components in {rounds_r} rounds "
+         f"({cc_r_s * 1e3:.1f} ms; scipy {sc_r_s * 1e3:.1f} ms); both = "
+         f"scipy's partition; launches {json.dumps(launches_g)}")
+    out["labels"] = {"knn_s": knn_s, "knn_components": k_knn,
+                     "knn_rounds": rounds_knn, "knn_cc_s": cc_s,
+                     "rmat_components": k_r, "rmat_rounds": rounds_r,
+                     "rmat_cc_s": cc_r_s, "launches": launches_g}
+    del csr_knn, csr_r, edges, nbr, src, dst, merged, roots
+    # B3 at the graph's search tile: the first query batch against the
+    # first tile of rows
+    q = xg[:PRIMS_GRAPH_BATCH]
+    it = min(PRIMS_GRAPH_N, max(1 << 14, brute_force._TILE_BUDGET_ELEMS
+                                // PRIMS_GRAPH_BATCH))
+    index = brute_force.build(xg, "sqeuclidean")
+    tile = brute_force._expanded_block(q, xg[:it], (q * q).sum(1),
+                                       index.norms[:it], index.metric)
+    _select_k_row(rows, "prims", launches_g, tile.contiguous(),
+                  PRIMS_GRAPH_K, " (the kNN graph's search tile)")
+    del tile, index, xg, x, lab
+    torch.cuda.empty_cache()
+    out["leg_s"] = time.perf_counter() - t_leg
+    _log(f"[prims] leg {out['leg_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=10_000_000)
@@ -6457,6 +7091,11 @@ def main(argv=None) -> int:
     _log(f"[bf index summary] {json.dumps(bf_summary)}")
     del km_ds, km_x
     torch.cuda.empty_cache()
+    try:
+        prims_summary = prims_leg(args, rows)
+    except SmokeFailure as e:
+        return _fail(str(e))
+    _log(f"[prims summary] {json.dumps(prims_summary)}")
     try:
         dist_summary = dist_build_phase(args, rows)
     except SmokeFailure as e:

@@ -5,7 +5,9 @@ makes the JAX package's synthetic data from the same seed.
 
 ``gumbel`` is JAX's default ("low") mode, −log(−log(u)) of the same
 uniforms u on [tiny, 1); its logs are torch's, so a value may differ from
-JAX's in its last bit, never its order.
+JAX's in its last bit, never its order. ``exponential``, ``laplace``,
+``cauchy`` and ``bernoulli`` map the same uniforms through JAX 0.9's
+formulas (``jax/_src/random.py``), with torch's ``log1p`` and ``tan``.
 
 A key is a pair of Python ints (two uint32 words). Bits are int64 tensors
 holding uint32 values (torch has no full uint32 arithmetic). ``split``,
@@ -94,14 +96,24 @@ def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0,
             device="cpu") -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
     n = int(np.prod(shape))
-    lo = torch.tensor(np.float32(minval), device=device)
-    hi = torch.tensor(np.float32(maxval), device=device)
     out = torch.empty(n, dtype=torch.float32, device=device)
     for a in range(0, n, _PIECE):
         b = min(n, a + _PIECE)
         f = _unit_floats(random_bits(key, b - a, device, a))
-        out[a:b] = torch.maximum(lo, f * (hi - lo) + lo)
+        out[a:b] = _scaled(f, minval, maxval)
     return out.view(*shape)
+
+
+def _scaled(f: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    """``max(lo, f·(hi − lo) + lo)`` in f32 bounds, the sum rounded once as
+    XLA's fused multiply-add rounds it (the f32 product is exact in f64).
+    With lo = 0 the f32 product is that one rounding. The bounds are host
+    numbers, so no draw waits on the device."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    span = float(hi - lo)
+    if lo == 0:
+        return (f * span).clamp_min_(float(lo))
+    return (f.double() * span + float(lo)).float().clamp_min_(float(lo))
 
 
 def gumbel(key: Key, shape, device="cpu") -> torch.Tensor:
@@ -109,6 +121,33 @@ def gumbel(key: Key, shape, device="cpu") -> torch.Tensor:
     ("low": ``-log(-log(uniform(key, shape, tiny, 1)))``)."""
     tiny = float(np.finfo(np.float32).tiny)
     return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0, device)))
+
+
+def exponential(key: Key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.exponential(key, shape, float32)``: ``-log1p(-u)`` of
+    ``uniform(key, shape)`` (the log1p is torch's: last bits may differ)."""
+    return -torch.log1p(-uniform(key, shape, device=device))
+
+
+def laplace(key: Key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.laplace(key, shape, float32)``: ``sign(u)·log1p(−|u|)``
+    of u uniform on [−1 + epsneg, 1)."""
+    lo = float(np.float32(-1.0) + np.finfo(np.float32).epsneg)
+    u = uniform(key, shape, lo, 1.0, device)
+    return torch.sign(u) * torch.log1p(-u.abs())
+
+
+def cauchy(key: Key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.cauchy(key, shape, float32)``: ``tan(π·(u − ½))`` of u
+    uniform on [eps, 1)."""
+    u = uniform(key, shape, float(np.finfo(np.float32).eps), 1.0, device)
+    return torch.tan(float(np.float32(np.pi)) * (u - 0.5))
+
+
+def bernoulli(key: Key, p: float, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (mode "low"): ``uniform(key,
+    shape) < p`` with p in float32, as bools."""
+    return uniform(key, shape, device=device) < float(np.float32(p))
 
 
 def _fold_span(hi: torch.Tensor, lo: torch.Tensor, minval: int,
@@ -227,8 +266,4 @@ def uniform_rows(keys: Tuple[torch.Tensor, torch.Tensor], n: int,
     """``jax.vmap(lambda k: jax.random.uniform(k, (n,), float32, minval,
     maxval))`` over the row keys ``keys`` (two [t] word tensors) → [t, n]
     f32, each row what :func:`uniform` gives for that row's key."""
-    dev = keys[0].device
-    lo = torch.tensor(np.float32(minval), device=dev)
-    hi = torch.tensor(np.float32(maxval), device=dev)
-    f = _unit_floats(_row_bits(keys, n))
-    return torch.maximum(lo, f * (hi - lo) + lo)
+    return _scaled(_unit_floats(_row_bits(keys, n)), minval, maxval)

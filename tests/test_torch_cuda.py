@@ -1961,9 +1961,12 @@ def test_cuda_kmeans_fit_runs_b4_and_matches_plain():
     (the plain version) on well-separated blobs: the same k-means++ seed
     rows (the threefry draws); one sweep from them gives centroids and
     inertia within 1e-5 relative; the whole fit's cost within 1e-4 of the
-    CPU fit's; B4's labels on the final centers equal its plain version's.
-    The sweep counts may differ: the card's cluster sums (``index_add_``
-    atomics) move the tol test's last bits from run to run."""
+    CPU fit's; B4's labels on the card fit's final centers equal its plain
+    version's but at f32 ties: where they differ, the two picked centers lie
+    at f64 distances within 1e-4 + 1e-5·(‖x‖² + ‖c‖²) of each other (the
+    rule of ``chip_smoke.py``'s B4 checks). The sweep counts and the final
+    centers may differ from run to run: the card's cluster sums
+    (``index_add_`` atomics) move the tol test's last bits."""
     from raft_tpu_torch.cluster import kmeans
     from raft_tpu_torch.random import threefry
     from raft_tpu_torch.random.rng import RngState
@@ -1989,7 +1992,13 @@ def test_cuda_kmeans_fit_runs_b4_and_matches_plain():
     assert abs(cost - pcost) <= 1e-4 * pcost, (cost, pcost)
     _, lab = K.fused_l2_argmin(xd, c)
     _, plab = K.fused_l2_argmin_plain(xd, c)
-    assert torch.equal(lab, plab)
+    bad = lab != plab
+    xb, cd = xd[bad].double(), c.double()
+    ck, cp = cd[lab[bad].long()], cd[plab[bad].long()]
+    d_k, d_p = ((xb - ck) ** 2).sum(1), ((xb - cp) ** 2).sum(1)
+    tol = 1e-4 + 1e-5 * ((xb * xb).sum(1) + (ck * ck).sum(1))
+    assert bool(((d_k - d_p).abs() <= tol).all()), (
+        int(bad.sum()), float((d_k - d_p).abs().max()))
 
 
 def test_cuda_handle_stream_sync_waits():
@@ -2068,3 +2077,139 @@ def test_cuda_tristate_off_leaves_the_kernel_still(monkeypatch, env, kernel):
     hits = sum(len(set(a.tolist()) & set(b.tolist()))
                for a, b in zip(out[None].cpu(), out["off"].cpu()))
     assert hits >= 0.95 * out[None].numel(), hits
+
+
+# ---------------------------------------------------------------------------
+# the primitives (ROADMAP A17's first half): plain torch on both devices
+# ---------------------------------------------------------------------------
+
+def test_cuda_generators_equal_the_cpu():
+    """The threefry draws are integer arithmetic: labels, edges and
+    permutations on the card equal the CPU's bit for bit; generated rows
+    rtol 1e-5 (the card's erf⁻¹ and logs may round their last bits
+    otherwise)."""
+    from raft_tpu_torch import random as tr
+
+    dev = cuda_device()
+    st = tr.RngState(8, 3)
+    x, lab = tr.make_blobs(20_000, 24, n_clusters=50, state=st, device=dev)
+    px, plab = tr.make_blobs(20_000, 24, n_clusters=50, state=st,
+                             device="cpu")
+    assert torch.equal(lab.cpu(), plab)
+    torch.testing.assert_close(x.cpu(), px, rtol=1e-5, atol=1e-5)
+    assert torch.equal(tr.rmat_rectangular(st, 50_000, 12, 10, device=dev)
+                       .cpu(), tr.rmat_rectangular(st, 50_000, 12, 10,
+                                                   device="cpu"))
+    assert torch.equal(tr.uniform_int(st, (9_000,), -3, 70_000,
+                                      device=dev).cpu(),
+                       tr.uniform_int(st, (9_000,), -3, 70_000,
+                                      device="cpu"))
+    assert torch.equal(tr.permute(px[:5000].to(dev), st).cpu(),
+                       tr.permute(px[:5000], st))
+    rx, ry, rw = tr.make_regression(5000, 16, noise=0.1, state=st,
+                                    device=dev)
+    qx, qy, qw = tr.make_regression(5000, 16, noise=0.1, state=st,
+                                    device="cpu")
+    torch.testing.assert_close(rx.cpu(), qx, rtol=1e-5, atol=1e-6)
+    assert torch.equal(rw.cpu(), qw)
+    torch.testing.assert_close(ry.cpu(), qy, rtol=1e-5, atol=1e-3)
+
+
+def test_cuda_out_of_range_segment_ids_are_dropped():
+    """−1 and n_classes labels on the card: dropped as the CPU drops them,
+    with no device assert (``index_add_``/``scatter_reduce`` would trip one
+    on an out-of-range id)."""
+    from raft_tpu_torch import label, linalg, stats
+
+    dev = cuda_device()
+    rng = np.random.default_rng(3)
+    m = torch.from_numpy(rng.random((4000, 8), dtype=np.float32))
+    keys = torch.from_numpy(rng.integers(-1, 7, 4000).astype(np.int32))
+    other = torch.from_numpy(rng.integers(0, 7, 4000).astype(np.int32))
+    md, kd, od = m.to(dev), keys.to(dev), other.to(dev)
+    torch.testing.assert_close(linalg.reduce_rows_by_key(md, kd, 6).cpu(),
+                               linalg.reduce_rows_by_key(m, keys, 6),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        linalg.reduce_cols_by_key(md.T.contiguous(), kd, 6).cpu(),
+        linalg.reduce_cols_by_key(m.T.contiguous(), keys, 6), rtol=1e-5,
+        atol=1e-5)
+    assert torch.equal(stats.contingency_matrix(kd, od, 6, 6).cpu(),
+                       stats.contingency_matrix(keys, other, 6, 6))
+    for fn in ("adjusted_rand_index", "v_measure", "mutual_info_score"):
+        torch.testing.assert_close(getattr(stats, fn)(kd, od, 6).cpu(),
+                                   getattr(stats, fn)(keys, other, 6),
+                                   rtol=1e-5, atol=1e-6)
+    assert torch.equal(stats.histogram(md[:, 0] * 1.4 - 0.2, 10, 0.0,
+                                       1.0).cpu(),
+                       stats.histogram(m[:, 0] * 1.4 - 0.2, 10, 0.0, 1.0))
+    rows = torch.tensor([0, 1, -1, 5, 2], dtype=torch.int32)
+    cols = torch.tensor([1, 2, 3, 4, 9], dtype=torch.int32)
+    lab = torch.arange(5, dtype=torch.int32)
+    got = label.classlabels._propagate(lab.to(dev), rows.to(dev),
+                                       cols.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(),
+                       label.classlabels._propagate(lab, rows, cols))
+
+
+def test_cuda_lstsq_rank_deficient_and_underdetermined():
+    """The minimum-norm solution through the SVD on the card (its
+    ``torch.linalg.lstsq`` has only ``gels``, which assumes full rank):
+    equal to the CPU's within 1e-4 and to float64 numpy within 1e-3."""
+    from raft_tpu_torch import linalg
+
+    dev = cuda_device()
+    rng = np.random.default_rng(7)
+    cases = [rng.random((3000, 4), dtype=np.float32)[:, [0, 1, 2, 3, 0, 1]],
+             rng.random((6, 40), dtype=np.float32),
+             rng.random((5000, 12), dtype=np.float32)]
+    for a in cases:
+        b = a @ rng.random(a.shape[1], dtype=np.float32)
+        got = linalg.lstsq(torch.from_numpy(a).to(dev),
+                           torch.from_numpy(b).to(dev)).cpu()
+        cpu = linalg.lstsq(torch.from_numpy(a), torch.from_numpy(b))
+        torch.testing.assert_close(got, cpu, rtol=0, atol=1e-4)
+        ref = np.linalg.lstsq(a.astype(np.float64), b.astype(np.float64),
+                              rcond=None)[0]
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-3)
+
+
+def test_cuda_stable_argsort_ties():
+    """Tied keys keep the lower index first on the card, as on the CPU:
+    the Gumbel top-k helper on a heavily tied row, and the
+    trustworthiness of integer-valued rows (exact distances, many ties),
+    equal bit for bit."""
+    from raft_tpu_torch import stats
+    from raft_tpu_torch.random import generators
+
+    dev = cuda_device()
+    g = torch.tensor([float(i % 4) for i in range(5000)])
+    assert torch.equal(generators._top_k_ids(g.to(dev), 700).cpu(),
+                       generators._top_k_ids(g, 700))
+    rng = np.random.default_rng(6)
+    base = rng.integers(0, 3, (300, 5)).astype(np.float32)
+    x = torch.from_numpy(np.concatenate([base, base]))
+    e = x[:, :2].contiguous()
+    assert float(stats.trustworthiness_score(x.to(dev), e.to(dev), 10)) == \
+        float(stats.trustworthiness_score(x, e, 10))
+
+
+def test_cuda_silhouette_in_row_tiles_equals_untiled(monkeypatch):
+    """The row-tiled silhouette on the card equals one tile's (rtol 1e-5:
+    cuBLAS may round a product of another row count otherwise) and the
+    CPU's."""
+    from raft_tpu_torch import random as tr
+    from raft_tpu_torch import stats
+    from raft_tpu_torch.stats import metrics
+
+    dev = cuda_device()
+    x, lab = tr.make_blobs(3000, 16, n_clusters=12, cluster_std=2.0,
+                           state=tr.RngState(4), device=dev)
+    whole = float(stats.silhouette_score(x, lab, 12))
+    monkeypatch.setattr(metrics, "_rows_per_tile", lambda n, d: 257)
+    tiled = float(stats.silhouette_score(x, lab, 12))
+    np.testing.assert_allclose(tiled, whole, rtol=1e-5)
+    np.testing.assert_allclose(
+        tiled, float(stats.silhouette_score(x.cpu(), lab.cpu(), 12)),
+        rtol=1e-5)

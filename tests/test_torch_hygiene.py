@@ -45,7 +45,15 @@ def test_port_imports_neither_jax_nor_raft_tpu():
             "raft_tpu_torch.serve.dispatch", "raft_tpu_torch.serve.server",
             "raft_tpu_torch.serve.slo", "raft_tpu_torch.serve.loadgen",
             "raft_tpu_torch.serve.router", "raft_tpu_torch.serve.placement",
-            "raft_tpu_torch.core.tracing"} <= set(mods)
+            "raft_tpu_torch.core.tracing",
+            "raft_tpu_torch.linalg.blas", "raft_tpu_torch.linalg.eltwise",
+            "raft_tpu_torch.linalg.map_reduce",
+            "raft_tpu_torch.linalg.solvers",
+            "raft_tpu_torch.stats.descriptive",
+            "raft_tpu_torch.stats.metrics",
+            "raft_tpu_torch.label.classlabels",
+            "raft_tpu_torch.sparse.types", "raft_tpu_torch.matrix.ops",
+            "raft_tpu_torch.random.generators"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
@@ -56,6 +64,33 @@ def test_port_imports_neither_jax_nor_raft_tpu():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# the JAX package's subpackages the port mirrors name for name
+MIRRORED = ("linalg", "stats", "label", "sparse", "matrix", "random")
+
+
+@pytest.mark.parametrize("name", MIRRORED)
+def test_packages_export_every_public_name_of_their_counterparts(name):
+    """Each of these ``__init__``s exports every public name of the JAX
+    package's, read from it here: its ``__all__``, else every name not
+    starting with "_". The sparse submodules not ported yet raise
+    ``not_ported(…, "A17")`` instead."""
+    import importlib
+
+    ref = importlib.import_module(f"raft_tpu.{name}")
+    port = importlib.import_module(f"raft_tpu_torch.{name}")
+    public = getattr(ref, "__all__", None) or [
+        n for n in vars(ref) if not n.startswith("_")]
+    unported = set(getattr(port, "UNPORTED", ()))
+    assert len(public) >= 4
+    for n in public:
+        if n in unported:
+            with pytest.raises(NotImplementedError, match="A17"):
+                getattr(port, n)
+        else:
+            assert hasattr(port, n), f"raft_tpu_torch.{name} lacks {n}"
+    assert unported <= {"distance", "linalg", "neighbors", "ops", "solver"}
 
 
 def test_port_sources_name_no_jax_module():
@@ -75,7 +110,8 @@ def test_entry_points_refuse_cpu_by_default(monkeypatch):
     from raft_tpu_torch.bench.dataset import DeviceSynthetic
     from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, refine
     from raft_tpu_torch.parallel import make_mesh
-    from raft_tpu_torch import serve
+    from raft_tpu_torch import linalg, matrix, serve, sparse
+    from raft_tpu_torch import random as trandom
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = torch.zeros((64, 8))
@@ -88,6 +124,15 @@ def test_entry_points_refuse_cpu_by_default(monkeypatch):
         lambda: DeviceSynthetic(10, 4, n_centers=2),
         lambda: make_mesh(4),
         lambda: serve.IndexRegistry(),
+        lambda: trandom.make_blobs(10, 4),
+        lambda: trandom.make_regression(10, 4),
+        lambda: trandom.rmat_rectangular(trandom.RngState(0), 10, 3, 3),
+        lambda: trandom.subsample(trandom.RngState(0), 10, 3),
+        lambda: trandom.uniform(trandom.RngState(0), (3,)),
+        lambda: trandom.bernoulli(trandom.RngState(0), (3,)),
+        lambda: matrix.eye(3),
+        lambda: linalg.map_offset(lambda i: i, (2, 2)),
+        lambda: sparse.make_coo([0], [1], [1.0], (2, 2)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -12,6 +12,19 @@ INDEX_FIELDS = ("centers", "centers_rot", "rotation", "codebooks",
                 "packed_codes", "packed_ids", "packed_norms", "list_sizes")
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Torch's CPU ops on one thread for a module, its count restored after.
+    Under the suite's parallel workers each worker's pool of a thread a core
+    oversubscribes the CPU: small element-wise ops then wait on each other's
+    threads, and a module of them ran some tenfold slower. A module takes it
+    as ``pytestmark = pytest.mark.usefixtures("one_torch_thread")``."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def blobs(n: int, d: int, n_clusters: int, seed: int, std: float = 1.0):
     """Gaussian blobs made with numpy (same inputs for both packages)."""
     rng = np.random.default_rng(seed)
